@@ -1,0 +1,612 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+No arguments and no PYTHONPATH: the script finds `src/repro_torch` beside
+itself first, then under the working directory. It needs one CUDA card and
+exits non-zero, printing no result, without one. Phases:
+
+  1. build    every CUDA kernel with nvcc (one process per source, all at
+              once), and print the card's name and power limit
+  2. data     chembl_like(scale=1.0) with a 0.1 test split, and the
+              balanced bucket plans of both sides (through GibbsSampler)
+  3. kernels  each kernel against its plain PyTorch version on the card at
+              the run's shapes, timed beside its bound and one PyTorch call
+              that computes the same function where there is one
+  4. train    GibbsSampler(engine="fused") for 8 sweeps (burn-in 4),
+              retaining draws into a SampleStore, then 2 sweeps with
+              engine="kernel"; the launch counts are asserted
+  5. parity   one half-sweep per side for "fused" and "kernel", and a
+              3-sweep "fused" chain, against the plain path under the same
+              state and noise
+  6. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
+  7. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
+              users with seen-item exclusion, against the plain path
+  8. report   one JSON line of kernels, the card line, and the last line
+              {"ok": true, "device": {...}}
+
+The main path is phases 4 and 7: the launch counters are set to 0 just
+before each and read just after. Any failed check exits non-zero before
+the last line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+
+# the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SECTOR = 32                            # bytes: the least the memory moves at once
+K = 64
+# flops of one rating's statistics: the symmetric v v^T needs K(K+1)/2
+# multiply-adds, r v needs K
+SYRK_FLOPS = K * (K + 1) + 2 * K
+TOPK = 10
+N_USERS_SERVED = 4096
+TOL = dict(rtol=1e-4, atol=1e-3)       # the JAX kernel tests' (tests/test_kernels.py:171)
+CHOL_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_kernels.py:56
+RMSE_LIMIT = 0.545                     # JAX reference 0.5338 on the CPU, global mean 0.5580
+
+
+def lower_triangle_bytes(k: int) -> int:
+    """Bytes a read of the lower triangle of one row-major fp32 k x k matrix
+    moves, in whole sectors (each row starts on a sector when 4k % 32 == 0)."""
+    return sum(-(-(i + 1) * 4 // SECTOR) * SECTOR for i in range(k))
+
+
+def _find_src() -> Path | None:
+    for base in (Path(__file__).resolve().parent, Path.cwd()):
+        if (base / "src" / "repro_torch" / "__init__.py").is_file():
+            return base / "src"
+    return None
+
+
+class Checks:
+    def __init__(self):
+        self.failed: list[str] = []
+
+    def __call__(self, ok: bool, what: str) -> bool:
+        print(f"  {'pass' if ok else 'FAIL'}: {what}", flush=True)
+        if not ok:
+            self.failed.append(what)
+        return ok
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    src = _find_src()
+    if src is None:
+        print("chip_smoke: no src/repro_torch beside this script or under the "
+              "working directory", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    smoke = Smoke(torch)
+    for phase in (smoke.build, smoke.data, smoke.kernels, smoke.train,
+                  smoke.parity, smoke.learning, smoke.serve):
+        print(f"== {phase.__name__}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            phase()
+        except Exception:  # report the phase and go on; the run fails below
+            traceback.print_exc()
+            smoke.check(False, f"phase {phase.__name__} raised")
+        print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if smoke.check.failed:
+        print(f"chip_smoke: {len(smoke.check.failed)} checks failed:",
+              file=sys.stderr)
+        for what in smoke.check.failed:
+            print(f"  {what}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": smoke.kernel_rows()}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+class Smoke:
+    def __init__(self, torch):
+        import numpy as np
+
+        from repro_torch.kernels import build, ops, ref
+
+        self.torch, self.np = torch, np
+        self.build_mod, self.ops, self.ref = build, ops, ref
+        self.dev = torch.device("cuda")
+        # stated, not assumed: fp32 products stay IEEE fp32 (no TF32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.check = Checks()
+        self.gen = torch.Generator(device=self.dev).manual_seed(1234)
+        self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+        self.store_dir = Path(self.tmp.name) / "samples"
+        self.rows: dict[str, dict] = {}
+        self.main_launches: dict[str, int] = {}
+
+    # ------------------------------------------------------------ helpers
+    def sync(self):
+        self.torch.cuda.synchronize()
+
+    def cuda_ms(self, fn, reps: int = 5) -> float:
+        """Mean device time of fn over reps calls after one warm-up call."""
+        fn()
+        self.sync()
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    @staticmethod
+    def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+        tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    @staticmethod
+    def _blocks(a, b, axis: int, elems: int = 1 << 26):
+        """(a, b) in float64, cut along `axis` into blocks of about `elems`
+        entries: a stacked bucket's statistics are ~10 GB in fp32."""
+        n = a.shape[axis]
+        step = max(1, elems * n // max(a.numel(), 1))
+        for i in range(0, n, step):
+            m = min(step, n - i)
+            yield a.narrow(axis, i, m).double(), b.narrow(axis, i, m).double()
+
+    def max_err(self, a, b, axis: int = 0) -> float:
+        return max((float((x - y).abs().max()) for x, y in self._blocks(a, b, axis)
+                    if x.numel()), default=0.0)
+
+    def close(self, a, b, what: str, tol=TOL, axis: int = 0) -> float:
+        err = self.max_err(a, b, axis)
+        ok = all(bool(self.torch.allclose(x, y, **tol))
+                 for x, y in self._blocks(a, b, axis))
+        self.check(ok, f"{what}: max abs err {err:.3e} ({tol})")
+        return err
+
+    def randn(self, *shape):
+        return self.torch.randn(shape, generator=self.gen, device=self.dev)
+
+    def add_row(self, name, source, replaces, **kw):
+        self.rows[name] = dict(name=name, route="cuda",
+                               source=f"src/repro_torch/csrc/{source}",
+                               replaces=replaces, **kw)
+
+    def kernel_rows(self) -> list[dict]:
+        rows = []
+        for name, row in self.rows.items():
+            row = dict(row, launches=self.main_launches[name])
+            rows.append({k: row[k] for k in (
+                "name", "route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes")})
+        return rows
+
+    # ------------------------------------------------------------ phases
+    def build(self):
+        torch = self.torch
+        line = card_line()
+        print(f"card: {line}; {torch.cuda.get_device_name(0)}, capability "
+              f"{torch.cuda.get_device_capability(0)}; torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}")
+        t0 = time.perf_counter()
+        self.build_mod.build_all()
+        print(f"built {len(self.build_mod.KERNELS)} kernels in "
+              f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
+        for name, log in sorted(self.build_mod.ptxas_log.items()):
+            for text in log.splitlines():
+                if "Used" in text or "spill" in text:
+                    print(f"  ptxas {name}: {text.strip()}")
+
+    def data(self):
+        from repro_torch.core import GibbsSampler
+        from repro_torch.data import chembl_like, train_test_split
+        from repro_torch.serve import SeenIndex
+
+        t0 = time.perf_counter()
+        ratings, _, _ = chembl_like(scale=1.0, seed=0)
+        self.train, self.test = train_test_split(ratings, 0.1, seed=1)
+        print(f"chembl_like(scale=1.0): {ratings.shape[0]:,} x {ratings.shape[1]:,}, "
+              f"{len(ratings.vals):,} ratings; train {len(self.train.vals):,}, "
+              f"test {len(self.test.vals):,} ({time.perf_counter() - t0:.1f} s)")
+        self.check(ratings.shape == (483_500, 5_775), "chembl_like is 483,500 x 5,775")
+        t0 = time.perf_counter()
+        self.sampler = GibbsSampler(self.train, self.test, k=K, burn_in=4,
+                                    engine="fused")
+        print(f"plans built and placed in {time.perf_counter() - t0:.1f} s")
+        for side, plan in (("user", self.sampler.user_plan_host),
+                           ("item", self.sampler.item_plan_host)):
+            print(f"  {side} plan: padding efficiency "
+                  f"{plan.padding_efficiency:.4f}, buckets (width, rows, segments) "
+                  f"{[(b.width, b.rows, b.n_segments) for b in plan.buckets]}")
+        self.n_buckets = len(self.sampler.user_buckets) + len(self.sampler.item_buckets)
+        self.seen = SeenIndex(self.train)
+
+    def _bucket_sides(self, u, v):
+        s = self.sampler
+        return [("item", b, u) for b in s.item_buckets] + [
+            ("user", b, v) for b in s.user_buckets]
+
+    def kernels(self):
+        torch, ops, ref = self.torch, self.ops, self.ref
+        s = self.sampler
+        u = 0.3 * self.randn(s.m, K)
+        v = 0.3 * self.randn(s.n, K)
+        stacks = {"item": torch.stack([u * (1 + 0.1 * i) for i in range(4)]),
+                  "user": torch.stack([v * (1 - 0.1 * i) for i in range(4)])}
+
+        # --- gather_syrk_seg: every bucket of both plans, fp32, bf16, S=4
+        tot = dict(ms=0.0, plain=0.0, bound=0.0, err=0.0, bytes=0.0, flops=0.0)
+        for side, b, cp in self._bucket_sides(u, v):
+            tag = (f"{side} width {b.width} ({b.indices.shape[0]} rows, "
+                   f"{b.n_segments} segments)")
+            args = (b.indices, b.values, b.mask, b.seg_ids, b.n_segments)
+            kw = dict(identity_segments=b.identity_segments)
+
+            def kern(cp=cp, bf16=False):
+                return ops.gather_syrk_seg(*args, cp, bf16_gather=bf16,
+                                           seg_ptr=b.seg_ptr, **kw)
+
+            def plain(cp=cp, bf16=False):
+                return ref.gather_syrk_seg_ref(*args, cp, bf16_gather=bf16, **kw)
+
+            pk, rk = kern()
+            pp, rp = plain()
+            self.sync()
+            err = max(self.close(pk, pp, f"gather_syrk_seg {tag} prec", axis=-3),
+                      self.close(rk, rp, f"gather_syrk_seg {tag} rhs", axis=-2))
+            p64, r64 = ref.gather_syrk_seg_ref(
+                b.indices, b.values.double(), b.mask.double(), b.seg_ids,
+                b.n_segments, cp.double(), **kw)
+            ek = max(self.max_err(pk, p64, -3), self.max_err(rk, r64, -2))
+            ep = max(self.max_err(pp, p64, -3), self.max_err(rp, r64, -2))
+            self.check(ek <= ep, f"gather_syrk_seg {tag}: error against float64 "
+                       f"{ek:.3e} <= the fp32 plain version's {ep:.3e}")
+            del p64, r64, pp, rp
+            for bf16, stacked in ((True, False), (False, True)):
+                c = stacks[side] if stacked else cp
+                mode = "bf16 gather" if bf16 else "stacked S=4"
+                a, bb = kern(c, bf16), plain(c, bf16)
+                self.sync()
+                self.close(a[0], bb[0], f"gather_syrk_seg {tag} {mode} prec", axis=-3)
+                self.close(a[1], bb[1], f"gather_syrk_seg {tag} {mode} rhs", axis=-2)
+                del a, bb
+            ms = self.cuda_ms(kern)
+            pms = self.cuda_ms(plain, reps=3)
+            mask = b.mask > 0
+            nnz = int(mask.sum())
+            distinct = int(torch.unique(b.indices[mask]).numel())
+            r, w = b.indices.shape
+            n_bytes = (r * w * 12 + r * 4 + distinct * K * 4
+                       + b.n_segments * (K * K + K) * 4)
+            flops = nnz * SYRK_FLOPS
+            bms, by = self.bound_ms(n_bytes, flops)
+            print(f"    gather_syrk_seg {tag}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+                  f"bound {bms:.3f} ms ({by})")
+            for key, val in (("ms", ms), ("plain", pms), ("bound", bms),
+                             ("bytes", n_bytes), ("flops", flops)):
+                tot[key] += val
+            tot["err"] = max(tot["err"], err)
+        bms, by = self.bound_ms(tot["bytes"], tot["flops"])
+        print(f"  gather_syrk_seg, one sweep's buckets: {tot['ms']:.3f} ms kernel, "
+              f"{tot['plain']:.3f} ms plain, bound {bms:.3f} ms ({by})")
+        self.add_row("gather_syrk_seg", "gather_syrk_seg.cu",
+                     "src/repro/kernels/bpmf_gather_syrk.py:149",
+                     max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
+                     bound_ms=bms, bound_by=by, library_ms=None,
+                     shapes="one fused sweep: every bucket of both plans, fp32, K=64")
+        del stacks
+
+        # --- masked_syrk: the kernel engine's pre-gathered blocks, every bucket
+        tot = dict(ms=0.0, plain=0.0, lib=0.0, err=0.0, bytes=0.0, flops=0.0)
+        for side, b, cp in self._bucket_sides(u, v):
+            vm = (cp[b.indices.long()] * b.mask[..., None]).contiguous()
+            rv = (b.values * b.mask).contiguous()
+            tag = f"{side} width {b.width} ({vm.shape[0]} rows)"
+            pk, rk = ops.masked_syrk(vm, rv)
+            pp, rp = ref.masked_syrk_ref(vm, rv)
+            self.sync()
+            err = max(self.close(pk, pp, f"masked_syrk {tag} prec"),
+                      self.close(rk, rp, f"masked_syrk {tag} rhs"))
+            vt = vm.transpose(1, 2)
+            ms = self.cuda_ms(lambda: ops.masked_syrk(vm, rv))
+            pms = self.cuda_ms(lambda: ref.masked_syrk_ref(vm, rv), reps=3)
+            lms = self.cuda_ms(lambda: (torch.bmm(vt, vm),
+                                        torch.bmm(rv[:, None, :], vm)), reps=3)
+            r, w, _ = vm.shape
+            n_bytes = r * w * (K + 1) * 4 + r * (K * K + K) * 4
+            flops = r * w * SYRK_FLOPS
+            bms, _ = self.bound_ms(n_bytes, flops)
+            print(f"    masked_syrk {tag}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+                  f"{lms:.3f} ms bmm, bound {bms:.3f} ms")
+            for key, val in (("ms", ms), ("plain", pms), ("lib", lms),
+                             ("bytes", n_bytes), ("flops", flops)):
+                tot[key] += val
+            tot["err"] = max(tot["err"], err)
+            del vm, vt, rv, pk, rk, pp, rp
+        bms, by = self.bound_ms(tot["bytes"], tot["flops"])
+        self.add_row("masked_syrk", "masked_syrk.cu",
+                     "src/repro/kernels/bpmf_syrk.py:48",
+                     max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
+                     bound_ms=bms, bound_by=by, library_ms=tot["lib"],
+                     shapes="one kernel-engine sweep: every bucket of both plans; "
+                            "library = 2 bmm per bucket")
+
+        # --- chol_solve_sample: the 483,500 user systems of one half-sweep
+        from repro_torch.core.gibbs import posterior_systems
+        from repro_torch.core.hyper import init_hyper
+
+        prec, rhs = posterior_systems(v, s.user_buckets, s.m, init_hyper(K, device=self.dev),
+                                      s.alpha, engine="fused")
+        z = self.randn(s.m, K)
+        xk = ops.chol_solve_sample(prec, rhs, z)
+        xp = ref.chol_solve_sample_ref(prec, rhs, z)
+        self.sync()
+        err = self.close(xk, xp, f"chol_solve_sample on {tuple(prec.shape)} user systems",
+                         CHOL_TOL)
+        del xk, xp
+
+        def library():
+            chol, _ = torch.linalg.cholesky_ex(prec)
+            y = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
+            return torch.linalg.solve_triangular(chol.transpose(-1, -2),
+                                                 y + z[..., None], upper=True)
+
+        ms = self.cuda_ms(lambda: ops.chol_solve_sample(prec, rhs, z))
+        pms = self.cuda_ms(lambda: ref.chol_solve_sample_ref(prec, rhs, z), reps=2)
+        lms = self.cuda_ms(library, reps=3)
+        bsz = prec.shape[0]
+        # a Cholesky reads only the lower triangle; rhs and z in, x out
+        bms, by = self.bound_ms(bsz * (lower_triangle_bytes(K) + 3 * K * 4),
+                                bsz * (K ** 3 / 3 + 2 * K * K))
+        print(f"    chol_solve_sample: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+              f"{lms:.3f} ms library, bound {bms:.3f} ms ({by})")
+        self.add_row("chol_solve_sample", "chol_solve.cu",
+                     "src/repro/kernels/chol_solve.py:80", max_abs_err=err, ms=ms,
+                     plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+                     shapes=f"({bsz}, 64, 64) user systems; library = cholesky_ex "
+                            "+ 2 solve_triangular")
+        del prec, rhs, z
+        # not positive definite: no error, non-finite exactly where the plain
+        # version is, as in the reference kernel
+        eye = torch.eye(K, device=self.dev)
+        bad = torch.stack([-eye, eye * torch.linspace(-1, 1, K, device=self.dev), 2 * eye])
+        ones = torch.ones(3, K, device=self.dev)
+        xk = ops.chol_solve_sample(bad, ones, ones)
+        xp = ref.chol_solve_sample_ref(bad, ones, ones)
+        self.sync()
+        fin = torch.isfinite(xp)
+        self.check(torch.equal(torch.isfinite(xk), fin)
+                   and bool(torch.allclose(xk[fin], xp[fin], **CHOL_TOL)),
+                   "chol_solve_sample on systems that are not positive definite: "
+                   "finite where the plain version is, and equal there")
+
+        # --- topn_scores: 4,096 users x 5,775 items at S*K = 256, with ties;
+        # k is the candidate count serving fetches for seen-item exclusion
+        fetch = min(1 << (TOPK + self.seen.max_degree - 1).bit_length(), s.n)
+        uu = self.randn(N_USERS_SERVED, 4 * K)
+        vv = self.randn(s.n, 4 * K)
+        copy = min(100, s.n - 2)
+        for a, b in ((copy, 7), (s.n - 1, 7), (s.n // 2, 1), (s.n // 2 + 1, 1)):
+            vv[a] = vv[b]   # planted ties, inside and across the item tiles
+        vk, ik = ops.topn_scores(uu, vv, fetch)
+        vp, ip = ref.topn_scores_ref(uu, vv, fetch)
+        self.sync()
+        same = torch.equal(ik, ip) and torch.equal(vk, vp)
+        self.check(same, f"topn_scores u {tuple(uu.shape)}, v {tuple(vv.shape)}, "
+                   f"k {fetch}: values and indices equal the plain version's bit for bit")
+        rows = ik[(ik == 7).any(1) & (ik == copy).any(1)]
+        first = (rows == 7).int().argmax(1)
+        self.check(rows.shape[0] > 0 and bool(((rows == copy).int().argmax(1)
+                                                == first + 1).all()),
+                   f"planted ties in the top-{fetch} of {rows.shape[0]} users go "
+                   f"to the lowest item index (7 right before its copy {copy})")
+        ms = self.cuda_ms(lambda: ops.topn_scores(uu, vv, fetch))
+        pms = self.cuda_ms(lambda: ref.topn_scores_ref(uu, vv, fetch), reps=2)
+        lms = self.cuda_ms(lambda: torch.topk(uu @ vv.T, fetch, dim=1), reps=5)
+        b, d = uu.shape
+        bms, by = self.bound_ms((b + s.n) * d * 4 + b * fetch * 8, 2.0 * b * s.n * d)
+        print(f"    topn_scores: {ms:.3f} ms kernel, {pms:.3f} ms plain, {lms:.3f} ms "
+              f"topk(u @ v.T), bound {bms:.3f} ms ({by})")
+        self.add_row("topn_scores", "topn.cu", "src/repro/kernels/bpmf_topn.py:81",
+                     max_abs_err=self.max_err(vk, vp), ms=ms, plain_ms=pms,
+                     bound_ms=bms, bound_by=by, library_ms=lms,
+                     shapes=f"u ({b}, {d}), v ({s.n}, {d}), topk {fetch}; "
+                            "library = topk(u @ v.T)")
+
+    def train(self):
+        from repro_torch.checkpoint import SampleStore
+        from repro_torch.core import GibbsSampler
+
+        torch, ops, s = self.torch, self.ops, self.sampler
+        torch.cuda.reset_peak_memory_stats()
+        store = SampleStore(self.store_dir, keep=8)
+        n_sweeps = 8
+        ops.reset_launches()                    # the main path starts here
+        t0 = time.perf_counter()
+        state = s.run(n_sweeps, seed=0, store=store)
+        self.sync()
+        t_run = time.perf_counter() - t0
+        ksampler = GibbsSampler(self.train, self.test, k=K, burn_in=4, engine="kernel")
+        kstate, ktimes = state, []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            kstate = ksampler.sweep(kstate)
+            self.sync()
+            ktimes.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCHES)           # ... and is read here
+        print(f"fused run of {n_sweeps} sweeps with retention: {t_run:.3f} s; "
+              f"kernel-engine sweeps {[round(t, 4) for t in ktimes]} s; "
+              f"launches {launches}")
+        self.check(launches["gather_syrk_seg"] == self.n_buckets * n_sweeps,
+                   f"gather_syrk_seg launched once per bucket per fused sweep "
+                   f"({self.n_buckets} x {n_sweeps})")
+        self.check(launches["masked_syrk"] == self.n_buckets * 2,
+                   f"masked_syrk launched once per bucket per kernel-engine sweep "
+                   f"({self.n_buckets} x 2)")
+        self.check(launches["chol_solve_sample"] == 2 * 2,
+                   "chol_solve_sample launched once per kernel-engine half-sweep (2 x 2)")
+        self.check(launches["topn_scores"] == 0, "training launched no top-N kernel")
+        self.main_launches.update(launches)
+        self.check(store.steps() == list(range(s.burn_in + 1, n_sweeps + 1)),
+                   f"retained draws at steps {store.steps()}")
+        for name, st in (("fused", state), ("kernel", kstate)):
+            self.check(bool(torch.isfinite(st.u).all() and torch.isfinite(st.v).all()),
+                       f"{name} factors are finite")
+        rmse = s.rmse(state)
+        gm = float(self.np.sqrt(self.np.mean((self.test.vals - s.global_mean) ** 2)))
+        print(f"posterior-mean test rmse {rmse:.4f} (global-mean predictor {gm:.4f}), "
+              f"kernel-engine sample rmse {ksampler.sample_rmse(kstate):.4f}")
+        self.check(bool(self.np.isfinite(rmse)), "posterior-mean rmse is finite")
+
+        # steady-state sweep time and where one sweep's device time goes
+        times = []
+        st = state
+        for _ in range(4):
+            t0 = time.perf_counter()
+            st = s.sweep(st)
+            self.sync()
+            times.append(time.perf_counter() - t0)
+        med = sorted(times)[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        self.sweep_s, self.peak_gb = med, peak
+        print(f"fused sweep seconds {[round(t, 4) for t in times]}; median {med:.4f} s; "
+              f"item updates/s {(s.m + s.n) / med:,.0f}; peak device memory {peak:.2f} GB")
+        self._profile(lambda: s.sweep(st), med * 1e3)
+        self.state = state
+
+    def _profile(self, fn, wall: float):
+        """Device time by kernel of one call of fn under torch.profiler; the
+        idle share is taken against `wall`, the call's unprofiled time in ms
+        (the profiler's own start-up would swamp a wall clock around it)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            self.sync()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_time_total", 0) > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in events) / 1e3
+        if not events:
+            print("profiled sweep: no device time in the trace (not measured)")
+            return
+        print(f"profiled sweep: {busy:.1f} ms device busy against {wall:.1f} ms "
+              f"unprofiled wall (idle share {max(0.0, 1 - busy / wall):.3f})")
+        for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+            print(f"  {e.device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    def parity(self):
+        from repro_torch.core import GibbsSampler
+        from repro_torch.core.gibbs import update_factors
+
+        torch, s, st = self.torch, self.sampler, self.state
+        plain = GibbsSampler(self.train, self.test, k=K, burn_in=4, engine="einsum")
+        noise = s.draw_noise()
+        sides = (("item", st.u, s.item_buckets, s.n, st.hyper_v, noise.z_v),
+                 ("user", st.v, s.user_buckets, s.m, st.hyper_u, noise.z_u))
+        for side, cp, buckets, n, hyper, z in sides:
+            want, _ = update_factors(cp, buckets, n, hyper, s.alpha, z=z, engine="einsum")
+            for engine in ("fused", "kernel"):
+                got, _ = update_factors(cp, buckets, n, hyper, s.alpha, z=z, engine=engine)
+                self.sync()
+                self.close(got, want, f"{engine} {side} half-sweep against the plain path")
+                del got
+            del want
+        chain = {"fused": st, "plain": st}
+        for _ in range(3):
+            nz = s.draw_noise()
+            chain["fused"] = s.sweep(chain["fused"], nz)
+            chain["plain"] = plain.sweep(chain["plain"], nz)
+        self.sync()
+        for name in ("u", "v"):
+            self.close(getattr(chain["fused"], name), getattr(chain["plain"], name),
+                       f"3-sweep fused chain {name} against the plain path")
+
+    def learning(self):
+        from repro_torch.core import GibbsSampler
+        from repro_torch.data import movielens_like, train_test_split
+
+        np = self.np
+        ratings, _, _ = movielens_like(scale=0.05, seed=0)
+        train, test = train_test_split(ratings, 0.1, seed=1)
+        sampler = GibbsSampler(train, test, k=K, alpha=4.0, burn_in=6, engine="fused")
+        t0 = time.perf_counter()
+        state = sampler.run(12, seed=0)
+        self.sync()
+        rmse = sampler.rmse(state)
+        gm = float(np.sqrt(np.mean((test.vals - sampler.global_mean) ** 2)))
+        print(f"movielens_like(0.05) {ratings.shape}: 12 fused sweeps in "
+              f"{time.perf_counter() - t0:.2f} s; posterior-mean rmse {rmse:.4f}, "
+              f"global-mean predictor {gm:.4f}")
+        self.rmse_learn = rmse
+        self.check(rmse <= RMSE_LIMIT, f"posterior-mean rmse {rmse:.4f} <= {RMSE_LIMIT}")
+
+    def serve(self):
+        from repro_torch.serve import PosteriorEnsemble, TopNRecommender
+
+        np, torch, ops, s = self.np, self.torch, self.ops, self.sampler
+        users = np.sort(np.random.default_rng(0).choice(s.m, N_USERS_SERVED,
+                                                        replace=False))
+        ops.reset_launches()                    # the main path starts here
+        ens = PosteriorEnsemble.load(self.store_dir)
+        rec = TopNRecommender(ens)
+        vals, items = rec.recommend(users, TOPK, seen=self.seen)
+        self.sync()
+        launches = dict(ops.LAUNCHES)           # ... and is read here
+        print(f"served {len(users)} users from {ens.n_samples} draws "
+              f"(S*K = {ens.n_samples * ens.k}); launches {launches}")
+        self.check(ens.n_samples == 4 and ens.k == K, "the ensemble holds the 4 retained draws")
+        self.check(launches["topn_scores"] == 1 and sum(launches.values()) == 1,
+                   "serving launched the top-N kernel once per request batch")
+        self.main_launches["topn_scores"] = launches["topn_scores"]
+        self.check(vals.shape == items.shape == (len(users), TOPK), "result shape")
+        self.check(bool(np.isfinite(vals).all()), "every value is finite")
+        self.check(bool(((items >= 0) & (items < s.n)).all()), "every index is in range")
+        self.check(not any(np.isin(items[r], self.seen[u]).any()
+                           for r, u in enumerate(users)),
+                   "no user is recommended an item they rated")
+        t0 = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            rec.recommend(users, TOPK, seen=self.seen)
+        dt = (time.perf_counter() - t0) / reps
+        print(f"recommend: {dt * 1e3:.1f} ms a batch of {len(users)}, "
+              f"{len(users) / dt:,.0f} queries/s (host exclusion included)")
+        # the plain path: the same draws and calls with every tensor on the CPU
+        pens = PosteriorEnsemble.load(self.store_dir, device="cpu")
+        pv, pi = TopNRecommender(pens, device="cpu").recommend(users, TOPK, seen=self.seen)
+        self.check(np.array_equal(items, pi) and np.array_equal(vals, pv),
+                   "top-N values and indices equal the plain path's")
+        print(f"summary: fused sweep {self.sweep_s:.4f} s, "
+              f"{(s.m + s.n) / self.sweep_s:,.0f} item updates/s, peak "
+              f"{self.peak_gb:.2f} GB; learning rmse {self.rmse_learn:.4f}; "
+              f"top-N {len(users) / dt:,.0f} queries/s")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.checkpoint.samples import SAMPLE_KEYS, RetainedSample, SampleStore
+
+__all__ = ["CheckpointStore", "SAMPLE_KEYS", "RetainedSample", "SampleStore"]

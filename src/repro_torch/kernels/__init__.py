@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for the BPMF hot spots and their wrappers.
+
+  csrc/gather_syrk_seg.cu  fused gather -> syrk -> segment reduce (engine "fused")
+  csrc/masked_syrk.cu      syrk over a pre-gathered block (engine "kernel")
+  csrc/chol_solve.cu       batched Cholesky solve and sample (engine "kernel")
+  csrc/topn.cu             streaming top-k of U V^T (serving)
+
+  build.py  nvcc at first use, ctypes binding
+  ops.py    wrappers: padding, checks, launch counters
+  ref.py    plain PyTorch versions, run for CPU tensors and held against
+            the kernels on the card
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,270 @@
+"""Public wrappers of the four CUDA kernels.
+
+Each wrapper takes the plain PyTorch version (`kernels/ref.py`) for a tensor
+on the CPU and nothing else; for a CUDA tensor it checks device, type, shape
+and contiguity, launches its kernel on the current stream, raises if the
+launch returned an error, and adds one to its entry in `LAUNCHES`. There is
+no fallback: a CUDA tensor the kernel cannot take raises.
+
+The padding rules are the reference's (`repro/kernels/ops.py`): rows to 8,
+the W axis to `_block_w_for(w)`, a solve batch to 16 (or 8) with identity
+systems, and the top-N batch to 8 and the catalogue to the item tile, with
+pad items masked to -inf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build, ref
+
+#: launches of each kernel since the last reset_launches(); the count moves
+#: only where a wrapper launches its kernel
+LAUNCHES = dict.fromkeys(
+    ("gather_syrk_seg", "masked_syrk", "chol_solve_sample", "topn_scores"), 0
+)
+
+K_KERNEL = 64  # the factor rank the syrk and solve kernels are built for
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _require(name: str, x: torch.Tensor, device: torch.device,
+             dtype: torch.dtype) -> torch.Tensor:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    return x.contiguous()
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """x with zeros appended along `axis` up to a multiple of `mult`."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, pad])
+
+
+def _block_w_for(w: int) -> int:
+    """W tile for a bucket of width w: 8-lane aligned, at most 128; the pad
+    columns carry mask 0 and contribute exact zeros."""
+    return min(128, max(8, -(-w // 8) * 8))
+
+
+def segment_offsets(seg_ids: np.ndarray, n_segments: int) -> np.ndarray:
+    """(n_segments + 1,) int32 row offsets of nondecreasing dense segment ids,
+    taken on the host from a plan's bucket: the kernel's segment boundaries."""
+    return np.searchsorted(seg_ids, np.arange(n_segments + 1)).astype(np.int32)
+
+
+def gather_syrk_seg(
+    indices: torch.Tensor,    # (R, W) int32
+    values: torch.Tensor,     # (R, W) f32
+    mask: torch.Tensor,       # (R, W) f32
+    seg_ids: torch.Tensor,    # (R,) int32, nondecreasing dense 0..n_segments-1
+    n_segments: int,
+    v: torch.Tensor,          # (N, K) counterpart factors, or (S, N, K)
+    *,
+    bf16_gather: bool = False,
+    identity_segments: bool = False,
+    seg_ptr: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused gather -> syrk -> segment reduce: per-segment (prec, rhs).
+
+    Returns prec (..., n_segments, K, K) and rhs (..., n_segments, K), with
+    the leading draw axis iff v has one. `seg_ptr` (n_segments + 1 row
+    offsets, int32, from `segment_offsets` on the host) is the plan's
+    segment boundaries; the kernel needs it unless every row is its own
+    segment.
+    """
+    if not _on_cuda(v):
+        return ref.gather_syrk_seg_ref(
+            indices, values, mask, seg_ids, n_segments, v,
+            bf16_gather=bf16_gather, identity_segments=identity_segments,
+        )
+    dev = v.device
+    stacked = v.dim() == 3
+    vs = v if stacked else v[None]
+    s, n, k = vs.shape
+    if k != K_KERNEL:
+        raise ValueError(f"gather_syrk_seg kernel needs K={K_KERNEL}, got {k}")
+    if v.dtype != torch.float32:
+        raise ValueError(f"v must be float32, got {v.dtype}")
+    indices = _require("indices", indices, dev, torch.int32)
+    values = _require("values", values, dev, torch.float32)
+    mask = _require("mask", mask, dev, torch.float32)
+    seg_ids = _require("seg_ids", seg_ids, dev, torch.int32)
+    r, w = indices.shape
+    if r == 0 or n_segments == 0:
+        raise ValueError("gather_syrk_seg needs at least one row and segment")
+    if not identity_segments and seg_ptr is None:
+        raise ValueError("gather_syrk_seg needs seg_ptr, the plan's segment "
+                         "offsets, for a bucket of multi-row segments")
+    # pad rows to 8 (mask 0: exact zeros in the last segment) and W to the
+    # block width
+    block_w = _block_w_for(w)
+    indices = _pad_to(_pad_to(indices, 0, 8), 1, block_w)
+    values = _pad_to(_pad_to(values, 0, 8), 1, block_w)
+    mask = _pad_to(_pad_to(mask, 0, 8), 1, block_w)
+    rp, wp = indices.shape
+    vk = (vs.to(torch.bfloat16) if bf16_gather else vs).contiguous()
+    if identity_segments:
+        # pass 1 writes each row's statistics straight into the output
+        prec = torch.empty((s, rp, k, k), device=dev, dtype=torch.float32)
+        rhs = torch.empty((s, rp, k), device=dev, dtype=torch.float32)
+        rows_prec = rows_rhs = ptr = None
+    else:
+        seg_ptr = _require("seg_ptr", seg_ptr, dev, torch.int32)
+        if seg_ptr.shape != (n_segments + 1,):
+            raise ValueError(f"seg_ptr must have {n_segments + 1} entries")
+        # fp64 row partials for the second pass, which sums them by segment
+        rows_prec = torch.empty((s, rp, k, k), device=dev, dtype=torch.float64)
+        rows_rhs = torch.empty((s, rp, k), device=dev, dtype=torch.float64)
+        prec = torch.empty((s, n_segments, k, k), device=dev, dtype=torch.float32)
+        rhs = torch.empty((s, n_segments, k), device=dev, dtype=torch.float32)
+        ptr = seg_ptr.data_ptr()
+    lib = build.library("gather_syrk_seg")
+    err = lib.gather_syrk_seg_launch(
+        indices.data_ptr(), values.data_ptr(), mask.data_ptr(), vk.data_ptr(),
+        int(bf16_gather),
+        None if rows_prec is None else rows_prec.data_ptr(),
+        None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
+        prec.data_ptr(), rhs.data_ptr(), rp, wp, n, s, n_segments,
+        _stream(v),
+    )
+    build.check("gather_syrk_seg", err)
+    LAUNCHES["gather_syrk_seg"] += 1
+    prec, rhs = prec[:, :n_segments], rhs[:, :n_segments]
+    return (prec, rhs) if stacked else (prec[0], rhs[0])
+
+
+def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., R, W, K) x (..., R, W) -> (prec (..., R, K, K), rhs (..., R, K)).
+
+    Extra leading axes (the stacked-draw axis S) are flattened into rows:
+    every row is independent, so one launch covers them all.
+    """
+    if vm.dim() > 3:
+        lead = vm.shape[:-2]
+        prec, rhs = masked_syrk(vm.reshape((-1,) + vm.shape[-2:]),
+                                rv.reshape((-1, rv.shape[-1])))
+        return (prec.reshape(lead + prec.shape[1:]),
+                rhs.reshape(lead + rhs.shape[1:]))
+    if not _on_cuda(vm):
+        return ref.masked_syrk_ref(vm, rv)
+    dev = vm.device
+    r, w, k = vm.shape
+    vm = _require("vm", vm, dev, torch.float32)
+    rv = _require("rv", rv, dev, torch.float32)
+    block_w = _block_w_for(w)
+    vm_p = _pad_to(_pad_to(_pad_to(vm, 0, 8), 1, block_w), 2, 8)
+    rv_p = _pad_to(_pad_to(rv, 0, 8), 1, block_w)
+    rp, wp, kp = vm_p.shape
+    if kp != K_KERNEL:
+        raise ValueError(f"masked_syrk kernel needs K={K_KERNEL}, got {k}")
+    if rp == 0:
+        raise ValueError("masked_syrk needs at least one row")
+    prec = torch.empty((rp, kp, kp), device=dev, dtype=torch.float32)
+    rhs = torch.empty((rp, kp), device=dev, dtype=torch.float32)
+    err = build.library("masked_syrk").masked_syrk_launch(
+        vm_p.data_ptr(), rv_p.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
+        rp, wp, _stream(vm),
+    )
+    build.check("masked_syrk", err)
+    LAUNCHES["masked_syrk"] += 1
+    return prec[:r, :k, :k], rhs[:r, :k]
+
+
+def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
+                      ) -> torch.Tensor:
+    """Batched x = Lambda^-1 rhs + L^-T z over any leading axes.
+
+    The batch is rounded up to the reference's tile (16, or 8 below 16
+    systems) with identity systems; the kernel makes those in registers
+    instead of copying the batch. K is not padded: a zero-padded precision
+    matrix is singular.
+    """
+    if prec.dim() > 3:
+        lead = prec.shape[:-2]
+        out = chol_solve_sample(prec.reshape((-1,) + prec.shape[-2:]),
+                                rhs.reshape((-1, rhs.shape[-1])),
+                                z.reshape((-1, z.shape[-1])))
+        return out.reshape(lead + out.shape[1:])
+    if not _on_cuda(prec):
+        return ref.chol_solve_sample_ref(prec, rhs, z)
+    dev = prec.device
+    bsz, k, _ = prec.shape
+    if k != K_KERNEL:
+        raise ValueError(f"chol_solve_sample kernel needs K={K_KERNEL}, got {k}")
+    prec = _require("prec", prec, dev, torch.float32)
+    rhs = _require("rhs", rhs, dev, torch.float32)
+    z = _require("z", z, dev, torch.float32)
+    if rhs.shape != (bsz, k) or z.shape != (bsz, k):
+        raise ValueError("rhs and z must be (B, K)")
+    block_b = 16 if bsz >= 16 else 8
+    bp = bsz + (-bsz) % block_b
+    out = torch.empty((bp, k), device=dev, dtype=torch.float32)
+    err = build.library("chol_solve_sample").chol_solve_sample_launch(
+        prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
+        bsz, bp, _stream(prec),
+    )
+    build.check("chol_solve_sample", err)
+    LAUNCHES["chol_solve_sample"] += 1
+    return out[:bsz]
+
+
+TOPN_MAX_K = 8192  # the largest k whose running list fits in shared memory
+
+
+def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of U @ V^T per row without the (B, N) score matrix.
+
+    u (B, D), v (N, D) -> (values (B, topk) f32, indices (B, topk) int32),
+    ties to the lowest item index.
+    """
+    b, d = u.shape
+    n = v.shape[0]
+    if not 0 < topk <= n:
+        raise ValueError(f"topk must be in [1, {n}], got {topk}")
+    if not _on_cuda(u):
+        return ref.topn_scores_ref(u, v, topk)
+    dev = u.device
+    u = _require("u", u, dev, torch.float32)
+    v = _require("v", v, dev, torch.float32)
+    if d % 4 or v.shape[1] != d:
+        raise ValueError(f"u and v need one width divisible by 4, got {d}, {v.shape[1]}")
+    if topk > TOPN_MAX_K:
+        raise ValueError(f"topn kernel takes topk <= {TOPN_MAX_K}, got {topk}")
+    block_n = 128
+    while block_n < topk:
+        block_n *= 2
+    u_p = _pad_to(u, 0, 8)
+    v_p = _pad_to(v, 0, block_n)
+    bp, np_ = u_p.shape[0], v_p.shape[0]
+    kp = 1 << (topk - 1).bit_length()
+    tile = max(256, kp)
+    users_per_block = 4 if kp <= 2048 else 1
+    vals = torch.empty((bp, topk), device=dev, dtype=torch.float32)
+    idx = torch.empty((bp, topk), device=dev, dtype=torch.int32)
+    err = build.library("topn_scores").topn_scores_launch(
+        u_p.data_ptr(), v_p.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        bp, np_, n, d, topk, tile, users_per_block, _stream(u),
+    )
+    build.check("topn_scores", err)
+    LAUNCHES["topn_scores"] += 1
+    return vals[:b], idx[:b]

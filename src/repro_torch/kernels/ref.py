@@ -1,0 +1,105 @@
+"""Plain PyTorch versions of the four CUDA kernels.
+
+Each function computes what its kernel computes, in the same arithmetic
+where the order matters: the wrappers in `ops.py` run these for tensors on
+the CPU, the CPU tests hold them against the JAX package, and the chip
+smoke test holds each kernel against its plain version on the card. They
+are references, not a fallback: a CUDA tensor never reaches them through
+the wrappers.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def masked_syrk_ref(vm: torch.Tensor, rv: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """vm (R, W, K) pre-masked gathered factors, rv (R, W) masked ratings
+    -> prec (R, K, K) = vm^T vm and rhs (R, K) = rv @ vm per row."""
+    prec = torch.einsum("rwk,rwl->rkl", vm, vm)
+    rhs = torch.einsum("rwk,rw->rk", vm, rv)
+    return prec, rhs
+
+
+def gather_syrk_seg_ref(
+    indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+    seg_ids: torch.Tensor, n_segments: int, v: torch.Tensor, *,
+    bf16_gather: bool = False, identity_segments: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment (sum m v v^T, sum m r v) with v = V[indices[r, w]].
+
+    v is (N, K) or a stack of draws (S, N, K); the outputs carry the
+    leading draw axis iff v does. With bf16_gather the factors are rounded
+    to bf16 before the products and everything is accumulated in fp32.
+    Float64 inputs are summed in float64 (the chip smoke test's exact
+    yardstick for the kernel's rounding).
+    """
+    stacked = v.dim() == 3
+    if bf16_gather:
+        v = v.to(torch.bfloat16)
+    acc = torch.promote_types(v.dtype, torch.float32)
+    idx = indices.long()
+    g = v[:, idx] if stacked else v[idx]                     # (..., R, W, K)
+    gm = (g * mask[..., None].to(g.dtype)).to(acc)
+    g = g.to(acc)
+    rv = (values * mask).to(acc)
+    prec_rows = torch.einsum("...rwk,...rwl->...rkl", gm, g)
+    rhs_rows = torch.einsum("...rwk,...rw->...rk", gm, rv.expand(gm.shape[:-1]))
+    # the one definition of the segment reduction (a lazy import: gibbs
+    # imports the kernels, so neither import is circular)
+    from repro_torch.core.gibbs import segment_reduce_rows
+
+    prec = segment_reduce_rows(prec_rows, seg_ids, n_segments,
+                               stacked=stacked, identity=identity_segments)
+    rhs = segment_reduce_rows(rhs_rows, seg_ids, n_segments,
+                              stacked=stacked, identity=identity_segments)
+    return prec, rhs
+
+
+def chol_solve_sample_ref(prec: torch.Tensor, rhs: torch.Tensor,
+                          z: torch.Tensor) -> torch.Tensor:
+    """Batched x = Lambda^-1 rhs + L^-T z with Lambda = L L^T.
+
+    Column-by-column Cholesky with the diagonal clamped at 1e-20, then
+    L y = rhs and one L^T x = y + z: the arithmetic of the reference kernel
+    (`repro/kernels/chol_solve.py`), so a system that is not positive
+    definite gives what that kernel gives and never raises.
+    """
+    a = prec.float()
+    b = rhs.float()
+    bsz, k, _ = a.shape
+    pos = torch.arange(k, device=a.device)
+    chol = torch.zeros_like(a)
+    for j in range(k):
+        s = torch.einsum("bik,bk->bi", chol, chol[:, j, :])
+        col = a[:, :, j] - s
+        dj = torch.sqrt(torch.clamp(col[:, j], min=1e-20))
+        chol[:, :, j] = torch.where(pos[None, :] >= j, col / dj[:, None], 0.0)
+    y = torch.zeros_like(b)
+    for j in range(k):
+        lrow = torch.where(pos[None, :] < j, chol[:, j, :], 0.0)
+        y[:, j] = (b[:, j] - (lrow * y).sum(-1)) / chol[:, j, j]
+    y = y + z.float()
+    x = torch.zeros_like(b)
+    for j in range(k - 1, -1, -1):
+        lcol = torch.where(pos[None, :] > j, chol[:, :, j], 0.0)
+        x[:, j] = (y[:, j] - (lcol * x).sum(-1)) / chol[:, j, j]
+    return x
+
+
+def topn_scores_ref(u: torch.Tensor, v: torch.Tensor, topk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of U @ V^T per row, ties to the lowest item index.
+
+    The scores are summed over the contraction axis in order, one rounded
+    multiply and one rounded add per term, which is the kernel's order, so
+    the two agree bit for bit. Returns (values (B, topk) f32, indices
+    (B, topk) int32).
+    """
+    u = u.float()
+    v = v.float()
+    scores = torch.zeros((u.shape[0], v.shape[0]), device=u.device)
+    for d in range(u.shape[1]):
+        scores += u[:, d, None] * v[None, :, d]
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :topk], idx[:, :topk].to(torch.int32)

@@ -1,0 +1,122 @@
+"""Each CUDA kernel against its plain PyTorch version on the card.
+
+These tests need an NVIDIA GPU with nvcc (the kernels have no CPU mode):
+they carry the `cuda` marker and skip without a card. This file imports
+neither JAX nor the JAX package, so it runs on a machine that has only
+PyTorch:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances, and why:
+  * gather_syrk_seg / masked_syrk: rtol 1e-4, atol 1e-3, the JAX kernel
+    tests' own (tests/test_kernels.py:171); the plain version sums in fp32,
+    the kernels in fp64. Against a float64 evaluation the kernel's error is
+    at most the fp32 plain version's.
+  * chol_solve_sample: rtol 2e-3, atol 2e-3 (tests/test_kernels.py:56).
+  * topn_scores: equal bit for bit; kernel and plain version sum the
+    products in the same order with the same roundings.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bucket(rng, r, w, n, n_seg, device):
+    idx = rng.integers(0, n, (r, w)).astype(np.int32)
+    val = rng.normal(size=(r, w)).astype(np.float32)
+    msk = (rng.random((r, w)) > 0.3).astype(np.float32)
+    extra = np.sort(rng.integers(0, n_seg, r - n_seg))
+    seg = np.sort(np.concatenate([np.arange(n_seg), extra])).astype(np.int32)
+    return [torch.tensor(a, device=device) for a in (idx, val, msk, seg)]
+
+
+@pytest.mark.parametrize("r,w,n_seg,s,bf16", [
+    (40, 512, 7, 0, False),    # long segments: the two-pass path
+    (64, 3, 64, 0, False),     # identity segments: one pass
+    (33, 100, 12, 4, True),    # stacked draws, bf16 gather
+    (19, 70, 19, 3, False),    # stacked identity, padded rows
+])
+def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16):
+    rng = np.random.default_rng(r + w)
+    args = _bucket(rng, r, w, 500, n_seg, cuda)
+    v = torch.tensor(rng.normal(size=((s,) if s else ()) + (500, 64)).astype(np.float32),
+                     device=cuda)
+    kw = dict(bf16_gather=bf16, identity_segments=n_seg == r)
+    seg_ptr = torch.tensor(ops.segment_offsets(args[3].cpu().numpy(), n_seg), device=cuda)
+    ops.reset_launches()
+    pk, bk = ops.gather_syrk_seg(*args, n_seg, v, seg_ptr=seg_ptr, **kw)
+    assert ops.LAUNCHES["gather_syrk_seg"] == 1
+    pp, bp = ref.gather_syrk_seg_ref(*args, n_seg, v, **kw)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(bk, bp, rtol=1e-4, atol=1e-3)
+    if not bf16:
+        idx, val, msk, seg = args
+        p64, _ = ref.gather_syrk_seg_ref(idx, val.double(), msk.double(), seg, n_seg,
+                                         v.double(), **kw)
+        assert (pk.double() - p64).abs().max() <= (pp.double() - p64).abs().max()
+
+
+def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
+    """No fallback: a CUDA tensor the kernel cannot take raises."""
+    vm = torch.zeros(4, 8, 32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.masked_syrk(vm, torch.zeros(4, 8, device=cuda))          # K != 64
+    prec = torch.eye(64, device=cuda).expand(3, 64, 64).double()
+    with pytest.raises(ValueError):
+        ops.chol_solve_sample(prec, torch.zeros(3, 64, device=cuda),
+                              torch.zeros(3, 64, device=cuda))       # float64
+    with pytest.raises(ValueError):
+        ops.topn_scores(torch.zeros(2, 64, device=cuda), torch.zeros(9, 64), 3)
+    idx, val, msk, seg = _bucket(np.random.default_rng(0), 8, 8, 10, 4, cuda)
+    with pytest.raises(ValueError):                                   # no seg_ptr
+        ops.gather_syrk_seg(idx, val, msk, seg, 4, torch.zeros(10, 64, device=cuda))
+
+
+def test_masked_syrk_and_chol_kernels_match_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vm = torch.randn(50, 70, 64, generator=g, device=cuda)
+    rv = torch.randn(50, 70, generator=g, device=cuda)
+    for a, b in zip(ops.masked_syrk(vm, rv), ref.masked_syrk_ref(vm, rv)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    a = torch.randn(37, 64, 64, generator=g, device=cuda)
+    prec = a @ a.transpose(1, 2) + 7.0 * torch.eye(64, device=cuda)
+    rhs = torch.randn(37, 64, generator=g, device=cuda)
+    z = torch.randn(37, 64, generator=g, device=cuda)
+    torch.testing.assert_close(ops.chol_solve_sample(prec, rhs, z),
+                               ref.chol_solve_sample_ref(prec, rhs, z),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_chol_kernel_not_positive_definite_matches_plain(cuda):
+    eye = torch.eye(64, device=cuda)
+    bad = torch.stack([-eye, eye * torch.linspace(-1, 1, 64, device=cuda), 2 * eye])
+    ones = torch.ones(3, 64, device=cuda)
+    xk = ops.chol_solve_sample(bad, ones, ones)
+    xp = ref.chol_solve_sample_ref(bad, ones, ones)
+    fin = torch.isfinite(xp)
+    assert torch.equal(torch.isfinite(xk), fin)
+    torch.testing.assert_close(xk[fin], xp[fin], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,n,d,topk", [(40, 3000, 256, 10), (9, 700, 64, 600)])
+def test_topn_kernel_matches_plain_bitwise(cuda, b, n, d, topk):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    u = torch.randn(b, d, generator=g, device=cuda)
+    v = torch.randn(n, d, generator=g, device=cuda)
+    v[9] = v[2]
+    v[n - 1] = v[2]
+    vk, ik = ops.topn_scores(u, v, topk)
+    vp, ip = ref.topn_scores_ref(u, v, topk)
+    assert torch.equal(ik, ip) and torch.equal(vk, vp)

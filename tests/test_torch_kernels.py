@@ -1,0 +1,170 @@
+"""Each kernel's plain PyTorch version (what the port's wrappers run for CPU
+tensors) against its JAX counterpart on the same numpy inputs. The CUDA
+kernels themselves are held against these plain versions on the card in
+tests/test_torch_cuda.py.
+
+Tolerances, and why:
+  * gather_syrk_seg / masked_syrk fp32: rtol 1e-4, atol 1e-3, the JAX
+    kernel tests' own (tests/test_kernels.py); sums of up to a few hundred
+    fp32 products taken in another order.
+  * bf16 gather: rtol 3e-2, atol 3e-1 (tests/test_kernels.py:209), and the
+    two packages round to bf16 at the same place, so they agree to fp32.
+  * chol_solve_sample: rtol 2e-3, atol 2e-3 (tests/test_kernels.py:56).
+  * topn_scores: the selected indices must be equal; values to 1e-5
+    relative (the products are summed in another order). With dyadic inputs
+    every sum is exact in fp32, so planted ties are exact in both packages
+    and the indices must match to the tie.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _sorted_segments(rng, r, n_seg):
+    extra = np.sort(rng.integers(0, n_seg, r - n_seg))
+    return np.sort(np.concatenate([np.arange(n_seg), extra])).astype(np.int32)
+
+
+def _bucket(rng, r, w, n, n_seg):
+    idx = rng.integers(0, n, (r, w)).astype(np.int32)
+    val = rng.normal(size=(r, w)).astype(np.float32)
+    msk = (rng.random((r, w)) > 0.3).astype(np.float32)
+    return idx, val, msk, _sorted_segments(rng, r, n_seg)
+
+
+@pytest.mark.parametrize("r,w,n,k,n_seg,s", [
+    (8, 16, 40, 8, 5, 0),       # ragged segments
+    (16, 32, 100, 16, 16, 0),   # identity segments
+    (13, 8, 20, 24, 9, 0),      # rows that the kernel wrapper pads
+    (24, 256, 60, 64, 11, 0),   # several W tiles at the sweep's K
+    (11, 16, 30, 8, 6, 3),      # stacked draws
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_syrk_seg_plain_matches_jax(r, w, n, k, n_seg, s, bf16):
+    rng = np.random.default_rng(r * 100 + w + n_seg)
+    idx, val, msk, seg = _bucket(rng, r, w, n, n_seg)
+    v = rng.normal(size=((s,) if s else ()) + (n, k)).astype(np.float32)
+    ident = n_seg == r
+    pj, bj = jops.gather_syrk_seg(
+        jnp.asarray(idx), jnp.asarray(val), jnp.asarray(msk), jnp.asarray(seg),
+        n_seg, jnp.asarray(v), bf16_gather=bf16, identity_segments=ident,
+        interpret=None,
+    )
+    pt, bt = ops.gather_syrk_seg(
+        _t(idx), _t(val), _t(msk), _t(seg), n_seg, _t(v),
+        bf16_gather=bf16, identity_segments=ident,
+    )
+    assert tuple(pt.shape) == tuple(pj.shape) and tuple(bt.shape) == tuple(bj.shape)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
+
+
+def test_wrappers_do_not_count_cpu_calls():
+    rng = np.random.default_rng(0)
+    idx, val, msk, seg = _bucket(rng, 8, 8, 10, 4)
+    ops.reset_launches()
+    ops.gather_syrk_seg(_t(idx), _t(val), _t(msk), _t(seg), 4,
+                        torch.randn(10, 8))
+    ops.masked_syrk(torch.randn(3, 4, 8), torch.randn(3, 4))
+    ops.topn_scores(torch.randn(2, 8), torch.randn(9, 8), 3)
+    assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_segment_offsets_match_plan_boundaries():
+    seg = np.array([0, 0, 1, 3, 3, 3], dtype=np.int32)
+    assert ops.segment_offsets(seg, 4).tolist() == [0, 2, 3, 3, 6]
+
+
+@pytest.mark.parametrize("r,w,k", [(8, 16, 8), (5, 33, 24), (1, 8, 64), (24, 128, 32)])
+def test_masked_syrk_plain_matches_jax_kernel(r, w, k):
+    rng = np.random.default_rng(r * 1000 + w + k)
+    vm = rng.normal(size=(r, w, k)).astype(np.float32)
+    rv = rng.normal(size=(r, w)).astype(np.float32)
+    pj, bj = jops.masked_syrk(jnp.asarray(vm), jnp.asarray(rv))  # interpret mode
+    pt, bt = ops.masked_syrk(_t(vm), _t(rv))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
+    # stacked leading axes flatten into rows
+    p2, _ = ops.masked_syrk(_t(np.stack([vm, vm])), _t(np.stack([rv, rv])))
+    np.testing.assert_array_equal(p2[1].numpy(), pt.numpy())
+
+
+@pytest.mark.parametrize("b,k", [(16, 16), (7, 24), (1, 8), (20, 64)])
+def test_chol_solve_sample_plain_matches_jax_kernel(b, k):
+    rng = np.random.default_rng(b + k)
+    a = rng.normal(size=(b, k, k))
+    prec = (a @ np.transpose(a, (0, 2, 1)) + (k * 0.1 + 0.5) * np.eye(k)).astype(np.float32)
+    rhs = rng.normal(size=(b, k)).astype(np.float32)
+    z = rng.normal(size=(b, k)).astype(np.float32)
+    xj = jops.chol_solve_sample(jnp.asarray(prec), jnp.asarray(rhs), jnp.asarray(z))
+    xt = ops.chol_solve_sample(_t(prec), _t(rhs), _t(z))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=2e-3, atol=2e-3)
+    # z = 0 solves the system
+    x0 = ops.chol_solve_sample(_t(prec), _t(rhs), torch.zeros(b, k))
+    recon = np.einsum("bij,bj->bi", prec, x0.numpy())
+    np.testing.assert_allclose(recon, rhs, rtol=3e-3, atol=3e-3)
+
+
+def test_chol_solve_sample_not_positive_definite_does_not_raise():
+    """The clamp keeps the arithmetic going on a non-PD system, as in the
+    reference kernel: same values, non-finite where the reference's are."""
+    k = 8
+    prec = np.stack([-np.eye(k), np.diag(np.r_[1.0, -2.0, np.ones(k - 2)]),
+                     2 * np.eye(k)]).astype(np.float32)
+    rhs = np.ones((3, k), np.float32)
+    z = np.zeros((3, k), np.float32)
+    xj = np.asarray(jops.chol_solve_sample(jnp.asarray(prec), jnp.asarray(rhs),
+                                           jnp.asarray(z)))
+    xt = ops.chol_solve_sample(_t(prec), _t(rhs), _t(z)).numpy()
+    np.testing.assert_array_equal(np.isfinite(xt), np.isfinite(xj))
+    fin = np.isfinite(xj)
+    np.testing.assert_allclose(xt[fin], xj[fin], rtol=2e-3)
+    np.testing.assert_allclose(xt[2], 0.5 * np.ones(k), rtol=1e-6)
+
+
+def _dyadic(rng, shape):
+    """Multiples of 1/8 in [-2, 2]: products and their sums are exact."""
+    return (rng.integers(-16, 17, shape) / 8.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n,d,topk", [
+    (8, 256, 16, 10), (5, 300, 64, 17), (16, 1000, 32, 128), (3, 50, 8, 50),
+])
+def test_topn_plain_matches_jax_kernel_with_ties(b, n, d, topk):
+    rng = np.random.default_rng(b * n + topk)
+    u = _dyadic(rng, (b, d))
+    v = _dyadic(rng, (n, d))
+    # plant exact ties: duplicated item rows, including across the kernel's
+    # 128-item tiles
+    v[7] = v[3]
+    v[n - 1] = v[3]
+    v[min(130, n - 2)] = v[3]
+    vj, ij = jops.topn_scores(jnp.asarray(u), jnp.asarray(v), topk)
+    vt, it = ops.topn_scores(_t(u), _t(v), topk)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+def test_topn_plain_random_matches_jax_kernel():
+    rng = np.random.default_rng(4)
+    u = rng.normal(size=(12, 64)).astype(np.float32)
+    v = rng.normal(size=(333, 64)).astype(np.float32)
+    vj, ij = jops.topn_scores(jnp.asarray(u), jnp.asarray(v), 20)
+    vt, it = ops.topn_scores(_t(u), _t(v), 20)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-5, atol=1e-5)
+
+
+def test_topn_rejects_bad_topk():
+    with pytest.raises(ValueError):
+        ops.topn_scores(torch.zeros(2, 4), torch.zeros(3, 4), 4)
