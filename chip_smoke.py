@@ -23,12 +23,34 @@ exits non-zero, printing no result, without one. Phases:
   6. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
   7. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
               users with seen-item exclusion, against the plain path
-  8. report   one JSON line of kernels, the card line, and the last line
+  8. lm_kernels  the flash-attention kernel against its plain version at
+              the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
+              KV heads, causal, softcap 50, window 4,096 and 0; at a
+              ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
+              bf16 ulp, also on peaked scores (q x 6), where the ulp limit
+              must reject the plain versions of neighbouring functions (a
+              dropped softcap, K a row off, a window a tile short); timed
+              beside its bound and, at softcap 0, beside
+              scaled_dot_product_attention
+  9. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+              init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
+              launches and a finite loss; loss and last-position logits
+              against the same forward down the direct attention path, in
+              bf16 and in fp32
+ 10. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+              greedy decode steps, with no flash launch; the cache
+              invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
+              fp32 and in bf16
+ 11. lm_faults   faults planted one at a time in the bf16 flash launches
+              (window a tile short, K a row off; a dropped softcap is
+              reported) and in the decode step (it misses its own slot):
+              each must fail one of the checks of phase 9 or 10
+ 12. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 4 and 7: the launch counters are set to 0 just
-before each and read just after. Any failed check exits non-zero before
-the last line.
+The main path is phases 4, 7, 9 and 10: the launch counters are set to 0
+just before each and read just after. Any failed check exits non-zero
+before the last line. No BPMF phase was cut to make room for the LM ones.
 """
 from __future__ import annotations
 
@@ -43,6 +65,7 @@ from pathlib import Path
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 SECTOR = 32                            # bytes: the least the memory moves at once
 K = 64
 # flops of one rating's statistics: the symmetric v v^T needs K(K+1)/2
@@ -53,6 +76,44 @@ N_USERS_SERVED = 4096
 TOL = dict(rtol=1e-4, atol=1e-3)       # the JAX kernel tests' (tests/test_kernels.py:171)
 CHOL_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_kernels.py:56
 RMSE_LIMIT = 0.545                     # JAX reference 0.5338 on the CPU, global mean 0.5580
+# the LM path: gemma2-2b at full width
+LM_SEQ = 8192                          # the cache-free forward's S: chunked_attn_min_len
+LM_SERVE = (4, 2048, 32)               # prompts, prompt length, new tokens (31 decode steps)
+FLASH_TOL = {"bf16": dict(rtol=3e-2, atol=3e-2),    # tests/test_kernels.py:91
+             "fp32": dict(rtol=3e-4, atol=3e-4)}    # tests/test_kernels.py:88
+# At S = 8,192 the outputs of N(0,1) inputs average v over thousands of
+# keys and are about 0.02: 3e-2 is as large as they are. The kernel and
+# its plain version both compute in fp32 and round the output to bf16
+# once, so they may differ by one bf16 ulp of the value (at most 2^-7 of
+# it) and, below that, by the fp32 sums' order (under 1e-6 at these
+# shapes). Every bf16 case is also held to that, which implies 3e-2.
+FLASH_BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+# q is drawn at this scale in the peaked cases: scores of std 6 reach 20
+# and more, where the softcap of 50 bends them and a few keys carry each
+# row, so a dropped softcap or a misplaced key changes the output by more
+# than an ulp.
+PEAK_SCALE = 6.0
+# The LM checks. At full width, any bf16 forward of gemma2-2b's 26 layers
+# lands about 0.065 (0.011 on average) from the fp32 forward of the same
+# weights in its last-position logits, through the direct attention path
+# as through the flash kernel, and so do prefill(t) and prefill(t[:-1]) +
+# decode(t[-1]) (on an NVIDIA H100 80GB HBM3 at 700 W); the noise checks
+# below print these distances on every run. That is above the 3e-2 of the
+# JAX tests, which run 2 layers at d_model 128. So the bf16 logits are
+# held to that noise floor: no more than NOISE_FACTOR times the distance
+# of the JAX package's own direct path (or of the full prefill) to the
+# fp32 forward, in max and in mean. The readings sit at 0.98-1.04 times
+# it; the faults that phase lm_faults plants move it 1.37 times and more.
+# The bf16 loss is a mean over 8,192 positions: the kernel path's sits
+# 2.9e-4 (2.3e-5 relative) from the direct path's, and a K read a row off
+# moves it 4.5e-3. The JAX tests' tolerances apply in fp32, where the
+# kernel path holds to 1.5e-5 and the cache invariant to 1.2e-5.
+LM_LOSS_RTOL = 1e-4                    # bf16 loss, kernel path against direct path
+NOISE_FACTOR = 1.25
+LM_FP32_TOL = dict(rtol=1e-3, atol=1e-3)   # fp32 logits: kernel path against direct
+                                           # path, and the cache invariant
+LM_FP32_LOSS_RTOL = 1e-4
+CACHE_TOL = dict(rtol=3e-2, atol=3e-2)     # tests/test_models.py:78, in fp32 at full width
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -102,7 +163,8 @@ def main() -> int:
         return 2
     smoke = Smoke(torch)
     for phase in (smoke.build, smoke.data, smoke.kernels, smoke.train,
-                  smoke.parity, smoke.learning, smoke.serve):
+                  smoke.parity, smoke.learning, smoke.serve, smoke.lm_kernels,
+                  smoke.lm_eval, smoke.lm_serve, smoke.lm_faults):
         print(f"== {phase.__name__}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -180,12 +242,30 @@ class Smoke:
         return max((float((x - y).abs().max()) for x, y in self._blocks(a, b, axis)
                     if x.numel()), default=0.0)
 
-    def close(self, a, b, what: str, tol=TOL, axis: int = 0) -> float:
+    def verdict(self, a, b, what: str, tol=TOL, axis: int = 0
+                ) -> tuple[bool, str, float]:
+        """Whether a and b are allclose at tol, what to print, max abs err."""
         err = self.max_err(a, b, axis)
         ok = all(bool(self.torch.allclose(x, y, **tol))
                  for x, y in self._blocks(a, b, axis))
-        self.check(ok, f"{what}: max abs err {err:.3e} ({tol})")
+        return ok, f"{what}: max abs err {err:.3e} ({tol})", err
+
+    def close(self, a, b, what: str, tol=TOL, axis: int = 0) -> float:
+        ok, text, err = self.verdict(a, b, what, tol, axis)
+        self.check(ok, text)
         return err
+
+    @staticmethod
+    def noise_verdict(got, base, ref, what: str, base_name: str) -> tuple[bool, str]:
+        """got's distance to the fp32 reference `ref`, in max and in mean,
+        within NOISE_FACTOR of `base`'s: no farther from fp32 than the bf16
+        noise floor that `base` shows."""
+        eg, eb = (got.float() - ref).abs(), (base.float() - ref).abs()
+        mg, mb = float(eg.max()), float(eb.max())
+        ag, ab = float(eg.mean()), float(eb.mean())
+        return (mg <= NOISE_FACTOR * mb and ag <= NOISE_FACTOR * ab,
+                f"{what}: max |diff| to fp32 {mg:.3e}, mean {ag:.3e}; {base_name}: "
+                f"max {mb:.3e}, mean {ab:.3e} (within {NOISE_FACTOR}x)")
 
     def randn(self, *shape):
         return self.torch.randn(shape, generator=self.gen, device=self.dev)
@@ -201,7 +281,7 @@ class Smoke:
             row = dict(row, launches=self.main_launches[name])
             rows.append({k: row[k] for k in (
                 "name", "route", "source", "replaces", "launches", "max_abs_err",
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes")})
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} | row)
         return rows
 
     # ------------------------------------------------------------ phases
@@ -497,7 +577,7 @@ class Smoke:
         self._profile(lambda: s.sweep(st), med * 1e3)
         self.state = state
 
-    def _profile(self, fn, wall: float):
+    def _profile(self, fn, wall: float, what: str = "sweep"):
         """Device time by kernel of one call of fn under torch.profiler; the
         idle share is taken against `wall`, the call's unprofiled time in ms
         (the profiler's own start-up would swamp a wall clock around it)."""
@@ -513,9 +593,10 @@ class Smoke:
                   and e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.device_time_total for e in events) / 1e3
         if not events:
-            print("profiled sweep: no device time in the trace (not measured)")
+            print(f"profiled {what}: no device time in the trace (not measured)")
             return
-        print(f"profiled sweep: {busy:.1f} ms device busy against {wall:.1f} ms "
+        print(f"profiled {what}: {busy:.1f} ms device busy in "
+              f"{sum(e.count for e in events)} kernels against {wall:.1f} ms "
               f"unprofiled wall (idle share {max(0.0, 1 - busy / wall):.3f})")
         for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
             print(f"  {e.device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -606,6 +687,374 @@ class Smoke:
               f"{(s.m + s.n) / self.sweep_s:,.0f} item updates/s, peak "
               f"{self.peak_gb:.2f} GB; learning rmse {self.rmse_learn:.4f}; "
               f"top-N {len(users) / dt:,.0f} queries/s")
+
+    # ------------------------------------------------------------ the LM path
+    def lm_kernels(self):
+        """The flash kernel at the forward's shapes: q (8, S, 256) and k, v
+        (4, S, 256), the query heads of one KV head side by side."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        bh, bhk, d = 8, 4, 256
+
+        def qkv(s, dtype, q_scale=1.0):
+            return ((q_scale * self.randn(bh, s, d)).to(dtype),
+                    self.randn(bhk, s, d).to(dtype), self.randn(bhk, s, d).to(dtype))
+
+        def check(q, k, v, tag, dtype, **kw):
+            got = ops.flash_attention(q, k, v, **kw).float()
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            self.sync()
+            err = self.close(got, want, f"flash_attention {tag}", FLASH_TOL[dtype])
+            if dtype == "bf16":
+                self.close(got, want, f"flash_attention {tag}, within a bf16 ulp",
+                           FLASH_BF16_ULP_TOL)
+            return err
+
+        def faults(q, k, v, kind, inputs, require, **kw):
+            """The plain versions of neighbouring functions, held against
+            the right one's: which of the two bf16 limits rejects each."""
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            wrong = {"softcap dropped": dict(kw, softcap=0.0),
+                     "K a row off": dict(kw, k=k.roll(1, dims=1))}
+            if kw["window"]:
+                wrong["window a tile (64 keys) short"] = dict(kw, window=kw["window"] - 64)
+            for fault, fkw in wrong.items():
+                fkw = {"k": k} | fkw
+                out = ref.flash_attention_ref(q, fkw.pop("k"), v, **fkw).float()
+                ulp, _, err = self.verdict(out, want, "", FLASH_BF16_ULP_TOL)
+                loose, _, _ = self.verdict(out, want, "", FLASH_TOL["bf16"])
+                text = (f"{kind}, {inputs}: the plain version with {fault} is "
+                        f"{err:.3e} off; the ulp limit {'passes' if ulp else 'rejects'} "
+                        f"it, 3e-2 {'passes' if loose else 'rejects'} it")
+                if require:
+                    self.check(not ulp, text)
+                else:
+                    print(f"  info: {text}")
+                del out
+
+        q, k, v = qkv(LM_SEQ, torch.bfloat16)
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        per = {}
+        for window, kind in ((4096, "local"), (0, "global")):
+            kw = dict(causal=True, window=window, softcap=50.0)
+            err = check(q, k, v, f"{kind} (8, {LM_SEQ}, 256) bf16, window {window}, "
+                        "softcap 50", "bf16", **kw)
+            faults(q, k, v, kind, "N(0,1) inputs", False, **kw)
+            ms = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
+            pms = self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), reps=2)
+            # QK^T takes bf16 inputs, whose products are exact in fp32: the
+            # card may run it on its tensor cores. P stays fp32, so PV runs
+            # on the fp32 pipes. Both peaks alone are printed beside it.
+            qk_flops = pv_flops = 2.0 * d * bh * visible_pairs(LM_SEQ, window)
+            tb = n_bytes / HBM_BYTES_PER_S * 1e3
+            to = (qk_flops / BF16_TENSOR_FLOPS + pv_flops / FP32_FLOPS) * 1e3
+            bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+            b32 = max(tb, (qk_flops + pv_flops) / FP32_FLOPS * 1e3)
+            b16 = max(tb, (qk_flops + pv_flops) / BF16_TENSOR_FLOPS * 1e3)
+            # softcap 0: the function scaled_dot_product_attention computes
+            kw0 = dict(kw, softcap=0.0)
+            mask = None
+            if window:
+                pos = torch.arange(LM_SEQ, device=self.dev)
+                diff = pos[:, None] - pos[None, :]
+                mask = (diff >= 0) & (diff < window)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)[0]
+
+            err0 = self.close(ops.flash_attention(q, k, v, **kw0).float(), sdpa().float(),
+                              f"flash_attention {kind} softcap 0 against "
+                              "scaled_dot_product_attention", FLASH_TOL["bf16"])
+            ms0 = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw0))
+            lms0 = self.cuda_ms(sdpa)
+            print(f"    flash_attention {kind}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+                  f"bound {bms:.3f} ms ({by}: QK^T at the bf16 tensor peak, PV at the "
+                  f"fp32 peak; kernel at {ms / bms:.2f}x); all at the fp32 peak "
+                  f"{b32:.3f} ms, all at the bf16 tensor peak {b16:.3f} ms; "
+                  f"softcap 0: {ms0:.3f} ms kernel, {lms0:.3f} ms "
+                  f"scaled_dot_product_attention (agree to {err0:.2e})")
+            per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b32=b32, b16=b16,
+                             by=by, ms0=ms0, lib0=lms0)
+            del mask
+        del q, k, v
+        # peaked scores, where the softcap and each key count: the kernel
+        # within an ulp, and that limit rejects the neighbouring functions
+        q, k, v = qkv(LM_SEQ, torch.bfloat16, PEAK_SCALE)
+        for window, kind in ((4096, "local"), (0, "global")):
+            kw = dict(causal=True, window=window, softcap=50.0)
+            check(q, k, v, f"{kind} (8, {LM_SEQ}, 256) bf16, q x {PEAK_SCALE}, window "
+                  f"{window}, softcap 50", "bf16", **kw)
+            faults(q, k, v, kind, f"q x {PEAK_SCALE}", True, **kw)
+        del q, k, v
+        # a ragged sequence, and fp32
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            q, k, v = qkv(LM_SEQ - 192, dtype)
+            check(q, k, v, f"ragged (8, {LM_SEQ - 192}, 256) {name}, window 4096, softcap 50",
+                  name, causal=True, window=4096, softcap=50.0)
+        q, k, v = qkv(LM_SEQ, torch.float32)
+        check(q, k, v, f"(8, {LM_SEQ}, 256) fp32, window 0, softcap 50", "fp32",
+              causal=True, window=0, softcap=50.0)
+        del q, k, v
+        # the row: one forward's attention, 13 local and 13 global launches
+        n = 13
+
+        def total(key):
+            return n * (per["local"][key] + per["global"][key])
+
+        self.add_row("flash_attention", "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:78",
+                     max_abs_err=max(p["err"] for p in per.values()), ms=total("ms"),
+                     plain_ms=total("plain"), bound_ms=total("bound"),
+                     bound_by=per["global"]["by"],
+                     library_ms=None,
+                     shapes=f"one gemma2-2b forward's attention: 13 local (window 4096) + "
+                            f"13 global launches, q (8, {LM_SEQ}, 256), k/v (4, {LM_SEQ}, "
+                            "256) bf16, causal, softcap 50; bound: QK^T at the bf16 "
+                            "tensor peak, PV (fp32 P) at the fp32 peak; no library call "
+                            "applies a softcap",
+                     bound_ms_all_fp32_peak=total("b32"),
+                     bound_ms_all_bf16_tensor_peak=total("b16"),
+                     softcap0_ms=total("ms0"),
+                     softcap0_library_ms=total("lib0"),
+                     softcap0_library="scaled_dot_product_attention, enable_gqa, "
+                                            "the same causal and window mask")
+
+    def lm_eval(self):
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import DecoderModel
+        from repro_torch.models import transformer as tfm
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config("gemma2-2b")
+        model = DecoderModel(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        self.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"gemma2-2b init on the card: {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s")
+        self.lm = (model, params)
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        positions = torch.arange(LM_SEQ, dtype=torch.int32, device=self.dev)[None]
+        with torch.no_grad():
+            model.loss_fn(params, batch)           # warm-up: cuBLAS plans, allocator
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()                   # the main path starts here
+            t0 = time.perf_counter()
+            loss, metrics = model.loss_fn(params, batch)
+            self.sync()
+            dt = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)          # ... and is read here
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            loss = float(loss)
+            print(f"forward + loss at B=1, S={LM_SEQ}: {dt:.3f} s, "
+                  f"{LM_SEQ / dt:,.0f} tokens/s, peak device memory {peak:.2f} GB, "
+                  f"loss {loss:.5f}; launches {launches}")
+            self.check(launches["flash_attention"] == cfg.n_layers
+                       and sum(launches.values()) == cfg.n_layers,
+                       f"the forward launched the flash kernel once a layer "
+                       f"({cfg.n_layers}) and no other kernel of the port")
+            self.main_launches["flash_attention"] = launches["flash_attention"]
+            self.check(bool(self.np.isfinite(loss)), "the loss is finite")
+            self.check(float(metrics["tokens"]) == LM_SEQ, f"{LM_SEQ} labels counted")
+            self._profile(lambda: model.loss_fn(params, batch), dt * 1e3, "forward")
+        # the same weights down the JAX package's direct path, and both in fp32
+        labels = torch.as_tensor(batch["labels"], device=self.dev)
+
+        def forward(c):
+            with torch.no_grad():
+                logits = tfm.decoder_forward(params, c, tokens, positions=positions)[0]
+                return float(tfm.cross_entropy(logits, labels)[0]), logits[:, -1].clone()
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+        runs = {}
+        for name, c in (("flash bf16", cfg), ("flash fp32", f32)):
+            runs[name] = forward(c)
+        ops.reset_launches()
+        for name, c in (("direct bf16", cfg), ("direct fp32", f32)):
+            runs[name] = forward(dataclasses.replace(c, chunked_attn_min_len=LM_SEQ + 1))
+        self.check(ops.LAUNCHES["flash_attention"] == 0,
+                   "the direct-path forwards launched no flash kernel")
+        for name, (l, g) in runs.items():
+            print(f"  {name}: loss {l:.6f}")
+            self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
+                       f"{name}: loss and last-position logits are finite")
+        for ok, what in self.forward_verdicts(runs):
+            self.check(ok, what)
+        self.lm_runs, self.lm_forward = runs, forward
+        self.lm_eval_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak)
+
+    def forward_verdicts(self, runs: dict) -> list[tuple[bool, str]]:
+        """lm_eval's checks of the kernel path's forwards (loss, last-position
+        logits) against the direct path's, in bf16 and in fp32."""
+        (lf, gf), (ld, gd) = runs["flash bf16"], runs["direct bf16"]
+        (lf32, gf32), (ld32, ref) = runs["flash fp32"], runs["direct fp32"]
+        return [
+            (abs(lf - ld) <= LM_LOSS_RTOL * abs(ld),
+             f"bf16 loss {lf:.5f} against the direct path's {ld:.5f}: "
+             f"|diff| {abs(lf - ld):.2e} <= {LM_LOSS_RTOL} x |loss|"),
+            self.noise_verdict(gf, gd, ref, "bf16 last-position logits, kernel path",
+                               "the direct path"),
+            (abs(lf32 - ld32) <= LM_FP32_LOSS_RTOL * abs(ld32),
+             f"fp32 loss {lf32:.6f} against the direct path's {ld32:.6f}"),
+            self.verdict(gf32, ref, "fp32 last-position logits against the direct path",
+                         LM_FP32_TOL)[:2],
+        ]
+
+    def lm_serve(self):
+        import dataclasses
+
+        from repro_torch.launch import serve
+        from repro_torch.models import DecoderModel
+
+        torch, ops = self.torch, self.ops
+        model, params = self.lm
+        b, plen, max_new = LM_SERVE
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        prompts = torch.randint(0, model.cfg.vocab_size, (b, plen), generator=gen,
+                                device=self.dev, dtype=torch.int32)
+        serve.generate(model, params, prompts, max_new)      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                    # the main path starts here
+        toks, t_prefill, t_decode = serve.generate(model, params, prompts, max_new)
+        launches = dict(ops.LAUNCHES)           # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_dec = b * (max_new - 1)
+        print(f"serve {b} x {plen} prompts, {max_new - 1} decode steps: prefill "
+              f"{t_prefill * 1e3:.1f} ms, decode {n_dec / t_decode:,.1f} tokens/s "
+              f"({t_decode / (max_new - 1) * 1e3:.2f} ms a step), peak device memory "
+              f"{peak:.2f} GB; launches {launches}")
+        self.check(sum(launches.values()) == 0,
+                   "prefill and decode take the direct path: no flash launch")
+        self.check(tuple(toks.shape) == (b, max_new)
+                   and bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()),
+                   "generated token ids have the expected shape and range")
+        out = model.prefill_fn(params, {"tokens": prompts}, headroom=8)
+        cache, tok = out["cache"], toks[:, :1]
+        self._profile(lambda: model.decode_fn(params, cache, {"tokens": tok}),
+                      t_decode / (max_new - 1) * 1e3, "decode step")
+        del out, cache
+        # the cache invariant of tests/test_models.py, at full width
+        f32 = DecoderModel(dataclasses.replace(model.cfg, dtype=torch.float32,
+                                               param_dtype=torch.float32))
+        self.lm_models = {"bf16": model, "fp32": f32}
+        self.lm_full = {}
+        res = {}
+        for name, m in self.lm_models.items():
+            self.lm_full[name] = m.prefill_fn(params, {"tokens": prompts})["logits"]
+            res[name] = self.split_decode(m, prompts)
+            self.check(bool(torch.isfinite(self.lm_full[name]).all()
+                            and torch.isfinite(res[name]).all()),
+                       f"{name} prefill and decode logits are finite")
+        self.lm_prompts = prompts
+        for ok, what in self.cache_verdicts(res):
+            self.check(ok, what)
+        ev = self.lm_eval_numbers
+        print(f"summary LM: forward {ev['s']:.3f} s at S={LM_SEQ} "
+              f"({ev['tokens_per_s']:,.0f} tokens/s, peak {ev['peak_gb']:.2f} GB); "
+              f"prefill {t_prefill * 1e3:.1f} ms; decode {n_dec / t_decode:,.1f} tokens/s")
+
+    def split_decode(self, m, prompts):
+        """prefill(t[:-1]) + decode(t[-1]): the last position's logits."""
+        params = self.lm[1]
+        short = m.prefill_fn(params, {"tokens": prompts[:, :-1]})
+        _, dec = m.decode_fn(params, short["cache"], {"tokens": prompts[:, -1:]})
+        self.sync()
+        return dec
+
+    def cache_verdicts(self, dec: dict) -> list[tuple[bool, str]]:
+        """The cache invariant of tests/test_models.py at full width: in fp32
+        at its tolerance and at LM_FP32_TOL, and in bf16 within the noise
+        floor that the full bf16 prefill shows against the fp32 one."""
+        full16, full32 = self.lm_full["bf16"], self.lm_full["fp32"]
+        what = "fp32 prefill(t) against prefill(t[:-1]) + decode(t[-1])"
+        return [self.verdict(full32, dec["fp32"], what, CACHE_TOL)[:2],
+                self.verdict(full32, dec["fp32"], what, LM_FP32_TOL)[:2],
+                self.noise_verdict(dec["bf16"], full16, full32,
+                                   "bf16 prefill(t[:-1]) + decode(t[-1])", "bf16 prefill(t)")]
+
+    def lm_faults(self):
+        """Faults planted in the LM path, one at a time, each run through the
+        checks of lm_eval or lm_serve: at least one of them must fail. The
+        plants patch the module attributes the model calls and are undone
+        before the next; the flash plants act in the bf16 instantiation
+        only, the one the forward launches, so that the fp32 checks cannot
+        be what catches them."""
+        from repro_torch.models import layers
+
+        torch, ops = self.torch, self.ops
+        real_flash, real_mha = ops.flash_attention, layers.multi_head_attention
+
+        def flash_plant(change):
+            def planted(q, k, v, **kw):
+                if q.dtype == torch.bfloat16:
+                    q, k, v, kw = change(q, k, v, dict(kw))
+                return real_flash(q, k, v, **kw)
+            return planted
+
+        def softcap_dropped(q, k, v, kw):
+            return q, k, v, dict(kw, softcap=0.0)
+
+        def window_short(q, k, v, kw):
+            return q, k, v, dict(kw, window=kw["window"] - 64 if kw["window"] else 0)
+
+        def k_row_off(q, k, v, kw):
+            return q, k.roll(1, dims=1), v, kw
+
+        def decode_slot_off(q, k, v, **kw):
+            # a decode step whose causal bound stops one slot short: it
+            # does not see the key it just wrote
+            if q.shape[1] == 1 and isinstance(kw.get("q_offset"), torch.Tensor):
+                kw["q_offset"] = kw["q_offset"] - 1
+            return real_mha(q, k, v, **kw)
+
+        plants = [("flash, bf16: softcap dropped", ops, "flash_attention",
+                   flash_plant(softcap_dropped), "forward", False),
+                  ("flash, bf16: window a tile (64 keys) short", ops, "flash_attention",
+                   flash_plant(window_short), "forward", True),
+                  ("flash, bf16: K read a row off", ops, "flash_attention",
+                   flash_plant(k_row_off), "forward", True),
+                  ("decode: the step misses its own slot", layers, "multi_head_attention",
+                   decode_slot_off, "cache", True)]
+        cfg = self.lm[0].cfg
+        for name, mod, attr, fn, checks, require in plants:
+            saved = getattr(mod, attr)
+            setattr(mod, attr, fn)
+            try:
+                if checks == "forward":
+                    runs = dict(self.lm_runs, **{"flash bf16": self.lm_forward(cfg)})
+                    verdicts = self.forward_verdicts(runs)
+                else:
+                    dec = {n: self.split_decode(m, self.lm_prompts)
+                           for n, m in self.lm_models.items()}
+                    verdicts = self.cache_verdicts(dec)
+            finally:
+                setattr(mod, attr, saved)
+            caught = [what for ok, what in verdicts if not ok]
+            for ok, what in verdicts:
+                print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
+            text = (f"planted fault '{name}' fails {len(caught)} of {len(verdicts)} "
+                    f"{checks} checks")
+            if require:
+                self.check(bool(caught), text)
+            else:
+                print(f"  info: {text}")
+        self.check(ops.flash_attention is real_flash
+                   and layers.multi_head_attention is real_mha, "every plant undone")
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal sequence of s tokens attends, with a
+    sliding window (0 = none): sum over q of min(q + 1, window)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 if __name__ == "__main__":

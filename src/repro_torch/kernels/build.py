@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # kernel name -> (source file, [(C function, argtypes)])
 KERNELS = {
@@ -43,6 +44,10 @@ KERNELS = {
     "topn_scores": ("topn.cu", [
         ("topn_scores_launch",
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    ]),
+    "flash_attention": ("flash_attention.cu", [
+        ("flash_attention_launch",
+         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
     ]),
 }
 

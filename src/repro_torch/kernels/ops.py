@@ -1,4 +1,4 @@
-"""Public wrappers of the four CUDA kernels.
+"""Public wrappers of the five CUDA kernels.
 
 Each wrapper takes the plain PyTorch version (`kernels/ref.py`) for a tensor
 on the CPU and nothing else; for a CUDA tensor it checks device, type, shape
@@ -9,9 +9,12 @@ no fallback: a CUDA tensor the kernel cannot take raises.
 The padding rules are the reference's (`repro/kernels/ops.py`): rows to 8,
 the W axis to `_block_w_for(w)`, a solve batch to 16 (or 8) with identity
 systems, and the top-N batch to 8 and the catalogue to the item tile, with
-pad items masked to -inf.
+pad items masked to -inf. Flash attention pads nothing: its kernel masks a
+ragged sequence itself.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -22,7 +25,8 @@ from repro_torch.kernels import build, ref
 #: launches of each kernel since the last reset_launches(); the count moves
 #: only where a wrapper launches its kernel
 LAUNCHES = dict.fromkeys(
-    ("gather_syrk_seg", "masked_syrk", "chol_solve_sample", "topn_scores"), 0
+    ("gather_syrk_seg", "masked_syrk", "chol_solve_sample", "topn_scores",
+     "flash_attention"), 0
 )
 
 K_KERNEL = 64  # the factor rank the syrk and solve kernels are built for
@@ -268,3 +272,63 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int
     build.check("topn_scores", err)
     LAUNCHES["topn_scores"] += 1
     return vals[:b], idx[:b]
+
+
+FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernel is built for
+_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _flash_block(s: int) -> int:
+    """The JAX wrapper's KV block for a sequence of s keys."""
+    return min(128, max(16, s))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """(BH, S, D) attention with an online softmax: causal mask, sliding
+    window (0 = none), logit softcap (0 = none), scale (None = 1/sqrt(D)).
+
+    k and v may carry fewer heads than q (GQA): BHk must divide BH, and
+    query block bh reads KV block bh // (BH // BHk). A ragged S is masked.
+    Raises ValueError where the JAX wrapper does: without causality, S_k
+    must be a multiple of its KV block, min(128, max(16, S_k)).
+    """
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    if not causal and sk % _flash_block(sk):
+        raise ValueError("non-causal flash path requires S_k % block == 0")
+    if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk:
+        raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing "
+                         f"{bh}; got {tuple(k.shape)} and {tuple(v.shape)}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if not _on_cuda(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    dev = q.device
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes D in {FLASH_HEAD_DIMS}, got {d}")
+    if sq == 0 or sk == 0:
+        raise ValueError("flash attention needs at least one query and one key")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash attention kernel has no backward pass "
+                           "yet; call it under torch.no_grad()")
+    q, k, v = (_aligned(_require(n, t, dev, q.dtype))
+               for n, t in (("q", q), ("k", k), ("v", v)))
+    out = torch.empty_like(q)
+    err = build.library("flash_attention").flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
+        sq, sk, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
+        float(softcap), scale, _stream(q),
+    )
+    build.check("flash_attention", err)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself where its data starts on 16 bytes (the kernel's vector
+    loads), else a fresh copy."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the five CUDA kernels.
 
 Each function computes what its kernel computes, in the same arithmetic
 where the order matters: the wrappers in `ops.py` run these for tensors on
@@ -8,6 +8,8 @@ are references, not a fallback: a CUDA tensor never reaches them through
 the wrappers.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -103,3 +105,35 @@ def topn_scores_ref(u: torch.Tensor, v: torch.Tensor, topk: int
         scores += u[:, d, None] * v[None, :, d]
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :topk], idx[:, :topk].to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale: float | None = None
+                        ) -> torch.Tensor:
+    """Direct softmax attention in fp32: q (BH, Sq, D), k and v (BHk, Sk, D)
+    with BHk dividing BH (query block bh reads KV block bh // (BH // BHk))
+    -> (BH, Sq, D) in q's dtype.
+
+    The scale comes before the softcap and the softcap before the mask;
+    masked scores are -1e30, as in `repro/kernels/ref.py`.
+    """
+    bh, sq, d = q.shape
+    rep = bh // k.shape[0]
+    k = k.repeat_interleave(rep, dim=0) if rep > 1 else k
+    v = v.repeat_interleave(rep, dim=0) if rep > 1 else v
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

@@ -15,6 +15,13 @@ Tolerances, and why:
   * chol_solve_sample: rtol 2e-3, atol 2e-3 (tests/test_kernels.py:56).
   * topn_scores: equal bit for bit; kernel and plain version sum the
     products in the same order with the same roundings.
+  * flash_attention: 3e-4 in fp32 and 3e-2 in bf16, the JAX kernel tests'
+    own (tests/test_kernels.py:88, 91); both sum in fp32 in another order.
+    3e-2 is as large as the outputs of N(0,1) inputs over long sequences,
+    so bf16 results are also held to one bf16 ulp of the value (rtol
+    2^-7, atol 1e-5): kernel and plain version both compute in fp32 and
+    round the output to bf16 once. The peaked case (q x 6) makes the
+    softcap and each key count.
 """
 import numpy as np
 import pytest
@@ -120,3 +127,52 @@ def test_topn_kernel_matches_plain_bitwise(cuda, b, n, d, topk):
     vk, ik = ops.topn_scores(u, v, topk)
     vp, ip = ref.topn_scores_ref(u, v, topk)
     assert torch.equal(ik, ip) and torch.equal(vk, vp)
+
+
+@pytest.mark.parametrize("bh,bhk,s,d,window,cap,dtype", [
+    (4, 4, 128, 32, 0, 0.0, torch.float32),        # causal
+    (2, 2, 256, 64, 64, 0.0, torch.float32),       # window
+    (3, 3, 128, 32, 0, 30.0, torch.float32),       # softcap
+    (2, 2, 200, 32, 0, 0.0, torch.float32),        # ragged S
+    (1, 1, 384, 128, 128, 50.0, torch.float32),
+    (8, 4, 300, 256, 100, 50.0, torch.float32),    # D = 256, GQA, ragged
+    (8, 4, 300, 256, 100, 50.0, torch.bfloat16),
+    (2, 2, 128, 64, 0, 0.0, torch.bfloat16),
+    (8, 4, 1000, 256, 256, 50.0, torch.bfloat16),  # peaked: q x 6
+])
+def test_flash_attention_kernel_matches_plain(cuda, bh, bhk, s, d, window, cap, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q_scale = 6.0 if s == 1000 else 1.0
+    q = (q_scale * torch.randn(bh, s, d, generator=g, device=cuda)).to(dtype)
+    k = torch.randn(bhk, s, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(bhk, s, d, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, softcap=cap)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+
+
+def test_flash_attention_kernel_non_causal_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(4, 256, 64, generator=g, device=cuda) for _ in range(3))
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=False),
+                               ref.flash_attention_ref(q, k, v, causal=False),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.half(), q.half(), q.half())              # fp16
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                            q[..., :48].contiguous())                  # D = 48
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.double(), q)                          # mixed dtypes
+    with pytest.raises(RuntimeError):                                  # no backward
+        ops.flash_attention(q.requires_grad_(), q.detach(), q.detach())
