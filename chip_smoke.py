@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,data,...] [--src DIR]
 
 No arguments and no PYTHONPATH: the script finds `src/repro_torch` beside
 itself first, then under the working directory. It needs one CUDA card and
-exits non-zero, printing no result, without one. Phases:
+exits non-zero, printing no result, without one. `--phases` runs a subset,
+in order, and `--src` names another `src` directory, such as a parent
+commit's unpacked with `git archive`, to run the same phases against it:
+the way two commits are compared in one call on one card. A subset prints
+no kernels line and no result line. Phases:
 
   1. build    every CUDA kernel with nvcc (one process per source, all at
               once), and print the card's name and power limit
   2. data     chembl_like(scale=1.0) with a 0.1 test split, and the
               balanced bucket plans of both sides (through GibbsSampler)
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the run's shapes, timed beside its bound and one PyTorch call
-              that computes the same function where there is one
-  4. train    GibbsSampler(engine="fused") for 8 sweeps (burn-in 4),
+  3. kernels  each BPMF training kernel at K = 64 against its plain
+              PyTorch version on the card at the run's shapes, timed beside
+              its bound and one PyTorch call that computes the same
+              function where there is one
+  4. ranks    the same kernels at K = 16, 24 and 32 (24 through the
+              wrappers' padding)
+  5. topn     top-N at serving's shapes, bit for bit in one slab and in
+              several, timed beside topk(u @ v.T); the CUDA kernels of one
+              call counted in its profile
+  6. train    GibbsSampler(engine="fused") for 8 sweeps (burn-in 4),
               retaining draws into a SampleStore, then 2 sweeps with
               engine="kernel"; the launch counts are asserted
-  5. parity   one half-sweep per side for "fused" and "kernel", and a
+  7. parity   one half-sweep per side for "fused" and "kernel", and a
               3-sweep "fused" chain, against the plain path under the same
-              state and noise
-  6. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
-  7. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
-              users with seen-item exclusion, against the plain path
-  8. lm_kernels  the flash-attention kernel against its plain version at
+              state and noise; then at the quickstart's shape and rank
+              (chembl_like(0.01), k = 32, alpha 2.0) both half-sweeps and
+              3-sweep chains of "fused" and "kernel" against "einsum"
+  8. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
+  9. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
+              users with seen-item exclusion, against the plain path, and
+              where one batch's time goes (kernel on the card, host)
+ 10. lm_kernels  the flash-attention kernel against its plain version at
               the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
               KV heads, causal, softcap 50, window 4,096 and 0; at a
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
@@ -32,23 +45,27 @@ exits non-zero, printing no result, without one. Phases:
               dropped softcap, K a row off, a window a tile short); timed
               beside its bound and, at softcap 0, beside
               scaled_dot_product_attention
-  9. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+ 11. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
               against the same forward down the direct attention path, in
-              bf16 and in fp32
- 10. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+              bf16 and in fp32, and each layer's flash attention on its own
+              inputs against float64; again with every wq x 16, where the
+              attention scores pass the softcap of 50, with the two paths'
+              distance at 1 to 26 layers
+ 12. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 11. lm_faults   faults planted one at a time in the bf16 flash launches
-              (window a tile short, K a row off; a dropped softcap is
-              reported) and in the decode step (it misses its own slot):
-              each must fail one of the checks of phase 9 or 10
- 12. report   one JSON line of kernels, the card line, and the last line
+ 13. lm_faults   faults planted one at a time in the bf16 flash launches
+              (window a tile short, K a row off, a dropped softcap, the
+              last also under the wq x 16 forwards) and in the decode step
+              (it misses its own slot): each must fail one of the checks of
+              phase 11 or 12
+ 14. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 4, 7, 9 and 10: the launch counters are set to 0
+The main path is phases 6, 9, 11 and 12: the launch counters are set to 0
 just before each and read just after. Any failed check exits non-zero
 before the last line. No BPMF phase was cut to make room for the LM ones.
 """
@@ -73,6 +90,9 @@ K = 64
 SYRK_FLOPS = K * (K + 1) + 2 * K
 TOPK = 10
 N_USERS_SERVED = 4096
+OTHER_RANKS = (16, 24, 32)             # the BPMF kernels' other ranks the repo runs
+TOPN_PREVIOUS_MS = 5.710               # the previous top-N kernel (sort-based) at these shapes, PERF.md §6
+TOPN_SLAB = 1024                       # items a slab in the forced multi-slab check
 TOL = dict(rtol=1e-4, atol=1e-3)       # the JAX kernel tests' (tests/test_kernels.py:171)
 CHOL_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_kernels.py:56
 RMSE_LIMIT = 0.545                     # JAX reference 0.5338 on the CPU, global mean 0.5580
@@ -113,7 +133,28 @@ NOISE_FACTOR = 1.25
 LM_FP32_TOL = dict(rtol=1e-3, atol=1e-3)   # fp32 logits: kernel path against direct
                                            # path, and the cache invariant
 LM_FP32_LOSS_RTOL = 1e-4
+# every layer's wq is multiplied by this in the second set of lm_eval
+# forwards (a power of two: the bf16 weights scale exactly and are
+# restored exactly): scores of std about 1 at random init become std about
+# 16, whose tails pass the softcap of 50 (tests/test_torch_lm.py does the
+# same at the reduced size, where x 8 leaves the largest score at 30)
+WQ_SCALE = 16.0
 CACHE_TOL = dict(rtol=3e-2, atol=3e-2)     # tests/test_models.py:78, in fp32 at full width
+# With every wq x 16 the two attention paths are each within 3.5e-5 of the
+# float64 attention of every layer's own inputs in fp32, and the layers
+# carry that on: the paths' fp32 last-position logits sit 7.6e-6 apart
+# after 1 layer, 2.1e-5 after 2, 6.3e-5 after 4, 4.7e-4 after 8, 3.5e-3
+# after 16 and 1.8e-2 after 26 (phase lm_eval's depth sweep on an NVIDIA
+# H100 80GB HBM3 at 700 W). The limit is about 2.7 times that last
+# reading; a softcap dropped in fp32 moves it to 5.0.
+LM_WQ_FP32_LOGITS_ATOL = 5e-2
+# Each layer's bf16 flash attention against float64: one bf16 ulp of the
+# value (the output is rounded once) and, below it, the error of the fp32
+# sums the kernel rounds from. At random-init scores the layers take an
+# atol of 8.8e-7 beside that rtol; at wq x 16 they take 1.03e-5, above
+# FLASH_BF16_ULP_TOL's 1e-5, as the fp32 forward's layers sit up to 3.5e-5
+# from float64 there. The scaled forwards' limit is 1e-4.
+WQ_BF16_LAYER_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -148,9 +189,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
+          "serve", "lm_kernels", "lm_eval", "lm_serve", "lm_faults")
+
+
 def main() -> int:
-    src = _find_src()
-    if src is None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run, in the script's order")
+    ap.add_argument("--src", default=None,
+                    help="a src directory holding repro_torch (default: the checkout's)")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    src = Path(args.src).resolve() if args.src else _find_src()
+    if src is None or not (src / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: no src/repro_torch beside this script or under the "
               "working directory", file=sys.stderr)
         return 2
@@ -161,10 +217,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the kernels run only on the card",
               file=sys.stderr)
         return 2
-    smoke = Smoke(torch)
-    for phase in (smoke.build, smoke.data, smoke.kernels, smoke.train,
-                  smoke.parity, smoke.learning, smoke.serve, smoke.lm_kernels,
-                  smoke.lm_eval, smoke.lm_serve, smoke.lm_faults):
+    smoke = Smoke(torch, phases)
+    print(f"package: {src / 'repro_torch'}")
+    # bound before any runs: phase data sets attributes (train, test) that
+    # share names with phases
+    for phase in [getattr(smoke, name) for name in PHASES if name in phases]:
         print(f"== {phase.__name__}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -179,6 +236,11 @@ def main() -> int:
         for what in smoke.check.failed:
             print(f"  {what}", file=sys.stderr)
         return 1
+    if len(phases) < len(PHASES):
+        # the launch counts of phases that did not run were never read
+        print(f"chip_smoke: phases {','.join(phases)} passed; a subset prints no "
+              "kernels line and no result")
+        return 0
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -188,7 +250,7 @@ def main() -> int:
 
 
 class Smoke:
-    def __init__(self, torch):
+    def __init__(self, torch, phases):
         import numpy as np
 
         from repro_torch.kernels import build, ops, ref
@@ -203,6 +265,7 @@ class Smoke:
         self.gen = torch.Generator(device=self.dev).manual_seed(1234)
         self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
         self.store_dir = Path(self.tmp.name) / "samples"
+        self.phases = phases
         self.rows: dict[str, dict] = {}
         self.main_launches: dict[str, int] = {}
 
@@ -363,7 +426,7 @@ class Smoke:
             ek = max(self.max_err(pk, p64, -3), self.max_err(rk, r64, -2))
             ep = max(self.max_err(pp, p64, -3), self.max_err(rp, r64, -2))
             self.check(ek <= ep, f"gather_syrk_seg {tag}: error against float64 "
-                       f"{ek:.3e} <= the fp32 plain version's {ep:.3e}")
+                       f"{ek:.3e} <= the plain version's {ep:.3e}")
             del p64, r64, pp, rp
             for bf16, stacked in ((True, False), (False, True)):
                 c = stacks[side] if stacked else cp
@@ -427,6 +490,9 @@ class Smoke:
             tot["err"] = max(tot["err"], err)
             del vm, vt, rv, pk, rk, pp, rp
         bms, by = self.bound_ms(tot["bytes"], tot["flops"])
+        print(f"  masked_syrk, one kernel-engine sweep's buckets: {tot['ms']:.3f} ms "
+              f"kernel, {tot['plain']:.3f} ms plain, {tot['lib']:.3f} ms bmm, bound "
+              f"{bms:.3f} ms ({by})")
         self.add_row("masked_syrk", "masked_syrk.cu",
                      "src/repro/kernels/bpmf_syrk.py:48",
                      max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
@@ -483,8 +549,13 @@ class Smoke:
                    "chol_solve_sample on systems that are not positive definite: "
                    "finite where the plain version is, and equal there")
 
-        # --- topn_scores: 4,096 users x 5,775 items at S*K = 256, with ties;
-        # k is the candidate count serving fetches for seen-item exclusion
+    def topn(self):
+        """topn_scores at serving's shapes: 4,096 users x 5,775 items at
+        S*K = 256, with planted ties; k is the candidate count serving
+        fetches for seen-item exclusion. Bit for bit against the plain
+        version in one slab and in several, and the CUDA kernels one call
+        launches, counted in a profile of that call."""
+        torch, ops, ref, s = self.torch, self.ops, self.ref, self.sampler
         fetch = min(1 << (TOPK + self.seen.max_degree - 1).bit_length(), s.n)
         uu = self.randn(N_USERS_SERVED, 4 * K)
         vv = self.randn(s.n, 4 * K)
@@ -497,6 +568,13 @@ class Smoke:
         same = torch.equal(ik, ip) and torch.equal(vk, vp)
         self.check(same, f"topn_scores u {tuple(uu.shape)}, v {tuple(vv.shape)}, "
                    f"k {fetch}: values and indices equal the plain version's bit for bit")
+        vk2, ik2 = ops.topn_scores(uu, vv, fetch, slab=TOPN_SLAB)
+        self.sync()
+        self.check(torch.equal(ik2, ip) and torch.equal(vk2, vp),
+                   f"topn_scores over slabs of {TOPN_SLAB} items (a running best "
+                   "carried across them): values and indices equal the plain version's "
+                   "bit for bit")
+        del vk2, ik2
         rows = ik[(ik == 7).any(1) & (ik == copy).any(1)]
         first = (rows == 7).int().argmax(1)
         self.check(rows.shape[0] > 0 and bool(((rows == copy).int().argmax(1)
@@ -506,15 +584,105 @@ class Smoke:
         ms = self.cuda_ms(lambda: ops.topn_scores(uu, vv, fetch))
         pms = self.cuda_ms(lambda: ref.topn_scores_ref(uu, vv, fetch), reps=2)
         lms = self.cuda_ms(lambda: torch.topk(uu @ vv.T, fetch, dim=1), reps=5)
+        ms_slabs = self.cuda_ms(lambda: ops.topn_scores(uu, vv, fetch, slab=TOPN_SLAB))
+        # the CUDA kernels of one call, as the profiler saw them launched,
+        # against the slab rule of the wrapper
         b, d = uu.shape
+        per_call = {}
+        for tag, slab, wall in (("one slab", None, ms), ("slabs of 1,024", TOPN_SLAB,
+                                                          ms_slabs)):
+            events = self._profile(lambda: ops.topn_scores(uu, vv, fetch, slab=slab),
+                                   wall, f"topn_scores call, {tag}")
+            seen = sum(e.count for e in events
+                       if "topn_score_kernel" in e.key or "topn_select_kernel" in e.key)
+            rule = ops.topn_kernel_launches(b, s.n, fetch, slab)
+            self.check(seen == rule, f"topn_scores, {tag}: the profile shows {seen} CUDA "
+                       f"kernels launched in one call, the slab rule says {rule}")
+            per_call[tag] = seen
         bms, by = self.bound_ms((b + s.n) * d * 4 + b * fetch * 8, 2.0 * b * s.n * d)
-        print(f"    topn_scores: {ms:.3f} ms kernel, {pms:.3f} ms plain, {lms:.3f} ms "
-              f"topk(u @ v.T), bound {bms:.3f} ms ({by})")
+        # mul-then-add issues two fp32 instructions a term where an FMA
+        # issues one: twice the operations bound at the same issue rate
+        mul_add_ms = 2.0 * (2.0 * b * s.n * d) / FP32_FLOPS * 1e3
+        print(f"    topn_scores: {ms:.3f} ms kernel ({per_call['one slab']} CUDA kernels a "
+              f"call), {pms:.3f} ms plain, {lms:.3f} ms topk(u @ v.T) ({ms / lms:.2f}x), "
+              f"bound {bms:.3f} ms ({by}), mul-then-add bound {mul_add_ms:.3f} ms; "
+              f"{TOPN_PREVIOUS_MS / ms:.1f}x faster than the previous kernel's "
+              f"{TOPN_PREVIOUS_MS} ms; in slabs of {TOPN_SLAB} items {ms_slabs:.3f} ms "
+              f"({per_call['slabs of 1,024']} CUDA kernels a call)")
         self.add_row("topn_scores", "topn.cu", "src/repro/kernels/bpmf_topn.py:81",
                      max_abs_err=self.max_err(vk, vp), ms=ms, plain_ms=pms,
                      bound_ms=bms, bound_by=by, library_ms=lms,
-                     shapes=f"u ({b}, {d}), v ({s.n}, {d}), topk {fetch}; "
-                            "library = topk(u @ v.T)")
+                     mul_add_bound_ms=mul_add_ms,
+                     cuda_kernels_per_call=per_call["one slab"],
+                     multi_slab_ms=ms_slabs,
+                     multi_slab_cuda_kernels_per_call=per_call["slabs of 1,024"],
+                     shapes=f"u ({b}, {d}), v ({s.n}, {d}), topk {fetch}; multi-slab: "
+                            f"slabs of {TOPN_SLAB} items; library = topk(u @ v.T)")
+
+    def ranks(self):
+        """The BPMF kernels at the other ranks the repo runs, against their
+        plain versions at the same tolerances as K = 64: every bucket of
+        both plans (gather_syrk_seg in fp32, masked_syrk on the kernel
+        engine's pre-gathered blocks) and the user systems of one
+        half-sweep (chol_solve_sample), with factors drawn at each rank."""
+        from repro_torch.core.gibbs import posterior_systems
+        from repro_torch.core.hyper import init_hyper
+
+        torch, ops, ref, s = self.torch, self.ops, self.ref, self.sampler
+        for k in OTHER_RANKS:
+            u = 0.3 * self.randn(s.m, k)
+            v = 0.3 * self.randn(s.n, k)
+            err = {"gather_syrk_seg": 0.0, "masked_syrk": 0.0}
+            for side, b, cp in self._bucket_sides(u, v):
+                args = (b.indices, b.values, b.mask, b.seg_ids, b.n_segments, cp)
+                kw = dict(identity_segments=b.identity_segments)
+                pk, rk = ops.gather_syrk_seg(*args, seg_ptr=b.seg_ptr, **kw)
+                pp, rp = ref.gather_syrk_seg_ref(*args, **kw)
+                self.sync()
+                ok = (self.verdict(pk, pp, "")[0] and self.verdict(rk, rp, "")[0]
+                      and pk.shape == pp.shape == (b.n_segments, k, k))
+                e = max(self.max_err(pk, pp), self.max_err(rk, rp))
+                self.check(ok, f"K={k} gather_syrk_seg {side} width {b.width}: max abs "
+                           f"err {e:.3e} ({TOL})")
+                err["gather_syrk_seg"] = max(err["gather_syrk_seg"], e)
+                del pk, rk, pp, rp
+                vm = (cp[b.indices.long()] * b.mask[..., None]).contiguous()
+                rv = (b.values * b.mask).contiguous()
+                pk, rk = ops.masked_syrk(vm, rv)
+                pp, rp = ref.masked_syrk_ref(vm, rv)
+                self.sync()
+                ok = self.verdict(pk, pp, "")[0] and self.verdict(rk, rp, "")[0]
+                e = max(self.max_err(pk, pp), self.max_err(rk, rp))
+                self.check(ok, f"K={k} masked_syrk {side} width {b.width}: max abs "
+                           f"err {e:.3e} ({TOL})")
+                err["masked_syrk"] = max(err["masked_syrk"], e)
+                del vm, rv, pk, rk, pp, rp
+            prec, rhs = posterior_systems(v, s.user_buckets, s.m,
+                                          init_hyper(k, device=self.dev), s.alpha,
+                                          engine="fused")
+            z = self.randn(s.m, k)
+            xk = ops.chol_solve_sample(prec, rhs, z)
+            xp = ref.chol_solve_sample_ref(prec, rhs, z)
+            self.sync()
+            err["chol_solve_sample"] = self.close(
+                xk, xp, f"K={k} chol_solve_sample on {tuple(prec.shape)} user systems",
+                CHOL_TOL)
+            del prec, rhs, z, xk, xp
+            eye = torch.eye(k, device=self.dev)
+            bad = torch.stack([-eye, eye * torch.linspace(-1, 1, k, device=self.dev),
+                               2 * eye])
+            ones = torch.ones(3, k, device=self.dev)
+            xk = ops.chol_solve_sample(bad, ones, ones)
+            xp = ref.chol_solve_sample_ref(bad, ones, ones)
+            self.sync()
+            fin = torch.isfinite(xp)
+            self.check(torch.equal(torch.isfinite(xk), fin)
+                       and bool(torch.allclose(xk[fin], xp[fin], **CHOL_TOL)),
+                       f"K={k} chol_solve_sample on systems that are not positive "
+                       "definite: finite where the plain version is, and equal there")
+            for name, e in err.items():
+                self.rows[name].setdefault("max_abs_err_other_ranks", {})[k] = e
+            print(f"  K={k}: max abs err against the plain versions {err}")
 
     def train(self):
         from repro_torch.checkpoint import SampleStore
@@ -577,10 +745,12 @@ class Smoke:
         self._profile(lambda: s.sweep(st), med * 1e3)
         self.state = state
 
-    def _profile(self, fn, wall: float, what: str = "sweep"):
+    def _profile(self, fn, wall: float, what: str = "sweep") -> list:
         """Device time by kernel of one call of fn under torch.profiler; the
         idle share is taken against `wall`, the call's unprofiled time in ms
-        (the profiler's own start-up would swamp a wall clock around it)."""
+        (the profiler's own start-up would swamp a wall clock around it).
+        Returns the trace's device events, one per kernel name, each with
+        its launch count (none where the trace holds no device time)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -594,12 +764,13 @@ class Smoke:
         busy = sum(e.device_time_total for e in events) / 1e3
         if not events:
             print(f"profiled {what}: no device time in the trace (not measured)")
-            return
+            return events
         print(f"profiled {what}: {busy:.1f} ms device busy in "
               f"{sum(e.count for e in events)} kernels against {wall:.1f} ms "
               f"unprofiled wall (idle share {max(0.0, 1 - busy / wall):.3f})")
         for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
             print(f"  {e.device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+        return events
 
     def parity(self):
         from repro_torch.core import GibbsSampler
@@ -627,6 +798,56 @@ class Smoke:
         for name in ("u", "v"):
             self.close(getattr(chain["fused"], name), getattr(chain["plain"], name),
                        f"3-sweep fused chain {name} against the plain path")
+        self.parity_quickstart()
+
+    def parity_quickstart(self):
+        """The quickstart's shape and rank (examples/quickstart.py:
+        chembl_like(scale=0.01), k = 32, alpha 2.0): both half-sweeps and a
+        3-sweep chain of "fused" and of "kernel" against "einsum", under the
+        same state and noise."""
+        from repro_torch.core import GibbsSampler
+        from repro_torch.core.gibbs import update_factors
+        from repro_torch.data import chembl_like, train_test_split
+
+        ops, k = self.ops, 32
+        ratings, _, _ = chembl_like(scale=0.01, seed=0)
+        train, test = train_test_split(ratings, 0.1, seed=1)
+        engines = ("einsum", "fused", "kernel")
+        samplers = {e: GibbsSampler(train, test, k=k, alpha=2.0, burn_in=8, engine=e)
+                    for e in engines}
+        plain = samplers["einsum"]
+        print(f"chembl_like(scale=0.01) {ratings.shape}, {len(train.vals):,} train "
+              f"ratings, k={k}, alpha 2.0")
+        ops.reset_launches()
+        st = plain.init(seed=0)
+        for _ in range(2):                      # a state past the initial draw
+            st = plain.sweep(st)
+        noise = plain.draw_noise()
+        for side, cp, buckets, n, hyper, z in (
+                ("item", st.u, plain.item_buckets, plain.n, st.hyper_v, noise.z_v),
+                ("user", st.v, plain.user_buckets, plain.m, st.hyper_u, noise.z_u)):
+            want, _ = update_factors(cp, buckets, n, hyper, plain.alpha, z=z,
+                                     engine="einsum")
+            for engine in ("fused", "kernel"):
+                got, _ = update_factors(cp, buckets, n, hyper, plain.alpha, z=z,
+                                        engine=engine)
+                self.sync()
+                self.close(got, want, f"k={k} {engine} {side} half-sweep against the "
+                           "plain path")
+        chain = dict.fromkeys(engines, st)
+        for _ in range(3):
+            nz = plain.draw_noise()
+            for e in engines:
+                chain[e] = samplers[e].sweep(chain[e], nz)
+        self.sync()
+        for e in ("fused", "kernel"):
+            for name in ("u", "v"):
+                self.close(getattr(chain[e], name), getattr(chain["einsum"], name),
+                           f"k={k} 3-sweep {e} chain {name} against the plain path")
+        launches = dict(ops.LAUNCHES)
+        self.check(all(launches[n] > 0 for n in
+                       ("gather_syrk_seg", "masked_syrk", "chol_solve_sample")),
+                   f"k={k}: the fused and kernel engines ran their kernels ({launches})")
 
     def learning(self):
         from repro_torch.core import GibbsSampler
@@ -678,15 +899,69 @@ class Smoke:
         dt = (time.perf_counter() - t0) / reps
         print(f"recommend: {dt * 1e3:.1f} ms a batch of {len(users)}, "
               f"{len(users) / dt:,.0f} queries/s (host exclusion included)")
+        self.serve_split(rec, users)
         # the plain path: the same draws and calls with every tensor on the CPU
         pens = PosteriorEnsemble.load(self.store_dir, device="cpu")
         pv, pi = TopNRecommender(pens, device="cpu").recommend(users, TOPK, seen=self.seen)
         self.check(np.array_equal(items, pi) and np.array_equal(vals, pv),
                    "top-N values and indices equal the plain path's")
-        print(f"summary: fused sweep {self.sweep_s:.4f} s, "
-              f"{(s.m + s.n) / self.sweep_s:,.0f} item updates/s, peak "
-              f"{self.peak_gb:.2f} GB; learning rmse {self.rmse_learn:.4f}; "
-              f"top-N {len(users) / dt:,.0f} queries/s")
+        parts = [f"top-N {len(users) / dt:,.0f} queries/s"]
+        if "learning" in self.phases:
+            parts.insert(0, f"learning rmse {self.rmse_learn:.4f}")
+        if "train" in self.phases:
+            parts.insert(0, f"fused sweep {self.sweep_s:.4f} s, "
+                            f"{(s.m + s.n) / self.sweep_s:,.0f} item updates/s, peak "
+                            f"{self.peak_gb:.2f} GB")
+        print(f"summary: {'; '.join(parts)}")
+
+    def serve_split(self, rec, users, reps: int = 5):
+        """Where one recommend() batch's time goes: the top-N kernel's
+        device time (CUDA events around each launch), the rest of scoring
+        and fetching (row gather, launch, copy back: the same call without
+        exclusion lists), and the host's exclusion and merge (the
+        difference). Medians of `reps` batches, on a line of its own."""
+        import statistics
+
+        torch, ops = self.torch, self.ops
+        real, events = ops.topn_scores, []
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+        hint = TOPK + self.seen.max_degree
+        walls = {"recommend": [], "no exclusion": []}
+        ops.topn_scores = timed
+        try:
+            for _ in range(reps):
+                for name, call in (
+                        ("recommend", lambda: rec.recommend(users, TOPK, seen=self.seen)),
+                        ("no exclusion", lambda: rec._serve(TOPK, user_ids=users,
+                                                           fetch_hint=hint))):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    call()
+                    walls[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ops.topn_scores = real
+        self.sync()
+        kernel = statistics.median(a.elapsed_time(b) for a, b in events)
+        total = statistics.median(walls["recommend"])
+        fetch = statistics.median(walls["no exclusion"])
+        split = dict(batch_ms=total, kernel_device_ms=kernel,
+                     gather_launch_copy_ms=fetch - kernel,
+                     host_exclusion_merge_ms=total - fetch,
+                     users=len(users), topk=TOPK, fetch_hint=hint)
+        print(f"serve split: one recommend() batch of {len(users)} users {total:.3f} ms = "
+              f"top-N kernel {kernel:.3f} ms on the card + {fetch - kernel:.3f} ms row "
+              f"gather, launch and copy back + {total - fetch:.3f} ms host exclusion and "
+              f"merge (medians of {reps}) {json.dumps(split)}")
+        self.serve_split_numbers = split
 
     # ------------------------------------------------------------ the LM path
     def lm_kernels(self):
@@ -795,6 +1070,12 @@ class Smoke:
         q, k, v = qkv(LM_SEQ, torch.float32)
         check(q, k, v, f"(8, {LM_SEQ}, 256) fp32, window 0, softcap 50", "fp32",
               causal=True, window=0, softcap=50.0)
+        # scores of std 16 (q x WQ_SCALE), most of whose tails the softcap
+        # bends, as in lm_eval's scaled forwards: the kernel in fp32
+        q, k, v = qkv(LM_SEQ, torch.float32, WQ_SCALE)
+        for window in (4096, 0):
+            check(q, k, v, f"(8, {LM_SEQ}, 256) fp32, q x {WQ_SCALE:g}, window {window}, "
+                  "softcap 50", "fp32", causal=True, window=window, softcap=50.0)
         del q, k, v
         # the row: one forward's attention, 13 local and 13 global launches
         n = 13
@@ -873,9 +1154,11 @@ class Smoke:
                 return float(tfm.cross_entropy(logits, labels)[0]), logits[:, -1].clone()
 
         f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
-        runs = {}
+        runs, per_layer = {}, {}
         for name, c in (("flash bf16", cfg), ("flash fp32", f32)):
-            runs[name] = forward(c)
+            with self.probed() as recs:
+                runs[name] = forward(c)
+            per_layer[name] = recs
         ops.reset_launches()
         for name, c in (("direct bf16", cfg), ("direct fp32", f32)):
             runs[name] = forward(dataclasses.replace(c, chunked_attn_min_len=LM_SEQ + 1))
@@ -885,14 +1168,231 @@ class Smoke:
             print(f"  {name}: loss {l:.6f}")
             self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
                        f"{name}: loss and last-position logits are finite")
-        for ok, what in self.forward_verdicts(runs):
+        for ok, what in self.forward_verdicts(runs, per_layer):
             self.check(ok, what)
-        self.lm_runs, self.lm_forward = runs, forward
+        self.lm_runs, self.lm_layers, self.lm_forward = runs, per_layer, forward
         self.lm_eval_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak)
+        # the same four forwards with every wq x WQ_SCALE: attention scores
+        # whose tails pass the softcap of 50 (lm_faults needs them)
+        with self.scaled_wq():
+            wq_runs, wq_layers = {}, {}
+            for name, c in (("flash bf16", cfg), ("flash fp32", f32)):
+                with self.probed() as recs:
+                    wq_runs[name] = forward(c)
+                wq_layers[name] = recs
+            ops.reset_launches()
+            for name, c in (("direct bf16", cfg), ("direct fp32", f32)):
+                wq_runs[name] = forward(dataclasses.replace(
+                    c, chunked_attn_min_len=LM_SEQ + 1))
+            self.check(ops.LAUNCHES["flash_attention"] == 0,
+                       f"wq x {WQ_SCALE:g}: the direct-path forwards launched no flash kernel")
+            scores = self.first_layer_scores(params, cfg, tokens, positions)
+            self.depth_sweep(forward, cfg, f32, wq_runs)
+        self.check(scores["max"] > cfg.attn_softcap,
+                   f"wq x {WQ_SCALE:g}: the first layer's attention scores pass the softcap "
+                   f"of {cfg.attn_softcap:g} before it: std {scores['std']:.2f}, max |s| "
+                   f"{scores['max']:.1f}, share above 25 {scores['above']:.2e}")
+        for name, (l, g) in wq_runs.items():
+            print(f"  wq x {WQ_SCALE:g}, {name}: loss {l:.6f}")
+            self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
+                       f"wq x {WQ_SCALE:g}, {name}: loss and last-position logits are finite")
+        for ok, what in self.scaled_verdicts(wq_runs, wq_layers):
+            self.check(ok, what)
+        self.lm_wq_runs, self.lm_wq_layers = wq_runs, wq_layers
 
-    def forward_verdicts(self, runs: dict) -> list[tuple[bool, str]]:
+    def probed(self):
+        """A context in which each flash launch of a forward is held on its
+        own inputs: the layer's q, k and v also go down the direct path and
+        into the float64 attention, and the list it yields gets one record
+        of distances a layer. A forward's last-position logits carry every
+        layer's rounding through the layers after it; these do not."""
+        import contextlib
+
+        from repro_torch.models import layers
+
+        real, recs = layers.multi_head_attention, []
+
+        def probe(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            if kw.get("chunk") and k.shape[1] > kw["chunk"]:
+                direct = real(q, k, v, **dict(kw, chunk=0))
+                recs.append(self.layer_errors(out, direct, self.exact_attention(
+                    q, k, v, **kw)))
+                del direct
+            return out
+
+        @contextlib.contextmanager
+        def ctx():
+            layers.multi_head_attention = probe
+            try:
+                yield recs
+            finally:
+                layers.multi_head_attention = real
+
+        return ctx()
+
+    def exact_attention(self, q, k, v, *, causal, window, attn_softcap, scale, **_):
+        """multi_head_attention's function of (B, S, H, hd) heads in float64."""
+        from repro_torch.models import layers
+
+        torch = self.torch
+        b, s, h, hd = q.shape
+        qd = q.double().transpose(1, 2)
+        kd = layers._expand_kv(k, h).double().transpose(1, 2)
+        vd = layers._expand_kv(v, h).double().transpose(1, 2)
+        sc = (qd @ kd.transpose(-1, -2)).mul_(scale or hd ** -0.5)
+        if attn_softcap > 0:
+            sc.div_(attn_softcap).tanh_().mul_(attn_softcap)
+        pos = torch.arange(s, device=q.device)
+        mask = layers.attention_scores_mask(pos, pos, causal=causal, window=window)
+        sc.masked_fill_(~mask, float("-inf"))
+        return (torch.softmax(sc, dim=-1) @ vd).transpose(1, 2)
+
+    def layer_errors(self, out, direct, exact) -> dict:
+        """One layer's kernel output and direct-path output against the
+        float64 attention of the same inputs. `need` is the least atol
+        with which allclose(out, exact, rtol) holds, at the rtol of the
+        kernel's dtype: one bf16 ulp, or FLASH_TOL's in fp32."""
+        ek, ed = (out.double() - exact).abs(), (direct.double() - exact).abs()
+        rtol = (FLASH_BF16_ULP_TOL if out.dtype == self.torch.bfloat16
+                else FLASH_TOL["fp32"])["rtol"]
+        return dict(kmax=float(ek.max()), kmean=float(ek.mean()), dmax=float(ed.max()),
+                    dmean=float(ed.mean()), need=float((ek - rtol * exact.abs()).max()))
+
+    def layer_verdicts(self, per_layer: dict, tag: str, bf16_tol: dict
+                       ) -> list[tuple[bool, str]]:
+        """Every layer's flash attention on its own inputs: within the
+        kernel's tolerance of the float64 attention (fp32 3e-4; bf16
+        `bf16_tol`, one ulp and the fp32 sums' error), and in bf16 no
+        farther from it than NOISE_FACTOR times the direct path, which
+        rounds the probabilities to bf16 before P V."""
+        n_layers = self.lm[0].cfg.n_layers
+        out = []
+        for name, recs in per_layer.items():
+            dtype = name.split()[-1]
+            tol = bf16_tol if dtype == "bf16" else FLASH_TOL["fp32"]
+            kmax = " ".join(f"{r['kmax']:.1e}" for r in recs)
+            dmax = " ".join(f"{r['dmax']:.1e}" for r in recs)
+            print(f"  {tag}{name}, each layer's attention on its own inputs, max abs "
+                  f"err to float64: kernel [{kmax}]; direct path [{dmax}]")
+            need = max((r["need"] for r in recs), default=float("inf"))
+            out.append((len(recs) == n_layers and need <= tol["atol"],
+                        f"{tag}{name}: each of {len(recs)} layers' flash attention within "
+                        f"{tol} of the float64 attention of its own inputs (the atol it "
+                        f"takes at that rtol: {need:.3e})"))
+            if dtype == "bf16":
+                far = [i for i, r in enumerate(recs)
+                       if r["kmax"] > NOISE_FACTOR * r["dmax"]
+                       or r["kmean"] > NOISE_FACTOR * r["dmean"]]
+                out.append((len(recs) == n_layers and not far,
+                            f"{tag}{name}: each layer's flash attention no farther from "
+                            f"float64 than {NOISE_FACTOR}x the direct path's, in max and "
+                            f"in mean (layers beyond it: {far})"))
+        return out
+
+    def depth_sweep(self, forward, cfg, f32, full: dict, depths=(1, 2, 4, 8, 16)):
+        """With every wq x WQ_SCALE: the distance of the two attention
+        paths' forwards at the first `depths` layers, and at all of them
+        (`full`): how the layers carry a rounding difference on."""
+        import dataclasses
+
+        torch, params = self.torch, self.lm[1]
+        layers, rows = params.layers, []
+        try:
+            for depth in depths:
+                params.layers = torch.nn.ModuleList(list(layers)[:depth])
+                r = {}
+                for name, c in (("bf16", cfg), ("fp32", f32)):
+                    r["flash " + name] = forward(c)
+                    r["direct " + name] = forward(dataclasses.replace(
+                        c, chunked_attn_min_len=LM_SEQ + 1))
+                rows.append((depth, r))
+        finally:
+            params.layers = layers
+        rows.append((cfg.n_layers, full))
+        for depth, r in rows:
+            (lf, _), (ld, _) = r["flash bf16"], r["direct bf16"]
+            (lf32, gf32), (ld32, gd32) = r["flash fp32"], r["direct fp32"]
+            print(f"  wq x {WQ_SCALE:g}, the first {depth:2d} layers: fp32 last-position "
+                  f"logits, kernel path against direct path: max abs diff "
+                  f"{float((gf32 - gd32).abs().max()):.3e} (logits max |x| "
+                  f"{float(gd32.abs().max()):.2f}); fp32 loss |diff| {abs(lf32 - ld32):.2e}; "
+                  f"bf16 loss |diff| {abs(lf - ld):.2e}, direct bf16 to fp32 "
+                  f"{abs(ld - ld32):.2e}, kernel bf16 to fp32 {abs(lf - lf32):.2e}")
+
+    def scaled_verdicts(self, runs: dict, per_layer: dict) -> list[tuple[bool, str]]:
+        """The checks of the wq-scaled forwards: the fp32 loss of the kernel
+        path against the direct path's at LM_FP32_LOSS_RTOL, the bf16
+        last-position logits within the bf16 noise floor, the fp32 ones
+        within LM_WQ_FP32_LOGITS_ATOL (a reading of depth_sweep), and every
+        layer's attention on its own inputs (layer_verdicts). The bf16
+        losses are printed, not held: the two paths' bf16 losses drift
+        apart with depth as their fp32 logits do (depth_sweep prints it),
+        and every layer's bf16 attention is held on its own inputs."""
+        (lf, _), (ld, gd) = runs["flash bf16"], runs["direct bf16"]
+        (lf32, gf32), (ld32, ref) = runs["flash fp32"], runs["direct fp32"]
+        tag = f"wq x {WQ_SCALE:g}"
+        print(f"  {tag}: bf16 loss {lf:.5f} against the direct path's {ld:.5f} "
+              f"(|diff| {abs(lf - ld):.2e}; the fp32 loss {ld32:.5f})")
+        return [
+            (abs(lf32 - ld32) <= LM_FP32_LOSS_RTOL * abs(ld32),
+             f"{tag}: fp32 loss {lf32:.6f} against the direct path's {ld32:.6f}: "
+             f"|diff| {abs(lf32 - ld32):.2e} <= {LM_FP32_LOSS_RTOL} x |loss|"),
+            self.noise_verdict(runs["flash bf16"][1], gd, ref,
+                               f"{tag}: bf16 last-position logits, kernel path",
+                               "the direct path"),
+            (float((gf32 - ref).abs().max()) <= LM_WQ_FP32_LOGITS_ATOL,
+             f"{tag}: fp32 last-position logits against the direct path: max abs diff "
+             f"{float((gf32 - ref).abs().max()):.3e} <= {LM_WQ_FP32_LOGITS_ATOL}"),
+        ] + self.layer_verdicts(per_layer, f"{tag}, ", WQ_BF16_LAYER_TOL)
+
+    def scaled_wq(self):
+        """Every layer's wq multiplied by WQ_SCALE in place, and divided back
+        on exit: a power of two, so the bf16 weights come back bit for bit."""
+        import contextlib
+
+        params = self.lm[1]
+
+        @contextlib.contextmanager
+        def ctx():
+            with self.torch.no_grad():
+                for layer in params.layers:
+                    layer.attn.wq.mul_(WQ_SCALE)
+                try:
+                    yield
+                finally:
+                    for layer in params.layers:
+                        layer.attn.wq.div_(WQ_SCALE)
+
+        return ctx()
+
+    def first_layer_scores(self, params, cfg, tokens, positions) -> dict:
+        """Statistics of the first layer's scaled q.k scores over the first
+        1,024 positions of the batch, before the softcap: how far the cap
+        bends them."""
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as tfm
+
+        torch, n = self.torch, 1024
+        with torch.no_grad():
+            lay, hd = params.layers[0], cfg.hd
+            h = params.embed.to(cfg.dtype)[tokens[:, :n]]
+            if cfg.embed_scale:
+                h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+            x = tfm.apply_norm(lay.ln_attn, h, cfg)
+            q = (x @ lay.attn.wq.to(cfg.dtype)).reshape(1, n, cfg.n_heads, hd)
+            k = (x @ lay.attn.wk.to(cfg.dtype)).reshape(1, n, cfg.n_kv_heads, hd)
+            q = L.apply_rope(q, positions[:, :n], cfg.rope_theta).float()
+            k = L.apply_rope(k, positions[:, :n], cfg.rope_theta).float()
+            k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+            sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (cfg.attn_scale or hd ** -0.5)
+        return dict(std=float(sc.std()), max=float(sc.abs().max()),
+                    above=float((sc.abs() > 25).float().mean()))
+
+    def forward_verdicts(self, runs: dict, per_layer: dict) -> list[tuple[bool, str]]:
         """lm_eval's checks of the kernel path's forwards (loss, last-position
-        logits) against the direct path's, in bf16 and in fp32."""
+        logits) against the direct path's, in bf16 and in fp32, and of each
+        layer's attention on its own inputs."""
         (lf, gf), (ld, gd) = runs["flash bf16"], runs["direct bf16"]
         (lf32, gf32), (ld32, ref) = runs["flash fp32"], runs["direct fp32"]
         return [
@@ -905,7 +1405,7 @@ class Smoke:
              f"fp32 loss {lf32:.6f} against the direct path's {ld32:.6f}"),
             self.verdict(gf32, ref, "fp32 last-position logits against the direct path",
                          LM_FP32_TOL)[:2],
-        ]
+        ] + self.layer_verdicts(per_layer, "", FLASH_BF16_ULP_TOL)
 
     def lm_serve(self):
         import dataclasses
@@ -1015,21 +1515,31 @@ class Smoke:
             return real_mha(q, k, v, **kw)
 
         plants = [("flash, bf16: softcap dropped", ops, "flash_attention",
-                   flash_plant(softcap_dropped), "forward", False),
+                   flash_plant(softcap_dropped), "forward"),
+                  ("flash, bf16: softcap dropped", ops, "flash_attention",
+                   flash_plant(softcap_dropped), "forward, wq scaled"),
                   ("flash, bf16: window a tile (64 keys) short", ops, "flash_attention",
-                   flash_plant(window_short), "forward", True),
+                   flash_plant(window_short), "forward"),
                   ("flash, bf16: K read a row off", ops, "flash_attention",
-                   flash_plant(k_row_off), "forward", True),
+                   flash_plant(k_row_off), "forward"),
                   ("decode: the step misses its own slot", layers, "multi_head_attention",
-                   decode_slot_off, "cache", True)]
+                   decode_slot_off, "cache")]
         cfg = self.lm[0].cfg
-        for name, mod, attr, fn, checks, require in plants:
+        for name, mod, attr, fn, checks in plants:
             saved = getattr(mod, attr)
             setattr(mod, attr, fn)
             try:
                 if checks == "forward":
-                    runs = dict(self.lm_runs, **{"flash bf16": self.lm_forward(cfg)})
-                    verdicts = self.forward_verdicts(runs)
+                    with self.probed() as recs:
+                        runs = dict(self.lm_runs, **{"flash bf16": self.lm_forward(cfg)})
+                    verdicts = self.forward_verdicts(
+                        runs, dict(self.lm_layers, **{"flash bf16": recs}))
+                elif checks == "forward, wq scaled":
+                    with self.scaled_wq(), self.probed() as recs:
+                        planted = {"flash bf16": self.lm_forward(cfg)}
+                    verdicts = self.scaled_verdicts(
+                        dict(self.lm_wq_runs, **planted),
+                        dict(self.lm_wq_layers, **{"flash bf16": recs}))
                 else:
                     dec = {n: self.split_decode(m, self.lm_prompts)
                            for n, m in self.lm_models.items()}
@@ -1039,12 +1549,8 @@ class Smoke:
             caught = [what for ok, what in verdicts if not ok]
             for ok, what in verdicts:
                 print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
-            text = (f"planted fault '{name}' fails {len(caught)} of {len(verdicts)} "
-                    f"{checks} checks")
-            if require:
-                self.check(bool(caught), text)
-            else:
-                print(f"  info: {text}")
+            self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
+                       f"{len(verdicts)} {checks} checks")
         self.check(ops.flash_attention is real_flash
                    and layers.multi_head_attention is real_mha, "every plant undone")
 

@@ -262,11 +262,17 @@ def posterior_systems(
         return hyper.lam[None] + alpha * prec_all, prior_rhs[None] + alpha * rhs_all
     prec_all = hyper.lam.to(dtype).expand(n_items, k, k).clone()
     rhs_all = prior_rhs.to(dtype).expand(n_items, k).clone()
+    if (engine in ("kernel", "fused") and counterpart.is_cuda
+            and k <= kops.KERNEL_RANKS[-1]):
+        # the kernels' rank: zero columns once a half-sweep, not a bucket;
+        # each bucket's statistics keep the true K x K block (the plain
+        # versions that CPU tensors take need no padding)
+        counterpart = kops.pad_rank(counterpart, kops.kernel_rank(k))
     for b in buckets:
         prec, rhs = bucket_stats(counterpart, b, engine=engine,
                                  bf16_gather=bf16_gather)
-        prec_all[b.seg_item_ids] += alpha * prec
-        rhs_all[b.seg_item_ids] += alpha * rhs
+        prec_all[b.seg_item_ids] += alpha * prec[..., :k, :k]
+        rhs_all[b.seg_item_ids] += alpha * rhs[..., :k]
         del prec, rhs
     return prec_all, rhs_all
 

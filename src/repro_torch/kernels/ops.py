@@ -8,9 +8,13 @@ no fallback: a CUDA tensor the kernel cannot take raises.
 
 The padding rules are the reference's (`repro/kernels/ops.py`): rows to 8,
 the W axis to `_block_w_for(w)`, a solve batch to 16 (or 8) with identity
-systems, and the top-N batch to 8 and the catalogue to the item tile, with
-pad items masked to -inf. Flash attention pads nothing: its kernel masks a
-ragged sequence itself.
+systems. The BPMF kernels are built for the ranks in KERNEL_RANKS; another
+rank up to 64 is padded to the next one (`kernel_rank`) with zero columns
+(`pad_rank`; the syrk sums gain exact zeros) or, for the solve, with an
+identity block (`pad_rank_systems`). Top-N pads the width to a multiple of
+4 with zero columns (`topn_operands`) and scores the catalogue in slabs
+whose scratch is bounded (`topn_slab`). Flash attention pads nothing: its
+kernel masks a ragged sequence itself.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ LAUNCHES = dict.fromkeys(
      "flash_attention"), 0
 )
 
-K_KERNEL = 64  # the factor rank the syrk and solve kernels are built for
+#: the factor ranks the syrk and solve kernels are instantiated for
+KERNEL_RANKS = (16, 32, 64)
 
 
 def reset_launches() -> None:
@@ -60,6 +65,40 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     if pad == 0:
         return x
     return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, pad])
+
+
+def kernel_rank(k: int) -> int:
+    """The rank the BPMF kernels run a rank-k problem at: the smallest of
+    KERNEL_RANKS that is at least k."""
+    for kp in KERNEL_RANKS:
+        if k <= kp:
+            return kp
+    raise ValueError(
+        f"the BPMF kernels take K <= {KERNEL_RANKS[-1]}, got {k}: the repo runs "
+        "no larger rank; ROADMAP.md (queue 3) says what a larger one needs")
+
+
+def pad_rank(x: torch.Tensor, kp: int) -> torch.Tensor:
+    """x with zero columns appended to its last axis up to kp. The syrk
+    sums over zero-padded factors hold the unpadded sums in their leading
+    K x K block and K-vector, bit for bit."""
+    pad = kp - x.shape[-1]
+    return x if pad == 0 else F.pad(x, [0, pad])
+
+
+def pad_rank_systems(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor,
+                     kp: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, K, K) systems padded to kp with an identity block,
+    [[prec, 0], [0, I]], and zeros in rhs and z: the kept block's Cholesky
+    and solves do the same arithmetic, and the padded entries of the
+    solution are 0. (Zero padding would make the system singular.)"""
+    k = prec.shape[-1]
+    if kp == k:
+        return prec, rhs, z
+    eye = torch.eye(kp, device=prec.device, dtype=prec.dtype)
+    big = eye.expand(prec.shape[:-2] + (kp, kp)).clone()
+    big[..., :k, :k] = prec
+    return big, pad_rank(rhs, kp), pad_rank(z, kp)
 
 
 def _block_w_for(w: int) -> int:
@@ -101,10 +140,12 @@ def gather_syrk_seg(
         )
     dev = v.device
     stacked = v.dim() == 3
-    vs = v if stacked else v[None]
-    s, n, k = vs.shape
-    if k != K_KERNEL:
-        raise ValueError(f"gather_syrk_seg kernel needs K={K_KERNEL}, got {k}")
+    k = v.shape[-1]
+    kp = kernel_rank(k)
+    # one copy of V per call where the rank is not instantiated; the sampler
+    # pads V once per half-sweep instead (core/gibbs.py::posterior_systems)
+    vs = pad_rank(v if stacked else v[None], kp)
+    s, n, _ = vs.shape
     if v.dtype != torch.float32:
         raise ValueError(f"v must be float32, got {v.dtype}")
     indices = _require("indices", indices, dev, torch.int32)
@@ -127,18 +168,18 @@ def gather_syrk_seg(
     vk = (vs.to(torch.bfloat16) if bf16_gather else vs).contiguous()
     if identity_segments:
         # pass 1 writes each row's statistics straight into the output
-        prec = torch.empty((s, rp, k, k), device=dev, dtype=torch.float32)
-        rhs = torch.empty((s, rp, k), device=dev, dtype=torch.float32)
+        prec = torch.empty((s, rp, kp, kp), device=dev, dtype=torch.float32)
+        rhs = torch.empty((s, rp, kp), device=dev, dtype=torch.float32)
         rows_prec = rows_rhs = ptr = None
     else:
         seg_ptr = _require("seg_ptr", seg_ptr, dev, torch.int32)
         if seg_ptr.shape != (n_segments + 1,):
             raise ValueError(f"seg_ptr must have {n_segments + 1} entries")
         # fp64 row partials for the second pass, which sums them by segment
-        rows_prec = torch.empty((s, rp, k, k), device=dev, dtype=torch.float64)
-        rows_rhs = torch.empty((s, rp, k), device=dev, dtype=torch.float64)
-        prec = torch.empty((s, n_segments, k, k), device=dev, dtype=torch.float32)
-        rhs = torch.empty((s, n_segments, k), device=dev, dtype=torch.float32)
+        rows_prec = torch.empty((s, rp, kp, kp), device=dev, dtype=torch.float64)
+        rows_rhs = torch.empty((s, rp, kp), device=dev, dtype=torch.float64)
+        prec = torch.empty((s, n_segments, kp, kp), device=dev, dtype=torch.float32)
+        rhs = torch.empty((s, n_segments, kp), device=dev, dtype=torch.float32)
         ptr = seg_ptr.data_ptr()
     lib = build.library("gather_syrk_seg")
     err = lib.gather_syrk_seg_launch(
@@ -146,12 +187,14 @@ def gather_syrk_seg(
         int(bf16_gather),
         None if rows_prec is None else rows_prec.data_ptr(),
         None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
-        prec.data_ptr(), rhs.data_ptr(), rp, wp, n, s, n_segments,
+        prec.data_ptr(), rhs.data_ptr(), rp, wp, n, s, n_segments, kp,
         _stream(v),
     )
     build.check("gather_syrk_seg", err)
     LAUNCHES["gather_syrk_seg"] += 1
     prec, rhs = prec[:, :n_segments], rhs[:, :n_segments]
+    if kp != k:
+        prec, rhs = prec[..., :k, :k], rhs[..., :k]
     return (prec, rhs) if stacked else (prec[0], rhs[0])
 
 
@@ -172,25 +215,26 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
         return ref.masked_syrk_ref(vm, rv)
     dev = vm.device
     r, w, k = vm.shape
+    kp = kernel_rank(k)
     vm = _require("vm", vm, dev, torch.float32)
     rv = _require("rv", rv, dev, torch.float32)
     block_w = _block_w_for(w)
-    vm_p = _pad_to(_pad_to(_pad_to(vm, 0, 8), 1, block_w), 2, 8)
+    vm_p = pad_rank(_pad_to(_pad_to(vm, 0, 8), 1, block_w), kp).contiguous()
     rv_p = _pad_to(_pad_to(rv, 0, 8), 1, block_w)
-    rp, wp, kp = vm_p.shape
-    if kp != K_KERNEL:
-        raise ValueError(f"masked_syrk kernel needs K={K_KERNEL}, got {k}")
+    rp, wp, _ = vm_p.shape
     if rp == 0:
         raise ValueError("masked_syrk needs at least one row")
     prec = torch.empty((rp, kp, kp), device=dev, dtype=torch.float32)
     rhs = torch.empty((rp, kp), device=dev, dtype=torch.float32)
     err = build.library("masked_syrk").masked_syrk_launch(
         vm_p.data_ptr(), rv_p.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
-        rp, wp, _stream(vm),
+        rp, wp, kp, _stream(vm),
     )
     build.check("masked_syrk", err)
     LAUNCHES["masked_syrk"] += 1
-    return prec[:r, :k, :k], rhs[:r, :k]
+    if kp != k:
+        prec, rhs = prec[..., :k, :k], rhs[..., :k]
+    return prec[:r], rhs[:r]
 
 
 def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
@@ -199,8 +243,9 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
 
     The batch is rounded up to the reference's tile (16, or 8 below 16
     systems) with identity systems; the kernel makes those in registers
-    instead of copying the batch. K is not padded: a zero-padded precision
-    matrix is singular.
+    instead of copying the batch. A rank the kernel is not instantiated for
+    is padded with an identity block (`pad_rank_systems`): a zero-padded
+    precision matrix is singular.
     """
     if prec.dim() > 3:
         lead = prec.shape[:-2]
@@ -212,34 +257,71 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
         return ref.chol_solve_sample_ref(prec, rhs, z)
     dev = prec.device
     bsz, k, _ = prec.shape
-    if k != K_KERNEL:
-        raise ValueError(f"chol_solve_sample kernel needs K={K_KERNEL}, got {k}")
+    kp = kernel_rank(k)
     prec = _require("prec", prec, dev, torch.float32)
     rhs = _require("rhs", rhs, dev, torch.float32)
     z = _require("z", z, dev, torch.float32)
     if rhs.shape != (bsz, k) or z.shape != (bsz, k):
         raise ValueError("rhs and z must be (B, K)")
+    prec, rhs, z = pad_rank_systems(prec, rhs, z, kp)
     block_b = 16 if bsz >= 16 else 8
     bp = bsz + (-bsz) % block_b
-    out = torch.empty((bp, k), device=dev, dtype=torch.float32)
+    out = torch.empty((bp, kp), device=dev, dtype=torch.float32)
     err = build.library("chol_solve_sample").chol_solve_sample_launch(
         prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
-        bsz, bp, _stream(prec),
+        bsz, bp, kp, _stream(prec),
     )
     build.check("chol_solve_sample", err)
     LAUNCHES["chol_solve_sample"] += 1
-    return out[:bsz]
+    return out[:bsz, :k].contiguous()
 
 
-TOPN_MAX_K = 8192  # the largest k whose running list fits in shared memory
+TOPN_MAX_K = 8192  # the largest k whose keys the last sort holds in shared memory
+#: the most the (B, slab) fp32 scores of one slab may take; a slab is at
+#: least one 128-item tile, so the scratch is bounded whatever N is
+TOPN_SCRATCH_BYTES = 256 << 20
+#: shared memory of a selection block (csrc/topn.cu, MAX_SELECT_SMEM): the
+#: k keys (8 bytes each, k rounded up to a power of two) and a slab's
+#: scores of one row (4 bytes an item)
+TOPN_SELECT_SMEM = 160 * 1024
+_TOPN_TILE = 128   # users and items of the scoring kernel's block tile
 
 
-def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def topn_operands(u: torch.Tensor, v: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """u (B, D) and v (N, D) with zero columns up to a multiple of 4 in D,
+    the scoring kernel's float4 loads (no copy where D is one already). A
+    zero column adds +0.0 to every score, which leaves its bits unchanged."""
+    return _pad_to(u, 1, 4).contiguous(), _pad_to(v, 1, 4).contiguous()
+
+
+def topn_slab(b: int, n: int, topk: int, slab: int | None = None) -> int:
+    """Items a slab of the catalogue scores at once for b users and the
+    top-k: a multiple of 128 (one tile at least), whose (b, slab) fp32
+    scores fit TOPN_SCRATCH_BYTES and whose scores of one row fit a
+    selection block beside the keys, at most the catalogue rounded up to a
+    tile; `slab` asks for fewer."""
+    tile = _TOPN_TILE
+    keys = 8 << (topk - 1).bit_length()
+    fit = min(TOPN_SCRATCH_BYTES // (4 * b), (TOPN_SELECT_SMEM - keys) // 4)
+    whole = -(-n // tile) * tile
+    want = whole if slab is None else -(-slab // tile) * tile
+    return max(tile, min(fit // tile * tile, whole, want))
+
+
+def topn_kernel_launches(b: int, n: int, topk: int, slab: int | None = None) -> int:
+    """CUDA kernels one topn_scores call launches on the card: 2 a slab."""
+    return 2 * -(-n // topn_slab(b, n, topk, slab))
+
+
+def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
+                slab: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of U @ V^T per row without the (B, N) score matrix.
 
     u (B, D), v (N, D) -> (values (B, topk) f32, indices (B, topk) int32),
-    ties to the lowest item index.
+    descending, ties to the lowest item index. On the card the catalogue is
+    scored in slabs of `topn_slab(...)` items, `slab` (a test's knob) asking
+    for smaller ones; each slab is one scoring and one selection launch.
     """
     b, d = u.shape
     n = v.shape[0]
@@ -250,28 +332,25 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int
     dev = u.device
     u = _require("u", u, dev, torch.float32)
     v = _require("v", v, dev, torch.float32)
-    if d % 4 or v.shape[1] != d:
-        raise ValueError(f"u and v need one width divisible by 4, got {d}, {v.shape[1]}")
+    if v.shape[1] != d:
+        raise ValueError(f"u and v need one width, got {d} and {v.shape[1]}")
     if topk > TOPN_MAX_K:
         raise ValueError(f"topn kernel takes topk <= {TOPN_MAX_K}, got {topk}")
-    block_n = 128
-    while block_n < topk:
-        block_n *= 2
-    u_p = _pad_to(u, 0, 8)
-    v_p = _pad_to(v, 0, block_n)
-    bp, np_ = u_p.shape[0], v_p.shape[0]
-    kp = 1 << (topk - 1).bit_length()
-    tile = max(256, kp)
-    users_per_block = 4 if kp <= 2048 else 1
-    vals = torch.empty((bp, topk), device=dev, dtype=torch.float32)
-    idx = torch.empty((bp, topk), device=dev, dtype=torch.int32)
+    u, v = topn_operands(u, v)
+    width = topn_slab(b, n, topk, slab)
+    scores = torch.empty((b, width), device=dev, dtype=torch.float32)
+    best = (torch.empty((b, topk), device=dev, dtype=torch.int64)
+            if n > width else None)
+    vals = torch.empty((b, topk), device=dev, dtype=torch.float32)
+    idx = torch.empty((b, topk), device=dev, dtype=torch.int32)
     err = build.library("topn_scores").topn_scores_launch(
-        u_p.data_ptr(), v_p.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        bp, np_, n, d, topk, tile, users_per_block, _stream(u),
+        u.data_ptr(), v.data_ptr(), scores.data_ptr(),
+        None if best is None else best.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), b, n, u.shape[1], topk, width, _stream(u),
     )
     build.check("topn_scores", err)
     LAUNCHES["topn_scores"] += 1
-    return vals[:b], idx[:b]
+    return vals, idx
 
 
 FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernel is built for

@@ -14,13 +14,35 @@ import math
 import torch
 
 
+def _syrk_in_order(gm_at, g_at, rv_at, width: int, shape, k: int, device,
+                   out: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """sum_w gm_w g_w^T and sum_w gm_w rv_w over w = 0 .. width - 1, in that
+    order, in float64, rounded once to `out`: the syrk kernels' arithmetic.
+
+    gm_at(w), g_at(w) give the (..., K) vectors of step w and rv_at(w) the
+    (...,) weights. The product of two fp32 values is exact in float64, so
+    each step adds the exact product and the kernels' fused multiply-add
+    gives the same bits. Each entry is summed on its own, in w order,
+    whatever K is: zero columns leave the kept block's bits unchanged.
+    """
+    prec = torch.zeros(tuple(shape) + (k, k), dtype=torch.float64, device=device)
+    rhs = torch.zeros(tuple(shape) + (k,), dtype=torch.float64, device=device)
+    for w in range(width):
+        a, b = gm_at(w).double(), g_at(w).double()
+        prec.addcmul_(a[..., :, None], b[..., None, :])
+        rhs.addcmul_(a, rv_at(w).double()[..., None])
+    return prec.to(out), rhs.to(out)
+
+
 def masked_syrk_ref(vm: torch.Tensor, rv: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """vm (R, W, K) pre-masked gathered factors, rv (R, W) masked ratings
-    -> prec (R, K, K) = vm^T vm and rhs (R, K) = rv @ vm per row."""
-    prec = torch.einsum("rwk,rwl->rkl", vm, vm)
-    rhs = torch.einsum("rwk,rw->rk", vm, rv)
-    return prec, rhs
+    -> prec (R, K, K) = vm^T vm and rhs (R, K) = rv @ vm per row, summed
+    over W in order in float64 and rounded once (`_syrk_in_order`)."""
+    r, w, k = vm.shape
+    out = torch.promote_types(vm.dtype, torch.float32)
+    return _syrk_in_order(lambda i: vm[:, i], lambda i: vm[:, i], lambda i: rv[:, i],
+                          w, (r,), k, vm.device, out)
 
 
 def gather_syrk_seg_ref(
@@ -32,21 +54,30 @@ def gather_syrk_seg_ref(
 
     v is (N, K) or a stack of draws (S, N, K); the outputs carry the
     leading draw axis iff v does. With bf16_gather the factors are rounded
-    to bf16 before the products and everything is accumulated in fp32.
-    Float64 inputs are summed in float64 (the chip smoke test's exact
-    yardstick for the kernel's rounding).
+    to bf16 before the products. Rows are summed over W in order in
+    float64 (`_syrk_in_order`), then into their segments in float64, and
+    rounded once, as the kernel does; the outputs are fp32 (float64 for
+    float64 inputs, the chip smoke test's exact yardstick).
     """
     stacked = v.dim() == 3
     if bf16_gather:
         v = v.to(torch.bfloat16)
-    acc = torch.promote_types(v.dtype, torch.float32)
+    out = torch.promote_types(v.dtype, torch.float32)
     idx = indices.long()
-    g = v[:, idx] if stacked else v[idx]                     # (..., R, W, K)
-    gm = (g * mask[..., None].to(g.dtype)).to(acc)
-    g = g.to(acc)
-    rv = (values * mask).to(acc)
-    prec_rows = torch.einsum("...rwk,...rwl->...rkl", gm, g)
-    rhs_rows = torch.einsum("...rwk,...rw->...rk", gm, rv.expand(gm.shape[:-1]))
+    r, w = idx.shape
+    rv = values * mask
+
+    def g_at(i):
+        return v[:, idx[:, i]] if stacked else v[idx[:, i]]        # (..., R, K)
+
+    def gm_at(i):
+        # masked before the products, in the gather's dtype
+        return (g_at(i) * mask[:, i, None].to(v.dtype)).to(out)
+
+    lead = (v.shape[0], r) if stacked else (r,)
+    prec_rows, rhs_rows = _syrk_in_order(gm_at, lambda i: g_at(i).to(out),
+                                         lambda i: rv[:, i].to(out), w, lead,
+                                         v.shape[-1], v.device, torch.float64)
     # the one definition of the segment reduction (a lazy import: gibbs
     # imports the kernels, so neither import is circular)
     from repro_torch.core.gibbs import segment_reduce_rows
@@ -55,7 +86,7 @@ def gather_syrk_seg_ref(
                                stacked=stacked, identity=identity_segments)
     rhs = segment_reduce_rows(rhs_rows, seg_ids, n_segments,
                               stacked=stacked, identity=identity_segments)
-    return prec, rhs
+    return prec.to(out), rhs.to(out)
 
 
 def chol_solve_sample_ref(prec: torch.Tensor, rhs: torch.Tensor,

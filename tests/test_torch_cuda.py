@@ -9,9 +9,11 @@ PyTorch:
 
 Tolerances, and why:
   * gather_syrk_seg / masked_syrk: rtol 1e-4, atol 1e-3, the JAX kernel
-    tests' own (tests/test_kernels.py:171); the plain version sums in fp32,
-    the kernels in fp64. Against a float64 evaluation the kernel's error is
-    at most the fp32 plain version's.
+    tests' own (tests/test_kernels.py:171). Kernel and plain version both
+    sum each row over W in order in fp64 and round once (the segment sums
+    of the plain version take index_add_'s order), so they agree to the
+    last bit or nearly; against a float64 evaluation the kernel's error is
+    at most the plain version's.
   * chol_solve_sample: rtol 2e-3, atol 2e-3 (tests/test_kernels.py:56).
   * topn_scores: equal bit for bit; kernel and plain version sum the
     products in the same order with the same roundings.
@@ -22,6 +24,10 @@ Tolerances, and why:
     2^-7, atol 1e-5): kernel and plain version both compute in fp32 and
     round the output to bf16 once. The peaked case (q x 6) makes the
     softcap and each key count.
+
+The BPMF kernels are instantiated for K = 16, 32 and 64; the cases run
+every rank the repo uses (8, 16, 24, 32, 64), the others through the
+wrappers' padding.
 """
 import numpy as np
 import pytest
@@ -49,16 +55,20 @@ def _bucket(rng, r, w, n, n_seg, device):
     return [torch.tensor(a, device=device) for a in (idx, val, msk, seg)]
 
 
+RANKS = [8, 16, 24, 32, 64]
+
+
+@pytest.mark.parametrize("k", RANKS)
 @pytest.mark.parametrize("r,w,n_seg,s,bf16", [
     (40, 512, 7, 0, False),    # long segments: the two-pass path
     (64, 3, 64, 0, False),     # identity segments: one pass
     (33, 100, 12, 4, True),    # stacked draws, bf16 gather
     (19, 70, 19, 3, False),    # stacked identity, padded rows
 ])
-def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16):
+def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16, k):
     rng = np.random.default_rng(r + w)
     args = _bucket(rng, r, w, 500, n_seg, cuda)
-    v = torch.tensor(rng.normal(size=((s,) if s else ()) + (500, 64)).astype(np.float32),
+    v = torch.tensor(rng.normal(size=((s,) if s else ()) + (500, k)).astype(np.float32),
                      device=cuda)
     kw = dict(bf16_gather=bf16, identity_segments=n_seg == r)
     seg_ptr = torch.tensor(ops.segment_offsets(args[3].cpu().numpy(), n_seg), device=cuda)
@@ -66,6 +76,7 @@ def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16):
     pk, bk = ops.gather_syrk_seg(*args, n_seg, v, seg_ptr=seg_ptr, **kw)
     assert ops.LAUNCHES["gather_syrk_seg"] == 1
     pp, bp = ref.gather_syrk_seg_ref(*args, n_seg, v, **kw)
+    assert pk.shape == pp.shape and bk.shape == bp.shape
     torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(bk, bp, rtol=1e-4, atol=1e-3)
     if not bf16:
@@ -77,9 +88,9 @@ def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16):
 
 def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
     """No fallback: a CUDA tensor the kernel cannot take raises."""
-    vm = torch.zeros(4, 8, 32, device=cuda)
-    with pytest.raises(ValueError):
-        ops.masked_syrk(vm, torch.zeros(4, 8, device=cuda))          # K != 64
+    vm = torch.zeros(4, 8, 72, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ops.masked_syrk(vm, torch.zeros(4, 8, device=cuda))          # K > 64
     prec = torch.eye(64, device=cuda).expand(3, 64, 64).double()
     with pytest.raises(ValueError):
         ops.chol_solve_sample(prec, torch.zeros(3, 64, device=cuda),
@@ -91,25 +102,31 @@ def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
         ops.gather_syrk_seg(idx, val, msk, seg, 4, torch.zeros(10, 64, device=cuda))
 
 
-def test_masked_syrk_and_chol_kernels_match_plain(cuda):
+@pytest.mark.parametrize("k", RANKS)
+def test_masked_syrk_and_chol_kernels_match_plain(cuda, k):
     g = torch.Generator(device=cuda).manual_seed(0)
-    vm = torch.randn(50, 70, 64, generator=g, device=cuda)
+    vm = torch.randn(50, 70, k, generator=g, device=cuda)
     rv = torch.randn(50, 70, generator=g, device=cuda)
+    ops.reset_launches()
     for a, b in zip(ops.masked_syrk(vm, rv), ref.masked_syrk_ref(vm, rv)):
+        assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
-    a = torch.randn(37, 64, 64, generator=g, device=cuda)
-    prec = a @ a.transpose(1, 2) + 7.0 * torch.eye(64, device=cuda)
-    rhs = torch.randn(37, 64, generator=g, device=cuda)
-    z = torch.randn(37, 64, generator=g, device=cuda)
-    torch.testing.assert_close(ops.chol_solve_sample(prec, rhs, z),
-                               ref.chol_solve_sample_ref(prec, rhs, z),
+    a = torch.randn(37, k, k, generator=g, device=cuda)
+    prec = a @ a.transpose(1, 2) + (0.1 * k + 0.6) * torch.eye(k, device=cuda)
+    rhs = torch.randn(37, k, generator=g, device=cuda)
+    z = torch.randn(37, k, generator=g, device=cuda)
+    x = ops.chol_solve_sample(prec, rhs, z)
+    assert x.shape == (37, k)
+    torch.testing.assert_close(x, ref.chol_solve_sample_ref(prec, rhs, z),
                                rtol=2e-3, atol=2e-3)
+    assert ops.LAUNCHES["masked_syrk"] == ops.LAUNCHES["chol_solve_sample"] == 1
 
 
-def test_chol_kernel_not_positive_definite_matches_plain(cuda):
-    eye = torch.eye(64, device=cuda)
-    bad = torch.stack([-eye, eye * torch.linspace(-1, 1, 64, device=cuda), 2 * eye])
-    ones = torch.ones(3, 64, device=cuda)
+@pytest.mark.parametrize("k", RANKS)
+def test_chol_kernel_not_positive_definite_matches_plain(cuda, k):
+    eye = torch.eye(k, device=cuda)
+    bad = torch.stack([-eye, eye * torch.linspace(-1, 1, k, device=cuda), 2 * eye])
+    ones = torch.ones(3, k, device=cuda)
     xk = ops.chol_solve_sample(bad, ones, ones)
     xp = ref.chol_solve_sample_ref(bad, ones, ones)
     fin = torch.isfinite(xp)
@@ -117,16 +134,42 @@ def test_chol_kernel_not_positive_definite_matches_plain(cuda):
     torch.testing.assert_close(xk[fin], xp[fin], rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("b,n,d,topk", [(40, 3000, 256, 10), (9, 700, 64, 600)])
-def test_topn_kernel_matches_plain_bitwise(cuda, b, n, d, topk):
+@pytest.mark.parametrize("b,n,d,topk,slab", [
+    (40, 3000, 256, 10, None),
+    (9, 700, 64, 600, None),
+    (7, 1000, 32, 1, None),          # k = 1
+    (5, 777, 16, 777, None),         # k = n, the whole row
+    (3, 9000, 8, 8192, None),        # k = TOPN_MAX_K
+    (4097, 300, 16, 20, None),       # B one past a user tile
+    (64, 5775, 256, 1024, None),     # the ChEMBL catalogue at the serving width
+    (11, 1000, 6, 50, None),         # D = 6: zero columns up to the kernel's depth
+    (13, 3000, 24, 300, 256),        # several slabs: a running best across them
+    (6, 1000, 8, 700, 128),          # k beyond a slab
+])
+def test_topn_kernel_matches_plain_bitwise(cuda, b, n, d, topk, slab):
     g = torch.Generator(device=cuda).manual_seed(1)
     u = torch.randn(b, d, generator=g, device=cuda)
     v = torch.randn(n, d, generator=g, device=cuda)
-    v[9] = v[2]
-    v[n - 1] = v[2]
-    vk, ik = ops.topn_scores(u, v, topk)
+    # planted ties, inside and across the 128-item tiles and the slabs
+    for a in (9, n - 1, n // 2, min(130, n - 2)):
+        v[a] = v[2]
+    ops.reset_launches()
+    vk, ik = ops.topn_scores(u, v, topk, slab=slab)
+    assert ops.LAUNCHES["topn_scores"] == 1
     vp, ip = ref.topn_scores_ref(u, v, topk)
     assert torch.equal(ik, ip) and torch.equal(vk, vp)
+
+
+def test_topn_kernel_dyadic_ties_across_slabs(cuda):
+    """Dyadic inputs sum exactly, so whole groups of items tie; the lowest
+    index must win every tie, across tiles and slabs."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.randint(-4, 5, (50, 12), generator=g, device=cuda).float() / 4
+    v = torch.randint(-4, 5, (2000, 12), generator=g, device=cuda).float() / 4
+    for slab in (None, 128, 640):
+        vk, ik = ops.topn_scores(u, v, 300, slab=slab)
+        vp, ip = ref.topn_scores_ref(u, v, 300)
+        assert torch.equal(ik, ip) and torch.equal(vk, vp)
 
 
 @pytest.mark.parametrize("bh,bhk,s,d,window,cap,dtype", [

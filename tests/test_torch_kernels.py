@@ -168,3 +168,131 @@ def test_topn_plain_random_matches_jax_kernel():
 def test_topn_rejects_bad_topk():
     with pytest.raises(ValueError):
         ops.topn_scores(torch.zeros(2, 4), torch.zeros(3, 4), 4)
+
+
+# ---------------------------------------------------------------------------
+# the ranks the kernels take: padding helpers, through the plain versions
+# ---------------------------------------------------------------------------
+def test_kernel_rank_rounds_up_to_an_instantiated_rank():
+    assert [ops.kernel_rank(k) for k in (1, 8, 16, 17, 24, 32, 40, 64)] == [
+        16, 16, 16, 32, 32, 32, 64, 64]
+    assert ops.KERNEL_RANKS == (16, 32, 64)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ops.kernel_rank(65)
+
+
+@pytest.mark.parametrize("k", [8, 24, 40])
+def test_zero_padded_syrk_keeps_the_block_bit_for_bit(k):
+    """Zero columns add exact zeros: the kept K x K block and K-vector of
+    the padded statistics are the unpadded ones, bit for bit, and the
+    padded rows and columns are zero. (The plain versions sum each entry
+    on its own, over W in order, as the kernels do.)"""
+    kp = ops.kernel_rank(k)
+    rng = np.random.default_rng(k)
+    vm = _t(rng.normal(size=(6, 40, k)).astype(np.float32))
+    rv = _t(rng.normal(size=(6, 40)).astype(np.float32))
+    pp, bp = ops.masked_syrk(ops.pad_rank(vm, kp), rv)
+    pu, bu = ops.masked_syrk(vm, rv)
+    assert pp.shape == (6, kp, kp) and pp.dtype == torch.float32
+    assert torch.equal(pp[:, :k, :k], pu) and torch.equal(bp[:, :k], bu)
+    assert not pp[:, k:].any() and not pp[:, :, k:].any() and not bp[:, k:].any()
+    # the fused statistics over a zero-padded V, stacked draws included
+    idx, val, msk, seg = _bucket(rng, 12, 16, 30, 5)
+    v = _t(rng.normal(size=(2, 30, k)).astype(np.float32))
+    args = (_t(idx), _t(val), _t(msk), _t(seg), 5)
+    for bf16 in (False, True):
+        gp, hp = ops.gather_syrk_seg(*args, ops.pad_rank(v, kp), bf16_gather=bf16)
+        gu, hu = ops.gather_syrk_seg(*args, v, bf16_gather=bf16)
+        assert gp.shape == (2, 5, kp, kp)
+        assert torch.equal(gp[..., :k, :k], gu) and torch.equal(hp[..., :k], hu)
+        assert not gp[..., k:, :].any() and not hp[..., k:].any()
+
+
+def _spd(rng, b, k):
+    a = rng.normal(size=(b, k, k))
+    return (a @ np.transpose(a, (0, 2, 1)) + (k * 0.1 + 0.5) * np.eye(k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [8, 24, 40])
+def test_identity_padded_solve_matches_the_unpadded_solve(k):
+    kp = ops.kernel_rank(k)
+    rng = np.random.default_rng(100 + k)
+    prec, rhs, z = (_t(_spd(rng, 9, k)), _t(rng.normal(size=(9, k)).astype(np.float32)),
+                    _t(rng.normal(size=(9, k)).astype(np.float32)))
+    big, rhs_p, z_p = ops.pad_rank_systems(prec, rhs, z, kp)
+    assert big.shape == (9, kp, kp) and rhs_p.shape == z_p.shape == (9, kp)
+    assert torch.equal(big[:, :k, :k], prec)
+    assert torch.equal(big[:, k:, k:], torch.eye(kp - k).expand(9, -1, -1))
+    assert not big[:, :k, k:].any() and not big[:, k:, :k].any()
+    xp = ops.chol_solve_sample(big, rhs_p, z_p)
+    xu = ops.chol_solve_sample(prec, rhs, z)
+    np.testing.assert_allclose(xp[:, :k].numpy(), xu.numpy(), rtol=1e-6, atol=1e-6)
+    assert not xp[:, k:].any()
+
+
+@pytest.mark.parametrize("k", [8, 24])
+def test_padded_plain_versions_match_jax_kernels(k):
+    """The statistics and the solve at the kernels' padded rank, cut back
+    to K, against the JAX kernels at K itself."""
+    kp = ops.kernel_rank(k)
+    rng = np.random.default_rng(200 + k)
+    vm = rng.normal(size=(7, 24, k)).astype(np.float32)
+    rv = rng.normal(size=(7, 24)).astype(np.float32)
+    pj, bj = jops.masked_syrk(jnp.asarray(vm), jnp.asarray(rv))  # interpret mode
+    pt, bt = ops.masked_syrk(ops.pad_rank(_t(vm), kp), _t(rv))
+    np.testing.assert_allclose(pt[:, :k, :k].numpy(), np.asarray(pj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(bt[:, :k].numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
+
+    idx, val, msk, seg = _bucket(rng, 10, 16, 40, 6)
+    v = rng.normal(size=(40, k)).astype(np.float32)
+    gj, hj = jops.gather_syrk_seg(jnp.asarray(idx), jnp.asarray(val), jnp.asarray(msk),
+                                  jnp.asarray(seg), 6, jnp.asarray(v), interpret=None)
+    gt, ht = ops.gather_syrk_seg(_t(idx), _t(val), _t(msk), _t(seg), 6,
+                                 ops.pad_rank(_t(v), kp))
+    np.testing.assert_allclose(gt[:, :k, :k].numpy(), np.asarray(gj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(ht[:, :k].numpy(), np.asarray(hj), rtol=1e-4, atol=1e-3)
+
+    prec = _spd(rng, 5, k)
+    rhs = rng.normal(size=(5, k)).astype(np.float32)
+    z = rng.normal(size=(5, k)).astype(np.float32)
+    xj = jops.chol_solve_sample(jnp.asarray(prec), jnp.asarray(rhs), jnp.asarray(z))
+    xt = ops.chol_solve_sample(*ops.pad_rank_systems(_t(prec), _t(rhs), _t(z), kp))
+    np.testing.assert_allclose(xt[:, :k].numpy(), np.asarray(xj), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,n,d", [(5, 300, 6), (130, 129, 16), (1, 1, 1), (3, 40, 2)])
+def test_topn_operands_pad_the_width_with_zero_columns(b, n, d):
+    """The scoring kernel's operands: the width padded to a multiple of 4,
+    and no score changed by it: the plain top-N of the padded operands is
+    the unpadded one, bit for bit."""
+    rng = np.random.default_rng(b + n + d)
+    u = _t(rng.normal(size=(b, d)).astype(np.float32))
+    v = _t(rng.normal(size=(n, d)).astype(np.float32))
+    up, vp = ops.topn_operands(u, v)
+    dp = -(-d // 4) * 4
+    assert up.shape == (b, dp) and vp.shape == (n, dp)
+    assert torch.equal(up[:, :d], u) and torch.equal(vp[:, :d], v)
+    assert not up[:, d:].any() and not vp[:, d:].any()
+    k = min(n, 7)
+    vals_p, idx_p = ops.topn_scores(up, vp, k)
+    vals_u, idx_u = ops.topn_scores(u, v, k)
+    assert torch.equal(vals_p, vals_u) and torch.equal(idx_p, idx_u)
+    if d % 4 == 0:
+        assert up.data_ptr() == u.data_ptr()      # no copy
+
+
+@pytest.mark.parametrize("b", [1, 4096, 10 ** 6])
+@pytest.mark.parametrize("topk", [1, 1024, ops.TOPN_MAX_K])
+def test_topn_scratch_is_bounded_whatever_the_catalogue(b, topk):
+    """Slabs: whole tiles, their (B, slab) scores within the scratch bound
+    (or one tile), a row's slab scores beside the keys in a selection
+    block, whatever the catalogue's size."""
+    keys = 8 << (topk - 1).bit_length()
+    for n in (topk, 5775, 10 ** 6, 10 ** 9):
+        slab = ops.topn_slab(b, n, topk)
+        assert slab % 128 == 0 and 128 <= slab <= -(-n // 128) * 128
+        assert b * slab * 4 <= max(ops.TOPN_SCRATCH_BYTES, b * 128 * 4)
+        assert keys + 4 * slab <= ops.TOPN_SELECT_SMEM
+        assert ops.topn_kernel_launches(b, n, topk) == 2 * -(-n // slab)
+    assert ops.topn_slab(4096, 5775, 1024) == 5888          # one slab: the ChEMBL catalogue
+    assert ops.topn_slab(4096, 5775, 1024, slab=300) == 384  # a test's smaller slabs

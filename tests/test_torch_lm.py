@@ -292,6 +292,47 @@ def test_reduced_gemma2_loss_prefill_decode_match_jax(name, monkeypatch):
     np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
 
 
+def test_reduced_gemma2_scores_past_the_softcap_match_jax(monkeypatch):
+    """Every wq x 16 drives the attention scores past the softcap of 50 (at
+    x 1 the largest is about 4): the port's forward logits still match the
+    JAX package's at the fp32 tolerance of the parity test above, and the
+    same forward with the softcap dropped in the flash wrapper does not."""
+    scale = 16.0
+    jcfg, tcfg, jmodel, jparams, tmodel, tparams = _models("fp32")
+    jparams = dict(jparams, layers=dict(jparams["layers"], attn=dict(
+        jparams["layers"]["attn"], wq=jparams["layers"]["attn"]["wq"] * scale)))
+    with torch.no_grad():
+        for layer in tparams.layers:
+            layer.attn.wq.mul_(scale)
+    tokens = TokenStream(tcfg, 2, 64, seed=3)(0)["tokens"]
+    positions = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64))
+    jlogits = jt.decoder_forward(jparams, jcfg, jnp.asarray(tokens),
+                                 positions=jnp.asarray(positions))[0]
+
+    real, peak = ops.flash_attention, []
+
+    def seen(q, k, v, **kw):      # the scores the flash wrapper is given
+        s = torch.einsum("bqd,bkd->bqk", q.float(),
+                         k.float().repeat_interleave(q.shape[0] // k.shape[0], 0))
+        peak.append(float(s.abs().max()) * kw["scale"])
+        return real(q, k, v, **kw)
+
+    def forward():
+        with torch.no_grad():
+            return tt.decoder_forward(tparams, tcfg, torch.as_tensor(tokens),
+                                      positions=torch.as_tensor(positions.copy()))[0]
+
+    monkeypatch.setattr(ops, "flash_attention", seen)
+    logits = forward()
+    assert len(peak) == tcfg.n_layers and max(peak) > tcfg.attn_softcap
+    _close(logits, jlogits, dict(rtol=1e-4, atol=1e-4))
+
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, **kw: real(q, k, v, **dict(kw, softcap=0.0)))
+    dropped = forward()
+    assert not np.allclose(_np(dropped), _np(jlogits), rtol=1e-4, atol=1e-4)
+
+
 def test_prefill_then_decode_matches_full_prefill():
     """tests/test_models.py's cache invariant, in the port: prefill(t[:-1])
     + decode(t[-1]) gives the logits of prefill(t)."""
