@@ -16,9 +16,11 @@ no kernels line and no result line. Phases:
   2. data     chembl_like(scale=1.0) with a 0.1 test split, and the
               balanced bucket plans of both sides (through GibbsSampler)
   3. kernels  each BPMF training kernel at K = 64 against its plain
-              PyTorch version on the card at the run's shapes, timed beside
-              its bound and one PyTorch call that computes the same
-              function where there is one
+              PyTorch version on the card at the run's shapes (masked_syrk
+              bit for bit), timed beside its bound and one PyTorch call
+              that computes the same function where there is one;
+              each masked_syrk bucket its narrow path can stage also
+              down both of its paths, to show where the threshold lies
   4. ranks    the same kernels at K = 16, 24 and 32 (24 through the
               wrappers' padding)
   5. topn     top-N at serving's shapes, bit for bit in one slab and in
@@ -42,9 +44,14 @@ no kernels line and no result line. Phases:
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
               bf16 ulp, also on peaked scores (q x 6), where the ulp limit
               must reject the plain versions of neighbouring functions (a
-              dropped softcap, K a row off, a window a tile short); timed
-              beside its bound and, at softcap 0, beside
-              scaled_dot_product_attention
+              dropped softcap, K a row off, a window a tile short) and
+              the kernel lies within an ulp of float64; at q x 16 and
+              softcap 0 within 3e-2 and no farther from float64 than the
+              plain version; timed
+              beside its bound (4 bf16 tensor passes a visible pair) and
+              the bound of P V on the fp32 pipes and, at softcap 0, beside
+              scaled_dot_product_attention; a digest of an fp32 output, to
+              hold the fp32 kernel's bits against another commit's
  11. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
@@ -52,7 +59,8 @@ no kernels line and no result line. Phases:
               bf16 and in fp32, and each layer's flash attention on its own
               inputs against float64; again with every wq x 16, where the
               attention scores pass the softcap of 50, with the two paths'
-              distance at 1 to 26 layers
+              distance at 1 to 26 layers; the forward's profile shows its
+              26 launches on the bf16 tensor-core kernel
  12. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
@@ -71,6 +79,7 @@ before the last line. No BPMF phase was cut to make room for the LM ones.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -88,6 +97,9 @@ K = 64
 # flops of one rating's statistics: the symmetric v v^T needs K(K+1)/2
 # multiply-adds, r v needs K
 SYRK_FLOPS = K * (K + 1) + 2 * K
+# the widest row masked_syrk's narrow path can stage at K
+# (csrc/masked_syrk.cu: STAGE_FLOATS / K)
+SYRK_STAGE_VECTORS = 4096 // K
 TOPK = 10
 N_USERS_SERVED = 4096
 OTHER_RANKS = (16, 24, 32)             # the BPMF kernels' other ranks the repo runs
@@ -108,6 +120,7 @@ FLASH_TOL = {"bf16": dict(rtol=3e-2, atol=3e-2),    # tests/test_kernels.py:91
 # it) and, below that, by the fp32 sums' order (under 1e-6 at these
 # shapes). Every bf16 case is also held to that, which implies 3e-2.
 FLASH_BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+FP32_DIGEST_SEED = 17                  # the inputs of the fp32 flash output's digest
 # q is drawn at this scale in the peaked cases: scores of std 6 reach 20
 # and more, where the softcap of 50 bends them and a few keys carry each
 # row, so a dropped softcap or a misplaced key changes the output by more
@@ -462,7 +475,10 @@ class Smoke:
                      shapes="one fused sweep: every bucket of both plans, fp32, K=64")
         del stacks
 
-        # --- masked_syrk: the kernel engine's pre-gathered blocks, every bucket
+        # --- masked_syrk: the kernel engine's pre-gathered blocks, every bucket;
+        # where the package has a narrow path, each bucket it can stage is
+        # also timed down both paths, bits checked: where the threshold lies
+        two_paths = hasattr(ops, "SYRK_NARROW_MAX_W")
         tot = dict(ms=0.0, plain=0.0, lib=0.0, err=0.0, bytes=0.0, flops=0.0)
         for side, b, cp in self._bucket_sides(u, v):
             vm = (cp[b.indices.long()] * b.mask[..., None]).contiguous()
@@ -471,8 +487,10 @@ class Smoke:
             pk, rk = ops.masked_syrk(vm, rv)
             pp, rp = ref.masked_syrk_ref(vm, rv)
             self.sync()
-            err = max(self.close(pk, pp, f"masked_syrk {tag} prec"),
-                      self.close(rk, rp, f"masked_syrk {tag} rhs"))
+            err = max(self.max_err(pk, pp), self.max_err(rk, rp))
+            self.check(torch.equal(pk, pp) and torch.equal(rk, rp),
+                       f"masked_syrk {tag}: prec and rhs equal the plain version's "
+                       f"bit for bit (max abs err {err:.3e})")
             vt = vm.transpose(1, 2)
             ms = self.cuda_ms(lambda: ops.masked_syrk(vm, rv))
             pms = self.cuda_ms(lambda: ref.masked_syrk_ref(vm, rv), reps=3)
@@ -482,7 +500,17 @@ class Smoke:
             n_bytes = r * w * (K + 1) * 4 + r * (K * K + K) * 4
             flops = r * w * SYRK_FLOPS
             bms, _ = self.bound_ms(n_bytes, flops)
-            print(f"    masked_syrk {tag}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+            paths = ""
+            if two_paths and w <= SYRK_STAGE_VECTORS:
+                for path, narrow_max in (("narrow", SYRK_STAGE_VECTORS), ("wide", 0)):
+                    pw, rw = self.syrk_path(vm, rv, narrow_max)
+                    self.sync()
+                    self.check(torch.equal(pw, pp) and torch.equal(rw, rp),
+                               f"masked_syrk {tag} down the {path} path: bit for bit")
+                    del pw, rw
+                    t = self.cuda_ms(lambda: self.syrk_path(vm, rv, narrow_max))
+                    paths += f", {t:.3f} ms {path} path"
+            print(f"    masked_syrk {tag}: {ms:.3f} ms kernel{paths}, {pms:.3f} ms plain, "
                   f"{lms:.3f} ms bmm, bound {bms:.3f} ms")
             for key, val in (("ms", ms), ("plain", pms), ("lib", lms),
                              ("bytes", n_bytes), ("flops", flops)):
@@ -548,6 +576,20 @@ class Smoke:
                    and bool(torch.allclose(xk[fin], xp[fin], **CHOL_TOL)),
                    "chol_solve_sample on systems that are not positive definite: "
                    "finite where the plain version is, and equal there")
+
+    def syrk_path(self, vm, rv, narrow_max_w: int):
+        """masked_syrk's kernel with the narrow path taking rows up to
+        narrow_max_w wide (0: none), by a direct call of the launcher,
+        outside the launch count."""
+        torch = self.torch
+        r, w, k = vm.shape
+        prec = torch.empty((r, k, k), device=self.dev)
+        rhs = torch.empty((r, k), device=self.dev)
+        err = self.build_mod.library("masked_syrk").masked_syrk_launch(
+            vm.data_ptr(), rv.data_ptr(), prec.data_ptr(), rhs.data_ptr(), r, w, k,
+            narrow_max_w, torch.cuda.current_stream().cuda_stream)
+        self.build_mod.check("masked_syrk", err)
+        return prec, rhs
 
     def topn(self):
         """topn_scores at serving's shapes: 4,096 users x 5,775 items at
@@ -651,10 +693,10 @@ class Smoke:
                 pk, rk = ops.masked_syrk(vm, rv)
                 pp, rp = ref.masked_syrk_ref(vm, rv)
                 self.sync()
-                ok = self.verdict(pk, pp, "")[0] and self.verdict(rk, rp, "")[0]
+                ok = torch.equal(pk, pp) and torch.equal(rk, rp)
                 e = max(self.max_err(pk, pp), self.max_err(rk, rp))
-                self.check(ok, f"K={k} masked_syrk {side} width {b.width}: max abs "
-                           f"err {e:.3e} ({TOL})")
+                self.check(ok, f"K={k} masked_syrk {side} width {b.width}: bit for bit "
+                           f"(max abs err {e:.3e})")
                 err["masked_syrk"] = max(err["masked_syrk"], e)
                 del vm, rv, pk, rk, pp, rp
             prec, rhs = posterior_systems(v, s.user_buckets, s.m,
@@ -984,6 +1026,29 @@ class Smoke:
                            FLASH_BF16_ULP_TOL)
             return err
 
+        def against_float64(q, k, v, got, want, tag, **kw):
+            """The least atol beside the one-ulp rtol with which the kernel's
+            output, the plain version's and the float64 attention rounded
+            to bf16 meet: the kernel within one bf16 ulp of float64, or no
+            farther from it than the plain version."""
+            exact = self.exact_attention(
+                *(t.transpose(0, 1)[None] for t in (q, k, v)), causal=kw["causal"],
+                window=kw["window"], attn_softcap=kw["softcap"], scale=None)[0].transpose(0, 1)
+            rtol = FLASH_BF16_ULP_TOL["rtol"]
+
+            def need(a, b):
+                return float(((a.double() - b.double()).abs() - rtol * b.double().abs()).max())
+
+            nk, npl = need(got, exact), need(want, exact)
+            ne = need(exact.to(torch.bfloat16), want)
+            self.check(nk <= max(FLASH_BF16_ULP_TOL["atol"], npl),
+                       f"flash_attention {tag} against float64: the kernel takes an atol "
+                       f"of {nk:.2e} beside the one-ulp rtol, the plain version "
+                       f"{npl:.2e}; the float64 value rounded to bf16 takes {ne:.2e} against "
+                       "the plain version (the kernel within one ulp of float64, or no "
+                       "farther than the plain version)")
+            del exact
+
         def faults(q, k, v, kind, inputs, require, **kw):
             """The plain versions of neighbouring functions, held against
             the right one's: which of the two bf16 limits rejects each."""
@@ -1016,13 +1081,17 @@ class Smoke:
             faults(q, k, v, kind, "N(0,1) inputs", False, **kw)
             ms = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
             pms = self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), reps=2)
-            # QK^T takes bf16 inputs, whose products are exact in fp32: the
-            # card may run it on its tensor cores. P stays fp32, so PV runs
-            # on the fp32 pipes. Both peaks alone are printed beside it.
+            # The bound: QK^T takes bf16 inputs, whose products are exact in
+            # fp32, so it is one bf16 tensor pass over the visible pairs. P
+            # stays fp32; split into three bf16 terms that sum to it exactly
+            # (csrc/flash_attention.cu), P V is three more passes: four in
+            # all. Beside it: the bound before the tensor-core kernel, with
+            # P V on the fp32 pipes, and both products at one peak.
             qk_flops = pv_flops = 2.0 * d * bh * visible_pairs(LM_SEQ, window)
             tb = n_bytes / HBM_BYTES_PER_S * 1e3
-            to = (qk_flops / BF16_TENSOR_FLOPS + pv_flops / FP32_FLOPS) * 1e3
+            to = 4 * qk_flops / BF16_TENSOR_FLOPS * 1e3
             bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+            b_pv32 = max(tb, (qk_flops / BF16_TENSOR_FLOPS + pv_flops / FP32_FLOPS) * 1e3)
             b32 = max(tb, (qk_flops + pv_flops) / FP32_FLOPS * 1e3)
             b16 = max(tb, (qk_flops + pv_flops) / BF16_TENSOR_FLOPS * 1e3)
             # softcap 0: the function scaled_dot_product_attention computes
@@ -1044,13 +1113,14 @@ class Smoke:
             ms0 = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw0))
             lms0 = self.cuda_ms(sdpa)
             print(f"    flash_attention {kind}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
-                  f"bound {bms:.3f} ms ({by}: QK^T at the bf16 tensor peak, PV at the "
-                  f"fp32 peak; kernel at {ms / bms:.2f}x); all at the fp32 peak "
-                  f"{b32:.3f} ms, all at the bf16 tensor peak {b16:.3f} ms; "
-                  f"softcap 0: {ms0:.3f} ms kernel, {lms0:.3f} ms "
+                  f"bound {bms:.3f} ms ({by}: 4 bf16 tensor passes a visible pair, "
+                  f"QK^T and the 3-term P V; kernel at {ms / bms:.2f}x); with P V on "
+                  f"the fp32 pipes {b_pv32:.3f} ms (kernel at {ms / b_pv32:.2f}x); all "
+                  f"at the fp32 peak {b32:.3f} ms, both products in one bf16 tensor "
+                  f"pass each {b16:.3f} ms; softcap 0: {ms0:.3f} ms kernel, {lms0:.3f} ms "
                   f"scaled_dot_product_attention (agree to {err0:.2e})")
-            per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b32=b32, b16=b16,
-                             by=by, ms0=ms0, lib0=lms0)
+            per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b_pv32=b_pv32,
+                             b32=b32, b16=b16, by=by, ms0=ms0, lib0=lms0)
             del mask
         del q, k, v
         # peaked scores, where the softcap and each key count: the kernel
@@ -1058,10 +1128,23 @@ class Smoke:
         q, k, v = qkv(LM_SEQ, torch.bfloat16, PEAK_SCALE)
         for window, kind in ((4096, "local"), (0, "global")):
             kw = dict(causal=True, window=window, softcap=50.0)
-            check(q, k, v, f"{kind} (8, {LM_SEQ}, 256) bf16, q x {PEAK_SCALE}, window "
-                  f"{window}, softcap 50", "bf16", **kw)
+            tag = f"{kind} (8, {LM_SEQ}, 256) bf16, q x {PEAK_SCALE}, window {window}, softcap 50"
+            check(q, k, v, tag, "bf16", **kw)
+            against_float64(q, k, v, ops.flash_attention(q, k, v, **kw),
+                            ref.flash_attention_ref(q, k, v, **kw), tag, **kw)
             faults(q, k, v, kind, f"q x {PEAK_SCALE}", True, **kw)
         del q, k, v
+        # scores of std 16 with no softcap, the most peaked inputs: the fp32
+        # plain version's own rounding is past an ulp of the float64 value
+        # here, so the kernel is held to 3e-2 of it and to float64
+        q, k, v = qkv(LM_SEQ, torch.bfloat16, WQ_SCALE)
+        kw = dict(causal=True, window=4096, softcap=0.0)
+        tag = f"local (8, {LM_SEQ}, 256) bf16, q x {WQ_SCALE:g}, window 4096, softcap 0"
+        got, want = ops.flash_attention(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
+        self.sync()
+        self.close(got.float(), want.float(), f"flash_attention {tag}", FLASH_TOL["bf16"])
+        against_float64(q, k, v, got, want, tag, **kw)
+        del q, k, v, got, want
         # a ragged sequence, and fp32
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             q, k, v = qkv(LM_SEQ - 192, dtype)
@@ -1070,6 +1153,16 @@ class Smoke:
         q, k, v = qkv(LM_SEQ, torch.float32)
         check(q, k, v, f"(8, {LM_SEQ}, 256) fp32, window 0, softcap 50", "fp32",
               causal=True, window=0, softcap=50.0)
+        # the fp32 kernel's bits on inputs of their own seed, to hold
+        # against another commit's run
+        g = torch.Generator(device=self.dev).manual_seed(FP32_DIGEST_SEED)
+        q, k, v = (torch.randn(n, LM_SEQ, d, generator=g, device=self.dev)
+                   for n in (bh, bhk, bhk))
+        out = ops.flash_attention(q, k, v, causal=True, window=0, softcap=50.0)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"  fp32 flash output (8, {LM_SEQ}, 256), window 0, softcap 50, inputs "
+              f"of seed {FP32_DIGEST_SEED}: sha256 {digest}")
+        del out
         # scores of std 16 (q x WQ_SCALE), most of whose tails the softcap
         # bends, as in lm_eval's scaled forwards: the kernel in fp32
         q, k, v = qkv(LM_SEQ, torch.float32, WQ_SCALE)
@@ -1091,9 +1184,13 @@ class Smoke:
                      library_ms=None,
                      shapes=f"one gemma2-2b forward's attention: 13 local (window 4096) + "
                             f"13 global launches, q (8, {LM_SEQ}, 256), k/v (4, {LM_SEQ}, "
-                            "256) bf16, causal, softcap 50; bound: QK^T at the bf16 "
-                            "tensor peak, PV (fp32 P) at the fp32 peak; no library call "
-                            "applies a softcap",
+                            "256) bf16, causal, softcap 50; bound: 4 bf16 tensor passes "
+                            "a visible pair (QK^T, and P V with the fp32 P split into "
+                            "three exact bf16 terms); no library call applies a softcap",
+                     bound_ms_pv_fp32_pipes=total("b_pv32"),
+                     bound_note="bound_ms was bound_ms_pv_fp32_pipes (QK^T at the bf16 "
+                                "tensor peak, P V at the fp32 peak) while P V ran on the "
+                                "fp32 pipes; the bf16 kernel runs it on the tensor cores",
                      bound_ms_all_fp32_peak=total("b32"),
                      bound_ms_all_bf16_tensor_peak=total("b16"),
                      softcap0_ms=total("ms0"),
@@ -1144,7 +1241,17 @@ class Smoke:
             self.main_launches["flash_attention"] = launches["flash_attention"]
             self.check(bool(self.np.isfinite(loss)), "the loss is finite")
             self.check(float(metrics["tokens"]) == LM_SEQ, f"{LM_SEQ} labels counted")
-            self._profile(lambda: model.loss_fn(params, batch), dt * 1e3, "forward")
+            events = self._profile(lambda: model.loss_fn(params, batch), dt * 1e3,
+                                   "forward")
+            # which CUDA kernel the bf16 launches ran, where the package
+            # names one per dtype
+            name = getattr(ops, "FLASH_KERNEL_NAMES", {}).get(cfg.dtype)
+            if name is not None and events:
+                ran = sum(e.count for e in events if name in e.key)
+                self.check(ran == cfg.n_layers,
+                           f"the forward's profile shows {ran} launches of {name} "
+                           f"({cfg.n_layers} expected: every flash launch of the bf16 "
+                           "forward on the tensor-core kernel)")
         # the same weights down the JAX package's direct path, and both in fp32
         labels = torch.as_tensor(batch["labels"], device=self.dev)
 

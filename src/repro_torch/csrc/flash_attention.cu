@@ -10,44 +10,80 @@
 //   out = softmax(s) v                         fp32, rounded to q's dtype
 //
 // with the running (max, denominator, accumulator) of each query row kept
-// in fp32, as the TPU kernel keeps them in VMEM scratch. q, k and v are
-// bf16 or fp32 and are widened to fp32 as they land in shared memory; the
-// products and P stay fp32 (P is never rounded to bf16).
+// in fp32, as the TPU kernel keeps them in VMEM scratch. P stays fp32: it
+// is never rounded to bf16.
 //
-// GQA: the kernel maps query row block bh to KV row block bh / (BH / BHk),
-// so k and v come in with their own head count and are never repeated in
-// device memory (the caller does not run _expand_kv).
+// GQA: both kernels map query row block bh to KV row block bh / (BH /
+// BHk), so k and v come in with their own head count and are never
+// repeated in device memory (the caller does not run _expand_kv).
+//
+// Two kernels, by dtype, behind the one launcher:
+//
+//   fp32  flash_kernel: both products on the fp32 pipes (SIMT). One block
+//         of 8 warps a 64-row query tile; 32-key tiles staged as fp32 in
+//         shared memory; each warp scores its 8 rows with one key a lane,
+//         writes its P rows to shared memory and adds P V into an 8 x D
+//         accumulator in registers.
+//   bf16  flash_mma_kernel: both products on the tensor cores, with
+//         mma.sync.m16n8k16 (bf16 inputs, fp32 accumulators).
+//
+// The bf16 kernel's premise: an fp32 P goes through bf16 tensor cores
+// exactly. Split each p into p1 = bf16(p), p2 = bf16(p - p1) and
+// p3 = bf16(p - p1 - p2). Each difference is exact in fp32, and p3 takes
+// what is left, so p1 + p2 + p3 == p for every p down to about 2^-100 (a
+// p in [0, 1] has 24 significant bits and each term takes 8); below that
+// the lost part is under 2^-120 of the row's largest p, which is 1. A bf16
+// times a bf16 is exact in fp32, so P V taken as three bf16 MMAs into fp32
+// accumulators adds the same exact products that the fp32 pipes add: only
+// the order of the sums differs. Two terms would leave 2^-16 of p
+// (tests/test_torch_kernels.py checks all three facts). QK^T takes the
+// bf16 q and k as they are.
 //
 // Bound on an H100 at the gemma2-2b forward's shapes, (BH = 8, S = 8,192,
 // D = 256) bf16 with 4 KV heads: operations. The bytes are 101 MB (q, k,
-// v read once, o written once), 0.030 ms at 3.35 TB/s. QK^T and PV take
-// 2 D flops each for every visible pair: 137 GFLOP each for a global
-// layer (S (S + 1) / 2 pairs a head), 103 GFLOP each for a local one
-// (window 4,096). QK^T multiplies bf16 inputs, whose products are exact
-// in fp32, so the card may run it on its tensor cores at 989 TFLOP/s with
-// an fp32 accumulator; PV multiplies the fp32 P, which stays fp32, on the
-// fp32 pipes at 67 TFLOP/s. That is 0.139 + 2.051 = 2.190 ms for a global
-// layer and 0.104 + 1.539 = 1.643 ms for a local one (both products at
-// the fp32 peak: 4.10 and 3.08 ms; both at the bf16 tensor peak: 0.278
-// and 0.208 ms). This kernel runs both products on the fp32 pipes and
-// takes 5.7x and 5.9x those bounds (chip_smoke.py on an NVIDIA H100 80GB
-// HBM3 at 700 W).
+// v read once, o written once), 0.030 ms at 3.35 TB/s. Each bf16 tensor
+// pass over the visible pairs takes 2 D flops a pair: 137 GFLOP for a
+// global layer (S (S + 1) / 2 pairs a head), 103 GFLOP for a local one
+// (window 4,096), 0.139 and 0.104 ms at 989 TFLOP/s. The bf16 kernel makes
+// four such passes, one for QK^T and three for the exact P V: 0.556 ms a
+// global and 0.416 ms a local launch. With P V on the fp32 pipes at 67
+// TFLOP/s instead, as the fp32 kernel runs it, the bound is 2.190 and
+// 1.643 ms; chip_smoke.py prints both.
 //
-// Design. The TPU grid walked the KV axis in order and carried the running
-// statistics across grid steps. Here one block owns one (query tile,
-// head) pair and the KV axis is a loop inside the block: nothing is
-// carried between blocks, there are no atomics and no second pass. A
-// block of 8 warps holds a 64-row Q tile in shared memory; each KV tile of
-// 32 keys (one key a lane) is staged in shared memory, each warp scores
-// its 8 rows against it, updates their running max and denominator with
-// warp shuffles, writes its P rows to a private slice of shared memory and
-// adds P V into the 8 x D accumulator it keeps in registers. Against the
-// operation bound the design does two things: it skips every KV tile that
-// lies wholly outside the causal and window bounds of the block's rows (a
-// local layer visits 4,096 + 64 keys a row, not 8,192), and it issues the
-// longest query tiles first so the causal imbalance does not leave a tail.
-// The products run on the fp32 pipes, not the tensor cores: that is the
-// lever a later kernel pulls.
+// bf16 design. One block of 8 warps owns one (128-row query tile, head)
+// pair, and the KV axis is a loop inside the block: nothing is carried
+// between blocks, there are no atomics and no second pass, and the grid
+// issues the longest query tiles of every head first, so the causal
+// imbalance does not leave a tail. Q (128 rows) and two stages of K and V
+// (64 keys each) sit in shared memory as bf16, each row padded by 16
+// bytes so that ldmatrix reads no bank twice: 198 KB at D = 256. The next
+// K and V tiles are copied by 16-byte cp.async while the block works on
+// this one. Each warp owns 16 query rows:
+//   - S = Q K^T, a 16 x 64 tile in mma accumulator fragments, with Q and
+//     K fragments from shared memory by ldmatrix;
+//   - scale, accurate tanhf for the softcap (the one-ulp checks see
+//     tanh.approx), and the causal, window and ragged-tail mask only on
+//     tiles that cross an edge;
+//   - the online softmax on the fragments: a row's max and sum over the
+//     4 lanes of a quad that hold it, 2 shuffles;
+//   - P reused in registers as the A operand, split into (p3, p2, p1),
+//     three MMAs for each V fragment, V from ldmatrix.trans;
+//   - a tile's P V summed in fresh accumulators and added to O by one
+//     fp32 fused multiply-add that also rescales O. The tensor cores' own
+//     additions do not round as fp32 adds do: fed the running O over
+//     8,192 keys, they left peaked outputs more than a bf16 ulp from the
+//     plain version's (chip_smoke.py's q x 6 cases on an H100);
+//   - O in 16 x D fp32 registers (128 a lane at D = 256), rounded to bf16
+//     once at the end. At D = 256 the kernel runs at 255 registers with a
+//     192-byte spill; holding the tile's split P (48 registers) for the
+//     fresh sums costs about 14% of the time on an H100.
+// KV tiles wholly outside the causal and window bounds of the block are
+// skipped, and a warp skips a tile none of its rows can see.
+//
+// Next for this kernel: wgmma (a warpgroup's 64-row products with B from
+// shared memory, at the card's full tensor rate), TMA copies on mbarriers
+// in place of cp.async, and warp specialisation (a producer warp that
+// keeps the copies in flight beside consumer warpgroups).
 //
 // Masking. A masked score is -inf and the row maximum starts at -inf. A
 // row whose scores so far are all masked keeps p = 0 and l = 0, so a tile
@@ -58,6 +94,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -78,17 +115,6 @@ struct Four<float> {
     return *reinterpret_cast<const float4*>(p);
   }
   static __device__ __forceinline__ float to(float x) { return x; }
-};
-
-template <>
-struct Four<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 to(float x) { return __float2bfloat16(x); }
 };
 
 // rows x D elements of src (row-major, D apart) into dst (ld apart) as
@@ -275,25 +301,314 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int BH,
-             int rep, int Sq, int Sk, int D, int causal, int window,
-             float softcap, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, BH, rep, Sq, Sk, causal, window, softcap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, BH, rep, Sq, Sk, causal, window, softcap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, BH, rep, Sq, Sk, causal, window, softcap, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, BH, rep, Sq, Sk, causal, window, softcap, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------------ bf16: tensor cores
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;             // query rows a block: 16 a warp
+constexpr int BK = 64;              // keys a KV tile
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int PAD = 8;              // bf16 after each shared-memory row (16 bytes)
+constexpr int NS = BK / 8;          // n-tiles of a warp's S
+constexpr int KG = BK / 16;         // 16-key steps of a tile
+
+template <int D>
+constexpr int smem_bytes() {
+  return (BQ + 4 * BK) * (D + PAD) * 2;   // Q, then 2 stages of K and 2 of V
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src into shared memory, or 16 zero bytes where !in
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (x, y) = h1 + h2 + h3 exactly, three bf16 pairs (x in the low halves):
+// each remainder is exact in fp32 and the last term holds what is left
+__device__ __forceinline__ void split3(float x, float y, uint32_t& h1,
+                                       uint32_t& h2, uint32_t& h3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
+  const float2 af = __bfloat1622float2(a);
+  const float rx = x - af.x, ry = y - af.y;
+  const __nv_bfloat162 b = __floats2bfloat162_rn(rx, ry);
+  const float2 bf = __bfloat1622float2(b);
+  h1 = bits(a);
+  h2 = bits(b);
+  h3 = bits(__floats2bfloat162_rn(rx - bf.x, ry - bf.y));
+}
+
+// rows x D of src (row-major, D apart) into dst (D + PAD apart); rows at or
+// past `valid` are zero, so a ragged tail holds finite values
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int valid,
+                                          int rows) {
+  constexpr int C = D / 8;          // 16-byte pieces a row
+  for (int e = threadIdx.x; e < rows * C; e += THREADS) {
+    const int r = e / C, c = (e % C) * 8;
+    const bool in = r < valid;
+    cp_async16(dst + r * (D + PAD) + c, in ? src + (size_t)r * D + c : src, in);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int rep,
+    int causal, int window, float softcap, float scale) {
+  constexpr int LD = D + PAD;
+  constexpr int NO = D / 8;         // n-tiles of a warp's O
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  bf16* qs = smem_bf16;             // BQ x LD
+  bf16* ks = qs + BQ * LD;          // 2 stages of BK x LD
+  bf16* vs = ks + 2 * BK * LD;      // 2 stages of BK x LD
+
+  const int bh = blockIdx.x;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;   // longest rows first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;          // fragment row, column pair
+  const int qw = q0 + warp * 16;                    // the warp's first row
+  const bf16* kb = k + (size_t)(bh / rep) * Sk * D;
+  const bf16* vb = v + (size_t)(bh / rep) * Sk * D;
+
+  // the KV tiles some row of this block can see
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  int kt_end = (Sk + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+
+  load_rows<D>(qs, q + ((size_t)bh * Sq + q0) * D, min(BQ, Sq - q0), BQ);
+  if (kt_begin < kt_end) {
+    const int k0 = kt_begin * BK;
+    load_rows<D>(ks, kb + (size_t)k0 * D, min(BK, Sk - k0), BK);
+    load_rows<D>(vs, vb + (size_t)k0 * D, min(BK, Sk - k0), BK);
+  }
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // the lane's two rows: qw + g (fragment entries 0, 1) and qw + g + 8 (2, 3)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt_begin, st = 0; kt < kt_end; ++kt, st ^= 1) {
+    if (kt + 1 < kt_end) {          // the next tile's copies fly meanwhile
+      const int k1 = (kt + 1) * BK;
+      load_rows<D>(ks + (st ^ 1) * BK * LD, kb + (size_t)k1 * D, min(BK, Sk - k1), BK);
+      load_rows<D>(vs + (st ^ 1) * BK * LD, vb + (size_t)k1 * D, min(BK, Sk - k1), BK);
+    }
+    cp_async_commit();
+    cp_async_wait_one();            // this tile has landed
+    __syncthreads();
+
+    const int k0 = kt * BK;
+    const bf16* kt_s = ks + st * BK * LD;
+    const bf16* vt_s = vs + st * BK * LD;
+    // whether any row of the warp sees a key of the tile, and whether
+    // some pair of the tile is masked
+    const bool seen = qw < Sq && !(causal && k0 > qw + 15) &&
+                      !(window > 0 && qw - (k0 + BK - 1) >= window);
+    const bool edge = (causal && k0 + BK - 1 > qw) ||
+                      (window > 0 && qw + 15 - k0 >= window) || k0 + BK > Sk;
+    if (seen) {
+      // S = Q K^T
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + (warp * 16 + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, kt_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kd * 16 +
+                         ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+
+      // scale, cap, mask
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[n][c] * scale;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          if (edge) {
+            const int qpos = qw + g + (c >> 1) * 8;
+            const int kpos = k0 + n * 8 + tig * 2 + (c & 1);
+            bool vis = kpos < Sk;
+            if (causal) vis = vis && qpos >= kpos;
+            if (window > 0) vis = vis && qpos - kpos < window;
+            x = vis ? x : -INFINITY;
+          }
+          s[n][c] = x;
+        }
+      }
+
+      // the online softmax update of the lane's two rows
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float m_use[2], corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+        corr[r] = expf(m[r] - m_use[r]);   // 0 while the row saw nothing
+        m[r] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[n][c] = expf(s[n][c] - m_use[c >> 1]);   // 0 where masked
+          sum[c >> 1] += s[n][c];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+      }
+
+      // O = O corr + P V, P split into three bf16 terms; the tile's P V is
+      // summed in fresh accumulators, which O takes by a fused multiply-add
+      uint32_t p1[KG][4], p2[KG][4], p3[KG][4];
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        split3(s[2 * kk][0], s[2 * kk][1], p1[kk][0], p2[kk][0], p3[kk][0]);
+        split3(s[2 * kk][2], s[2 * kk][3], p1[kk][1], p2[kk][1], p3[kk][1]);
+        split3(s[2 * kk + 1][0], s[2 * kk + 1][1], p1[kk][2], p2[kk][2], p3[kk][2]);
+        split3(s[2 * kk + 1][2], s[2 * kk + 1][3], p1[kk][3], p2[kk][3], p3[kk][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vt_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                               dp * 16 + (lane >> 4) * 8);
+          mma_bf16(t0, p3[kk], b[0], b[1]);
+          mma_bf16(t1, p3[kk], b[2], b[3]);
+          mma_bf16(t0, p2[kk], b[0], b[1]);
+          mma_bf16(t1, p2[kk], b[2], b[3]);
+          mma_bf16(t0, p1[kk], b[0], b[1]);
+          mma_bf16(t1, p1[kk], b[2], b[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[2 * dp][c] = fmaf(acc[2 * dp][c], corr[c >> 1], t0[c]);
+          acc[2 * dp + 1][c] = fmaf(acc[2 * dp + 1][c], corr[c >> 1], t1[c]);
+        }
+      }
+    }
+    __syncthreads();                // every warp is done with this stage
+  }
+  cp_async_wait_all();              // no copy outlives the block (no tile ran)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw + g + r * 8;
+    if (qpos >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    bf16* orow = o + ((size_t)bh * Sq + qpos) * D + tig * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int BH,
+           int rep, int Sq, int Sk, int causal, int window, float softcap,
+           float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Sq + BQ - 1) / BQ);
+  flash_mma_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, rep, causal,
+      window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int BH,
+             int rep, int Sq, int Sk, int bf16, int causal, int window,
+             float softcap, float scale, cudaStream_t stream) {
+  return bf16 ? mma::launch<D>(q, k, v, o, BH, rep, Sq, Sk, causal, window,
+                               softcap, scale, stream)
+              : launch<float, D>(q, k, v, o, BH, rep, Sq, Sk, causal, window,
+                                 softcap, scale, stream);
 }
 
 }  // namespace
 
 // q (BH, Sq, D), k and v (BHk, Sk, D), o (BH, Sq, D), all contiguous, of
-// one dtype: bf16 when `bf16` is 1, else fp32. BH must be a multiple of
-// BHk and D one of 32, 64, 128, 256. Returns the CUDA error code of the
-// launch.
+// one dtype: bf16 when `bf16` is 1 (the tensor-core kernel), else fp32
+// (the SIMT kernel). BH must be a multiple of BHk and D one of 32, 64,
+// 128, 256. Returns the CUDA error code of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int BH, int BHk,
                                       int Sq, int Sk, int D, int bf16,
@@ -303,8 +618,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rep = BH / BHk;
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, BH, rep, Sq, Sk, D, causal,
-                                        window, softcap, scale, s)
-              : launch_d<float>(q, k, v, o, BH, rep, Sq, Sk, D, causal, window,
-                                softcap, scale, s);
+  switch (D) {
+    case 32: return launch_d<32>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 64: return launch_d<64>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 128: return launch_d<128>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 256: return launch_d<256>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,18 +6,49 @@
 //   prec_r = sum_w vm[r,w] vm[r,w]^T      (K x K, K in 16, 32, 64)
 //   rhs_r  = sum_w rv[r,w] vm[r,w]
 //
+// Every entry is the fp32 rounding of an fp64 sum, taken in w order, of
+// exact products (syrk_tile.cuh): the same bits as ref.masked_syrk_ref.
+//
 // Bound on an H100: a row reads W (K + 1) 4 B of vm and rv, writes
 // (K + 1) K 4 B of prec and rhs, and does W (K (K + 1) + 2 K) flops at
-// 67 TFLOP/s fp32. Per vector the flops outweigh its bytes at 3.35 TB/s
-// (at K = 64, 8,320 flops against 260 B), but the K x K write outweighs
-// both in narrow rows; over the ChEMBL plans' buckets the sweep is bound by
-// bytes (chip_smoke.py computes both, bucket by bucket).
+// 67 TFLOP/s fp32. At K = 64 the K x K write (16.6 KB a row) outweighs
+// what a narrow row reads (260 B a vector), and over the ChEMBL plans'
+// buckets the sweep is bound by bytes, most of them written (chip_smoke.py
+// computes the bound bucket by bucket). The fp64 sums cost W K^2 fused
+// multiply-adds a row (every entry of the matrix, not its triangle), on
+// the fp64 pipes at half the fp32 rate.
 //
-// Design. The TPU grid walked W tiles in order and accumulated into the
-// output block in place. Here one block owns one row and loops over W
-// inside the block, CHUNK vectors at a time in shared memory, so nothing
-// is accumulated across blocks and the row's sums leave in one write. The
-// sums are kept in fp64 (syrk_tile.cuh).
+// Two paths, by the bucket's width W: rows up to the launcher's
+// `narrow_max_w` (ops.SYRK_NARROW_MAX_W, 8; at most STAGE_FLOATS / K) take
+// the narrow path. On an H100 it is the faster of the two on the ChEMBL
+// buckets of width 1, 2, 4 and 8 (by 16-20%) and a few percent the slower
+// from width 15 up (chip_smoke.py times both paths on every bucket up to
+// 64 wide).
+//
+// Narrow rows (most of them: ChEMBL users have about 2 ratings). One row
+// a block would leave the card with hundreds of thousands of short block
+// lifetimes, each waiting on one load before its store. Here a persistent
+// grid (enough blocks to fill every SM) walks groups of rows: a group is
+// as many consecutive rows as fit STAGE_FLOATS staged floats, and since
+// the block is (R, W, K) contiguous, one contiguous copy. Each block
+// stages its next group with 16-byte cp.async while it writes the current
+// one (double-buffered). The output is output-stationary: the block's
+// threads walk the group's outputs in 4 x 4 tiles of each row's K x K
+// matrix (and float4s of its rhs), consecutive threads on consecutive
+// tiles, so each of a tile's four 16-byte row stores is, across a warp,
+// two 256-byte runs. Each tile is summed over its row's W vectors in
+// fp64, in w order, just before its store: 16 fused multiply-adds for two
+// 16-byte shared-memory reads. No row's K x K sum sits in registers.
+//
+// Wide rows keep one block a row: 256 threads, each a (K/16)^2 tile of
+// the sum in fp64, the row's vectors staged CHUNK at a time
+// (syrk_tile.cuh::accumulate_chunk), the row's sums leaving in one write.
+//
+// Both paths take R and W as they are: the wrapper pads nothing but the
+// rank, and the last group or chunk is cut short where the rows or
+// vectors end.
+#include <cuda_runtime.h>
+
 #include "syrk_tile.cuh"
 
 namespace {
@@ -53,26 +84,165 @@ __global__ void __launch_bounds__(THREADS) masked_syrk_kernel(
   repro::store_row<K, float>(prec + (size_t)r * K * K, rhs + (size_t)r * K, acc, racc);
 }
 
+// ------------------------------------------------------------ narrow rows
+
+// floats of vectors a group stages (16 KB): 64 vectors at K = 64
+constexpr int STAGE_FLOATS = 4096;
+
+template <int K>
+struct Stage {
+  static constexpr int vectors = STAGE_FLOATS / K;
+  static constexpr int floats = vectors * (K + 1);   // the vectors, then rv
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows [r0, r0 + rows) of the block into one stage: rows * W vectors of
+// vm and as many rv values, each a contiguous run in device memory
+template <int K>
+__device__ __forceinline__ void stage_group(float* stage, const float* vm,
+                                            const float* rv, int r0, int rows,
+                                            int W) {
+  const size_t first = (size_t)r0 * W;
+  const int n = rows * W;
+  const float* src = vm + first * K;
+  for (int e = threadIdx.x; e < n * (K / 4); e += THREADS)
+    cp_async16(stage + e * 4, src + (size_t)e * 4);
+  float* rvs = stage + Stage<K>::vectors * K;
+  for (int e = threadIdx.x; e < n; e += THREADS) cp_async4(rvs + e, rv + first + e);
+}
+
+template <int K>
+__global__ void __launch_bounds__(THREADS) masked_syrk_narrow_kernel(
+    const float* __restrict__ vm, const float* __restrict__ rv,
+    float* __restrict__ prec, float* __restrict__ rhs, int R, int W,
+    int group) {
+  constexpr int C = K / 4;                 // float4 columns of a row's matrix
+  constexpr int UNITS = C * C + C;         // 4 x 4 tiles of prec, then rhs float4s
+  extern __shared__ __align__(16) float smem[];
+  const int n_groups = (R + group - 1) / group;
+  int grp = blockIdx.x;
+  if (grp >= n_groups) return;
+  stage_group<K>(smem, vm, rv, grp * group, min(group, R - grp * group), W);
+  cp_async_commit();
+  for (int it = 0; grp < n_groups; grp += gridDim.x, ++it) {
+    const float* cur = smem + (it & 1) * Stage<K>::floats;
+    const int next = grp + gridDim.x;
+    if (next < n_groups)
+      stage_group<K>(smem + ((it + 1) & 1) * Stage<K>::floats, vm, rv,
+                     next * group, min(group, R - next * group), W);
+    cp_async_commit();
+    cp_async_wait_one();                   // this group's copies have landed
+    __syncthreads();
+    const int r0 = grp * group, rows = min(group, R - r0);
+    const float* rvs = cur + Stage<K>::vectors * K;
+    for (int e = threadIdx.x; e < rows * UNITS; e += THREADS) {
+      const int row = e / UNITS, f = e - row * UNITS;
+      const float* x = cur + row * W * K;
+      if (f < C * C) {
+        // prec[4i .. 4i + 3][4j .. 4j + 3] = sum_w x_w[4i ..] x_w[4j ..]^T
+        const int i = f / C, j = f % C;
+        double acc[4][4] = {};
+        for (int w = 0; w < W; ++w) {
+          const float4 a = *reinterpret_cast<const float4*>(x + w * K + i * 4);
+          const float4 b = *reinterpret_cast<const float4*>(x + w * K + j * 4);
+          const double ad[4] = {a.x, a.y, a.z, a.w}, bd[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[u][v] = fma(ad[u], bd[v], acc[u][v]);
+        }
+        float* p = prec + ((size_t)(r0 + row) * K + i * 4) * K + j * 4;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<float4*>(p + u * K) =
+              make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+      } else {
+        // rhs[4j .. 4j + 3] = sum_w x_w[4j ..] rv_w
+        const int j = f - C * C;
+        double acc[4] = {};
+        for (int w = 0; w < W; ++w) {
+          const double c = rvs[row * W + w];
+          const float4 b = *reinterpret_cast<const float4*>(x + w * K + j * 4);
+          acc[0] = fma((double)b.x, c, acc[0]);
+          acc[1] = fma((double)b.y, c, acc[1]);
+          acc[2] = fma((double)b.z, c, acc[2]);
+          acc[3] = fma((double)b.w, c, acc[3]);
+        }
+        *reinterpret_cast<float4*>(rhs + (size_t)(r0 + row) * K + j * 4) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      }
+    }
+    __syncthreads();                       // before the next prefetch reuses it
+  }
+}
+
+template <int K>
+int launch_narrow(const float* vm, const float* rv, float* prec, float* rhs,
+                  int R, int W, cudaStream_t st) {
+  constexpr int bytes = 2 * Stage<K>::floats * 4;
+  static int blocks = 0;                   // resident blocks on the whole card
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, masked_syrk_narrow_kernel<K>, THREADS, bytes);
+    if (err != cudaSuccess) return (int)err;
+    blocks = sms * per_sm;
+  }
+  const int group = Stage<K>::vectors / max(W, 1);
+  const int n_groups = (R + group - 1) / group;
+  masked_syrk_narrow_kernel<K><<<min(n_groups, blocks), THREADS, bytes, st>>>(
+      vm, rv, prec, rhs, R, W, group);
+  return (int)cudaGetLastError();
+}
+
 template <int K>
 int launch(const float* vm, const float* rv, float* prec, float* rhs, int R,
-           int W, cudaStream_t st) {
+           int W, int narrow_max_w, cudaStream_t st) {
+  if (W <= min(narrow_max_w, Stage<K>::vectors))
+    return launch_narrow<K>(vm, rv, prec, rhs, R, W, st);
   masked_syrk_kernel<K><<<R, THREADS, 0, st>>>(vm, rv, prec, rhs, R, W);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// vm (R, W, K), rv (R, W) -> prec (R, K, K), rhs (R, K), K in 16, 32, 64.
+// vm (R, W, K), rv (R, W) -> prec (R, K, K), rhs (R, K), K in 16, 32, 64,
+// all contiguous, vm 16-byte aligned. Rows of width W <= narrow_max_w (and
+// at most 4,096 / K) take the narrow path, wider ones one block a row.
 // Returns the CUDA error code of the launch (cudaErrorInvalidValue for
-// another K).
+// another K or an empty block).
 extern "C" int masked_syrk_launch(const float* vm, const float* rv,
                                   float* prec, float* rhs, int R, int W,
-                                  int K, void* stream) {
+                                  int K, int narrow_max_w, void* stream) {
+  if (R <= 0 || W < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return launch<16>(vm, rv, prec, rhs, R, W, st);
-    case 32: return launch<32>(vm, rv, prec, rhs, R, W, st);
-    case 64: return launch<64>(vm, rv, prec, rhs, R, W, st);
+    case 16: return launch<16>(vm, rv, prec, rhs, R, W, narrow_max_w, st);
+    case 32: return launch<32>(vm, rv, prec, rhs, R, W, narrow_max_w, st);
+    case 64: return launch<64>(vm, rv, prec, rhs, R, W, narrow_max_w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,7 +36,7 @@ KERNELS = {
          [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
     ]),
     "masked_syrk": ("masked_syrk.cu", [
-        ("masked_syrk_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+        ("masked_syrk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ]),
     "chol_solve_sample": ("chol_solve.cu", [
         ("chol_solve_sample_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),

@@ -6,15 +6,17 @@ and contiguity, launches its kernel on the current stream, raises if the
 launch returned an error, and adds one to its entry in `LAUNCHES`. There is
 no fallback: a CUDA tensor the kernel cannot take raises.
 
-The padding rules are the reference's (`repro/kernels/ops.py`): rows to 8,
-the W axis to `_block_w_for(w)`, a solve batch to 16 (or 8) with identity
-systems. The BPMF kernels are built for the ranks in KERNEL_RANKS; another
-rank up to 64 is padded to the next one (`kernel_rank`) with zero columns
-(`pad_rank`; the syrk sums gain exact zeros) or, for the solve, with an
-identity block (`pad_rank_systems`). Top-N pads the width to a multiple of
-4 with zero columns (`topn_operands`) and scores the catalogue in slabs
-whose scratch is bounded (`topn_slab`). Flash attention pads nothing: its
-kernel masks a ragged sequence itself.
+The fused kernel's padding rules are the reference's
+(`repro/kernels/ops.py`): rows to 8, the W axis to `_block_w_for(w)`; a
+solve batch is rounded up to 16 (or 8) with identity systems. The masked
+syrk kernel takes R and W as they are. The BPMF kernels are built for the
+ranks in KERNEL_RANKS; another rank up to 64 is padded to the next one
+(`kernel_rank`) with zero columns (`pad_rank`; the syrk sums gain exact
+zeros) or, for the solve, with an identity block (`pad_rank_systems`).
+Top-N pads the width to a multiple of 4 with zero columns
+(`topn_operands`) and scores the catalogue in slabs whose scratch is
+bounded (`topn_slab`). Flash attention pads nothing: its kernels mask a
+ragged sequence themselves.
 """
 from __future__ import annotations
 
@@ -198,12 +200,21 @@ def gather_syrk_seg(
     return (prec, rhs) if stacked else (prec[0], rhs[0])
 
 
+#: the widest bucket row masked_syrk's narrow path takes (csrc/masked_syrk.cu);
+#: wider rows take one block a row. chip_smoke.py times both paths on every
+#: ChEMBL bucket the narrow path can stage: on the H100 it wins up to width
+#: 8 and loses by a few percent from 15 (PERF.md §6)
+SYRK_NARROW_MAX_W = 8
+
+
 def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., R, W, K) x (..., R, W) -> (prec (..., R, K, K), rhs (..., R, K)).
 
     Extra leading axes (the stacked-draw axis S) are flattened into rows:
-    every row is independent, so one launch covers them all.
+    every row is independent, so one launch covers them all. The kernel
+    takes any R and W as they are; only a rank it is not built for is
+    padded (`pad_rank`).
     """
     if vm.dim() > 3:
         lead = vm.shape[:-2]
@@ -216,25 +227,23 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
     dev = vm.device
     r, w, k = vm.shape
     kp = kernel_rank(k)
-    vm = _require("vm", vm, dev, torch.float32)
-    rv = _require("rv", rv, dev, torch.float32)
-    block_w = _block_w_for(w)
-    vm_p = pad_rank(_pad_to(_pad_to(vm, 0, 8), 1, block_w), kp).contiguous()
-    rv_p = _pad_to(_pad_to(rv, 0, 8), 1, block_w)
-    rp, wp, _ = vm_p.shape
-    if rp == 0:
+    if r == 0:
         raise ValueError("masked_syrk needs at least one row")
-    prec = torch.empty((rp, kp, kp), device=dev, dtype=torch.float32)
-    rhs = torch.empty((rp, kp), device=dev, dtype=torch.float32)
+    if rv.shape != (r, w):
+        raise ValueError(f"rv must be {(r, w)}, got {tuple(rv.shape)}")
+    vm = _aligned(pad_rank(_require("vm", vm, dev, torch.float32), kp))
+    rv = _require("rv", rv, dev, torch.float32)
+    prec = torch.empty((r, kp, kp), device=dev, dtype=torch.float32)
+    rhs = torch.empty((r, kp), device=dev, dtype=torch.float32)
     err = build.library("masked_syrk").masked_syrk_launch(
-        vm_p.data_ptr(), rv_p.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
-        rp, wp, kp, _stream(vm),
+        vm.data_ptr(), rv.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
+        r, w, kp, SYRK_NARROW_MAX_W, _stream(vm),
     )
     build.check("masked_syrk", err)
     LAUNCHES["masked_syrk"] += 1
     if kp != k:
         prec, rhs = prec[..., :k, :k], rhs[..., :k]
-    return prec[:r], rhs[:r]
+    return prec, rhs
 
 
 def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
@@ -353,8 +362,11 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
     return vals, idx
 
 
-FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernel is built for
-_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for
+#: the CUDA kernel each dtype launches (csrc/flash_attention.cu), as a
+#: profiler names it: bf16 on the tensor cores, fp32 on the fp32 pipes
+FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_mma_kernel",
+                      torch.float32: "flash_kernel<float"}
 
 
 def _flash_block(s: int) -> int:
@@ -371,7 +383,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k and v may carry fewer heads than q (GQA): BHk must divide BH, and
     query block bh reads KV block bh // (BH // BHk). A ragged S is masked.
     Raises ValueError where the JAX wrapper does: without causality, S_k
-    must be a multiple of its KV block, min(128, max(16, S_k)).
+    must be a multiple of its KV block, min(128, max(16, S_k)). On the card
+    bf16 and fp32 take different kernels (FLASH_KERNEL_NAMES), both counted
+    as one `flash_attention` launch.
     """
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
@@ -385,7 +399,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
     dev = q.device
-    if q.dtype not in _FLASH_DTYPES:
+    if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes D in {FLASH_HEAD_DIMS}, got {d}")

@@ -8,12 +8,15 @@ PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances, and why:
-  * gather_syrk_seg / masked_syrk: rtol 1e-4, atol 1e-3, the JAX kernel
-    tests' own (tests/test_kernels.py:171). Kernel and plain version both
-    sum each row over W in order in fp64 and round once (the segment sums
-    of the plain version take index_add_'s order), so they agree to the
-    last bit or nearly; against a float64 evaluation the kernel's error is
-    at most the plain version's.
+  * gather_syrk_seg: rtol 1e-4, atol 1e-3, the JAX kernel tests' own
+    (tests/test_kernels.py:171). Kernel and plain version both sum each
+    row over W in order in fp64 and round once (the segment sums of the
+    plain version take index_add_'s order), so they agree to the last bit
+    or nearly; against a float64 evaluation the kernel's error is at most
+    the plain version's.
+  * masked_syrk: equal bit for bit. Every entry is the fp32 rounding of
+    an in-order fp64 sum of exact products, in the kernel (either path)
+    and in its plain version.
   * chol_solve_sample: rtol 2e-3, atol 2e-3 (tests/test_kernels.py:56).
   * topn_scores: equal bit for bit; kernel and plain version sum the
     products in the same order with the same roundings.
@@ -22,8 +25,10 @@ Tolerances, and why:
     3e-2 is as large as the outputs of N(0,1) inputs over long sequences,
     so bf16 results are also held to one bf16 ulp of the value (rtol
     2^-7, atol 1e-5): kernel and plain version both compute in fp32 and
-    round the output to bf16 once. The peaked case (q x 6) makes the
-    softcap and each key count.
+    round the output to bf16 once. The bf16 kernel runs both products on
+    the tensor cores, P split into three bf16 terms that sum to it
+    exactly. The peaked cases (q x 6, q x 16) make the softcap and each
+    key count.
 
 The BPMF kernels are instantiated for K = 16, 32 and 64; the cases run
 every rank the repo uses (8, 16, 24, 32, 64), the others through the
@@ -110,7 +115,7 @@ def test_masked_syrk_and_chol_kernels_match_plain(cuda, k):
     ops.reset_launches()
     for a, b in zip(ops.masked_syrk(vm, rv), ref.masked_syrk_ref(vm, rv)):
         assert a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+        assert torch.equal(a, b)
     a = torch.randn(37, k, k, generator=g, device=cuda)
     prec = a @ a.transpose(1, 2) + (0.1 * k + 0.6) * torch.eye(k, device=cuda)
     rhs = torch.randn(37, k, generator=g, device=cuda)
@@ -120,6 +125,66 @@ def test_masked_syrk_and_chol_kernels_match_plain(cuda, k):
     torch.testing.assert_close(x, ref.chol_solve_sample_ref(prec, rhs, z),
                                rtol=2e-3, atol=2e-3)
     assert ops.LAUNCHES["masked_syrk"] == ops.LAUNCHES["chol_solve_sample"] == 1
+
+
+# the widths and row counts masked_syrk takes unpadded: narrow rows (one
+# and a few vectors), both sides of the narrow path's threshold
+# (ops.SYRK_NARROW_MAX_W) and of the wide path's 32-vector chunks, the
+# widest ChEMBL bucket; rows that are no multiple of 8
+SYRK_WIDTHS = [1, 2, 3, 7, 9, 31, 33, 64, 65, 127, 129, 1481]
+
+
+def _syrk_block(g, lead, w, k, device):
+    """A pre-gathered, pre-masked block: about a third of the vectors
+    masked to zero, as the kernel engine's blocks are."""
+    vm = torch.randn(*lead, w, k, generator=g, device=device)
+    rv = torch.randn(*lead, w, generator=g, device=device)
+    keep = (torch.rand(*lead, w, generator=g, device=device) > 0.3).float()
+    return vm * keep[..., None], rv * keep
+
+
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("w", SYRK_WIDTHS)
+@pytest.mark.parametrize("r", [1, 5, 483])
+def test_masked_syrk_kernel_is_bit_equal_to_plain(cuda, r, w, k):
+    g = torch.Generator(device=cuda).manual_seed(r * 10_000 + w * 100 + k)
+    vm, rv = _syrk_block(g, (r,), w, k, cuda)
+    ops.reset_launches()
+    pk, bk = ops.masked_syrk(vm, rv)
+    assert ops.LAUNCHES["masked_syrk"] == 1
+    pp, bp = ref.masked_syrk_ref(vm, rv)
+    assert pk.shape == (r, k, k) and bk.shape == (r, k)
+    assert torch.equal(pk, pp) and torch.equal(bk, bp)
+
+
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("s,r,w", [(3, 5, 9), (4, 483, 2), (2, 7, 129)])
+def test_masked_syrk_kernel_stacked_draws_bit_equal(cuda, s, r, w, k):
+    """The kernel engine's stacked-draw input (S, R, W, K): one launch over
+    S * R rows, each the same bits as the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(s + r + w + k)
+    vm, rv = _syrk_block(g, (s, r), w, k, cuda)
+    ops.reset_launches()
+    pk, bk = ops.masked_syrk(vm, rv)
+    assert ops.LAUNCHES["masked_syrk"] == 1 and pk.shape == (s, r, k, k)
+    for i in range(s):
+        pp, bp = ref.masked_syrk_ref(vm[i], rv[i])
+        assert torch.equal(pk[i], pp) and torch.equal(bk[i], bp)
+
+
+def test_masked_syrk_kernel_takes_a_block_off_16_bytes(cuda):
+    """A block whose data starts 4 bytes into its storage (the kernel's
+    16-byte copies need a copy of it), and one of width 0."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(1 + 11 * 6 * 64, generator=g, device=cuda)
+    vm = buf[1:].view(11, 6, 64)
+    assert vm.data_ptr() % 16
+    rv = torch.randn(11, 6, generator=g, device=cuda)
+    for a, b in zip(ops.masked_syrk(vm, rv), ref.masked_syrk_ref(vm, rv)):
+        assert torch.equal(a, b)
+    pk, bk = ops.masked_syrk(torch.zeros(3, 0, 64, device=cuda),
+                             torch.zeros(3, 0, device=cuda))
+    assert pk.shape == (3, 64, 64) and not pk.any() and not bk.any()
 
 
 @pytest.mark.parametrize("k", RANKS)
@@ -219,3 +284,111 @@ def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda):
         ops.flash_attention(q, q.double(), q)                          # mixed dtypes
     with pytest.raises(RuntimeError):                                  # no backward
         ops.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+
+
+def _flash_inputs(g, bh, bhk, s, d, q_scale, dtype, device):
+    q = (q_scale * torch.randn(bh, s, d, generator=g, device=device)).to(dtype)
+    k = torch.randn(bhk, s, d, generator=g, device=device).to(dtype)
+    v = torch.randn(bhk, s, d, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def _exact_attention(q, k, v, *, causal, window, softcap):
+    """The attention of the same inputs in float64, head by head."""
+    rep = q.shape[0] // k.shape[0]
+    s, d = q.shape[1], q.shape[2]
+    pos = torch.arange(s, device=q.device)
+    diff = pos[:, None] - pos[None, :]
+    seen = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
+    if window:
+        seen &= diff < window
+    out = []
+    for h in range(q.shape[0]):
+        sc = q[h].double() @ k[h // rep].double().T / d ** 0.5
+        if softcap:
+            sc = torch.tanh(sc / softcap) * softcap
+        out.append(torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
+                   @ v[h // rep].double())
+    return torch.stack(out)
+
+
+def _flash_bf16_holds(q, k, v, against_plain_ulp=True, **kw):
+    """3e-2 of the plain version, one bf16 ulp of it and of float64."""
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    if against_plain_ulp:
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7, atol=1e-5)
+    torch.testing.assert_close(got.double(), _exact_attention(q, k, v, **kw),
+                               rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 17, 63, 65, 1000])
+def test_flash_bf16_tensor_core_kernel_shapes(cuda, d, s):
+    """Every head width, at sequences ragged against the 128-row query and
+    64-key tiles, GQA 2, softcap 50."""
+    g = torch.Generator(device=cuda).manual_seed(d * 7 + s)
+    q, k, v = _flash_inputs(g, 4, 2, s, d, 1.0, torch.bfloat16, cuda)
+    _flash_bf16_holds(q, k, v, causal=True, window=0, softcap=50.0)
+
+
+@pytest.mark.parametrize("d,rep,window,cap,q_scale", [
+    (256, 2, 64, 50.0, 1.0),     # window at a key-tile edge
+    (256, 2, 63, 50.0, 1.0),     # ... and one off it
+    (256, 2, 65, 50.0, 1.0),
+    (64, 1, 128, 0.0, 1.0),      # at a query-tile edge
+    (64, 4, 127, 50.0, 1.0),
+    (256, 1, 0, 50.0, 6.0),      # peaked scores, GQA 1
+    (256, 4, 256, 50.0, 6.0),    # GQA 4
+    (128, 2, 0, 0.0, 6.0),
+    (256, 2, 4096, 50.0, 16.0),  # scores of std 16, past the softcap
+    (32, 4, 0, 50.0, 16.0),
+])
+def test_flash_bf16_tensor_core_kernel_edges(cuda, d, rep, window, cap, q_scale):
+    g = torch.Generator(device=cuda).manual_seed(d + rep + window)
+    q, k, v = _flash_inputs(g, 4 * rep, 4, 1000, d, q_scale, torch.bfloat16, cuda)
+    _flash_bf16_holds(q, k, v, causal=True, window=window, softcap=cap)
+
+
+def test_flash_bf16_tensor_core_kernel_q16_softcap0(cuda):
+    """Scores of std 16 and no softcap, the most peaked case. Here the
+    plain version's own fp32 rounding takes it about as far from the
+    float64 attention as one bf16 ulp (atol 1e-5) allows, or farther, so
+    a kernel within that limit of the true value may lie outside it of
+    the plain version (chip_smoke.py prints the distances at S = 8,192,
+    PERF.md §6). The kernel is held to 3e-2 of the plain version and to
+    one ulp of float64."""
+    g = torch.Generator(device=cuda).manual_seed(258)
+    q, k, v = _flash_inputs(g, 8, 4, 1000, 256, 16.0, torch.bfloat16, cuda)
+    _flash_bf16_holds(q, k, v, against_plain_ulp=False, causal=True, window=0,
+                      softcap=0.0)
+
+
+def test_flash_bf16_tensor_core_kernel_non_causal(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = _flash_inputs(g, 4, 2, 256, 128, 1.0, torch.bfloat16, cuda)
+    _flash_bf16_holds(q, k, v, causal=False, window=0, softcap=50.0)
+
+
+def test_flash_dtypes_take_their_own_kernels(cuda):
+    """bf16 launches the tensor-core kernel and fp32 the SIMT kernel, as
+    the profiler names them; each counts as one launch, and fp32 gives
+    the same bits on every call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_inputs(g, 4, 2, 300, 256, 1.0, dtype, cuda)
+        kw = dict(causal=True, window=100, softcap=50.0)
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 1
+        names = [e.key for e in prof.key_averages() if "flash" in e.key]
+        assert len(names) == 1 and ops.FLASH_KERNEL_NAMES[dtype] in names[0], names
+        if dtype == torch.float32:
+            assert torch.equal(ops.flash_attention(q, k, v, **kw), out)

@@ -85,7 +85,11 @@ def test_segment_offsets_match_plan_boundaries():
     assert ops.segment_offsets(seg, 4).tolist() == [0, 2, 3, 3, 6]
 
 
-@pytest.mark.parametrize("r,w,k", [(8, 16, 8), (5, 33, 24), (1, 8, 64), (24, 128, 32)])
+@pytest.mark.parametrize("r,w,k", [
+    (8, 16, 8), (5, 33, 24), (1, 8, 64), (24, 128, 32),
+    # ragged R and W, which the CUDA kernel now takes unpadded
+    (1, 1, 16), (3, 2, 64), (483, 5, 32),
+])
 def test_masked_syrk_plain_matches_jax_kernel(r, w, k):
     rng = np.random.default_rng(r * 1000 + w + k)
     vm = rng.normal(size=(r, w, k)).astype(np.float32)
@@ -296,3 +300,36 @@ def test_topn_scratch_is_bounded_whatever_the_catalogue(b, topk):
         assert ops.topn_kernel_launches(b, n, topk) == 2 * -(-n // slab)
     assert ops.topn_slab(4096, 5775, 1024) == 5888          # one slab: the ChEMBL catalogue
     assert ops.topn_slab(4096, 5775, 1024, slab=300) == 384  # a test's smaller slabs
+
+
+def test_three_bf16_terms_carry_an_fp32_p_exactly():
+    """The premise of the bf16 flash kernel's P V (csrc/flash_attention.cu):
+    an fp32 p in [2^-100, 1] is the exact sum of three bf16 terms
+    p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), each remainder
+    exact in fp32; each term times a bf16 v is exact in fp32; and two terms
+    are not enough. torch rounds to bf16 to nearest even, as the kernel's
+    __floats2bfloat162_rn does."""
+    rng = np.random.default_rng(17)
+    p = np.concatenate([
+        np.exp2(rng.uniform(-100, 0, 1 << 20)),   # every binade of the range
+        np.exp(rng.uniform(-30, 0, 1 << 20)),     # softmax weights
+        [1.0, 2.0 ** -100, 0.5 + 2.0 ** -24],
+    ]).astype(np.float32)
+    t = torch.from_numpy(p)
+    p1 = t.to(torch.bfloat16)
+    r1 = t - p1.float()
+    p2 = r1.to(torch.bfloat16)
+    r2 = r1 - p2.float()
+    p3 = r2.to(torch.bfloat16)
+    exact = t.double()
+    assert torch.equal(r1.double(), exact - p1.double())            # remainders exact
+    assert torch.equal(r2.double(), r1.double() - p2.double())
+    assert torch.equal(p3.float(), r2)                               # p3 holds the rest
+    assert torch.equal(p1.double() + p2.double() + p3.double(), exact)
+    two = p1.double() + p2.double()
+    assert not torch.equal(two, exact)
+    rel = float(((two - exact).abs() / exact).max())
+    assert 0 < rel <= 2.0 ** -16
+    v = torch.from_numpy(rng.standard_normal(len(p)).astype(np.float32) * 8).to(torch.bfloat16)
+    for term in (p1, p2, p3):
+        assert torch.equal((term.float() * v.float()).double(), term.double() * v.double())
