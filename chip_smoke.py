@@ -12,17 +12,22 @@ the way two commits are compared in one call on one card. A subset prints
 no kernels line and no result line. Phases:
 
   1. build    every CUDA kernel with nvcc (one process per source, all at
-              once), and print the card's name and power limit
+              once), and print the card's name and power limit and each
+              kernel's ptxas lines (registers, spills), named by cu++filt
   2. data     chembl_like(scale=1.0) with a 0.1 test split, and the
               balanced bucket plans of both sides (through GibbsSampler)
   3. kernels  each BPMF training kernel at K = 64 against its plain
-              PyTorch version on the card at the run's shapes (masked_syrk
-              bit for bit), timed beside its bound and one PyTorch call
-              that computes the same function where there is one;
-              each masked_syrk bucket its narrow path can stage also
-              down both of its paths, to show where the threshold lies
+              PyTorch version on the card at the run's shapes (the syrk
+              kernels bit for bit; the solve on both half-sweeps' systems
+              as a sweep builds them and as the prior hyperparameters give
+              them, the same bits on two calls), timed beside its bound and one
+              PyTorch call that computes the same function where there is
+              one; gather_syrk_seg also through its launcher alone (the
+              wrapper's host share), and each bucket the syrk kernels'
+              narrow paths can stage down both paths, to show where the
+              threshold lies
   4. ranks    the same kernels at K = 16, 24 and 32 (24 through the
-              wrappers' padding)
+              wrappers' padding), the solve timed at each
   5. topn     top-N at serving's shapes, bit for bit in one slab and in
               several, timed beside topk(u @ v.T); the CUDA kernels of one
               call counted in its profile
@@ -176,6 +181,17 @@ def lower_triangle_bytes(k: int) -> int:
     return sum(-(-(i + 1) * 4 // SECTOR) * SECTOR for i in range(k))
 
 
+def demangle(names: list[str], nvcc: str) -> dict[str, str]:
+    """The kernels that mangled entry names name, by the CUDA toolkit's
+    cu++filt beside nvcc: e.g. gather_syrk_rows_kernel<64, float, double>."""
+    if not names:
+        return {}
+    out = subprocess.run([str(Path(nvcc).with_name("cu++filt")), "-p", *names],
+                         capture_output=True, text=True, check=True)
+    return {name: text.replace("<unnamed>::", "").replace("(int)", "").strip()
+            for name, text in zip(names, out.stdout.splitlines())}
+
+
 def _find_src() -> Path | None:
     for base in (Path(__file__).resolve().parent, Path.cwd()):
         if (base / "src" / "repro_torch" / "__init__.py").is_file():
@@ -230,7 +246,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the kernels run only on the card",
               file=sys.stderr)
         return 2
-    smoke = Smoke(torch, phases)
+    smoke = Smoke(torch, phases, own_src=args.src is None)
     print(f"package: {src / 'repro_torch'}")
     # bound before any runs: phase data sets attributes (train, test) that
     # share names with phases
@@ -263,7 +279,7 @@ def main() -> int:
 
 
 class Smoke:
-    def __init__(self, torch, phases):
+    def __init__(self, torch, phases, own_src: bool):
         import numpy as np
 
         from repro_torch.kernels import build, ops, ref
@@ -279,6 +295,7 @@ class Smoke:
         self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
         self.store_dir = Path(self.tmp.name) / "samples"
         self.phases = phases
+        self.own_src = own_src
         self.rows: dict[str, dict] = {}
         self.main_launches: dict[str, int] = {}
 
@@ -371,10 +388,21 @@ class Smoke:
         self.build_mod.build_all()
         print(f"built {len(self.build_mod.KERNELS)} kernels in "
               f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
-        for name, log in sorted(self.build_mod.ptxas_log.items()):
+        for name in sorted(set(self.build_mod.KERNELS) - set(self.build_mod.ptxas_log)):
+            print(f"  ptxas {name}: built before this run, no compiler output here")
+        import re
+
+        entry_re = re.compile(r"Compiling entry function '([^']+)'")
+        logs = sorted(self.build_mod.ptxas_log.items())
+        kernel = demangle([m.group(1) for _, log in logs for m in entry_re.finditer(log)],
+                          self.build_mod._nvcc())
+        for name, log in logs:
+            entry = "?"
             for text in log.splitlines():
-                if "Used" in text or "spill" in text:
-                    print(f"  ptxas {name}: {text.strip()}")
+                if m := entry_re.search(text):
+                    entry = kernel[m.group(1)]
+                elif "Used" in text or "spill" in text:
+                    print(f"  ptxas {name} {entry}: {text.replace('ptxas info    :', '').strip()}")
 
     def data(self):
         from repro_torch.core import GibbsSampler
@@ -413,8 +441,15 @@ class Smoke:
         stacks = {"item": torch.stack([u * (1 + 0.1 * i) for i in range(4)]),
                   "user": torch.stack([v * (1 - 0.1 * i) for i in range(4)])}
 
-        # --- gather_syrk_seg: every bucket of both plans, fp32, bf16, S=4
-        tot = dict(ms=0.0, plain=0.0, bound=0.0, err=0.0, bytes=0.0, flops=0.0)
+        # --- gather_syrk_seg: every bucket of both plans, fp32, bf16, S=4,
+        # bit for bit; timed through the wrapper and, for the checkout's own
+        # package (the C signature of another's under --src may differ),
+        # through the launcher alone, and each identity bucket the narrow
+        # path can stage down both of its paths, to show where the
+        # threshold lies
+        direct = self.own_src
+        tot = dict(ms=0.0, plain=0.0, bound=0.0, err=0.0, bytes=0.0, flops=0.0,
+                   launcher=0.0)
         for side, b, cp in self._bucket_sides(u, v):
             tag = (f"{side} width {b.width} ({b.indices.shape[0]} rows, "
                    f"{b.n_segments} segments)")
@@ -428,29 +463,48 @@ class Smoke:
             def plain(cp=cp, bf16=False):
                 return ref.gather_syrk_seg_ref(*args, cp, bf16_gather=bf16, **kw)
 
-            pk, rk = kern()
-            pp, rp = plain()
-            self.sync()
-            err = max(self.close(pk, pp, f"gather_syrk_seg {tag} prec", axis=-3),
-                      self.close(rk, rp, f"gather_syrk_seg {tag} rhs", axis=-2))
-            p64, r64 = ref.gather_syrk_seg_ref(
-                b.indices, b.values.double(), b.mask.double(), b.seg_ids,
-                b.n_segments, cp.double(), **kw)
-            ek = max(self.max_err(pk, p64, -3), self.max_err(rk, r64, -2))
-            ep = max(self.max_err(pp, p64, -3), self.max_err(rp, r64, -2))
-            self.check(ek <= ep, f"gather_syrk_seg {tag}: error against float64 "
-                       f"{ek:.3e} <= the plain version's {ep:.3e}")
-            del p64, r64, pp, rp
-            for bf16, stacked in ((True, False), (False, True)):
+            err = 0.0
+            for bf16, stacked in ((False, False), (True, False), (False, True)):
                 c = stacks[side] if stacked else cp
-                mode = "bf16 gather" if bf16 else "stacked S=4"
-                a, bb = kern(c, bf16), plain(c, bf16)
+                mode = "bf16 gather" if bf16 else "stacked S=4" if stacked else "fp32"
+                (pk, rk), (pp, rp) = kern(c, bf16), plain(c, bf16)
                 self.sync()
-                self.close(a[0], bb[0], f"gather_syrk_seg {tag} {mode} prec", axis=-3)
-                self.close(a[1], bb[1], f"gather_syrk_seg {tag} {mode} rhs", axis=-2)
-                del a, bb
-            ms = self.cuda_ms(kern)
+                err = max(err, self.max_err(pk, pp, -3), self.max_err(rk, rp, -2))
+                self.check(torch.equal(pk, pp) and torch.equal(rk, rp),
+                           f"gather_syrk_seg {tag} {mode}: prec and rhs equal the "
+                           "plain version's bit for bit")
+                if mode == "fp32":
+                    p64, r64 = ref.gather_syrk_seg_ref(
+                        b.indices, b.values.double(), b.mask.double(), b.seg_ids,
+                        b.n_segments, cp.double(), **kw)
+                    ek = max(self.max_err(pk, p64, -3), self.max_err(rk, r64, -2))
+                    ep = max(self.max_err(pp, p64, -3), self.max_err(rp, r64, -2))
+                    self.check(ek <= ep, f"gather_syrk_seg {tag}: error against "
+                               f"float64 {ek:.3e} <= the plain version's {ep:.3e}")
+                    del p64, r64
+                del pk, rk, pp, rp
+            # 20 calls: the small buckets take tens of microseconds
+            ms = self.cuda_ms(kern, reps=20)
             pms = self.cuda_ms(plain, reps=3)
+            paths = ""
+            if direct:
+                lms = self.cuda_ms(self.seg_launch(b, cp, ops.SYRK_NARROW_MAX_W), reps=20)
+                tot["launcher"] += lms
+                paths = f", {lms:.3f} ms launcher alone"
+                if b.identity_segments and b.width <= SYRK_STAGE_VECTORS:
+                    want = plain()
+                    for path, narrow_max in (("narrow", SYRK_STAGE_VECTORS), ("wide", 0)):
+                        launch = self.seg_launch(b, cp, narrow_max)
+                        got = launch()
+                        self.sync()
+                        self.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                                   f"gather_syrk_seg {tag} down the {path} path: bit for bit")
+                        del got
+                        paths += f", {self.cuda_ms(launch, reps=20):.3f} ms {path} path"
+                    del want
+            if not b.identity_segments:
+                # the row pass and the segment pass of one call, apart
+                self._profile(kern, ms, f"gather_syrk_seg {tag}, one call")
             mask = b.mask > 0
             nnz = int(mask.sum())
             distinct = int(torch.unique(b.indices[mask]).numel())
@@ -459,20 +513,23 @@ class Smoke:
                        + b.n_segments * (K * K + K) * 4)
             flops = nnz * SYRK_FLOPS
             bms, by = self.bound_ms(n_bytes, flops)
-            print(f"    gather_syrk_seg {tag}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
-                  f"bound {bms:.3f} ms ({by})")
+            print(f"    gather_syrk_seg {tag}: {ms:.3f} ms kernel{paths}, {pms:.3f} ms "
+                  f"plain, bound {bms:.3f} ms ({by})")
             for key, val in (("ms", ms), ("plain", pms), ("bound", bms),
                              ("bytes", n_bytes), ("flops", flops)):
                 tot[key] += val
             tot["err"] = max(tot["err"], err)
         bms, by = self.bound_ms(tot["bytes"], tot["flops"])
-        print(f"  gather_syrk_seg, one sweep's buckets: {tot['ms']:.3f} ms kernel, "
+        alone = f", {tot['launcher']:.3f} ms launcher alone" if direct else ""
+        print(f"  gather_syrk_seg, one sweep's buckets: {tot['ms']:.3f} ms kernel{alone}, "
               f"{tot['plain']:.3f} ms plain, bound {bms:.3f} ms ({by})")
         self.add_row("gather_syrk_seg", "gather_syrk_seg.cu",
                      "src/repro/kernels/bpmf_gather_syrk.py:149",
                      max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
                      bound_ms=bms, bound_by=by, library_ms=None,
-                     shapes="one fused sweep: every bucket of both plans, fp32, K=64")
+                     launcher_ms=tot["launcher"] if direct else None,
+                     shapes="one fused sweep: every bucket of both plans, fp32, K=64; "
+                            "launcher_ms: the kernels alone, without the wrapper")
         del stacks
 
         # --- masked_syrk: the kernel engine's pre-gathered blocks, every bucket;
@@ -528,41 +585,80 @@ class Smoke:
                      shapes="one kernel-engine sweep: every bucket of both plans; "
                             "library = 2 bmm per bucket")
 
-        # --- chol_solve_sample: the 483,500 user systems of one half-sweep
+        # --- chol_solve_sample: the systems of both half-sweeps (483,500 user
+        # and 5,775 item systems) as the sampler builds them, from the state
+        # after two fused sweeps: its factors and sampled hyperparameters;
+        # and again from the prior hyperparameters and factors of 0.3 N(0, 1),
+        # on which the previous kernel's divisions took a slower path. The
+        # row holds the sweep's systems; both readings are printed.
         from repro_torch.core.gibbs import posterior_systems
         from repro_torch.core.hyper import init_hyper
 
-        prec, rhs = posterior_systems(v, s.user_buckets, s.m, init_hyper(K, device=self.dev),
-                                      s.alpha, engine="fused")
-        z = self.randn(s.m, K)
-        xk = ops.chol_solve_sample(prec, rhs, z)
-        xp = ref.chol_solve_sample_ref(prec, rhs, z)
-        self.sync()
-        err = self.close(xk, xp, f"chol_solve_sample on {tuple(prec.shape)} user systems",
-                         CHOL_TOL)
-        del xk, xp
+        state = s.run(2, seed=0)
+        prior = init_hyper(K, device=self.dev)
+        systems = {
+            "sweep": {"user": (state.v, s.user_buckets, s.m, state.hyper_u),
+                      "item": (state.u, s.item_buckets, s.n, state.hyper_v)},
+            "prior": {"user": (v, s.user_buckets, s.m, prior),
+                      "item": (u, s.item_buckets, s.n, prior)}}
+        half = {}
+        for origin, sides in systems.items():
+            for side, (cp, buckets, n, hyper) in sides.items():
+                prec, rhs = posterior_systems(cp, buckets, n, hyper, s.alpha,
+                                              engine="fused")
+                z = self.randn(n, K)
+                tag = f"{tuple(prec.shape)} {side} systems, {origin}"
+                xk = ops.chol_solve_sample(prec, rhs, z)
+                xp = ref.chol_solve_sample_ref(prec, rhs, z)
+                self.sync()
+                err = self.close(xk, xp, f"chol_solve_sample on {tag}", CHOL_TOL)
+                self.check(torch.equal(ops.chol_solve_sample(prec, rhs, z), xk),
+                           f"chol_solve_sample {tag}: the same bits on a second call")
+                del xk, xp
 
-        def library():
-            chol, _ = torch.linalg.cholesky_ex(prec)
-            y = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
-            return torch.linalg.solve_triangular(chol.transpose(-1, -2),
-                                                 y + z[..., None], upper=True)
+                def library(prec=prec, rhs=rhs, z=z):
+                    chol, _ = torch.linalg.cholesky_ex(prec)
+                    y = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
+                    return torch.linalg.solve_triangular(chol.transpose(-1, -2),
+                                                         y + z[..., None], upper=True)
 
-        ms = self.cuda_ms(lambda: ops.chol_solve_sample(prec, rhs, z))
-        pms = self.cuda_ms(lambda: ref.chol_solve_sample_ref(prec, rhs, z), reps=2)
-        lms = self.cuda_ms(library, reps=3)
-        bsz = prec.shape[0]
-        # a Cholesky reads only the lower triangle; rhs and z in, x out
-        bms, by = self.bound_ms(bsz * (lower_triangle_bytes(K) + 3 * K * 4),
-                                bsz * (K ** 3 / 3 + 2 * K * K))
-        print(f"    chol_solve_sample: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
-              f"{lms:.3f} ms library, bound {bms:.3f} ms ({by})")
+                ms = self.cuda_ms(lambda: ops.chol_solve_sample(prec, rhs, z))
+                pms = self.cuda_ms(lambda: ref.chol_solve_sample_ref(prec, rhs, z), reps=2)
+                lms = self.cuda_ms(library, reps=3)
+                # a Cholesky reads only the lower triangle; rhs and z in, x out
+                bms, by = self.bound_ms(n * (lower_triangle_bytes(K) + 3 * K * 4),
+                                        n * (K ** 3 / 3 + 2 * K * K))
+                print(f"    chol_solve_sample, {n:,} {side} systems ({origin}): {ms:.3f} "
+                      f"ms kernel, {pms:.3f} ms plain, {lms:.3f} ms library, bound "
+                      f"{bms:.3f} ms ({by})")
+                half[origin, side] = dict(err=err, ms=ms, plain=pms, lib=lms, bound=bms,
+                                          by=by)
+                del prec, rhs, z
+        del state
+        # a kernel-engine sweep solves both halves: its row is their sum
+        tot = {(origin, key): sum(half[origin, side][key] for side in ("user", "item"))
+               for origin in systems for key in ("ms", "plain", "lib", "bound")}
+        for origin in systems:
+            print(f"  chol_solve_sample, one kernel-engine sweep's two halves ({origin}): "
+                  f"{tot[origin, 'ms']:.3f} ms kernel, {tot[origin, 'plain']:.3f} ms plain, "
+                  f"{tot[origin, 'lib']:.3f} ms library, bound {tot[origin, 'bound']:.3f} ms")
         self.add_row("chol_solve_sample", "chol_solve.cu",
-                     "src/repro/kernels/chol_solve.py:80", max_abs_err=err, ms=ms,
-                     plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
-                     shapes=f"({bsz}, 64, 64) user systems; library = cholesky_ex "
-                            "+ 2 solve_triangular")
-        del prec, rhs, z
+                     "src/repro/kernels/chol_solve.py:80",
+                     max_abs_err=max(h["err"] for h in half.values()),
+                     ms=tot["sweep", "ms"], plain_ms=tot["sweep", "plain"],
+                     bound_ms=tot["sweep", "bound"], bound_by=half["sweep", "user"]["by"],
+                     library_ms=tot["sweep", "lib"],
+                     user_half_ms=half["sweep", "user"]["ms"],
+                     item_half_ms=half["sweep", "item"]["ms"],
+                     user_half_bound_ms=half["sweep", "user"]["bound"],
+                     item_half_bound_ms=half["sweep", "item"]["bound"],
+                     prior_systems_ms=tot["prior", "ms"],
+                     prior_systems_library_ms=tot["prior", "lib"],
+                     shapes=f"one kernel-engine sweep: ({s.m}, 64, 64) user and ({s.n}, "
+                            "64, 64) item systems of the state after two fused sweeps; "
+                            "prior_systems: built from the prior hyperparameters and "
+                            "factors of 0.3 N(0, 1); library = cholesky_ex + 2 "
+                            "solve_triangular")
         # not positive definite: no error, non-finite exactly where the plain
         # version is, as in the reference kernel
         eye = torch.eye(K, device=self.dev)
@@ -576,6 +672,34 @@ class Smoke:
                    and bool(torch.allclose(xk[fin], xp[fin], **CHOL_TOL)),
                    "chol_solve_sample on systems that are not positive definite: "
                    "finite where the plain version is, and equal there")
+
+    def seg_launch(self, b, cp, narrow_max_w: int):
+        """A call of gather_syrk_seg's launcher alone on one bucket's fp32
+        statistics, outputs allocated once, outside the launch count: the
+        kernels without the wrapper. Returns the call; it returns the
+        outputs."""
+        torch = self.torch
+        r, w = b.indices.shape
+        n, k = cp.shape
+        p = b.n_segments
+        prec = torch.empty((p, k, k), device=self.dev)
+        rhs = torch.empty((p, k), device=self.dev)
+        rows = ((None, None) if b.identity_segments else
+                (torch.empty((r, k, k), device=self.dev, dtype=torch.float64),
+                 torch.empty((r, k), device=self.dev, dtype=torch.float64)))
+        lib = self.build_mod.library("gather_syrk_seg")
+        ptr = None if b.identity_segments else b.seg_ptr.data_ptr()
+
+        def launch():
+            err = lib.gather_syrk_seg_launch(
+                b.indices.data_ptr(), b.values.data_ptr(), b.mask.data_ptr(),
+                cp.data_ptr(), 0, *(None if x is None else x.data_ptr() for x in rows),
+                ptr, prec.data_ptr(), rhs.data_ptr(), r, w, n, 1, p, k, narrow_max_w,
+                torch.cuda.current_stream().cuda_stream)
+            self.build_mod.check("gather_syrk_seg", err)
+            return prec, rhs
+
+        return launch
 
     def syrk_path(self, vm, rv, narrow_max_w: int):
         """masked_syrk's kernel with the narrow path taking rows up to
@@ -663,10 +787,11 @@ class Smoke:
 
     def ranks(self):
         """The BPMF kernels at the other ranks the repo runs, against their
-        plain versions at the same tolerances as K = 64: every bucket of
-        both plans (gather_syrk_seg in fp32, masked_syrk on the kernel
-        engine's pre-gathered blocks) and the user systems of one
-        half-sweep (chol_solve_sample), with factors drawn at each rank."""
+        plain versions as at K = 64: every bucket of both plans, bit for bit
+        (gather_syrk_seg in fp32, with bf16 gather and over 4 stacked draws,
+        masked_syrk on the kernel engine's pre-gathered blocks) and the
+        user systems of one half-sweep (chol_solve_sample), with factors
+        drawn at each rank."""
         from repro_torch.core.gibbs import posterior_systems
         from repro_torch.core.hyper import init_hyper
 
@@ -675,19 +800,24 @@ class Smoke:
             u = 0.3 * self.randn(s.m, k)
             v = 0.3 * self.randn(s.n, k)
             err = {"gather_syrk_seg": 0.0, "masked_syrk": 0.0}
+            stacks = {"item": torch.stack([u * (1 + 0.1 * i) for i in range(4)]),
+                      "user": torch.stack([v * (1 - 0.1 * i) for i in range(4)])}
             for side, b, cp in self._bucket_sides(u, v):
-                args = (b.indices, b.values, b.mask, b.seg_ids, b.n_segments, cp)
+                args = (b.indices, b.values, b.mask, b.seg_ids, b.n_segments)
                 kw = dict(identity_segments=b.identity_segments)
-                pk, rk = ops.gather_syrk_seg(*args, seg_ptr=b.seg_ptr, **kw)
-                pp, rp = ref.gather_syrk_seg_ref(*args, **kw)
-                self.sync()
-                ok = (self.verdict(pk, pp, "")[0] and self.verdict(rk, rp, "")[0]
-                      and pk.shape == pp.shape == (b.n_segments, k, k))
-                e = max(self.max_err(pk, pp), self.max_err(rk, rp))
-                self.check(ok, f"K={k} gather_syrk_seg {side} width {b.width}: max abs "
-                           f"err {e:.3e} ({TOL})")
-                err["gather_syrk_seg"] = max(err["gather_syrk_seg"], e)
-                del pk, rk, pp, rp
+                for mode, c, bf16 in (("fp32", cp, False), ("bf16 gather", cp, True),
+                                      ("stacked S=4", stacks[side], False)):
+                    pk, rk = ops.gather_syrk_seg(*args, c, seg_ptr=b.seg_ptr,
+                                                 bf16_gather=bf16, **kw)
+                    pp, rp = ref.gather_syrk_seg_ref(*args, c, bf16_gather=bf16, **kw)
+                    self.sync()
+                    ok = (torch.equal(pk, pp) and torch.equal(rk, rp)
+                          and pk.shape[-3:] == (b.n_segments, k, k))
+                    e = max(self.max_err(pk, pp, -3), self.max_err(rk, rp, -2))
+                    self.check(ok, f"K={k} gather_syrk_seg {side} width {b.width} {mode}: "
+                               f"bit for bit (max abs err {e:.3e})")
+                    err["gather_syrk_seg"] = max(err["gather_syrk_seg"], e)
+                    del pk, rk, pp, rp
                 vm = (cp[b.indices.long()] * b.mask[..., None]).contiguous()
                 rv = (b.values * b.mask).contiguous()
                 pk, rk = ops.masked_syrk(vm, rv)
@@ -699,6 +829,7 @@ class Smoke:
                            f"(max abs err {e:.3e})")
                 err["masked_syrk"] = max(err["masked_syrk"], e)
                 del vm, rv, pk, rk, pp, rp
+            del stacks
             prec, rhs = posterior_systems(v, s.user_buckets, s.m,
                                           init_hyper(k, device=self.dev), s.alpha,
                                           engine="fused")
@@ -709,6 +840,9 @@ class Smoke:
             err["chol_solve_sample"] = self.close(
                 xk, xp, f"K={k} chol_solve_sample on {tuple(prec.shape)} user systems",
                 CHOL_TOL)
+            ms = self.cuda_ms(lambda: ops.chol_solve_sample(prec, rhs, z))
+            print(f"    K={k} chol_solve_sample, {s.m:,} user systems: {ms:.3f} ms kernel")
+            self.rows["chol_solve_sample"].setdefault("user_half_ms_other_ranks", {})[k] = ms
             del prec, rhs, z, xk, xp
             eye = torch.eye(k, device=self.dev)
             bad = torch.stack([-eye, eye * torch.linspace(-1, 1, k, device=self.dev),
@@ -785,6 +919,8 @@ class Smoke:
         print(f"fused sweep seconds {[round(t, 4) for t in times]}; median {med:.4f} s; "
               f"item updates/s {(s.m + s.n) / med:,.0f}; peak device memory {peak:.2f} GB")
         self._profile(lambda: s.sweep(st), med * 1e3)
+        self._profile(lambda: ksampler.sweep(kstate), ktimes[-1] * 1e3,
+                      "kernel-engine sweep")
         self.state = state
 
     def _profile(self, fn, wall: float, what: str = "sweep") -> list:
@@ -792,17 +928,29 @@ class Smoke:
         idle share is taken against `wall`, the call's unprofiled time in ms
         (the profiler's own start-up would swamp a wall clock around it).
         Returns the trace's device events, one per kernel name, each with
-        its launch count (none where the trace holds no device time)."""
+        its launch count (none where the trace holds no device time).
+
+        fn runs twice: once as the profiler's warm-up step, unrecorded, then
+        recorded. Recorded from the start, a profiler session after the
+        first in a process can miss the first kernel its window launches
+        (on the H100: top-N's score kernel, one of a sweep's)."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
 
         self.sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            self.sync()
-        events = [e for e in prof.key_averages()
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+            for _ in range(2):
+                fn()
+                self.sync()
+                prof.step()
+        # the step's own span ("ProfilerStep*") is no kernel
+        events = [e for e in (traces[0] if traces else [])
                   if getattr(e, "device_time_total", 0) > 0
-                  and e.device_type == torch.autograd.DeviceType.CUDA]
+                  and e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
         busy = sum(e.device_time_total for e in events) / 1e3
         if not events:
             print(f"profiled {what}: no device time in the trace (not measured)")

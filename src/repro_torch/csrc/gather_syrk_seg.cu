@@ -8,9 +8,12 @@
 //
 // then rows are summed into their segments (an item split across rows of
 // the widest bucket), with an optional leading stack of S draws of V and
-// V in fp32 or bf16 (the sums are kept in fp64 either way, syrk_tile.cuh).
-// K is a template parameter, instantiated for 16, 32 and 64; the wrapper
-// pads another rank with zero columns, once per half-sweep in the sampler.
+// V in fp32 or bf16 (the sums are kept in fp64 either way, syrk_tile.cuh:
+// rows over w in order, segments over rows in order, one rounding, the
+// plain version's bits). K is a template parameter, instantiated for 16,
+// 32 and 64; the wrapper pads another rank with zero columns, once per
+// half-sweep in the sampler, and pads nothing else: R and W are taken as
+// they are.
 //
 // Bound on an H100: bytes for a whole sweep. A narrow bucket writes 16 KiB
 // of fp32 per row at K = 64 (one 64 x 64 matrix) and reads up to W * 256 B of
@@ -18,25 +21,41 @@
 // 3.35 TB/s; where rows repeat, as in the widest item bucket, the
 // K (K + 1) + 2 K flops per rating of the symmetric product at 67 TFLOP/s
 // fp32 (no tensor cores: the sweep stays IEEE fp32) take longer than the
-// bytes. Over the ChEMBL plans' 16 buckets the bytes dominate.
+// bytes. Over the ChEMBL plans' 16 buckets the bytes dominate. The fp64
+// sums cost K^2 fused multiply-adds a rating on the fp64 pipes, at half
+// the fp32 rate, which is what the widest item bucket's time rests on.
 //
 // Design. The TPU kernel walks rows in a sequential grid and accumulates
 // each block's one-hot-reduced partials into the output range in place.
-// Hopper runs blocks in parallel and in no order, so:
-//   * pass 1: one block per (row, draw) gathers the row's vectors into
-//     shared memory CHUNK at a time and computes the row's statistics. The
-//     longest walk of any block is one row of W <= 512 vectors, never a
-//     segment: the widest bucket's items span many rows (about 9 rows and
-//     4,800 ratings an item in the ChEMBL profile), and a block that walked
-//     a whole item there would leave most of the card idle.
-//   * identity buckets (every row its own segment) write pass 1 straight
-//     into the output, in one pass. The bucket whose items span several
-//     rows writes fp64 row partials to scratch, and
-//   * pass 2 sums each segment's rows in row order, from segment offsets
-//     the host took from the plan. A segment's K x K sum is split over
-//     K * K / THREADS blocks, one entry a thread.
+// Hopper runs blocks in parallel and in no order, so there are three paths:
+//   * narrow identity buckets (every row its own segment, rows up to the
+//     launcher's narrow_max_w = ops.SYRK_NARROW_MAX_W wide: ChEMBL's user
+//     buckets of width 1-8, 360,000 rows). One block a row would spend the
+//     sweep in block lifetimes, each waiting on one gather before its
+//     16 KiB store. A persistent grid walks groups of rows (as many as fit
+//     4,096 / K vectors, and each draw of a stack in turn): each block
+//     stages its next group's mask, values and gathered V rows with
+//     cp.async (16-byte pieces from
+//     gathered addresses, 4-byte ones for the mask and values) while it
+//     streams the current group's outputs, a thread a 4 x 4 tile of one
+//     row's sum (syrk_tile.cuh::stream_group, shared with masked_syrk's
+//     narrow path);
+//   * wider identity buckets: one block a (row, draw), 256 threads each a
+//     (K/16)^2 tile of the row's sum (syrk_tile.cuh::accumulate_chunk,
+//     shared with masked_syrk's wide rows), the row's vectors gathered
+//     CHUNK at a time by cp.async; the row's statistics go straight to
+//     the output;
+//   * the bucket whose items span several rows (ChEMBL's widest item
+//     bucket: 1,481 rows, 159 items, one of them 284 rows): the same row
+//     blocks write fp64 row partials to scratch, and a second pass sums
+//     each segment's rows in row order, from segment offsets the host took
+//     from the plan, a segment's K x K sum split over K * K / THREADS
+//     blocks, one entry a thread. Splitting by rows keeps the largest
+//     item's 145,000 vectors spread over the card; a block a segment
+//     would leave that item on one SM.
 // No atomics: the result is the same bits on every run, which the ring
-// and allgather exchange modes rely on.
+// and allgather exchange modes rely on. Out-of-range ids are clamped, as
+// an XLA gather clamps them.
 #include "syrk_tile.cuh"
 
 namespace {
@@ -44,39 +63,139 @@ namespace {
 using repro::CHUNK;
 using repro::THREADS;
 
+// 16-byte pieces of one vector of K values of T, and values a piece
+template <int K, typename T>
+struct Pieces {
+  static constexpr int per_vector = K * (int)sizeof(T) / 16;
+  static constexpr int values = 16 / (int)sizeof(T);
+};
+
+__device__ __forceinline__ long long clamp_id(int id, long long N) {
+  return min(max((long long)id, 0LL), N - 1);
+}
+
+// n vectors V[idx[first + w]] (w < n) into x, and their mask and values,
+// by a block of NTH threads
+template <int K, typename T, int NTH>
+__device__ __forceinline__ void gather_async(T* x, float* m, float* c,
+                                             const int* idx, const float* val,
+                                             const float* msk, const T* vs,
+                                             long long N, size_t first, int n) {
+  using Pc = Pieces<K, T>;
+  for (int e = threadIdx.x; e < n * Pc::per_vector; e += NTH) {
+    const int w = e / Pc::per_vector, q = e - w * Pc::per_vector;
+    const long long id = clamp_id(idx[first + w], N);
+    repro::cp_async16(x + w * K + q * Pc::values, vs + id * K + q * Pc::values);
+  }
+  for (int e = threadIdx.x; e < n; e += NTH) {
+    repro::cp_async4(m + e, msk + first + e);
+    repro::cp_async4(c + e, val + first + e);
+  }
+}
+
+// ------------------------------------------------------------ narrow rows
+
+// one stage of a narrow group: 4,096 / K vectors, then their mask and values
+template <int K, typename T>
+struct Stage {
+  static constexpr int vectors = 4096 / K;
+  static constexpr int vector_bytes = vectors * K * (int)sizeof(T);
+  static constexpr int bytes = vector_bytes + 2 * vectors * 4;
+};
+
+template <int K, typename T>
+__device__ __forceinline__ void stage_unit(unsigned char* stage, const int* idx,
+                                           const float* val, const float* msk,
+                                           const T* v, int R, int W, long long N,
+                                           int group, int n_groups, int unit) {
+  using St = Stage<K, T>;
+  const int s = unit / n_groups, r0 = (unit - s * n_groups) * group;
+  float* m = reinterpret_cast<float*>(stage + St::vector_bytes);
+  gather_async<K, T, THREADS>(reinterpret_cast<T*>(stage), m, m + St::vectors, idx, val,
+                     msk, v + (size_t)s * N * K, N, (size_t)r0 * W,
+                     min(group, R - r0) * W);
+}
+
+template <int K, typename T>
+__global__ void __launch_bounds__(THREADS) gather_syrk_narrow_kernel(
+    const int* __restrict__ idx, const float* __restrict__ val,
+    const float* __restrict__ msk, const T* __restrict__ v,
+    float* __restrict__ prec, float* __restrict__ rhs, int R, int W,
+    long long N, int S, int group) {
+  using St = Stage<K, T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_groups = (R + group - 1) / group, units = n_groups * S;
+  int unit = blockIdx.x;
+  if (unit >= units) return;
+  stage_unit<K, T>(smem, idx, val, msk, v, R, W, N, group, n_groups, unit);
+  repro::cp_async_commit();
+  for (int it = 0; unit < units; unit += gridDim.x, ++it) {
+    const int next = unit + gridDim.x;
+    if (next < units)
+      stage_unit<K, T>(smem + ((it + 1) & 1) * St::bytes, idx, val, msk, v, R, W,
+                       N, group, n_groups, next);
+    repro::cp_async_commit();
+    repro::cp_async_wait_one();            // this unit's copies have landed
+    __syncthreads();
+    const unsigned char* cur = smem + (it & 1) * St::bytes;
+    const float* m = reinterpret_cast<const float*>(cur + St::vector_bytes);
+    const int s = unit / n_groups, r0 = (unit - s * n_groups) * group;
+    const size_t out = (size_t)s * R + r0;
+    repro::stream_group<K, true>(reinterpret_cast<const T*>(cur), m, m + St::vectors,
+                                 min(group, R - r0), W, prec + out * K * K,
+                                 rhs + out * K);
+    __syncthreads();                       // before the next prefetch reuses it
+  }
+}
+
+template <int K, typename T>
+int launch_narrow(const int* idx, const float* val, const float* msk,
+                  const T* v, float* prec, float* rhs, int R, int W,
+                  long long N, int S, cudaStream_t st) {
+  constexpr int bytes = 2 * Stage<K, T>::bytes;
+  static int blocks = 0;                   // resident blocks on the whole card
+  if (blocks == 0) {
+    const int err = repro::resident_blocks(gather_syrk_narrow_kernel<K, T>, THREADS,
+                                           bytes, &blocks);
+    if (err != 0) return err;
+  }
+  const int group = Stage<K, T>::vectors / max(W, 1);
+  const long long units = (long long)((R + group - 1) / group) * S;
+  const int grid = units < blocks ? (int)units : blocks;
+  gather_syrk_narrow_kernel<K, T><<<grid, THREADS, bytes, st>>>(
+      idx, val, msk, v, prec, rhs, R, W, N, S, group);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------------------- a row a block
+
+// A row a block (syrk_tile.cuh::accumulate_chunk, store_row, shared with
+// masked_syrk's wide rows), each chunk of CHUNK vectors gathered with its
+// mask and values by cp.async. Double-buffering the chunks took 100
+// registers a thread at K = 64 and was slower than the parent's single
+// buffer on the widest item bucket (PERF.md §6).
 template <int K, typename T, typename OutT>
 __global__ void __launch_bounds__(THREADS) gather_syrk_rows_kernel(
     const int* __restrict__ idx, const float* __restrict__ val,
     const float* __restrict__ msk, const T* __restrict__ v,
     OutT* __restrict__ prec_rows, OutT* __restrict__ rhs_rows,
     int R, int W, long long N) {
-  const int r = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
+  const int r = blockIdx.x, s = blockIdx.y;
   const T* vs = v + (size_t)s * N * K;
-  __shared__ __align__(16) float g[CHUNK * K];
-  __shared__ float m[CHUNK], rv[CHUNK];
-  __shared__ long long j[CHUNK];
+  __shared__ __align__(16) unsigned char land[CHUNK * K * sizeof(T)];
+  __shared__ float m[CHUNK], c[CHUNK];
+  T* g = reinterpret_cast<T*>(land);
   double acc[K / 16][K / 16] = {};
   double racc = 0.0;
   const size_t row = (size_t)r * W;
   for (int w0 = 0; w0 < W; w0 += CHUNK) {
     const int n = min(CHUNK, W - w0);
-    if (t < CHUNK) {
-      const bool in = t < n;
-      const float mm = in ? msk[row + w0 + t] : 0.f;
-      m[t] = mm;
-      rv[t] = in ? val[row + w0 + t] * mm : 0.f;
-      // out-of-range ids are clamped, as an XLA gather clamps them
-      const long long id = in ? (long long)idx[row + w0 + t] : 0;
-      j[t] = min(max(id, 0LL), N - 1);
-    }
+    gather_async<K, T, THREADS>(g, m, c, idx, val, msk, vs, N, row + w0, n);
+    repro::cp_async_commit();
+    repro::cp_async_wait_all();
     __syncthreads();
-    for (int e = t; e < n * (K / 4); e += THREADS) {
-      const int w = e / (K / 4), q = e % (K / 4);
-      *reinterpret_cast<float4*>(g + w * K + q * 4) = repro::load4(vs + j[w] * K + q * 4);
-    }
-    __syncthreads();
-    repro::accumulate_chunk<K>(g, m, rv, n, acc, racc);
-    __syncthreads();
+    repro::accumulate_chunk<K, true>(g, m, c, n, acc, racc);
+    __syncthreads();                       // before the next chunk lands
   }
   const size_t out = (size_t)s * R + r;
   repro::store_row<K, OutT>(prec_rows + out * K * K, rhs_rows + out * K, acc, racc);
@@ -95,6 +214,7 @@ __global__ void __launch_bounds__(THREADS) segment_reduce_kernel(
   const int e = q * THREADS + t;
   const bool do_rhs = q == 0 && t < K;
   double tot = 0.0, rtot = 0.0;
+#pragma unroll 4
   for (int r = r0; r < r1; ++r) {
     tot += prec_rows[(base + r) * K * K + e];
     if (do_rhs) rtot += rhs_rows[(base + r) * K + t];
@@ -107,7 +227,10 @@ __global__ void __launch_bounds__(THREADS) segment_reduce_kernel(
 template <int K, typename T>
 int launch(const int* idx, const float* val, const float* msk, const T* v,
            void* rows_prec, void* rows_rhs, const int* seg_ptr, float* prec,
-           float* rhs, int R, int W, long long N, int S, int P, cudaStream_t st) {
+           float* rhs, int R, int W, long long N, int S, int P,
+           int narrow_max_w, cudaStream_t st) {
+  if (seg_ptr == nullptr && W <= min(narrow_max_w, Stage<K, T>::vectors))
+    return launch_narrow<K, T>(idx, val, msk, v, prec, rhs, R, W, N, S, st);
   const dim3 grid(R, S);
   if (seg_ptr == nullptr) {
     gather_syrk_rows_kernel<K, T, float><<<grid, THREADS, 0, st>>>(
@@ -129,36 +252,39 @@ template <int K>
 int launch_rank(const int* idx, const float* val, const float* msk,
                 const void* v, int v_bf16, void* rows_prec, void* rows_rhs,
                 const int* seg_ptr, float* prec, float* rhs, int R, int W,
-                long long N, int S, int P, cudaStream_t st) {
+                long long N, int S, int P, int narrow_max_w, cudaStream_t st) {
   if (v_bf16)
     return launch<K>(idx, val, msk, static_cast<const __nv_bfloat16*>(v), rows_prec,
-                     rows_rhs, seg_ptr, prec, rhs, R, W, N, S, P, st);
+                     rows_rhs, seg_ptr, prec, rhs, R, W, N, S, P, narrow_max_w, st);
   return launch<K>(idx, val, msk, static_cast<const float*>(v), rows_prec,
-                   rows_rhs, seg_ptr, prec, rhs, R, W, N, S, P, st);
+                   rows_rhs, seg_ptr, prec, rhs, R, W, N, S, P, narrow_max_w, st);
 }
 
 }  // namespace
 
-// idx, val, msk: (R, W); v: (S, N, K) fp32, or bf16 when v_bf16 != 0, with
-// K in 16, 32, 64 (cudaErrorInvalidValue for another).
+// idx, val, msk: (R, W), contiguous; v: (S, N, K) fp32, or bf16 when
+// v_bf16 != 0, contiguous and 16-byte aligned, with K in 16, 32, 64.
 // With seg_ptr == nullptr (an identity bucket) prec, rhs are (S, R, K, K),
-// (S, R, K) and rows_prec, rows_rhs are unused. Otherwise seg_ptr (P + 1)
-// holds the segment offsets, rows_prec, rows_rhs are fp64 scratch of
-// (S, R, K, K), (S, R, K), and prec, rhs (S, P, K, K), (S, P, K) receive the
-// segment sums. Returns the CUDA error code of the launches.
+// (S, R, K) and rows_prec, rows_rhs are unused; rows up to narrow_max_w
+// wide (and at most 4,096 / K) take the narrow path. Otherwise seg_ptr
+// (P + 1) holds the segment offsets, rows_prec, rows_rhs are fp64 scratch
+// of (S, R, K, K), (S, R, K), and prec, rhs (S, P, K, K), (S, P, K)
+// receive the segment sums. Returns the CUDA error code of the launches
+// (cudaErrorInvalidValue for another K or an empty bucket).
 extern "C" int gather_syrk_seg_launch(
     const int* idx, const float* val, const float* msk, const void* v,
     int v_bf16, void* rows_prec, void* rows_rhs, const int* seg_ptr,
     float* prec, float* rhs, int R, int W, long long N, int S, int P,
-    int K, void* stream) {
+    int K, int narrow_max_w, void* stream) {
+  if (R <= 0 || W < 0 || N <= 0 || S <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 16: return launch_rank<16>(idx, val, msk, v, v_bf16, rows_prec, rows_rhs,
-                                    seg_ptr, prec, rhs, R, W, N, S, P, st);
+                                    seg_ptr, prec, rhs, R, W, N, S, P, narrow_max_w, st);
     case 32: return launch_rank<32>(idx, val, msk, v, v_bf16, rows_prec, rows_rhs,
-                                    seg_ptr, prec, rhs, R, W, N, S, P, st);
+                                    seg_ptr, prec, rhs, R, W, N, S, P, narrow_max_w, st);
     case 64: return launch_rank<64>(idx, val, msk, v, v_bf16, rows_prec, rows_rhs,
-                                    seg_ptr, prec, rhs, R, W, N, S, P, st);
+                                    seg_ptr, prec, rhs, R, W, N, S, P, narrow_max_w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,15 +34,14 @@
 // stages its next group with 16-byte cp.async while it writes the current
 // one (double-buffered). The output is output-stationary: the block's
 // threads walk the group's outputs in 4 x 4 tiles of each row's K x K
-// matrix (and float4s of its rhs), consecutive threads on consecutive
-// tiles, so each of a tile's four 16-byte row stores is, across a warp,
-// two 256-byte runs. Each tile is summed over its row's W vectors in
-// fp64, in w order, just before its store: 16 fused multiply-adds for two
-// 16-byte shared-memory reads. No row's K x K sum sits in registers.
+// matrix, each summed over its row's W vectors in fp64, in w order, just
+// before its 16-byte stores (syrk_tile.cuh::stream_group, which the fused
+// kernel's narrow path shares).
 //
 // Wide rows keep one block a row: 256 threads, each a (K/16)^2 tile of
 // the sum in fp64, the row's vectors staged CHUNK at a time
-// (syrk_tile.cuh::accumulate_chunk), the row's sums leaving in one write.
+// (syrk_tile.cuh::accumulate_chunk, which gather_syrk_seg's row blocks
+// share), the row's sums leaving in one write.
 //
 // Both paths take R and W as they are: the wrapper pads nothing but the
 // rank, and the last group or chunk is cut short where the rows or
@@ -62,23 +61,20 @@ __global__ void __launch_bounds__(THREADS) masked_syrk_kernel(
     float* __restrict__ prec, float* __restrict__ rhs, int R, int W) {
   const int r = blockIdx.x, t = threadIdx.x;
   __shared__ __align__(16) float g[CHUNK * K];
-  __shared__ float m[CHUNK], rvs[CHUNK];
+  __shared__ float rvs[CHUNK];
   double acc[K / 16][K / 16] = {};
   double racc = 0.0;
   const float* block = vm + (size_t)r * W * K;
   for (int w0 = 0; w0 < W; w0 += CHUNK) {
     const int n = min(CHUNK, W - w0);
-    if (t < CHUNK) {
-      m[t] = t < n ? 1.f : 0.f;
-      rvs[t] = t < n ? rv[(size_t)r * W + w0 + t] : 0.f;
-    }
+    if (t < n) rvs[t] = rv[(size_t)r * W + w0 + t];
     for (int e = t; e < n * (K / 4); e += THREADS) {
       const int w = e / (K / 4), q = e % (K / 4);
       *reinterpret_cast<float4*>(g + w * K + q * 4) =
           repro::load4(block + (size_t)(w0 + w) * K + q * 4);
     }
     __syncthreads();
-    repro::accumulate_chunk<K>(g, m, rvs, n, acc, racc);
+    repro::accumulate_chunk<K, false>(g, nullptr, rvs, n, acc, racc);
     __syncthreads();
   }
   repro::store_row<K, float>(prec + (size_t)r * K * K, rhs + (size_t)r * K, acc, racc);
@@ -95,28 +91,6 @@ struct Stage {
   static constexpr int floats = vectors * (K + 1);   // the vectors, then rv
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // rows [r0, r0 + rows) of the block into one stage: rows * W vectors of
 // vm and as many rv values, each a contiguous run in device memory
 template <int K>
@@ -127,9 +101,9 @@ __device__ __forceinline__ void stage_group(float* stage, const float* vm,
   const int n = rows * W;
   const float* src = vm + first * K;
   for (int e = threadIdx.x; e < n * (K / 4); e += THREADS)
-    cp_async16(stage + e * 4, src + (size_t)e * 4);
+    repro::cp_async16(stage + e * 4, src + (size_t)e * 4);
   float* rvs = stage + Stage<K>::vectors * K;
-  for (int e = threadIdx.x; e < n; e += THREADS) cp_async4(rvs + e, rv + first + e);
+  for (int e = threadIdx.x; e < n; e += THREADS) repro::cp_async4(rvs + e, rv + first + e);
 }
 
 template <int K>
@@ -137,62 +111,25 @@ __global__ void __launch_bounds__(THREADS) masked_syrk_narrow_kernel(
     const float* __restrict__ vm, const float* __restrict__ rv,
     float* __restrict__ prec, float* __restrict__ rhs, int R, int W,
     int group) {
-  constexpr int C = K / 4;                 // float4 columns of a row's matrix
-  constexpr int UNITS = C * C + C;         // 4 x 4 tiles of prec, then rhs float4s
   extern __shared__ __align__(16) float smem[];
   const int n_groups = (R + group - 1) / group;
   int grp = blockIdx.x;
   if (grp >= n_groups) return;
   stage_group<K>(smem, vm, rv, grp * group, min(group, R - grp * group), W);
-  cp_async_commit();
+  repro::cp_async_commit();
   for (int it = 0; grp < n_groups; grp += gridDim.x, ++it) {
     const float* cur = smem + (it & 1) * Stage<K>::floats;
     const int next = grp + gridDim.x;
     if (next < n_groups)
       stage_group<K>(smem + ((it + 1) & 1) * Stage<K>::floats, vm, rv,
                      next * group, min(group, R - next * group), W);
-    cp_async_commit();
-    cp_async_wait_one();                   // this group's copies have landed
+    repro::cp_async_commit();
+    repro::cp_async_wait_one();            // this group's copies have landed
     __syncthreads();
-    const int r0 = grp * group, rows = min(group, R - r0);
+    const int r0 = grp * group;
     const float* rvs = cur + Stage<K>::vectors * K;
-    for (int e = threadIdx.x; e < rows * UNITS; e += THREADS) {
-      const int row = e / UNITS, f = e - row * UNITS;
-      const float* x = cur + row * W * K;
-      if (f < C * C) {
-        // prec[4i .. 4i + 3][4j .. 4j + 3] = sum_w x_w[4i ..] x_w[4j ..]^T
-        const int i = f / C, j = f % C;
-        double acc[4][4] = {};
-        for (int w = 0; w < W; ++w) {
-          const float4 a = *reinterpret_cast<const float4*>(x + w * K + i * 4);
-          const float4 b = *reinterpret_cast<const float4*>(x + w * K + j * 4);
-          const double ad[4] = {a.x, a.y, a.z, a.w}, bd[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int v = 0; v < 4; ++v) acc[u][v] = fma(ad[u], bd[v], acc[u][v]);
-        }
-        float* p = prec + ((size_t)(r0 + row) * K + i * 4) * K + j * 4;
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          *reinterpret_cast<float4*>(p + u * K) =
-              make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-      } else {
-        // rhs[4j .. 4j + 3] = sum_w x_w[4j ..] rv_w
-        const int j = f - C * C;
-        double acc[4] = {};
-        for (int w = 0; w < W; ++w) {
-          const double c = rvs[row * W + w];
-          const float4 b = *reinterpret_cast<const float4*>(x + w * K + j * 4);
-          acc[0] = fma((double)b.x, c, acc[0]);
-          acc[1] = fma((double)b.y, c, acc[1]);
-          acc[2] = fma((double)b.z, c, acc[2]);
-          acc[3] = fma((double)b.w, c, acc[3]);
-        }
-        *reinterpret_cast<float4*>(rhs + (size_t)(r0 + row) * K + j * 4) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-      }
-    }
+    repro::stream_group<K, false>(cur, rvs, rvs, min(group, R - r0), W,
+                                  prec + (size_t)r0 * K * K, rhs + (size_t)r0 * K);
     __syncthreads();                       // before the next prefetch reuses it
   }
 }
@@ -203,13 +140,9 @@ int launch_narrow(const float* vm, const float* rv, float* prec, float* rhs,
   constexpr int bytes = 2 * Stage<K>::floats * 4;
   static int blocks = 0;                   // resident blocks on the whole card
   if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, masked_syrk_narrow_kernel<K>, THREADS, bytes);
-    if (err != cudaSuccess) return (int)err;
-    blocks = sms * per_sm;
+    const int err = repro::resident_blocks(masked_syrk_narrow_kernel<K>, THREADS,
+                                           bytes, &blocks);
+    if (err != 0) return err;
   }
   const int group = Stage<K>::vectors / max(W, 1);
   const int n_groups = (R + group - 1) / group;

@@ -33,13 +33,13 @@ _F = ctypes.c_float
 KERNELS = {
     "gather_syrk_seg": ("gather_syrk_seg.cu", [
         ("gather_syrk_seg_launch",
-         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
+         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P]),
     ]),
     "masked_syrk": ("masked_syrk.cu", [
         ("masked_syrk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ]),
     "chol_solve_sample": ("chol_solve.cu", [
-        ("chol_solve_sample_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+        ("chol_solve_sample_launch", [_P, _P, _P, _P, _I, _I, _P]),
     ]),
     "topn_scores": ("topn.cu", [
         ("topn_scores_launch",

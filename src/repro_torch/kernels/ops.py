@@ -6,13 +6,11 @@ and contiguity, launches its kernel on the current stream, raises if the
 launch returned an error, and adds one to its entry in `LAUNCHES`. There is
 no fallback: a CUDA tensor the kernel cannot take raises.
 
-The fused kernel's padding rules are the reference's
-(`repro/kernels/ops.py`): rows to 8, the W axis to `_block_w_for(w)`; a
-solve batch is rounded up to 16 (or 8) with identity systems. The masked
-syrk kernel takes R and W as they are. The BPMF kernels are built for the
-ranks in KERNEL_RANKS; another rank up to 64 is padded to the next one
-(`kernel_rank`) with zero columns (`pad_rank`; the syrk sums gain exact
-zeros) or, for the solve, with an identity block (`pad_rank_systems`).
+The syrk kernels take R and W as they are, and the solve its batch. The
+BPMF kernels are built for the ranks in KERNEL_RANKS; another rank up to
+64 is padded to the next one (`kernel_rank`) with zero columns
+(`pad_rank`; the syrk sums gain exact zeros) or, for the solve, with an
+identity block (`pad_rank_systems`): the only padding they get.
 Top-N pads the width to a multiple of 4 with zero columns
 (`topn_operands`) and scores the catalogue in slabs whose scratch is
 bounded (`topn_slab`). Flash attention pads nothing: its kernels mask a
@@ -103,16 +101,19 @@ def pad_rank_systems(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor,
     return big, pad_rank(rhs, kp), pad_rank(z, kp)
 
 
-def _block_w_for(w: int) -> int:
-    """W tile for a bucket of width w: 8-lane aligned, at most 128; the pad
-    columns carry mask 0 and contribute exact zeros."""
-    return min(128, max(8, -(-w // 8) * 8))
-
-
 def segment_offsets(seg_ids: np.ndarray, n_segments: int) -> np.ndarray:
     """(n_segments + 1,) int32 row offsets of nondecreasing dense segment ids,
     taken on the host from a plan's bucket: the kernel's segment boundaries."""
     return np.searchsorted(seg_ids, np.arange(n_segments + 1)).astype(np.int32)
+
+
+#: the widest bucket row the narrow paths of masked_syrk and of
+#: gather_syrk_seg's identity buckets take (csrc/masked_syrk.cu,
+#: csrc/gather_syrk_seg.cu); wider rows take one block a row. chip_smoke.py
+#: times both paths of both kernels on every ChEMBL bucket the narrow path
+#: can stage: on the H100 the narrow paths win up to width 8 and lose from
+#: 15 (PERF.md §6)
+SYRK_NARROW_MAX_W = 8
 
 
 def gather_syrk_seg(
@@ -133,7 +134,8 @@ def gather_syrk_seg(
     the leading draw axis iff v has one. `seg_ptr` (n_segments + 1 row
     offsets, int32, from `segment_offsets` on the host) is the plan's
     segment boundaries; the kernel needs it unless every row is its own
-    segment.
+    segment. The kernel takes R and W as they are; identity buckets up to
+    SYRK_NARROW_MAX_W wide take its narrow path.
     """
     if not _on_cuda(v):
         return ref.gather_syrk_seg_ref(
@@ -160,26 +162,23 @@ def gather_syrk_seg(
     if not identity_segments and seg_ptr is None:
         raise ValueError("gather_syrk_seg needs seg_ptr, the plan's segment "
                          "offsets, for a bucket of multi-row segments")
-    # pad rows to 8 (mask 0: exact zeros in the last segment) and W to the
-    # block width
-    block_w = _block_w_for(w)
-    indices = _pad_to(_pad_to(indices, 0, 8), 1, block_w)
-    values = _pad_to(_pad_to(values, 0, 8), 1, block_w)
-    mask = _pad_to(_pad_to(mask, 0, 8), 1, block_w)
-    rp, wp = indices.shape
-    vk = (vs.to(torch.bfloat16) if bf16_gather else vs).contiguous()
+    if values.shape != (r, w) or mask.shape != (r, w) or seg_ids.shape != (r,):
+        raise ValueError(f"values and mask must be {(r, w)} and seg_ids ({r},)")
+    if identity_segments and n_segments != r:
+        raise ValueError("an identity bucket has one segment a row")
+    vk = _aligned((vs.to(torch.bfloat16) if bf16_gather else vs).contiguous())
     if identity_segments:
-        # pass 1 writes each row's statistics straight into the output
-        prec = torch.empty((s, rp, kp, kp), device=dev, dtype=torch.float32)
-        rhs = torch.empty((s, rp, kp), device=dev, dtype=torch.float32)
+        # the kernel writes each row's statistics straight into the output
+        prec = torch.empty((s, r, kp, kp), device=dev, dtype=torch.float32)
+        rhs = torch.empty((s, r, kp), device=dev, dtype=torch.float32)
         rows_prec = rows_rhs = ptr = None
     else:
         seg_ptr = _require("seg_ptr", seg_ptr, dev, torch.int32)
         if seg_ptr.shape != (n_segments + 1,):
             raise ValueError(f"seg_ptr must have {n_segments + 1} entries")
         # fp64 row partials for the second pass, which sums them by segment
-        rows_prec = torch.empty((s, rp, kp, kp), device=dev, dtype=torch.float64)
-        rows_rhs = torch.empty((s, rp, kp), device=dev, dtype=torch.float64)
+        rows_prec = torch.empty((s, r, kp, kp), device=dev, dtype=torch.float64)
+        rows_rhs = torch.empty((s, r, kp), device=dev, dtype=torch.float64)
         prec = torch.empty((s, n_segments, kp, kp), device=dev, dtype=torch.float32)
         rhs = torch.empty((s, n_segments, kp), device=dev, dtype=torch.float32)
         ptr = seg_ptr.data_ptr()
@@ -189,22 +188,14 @@ def gather_syrk_seg(
         int(bf16_gather),
         None if rows_prec is None else rows_prec.data_ptr(),
         None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
-        prec.data_ptr(), rhs.data_ptr(), rp, wp, n, s, n_segments, kp,
-        _stream(v),
+        prec.data_ptr(), rhs.data_ptr(), r, w, n, s, n_segments, kp,
+        SYRK_NARROW_MAX_W, _stream(v),
     )
     build.check("gather_syrk_seg", err)
     LAUNCHES["gather_syrk_seg"] += 1
-    prec, rhs = prec[:, :n_segments], rhs[:, :n_segments]
     if kp != k:
         prec, rhs = prec[..., :k, :k], rhs[..., :k]
     return (prec, rhs) if stacked else (prec[0], rhs[0])
-
-
-#: the widest bucket row masked_syrk's narrow path takes (csrc/masked_syrk.cu);
-#: wider rows take one block a row. chip_smoke.py times both paths on every
-#: ChEMBL bucket the narrow path can stage: on the H100 it wins up to width
-#: 8 and loses by a few percent from 15 (PERF.md §6)
-SYRK_NARROW_MAX_W = 8
 
 
 def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
@@ -250,11 +241,9 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
                       ) -> torch.Tensor:
     """Batched x = Lambda^-1 rhs + L^-T z over any leading axes.
 
-    The batch is rounded up to the reference's tile (16, or 8 below 16
-    systems) with identity systems; the kernel makes those in registers
-    instead of copying the batch. A rank the kernel is not instantiated for
-    is padded with an identity block (`pad_rank_systems`): a zero-padded
-    precision matrix is singular.
+    The kernel takes the batch as it is. A rank the kernel is not
+    instantiated for is padded with an identity block (`pad_rank_systems`):
+    a zero-padded precision matrix is singular.
     """
     if prec.dim() > 3:
         lead = prec.shape[:-2]
@@ -272,17 +261,17 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
     z = _require("z", z, dev, torch.float32)
     if rhs.shape != (bsz, k) or z.shape != (bsz, k):
         raise ValueError("rhs and z must be (B, K)")
-    prec, rhs, z = pad_rank_systems(prec, rhs, z, kp)
-    block_b = 16 if bsz >= 16 else 8
-    bp = bsz + (-bsz) % block_b
-    out = torch.empty((bp, kp), device=dev, dtype=torch.float32)
+    if bsz == 0:
+        raise ValueError("chol_solve_sample needs at least one system")
+    prec, rhs, z = (_aligned(x) for x in pad_rank_systems(prec, rhs, z, kp))
+    out = torch.empty((bsz, kp), device=dev, dtype=torch.float32)
     err = build.library("chol_solve_sample").chol_solve_sample_launch(
         prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
-        bsz, bp, kp, _stream(prec),
+        bsz, kp, _stream(prec),
     )
     build.check("chol_solve_sample", err)
     LAUNCHES["chol_solve_sample"] += 1
-    return out[:bsz, :k].contiguous()
+    return out if kp == k else out[:, :k].contiguous()
 
 
 TOPN_MAX_K = 8192  # the largest k whose keys the last sort holds in shared memory

@@ -8,12 +8,12 @@ PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances, and why:
-  * gather_syrk_seg: rtol 1e-4, atol 1e-3, the JAX kernel tests' own
-    (tests/test_kernels.py:171). Kernel and plain version both sum each
-    row over W in order in fp64 and round once (the segment sums of the
-    plain version take index_add_'s order), so they agree to the last bit
-    or nearly; against a float64 evaluation the kernel's error is at most
-    the plain version's.
+  * gather_syrk_seg: equal bit for bit. Kernel and plain version both sum
+    each row over W in order in fp64, then each segment's rows in fp64,
+    and round once (the plain version's segment sums take index_add_'s
+    order, which can move an fp64 sum by an ulp, far below what the fp32
+    rounding shows); against a float64 evaluation the kernel's error is at
+    most the plain version's.
   * masked_syrk: equal bit for bit. Every entry is the fp32 rounding of
     an in-order fp64 sum of exact products, in the kernel (either path)
     and in its plain version.
@@ -82,13 +82,59 @@ def test_gather_syrk_seg_kernel_matches_plain(cuda, r, w, n_seg, s, bf16, k):
     assert ops.LAUNCHES["gather_syrk_seg"] == 1
     pp, bp = ref.gather_syrk_seg_ref(*args, n_seg, v, **kw)
     assert pk.shape == pp.shape and bk.shape == bp.shape
-    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-3)
-    torch.testing.assert_close(bk, bp, rtol=1e-4, atol=1e-3)
+    assert torch.equal(pk, pp) and torch.equal(bk, bp)
     if not bf16:
         idx, val, msk, seg = args
         p64, _ = ref.gather_syrk_seg_ref(idx, val.double(), msk.double(), seg, n_seg,
                                          v.double(), **kw)
         assert (pk.double() - p64).abs().max() <= (pp.double() - p64).abs().max()
+
+
+# the widths gather_syrk_seg takes unpadded: both sides of the narrow
+# path's threshold (ops.SYRK_NARROW_MAX_W) and of the row blocks' 32-vector
+# chunks, and the widest ChEMBL bucket
+SEG_WIDTHS = [1, 3, 7, 9, 18, 19, 33, 129, 512]
+
+
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("w", SEG_WIDTHS)
+@pytest.mark.parametrize("r,n_seg,s,bf16", [
+    (13, 13, 0, False),     # identity segments, R no multiple of 8
+    (21, 6, 0, False),      # multi-row segments
+    (13, 13, 3, False),     # 3 stacked draws
+    (21, 6, 3, True),       # ... of multi-row segments, bf16 gather
+])
+def test_gather_syrk_seg_kernel_is_bit_equal_to_plain(cuda, r, n_seg, s, bf16, w, k):
+    rng = np.random.default_rng(r * 1000 + w + k)
+    args = _bucket(rng, r, w, 300, n_seg, cuda)
+    v = torch.tensor(rng.normal(size=((s,) if s else ()) + (300, k)).astype(np.float32),
+                     device=cuda)
+    kw = dict(bf16_gather=bf16, identity_segments=n_seg == r)
+    seg_ptr = torch.tensor(ops.segment_offsets(args[3].cpu().numpy(), n_seg), device=cuda)
+    ops.reset_launches()
+    pk, bk = ops.gather_syrk_seg(*args, n_seg, v, seg_ptr=seg_ptr, **kw)
+    assert ops.LAUNCHES["gather_syrk_seg"] == 1
+    pp, bp = ref.gather_syrk_seg_ref(*args, n_seg, v, **kw)
+    assert pk.shape == pp.shape == ((s,) if s else ()) + (n_seg, k, k)
+    assert torch.equal(pk, pp) and torch.equal(bk, bp)
+
+
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("w", [3, 33])
+def test_gather_syrk_seg_kernel_fractional_mask_bit_equal(cuda, w, k):
+    """A mask other than 0 and 1 (the plain version rounds g m and c m to
+    fp32 before the products): both paths, identity and multi-row."""
+    rng = np.random.default_rng(w + k)
+    for r, n_seg in ((13, 13), (21, 6)):
+        idx, val, msk, seg = _bucket(rng, r, w, 300, n_seg, cuda)
+        msk = msk * torch.tensor(rng.uniform(0.1, 1.7, (r, w)).astype(np.float32),
+                                 device=cuda)
+        v = torch.tensor(rng.normal(size=(300, k)).astype(np.float32), device=cuda)
+        kw = dict(identity_segments=n_seg == r)
+        seg_ptr = torch.tensor(ops.segment_offsets(seg.cpu().numpy(), n_seg), device=cuda)
+        pk, bk = ops.gather_syrk_seg(idx, val, msk, seg, n_seg, v, seg_ptr=seg_ptr, **kw)
+        pp, bp = ref.gather_syrk_seg_ref(idx, val, msk, seg, n_seg, v, **kw)
+        assert torch.equal(pk, pp) and torch.equal(bk, bp)
 
 
 def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
@@ -185,6 +231,33 @@ def test_masked_syrk_kernel_takes_a_block_off_16_bytes(cuda):
     pk, bk = ops.masked_syrk(torch.zeros(3, 0, 64, device=cuda),
                              torch.zeros(3, 0, device=cuda))
     assert pk.shape == (3, 64, 64) and not pk.any() and not bk.any()
+
+
+def _spd_systems(g, b, k, cond, device):
+    """b SPD systems Q diag(s) Q^T with s spread log-evenly over [1, cond]
+    (condition number `cond`), rhs and noise, from one generator."""
+    q, _ = torch.linalg.qr(torch.randn(b, k, k, generator=g, device=device))
+    s = torch.logspace(0, float(np.log10(cond)), k, device=device)
+    prec = (q * s) @ q.transpose(1, 2)
+    prec = 0.5 * (prec + prec.transpose(1, 2))
+    return (prec, torch.randn(b, k, generator=g, device=device),
+            torch.randn(b, k, generator=g, device=device))
+
+
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("b", [1, 7, 37, 1000])
+@pytest.mark.parametrize("cond", [10.0, 1e3])
+def test_chol_kernel_takes_the_batch_as_it_is(cuda, b, k, cond):
+    """Batches that fill no whole block, at condition numbers up to about
+    1e3: within 2e-3 of the plain version, and the same bits on two calls."""
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + k)
+    prec, rhs, z = _spd_systems(g, b, k, cond, cuda)
+    ops.reset_launches()
+    x = ops.chol_solve_sample(prec, rhs, z)
+    assert ops.LAUNCHES["chol_solve_sample"] == 1 and x.shape == (b, k)
+    torch.testing.assert_close(x, ref.chol_solve_sample_ref(prec, rhs, z),
+                               rtol=2e-3, atol=2e-3)
+    assert torch.equal(ops.chol_solve_sample(prec, rhs, z), x)
 
 
 @pytest.mark.parametrize("k", RANKS)

@@ -48,6 +48,11 @@ def _bucket(rng, r, w, n, n_seg):
     (13, 8, 20, 24, 9, 0),      # rows that the kernel wrapper pads
     (24, 256, 60, 64, 11, 0),   # several W tiles at the sweep's K
     (11, 16, 30, 8, 6, 3),      # stacked draws
+    # the shapes the CUDA kernel now takes unpadded: R no multiple of 8, W
+    # on both sides of the narrow path's threshold, identity (R = 13) and
+    # multi-row (R = 21) segments, at the sweep's K and a padded rank
+    *[(r, w, 60, k, 13 if r == 13 else 8, 0)
+      for r in (13, 21) for w in (1, 5, 12) for k in (64, 24)],
 ])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gather_syrk_seg_plain_matches_jax(r, w, n, k, n_seg, s, bf16):
@@ -103,7 +108,9 @@ def test_masked_syrk_plain_matches_jax_kernel(r, w, k):
     np.testing.assert_array_equal(p2[1].numpy(), pt.numpy())
 
 
-@pytest.mark.parametrize("b,k", [(16, 16), (7, 24), (1, 8), (20, 64)])
+@pytest.mark.parametrize("b,k", [(16, 16), (7, 24), (1, 8), (20, 64),
+                                 # batches the CUDA kernel takes as they are
+                                 (3, 64), (21, 16)])
 def test_chol_solve_sample_plain_matches_jax_kernel(b, k):
     rng = np.random.default_rng(b + k)
     a = rng.normal(size=(b, k, k))
@@ -117,6 +124,22 @@ def test_chol_solve_sample_plain_matches_jax_kernel(b, k):
     x0 = ops.chol_solve_sample(_t(prec), _t(rhs), torch.zeros(b, k))
     recon = np.einsum("bij,bj->bi", prec, x0.numpy())
     np.testing.assert_allclose(recon, rhs, rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("b,k,cond", [(5, 64, 1e3), (9, 16, 1e3)])
+def test_chol_solve_sample_plain_matches_jax_kernel_ill_conditioned(b, k, cond):
+    """Systems Q diag(s) Q^T with s log-evenly over [1, cond]: the condition
+    number the tests of the CUDA kernel reach."""
+    rng = np.random.default_rng(b * k)
+    q, _ = np.linalg.qr(rng.normal(size=(b, k, k)))
+    sv = np.logspace(0, np.log10(cond), k)
+    prec = (q * sv) @ np.transpose(q, (0, 2, 1))
+    prec = (0.5 * (prec + np.transpose(prec, (0, 2, 1)))).astype(np.float32)
+    rhs = rng.normal(size=(b, k)).astype(np.float32)
+    z = rng.normal(size=(b, k)).astype(np.float32)
+    xj = jops.chol_solve_sample(jnp.asarray(prec), jnp.asarray(rhs), jnp.asarray(z))
+    xt = ops.chol_solve_sample(_t(prec), _t(rhs), _t(z))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=2e-3, atol=2e-3)
 
 
 def test_chol_solve_sample_not_positive_definite_does_not_raise():
