@@ -43,7 +43,33 @@ no kernels line and no result line. Phases:
   9. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
               users with seen-item exclusion, against the plain path, and
               where one batch's time goes (kernel on the card, host)
- 10. lm_kernels  the flash-attention kernel against its plain version at
+ 10. foldin   cold-start fold-in of 4,096 ChEMBL users (their training
+              ratings as new users) against the 4 retained draws, batches
+              of 256 and 4,096, engines fused and kernel: every launch held
+              against its plain version on its own inputs (syrk kernels
+              bit for bit, the solve within 2e-3 and the same bits twice),
+              the outputs against the plain path and each other, clones of
+              the 64 best-constrained users against the trained ensemble,
+              no plan-schema miss on a second batch of each profile; ms,
+              launches and peak memory per batch, each kernel timed at the
+              fold-in's shapes
+ 11. cotrain  the chain of phase train goes on for 12 sweeps in a trainer
+              thread, publishing each retained draw into a channel
+              (window 4); a 4-host, 2-replica ClusterCoordinator attached
+              to it (one host killed at its first stage) and a
+              RecommendFrontend(n_hosts=4, replicas=2) adopt each publish
+              while two request threads send user ids (seen items
+              excluded) and cold-start ratings: epochs monotone, the last
+              publish committed, no shard rebuilt, the tier and the
+              frontend bit for bit equal to one host at the last epoch;
+              then the quorum barrier at full size (the epoch holds while
+              both owners of a shard hang mid-stage); queries/s, p50/p99,
+              publish -> fresh p50/p99, the sweep while serving
+ 12. serve_faults faults planted in the fold-in (statistics a user off,
+              the fused kernel given one draw's factors, noise in the
+              posterior mean) and in the barrier (a commit after one
+              shard): each must fail a check of phase 10 or 11
+ 13. lm_kernels  the flash-attention kernel against its plain version at
               the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
               KV heads, causal, softcap 50, window 4,096 and 0; at a
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
@@ -57,7 +83,7 @@ no kernels line and no result line. Phases:
               the bound of P V on the fp32 pipes and, at softcap 0, beside
               scaled_dot_product_attention; a digest of an fp32 output, to
               hold the fp32 kernel's bits against another commit's
- 11. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+ 14. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
               against the same forward down the direct attention path, in
@@ -66,21 +92,24 @@ no kernels line and no result line. Phases:
               attention scores pass the softcap of 50, with the two paths'
               distance at 1 to 26 layers; the forward's profile shows its
               26 launches on the bf16 tensor-core kernel
- 12. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+ 15. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 13. lm_faults   faults planted one at a time in the bf16 flash launches
+ 16. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards) and in the decode step
               (it misses its own slot): each must fail one of the checks of
-              phase 11 or 12
- 14. report   one JSON line of kernels, the card line, and the last line
+              phase 14 or 15
+ 17. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 11 and 12: the launch counters are set to 0
-just before each and read just after. Any failed check exits non-zero
-before the last line. No BPMF phase was cut to make room for the LM ones.
+The main path is phases 6, 9, 14 and 15, and the serving tier's paths are
+phases 10 and 11: the launch counters are set to 0 just before each and
+read just after (the kernels line's `launches`, `foldin_launches` and
+`cotrain_launches`). foldin and cotrain need train, serve_faults needs
+foldin and cotrain. Any failed check exits non-zero before the last
+line. No BPMF phase was cut to make room for the LM ones.
 """
 from __future__ import annotations
 
@@ -113,6 +142,19 @@ TOPN_SLAB = 1024                       # items a slab in the forced multi-slab c
 TOL = dict(rtol=1e-4, atol=1e-3)       # the JAX kernel tests' (tests/test_kernels.py:171)
 CHOL_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_kernels.py:56
 RMSE_LIMIT = 0.545                     # JAX reference 0.5338 on the CPU, global mean 0.5580
+# the serving tier: cold-start fold-in and train-while-serve
+FOLDIN_BATCHES = (256, 4096)           # cold users a fold-in batch
+FOLDIN_ENGINES = ("fused", "kernel")
+FOLDIN_KERNELS = ("gather_syrk_seg", "masked_syrk", "chol_solve_sample")
+FOLDIN_CLONE_ATOL = 0.25               # tests/test_serve.py:169, on the RMS here
+CLONE_Z_RMS = (0.8, 1.25)              # difference / its sigma: a standard normal
+CLONE_Z_MAX = 6.0                      # P(|z| > 6) ~ 2e-9 a value, ~10^4 values
+COTRAIN_SWEEPS = 12                    # burn-in 4 (the sampler's): 8 publishes
+COTRAIN_VICTIM = 1                     # the host killed at its first stage
+COTRAIN_BATCH = 256                    # warm requests a flush (the frontend's max batch)
+COTRAIN_COLD = 32                      # cold-start requests a flush
+SAMPLE_FIELDS = ("u", "v", "hyper_u_mu", "hyper_u_lam", "hyper_v_mu", "hyper_v_lam",
+                 "global_mean", "alpha")
 # the LM path: gemma2-2b at full width
 LM_SEQ = 8192                          # the cache-free forward's S: chunked_attn_min_len
 LM_SERVE = (4, 2048, 32)               # prompts, prompt length, new tokens (31 decode steps)
@@ -219,7 +261,8 @@ def card_line() -> str:
 
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
-          "serve", "lm_kernels", "lm_eval", "lm_serve", "lm_faults")
+          "serve", "foldin", "cotrain", "serve_faults", "lm_kernels", "lm_eval",
+          "lm_serve", "lm_faults")
 
 
 def main() -> int:
@@ -298,6 +341,8 @@ class Smoke:
         self.own_src = own_src
         self.rows: dict[str, dict] = {}
         self.main_launches: dict[str, int] = {}
+        # the serving tier's paths (foldin, cotrain): their launches apart
+        self.path_launches: dict[str, dict[str, int]] = {}
 
     # ------------------------------------------------------------ helpers
     def sync(self):
@@ -371,7 +416,9 @@ class Smoke:
     def kernel_rows(self) -> list[dict]:
         rows = []
         for name, row in self.rows.items():
-            row = dict(row, launches=self.main_launches[name])
+            row = dict(row, launches=self.main_launches[name],
+                       **{f"{path}_launches": counts[name]
+                          for path, counts in self.path_launches.items()})
             rows.append({k: row[k] for k in (
                 "name", "route", "source", "replaces", "launches", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} | row)
@@ -1152,6 +1199,670 @@ class Smoke:
               f"gather, launch and copy back + {total - fetch:.3f} ms host exclusion and "
               f"merge (medians of {reps}) {json.dumps(split)}")
         self.serve_split_numbers = split
+
+    # ------------------------------------------------------------ the serving tier
+    def _cold_batch(self, users, shift: int = 0):
+        """The training ratings of `users` as a batch of new users (row b is
+        users[b]); `shift` moves every item id by that many places (mod N):
+        fresh items, the same rating-count profile."""
+        np = self.np
+        from repro_torch.data import SparseRatings
+
+        indptr, cols, vals = self._train_csr()
+        counts = indptr[users + 1] - indptr[users]
+        take = np.concatenate([np.arange(indptr[u], indptr[u + 1]) for u in users])
+        rows = np.repeat(np.arange(len(users)), counts).astype(np.int32)
+        items = ((cols[take] + shift) % self.sampler.n).astype(np.int32)
+        return SparseRatings(rows, items, vals[take].astype(np.float32),
+                             (len(users), self.sampler.n))
+
+    def _train_csr(self):
+        """The training ratings by user, (indptr, items, values)."""
+        if not hasattr(self, "train_csr"):
+            from repro_torch.data import csr_from_coo
+
+            self.train_csr = csr_from_coo(self.train.rows, self.train.cols,
+                                          self.train.vals, self.sampler.m)
+        return self.train_csr
+
+    def _recorded(self):
+        """A context that records, outermost call only, each BPMF kernel
+        wrapper's arguments and outputs: [(name, args, kwargs, out)]."""
+        import contextlib
+
+        ops = self.ops
+
+        @contextlib.contextmanager
+        def ctx():
+            calls, depth, saved = [], [0], {}
+            for name in FOLDIN_KERNELS:
+                real = saved[name] = getattr(ops, name)
+
+                def rec(*a, _real=real, _name=name, **kw):
+                    depth[0] += 1
+                    try:
+                        out = _real(*a, **kw)
+                    finally:
+                        depth[0] -= 1
+                    if depth[0] == 0:   # the wrappers recurse on leading axes
+                        calls.append((_name, a, kw, out))
+                    return out
+                setattr(ops, name, rec)
+            try:
+                yield calls
+            finally:
+                for name, real in saved.items():
+                    setattr(ops, name, real)
+        return ctx()
+
+    def _kernel_verdicts(self, calls, tag: str) -> list[tuple[bool, str]]:
+        """Each recorded launch against its plain version on its own inputs:
+        the syrk kernels bit for bit, the solve within 2e-3 and the same
+        bits on a second call (that call is not counted: it runs after the
+        path's counts are read)."""
+        torch, ref, ops = self.torch, self.ref, self.ops
+        out = []
+        for name, a, kw, got in calls:
+            if name == "gather_syrk_seg":
+                want = ref.gather_syrk_seg_ref(*a, bf16_gather=kw["bf16_gather"],
+                                               identity_segments=kw["identity_segments"])
+                ok = all(torch.equal(g, w) for g, w in zip(got, want))
+                out.append((ok, f"{tag}: gather_syrk_seg {tuple(a[0].shape)} over "
+                                f"{a[5].shape[0]} draws equals its plain version bit "
+                                "for bit"))
+            elif name == "masked_syrk":
+                vm, rv = a
+                want = ref.masked_syrk_ref(vm.reshape((-1,) + vm.shape[-2:]),
+                                           rv.reshape((-1, rv.shape[-1])))
+                ok = all(torch.equal(g.reshape(w.shape), w) for g, w in zip(got, want))
+                out.append((ok, f"{tag}: masked_syrk {tuple(vm.shape)} (draws folded "
+                                "into rows) equals its plain version bit for bit"))
+            else:
+                prec, rhs, z = a
+                k = prec.shape[-1]
+                want = ref.chol_solve_sample_ref(prec.reshape(-1, k, k),
+                                                 rhs.reshape(-1, k), z.reshape(-1, k))
+                g = got.reshape(want.shape)
+                ok, text, _ = self.verdict(g, want, f"{tag}: chol_solve_sample over "
+                                           f"{want.shape[0]:,} systems ({tuple(prec.shape[:-2])})",
+                                           CHOL_TOL)
+                again = ops.chol_solve_sample(prec, rhs, z)
+                out.append((ok and bool(torch.equal(again, got)),
+                            text + ", the same bits on a second call"))
+        return out
+
+    def foldin_verdicts(self, batches: dict, *, clones: bool = True
+                        ) -> tuple[list[tuple[bool, str]], dict]:
+        """Fold each cold batch in through engines fused and kernel (plan
+        cache on, explicit noise) and through the plain path (einsum, exact
+        shapes); hold the kernels each call launched against their plain
+        versions on those inputs, the three outputs to each other, and the
+        ChEMBL clones' predictions against the trained ensemble. Returns the
+        verdicts and, per (batch, engine), the recorded calls."""
+        from repro_torch.serve import fold_in
+
+        ens, cache = self.foldin_ens, self.foldin_cache
+        verdicts, recorded = [], {}
+        for b, ratings in batches.items():
+            z = self.foldin_z[:, :b]
+            plain = fold_in(None, ratings, ens, z=z, engine="einsum")
+            for engine in FOLDIN_ENGINES:
+                with self._recorded() as calls:
+                    got = fold_in(None, ratings, ens, z=z, engine=engine,
+                                  plan_cache=cache)
+                self.sync()
+                recorded[b, engine] = (calls, got)
+                ok, text, _ = self.verdict(got, plain, f"fold-in B={b} {engine} "
+                                           "against the plain path")
+                verdicts.append((ok, text))
+            verdicts.append(self.verdict(recorded[b, "fused"][1], recorded[b, "kernel"][1],
+                                         f"fold-in B={b} fused against kernel")[:2])
+        if clones:
+            verdicts += self.clone_verdicts()
+        return verdicts, recorded
+
+    def clone_verdicts(self) -> list[tuple[bool, str]]:
+        """Clones of the 64 best-constrained users, folded in with
+        sample=False through the fused engine, against the trained ensemble
+        on each of their training items (after
+        tests/test_serve.py::test_foldin_clone_matches_trained_user).
+
+        A trained user's draw u^s was sampled from exactly the conditional
+        the fold-in solves, so the difference d of the two predictions is
+        that draw's own noise, of variance sum_s v^T Lambda_s^-1 v / S^2,
+        computed here in float64 from the draws. The chain at alpha 1.5
+        learns little in 8 sweeps (ROADMAP.md queue 3): Lambda_u is large
+        and the predictions sit close to the global mean, so the noise's
+        tails pass 0.25 on single items. The check holds the RMS of d to
+        FOLDIN_CLONE_ATOL, and d / sigma to the standard normal it must be:
+        RMS within CLONE_Z_RMS, no value beyond CLONE_Z_MAX."""
+        torch, np = self.torch, self.np
+        from repro_torch.serve import fold_in
+
+        ens = self.foldin_ens
+        indptr = self._train_csr()[0]
+        best = np.argsort(-np.diff(indptr), kind="stable")[:64]
+        clones = self._cold_batch(best)
+        u = fold_in(None, clones, ens, sample=False, engine="fused")
+        users = best[clones.rows]
+        want, _ = ens.score(users, clones.cols)
+        got, _ = ens.score_factors(u[:, clones.rows], clones.cols)
+        d = (got - want).double()
+        var = torch.zeros_like(d)
+        s_n = ens.n_samples
+        for b in range(len(best)):
+            m = torch.as_tensor(clones.rows == b, device=d.device)
+            for s in range(s_n):
+                v = ens.v[s, clones.cols[clones.rows == b]].double()
+                prec = ens.hyper_u_lam[s].double() + ens.alpha * v.T @ v
+                var[m] += (torch.linalg.solve(prec, v.T).T * v).sum(1) / s_n ** 2
+        z = d / var.sqrt()
+        rms, zrms, zmax = (float(d.pow(2).mean().sqrt()), float(z.pow(2).mean().sqrt()),
+                           float(z.abs().max()))
+        deg = np.diff(indptr)[best]
+        return [(rms <= FOLDIN_CLONE_ATOL and CLONE_Z_RMS[0] <= zrms <= CLONE_Z_RMS[1]
+                 and zmax <= CLONE_Z_MAX,
+                 f"fold-in clones of the 64 best-constrained users ({len(users):,} "
+                 f"ratings, degrees {int(deg.min())}-{int(deg.max())}) predict their "
+                 f"items: |diff| RMS {rms:.3e} (<= {FOLDIN_CLONE_ATOL}), max "
+                 f"{float(d.abs().max()):.3e}; diff / sigma RMS {zrms:.3f} (in "
+                 f"{CLONE_Z_RMS}), max {zmax:.2f} (<= {CLONE_Z_MAX}); the trained "
+                 f"predictions' spread {float(want.std()):.3e}")]
+
+    def foldin(self):
+        """Cold-start fold-in at the ChEMBL shape: 4,096 users drawn with
+        seed 0, their training ratings as new users, against the 4 retained
+        draws, in batches of 256 and 4,096."""
+        import statistics
+
+        torch, np, ops = self.torch, self.np, self.ops
+        from repro_torch.serve import FoldInPlanCache, PosteriorEnsemble, fold_in
+        from repro_torch.serve import foldin as foldin_mod
+
+        s = self.sampler
+        users = np.sort(np.random.default_rng(0).choice(s.m, max(FOLDIN_BATCHES),
+                                                        replace=False))
+        self.foldin_ens = ens = PosteriorEnsemble.load(self.store_dir)
+        self.foldin_cache = FoldInPlanCache()
+        self.foldin_z = torch.randn((ens.n_samples, max(FOLDIN_BATCHES), ens.k),
+                                    generator=self.gen, device=self.dev)
+        batches = {b: self._cold_batch(users[:b]) for b in FOLDIN_BATCHES}
+        for b, r in batches.items():
+            print(f"  cold batch B={b}: {r.nnz:,} ratings, "
+                  f"{int((np.bincount(r.rows, minlength=b) == 0).sum())} users with none")
+        ops.reset_launches()                    # the fold-in path starts here
+        verdicts, recorded = self.foldin_verdicts(batches, clones=False)
+        launches = ops.launches()               # ... and is read here
+        self.path_launches["foldin"] = launches
+        print(f"fold-in path launches {launches}")
+        for name in FOLDIN_KERNELS:
+            self.check(launches[name] > 0, f"the fold-in path launched {name}")
+        for ok, what in verdicts + self._all_kernel_verdicts(recorded) + self.clone_verdicts():
+            self.check(ok, what)
+        # the plan cache: a second batch of each profile misses no schema
+        misses = foldin_mod.trace_count()
+        for b in FOLDIN_BATCHES:
+            for engine in FOLDIN_ENGINES:
+                fold_in(None, self._cold_batch(users[:b], shift=1), ens, sample=False,
+                        engine=engine, plan_cache=self.foldin_cache)
+        self.check(foldin_mod.trace_count() == misses,
+                   f"a second batch of each profile missed no plan schema "
+                   f"({self.foldin_cache.stats()})")
+        # per batch: wall ms (median of 5 after a warm-up), launches, peak memory
+        self.foldin_numbers = {}
+        for b, ratings in batches.items():
+            z = self.foldin_z[:, :b]
+            for engine in FOLDIN_ENGINES + ("einsum",):
+                cache = self.foldin_cache if engine != "einsum" else None
+
+                def call():
+                    fold_in(None, ratings, ens, z=z, engine=engine, plan_cache=cache)
+                    self.sync()
+
+                call()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    call()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+                ms = statistics.median(times)
+                per_call = ({} if engine == "einsum" else
+                            {n: sum(c[0] == n for c in recorded[b, engine][0])
+                             for n in FOLDIN_KERNELS})
+                self.foldin_numbers[b, engine] = dict(ms=ms, peak_mb=peak,
+                                                      launches=per_call)
+                print(f"  fold-in B={b:5d} {engine:6s}: {ms:8.3f} ms (median of 5), "
+                      f"kernel launches {per_call or 'none (plain path)'}, peak "
+                      f"{peak:.1f} MB above the resident {base / 1e9:.2f} GB")
+        self.foldin_split(batches[max(FOLDIN_BATCHES)])
+        self.foldin_rows(recorded[max(FOLDIN_BATCHES), "fused"][0]
+                         + recorded[max(FOLDIN_BATCHES), "kernel"][0])
+
+    def _all_kernel_verdicts(self, recorded) -> list[tuple[bool, str]]:
+        out = []
+        for (b, engine), (calls, _) in recorded.items():
+            out += self._kernel_verdicts(calls, f"fold-in B={b} {engine}")
+        return out
+
+    def foldin_split(self, ratings):
+        """Where one B=4,096 fused fold-in goes: host planning (the bucket
+        plan, the cache's padding, the upload), and the device time by
+        kernel of the call (profile)."""
+        from repro_torch.core.buckets import pad_bucket
+        from repro_torch.core.gibbs import device_plan
+        from repro_torch.serve import foldin as foldin_mod
+
+        ens, cache = self.foldin_ens, self.foldin_cache
+        t0 = time.perf_counter()
+        buckets = foldin_mod._plan(ratings, ens, cache.widths).buckets
+        _, targets = cache.schema(tuple((b.width, b.rows, b.n_segments) for b in buckets),
+                                  ratings.shape[0], ens.n_items)
+        device_plan([pad_bucket(b, rows, segs) for b, (_, rows, segs)
+                     in zip(buckets, targets)], self.dev)
+        self.sync()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        wall = self.foldin_numbers[ratings.shape[0], "fused"]["ms"]
+        events = self._profile(
+            lambda: foldin_mod.fold_in(None, ratings, ens, z=self.foldin_z, engine="fused",
+                                       plan_cache=cache),
+            wall, f"fused fold-in of B={ratings.shape[0]}")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        kern = sum(e.device_time_total for e in events
+                   if "gather_syrk" in e.key or "segment_reduce" in e.key) / 1e3
+        print(f"fold-in split: B={ratings.shape[0]} fused {wall:.3f} ms wall = host "
+              f"planning, padding and upload {host_ms:.3f} ms, then {wall - host_ms:.3f} ms "
+              f"of launches and device work ({busy:.3f} ms device busy in the profile, "
+              f"of it the gather_syrk_seg kernels {kern:.3f} ms)")
+
+    def foldin_rows(self, calls):
+        """The kernels line's fold-in numbers: each kernel's launches of one
+        B=4,096 fold-in (fused and kernel engines), timed again on their
+        recorded inputs (outside the counted run), beside the plain version
+        and the bound."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        tot = {}
+        for name, a, kw, _ in calls:
+            t = tot.setdefault(name, dict(ms=0.0, plain=0.0, lib=None, bytes=0.0,
+                                          flops=0.0, n=0))
+            t["n"] += 1
+            if name == "gather_syrk_seg":
+                idx, _, mask, _, n_seg, v = a
+                t["ms"] += self.cuda_ms(lambda: ops.gather_syrk_seg(*a, **kw))
+                t["plain"] += self.cuda_ms(lambda: ref.gather_syrk_seg_ref(
+                    *a, bf16_gather=kw["bf16_gather"],
+                    identity_segments=kw["identity_segments"]), reps=2)
+                m = mask > 0
+                s, k = v.shape[0], v.shape[-1]
+                distinct = int(torch.unique(idx[m]).numel())
+                r, w = idx.shape
+                t["bytes"] += (r * w * 12 + r * 4 + s * distinct * k * 4
+                               + s * n_seg * (k * k + k) * 4)
+                t["flops"] += s * int(m.sum()) * SYRK_FLOPS
+            elif name == "masked_syrk":
+                vm, rv = a
+                t["ms"] += self.cuda_ms(lambda: ops.masked_syrk(vm, rv))
+                vm3 = vm.reshape((-1,) + vm.shape[-2:])
+                rv2 = rv.reshape((-1, rv.shape[-1])).contiguous()
+                t["plain"] += self.cuda_ms(lambda: ref.masked_syrk_ref(vm3, rv2), reps=2)
+                vt = vm3.transpose(1, 2)
+                t["lib"] = (t["lib"] or 0.0) + self.cuda_ms(
+                    lambda: (torch.bmm(vt, vm3), torch.bmm(rv2[:, None, :], vm3)), reps=3)
+                r, w, k = vm3.shape
+                t["bytes"] += r * w * (k + 1) * 4 + r * (k * k + k) * 4
+                t["flops"] += r * w * SYRK_FLOPS
+            else:
+                prec, rhs, z = a
+                k = prec.shape[-1]
+                p3, r2, z2 = prec.reshape(-1, k, k), rhs.reshape(-1, k), z.reshape(-1, k)
+                t["ms"] += self.cuda_ms(lambda: ops.chol_solve_sample(prec, rhs, z))
+                t["plain"] += self.cuda_ms(lambda: ref.chol_solve_sample_ref(p3, r2, z2),
+                                           reps=2)
+
+                def library():
+                    chol, _ = torch.linalg.cholesky_ex(p3)
+                    y = torch.linalg.solve_triangular(chol, r2[..., None], upper=False)
+                    return torch.linalg.solve_triangular(chol.transpose(-1, -2),
+                                                         y + z2[..., None], upper=True)
+
+                t["lib"] = (t["lib"] or 0.0) + self.cuda_ms(library, reps=3)
+                n = p3.shape[0]
+                t["bytes"] += n * (lower_triangle_bytes(k) + 3 * k * 4)
+                t["flops"] += n * (k ** 3 / 3 + 2 * k * k)
+        for name, t in tot.items():
+            bms, by = self.bound_ms(t["bytes"], t["flops"])
+            lib = "" if t["lib"] is None else f", {t['lib']:.3f} ms library"
+            print(f"  fold-in B=4,096, {name}: {t['n']} launches {t['ms']:.3f} ms kernel, "
+                  f"{t['plain']:.3f} ms plain{lib}, bound {bms:.3f} ms ({by})")
+            self.rows.setdefault(name, {}).update(foldin_ms=t["ms"], foldin_plain_ms=t["plain"],
+                                   foldin_library_ms=t["lib"], foldin_bound_ms=bms,
+                                   foldin_bound_by=by, foldin_calls_per_batch=t["n"])
+
+    # ------------------------------------------------------------ co-train
+    def cotrain(self):
+        """Train while serving at the ChEMBL shape: a trainer thread goes on
+        from phase train's chain for COTRAIN_SWEEPS sweeps (burn-in 4) and
+        publishes each retained draw into a channel (window 4), which a
+        4-host, 2-replica tier attached to it (one host killed mid-publish)
+        and a RecommendFrontend(n_hosts=4, replicas=2) adopt while request
+        threads send user ids (seen items excluded) and cold-start ratings."""
+        import statistics
+        import threading
+
+        np, ops, s = self.np, self.ops, self.sampler
+        from repro_torch.serve import (
+            ClusterCoordinator,
+            FaultEvent,
+            FaultPlan,
+            PosteriorEnsemble,
+            PublicationChannel,
+            RecommendFrontend,
+            TopNRecommender,
+        )
+        from repro_torch.serve.faults import DEAD
+
+        boot = PosteriorEnsemble.load(self.store_dir)
+        ch = PublicationChannel(window=4)
+        for d in boot.samples:   # the trained window: the tier starts at its epoch
+            ch.publish(d.step, {k: getattr(d, k) for k in SAMPLE_FIELDS})
+        plan = FaultPlan([FaultEvent(seam="stage", action="kill", host=COTRAIN_VICTIM)])
+        rng = np.random.default_rng(3)
+        cold_users = rng.choice(s.m, 64, replace=False)
+        cold = self._cold_batch(cold_users)
+        cold_reqs = [(cold.cols[cold.rows == b], cold.vals[cold.rows == b])
+                     for b in range(len(cold_users))]
+
+        ops.reset_launches()                    # the co-train path starts here
+        tier = ClusterCoordinator(boot, n_hosts=4, replicas=2, channel=ch, faults=plan)
+        fe = RecommendFrontend(channel=ch, seen=self.train, n_hosts=4, replicas=2,
+                               max_batch=COTRAIN_BATCH, engine="fused")
+        stop, errors = threading.Event(), []
+        served = {"warm": [], "cold": []}       # per thread: [(epoch, n), ...]
+        trained = {}
+
+        def trainer():
+            try:
+                t0 = time.perf_counter()
+                trained["state"] = s.run(COTRAIN_SWEEPS, state=self.state, publish=ch)
+                self.sync()
+                trained["s"] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                ch.close()
+
+        def requests(kind):
+            r = np.random.default_rng({"warm": 1, "cold": 2}[kind])
+            try:
+                while not stop.is_set():
+                    if kind == "warm":
+                        for u in r.integers(0, s.m, COTRAIN_BATCH):
+                            fe.submit(int(u), topk=TOPK)
+                    else:
+                        for i in r.integers(0, len(cold_reqs), COTRAIN_COLD):
+                            fe.submit_ratings(*cold_reqs[i], topk=TOPK)
+                    res = fe.flush()   # may hold the other thread's requests too
+                    if res:
+                        served[kind].append((min(x.epoch for x in res),
+                                             max(x.epoch for x in res), len(res)))
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=trainer, name="trainer")] + [
+            threading.Thread(target=requests, args=(k,), name=f"requests-{k}")
+            for k in ("warm", "cold")]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        threads[0].join(timeout=600)
+        last = ch.epoch
+        fresh_ok = tier.wait_epoch(last, timeout=120) and fe.wait_epoch(last, timeout=120)
+        stop.set()
+        for t in threads[1:]:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        self.sync()
+        launches = ops.launches()               # ... and is read here
+        self.path_launches["cotrain"] = launches
+        tier.close()
+        fe.close()
+        for e in errors:
+            traceback.print_exception(e)
+        self.check(not errors and not any(t.is_alive() for t in threads),
+                   f"trainer and request threads ended cleanly ({len(errors)} errors)")
+        self.check(fresh_ok, f"tier and frontend adopted the last publish, epoch {last}")
+        n_pub = ch.seq - len(boot.samples)
+        n_req = sum(n for v in served.values() for *_, n in v)
+        qps = n_req / wall
+        lat = fe.latency_percentiles()
+        fresh = tier.freshness_percentiles()
+        swap = np.percentile(np.asarray(fe.publish_to_swap_s), [50, 99]) * 1e3
+        sweep_s = trained.get("s", float("nan")) / COTRAIN_SWEEPS
+        print(f"co-train: {COTRAIN_SWEEPS} sweeps, {n_pub} publishes (epochs "
+              f"{boot.epoch + 1}-{last}), {n_req:,} requests in {wall:.2f} s -> "
+              f"{qps:,.0f} queries/s; launches {launches}")
+        print(f"  request p50 {lat['p50'] * 1e3:.2f} ms, p99 {lat['p99'] * 1e3:.2f} ms; "
+              f"publish -> all-shards-fresh p50 {fresh['p50'] * 1e3:.1f} ms, p99 "
+              f"{fresh['p99'] * 1e3:.1f} ms ({tier.commits} commits); publish -> "
+              f"frontend swap p50 {swap[0]:.1f} ms, p99 {swap[1]:.1f} ms "
+              f"({fe.swaps} swaps, {fe.rebinds} rebinds)")
+        train_s = getattr(self, "sweep_s", float("nan"))
+        print(f"  sweep while serving {sweep_s:.4f} s (wall of the trainer's run / "
+              f"{COTRAIN_SWEEPS}, publishes' host copies included) against phase "
+              f"train's {train_s:.4f} s")
+        for kind, seq in served.items():
+            lo = [e for e, _, _ in seq]
+            self.check(bool(seq) and lo == sorted(lo) and all(a <= b for a, b, _ in seq),
+                       f"{kind} requests: served epochs monotone over {len(seq)} flushes "
+                       f"({lo[0] if lo else None} -> {seq[-1][1] if seq else None})")
+        stats = tier.stats()
+        self.check(tier.epoch == last and tier.commits >= 1,
+                   f"every publish committed: the tier's last commit is the last "
+                   f"publish, epoch {last} ({tier.commits} commits for {n_pub} publishes; "
+                   "a host skips to the newest publish it sees)")
+        self.check(tier.health.state(COTRAIN_VICTIM) == DEAD and bool(plan.fired_log),
+                   f"host {COTRAIN_VICTIM} was killed mid-publish (seam stage)")
+        self.check(stats["n_hosts"] == 4 and stats["reassignments"] == 0,
+                   f"the tier kept its 4 hosts and rebuilt no shard "
+                   f"(replicas 2 carry one lost host): {stats['n_hosts']} hosts, "
+                   f"{stats['reassignments']} reassignments, "
+                   f"{stats['gather_failovers']} gather failovers")
+        self.check(launches["topn_scores"] > 0 and launches["gather_syrk_seg"] > 0,
+                   "the co-train path launched top-N (serving) and gather_syrk_seg "
+                   "(training, cold-start fold-in)")
+        # after the last commit: the tier and the frontend against one host
+        users = np.sort(np.random.default_rng(0).choice(s.m, N_USERS_SERVED,
+                                                        replace=False))
+        single = TopNRecommender(tier.ensemble)
+        wv, wi = single.recommend(users, TOPK, seen=self.seen)
+        tv, ti = tier.recommend(users, TOPK, seen=self.seen)
+        self.check(tier.ensemble.epoch == last and np.array_equal(ti, wi)
+                   and np.array_equal(tv, wv),
+                   f"after the last commit the tier's top-N for {len(users):,} users "
+                   "equals a single-host TopNRecommender on the committed ensemble, "
+                   "bit for bit")
+        for u in users:
+            fe.submit(int(u), topk=TOPK)
+        res = sorted(fe.flush(), key=lambda x: x.ticket)
+        fi = np.stack([x.items for x in res])
+        fv = np.stack([x.scores for x in res])
+        self.check(all(x.epoch == last for x in res) and np.array_equal(fi, wi)
+                   and np.array_equal(fv, wv),
+                   f"the frontend serves the same {len(users):,} users bit for bit at "
+                   f"epoch {last}")
+        self.tier_topn(tier, users[:COTRAIN_BATCH])
+        self.cotrain_numbers = dict(
+            queries_per_s=qps, requests=n_req, wall_s=wall, request_p50_ms=lat["p50"] * 1e3,
+            request_p99_ms=lat["p99"] * 1e3, fresh_p50_ms=fresh["p50"] * 1e3,
+            fresh_p99_ms=fresh["p99"] * 1e3, swap_p50_ms=float(swap[0]),
+            swap_p99_ms=float(swap[1]), sweep_s_serving=sweep_s, sweep_s_train=train_s,
+            publishes=n_pub, commits=tier.commits, swaps=fe.swaps, rebinds=fe.rebinds,
+            gather_failovers=stats["gather_failovers"])
+        print(f"co-train numbers {json.dumps(self.cotrain_numbers)}")
+        self.cotrain_draws = ch.snapshot().draws
+        for ok, what in self.barrier_verdicts():
+            self.check(ok, what)
+        t0 = time.perf_counter()
+        s.sample_dict(trained["state"])
+        print(f"  one publish's copy off the card (sample_dict): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    def tier_topn(self, tier, users):
+        """topn_scores at one shard host's shapes in the co-train tier: a
+        warm flush's rows against shard 0 of 2 (2,888 items), k the fetch
+        the seen-item exclusion asks for; bit for bit against its plain
+        version on those inputs, timed beside its bound and topk(u @ v.T)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        _, binding = tier._snapshot()[2][0]
+        rows = binding.u_replica[torch.as_tensor(users, device=self.dev)]
+        v = binding.v_shard
+        fetch = 1 << (TOPK + self.seen.max_degree - 1).bit_length()
+        k = min(fetch, v.shape[0])
+        got, want = ops.topn_scores(rows, v, k), ref.topn_scores_ref(rows, v, k)
+        self.sync()
+        self.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                   f"topn_scores at a shard host's shapes, u {tuple(rows.shape)}, v "
+                   f"{tuple(v.shape)}, k {k}: equal to the plain version bit for bit")
+        ms = self.cuda_ms(lambda: ops.topn_scores(rows, v, k))
+        pms = self.cuda_ms(lambda: ref.topn_scores_ref(rows, v, k), reps=2)
+        lms = self.cuda_ms(lambda: torch.topk(rows @ v.T, k, dim=1))
+        b, d = rows.shape
+        bms, by = self.bound_ms((b + v.shape[0]) * d * 4 + b * k * 8,
+                                2.0 * b * v.shape[0] * d)
+        print(f"  topn_scores at a shard host's shapes: {ms:.3f} ms kernel, {pms:.3f} ms "
+              f"plain, {lms:.3f} ms topk(u @ v.T), bound {bms:.3f} ms ({by})")
+        self.rows.setdefault("topn_scores", {}).update(
+            cotrain_ms=ms, cotrain_plain_ms=pms, cotrain_library_ms=lms,
+            cotrain_bound_ms=bms, cotrain_bound_by=by,
+            cotrain_shapes=f"u ({b}, {d}), v ({v.shape[0]}, {d}), topk {k}: one shard "
+                           "host of the 4-host, 2-replica tier")
+
+    def barrier_verdicts(self) -> list[tuple[bool, str]]:
+        """The quorum barrier at full size: a 4-host, 2-replica tier booted
+        on the co-trained window's first three draws; the fourth is published
+        while both owners of shard 1 hang mid-stage. The epoch must hold,
+        serving the old one, until they are released; then it commits."""
+        import threading
+
+        np = self.np
+        from repro_torch.serve import (
+            ClusterCoordinator,
+            FaultEvent,
+            FaultPlan,
+            PosteriorEnsemble,
+            PublicationChannel,
+            TopNRecommender,
+        )
+
+        draws = self.cotrain_draws
+        ch = PublicationChannel(window=3)
+        for d in draws[:3]:
+            ch.publish(d.step, {k: getattr(d, k) for k in SAMPLE_FIELDS})
+        old = PosteriorEnsemble(ch.snapshot().draws)
+        plan = FaultPlan([FaultEvent(seam="stage", action="hang", host=h) for h in (1, 3)],
+                         hang_timeout=120)
+        tier = ClusterCoordinator(old, n_hosts=4, replicas=2, channel=ch, faults=plan)
+        users = np.arange(N_USERS_SERVED)
+        out = []
+        try:
+            ch.publish(draws[3].step, {k: getattr(draws[3], k) for k in SAMPLE_FIELDS})
+            deadline, tick = time.monotonic() + 120, threading.Event()
+            while time.monotonic() < deadline and not (
+                    plan.hanging == {1, 3}
+                    and (tier.epoch > old.epoch
+                         or set(tier.stats()["quorum"][0]["staged"].values())
+                         == {draws[3].step})):
+                tick.wait(0.01)
+            out.append((plan.hanging == {1, 3},
+                        "barrier: both owners of shard 1 hang mid-stage"))
+            held = tier.epoch
+            ov, oi = TopNRecommender(old).recommend(users, TOPK)
+            tv, ti = tier.recommend(users, TOPK)
+            out.append((held == old.epoch and np.array_equal(ti, oi)
+                        and np.array_equal(tv, ov),
+                        f"barrier: with shard 1 stalled the epoch holds at {old.epoch} "
+                        f"(reads {held}) and serves it bit for bit"))
+            plan.release()
+            committed = tier.wait_epoch(draws[3].step, timeout=120)
+            nv, ni = TopNRecommender(tier.ensemble).recommend(users, TOPK)
+            tv, ti = tier.recommend(users, TOPK)
+            out.append((committed and np.array_equal(ti, ni) and np.array_equal(tv, nv),
+                        f"barrier: released, epoch {draws[3].step} commits and serves "
+                        "bit for bit"))
+        finally:
+            plan.release()
+            ch.close()
+            tier.close()
+        return out
+
+    def serve_faults(self):
+        """Faults planted in the serving tier, one at a time, each run through
+        the checks of phase foldin or cotrain: at least one must fail. The
+        plants patch module and class attributes and are undone after."""
+        torch, ops = self.torch, self.ops
+        from repro_torch.serve import ClusterCoordinator
+        from repro_torch.serve import foldin as foldin_mod
+
+        real_stats, real_seg = foldin_mod.bucket_stats, ops.gather_syrk_seg
+        real_commit, real_noise = ClusterCoordinator._commit_locked, foldin_mod._noise
+
+        def noise_in_the_mean(generator, z, sample, ensemble, n_new):
+            if sample:
+                return real_noise(generator, z, sample, ensemble, n_new)
+            return torch.randn((ensemble.n_samples, n_new, ensemble.k),
+                               generator=self.gen, device=ensemble.device)
+
+        def stats_one_user_off(v, b, **kw):
+            p, r = real_stats(v, b, **kw)
+            return p.roll(1, dims=1), r.roll(1, dims=1)
+
+        def first_draw_only(indices, values, mask, seg_ids, n_segments, v, **kw):
+            if v.dim() == 3:
+                v = v[:1].expand_as(v).contiguous()
+            return real_seg(indices, values, mask, seg_ids, n_segments, v, **kw)
+
+        def one_shard_quorum(tier, t_publish):
+            n = tier._n_shards
+            tier._n_shards = 1   # one staged shard counts as the quorum
+            try:
+                return real_commit(tier, t_publish)
+            finally:
+                tier._n_shards = n
+
+        users = self.np.sort(self.np.random.default_rng(0).choice(
+            self.sampler.m, max(FOLDIN_BATCHES), replace=False))
+        batch = {min(FOLDIN_BATCHES): self._cold_batch(users[:min(FOLDIN_BATCHES)])}
+
+        def foldin_checks():
+            verdicts, recorded = self.foldin_verdicts(batch)
+            return verdicts + self._all_kernel_verdicts(recorded)
+
+        plants = [("fold-in: each bucket's statistics land one user off", foldin_mod,
+                   "bucket_stats", stats_one_user_off, foldin_checks),
+                  ("fold-in: the fused kernel reads the first draw's factors for "
+                   "every draw", ops, "gather_syrk_seg", first_draw_only, foldin_checks),
+                  ("fold-in: sample=False still draws posterior noise", foldin_mod,
+                   "_noise", noise_in_the_mean, foldin_checks),
+                  ("tier: a commit flips the epoch once one shard has staged it",
+                   ClusterCoordinator, "_commit_locked", one_shard_quorum,
+                   self.barrier_verdicts)]
+        for name, owner, attr, fn, checks in plants:
+            saved = getattr(owner, attr)
+            setattr(owner, attr, fn)
+            try:
+                verdicts = checks()
+            finally:
+                setattr(owner, attr, saved)
+            caught = [what for ok, what in verdicts if not ok]
+            for ok, what in verdicts:
+                print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
+            self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
+                       f"{len(verdicts)} checks")
+        self.check(foldin_mod.bucket_stats is real_stats and ops.gather_syrk_seg is real_seg
+                   and ClusterCoordinator._commit_locked is real_commit
+                   and foldin_mod._noise is real_noise, "every plant undone")
 
     # ------------------------------------------------------------ the LM path
     def lm_kernels(self):

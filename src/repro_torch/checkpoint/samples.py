@@ -7,6 +7,12 @@ keep-last-N pruning. The schema and layout are the reference's
 (`repro.checkpoint.samples`): draws written by either package load in the
 other.
 
+Readers see retained draws on two paths that share the schema below: the
+durable one (a SampleStore directory) and the in-memory one (draws pushed
+through a `serve.publish.PublicationChannel` by a co-running trainer;
+`as_retained_sample` validates the schema at the publish boundary). A draw
+is host arrays on both paths.
+
 Schema per retained draw (flat dict of host arrays):
 
     u           (M, K) user factors
@@ -44,6 +50,26 @@ class RetainedSample:
     hyper_v_lam: np.ndarray
     global_mean: float
     alpha: float
+
+
+def as_retained_sample(step: int, sample: dict) -> RetainedSample:
+    """Validate a flat SAMPLE_KEYS dict into a RetainedSample: the schema
+    gate of both publication paths (SampleStore.retain writes the same keys
+    to disk; PublicationChannel.publish hands them to readers)."""
+    missing = set(SAMPLE_KEYS) - set(sample)
+    if missing:
+        raise ValueError(f"sample missing keys: {sorted(missing)}")
+    return RetainedSample(
+        step=int(step),
+        u=sample["u"],
+        v=sample["v"],
+        hyper_u_mu=sample["hyper_u_mu"],
+        hyper_u_lam=sample["hyper_u_lam"],
+        hyper_v_mu=sample["hyper_v_mu"],
+        hyper_v_lam=sample["hyper_v_lam"],
+        global_mean=float(sample["global_mean"]),
+        alpha=float(sample["alpha"]),
+    )
 
 
 class SampleStore:

@@ -491,18 +491,32 @@ class GibbsSampler:
         """Persist the current draw into a checkpoint.SampleStore."""
         store.retain(state.step, self.sample_dict(state))
 
-    def run(self, n_sweeps: int, seed: int = 0, *, store=None,
-            thin: int = 1) -> BPMFState:
-        """Run the chain from init(seed); every `thin`-th post-burn-in draw
-        is retained in `store` (a checkpoint.SampleStore), whose write
-        overlaps the next sweep."""
+    def run(self, n_sweeps: int, seed: int = 0, *, store=None, publish=None,
+            thin: int = 1, state: BPMFState | None = None) -> BPMFState:
+        """Run the chain from init(seed), or on from `state` (the
+        generator then goes on where it is); every `thin`-th post-burn-in
+        draw is handed to serving on up to two paths:
+
+        * `store` (a checkpoint.SampleStore): the durable write, which
+          overlaps the next sweep;
+        * `publish` (a serve.publish.PublicationChannel): the in-memory push
+          to a co-running server, as host arrays. The channel is left open;
+          the caller closes it when the server should see the end of the
+          stream.
+        """
         if thin < 1:
             raise ValueError(f"thin must be >= 1, got {thin}")
-        state = self.init(seed)
+        if state is None:
+            state = self.init(seed)
         for i in range(n_sweeps):
             state = self.sweep(state)
-            if store is not None and i >= self.burn_in and (i - self.burn_in) % thin == 0:
-                self.retain_sample(state, store)
+            if i >= self.burn_in and (i - self.burn_in) % thin == 0:
+                if store is not None or publish is not None:
+                    sample = self.sample_dict(state)  # one copy off the card
+                if store is not None:
+                    store.retain(state.step, sample)
+                if publish is not None:
+                    publish.publish(state.step, sample)
         if store is not None:
             store.wait()
         return state

@@ -19,6 +19,7 @@ ragged sequence themselves.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -27,19 +28,34 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, ref
 
 #: launches of each kernel since the last reset_launches(); the count moves
-#: only where a wrapper launches its kernel
+#: only where a wrapper launches its kernel. The serving tier launches from
+#: several threads (trainer, host loops, request threads), so the counts
+#: move under _launch_lock.
 LAUNCHES = dict.fromkeys(
     ("gather_syrk_seg", "masked_syrk", "chol_solve_sample", "topn_scores",
      "flash_attention"), 0
 )
+_launch_lock = threading.Lock()
 
 #: the factor ranks the syrk and solve kernels are instantiated for
 KERNEL_RANKS = (16, 32, 64)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def launches() -> dict[str, int]:
+    """A consistent copy of LAUNCHES."""
+    with _launch_lock:
+        return dict(LAUNCHES)
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -192,7 +208,7 @@ def gather_syrk_seg(
         SYRK_NARROW_MAX_W, _stream(v),
     )
     build.check("gather_syrk_seg", err)
-    LAUNCHES["gather_syrk_seg"] += 1
+    _count("gather_syrk_seg")
     if kp != k:
         prec, rhs = prec[..., :k, :k], rhs[..., :k]
     return (prec, rhs) if stacked else (prec[0], rhs[0])
@@ -231,7 +247,7 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
         r, w, kp, SYRK_NARROW_MAX_W, _stream(vm),
     )
     build.check("masked_syrk", err)
-    LAUNCHES["masked_syrk"] += 1
+    _count("masked_syrk")
     if kp != k:
         prec, rhs = prec[..., :k, :k], rhs[..., :k]
     return prec, rhs
@@ -270,7 +286,7 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
         bsz, kp, _stream(prec),
     )
     build.check("chol_solve_sample", err)
-    LAUNCHES["chol_solve_sample"] += 1
+    _count("chol_solve_sample")
     return out if kp == k else out[:, :k].contiguous()
 
 
@@ -347,7 +363,7 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
         idx.data_ptr(), b, n, u.shape[1], topk, width, _stream(u),
     )
     build.check("topn_scores", err)
-    LAUNCHES["topn_scores"] += 1
+    _count("topn_scores")
     return vals, idx
 
 
@@ -406,7 +422,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         float(softcap), scale, _stream(q),
     )
     build.check("flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 

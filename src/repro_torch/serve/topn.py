@@ -1,6 +1,7 @@
 """Batched top-N recommendation over the full item catalogue: the
-single-host case of the serving tier (serve/cluster.py), with seen-item
-exclusion.
+colocated special case of the serving tier (serve/cluster.py), with
+seen-item exclusion. Shard bounds, kernel scoring, the stable merge, the
+power-of-two fetch and the exclusion live in the tier, once.
 
 Users should not be recommended items they already rated. Rated sets are
 tiny next to the catalogue, so the kernel fetches topk + the largest rated
@@ -10,6 +11,7 @@ cheaper than a (B, N) mask the kernel would have to read.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.data.sparse import SparseRatings, csr_from_coo
 from repro_torch.serve.cluster import ClusterCoordinator, _merge_topk, shard_bounds
@@ -51,7 +53,13 @@ class SeenIndex:
 
 class TopNRecommender(ClusterCoordinator):
     """Single-host top-N: every item shard in this process, on `device`
-    ("cuda" by default)."""
+    ("cuda" by default). The serving API is the coordinator's; this class
+    maps the `n_shards=` spelling onto its host axis and keeps the
+    flat-array accessors."""
+
+    # colocated shards share one U table and the coordinator gathers the
+    # scoring rows once
+    routed = False
 
     def __init__(self, ensemble: PosteriorEnsemble, *, n_shards: int = 1,
                  device="cuda"):
@@ -61,5 +69,18 @@ class TopNRecommender(ClusterCoordinator):
         return dict(n_shards=self.n_hosts, device=self.device)
 
     @property
+    def u_flat(self) -> torch.Tensor:
+        """(M, S*K) trained-user scoring rows, the shared U table."""
+        return self.hosts[0].live.u_replica
+
+    @property
+    def v_shards(self) -> list[torch.Tensor]:
+        return [h.live.v_shard for h in self.hosts]
+
+    @property
     def shard_bounds(self) -> np.ndarray:
         return np.asarray([self.hosts[0].live.lo] + [h.live.hi for h in self.hosts])
+
+    @property
+    def shard_offsets(self) -> np.ndarray:
+        return np.asarray([h.live.lo for h in self.hosts])

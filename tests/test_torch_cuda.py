@@ -465,3 +465,95 @@ def test_flash_dtypes_take_their_own_kernels(cuda):
         assert len(names) == 1 and ops.FLASH_KERNEL_NAMES[dtype] in names[0], names
         if dtype == torch.float32:
             assert torch.equal(ops.flash_attention(q, k, v, **kw), out)
+
+
+# ---------------------------------------------------------------------------
+# the fold-in path: the kernels at the shapes fold_in gives them
+# ---------------------------------------------------------------------------
+def _fold_in_case(k, s=3, b=24, n=300, seed=0):
+    from repro_torch.checkpoint import RetainedSample
+    from repro_torch.data import SparseRatings
+
+    rng = np.random.default_rng(seed + k)
+    draws = []
+    for step in range(s):
+        a = rng.normal(size=(k, k)).astype(np.float32) / np.sqrt(k)
+        draws.append(RetainedSample(
+            step=step, u=rng.normal(size=(10, k)).astype(np.float32),
+            v=rng.normal(size=(n, k)).astype(np.float32) * 0.3,
+            hyper_u_mu=rng.normal(size=k).astype(np.float32) * 0.2,
+            hyper_u_lam=a @ a.T + 2 * np.eye(k, dtype=np.float32),
+            hyper_v_mu=np.zeros(k, np.float32), hyper_v_lam=np.eye(k, dtype=np.float32),
+            global_mean=1.5, alpha=2.0))
+    degrees = rng.integers(0, 40, b)
+    degrees[:2] = (300, 0)         # a user split over rows, a user with none
+    rows = np.repeat(np.arange(b), degrees).astype(np.int32)
+    cols = np.concatenate([rng.choice(n, d, replace=False) for d in degrees]).astype(np.int32)
+    vals = rng.normal(1.5, 1.0, len(cols)).astype(np.float32)
+    z = rng.normal(size=(s, b, k)).astype(np.float32)
+    return draws, SparseRatings(rows, cols, vals, (b, n)), z
+
+
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("engine", ["fused", "kernel"])
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_fold_in_kernels_match_plain_on_the_fold_in_inputs(cuda, monkeypatch, k,
+                                                           engine, cached):
+    """Each kernel fold_in launches, held against its plain version on the
+    very inputs it was given (syrk kernels bit for bit, the solve to 2e-3),
+    and the fold-in against the plain path on the CPU."""
+    from repro_torch.serve import FoldInPlanCache, PosteriorEnsemble, fold_in
+
+    draws, ratings, z = _fold_in_case(k)
+    calls, depth = [], [0]
+
+    def recording(name):
+        real = getattr(ops, name)
+
+        def rec(*a, **kw):
+            # the wrappers call themselves on flattened leading axes: only
+            # the outermost call is fold_in's
+            depth[0] += 1
+            try:
+                out = real(*a, **kw)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                calls.append((name, a, kw, out))
+            return out
+        monkeypatch.setattr(ops, name, rec)
+
+    for name in ("gather_syrk_seg", "masked_syrk", "chol_solve_sample"):
+        recording(name)
+    ens = PosteriorEnsemble(draws, device=cuda)
+    cache = FoldInPlanCache() if cached else None
+    ops.reset_launches()
+    got = fold_in(None, ratings, ens, z=z, engine=engine, plan_cache=cache)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    names = [c[0] for c in calls]
+    if engine == "fused":
+        assert set(names) == {"gather_syrk_seg"} and launches["chol_solve_sample"] == 0
+    else:
+        assert names.count("chol_solve_sample") == 1 and "gather_syrk_seg" not in names
+    assert launches[names[0]] == names.count(names[0]) > 0
+    for name, a, kw, out in calls:
+        if name == "gather_syrk_seg":
+            want = ref.gather_syrk_seg_ref(*a, bf16_gather=kw["bf16_gather"],
+                                           identity_segments=kw["identity_segments"])
+        elif name == "masked_syrk":
+            want = ref.masked_syrk_ref(a[0].reshape((-1,) + a[0].shape[-2:]),
+                                       a[1].reshape((-1, a[1].shape[-1])))
+            out = tuple(o.reshape(w.shape) for o, w in zip(out, want))
+        else:
+            prec, rhs, zz = a
+            assert prec.shape[:2] == (3, 32 if cached else 24)   # one launch, S x B
+            want = ref.chol_solve_sample_ref(prec.reshape(-1, k, k),
+                                             rhs.reshape(-1, k), zz.reshape(-1, k))
+            torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-3,
+                                       atol=2e-3)
+            continue
+        assert all(torch.equal(o, w) for o, w in zip(out, want)), name
+    plain = fold_in(None, ratings, PosteriorEnsemble(draws, device="cpu"), z=z,
+                    engine="einsum")
+    torch.testing.assert_close(got.cpu(), plain, rtol=1e-4, atol=1e-3)

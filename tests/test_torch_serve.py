@@ -167,3 +167,107 @@ def _retained(step, d):
                                         if k not in ("global_mean", "alpha")},
                           global_mean=float(d["global_mean"]),
                           alpha=float(d["alpha"]))
+
+
+# ---------------------------------------------------------------------------
+# the serving tier against the reference's
+# ---------------------------------------------------------------------------
+def _epoch_coded(step, m=40, n=57, k=4):
+    u = np.full((m, k), 1.0 / k, np.float32)
+    v = np.zeros((n, k), np.float32)
+    v[step % n] = float(step)
+    rng = np.random.default_rng(step)
+    return dict(_draw(rng, m, n, k), u=u, v=v)
+
+
+@pytest.fixture(scope="module")
+def tier_draws():
+    rng = np.random.default_rng(5)
+    return [(s, _draw(rng, 40, 57, 4, offset=0.05 * s)) for s in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+@pytest.mark.parametrize("n_hosts", [1, 2, 4])
+def test_tier_matches_reference_tier_and_single_host(tier_draws, n_hosts, replicas):
+    """The same draws through the port's tier and the JAX package's tier and
+    single host: warm users with exclusions, explicit rows with a fetch
+    hint, and fold-in factors give the same indices, scores within 1e-5;
+    the port's tier equals its own single host bit for bit."""
+    from repro.checkpoint import as_retained_sample as jretained
+    from repro.serve import ClusterCoordinator as JCluster
+    from repro_torch.checkpoint import as_retained_sample
+
+    ens = PosteriorEnsemble([as_retained_sample(s, d) for s, d in tier_draws],
+                            device=CPU)
+    jens = JEnsemble([jretained(s, d) for s, d in tier_draws])
+    ours = ClusterCoordinator(ens, n_hosts=n_hosts, replicas=replicas, device=CPU)
+    single = TopNRecommender(ens, device=CPU)
+    theirs = [JCluster(jens, n_hosts=n_hosts, replicas=replicas), JTopN(jens)]
+    users = np.arange(12, dtype=np.int32)
+    exclude = [np.arange(r, r + 4, dtype=np.int32) for r in range(12)]
+    rows = single.u_flat[users]
+    u_draws = np.random.default_rng(0).normal(size=(3, 5, 4)).astype(np.float32)
+    calls = [
+        lambda r, t: r.recommend(users, 9),
+        lambda r, t: r.recommend_rows(rows if t else jax_rows, 6, exclude=exclude,
+                                      fetch_hint=16),
+        lambda r, t: r.recommend_factors(torch.as_tensor(u_draws) if t
+                                         else u_draws, 4),
+    ]
+    jax_rows = np.asarray(theirs[1].u_flat)[users]
+    for call in calls:
+        v, i = call(ours, True)
+        sv, si = call(single, True)
+        np.testing.assert_array_equal(i, si)
+        np.testing.assert_array_equal(v, sv)
+        for ref in theirs:
+            jv, ji = call(ref, False)
+            np.testing.assert_array_equal(i, np.asarray(ji))
+            np.testing.assert_allclose(v, np.asarray(jv), rtol=1e-5, atol=1e-5)
+    assert ours.n_shards == max(1, -(-n_hosts // replicas))
+
+
+def test_partial_staging_holds_the_epoch_and_staggered_hosts_skip_ahead():
+    from repro_torch.checkpoint import as_retained_sample
+
+    def ens(step):
+        return PosteriorEnsemble([as_retained_sample(step, _epoch_coded(step))],
+                                 device=CPU)
+
+    cluster = ClusterCoordinator(ens(1), n_hosts=3, device=CPU)
+    nxt = ens(2)
+    for host in cluster.hosts[:-1]:
+        with cluster._lock:
+            host.staged = host.stage(nxt)
+            assert cluster._commit_locked(None) is False
+        assert cluster.epoch == 1
+    with cluster._lock:
+        cluster.hosts[-1].staged = cluster.hosts[-1].stage(nxt)
+        assert cluster._commit_locked(None) is True
+    assert cluster.epoch == 2 and all(h.staged is None for h in cluster.hosts)
+    # host a staged 3, host b jumped to 4: hold, then both on 4 commit it
+    two = ClusterCoordinator(ens(1), n_hosts=2, device=CPU)
+    a, b = two.hosts
+    with two._lock:
+        a.staged, b.staged = a.stage(ens(3)), b.stage(ens(4))
+        assert two._commit_locked(None) is False
+        a.staged = a.stage(ens(4))
+        assert two._commit_locked(None) is True
+    assert two.epoch == 4 and two.commits == 1   # epoch 3 was never served
+    vals, idx = two.recommend(np.arange(3, dtype=np.int32), 1)
+    assert float(vals[0][0]) == 4.0 + 3.25 and idx[0][0] == 4   # global mean 3.25
+
+
+def test_colocated_hosts_share_one_u_table_and_routed_hosts_stage_their_own(draws):
+    ens = PosteriorEnsemble([_retained(1, draws[0])], device=CPU)
+    rec = TopNRecommender(ens, n_shards=3, device=CPU)
+    assert not rec.routed
+    assert len({h.live.u_replica.data_ptr() for h in rec.hosts}) == 1
+    assert [v.shape[0] for v in rec.v_shards] == [100, 100, 100]
+    np.testing.assert_array_equal(rec.shard_offsets, [0, 100, 200])
+    tier = ClusterCoordinator(ens, n_hosts=2, device=CPU)
+    assert tier.routed
+    nxt = PosteriorEnsemble([_retained(2, draws[1])], device=CPU)
+    staged = [h.stage(nxt) for h in tier.hosts]
+    assert staged[0].u_replica.data_ptr() != staged[1].u_replica.data_ptr()
+    assert torch.equal(staged[0].u_replica, staged[1].u_replica)

@@ -17,7 +17,14 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data import synthetic_lowrank  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import DecoderModel, build_model  # noqa: E402
-from repro_torch.serve import PosteriorEnsemble, TopNRecommender  # noqa: E402
+from repro_torch.launch import train as bpmf_train  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    ClusterCoordinator,
+    PosteriorEnsemble,
+    PublicationChannel,
+    RecommendFrontend,
+    TopNRecommender,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -43,6 +50,72 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         if root in FORBIDDEN
     ]
     assert bad == []
+
+
+#: device work that must not run lexically inside `with self.<lock>:` in the
+#: serving tier (the reference's sync-under-lock lint knows only jax and
+#: numpy names): a torch call, or a method that copies, syncs or builds
+#: device tables
+DEVICE_METHODS = {"cpu", "item", "numpy", "to", "scoring_matrices"}
+LINT_OPT_OUT = "# repro-lint: disable=sync-under-lock"
+
+
+def _device_calls_under_locks(tree: ast.AST, lines: list[str]):
+    def held_body(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue  # runs later, not under this lock
+            yield child
+            yield from held_body(child)
+
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.With):
+            continue
+        locks = [item.context_expr for item in node.items
+                 if isinstance(item.context_expr, ast.Attribute)
+                 and isinstance(item.context_expr.value, ast.Name)
+                 and item.context_expr.value.id == "self"]
+        if not locks:
+            continue
+        for stmt in node.body:
+            for call in [stmt, *held_body(stmt)]:
+                if not isinstance(call, ast.Call):
+                    continue
+                f = call.func
+                root = f
+                while isinstance(root, ast.Attribute):
+                    root = root.value
+                flagged = ((isinstance(root, ast.Name) and root.id == "torch")
+                           or (isinstance(f, ast.Attribute) and f.attr in DEVICE_METHODS))
+                if flagged and LINT_OPT_OUT not in lines[call.lineno - 1]:
+                    yield call.lineno, ast.unparse(call)[:60]
+
+
+def test_no_device_work_under_a_serving_lock():
+    files = sorted((PORT / "serve").glob("*.py"))
+    assert {f.name for f in files} >= {"cluster.py", "frontend.py", "publish.py",
+                                        "foldin.py", "faults.py"}
+    bad = [(f.name, line, text) for f in files
+           for line, text in _device_calls_under_locks(
+               ast.parse(f.read_text()), f.read_text().splitlines())]
+    assert bad == []
+
+
+def test_device_work_under_a_lock_is_caught():
+    src = """
+class C:
+    def f(self, ens, t):
+        with self._lock:
+            a = ens.scoring_matrices()
+            b = t.cpu()
+            c = torch.zeros(3)
+            d = t.to('cuda')  # repro-lint: disable=sync-under-lock (stop-the-world)
+            self.n += 1
+        e = t.item()
+"""
+    found = [line for line, _ in _device_calls_under_locks(ast.parse(src),
+                                                            src.splitlines())]
+    assert found == [5, 6, 7]
 
 
 def _sample():
@@ -77,6 +150,50 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
     assert torch.isfinite(state.u).all() and state.u.device.type == "cpu"
     vals, idx = TopNRecommender(ens, device="cpu").recommend([0, 4], 3)
     assert idx.shape == (2, 3) and np.isfinite(vals).all()
+
+
+def test_serving_tier_and_bpmf_launchers_raise_without_a_card(no_card):
+    ens = PosteriorEnsemble([_sample()], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterCoordinator(ens, n_hosts=2)
+    ch = PublicationChannel(window=1)
+    s = _sample()
+    ch.publish(1, {k: getattr(s, k) for k in ("u", "v", "hyper_u_mu", "hyper_u_lam",
+                                              "hyper_v_mu", "hyper_v_lam",
+                                              "global_mean", "alpha")})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RecommendFrontend(channel=ch, subscribe=False)
+    for argv in (["--bpmf", "--co-train", "--sweeps", "8"],
+                 ["--bpmf", "--hosts", "4", "--replicas", "2"],
+                 ["--bpmf", "--requests", "8"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm_serve.main(argv)
+    for argv in (["--bpmf", "--sweeps", "8"], ["--bpmf", "--co-serve", "--sweeps", "8"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bpmf_train.main(argv)
+    fe = RecommendFrontend(channel=ch, subscribe=False, n_hosts=2, replicas=2,
+                           device="cpu")
+    fe.submit(0, topk=2)
+    fe.submit_ratings([1, 3], [1.0, -1.0], topk=2)
+    assert [r.items.shape for r in fe.flush()] == [(2,), (2,)]
+
+
+@pytest.mark.parametrize("argv, report", [
+    (["--bpmf", "--co-train", "--sweeps", "10"], "publish->fresh p50"),
+    (["--bpmf", "--hosts", "4", "--replicas", "2"], "publish -> all-shards-fresh p50"),
+])
+def test_bpmf_launchers_run_on_the_cpu_when_asked(argv, report):
+    # one intra-op thread: the launcher's own threads share the cores the
+    # other test workers use
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv, "--device", "cpu"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert report in out.stdout and "qps" in out.stdout
+    if "--hosts" in argv:
+        assert "bit-identical" in out.stdout and "degraded parity" in out.stdout
 
 
 def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
