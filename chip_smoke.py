@@ -69,7 +69,20 @@ no kernels line and no result line. Phases:
               the fused kernel given one draw's factors, noise in the
               posterior mean) and in the barrier (a commit after one
               shard): each must fail a check of phase 10 or 11
- 13. lm_kernels  the flash-attention kernel against its plain version at
+ 13. dist     the paper's distributed sampler at the ChEMBL shape: P = 4
+              item shards on the one card (width "auto", K = 64, alpha
+              1.5), modes ring, allgather and async through the fused
+              engine and ring through einsum: every gather_syrk_seg launch
+              of a ring and an allgather sweep bit for bit against its
+              plain version; ring against allgather after one sweep (1e-4,
+              1e-3) and in rmse after 8 (1e-3); async's fresh v bit for bit
+              ring's, its rmse within 0.05; a ring planted to forward to
+              p - 1 must fail; sweep seconds, item updates/s and peak
+              memory per mode and engine; profiles of a ring and an async
+              sweep (the exchange copies' ms and the share of it beside
+              kernels); each launch of a ring and an allgather sweep timed
+              at its shapes beside its plain version and its bound
+ 14. lm_kernels  the flash-attention kernel against its plain version at
               the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
               KV heads, causal, softcap 50, window 4,096 and 0; at a
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
@@ -83,7 +96,7 @@ no kernels line and no result line. Phases:
               the bound of P V on the fp32 pipes and, at softcap 0, beside
               scaled_dot_product_attention; a digest of an fp32 output, to
               hold the fp32 kernel's bits against another commit's
- 14. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+ 15. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
               against the same forward down the direct attention path, in
@@ -92,24 +105,25 @@ no kernels line and no result line. Phases:
               attention scores pass the softcap of 50, with the two paths'
               distance at 1 to 26 layers; the forward's profile shows its
               26 launches on the bf16 tensor-core kernel
- 15. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+ 16. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 16. lm_faults   faults planted one at a time in the bf16 flash launches
+ 17. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards) and in the decode step
               (it misses its own slot): each must fail one of the checks of
-              phase 14 or 15
- 17. report   one JSON line of kernels, the card line, and the last line
+              phase 15 or 16
+ 18. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 14 and 15, and the serving tier's paths are
-phases 10 and 11: the launch counters are set to 0 just before each and
-read just after (the kernels line's `launches`, `foldin_launches` and
-`cotrain_launches`). foldin and cotrain need train, serve_faults needs
-foldin and cotrain. Any failed check exits non-zero before the last
-line. No BPMF phase was cut to make room for the LM ones.
+The main path is phases 6, 9, 15 and 16, the serving tier's paths are
+phases 10 and 11 and the distributed sampler's phase 13: the launch
+counters are set to 0 just before each and read just after (the kernels
+line's `launches`, `foldin_launches`, `cotrain_launches` and
+`dist_launches`). foldin and cotrain need train, serve_faults needs
+foldin and cotrain, dist needs data. Any failed check exits non-zero
+before the last line. No BPMF phase was cut to make room for the LM ones.
 """
 from __future__ import annotations
 
@@ -155,6 +169,12 @@ COTRAIN_BATCH = 256                    # warm requests a flush (the frontend's m
 COTRAIN_COLD = 32                      # cold-start requests a flush
 SAMPLE_FIELDS = ("u", "v", "hyper_u_mu", "hyper_u_lam", "hyper_v_mu", "hyper_v_lam",
                  "global_mean", "alpha")
+# the distributed sampler (phase dist): P item shards, all on cuda:0
+DIST_SHARDS = 4
+DIST_RUNS = (("ring", "fused"), ("allgather", "fused"), ("async", "fused"), ("ring", "einsum"))
+DIST_SWEEPS = 8                        # the chain the RMSE gates read
+DIST_RMSE_ALLGATHER = 1e-3             # ring against allgather, examples/distributed_bpmf.py:43-44
+DIST_RMSE_ASYNC = 0.05                 # async against ring, tests/test_distributed.py:164
 # the LM path: gemma2-2b at full width
 LM_SEQ = 8192                          # the cache-free forward's S: chunked_attn_min_len
 LM_SERVE = (4, 2048, 32)               # prompts, prompt length, new tokens (31 decode steps)
@@ -261,7 +281,7 @@ def card_line() -> str:
 
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
-          "serve", "foldin", "cotrain", "serve_faults", "lm_kernels", "lm_eval",
+          "serve", "foldin", "cotrain", "serve_faults", "dist", "lm_kernels", "lm_eval",
           "lm_serve", "lm_faults")
 
 
@@ -970,7 +990,8 @@ class Smoke:
                       "kernel-engine sweep")
         self.state = state
 
-    def _profile(self, fn, wall: float, what: str = "sweep") -> list:
+    def _profile(self, fn, wall: float, what: str = "sweep", trace: Path | None = None
+                 ) -> list:
         """Device time by kernel of one call of fn under torch.profiler; the
         idle share is taken against `wall`, the call's unprofiled time in ms
         (the profiler's own start-up would swamp a wall clock around it).
@@ -980,15 +1001,21 @@ class Smoke:
         fn runs twice: once as the profiler's warm-up step, unrecorded, then
         recorded. Recorded from the start, a profiler session after the
         first in a process can miss the first kernel its window launches
-        (on the H100: top-N's score kernel, one of a sweep's)."""
+        (on the H100: top-N's score kernel, one of a sweep's). `trace` names
+        a file for the recorded call's timeline (a Chrome trace)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile, schedule
+
+        def ready(p):
+            traces.append(p.key_averages())
+            if trace is not None:
+                p.export_chrome_trace(str(trace))
 
         self.sync()
         traces = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+                     on_trace_ready=ready) as prof:
             for _ in range(2):
                 fn()
                 self.sync()
@@ -1863,6 +1890,263 @@ class Smoke:
         self.check(foldin_mod.bucket_stats is real_stats and ops.gather_syrk_seg is real_seg
                    and ClusterCoordinator._commit_locked is real_commit
                    and foldin_mod._noise is real_noise, "every plant undone")
+
+    # ------------------------------------------------------------ distributed
+    def dist(self):
+        """The paper's distributed sampler at the ChEMBL shape: P = 4 item
+        shards, all on cuda:0, the grid plans at width "auto", K = 64,
+        alpha 1.5; modes ring, allgather and async with the fused engine,
+        ring also with einsum. The distributed path is one sweep of each
+        fused mode from one state under one noise, every gather_syrk_seg
+        launch of the ring and allgather sweeps held bit for bit against
+        its plain version on its own inputs as it is made; then the modes
+        against each other after one sweep and after DIST_SWEEPS, a ring
+        planted to forward the wrong way, sweep seconds, profiles of a ring
+        and an async sweep (the exchange's copies and their overlap with
+        the kernels), and each launch of a sweep timed at its shapes."""
+        import statistics
+
+        torch, ops, ref = self.torch, self.ops, self.ref
+        from repro_torch.core import exchange
+        from repro_torch.core.distributed import DIST_MODES, DistributedBPMF
+
+        devices = [self.dev] * DIST_SHARDS      # the one card (cuda:0) takes every shard
+        samplers = {}
+        for mode, engine in DIST_RUNS:
+            t0 = time.perf_counter()
+            samplers[mode, engine] = DistributedBPMF(
+                self.train, self.test, devices=devices, k=K, alpha=1.5, width="auto",
+                mode=mode, engine=engine)
+            print(f"  {mode} {engine}: partitions and grid plans built and placed in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        fused = {mode: samplers[mode, "fused"] for mode in DIST_MODES}
+        ring, gather = fused["ring"], fused["allgather"]
+        for side, plan in (("user", ring.u_plan), ("item", ring.v_plan)):
+            n_dense = plan.seg_dense[:, :, -1] + 1
+            print(f"  {side} plan: (P, P, R, W) {plan.indices.shape}, lane efficiency "
+                  f"{plan.stats()['lane_efficiency']}, n_loc {plan.n_loc:,}, most segments "
+                  f"in a block {int(n_dense.max()):,}")
+        n_items = ring.m + ring.n
+
+        def cat(st, name):
+            return torch.cat(getattr(st, name))
+
+        # the distributed path: one sweep of each fused mode, every kernel
+        # launch of ring and allgather checked as it is made (the plain
+        # version launches no kernel)
+        s0 = ring.init(seed=0)
+        noise = ring.draw_noise()
+        real, checked = ops.gather_syrk_seg, []
+
+        def checking(*a, **kw):
+            out = real(*a, **kw)
+            want = ref.gather_syrk_seg_ref(*a[:6])
+            same = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+            err = max(self.max_err(out[0], want[0], -3), self.max_err(out[1], want[1], -2))
+            checked.append((same, tuple(a[0].shape), a[4], err))
+            return out
+
+        first = {}
+        self.sync()
+        ops.reset_launches()                    # the distributed path starts here
+        ops.gather_syrk_seg = checking
+        try:
+            for mode in ("ring", "allgather"):
+                first[mode] = fused[mode].sweep(s0, noise)
+        finally:
+            ops.gather_syrk_seg = real
+        first["async"] = fused["async"].sweep(s0, noise)
+        self.sync()
+        launches = ops.launches()               # ... and is read here
+        self.path_launches["dist"] = launches
+        p2 = DIST_SHARDS * DIST_SHARDS
+        print(f"distributed path launches (one ring, one allgather, one async sweep) {launches}")
+        self.check(launches["gather_syrk_seg"] == 2 * p2 + 2 * DIST_SHARDS + 2 * p2
+                   and sum(launches.values()) == launches["gather_syrk_seg"],
+                   f"the distributed path launched gather_syrk_seg {2 * p2} times a ring "
+                   f"sweep, {2 * DIST_SHARDS} an allgather sweep and {2 * p2} an async "
+                   "sweep, and no other kernel")
+        for mode, calls in (("ring", checked[:2 * p2]), ("allgather", checked[2 * p2:])):
+            shapes = sorted({c[1] for c in calls})
+            self.check(len(calls) > 0 and all(c[0] for c in calls),
+                       f"every gather_syrk_seg launch of the fused {mode} sweep ({len(calls)}, "
+                       f"rows x width {shapes[0]}..{shapes[-1]}, up to "
+                       f"{max(c[2] for c in calls):,} segments) equals its plain version bit "
+                       f"for bit (max abs err {max(c[3] for c in calls):.3e})")
+        dist_err = max(c[3] for c in checked)
+        for name in ("u", "v"):
+            self.close(cat(first["ring"], name), cat(first["allgather"], name),
+                       f"one sweep from the same state under the same noise: ring {name} "
+                       "against allgather")
+        self.check(torch.equal(cat(first["async"], "v"), cat(first["ring"], "v")),
+                   "one sweep: async's fresh v equals ring's bit for bit")
+        einsum = samplers["ring", "einsum"]
+        e1 = einsum.sweep(s0, noise)
+        for name in ("u", "v"):
+            self.close(cat(e1, name), cat(first["ring"], name),
+                       f"one sweep: the einsum ring's {name} against the fused ring's")
+        del e1
+
+        # a planted fault: the ring forwards each block to p - 1
+        saved = exchange.RingExchange.shift
+        exchange.RingExchange.shift = -1
+        try:
+            planted = ring.sweep(s0, noise)
+        finally:
+            exchange.RingExchange.shift = saved
+        ok, text, _ = self.verdict(cat(planted, "v"), cat(first["allgather"], "v"),
+                                   "ring v against allgather")
+        print(f"    planted fault 'the ring forwards to p - 1': {'passes' if ok else 'FAILS'} "
+              f"{text}")
+        self.check(not ok and exchange.RingExchange.shift == 1,
+                   "planted fault 'the ring forwards to p - 1' fails ring against "
+                   "allgather, and is undone")
+        del planted
+
+        # the chains: DIST_SWEEPS sweeps of each fused mode under one noise
+        states = dict(first)
+        for _ in range(DIST_SWEEPS - 1):
+            nz = ring.draw_noise()
+            for mode in DIST_MODES:
+                states[mode] = fused[mode].sweep(states[mode], nz)
+        rmse = {mode: fused[mode].rmse(states[mode]) for mode in DIST_MODES}
+        gm = float(self.np.sqrt(self.np.mean((self.test.vals - ring.global_mean) ** 2)))
+        print(f"test rmse after {DIST_SWEEPS} sweeps {rmse} (global-mean predictor {gm:.4f})")
+        self.check(all(self.np.isfinite(r) for r in rmse.values()), "the rmse is finite")
+        self.check(abs(rmse["ring"] - rmse["allgather"]) <= DIST_RMSE_ALLGATHER,
+                   f"ring and allgather rmse within {DIST_RMSE_ALLGATHER} after "
+                   f"{DIST_SWEEPS} sweeps")
+        self.check(abs(rmse["ring"] - rmse["async"]) <= DIST_RMSE_ASYNC,
+                   f"async and ring rmse within {DIST_RMSE_ASYNC} after {DIST_SWEEPS} sweeps")
+
+        # sweep seconds: the median of 4 steady sweeps, item updates/s, peak
+        numbers = {}
+        for mode, engine in DIST_RUNS:
+            d, st = samplers[mode, engine], states[mode]
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                st = d.sweep(st)
+                self.sync()
+                times.append(time.perf_counter() - t0)
+            med = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated()
+            numbers[mode, engine] = dict(s=med, peak_gb=peak / 1e9,
+                                         above_gb=(peak - base) / 1e9)
+            print(f"  {mode:9s} {engine:6s}: sweep seconds {[round(t, 4) for t in times]}; "
+                  f"median {med:.4f} s; item updates/s {n_items / med:,.0f}; peak device "
+                  f"memory {peak / 1e9:.2f} GB, {(peak - base) / 1e9:.2f} GB above the "
+                  f"resident {base / 1e9:.2f}")
+            if engine == "fused":
+                states[mode] = st
+        if "train" in self.phases:
+            print(f"  beside phase train's single-device fused sweep {self.sweep_s:.4f} s, "
+                  f"{n_items / self.sweep_s:,.0f} item updates/s, peak {self.peak_gb:.2f} GB")
+        self.dist_numbers = numbers
+
+        # where a ring and an async sweep's device time goes, and how much
+        # of the exchange's copy time overlaps the kernels
+        for mode in ("ring", "async"):
+            d, st = fused[mode], states[mode]
+            trace = Path(self.tmp.name) / f"dist_{mode}.json"
+            events = self._profile(lambda: d.sweep(st, noise), numbers[mode, "fused"]["s"] * 1e3,
+                                   f"fused {mode} sweep, {DIST_SHARDS} shards on one card",
+                                   trace=trace)
+            self.dist_split(events, trace, mode)
+        del states
+        self.dist_rows(ring, gather, s0, dist_err)
+        del samplers, fused, ring, gather, first, s0, noise
+        torch.cuda.empty_cache()
+
+    def dist_split(self, events, trace: Path, mode: str):
+        """One profiled sweep: gather_syrk_seg's and the library solve's
+        device ms (profile), and the ring's forwards as the timeline shows
+        them: device-to-device copies on a stream that runs no kernel, their
+        ms, and the share of it that overlaps kernels on other streams."""
+        def ms(*keys):
+            return sum(e.device_time_total for e in events
+                       if any(k in e.key for k in keys)) / 1e3
+
+        busy = sum(e.device_time_total for e in events) / 1e3
+        kern = ms("gather_syrk", "segment_reduce_kernel")
+        solve = ms("potrf", "trsm", "triu_tril")
+        timeline = [e for e in json.loads(trace.read_text())["traceEvents"]
+                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")]
+
+        def stream(e):
+            return e.get("args", {}).get("stream", e.get("tid"))
+
+        compute = {stream(e) for e in timeline if e["cat"] == "kernel"}
+        copies = [(e["ts"], e["ts"] + e["dur"]) for e in timeline
+                  if e["cat"] == "gpu_memcpy" and "DtoD" in e["name"]
+                  and stream(e) not in compute]
+        spans = []
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in timeline
+                           if e["cat"] == "kernel"):
+            if spans and a <= spans[-1][1]:
+                spans[-1][1] = max(spans[-1][1], b)
+            else:
+                spans.append([a, b])
+        copy_us = sum(b - a for a, b in copies)
+        both_us = sum(max(0.0, min(b, d) - max(a, c)) for a, b in copies for c, d in spans)
+        share = both_us / copy_us if copy_us else float("nan")
+        forwards = 2 * DIST_SHARDS * (DIST_SHARDS - 1)
+        print(f"dist split ({mode}): {busy:.2f} ms device busy; gather_syrk_seg "
+              f"{kern:.2f} ms, library solve (potrf, trsm, triu_tril) {solve:.2f} ms; "
+              f"{len(copies)} exchange copies on their own stream {copy_us / 1e3:.3f} ms, "
+              f"{both_us / 1e3:.3f} ms of it beside kernels (overlapped share {share:.3f})")
+        self.check(len(copies) == forwards,
+                   f"the {mode} sweep's profile shows its {forwards} forwards as "
+                   "device-to-device copies on a stream of their own")
+        self.dist_numbers[mode, "split"] = dict(busy_ms=busy, gather_syrk_seg_ms=kern,
+                                                solve_ms=solve, copies=len(copies),
+                                                copy_ms=copy_us / 1e3, overlap_share=share)
+
+    def dist_rows(self, ring, gather, state, err: float):
+        """gather_syrk_seg's kernels-line numbers at the grid plans' shapes:
+        the 32 launches of a ring sweep and the 8 of an allgather sweep, on
+        the initial state's blocks, each timed beside its plain version and
+        its bound (outside the counted run)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        us, vs = state.u, state.v
+        calls = {
+            "ring": [(ring._v.plans[p][q], us[q]) for p in range(DIST_SHARDS)
+                     for q in range(DIST_SHARDS)]
+            + [(ring._u.plans[p][q], vs[q]) for p in range(DIST_SHARDS)
+               for q in range(DIST_SHARDS)],
+            "allgather": [(gather._v.plans[p], torch.cat(us)) for p in range(DIST_SHARDS)]
+            + [(gather._u.plans[p], torch.cat(vs)) for p in range(DIST_SHARDS)]}
+        row = {"dist_max_abs_err": err}
+        for mode, todo in calls.items():
+            tot = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0)
+            widest = (0, 0.0)
+            for b, cp in todo:
+                args = (b.indices, b.values, b.mask, b.seg_dense, b.n_segments, cp)
+                ms = self.cuda_ms(lambda: ops.gather_syrk_seg(*args, seg_ptr=b.seg_ptr))
+                pms = self.cuda_ms(lambda: ref.gather_syrk_seg_ref(*args), reps=1)
+                m = b.mask > 0
+                r, w = b.indices.shape
+                distinct = int(torch.unique(b.indices[m]).numel())
+                tot["ms"] += ms
+                tot["plain"] += pms
+                tot["bytes"] += (r * w * 12 + r * 4 + distinct * K * 4
+                                 + b.n_segments * (K * K + K) * 4)
+                tot["flops"] += int(m.sum()) * SYRK_FLOPS
+                widest = max(widest, (r, ms))
+            bms, by = self.bound_ms(tot["bytes"], tot["flops"])
+            print(f"  gather_syrk_seg, one {mode} sweep's {len(todo)} launches: "
+                  f"{tot['ms']:.3f} ms kernel, {tot['plain']:.3f} ms plain, bound "
+                  f"{bms:.3f} ms ({by}); the launch of {widest[0]:,} rows {widest[1]:.3f} ms")
+            row.update({f"dist_{mode}_ms": tot["ms"], f"dist_{mode}_plain_ms": tot["plain"],
+                        f"dist_{mode}_bound_ms": bms, f"dist_{mode}_bound_by": by,
+                        f"dist_{mode}_launches_per_sweep": len(todo)})
+        row["dist_shapes"] = (f"{DIST_SHARDS} shards at the ChEMBL shape, K=64, width "
+                              f"{ring.u_plan.width}/{ring.v_plan.width} (user/item plan); "
+                              "the initial state's blocks")
+        self.rows.setdefault("gather_syrk_seg", {}).update(row)
 
     # ------------------------------------------------------------ the LM path
     def lm_kernels(self):

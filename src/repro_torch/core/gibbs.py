@@ -47,7 +47,7 @@ ENGINES = ("reference", "einsum", "kernel", "fused")
 
 __all__ = [
     "ENGINES", "BPMFState", "DeviceBucket", "FactorStats", "GibbsSampler",
-    "SweepNoise", "bucket_stats", "chol_subst_solve", "device_plan",
+    "SweepNoise", "bucket_stats", "chol_subst_solve", "device_plan", "draw_sweep_noise",
     "factor_stats", "posterior_systems", "resolve_engine", "sample_mvn_precision",
     "segment_reduce_rows", "state_from_numpy", "state_from_sample",
     "update_factors",
@@ -89,6 +89,17 @@ class SweepNoise(NamedTuple):
     z_v: torch.Tensor          # (N, K)
     hyper_u: WishartNoise
     z_u: torch.Tensor          # (M, K)
+
+
+def draw_sweep_noise(prior, m: int, n: int, generator: torch.Generator) -> SweepNoise:
+    """One sweep's noise for m users and n items, in the order the sweep
+    uses it, from `generator` on the prior's device."""
+    k, device = prior.mu0.shape[0], prior.mu0.device
+    hyper_v = draw_wishart_noise(prior, n, generator)
+    z_v = torch.randn((n, k), generator=generator, device=device)
+    hyper_u = draw_wishart_noise(prior, m, generator)
+    z_u = torch.randn((m, k), generator=generator, device=device)
+    return SweepNoise(hyper_v=hyper_v, z_v=z_v, hyper_u=hyper_u, z_u=z_u)
 
 
 class DeviceBucket(NamedTuple):
@@ -138,11 +149,12 @@ def segment_reduce_rows(
     rows: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
     stacked: bool = False, identity: bool = False,
 ) -> torch.Tensor:
-    """Row-level statistics -> per-segment sums: the one definition of the
-    bucket segment reduction, shared by the engines here and the fused
-    kernel's plain version. `identity` skips the reduction (every row its
-    own segment); `stacked` means a leading draw axis precedes the row
-    axis."""
+    """Row-level statistics -> per-segment sums: the engines' bucket
+    segment reduction (`index_add_`, atomic on the card; the fused
+    kernel's plain version sums in the kernel's order instead,
+    `kernels/ref.py::segment_sums_in_order`). `identity` skips the
+    reduction (every row its own segment); `stacked` means a leading draw
+    axis precedes the row axis."""
     if identity:
         return rows
     axis = 1 if stacked else 0
@@ -420,12 +432,7 @@ class GibbsSampler:
 
     def draw_noise(self) -> SweepNoise:
         """One sweep's noise from the sampler's generator."""
-        g = self.generator
-        hyper_v = draw_wishart_noise(self.prior, self.n, g)
-        z_v = torch.randn((self.n, self.k), generator=g, device=self.device)
-        hyper_u = draw_wishart_noise(self.prior, self.m, g)
-        z_u = torch.randn((self.m, self.k), generator=g, device=self.device)
-        return SweepNoise(hyper_v=hyper_v, z_v=z_v, hyper_u=hyper_u, z_u=z_u)
+        return draw_sweep_noise(self.prior, self.m, self.n, self.generator)
 
     def sweep(self, state: BPMFState, noise: SweepNoise | None = None) -> BPMFState:
         """One full Gibbs sweep (Algorithm 1 body)."""

@@ -407,8 +407,13 @@ extern "C" int topn_scores_launch(const float* u, const float* v,
   const int first = N < slab ? N : slab;  // the widest slab's items
   const size_t smem = (size_t)kp * sizeof(unsigned long long) + (size_t)first * sizeof(float);
   if (smem > MAX_SELECT_SMEM) return (int)cudaErrorInvalidValue;
+  // The limit is the most any call takes, not this call's: the attribute
+  // belongs to the kernel, not the call, and the serving tier calls from
+  // several threads, so a smaller call's limit set between another's
+  // setting and launch made that launch fail (cudaErrorInvalidValue).
   cudaError_t err = cudaFuncSetAttribute(
-      topn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      topn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)MAX_SELECT_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(topn_score_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

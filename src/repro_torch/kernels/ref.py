@@ -34,6 +34,31 @@ def _syrk_in_order(gm_at, g_at, rv_at, width: int, shape, k: int, device,
     return prec.to(out), rhs.to(out)
 
 
+def segment_sums_in_order(rows: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
+                          *, stacked: bool = False) -> torch.Tensor:
+    """Per-segment sums of rows whose dense segment ids are nondecreasing,
+    each segment's rows added in row order from zero: the order of the
+    kernel's segment pass. (index_add_ is atomic on the card, and an fp64
+    sum in another order can round to another fp32.) Step j adds the j-th
+    row of every segment that has one; visited longest first, the
+    segments of a step are a prefix. `stacked`: a leading draw axis
+    precedes the row axis."""
+    axis = 1 if stacked else 0
+    lengths = torch.bincount(seg_ids.long(), minlength=n_segments)
+    starts = torch.cumsum(lengths, 0) - lengths
+    order = torch.argsort(lengths, descending=True, stable=True)
+    starts = starts[order]
+    ascending = lengths[order].flip(0).cpu()
+    steps = int(ascending[-1]) if n_segments else 0
+    active = n_segments - torch.searchsorted(ascending, torch.arange(steps), right=True)
+    shape = list(rows.shape)
+    shape[axis] = n_segments
+    acc = rows.new_zeros(shape)
+    for j, count in enumerate(active.tolist()):
+        acc.narrow(axis, 0, count).add_(rows.index_select(axis, starts[:count] + j))
+    return torch.empty_like(acc).index_copy_(axis, order, acc)
+
+
 def masked_syrk_ref(vm: torch.Tensor, rv: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """vm (R, W, K) pre-masked gathered factors, rv (R, W) masked ratings
@@ -56,8 +81,9 @@ def gather_syrk_seg_ref(
     leading draw axis iff v does. With bf16_gather the factors are rounded
     to bf16 before the products. Rows are summed over W in order in
     float64 (`_syrk_in_order`), then into their segments in float64, and
-    rounded once, as the kernel does; the outputs are fp32 (float64 for
-    float64 inputs, the chip smoke test's exact yardstick).
+    rounded once, as the kernel does (`segment_sums_in_order`); the
+    outputs are fp32 (float64 for float64 inputs, the chip smoke test's
+    exact yardstick).
     """
     stacked = v.dim() == 3
     if bf16_gather:
@@ -78,14 +104,10 @@ def gather_syrk_seg_ref(
     prec_rows, rhs_rows = _syrk_in_order(gm_at, lambda i: g_at(i).to(out),
                                          lambda i: rv[:, i].to(out), w, lead,
                                          v.shape[-1], v.device, torch.float64)
-    # the one definition of the segment reduction (a lazy import: gibbs
-    # imports the kernels, so neither import is circular)
-    from repro_torch.core.gibbs import segment_reduce_rows
-
-    prec = segment_reduce_rows(prec_rows, seg_ids, n_segments,
-                               stacked=stacked, identity=identity_segments)
-    rhs = segment_reduce_rows(rhs_rows, seg_ids, n_segments,
-                              stacked=stacked, identity=identity_segments)
+    if identity_segments:
+        return prec_rows.to(out), rhs_rows.to(out)
+    prec = segment_sums_in_order(prec_rows, seg_ids, n_segments, stacked=stacked)
+    rhs = segment_sums_in_order(rhs_rows, seg_ids, n_segments, stacked=stacked)
     return prec.to(out), rhs.to(out)
 
 

@@ -6,9 +6,15 @@ serving them live through launch/serve.py::run_train_and_serve:
     PYTHONPATH=src python -m repro_torch.launch.train --bpmf --sweeps 40
     PYTHONPATH=src python -m repro_torch.launch.train --bpmf --co-serve
 
+or, with --mode ring|allgather|async, train the distributed sampler over
+--shards item shards (one a visible card by default; several may share a
+card, as they do on one):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --bpmf --mode async --shards 4
+
 Runs on the card ("--device cpu" for the plain path). LM training stays a
-library, as in the reference; the distributed trainers and SGLD are not
-ported yet (ROADMAP.md, queue 1 items 10-11).
+library, as in the reference; SGLD is not ported yet (ROADMAP.md, queue 1
+item 10).
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ from repro_torch.core.gibbs import ENGINES
 
 
 def bpmf_train_main(args) -> None:
+    if args.engine == "sgld":
+        raise NotImplementedError("the sgld engine is not ported yet: ROADMAP.md, "
+                                  "queue 1 item 10")
     if args.co_serve:
         from repro_torch.launch.serve import run_train_and_serve
 
@@ -33,6 +42,20 @@ def bpmf_train_main(args) -> None:
     from repro_torch.launch.serve import _demo_data
 
     train, test = _demo_data(args.scale, args.seed)
+    if args.mode != "single":
+        from repro_torch.core.distributed import DistributedBPMF, shard_devices
+
+        d = DistributedBPMF(train, test, devices=shard_devices(args.shards, args.device),
+                            k=args.k, alpha=4.0, mode=args.mode,
+                            width="auto" if args.plan == "balanced" else 32,
+                            engine="fused" if args.engine == "fused" else "einsum")
+        print(f"training {train.shape[0]} x {train.shape[1]} ({train.nnz} ratings), "
+              f"k={args.k}, {args.sweeps} sweeps over {d.n_shards} shards on "
+              f"{sorted({str(x) for x in d.devices})}")
+        state = d.run(args.sweeps, seed=args.seed, verbose=True)
+        print(f"test rmse {d.rmse(state):.4f} ({d.n_shards} shards, engine={d.engine}, "
+              f"mode={args.mode}, plan={args.plan})")
+        return
     widths = "balanced" if args.plan == "balanced" else (8, 32, 128)
     sampler = GibbsSampler(train, test, k=args.k, alpha=4.0, burn_in=args.burn_in,
                            widths=widths, engine=args.engine, device=args.device)
@@ -62,13 +85,23 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--scale", type=float, default=0.01,
                     help="movielens_like dataset scale")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--engine", default="fused", choices=list(ENGINES),
-                    help="Gibbs sweep engine")
+    ap.add_argument("--engine", default="fused", choices=[*ENGINES, "sgld"],
+                    help="Gibbs sweep engine (with --mode: fused, or einsum for "
+                         "any other; sgld is not ported yet)")
     ap.add_argument("--thin", type=int, default=1,
                     help="retain every thin-th post-burn-in draw")
     ap.add_argument("--plan", default="balanced", choices=["balanced", "pow2"],
                     help="bucket planner: 'balanced' fits the widths to the "
                          "degree profile, 'pow2' is the fixed ladder")
+    ap.add_argument("--mode", default="single",
+                    choices=["single", "ring", "allgather", "async"],
+                    help="'single' = one-device GibbsSampler; otherwise a "
+                         "DistributedBPMF exchange mode ('async' = "
+                         "stale-tolerant fused ring pipeline)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="item shards of a distributed mode, laid out "
+                         "round-robin over the visible cards (default: one a "
+                         "card; one on the CPU)")
     ap.add_argument("--co-serve", action="store_true",
                     help="serve live recommendations from this process while "
                          "training, through the publication channel")

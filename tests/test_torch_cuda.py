@@ -9,11 +9,9 @@ PyTorch:
 
 Tolerances, and why:
   * gather_syrk_seg: equal bit for bit. Kernel and plain version both sum
-    each row over W in order in fp64, then each segment's rows in fp64,
-    and round once (the plain version's segment sums take index_add_'s
-    order, which can move an fp64 sum by an ulp, far below what the fp32
-    rounding shows); against a float64 evaluation the kernel's error is at
-    most the plain version's.
+    each row over W in order in fp64, then each segment's rows in row
+    order in fp64, and round once; against a float64 evaluation the
+    kernel's error is at most the plain version's.
   * masked_syrk: equal bit for bit. Every entry is the fp32 rounding of
     an in-order fp64 sum of exact products, in the kernel (either path)
     and in its plain version.
@@ -310,6 +308,41 @@ def test_topn_kernel_dyadic_ties_across_slabs(cuda):
         assert torch.equal(ik, ip) and torch.equal(vk, vp)
 
 
+def test_topn_kernel_from_two_threads_at_different_shapes(cuda):
+    """The serving tier calls top-N from several threads at once, a cold
+    request's call (k = 8,192: its selection takes more shared memory than
+    the 48 KB a kernel gets unasked) beside a warm one's (k = 10). A launch
+    that set the selection kernel's shared-memory limit to its own size let
+    the small call lower it under the large call's launch, which failed."""
+    import threading
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cases = {"cold": (torch.randn(3, 16, generator=g, device=cuda),
+                      torch.randn(9000, 16, generator=g, device=cuda), 8192),
+             "warm": (torch.randn(8, 16, generator=g, device=cuda),
+                      torch.randn(500, 16, generator=g, device=cuda), 10)}
+    want = {name: ref.topn_scores_ref(*case) for name, case in cases.items()}
+    errors, got = [], {}
+
+    def serve(name):
+        try:
+            for _ in range(2000):
+                got[name] = ops.topn_scores(*cases[name])
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=serve, args=(name,)) for name in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    for name, (vals, idx) in got.items():
+        assert torch.equal(vals, want[name][0]) and torch.equal(idx, want[name][1])
+
+
 @pytest.mark.parametrize("bh,bhk,s,d,window,cap,dtype", [
     (4, 4, 128, 32, 0, 0.0, torch.float32),        # causal
     (2, 2, 256, 64, 64, 0.0, torch.float32),       # window
@@ -557,3 +590,73 @@ def test_fold_in_kernels_match_plain_on_the_fold_in_inputs(cuda, monkeypatch, k,
     plain = fold_in(None, ratings, PosteriorEnsemble(draws, device="cpu"), z=z,
                     engine="einsum")
     torch.testing.assert_close(got.cpu(), plain, rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the distributed sampler: gather_syrk_seg at the grid plans' shapes
+# ---------------------------------------------------------------------------
+def _dist(devices, mode, engine, k):
+    from repro_torch.core.distributed import DistributedBPMF
+    from repro_torch.data import synthetic_lowrank, train_test_split
+
+    ratings, _, _ = synthetic_lowrank(300, 200, k_true=8, nnz=9000, noise=0.3, seed=3)
+    train, test = train_test_split(ratings, 0.1, seed=4)
+    return DistributedBPMF(train, test, devices=devices, k=k, alpha=11.0, width="auto",
+                           mode=mode, engine=engine)
+
+
+@pytest.mark.parametrize("mode", ["ring", "allgather", "async"])
+@pytest.mark.parametrize("k", [16, 64])
+def test_grid_plan_gather_syrk_seg_launches_match_plain(cuda, monkeypatch, k, mode):
+    """Every launch of one fused sweep of 4 shards on one card, held bit for
+    bit against the plain version on its own inputs (taken as the launch
+    made them: a receive buffer is written again two steps on); the sweep
+    against the same sweep on the CPU."""
+    from repro_torch.core.distributed import shard_devices
+
+    calls = []
+    real = ops.gather_syrk_seg
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((a[:5] + (a[5].clone(),), out))
+        return out
+
+    monkeypatch.setattr(ops, "gather_syrk_seg", rec)
+    d = _dist(shard_devices(4), mode, "fused", k)
+    s0 = d.init(0)
+    noise = d.draw_noise()
+    ops.reset_launches()
+    st = d.sweep(s0, noise)
+    torch.cuda.synchronize()
+    assert ops.launches()["gather_syrk_seg"] == len(calls) == (8 if mode == "allgather" else 32)
+    for a, out in calls:
+        assert a[0].shape[1] in (d.u_plan.width, d.v_plan.width)
+        want = ref.gather_syrk_seg_ref(*a)
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
+    plain = _dist([torch.device("cpu")] * 4, mode, "fused", k)
+    cpu = plain.sweep(_on_cpu(s0), _on_cpu(noise))
+    for got, want in zip(d.gather_factors(st), plain.gather_factors(cpu)):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+def _on_cpu(x):
+    """A copy on the CPU of a state or noise tuple, field by field."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        fields = [_on_cpu(f) for f in x]
+        return type(x)(*fields) if hasattr(x, "_fields") else tuple(fields)
+    return x
+
+
+def test_async_first_sweep_v_bit_equal_to_ring_on_the_card(cuda):
+    from repro_torch.core.distributed import shard_devices
+
+    ring = _dist(shard_devices(4), "ring", "fused", 64)
+    asyn = _dist(shard_devices(4), "async", "fused", 64)
+    s0 = ring.init(0)
+    noise = ring.draw_noise()
+    _, v_ring = ring.gather_factors(ring.sweep(s0, noise))
+    _, v_async = asyn.gather_factors(asyn.sweep(s0, noise), coupled=False)
+    assert np.array_equal(v_ring, v_async)

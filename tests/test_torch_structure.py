@@ -1,5 +1,7 @@
 """Structural rules of the port: it imports neither JAX nor the JAX
-package, and its entry points run on the card unless asked for the CPU."""
+package, its serving tier does no device work under a lock, and its entry
+points (the distributed sampler's too) run on the card unless asked for
+the CPU."""
 import ast
 import os
 import subprocess
@@ -43,6 +45,8 @@ def _imported_roots(tree: ast.AST):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
+    assert {"core/partition.py", "core/exchange.py", "core/distributed.py"} <= {
+        f.relative_to(PORT).as_posix() for f in files}
     bad = [
         (str(f.relative_to(PORT)), root)
         for f in files
@@ -194,6 +198,25 @@ def test_bpmf_launchers_run_on_the_cpu_when_asked(argv, report):
     assert report in out.stdout and "qps" in out.stdout
     if "--hosts" in argv:
         assert "bit-identical" in out.stdout and "degraded parity" in out.stdout
+
+
+def test_distributed_sampler_defaults_to_the_card_and_raises_without_one(no_card):
+    from repro_torch.core.distributed import DistributedBPMF, shard_devices
+
+    ratings, _, _ = synthetic_lowrank(20, 10, k_true=2, nnz=80, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedBPMF(ratings, k=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedBPMF(ratings, k=4, devices=["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shard_devices(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bpmf_train.main(["--bpmf", "--mode", "ring", "--shards", "2", "--sweeps", "2"])
+    # asked for, the CPU runs the plain path end to end
+    d = DistributedBPMF(ratings, k=4, devices=shard_devices(2, "cpu"), mode="async",
+                        engine="fused")
+    state = d.run(2, seed=0)
+    assert all(torch.isfinite(x).all() and x.device.type == "cpu" for x in state.u)
 
 
 def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
