@@ -82,7 +82,20 @@ no kernels line and no result line. Phases:
               sweep (the exchange copies' ms and the share of it beside
               kernels); each launch of a ring and an allgather sweep timed
               at its shapes beside its plain version and its bound
- 14. lm_kernels  the flash-attention kernel against its plain version at
+ 14. sgld     the minibatch SGLD samplers and the ALS baseline, which launch
+              none of the five kernels (einsum statistics, library solves):
+              SGLDSampler at the ChEMBL shape (K = 64, alpha 1.5) at budgets
+              of 4,096 and 65,536 lanes, step seconds, steps/s, sampled
+              lanes/s, peak memory and the device's idle share; two chains
+              of 10 steps equal bit for bit; the reference's accuracy gates
+              on their splits (SGLD within 0.05 of fused Gibbs, Gibbs <= ALS
+              + 0.02) and an ALS sweep timed at the ChEMBL shape;
+              DistributedSGLD with 4 shards on the card in each mode, step
+              seconds and peak memory, the full-budget ring gradient against
+              allgather's, async's fresh v bit for bit ring's and a ring
+              planted to forward the wrong way; the order-fixed segment sum
+              bit for bit the plain version's on the ChEMBL buckets
+ 15. lm_kernels  the flash-attention kernel against its plain version at
               the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
               KV heads, causal, softcap 50, window 4,096 and 0; at a
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
@@ -96,7 +109,7 @@ no kernels line and no result line. Phases:
               the bound of P V on the fp32 pipes and, at softcap 0, beside
               scaled_dot_product_attention; a digest of an fp32 output, to
               hold the fp32 kernel's bits against another commit's
- 15. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+ 16. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
               against the same forward down the direct attention path, in
@@ -105,24 +118,25 @@ no kernels line and no result line. Phases:
               attention scores pass the softcap of 50, with the two paths'
               distance at 1 to 26 layers; the forward's profile shows its
               26 launches on the bf16 tensor-core kernel
- 16. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+ 17. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 17. lm_faults   faults planted one at a time in the bf16 flash launches
+ 18. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards) and in the decode step
               (it misses its own slot): each must fail one of the checks of
-              phase 15 or 16
- 18. report   one JSON line of kernels, the card line, and the last line
+              phase 16 or 17
+ 19. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 15 and 16, the serving tier's paths are
-phases 10 and 11 and the distributed sampler's phase 13: the launch
-counters are set to 0 just before each and read just after (the kernels
-line's `launches`, `foldin_launches`, `cotrain_launches` and
-`dist_launches`). foldin and cotrain need train, serve_faults needs
-foldin and cotrain, dist needs data. Any failed check exits non-zero
+The main path is phases 6, 9, 16 and 17, the serving tier's paths are
+phases 10 and 11, the distributed sampler's phase 13 and the SGLD and ALS
+path phase 14: the launch counters are set to 0 just before each and read
+just after (the kernels line's `launches`, `foldin_launches`,
+`cotrain_launches`, `dist_launches` and `sgld_launches`, the last all 0).
+foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
+and sgld need data. Any failed check exits non-zero
 before the last line. No BPMF phase was cut to make room for the LM ones.
 """
 from __future__ import annotations
@@ -175,6 +189,13 @@ DIST_RUNS = (("ring", "fused"), ("allgather", "fused"), ("async", "fused"), ("ri
 DIST_SWEEPS = 8                        # the chain the RMSE gates read
 DIST_RMSE_ALLGATHER = 1e-3             # ring against allgather, examples/distributed_bpmf.py:43-44
 DIST_RMSE_ASYNC = 0.05                 # async against ring, tests/test_distributed.py:164
+SGLD_BUDGETS = (4096, 65536)           # padded lanes a half-step: the reference's default, 16x
+SGLD_TIMED = 20                        # steps timed, one by one, after SGLD_WARM
+SGLD_WARM = 5
+SGLD_DET_STEPS = 10                    # the two chains held bit for bit
+SGLD_GATE = 0.05                       # tests/test_sgld.py::test_sgld_converges_and_tracks_gibbs
+ALS_GATE = 0.02                        # tests/test_bpmf.py::test_bpmf_beats_or_matches_als
+PROFILE_MARGIN_S = 0.2                 # idle before and after the recorded call (_profile)
 # the LM path: gemma2-2b at full width
 LM_SEQ = 8192                          # the cache-free forward's S: chunked_attn_min_len
 LM_SERVE = (4, 2048, 32)               # prompts, prompt length, new tokens (31 decode steps)
@@ -281,8 +302,8 @@ def card_line() -> str:
 
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
-          "serve", "foldin", "cotrain", "serve_faults", "dist", "lm_kernels", "lm_eval",
-          "lm_serve", "lm_faults")
+          "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
+          "lm_eval", "lm_serve", "lm_faults")
 
 
 def main() -> int:
@@ -824,11 +845,17 @@ class Smoke:
         per_call = {}
         for tag, slab, wall in (("one slab", None, ms), ("slabs of 1,024", TOPN_SLAB,
                                                           ms_slabs)):
-            events = self._profile(lambda: ops.topn_scores(uu, vv, fetch, slab=slab),
-                                   wall, f"topn_scores call, {tag}")
-            seen = sum(e.count for e in events
-                       if "topn_score_kernel" in e.key or "topn_select_kernel" in e.key)
             rule = ops.topn_kernel_launches(b, s.n, fetch, slab)
+
+            def topn_kernels(ev):
+                return sum(e.count for e in ev if "topn_score_kernel" in e.key
+                           or "topn_select_kernel" in e.key)
+
+            # complete: no fewer of top-N's kernels than the rule's
+            events = self._profile(lambda: ops.topn_scores(uu, vv, fetch, slab=slab),
+                                   wall, f"topn_scores call, {tag}",
+                                   complete=lambda ev: topn_kernels(ev) >= rule)
+            seen = topn_kernels(events)
             self.check(seen == rule, f"topn_scores, {tag}: the profile shows {seen} CUDA "
                        f"kernels launched in one call, the slab rule says {rule}")
             per_call[tag] = seen
@@ -948,6 +975,7 @@ class Smoke:
             self.sync()
             ktimes.append(time.perf_counter() - t0)
         launches = dict(ops.LAUNCHES)           # ... and is read here
+        self.kernel_sweep_s = ktimes[-1]
         print(f"fused run of {n_sweeps} sweeps with retention: {t_run:.3f} s; "
               f"kernel-engine sweeps {[round(t, 4) for t in ktimes]} s; "
               f"launches {launches}")
@@ -990,8 +1018,8 @@ class Smoke:
                       "kernel-engine sweep")
         self.state = state
 
-    def _profile(self, fn, wall: float, what: str = "sweep", trace: Path | None = None
-                 ) -> list:
+    def _profile(self, fn, wall: float, what: str = "sweep", trace: Path | None = None,
+                 complete=bool) -> list:
         """Device time by kernel of one call of fn under torch.profiler; the
         idle share is taken against `wall`, the call's unprofiled time in ms
         (the profiler's own start-up would swamp a wall clock around it).
@@ -1002,7 +1030,18 @@ class Smoke:
         recorded. Recorded from the start, a profiler session after the
         first in a process can miss the first kernel its window launches
         (on the H100: top-N's score kernel, one of a sweep's). `trace` names
-        a file for the recorded call's timeline (a Chrome trace)."""
+        a file for the recorded call's timeline (a Chrome trace).
+
+        The profiler has dropped a trace's device events on the H100 now
+        and then: all of a top-N call's or part of one (1 of 2 kernels,
+        9 of 12), or part of a sweep's (364 of 397 kernels; a ring sweep's
+        652 of 760). The profiler keeps only device events that it places
+        inside its recording window, and a skew between the card's clock
+        and the host's can place the call's first or last kernels outside
+        it; so the recorded call sits PROFILE_MARGIN_S of idle inside the
+        window at each end. A trace that `complete(events)` rejects (by
+        default: one without device time) is taken again, up to twice,
+        and said so (PERF.md §6)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1011,20 +1050,29 @@ class Smoke:
             if trace is not None:
                 p.export_chrome_trace(str(trace))
 
-        self.sync()
-        traces = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=ready) as prof:
-            for _ in range(2):
-                fn()
-                self.sync()
-                prof.step()
-        # the step's own span ("ProfilerStep*") is no kernel
-        events = [e for e in (traces[0] if traces else [])
-                  if getattr(e, "device_time_total", 0) > 0
-                  and e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("ProfilerStep")]
+        for attempt in range(3):
+            self.sync()
+            traces = []
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=ready) as prof:
+                for recorded in (False, True):
+                    if recorded:
+                        time.sleep(PROFILE_MARGIN_S)
+                    fn()
+                    self.sync()
+                    if recorded:
+                        time.sleep(PROFILE_MARGIN_S)
+                    prof.step()
+            # the step's own span ("ProfilerStep*") is no kernel
+            events = [e for e in (traces[0] if traces else [])
+                      if getattr(e, "device_time_total", 0) > 0
+                      and e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")]
+            if complete(events) or attempt == 2:
+                break
+            print(f"profiled {what}: the trace holds {sum(e.count for e in events)} "
+                  "kernels, cut by the profiler; profiling again")
         busy = sum(e.device_time_total for e in events) / 1e3
         if not events:
             print(f"profiled {what}: no device time in the trace (not measured)")
@@ -2052,9 +2100,12 @@ class Smoke:
         for mode in ("ring", "async"):
             d, st = fused[mode], states[mode]
             trace = Path(self.tmp.name) / f"dist_{mode}.json"
-            events = self._profile(lambda: d.sweep(st, noise), numbers[mode, "fused"]["s"] * 1e3,
-                                   f"fused {mode} sweep, {DIST_SHARDS} shards on one card",
-                                   trace=trace)
+            # complete: the sweep's 32 gather_syrk_seg row passes are all in it
+            events = self._profile(
+                lambda: d.sweep(st, noise), numbers[mode, "fused"]["s"] * 1e3,
+                f"fused {mode} sweep, {DIST_SHARDS} shards on one card", trace=trace,
+                complete=lambda ev: 2 * p2 == sum(
+                    e.count for e in ev if "gather_syrk_rows_kernel" in e.key))
             self.dist_split(events, trace, mode)
         del states
         self.dist_rows(ring, gather, s0, dist_err)
@@ -2147,6 +2198,254 @@ class Smoke:
                               f"{ring.u_plan.width}/{ring.v_plan.width} (user/item plan); "
                               "the initial state's blocks")
         self.rows.setdefault("gather_syrk_seg", {}).update(row)
+
+    # ------------------------------------------------------------ SGLD and ALS
+    def sgld(self):
+        """The minibatch SGLD samplers and the ALS baseline. Neither launches
+        one of the five kernels: the statistics are einsums, the solves the
+        library's, as in the JAX package (PERF.md §6). The path's launch
+        counts are read all the same, and must be 0."""
+        from repro_torch.core import ALS, GibbsSampler, SGLDSampler
+
+        ops = self.ops
+        self.sgld_numbers = {}
+        self.sync()
+        ops.reset_launches()                    # the SGLD and ALS path starts here
+        for budget in SGLD_BUDGETS:
+            s = SGLDSampler(self.train, self.test, k=K, alpha=1.5, burn_in=10**9,
+                            minibatch=budget)
+            self.sgld_single(s, budget)
+        self.sgld_determinism(SGLDSampler)
+        self.als_sweep(ALS)
+        self.sgld_dist()
+        self.sync()
+        launches = ops.launches()               # ... and is read here
+        self.path_launches["sgld"] = launches
+        self.check(sum(launches.values()) == 0,
+                   f"the SGLD and ALS path launched none of the five kernels {launches}")
+        # the gates' Gibbs chains are the fused engine's: outside the counted run
+        self.sgld_gates(GibbsSampler, SGLDSampler, ALS)
+        self.segment_sums()
+
+    def _step_times(self, step, state, n: int):
+        """Each of n steps timed on its own (host clock, synchronised):
+        the state after them and the times."""
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state = step(state)
+            self.sync()
+            times.append(time.perf_counter() - t0)
+        return state, times
+
+    def sgld_single(self, s, budget: int):
+        import statistics
+
+        torch = self.torch
+        lanes = sum(r * b.width for r, b in zip(s.user_rows, s.user_plan_host.buckets)) + sum(
+            r * b.width for r, b in zip(s.item_rows, s.item_plan_host.buckets))
+        st = s.init(0)
+        st, _ = self._step_times(s.sweep, st, SGLD_WARM)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st, times = self._step_times(s.sweep, st, SGLD_TIMED)
+        med = statistics.median(times)
+        above = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ratio = med / self.sweep_s if hasattr(self, "sweep_s") else float("nan")
+        print(f"  SGLDSampler budget {budget:,} lanes ({lanes:,} sampled a step, "
+              f"{sum(s.user_rows) + sum(s.item_rows):,} rows): step seconds median "
+              f"{med:.5f} (min {min(times):.5f}, max {max(times):.5f}) of {SGLD_TIMED}; "
+              f"{1 / med:,.1f} steps/s; {lanes / med:,.0f} sampled lanes/s; peak "
+              f"{above:.3f} GB above the resident {base / 1e9:.2f} GB; "
+              f"{ratio:.4f} of phase train's fused sweep")
+        self.check(bool(torch.isfinite(st.u).all() and torch.isfinite(st.v).all()),
+                   f"SGLD budget {budget}: factors finite after "
+                   f"{SGLD_WARM + SGLD_TIMED} steps")
+        events = self._profile(lambda: s.sweep(st), med * 1e3, f"SGLD step, budget {budget:,}")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (med * 1e3)) if events else float("nan")
+        print(f"  SGLD step, budget {budget:,}: device busy {busy:.3f} ms of {med * 1e3:.3f} "
+              f"ms, idle share {idle:.3f}: "
+              f"{'host-bound' if idle > 0.5 else 'not host-bound'}")
+        self.sgld_numbers[budget] = dict(step_s=med, steps_per_s=1 / med, lanes=lanes,
+                                         lanes_per_s=lanes / med, above_gb=above,
+                                         of_fused_sweep=ratio, busy_ms=busy, idle=idle)
+
+    def sgld_determinism(self, SGLDSampler):
+        torch = self.torch
+        runs = []
+        for _ in range(2):
+            s = SGLDSampler(self.train, self.test, k=K, alpha=1.5, burn_in=SGLD_DET_STEPS // 2,
+                            minibatch=SGLD_BUDGETS[0])
+            runs.append(s.run(SGLD_DET_STEPS, seed=7))
+        a, b = runs
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("u", "v", "pred_sum"))
+        self.check(same and a.pred_count == b.pred_count > 0,
+                   f"two SGLD chains of {SGLD_DET_STEPS} steps from one seed at the ChEMBL "
+                   "shape are equal bit for bit (u, v, the predictive sum)")
+
+    def sgld_gates(self, GibbsSampler, SGLDSampler, ALS):
+        """The reference's accuracy gates on their own splits, on the card."""
+        from repro_torch.data import synthetic_lowrank, train_test_split
+
+        ratings, _, _ = synthetic_lowrank(300, 200, k_true=6, nnz=9000, noise=0.3, seed=2)
+        train, test = train_test_split(ratings, 0.1, seed=3)
+        g = GibbsSampler(train, test, k=16, alpha=4.0, burn_in=5, engine="fused")
+        gs = g.run(15, seed=0)
+        s = SGLDSampler(train, test, k=16, alpha=4.0, burn_in=250, minibatch=2048,
+                        step_size=1.0, step_decay=1.0, step_t0=50.0, clip=6.0,
+                        temp_warmup=250, hyper_every=5, accum_every=5)
+        t0 = time.perf_counter()
+        ss = s.run(500, seed=0)
+        self.sync()
+        t_run = time.perf_counter() - t0
+        gap = s.rmse(ss) - g.rmse(gs)
+        self.check(gap < SGLD_GATE,
+                   f"SGLD posterior mean after 500 steps within {SGLD_GATE} of fused Gibbs "
+                   f"after 15 sweeps (rmse {s.rmse(ss):.4f} against {g.rmse(gs):.4f}, gap "
+                   f"{gap:+.4f}; 500 steps in {t_run:.2f} s)")
+
+        ratings, _, _ = synthetic_lowrank(250, 180, k_true=8, nnz=8000, noise=0.3, seed=1)
+        train, test = train_test_split(ratings, 0.1, seed=2)
+        g = GibbsSampler(train, test, k=16, alpha=1.0 / 0.09, burn_in=8, widths=(8, 32, 128))
+        gs = g.run(30, seed=0)
+        als = ALS(train, test, k=16, lam_reg=0.3, widths=(8, 32, 128))
+        sa = als.run(12)
+        self.check(g.rmse(gs) <= als.rmse(sa) + ALS_GATE,
+                   f"Gibbs no worse than ALS + {ALS_GATE} (rmse {g.rmse(gs):.4f} against "
+                   f"{als.rmse(sa):.4f})")
+
+    def als_sweep(self, ALS):
+        """An ALS sweep at the ChEMBL shape, K = 64."""
+        import statistics
+
+        als = ALS(self.train, self.test, k=K)
+        st = als.init(0)
+        st, _ = self._step_times(als.sweep, st, 1)
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st, times = self._step_times(als.sweep, st, 3)
+        med = statistics.median(times)
+        above = (torch.cuda.max_memory_allocated() - base) / 1e9
+        rmse = als.rmse(st)
+        print(f"  ALS at the ChEMBL shape, K={K}, lambda {als.lam_reg}: sweep seconds "
+              f"{[round(t, 4) for t in times]}, median {med:.4f}; test rmse after 4 sweeps "
+              f"{rmse:.4f}; peak {above:.2f} GB above the resident {base / 1e9:.2f} GB")
+        self.check(bool(self.np.isfinite(rmse)), "ALS at the ChEMBL shape: finite rmse")
+        self.sgld_numbers["als"] = dict(sweep_s=med, rmse=rmse, above_gb=above)
+
+    def sgld_dist(self):
+        """DistributedSGLD at the ChEMBL shape, 4 shards on cuda:0."""
+        import statistics
+
+        torch = self.torch
+        from repro_torch.core import exchange
+        from repro_torch.core.distributed import DIST_MODES
+        from repro_torch.core.sgld import DistributedSGLD
+
+        devices = [self.dev] * DIST_SHARDS
+        kw = dict(devices=devices, k=K, alpha=1.5, width="auto")
+        samplers = {mode: DistributedSGLD(self.train, self.test, mode=mode, **kw)
+                    for mode in DIST_MODES}
+        ring = samplers["ring"]
+        print(f"  DistributedSGLD: {DIST_SHARDS} shards, rows a block (user, item) "
+              f"{ring.cfg.u_rows}, {ring.cfg.v_rows} of {ring.u_plan.indices.shape[2]:,}, "
+              f"{ring.v_plan.indices.shape[2]:,}")
+        s0 = ring.init(0)
+        noise = ring.draw_noise()
+        v_ring = torch.cat(ring.sweep(s0, noise).v)
+        v_async = torch.cat(samplers["async"].sweep(s0, noise).v)
+        self.check(torch.equal(v_ring, v_async),
+                   "DistributedSGLD, one step: async's fresh v equals ring's bit for bit")
+        for mode, d in samplers.items():
+            st = d.init(0)
+            st, _ = self._step_times(d.sweep, st, 2)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            st, times = self._step_times(d.sweep, st, 8)
+            med = statistics.median(times)
+            above = (torch.cuda.max_memory_allocated() - base) / 1e9
+            ok = all(bool(torch.isfinite(x).all()) for x in st.u + st.v)
+            self.check(ok, f"DistributedSGLD {mode}: factors finite after 10 steps")
+            print(f"  DistributedSGLD {mode:9s}: step seconds median {med:.5f} (min "
+                  f"{min(times):.5f}, max {max(times):.5f}) of 8; peak {above:.3f} GB "
+                  f"above the resident {base / 1e9:.2f} GB")
+            self.sgld_numbers[f"dist_{mode}"] = dict(step_s=med, above_gb=above)
+        del samplers, ring, s0, noise, v_ring, v_async
+
+        # the full-budget gradient: ring against allgather, and the plant
+        full = {mode: DistributedSGLD(self.train, self.test, mode=mode, minibatch=10**9, **kw)
+                for mode in ("ring", "allgather")}
+        st = full["ring"].init(0)
+
+        def grads(d):
+            out = []
+            for counter, factors, side, s_rows in ((st.u, st.v, d._v, d.cfg.v_rows),
+                                                   (st.v, st.u, d._u, d.cfg.u_rows)):
+                rows = ((None,) * DIST_SHARDS if d.mode == "allgather"
+                        else ((None,) * DIST_SHARDS,) * DIST_SHARDS)
+                out.append(torch.cat(d._grad_phase(counter, factors, side, rows, s_rows)))
+            return out
+
+        want = grads(full["allgather"])
+        for name, got, w in zip(("v", "u"), grads(full["ring"]), want):
+            self.close(got, w, f"DistributedSGLD full budget: ring's {name} likelihood "
+                              "gradient against allgather's")
+        saved = exchange.RingExchange.shift
+        exchange.RingExchange.shift = -1
+        try:
+            planted = grads(full["ring"])
+        finally:
+            exchange.RingExchange.shift = saved
+        ok, text, _ = self.verdict(planted[0], want[0], "ring v gradient against allgather")
+        print(f"    planted fault 'the ring forwards to p - 1': {'passes' if ok else 'FAILS'} "
+              f"{text}")
+        self.check(not ok and exchange.RingExchange.shift == 1,
+                   "planted fault 'the ring forwards to p - 1' fails the full-budget "
+                   "gradient check, and is undone")
+        del full, st, want, planted
+        torch.cuda.empty_cache()
+
+    def segment_sums(self):
+        """The step-0 repair on the card: the engines' segment sum
+        (torch.segment_reduce over the plan's offsets) bit for bit the
+        plain version's row-order sums on every ChEMBL bucket, and the same
+        bits on a second call; then the times it moved, as the other phases
+        of this run read them."""
+        torch, ref = self.torch, self.ref
+        from repro_torch.core.gibbs import segment_reduce_rows
+
+        g = torch.Generator(device=self.dev).manual_seed(11)
+        u = 0.3 * torch.randn((self.sampler.m, K), generator=g, device=self.dev)
+        v = 0.3 * torch.randn((self.sampler.n, K), generator=g, device=self.dev)
+        results, rows_total = [], 0
+        for side, b, cp in self._bucket_sides(u, v):
+            vm = cp[b.indices.long()] * b.mask[..., None]
+            for rows in (torch.einsum("rwk,rwl->rkl", vm, vm),
+                         torch.einsum("rwk,rw->rk", vm, b.values * b.mask)):
+                a = segment_reduce_rows(rows, b.seg_ptr)
+                again = segment_reduce_rows(rows, b.seg_ptr)
+                want = ref.segment_sums_in_order(rows, b.seg_ids, b.n_segments)
+                results.append(torch.equal(a, want) and torch.equal(a, again))
+                del a, again, want, rows
+            rows_total += b.indices.shape[0]
+            del vm
+        self.check(all(results),
+                   f"the order-fixed segment sum equals the plain row-order sums bit for bit "
+                   f"and itself on a second call, on all {self.n_buckets} ChEMBL buckets "
+                   f"({rows_total:,} rows; prec and rhs)")
+        parts = []
+        if hasattr(self, "kernel_sweep_s"):
+            parts.append(f"kernel-engine sweep {self.kernel_sweep_s:.4f} s")
+        if ("ring", "einsum") in getattr(self, "dist_numbers", {}):
+            parts.append(f"einsum ring sweep {self.dist_numbers['ring', 'einsum']['s']:.4f} s")
+        if (4096, "kernel") in getattr(self, "foldin_numbers", {}):
+            parts.append(f"fold-in B=4,096 kernel engine "
+                         f"{self.foldin_numbers[4096, 'kernel']['ms']:.3f} ms")
+        print(f"  after the repair, this run: {'; '.join(parts) or 'none of the phases ran'}")
+        del u, v
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ the LM path
     def lm_kernels(self):
@@ -2384,13 +2683,19 @@ class Smoke:
             self.main_launches["flash_attention"] = launches["flash_attention"]
             self.check(bool(self.np.isfinite(loss)), "the loss is finite")
             self.check(float(metrics["tokens"]) == LM_SEQ, f"{LM_SEQ} labels counted")
-            events = self._profile(lambda: model.loss_fn(params, batch), dt * 1e3,
-                                   "forward")
             # which CUDA kernel the bf16 launches ran, where the package
             # names one per dtype
             name = getattr(ops, "FLASH_KERNEL_NAMES", {}).get(cfg.dtype)
+
+            def flash_kernels(ev):
+                return sum(e.count for e in ev if name is not None and name in e.key)
+
+            # complete: no fewer of the named kernel's launches than layers
+            events = self._profile(lambda: model.loss_fn(params, batch), dt * 1e3,
+                                   "forward", complete=lambda ev: bool(ev) and (
+                                       name is None or flash_kernels(ev) >= cfg.n_layers))
             if name is not None and events:
-                ran = sum(e.count for e in events if name in e.key)
+                ran = flash_kernels(events)
                 self.check(ran == cfg.n_layers,
                            f"the forward's profile shows {ran} launches of {name} "
                            f"({cfg.n_layers} expected: every flash launch of the bf16 "

@@ -100,6 +100,15 @@ class BlockPlan(NamedTuple):
     # the real segments of each counterpart block, in block order: (first
     # dense segment, local item slots); the pad segment is left out
     targets: tuple[tuple[int, torch.Tensor], ...]
+    # the order-fixed segment sums of the einsum engine and of SGLD, by
+    # local slot: the rows sorted stably by `seg` (None where seg is
+    # nondecreasing already, as in every ring block; the allgather plan's
+    # blocks follow each other), the real slots that have rows, ascending,
+    # and the row offsets of their runs in the sorted rows, then of the
+    # padding rows' run (slot n_loc, last, dropped)
+    seg_order: torch.Tensor | None
+    slots: torch.Tensor        # (n_slots,) int64
+    slot_off: torch.Tensor     # (n_slots + 2,) int32
 
 
 def shard_devices(n_shards: int | None = None, device="cuda") -> list[torch.device]:
@@ -129,10 +138,18 @@ def _block_plan(idx, val, msk, seg, seg_dense, seg_map, n_dense, n_loc, device
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
+    seg = seg.astype(np.int64)
+    order = None if np.all(np.diff(seg) >= 0) else np.argsort(seg, kind="stable")
+    ordered = seg if order is None else seg[order]
+    slots = np.unique(ordered[ordered < n_loc])
+    slot_off = np.concatenate([np.searchsorted(ordered, slots),
+                               [np.searchsorted(ordered, n_loc), len(ordered)]])
     return BlockPlan(
-        indices=put(idx), values=put(val), mask=put(msk), seg=put(seg.astype(np.int64)),
+        indices=put(idx), values=put(val), mask=put(msk), seg=put(seg),
         seg_dense=put(seg_dense), seg_ptr=put(kops.segment_offsets(seg_dense, first)),
         n_segments=first, targets=tuple(targets),
+        seg_order=None if order is None else put(order),
+        slots=put(slots), slot_off=put(slot_off.astype(np.int32)),
     )
 
 
@@ -174,8 +191,9 @@ def _accumulate_block(prec: torch.Tensor, rhs: torch.Tensor, counter_blk: torch.
     """Add one block's (sum v v^T, sum r v) into each local item's prec
     (n_loc, K, K) and rhs (n_loc, K).
 
-    einsum: gathered block, row-level einsums and the segment sum (slot
-    n_loc collects the padding and is dropped). fused:
+    einsum: gathered block, row-level einsums and the order-fixed segment
+    sum of each slot's rows, added into the slots the block has rows for
+    (the padding rows' sum is dropped). fused:
     `ops.gather_syrk_seg` over the block's dense segments, whose real
     segments are then added into their items' slots, block by block (an
     item's slots are unique within a block), in place of the reference's
@@ -189,12 +207,23 @@ def _accumulate_block(prec: torch.Tensor, rhs: torch.Tensor, counter_blk: torch.
             prec[slots] += prec_seg[first:first + d]
             rhs[slots] += rhs_seg[first:first + d]
         return
-    n_loc = prec.shape[0]
-    vm = counter_blk[plan.indices.long()] * plan.mask[..., None]    # (R, W, K)
+    idx, val, msk, _ = _rows_by_slot(plan)
+    vm = counter_blk[idx.long()] * msk[..., None]    # (R, W, K)
     prec_rows = torch.einsum("rwk,rwl->rkl", vm, vm)
-    rhs_rows = torch.einsum("rwk,rw->rk", vm, plan.values * plan.mask)
-    prec += segment_reduce_rows(prec_rows, plan.seg, n_loc + 1)[:n_loc]
-    rhs += segment_reduce_rows(rhs_rows, plan.seg, n_loc + 1)[:n_loc]
+    rhs_rows = torch.einsum("rwk,rw->rk", vm, val * msk)
+    n = plan.slots.shape[0]
+    prec[plan.slots] += segment_reduce_rows(prec_rows, plan.slot_off)[:n]
+    rhs[plan.slots] += segment_reduce_rows(rhs_rows, plan.slot_off)[:n]
+
+
+def _rows_by_slot(plan: BlockPlan) -> tuple[torch.Tensor, ...]:
+    """The plan's (indices, values, mask, seg) in the order of
+    `plan.seg_order`: each slot's rows contiguous, in the plan's order
+    (`plan.slot_off` delimits the runs)."""
+    rows = (plan.indices, plan.values, plan.mask, plan.seg)
+    if plan.seg_order is None:
+        return rows
+    return tuple(a[plan.seg_order] for a in rows)
 
 
 class _Side(NamedTuple):

@@ -50,7 +50,7 @@ __all__ = [
     "SweepNoise", "bucket_stats", "chol_subst_solve", "device_plan", "draw_sweep_noise",
     "factor_stats", "posterior_systems", "resolve_engine", "sample_mvn_precision",
     "segment_reduce_rows", "state_from_numpy", "state_from_sample",
-    "update_factors",
+    "sum_rows_by_id", "update_factors",
 ]
 
 
@@ -146,22 +146,42 @@ def device_plan(plan: BucketPlan | Sequence[Bucket], device) -> tuple[DeviceBuck
 
 
 def segment_reduce_rows(
-    rows: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
+    rows: torch.Tensor, offsets: torch.Tensor, *,
     stacked: bool = False, identity: bool = False,
 ) -> torch.Tensor:
-    """Row-level statistics -> per-segment sums: the engines' bucket
-    segment reduction (`index_add_`, atomic on the card; the fused
-    kernel's plain version sums in the kernel's order instead,
-    `kernels/ref.py::segment_sums_in_order`). `identity` skips the
-    reduction (every row its own segment); `stacked` means a leading draw
-    axis precedes the row axis."""
+    """Row-level statistics -> per-segment sums, each segment's rows added
+    in row order from zero: the same bits on every run, on the card as on
+    the CPU (`index_add_` would be atomic on the card), and the order the
+    CPU's `index_add_` takes. The segments are contiguous runs of rows:
+    `offsets` holds their n_segments + 1 row offsets (a plan's `seg_ptr`;
+    rows whose segment ids are not nondecreasing are sorted stably first,
+    `sum_rows_by_id`). `identity` skips the reduction (every row its own
+    segment); `stacked` means a leading draw axis precedes the row axis.
+
+    torch.segment_reduce sums each output element in one thread, the
+    segment's rows in order, for rows of two or more axes; a single axis
+    would take a tree reduction on the card, so it is refused there."""
     if identity:
         return rows
+    if rows.is_cuda and rows.dim() < 2:
+        raise ValueError("segment_reduce_rows adds in row order only for rows of "
+                         "two or more axes on the card")
     axis = 1 if stacked else 0
-    shape = list(rows.shape)
-    shape[axis] = n_segments
-    out = rows.new_zeros(shape)
-    return out.index_add_(axis, seg_ids.long(), rows)
+    if stacked:
+        offsets = offsets.expand(rows.shape[0], -1).contiguous()
+    return torch.segment_reduce(rows, "sum", offsets=offsets, axis=axis, unsafe=True)
+
+
+def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) sums of rows (R, ...) by their ids in [0, n), duplicates in
+    any order: the rows sorted stably by id, then `segment_reduce_rows`, so
+    an id's rows are added in the order they came, from zero. The
+    order-fixed scatter-add (`.at[ids].add` into zeros) of the SGLD
+    gradients; the offsets come from the sorted ids on their device, with
+    no host sync."""
+    ids, order = torch.sort(ids, stable=True)
+    bounds = torch.arange(n + 1, device=ids.device, dtype=ids.dtype)
+    return segment_reduce_rows(rows[order], torch.searchsorted(ids, bounds))
 
 
 def bucket_stats(
@@ -193,8 +213,8 @@ def bucket_stats(
         rhs_rows = torch.einsum("...rwk,...rw->...rk", vm, rv.expand(vm.shape[:-1]))
 
     def reduce(rows):
-        return segment_reduce_rows(rows, bucket.seg_ids, bucket.n_segments,
-                                   stacked=stacked, identity=skip_reduce)
+        return segment_reduce_rows(rows, bucket.seg_ptr, stacked=stacked,
+                                   identity=skip_reduce)
 
     return reduce(prec_rows), reduce(rhs_rows)
 

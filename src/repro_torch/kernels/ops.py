@@ -2,9 +2,12 @@
 
 Each wrapper takes the plain PyTorch version (`kernels/ref.py`) for a tensor
 on the CPU and nothing else; for a CUDA tensor it checks device, type, shape
-and contiguity, launches its kernel on the current stream, raises if the
-launch returned an error, and adds one to its entry in `LAUNCHES`. There is
-no fallback: a CUDA tensor the kernel cannot take raises.
+and contiguity, launches its kernel on the tensor's card (made current for
+the launch, `_on_card`: the launchers size their grids and set their
+shared-memory limits for the current card) and that card's current stream,
+raises if the launch returned an error, and adds one to its entry in
+`LAUNCHES`. There is no fallback: a CUDA tensor the kernel cannot take
+raises.
 
 The syrk kernels take R and W as they are, and the solve its batch. The
 BPMF kernels are built for the ranks in KERNEL_RANKS; another rank up to
@@ -64,6 +67,14 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _on_card(x: torch.Tensor) -> torch.cuda.device:
+    """The guard every launch runs under: x's card current. The launchers
+    read the current card (`cudaGetDevice` for a persistent grid's size,
+    `cudaFuncSetAttribute` for a kernel's shared memory), so a launch for
+    cuda:1 while cuda:0 is current would size and configure for cuda:0."""
+    return torch.cuda.device(x.device)
 
 
 def _require(name: str, x: torch.Tensor, device: torch.device,
@@ -199,14 +210,15 @@ def gather_syrk_seg(
         rhs = torch.empty((s, n_segments, kp), device=dev, dtype=torch.float32)
         ptr = seg_ptr.data_ptr()
     lib = build.library("gather_syrk_seg")
-    err = lib.gather_syrk_seg_launch(
-        indices.data_ptr(), values.data_ptr(), mask.data_ptr(), vk.data_ptr(),
-        int(bf16_gather),
-        None if rows_prec is None else rows_prec.data_ptr(),
-        None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
-        prec.data_ptr(), rhs.data_ptr(), r, w, n, s, n_segments, kp,
-        SYRK_NARROW_MAX_W, _stream(v),
-    )
+    with _on_card(v):
+        err = lib.gather_syrk_seg_launch(
+            indices.data_ptr(), values.data_ptr(), mask.data_ptr(), vk.data_ptr(),
+            int(bf16_gather),
+            None if rows_prec is None else rows_prec.data_ptr(),
+            None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
+            prec.data_ptr(), rhs.data_ptr(), r, w, n, s, n_segments, kp,
+            SYRK_NARROW_MAX_W, _stream(v),
+        )
     build.check("gather_syrk_seg", err)
     _count("gather_syrk_seg")
     if kp != k:
@@ -242,10 +254,12 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
     rv = _require("rv", rv, dev, torch.float32)
     prec = torch.empty((r, kp, kp), device=dev, dtype=torch.float32)
     rhs = torch.empty((r, kp), device=dev, dtype=torch.float32)
-    err = build.library("masked_syrk").masked_syrk_launch(
-        vm.data_ptr(), rv.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
-        r, w, kp, SYRK_NARROW_MAX_W, _stream(vm),
-    )
+    lib = build.library("masked_syrk")
+    with _on_card(vm):
+        err = lib.masked_syrk_launch(
+            vm.data_ptr(), rv.data_ptr(), prec.data_ptr(), rhs.data_ptr(),
+            r, w, kp, SYRK_NARROW_MAX_W, _stream(vm),
+        )
     build.check("masked_syrk", err)
     _count("masked_syrk")
     if kp != k:
@@ -281,10 +295,12 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
         raise ValueError("chol_solve_sample needs at least one system")
     prec, rhs, z = (_aligned(x) for x in pad_rank_systems(prec, rhs, z, kp))
     out = torch.empty((bsz, kp), device=dev, dtype=torch.float32)
-    err = build.library("chol_solve_sample").chol_solve_sample_launch(
-        prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
-        bsz, kp, _stream(prec),
-    )
+    lib = build.library("chol_solve_sample")
+    with _on_card(prec):
+        err = lib.chol_solve_sample_launch(
+            prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
+            bsz, kp, _stream(prec),
+        )
     build.check("chol_solve_sample", err)
     _count("chol_solve_sample")
     return out if kp == k else out[:, :k].contiguous()
@@ -357,11 +373,13 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
             if n > width else None)
     vals = torch.empty((b, topk), device=dev, dtype=torch.float32)
     idx = torch.empty((b, topk), device=dev, dtype=torch.int32)
-    err = build.library("topn_scores").topn_scores_launch(
-        u.data_ptr(), v.data_ptr(), scores.data_ptr(),
-        None if best is None else best.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), b, n, u.shape[1], topk, width, _stream(u),
-    )
+    lib = build.library("topn_scores")
+    with _on_card(u):
+        err = lib.topn_scores_launch(
+            u.data_ptr(), v.data_ptr(), scores.data_ptr(),
+            None if best is None else best.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), b, n, u.shape[1], topk, width, _stream(u),
+        )
     build.check("topn_scores", err)
     _count("topn_scores")
     return vals, idx
@@ -416,11 +434,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (_aligned(_require(n, t, dev, q.dtype))
                for n, t in (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
-    err = build.library("flash_attention").flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
-        sq, sk, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
-        float(softcap), scale, _stream(q),
-    )
+    lib = build.library("flash_attention")
+    with _on_card(q):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
+            sq, sk, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
+            float(softcap), scale, _stream(q),
+        )
     build.check("flash_attention", err)
     _count("flash_attention")
     return out

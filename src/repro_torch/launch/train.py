@@ -12,9 +12,14 @@ card, as they do on one):
 
     PYTHONPATH=src python -m repro_torch.launch.train --bpmf --mode async --shards 4
 
+`--engine sgld` trains the minibatch SGLD sampler instead of Gibbs, single
+device or with --mode/--shards (--sweeps then counts SGLD steps, each
+costing about --minibatch padded rating lanes a half-step):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --bpmf --engine sgld --sweeps 400
+
 Runs on the card ("--device cpu" for the plain path). LM training stays a
-library, as in the reference; SGLD is not ported yet (ROADMAP.md, queue 1
-item 10).
+library, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,9 +30,6 @@ from repro_torch.core.gibbs import ENGINES
 
 
 def bpmf_train_main(args) -> None:
-    if args.engine == "sgld":
-        raise NotImplementedError("the sgld engine is not ported yet: ROADMAP.md, "
-                                  "queue 1 item 10")
     if args.co_serve:
         from repro_torch.launch.serve import run_train_and_serve
 
@@ -45,29 +47,47 @@ def bpmf_train_main(args) -> None:
     if args.mode != "single":
         from repro_torch.core.distributed import DistributedBPMF, shard_devices
 
-        d = DistributedBPMF(train, test, devices=shard_devices(args.shards, args.device),
-                            k=args.k, alpha=4.0, mode=args.mode,
-                            width="auto" if args.plan == "balanced" else 32,
-                            engine="fused" if args.engine == "fused" else "einsum")
+        kw = dict(devices=shard_devices(args.shards, args.device), k=args.k, alpha=4.0,
+                  mode=args.mode, width="auto" if args.plan == "balanced" else 32)
+        if args.engine == "sgld":
+            from repro_torch.core.sgld import DistributedSGLD
+
+            d = DistributedSGLD(train, test, minibatch=args.minibatch,
+                                step_size=args.step_size, **kw)
+        else:
+            d = DistributedBPMF(train, test, **kw,
+                                engine="fused" if args.engine == "fused" else "einsum")
         print(f"training {train.shape[0]} x {train.shape[1]} ({train.nnz} ratings), "
-              f"k={args.k}, {args.sweeps} sweeps over {d.n_shards} shards on "
+              f"k={args.k}, {args.sweeps} {_unit(args)} over {d.n_shards} shards on "
               f"{sorted({str(x) for x in d.devices})}")
         state = d.run(args.sweeps, seed=args.seed, verbose=True)
-        print(f"test rmse {d.rmse(state):.4f} ({d.n_shards} shards, engine={d.engine}, "
+        engine = "sgld" if args.engine == "sgld" else d.engine
+        print(f"test rmse {d.rmse(state):.4f} ({d.n_shards} shards, engine={engine}, "
               f"mode={args.mode}, plan={args.plan})")
         return
     widths = "balanced" if args.plan == "balanced" else (8, 32, 128)
-    sampler = GibbsSampler(train, test, k=args.k, alpha=4.0, burn_in=args.burn_in,
-                           widths=widths, engine=args.engine, device=args.device)
+    if args.engine == "sgld":
+        from repro_torch.core.sgld import SGLDSampler
+
+        sampler = SGLDSampler(train, test, k=args.k, alpha=4.0, burn_in=args.burn_in,
+                              widths=widths, minibatch=args.minibatch,
+                              step_size=args.step_size, device=args.device)
+    else:
+        sampler = GibbsSampler(train, test, k=args.k, alpha=4.0, burn_in=args.burn_in,
+                               widths=widths, engine=args.engine, device=args.device)
     root = args.samples or tempfile.mkdtemp(prefix="bpmf_samples_")
     print(f"training {train.shape[0]} x {train.shape[1]} ({train.nnz} ratings), "
-          f"k={args.k}, {args.sweeps} sweeps (burn-in {args.burn_in}), "
+          f"k={args.k}, {args.sweeps} {_unit(args)} (burn-in {args.burn_in}), "
           f"engine={args.engine}, device={sampler.device} -> {root}")
     store = SampleStore(root, keep=args.keep)
     state = sampler.run(args.sweeps, seed=args.seed, store=store, thin=args.thin)
     print(f"test rmse {sampler.rmse(state):.4f}; retained {len(store.steps())} "
           f"draws; serve them with: python -m repro_torch.launch.serve --bpmf "
           f"--samples {root}")
+
+
+def _unit(args) -> str:
+    return "steps" if args.engine == "sgld" else "sweeps"
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -87,7 +107,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", default="fused", choices=[*ENGINES, "sgld"],
                     help="Gibbs sweep engine (with --mode: fused, or einsum for "
-                         "any other; sgld is not ported yet)")
+                         "any other), or 'sgld' for minibatch SG-MCMC: a step's "
+                         "cost is set by --minibatch, not the data, and --sweeps "
+                         "counts SGLD steps")
+    ap.add_argument("--minibatch", type=int, default=4096,
+                    help="sgld: padded-lane budget a half-step (a shard's, with "
+                         "--mode)")
+    ap.add_argument("--step-size", type=float, default=0.3,
+                    help="sgld: peak Langevin step size, decaying polynomially "
+                         "(optim.schedule.sgld_step_schedule)")
     ap.add_argument("--thin", type=int, default=1,
                     help="retain every thin-th post-burn-in draw")
     ap.add_argument("--plan", default="balanced", choices=["balanced", "pow2"],

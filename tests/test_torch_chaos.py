@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro.checkpoint import as_retained_sample as jretained  # noqa: E402
 from repro.serve import PosteriorEnsemble as JEnsemble  # noqa: E402

@@ -36,6 +36,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -660,3 +663,141 @@ def test_async_first_sweep_v_bit_equal_to_ring_on_the_card(cuda):
     _, v_ring = ring.gather_factors(ring.sweep(s0, noise))
     _, v_async = asyn.gather_factors(asyn.sweep(s0, noise), coupled=False)
     assert np.array_equal(v_ring, v_async)
+
+
+# ---------------------------------------------------------------------------
+# each launch on its tensor's card
+# ---------------------------------------------------------------------------
+def test_kernels_launch_on_their_tensors_card_while_another_is_current(cuda):
+    """Tensors on cuda:1 while cuda:0 is current: every wrapper launches on
+    cuda:1 (its persistent grid sized and its shared memory set for that
+    card) and holds against its plain version there. Skips with fewer
+    than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.cuda.device(0):
+        ops.reset_launches()
+        idx, val, msk, seg = _bucket(np.random.default_rng(5), 300, 3, 200, 40, dev)
+        ptr = torch.tensor(ops.segment_offsets(seg.cpu().numpy(), 40), device=dev)
+        v = torch.randn(200, 64, generator=g, device=dev)
+        got = ops.gather_syrk_seg(idx, val, msk, seg, 40, v, seg_ptr=ptr)
+        want = ref.gather_syrk_seg_ref(idx, val, msk, seg, 40, v)
+        assert all(a.device == dev and torch.equal(a, b) for a, b in zip(got, want))
+        vm = torch.randn(50, 5, 64, generator=g, device=dev)
+        rv = torch.randn(50, 5, generator=g, device=dev)
+        assert all(torch.equal(a, b) for a, b in zip(ops.masked_syrk(vm, rv),
+                                                     ref.masked_syrk_ref(vm, rv)))
+        a = torch.randn(37, 64, 64, generator=g, device=dev)
+        prec = a @ a.transpose(1, 2) + 7.0 * torch.eye(64, device=dev)
+        rhs, z = (torch.randn(37, 64, generator=g, device=dev) for _ in range(2))
+        torch.testing.assert_close(ops.chol_solve_sample(prec, rhs, z),
+                                   ref.chol_solve_sample_ref(prec, rhs, z),
+                                   rtol=2e-3, atol=2e-3)
+        u, items = torch.randn(9, 64, generator=g, device=dev), v
+        for a, b in zip(ops.topn_scores(u, items, 10), ref.topn_scores_ref(u, items, 10)):
+            assert torch.equal(a, b)
+        q, k, vv = (torch.randn(4, 300, 64, generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(3))
+        torch.testing.assert_close(ops.flash_attention(q, k, vv, softcap=50.0).float(),
+                                   ref.flash_attention_ref(q, k, vv, softcap=50.0).float(),
+                                   rtol=3e-2, atol=3e-2)
+        assert torch.cuda.current_device() == 0
+        assert all(n == 1 for n in ops.launches().values())
+
+
+# ---------------------------------------------------------------------------
+# the order-fixed segment sum and what rides it
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_seg,max_len,tail,stacked", [
+    (50, 3000, (64, 64), False), (20000, 40, (64, 64), False), (200000, 6, (64,), False),
+    (300, 40, (16, 16), False), (300, 40, (16, 16), True), (300, 40, (64, 64), True)])
+def test_segment_reduce_rows_in_row_order_on_the_card(cuda, n_seg, max_len, tail, stacked):
+    """Bit for bit the plain version's row-order sums, the same bits on two
+    calls and, at the smaller shapes, on the CPU (some segments are
+    empty)."""
+    from repro_torch.core.gibbs import segment_reduce_rows
+
+    rng = np.random.default_rng(n_seg)
+    lengths = rng.integers(0, max_len + 1, n_seg)
+    seg = np.repeat(np.arange(n_seg), lengths).astype(np.int32)
+    lead = (2,) if stacked else ()
+    shape = lead + (len(seg),) + tail
+    g = torch.Generator(device=cuda).manual_seed(n_seg)
+    rows = (torch.randn(shape, generator=g, device=cuda)
+            * torch.exp(3 * torch.randn(shape, generator=g, device=cuda)))
+    off = torch.tensor(ops.segment_offsets(seg, n_seg), device=cuda)
+    a = segment_reduce_rows(rows, off, stacked=stacked)
+    b = segment_reduce_rows(rows, off, stacked=stacked)
+    want = ref.segment_sums_in_order(rows, torch.tensor(seg, device=cuda), n_seg,
+                                     stacked=stacked)
+    assert torch.equal(a, want) and torch.equal(a, b)
+    if rows.numel() <= 1 << 24:
+        assert torch.equal(a.cpu(), segment_reduce_rows(rows.cpu(), off.cpu(),
+                                                        stacked=stacked))
+
+
+def test_sum_rows_by_id_on_the_card_is_the_cpus(cuda):
+    from repro_torch.core.gibbs import segment_reduce_rows, sum_rows_by_id
+
+    rng = np.random.default_rng(3)
+    ids = torch.tensor(rng.integers(0, 5000, 40000))
+    rows = torch.tensor(rng.normal(size=(40000, 64)).astype(np.float32))
+    got = sum_rows_by_id(rows.to(cuda), ids.to(cuda), 5000)
+    assert torch.equal(got.cpu(), sum_rows_by_id(rows, ids, 5000))
+    assert torch.equal(got, sum_rows_by_id(rows.to(cuda), ids.to(cuda), 5000))
+    with pytest.raises(ValueError, match="two or more axes"):
+        segment_reduce_rows(rows[:, 0].to(cuda), torch.tensor([0, 40000], device=cuda))
+
+
+def test_async_first_sweep_v_bit_equal_to_ring_through_einsum_on_the_card(cuda):
+    from repro_torch.core.distributed import shard_devices
+
+    ring = _dist(shard_devices(4), "ring", "einsum", 64)
+    asyn = _dist(shard_devices(4), "async", "einsum", 64)
+    s0 = ring.init(0)
+    noise = ring.draw_noise()
+    _, v_ring = ring.gather_factors(ring.sweep(s0, noise))
+    _, v_async = asyn.gather_factors(asyn.sweep(s0, noise), coupled=False)
+    assert np.array_equal(v_ring, v_async)
+
+
+@pytest.mark.parametrize("engine", ["kernel", "einsum"])
+def test_sweep_equal_to_itself_from_run_to_run(cuda, engine):
+    from repro_torch.core import GibbsSampler
+    from repro_torch.data import movielens_like, train_test_split
+
+    ratings, _, _ = movielens_like(scale=0.02, seed=0)
+    train, test = train_test_split(ratings, 0.1, seed=1)
+    s = GibbsSampler(train, test, k=64, alpha=4.0, burn_in=0, engine=engine)
+    s0 = s.init(0)
+    noise = s.draw_noise()
+    a, b = s.sweep(s0, noise), s.sweep(s0, noise)
+    assert torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+    assert torch.equal(a.pred_sum, b.pred_sum)
+
+
+def test_sgld_chains_deterministic_on_the_card(cuda):
+    """Two chains of 10 steps from one seed, equal bit for bit: the
+    duplicate rows of a minibatch are added without atomics."""
+    from repro_torch.core import DistributedSGLD, SGLDSampler
+    from repro_torch.core.distributed import shard_devices
+    from repro_torch.data import movielens_like, train_test_split
+
+    ratings, _, _ = movielens_like(scale=0.02, seed=0)
+    train, test = train_test_split(ratings, 0.1, seed=1)
+    runs = []
+    for _ in range(2):
+        s = SGLDSampler(train, test, k=64, alpha=4.0, burn_in=5, minibatch=4096,
+                        hyper_every=3)
+        runs.append(s.run(10, seed=3))
+    assert torch.equal(runs[0].u, runs[1].u) and torch.equal(runs[0].v, runs[1].v)
+    assert torch.equal(runs[0].pred_sum, runs[1].pred_sum)
+    for mode in ("ring", "allgather", "async"):
+        states = [DistributedSGLD(train, test, devices=shard_devices(4), k=64, alpha=4.0,
+                                  width="auto", mode=mode, minibatch=4096).run(5, seed=3)
+                  for _ in range(2)]
+        for name in ("u", "v"):
+            assert all(torch.equal(a, b) for a, b in zip(getattr(states[0], name),
+                                                         getattr(states[1], name))), mode

@@ -4,7 +4,10 @@ seeds), since sweep parity rests on plan parity."""
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro.core import buckets as jb  # noqa: E402
 from repro.data import datasets as jd  # noqa: E402

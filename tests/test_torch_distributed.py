@@ -40,6 +40,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro.core import partition as jp  # noqa: E402
 from repro.data import chembl_like, synthetic_lowrank, train_test_split  # noqa: E402
@@ -289,6 +292,30 @@ def test_async_rmse_within_005_of_ring_after_20_sweeps(data, engine):
     assert asyn.rmse(s_async) < 0.7
 
 
+def test_einsum_block_sums_keep_their_cpu_order(data):
+    """The einsum engine's segment sums are order-fixed on every device; on
+    the CPU they are index_add_'s, whose order the allgather plan's
+    slot-sorted rows keep (its blocks follow each other, so its slots are
+    not sorted)."""
+    d = _sampler(data, "allgather")
+    st = d.init(SEED)
+    full = torch.cat(st.u)
+    for p in range(P):
+        plan = d._v.plans[p]
+        assert plan.seg_order is not None
+        prec = torch.zeros((d._v.n_loc, K, K))
+        rhs = torch.zeros((d._v.n_loc, K))
+        td._accumulate_block(prec, rhs, full, plan, engine="einsum")
+        vm = full[plan.indices.long()] * plan.mask[..., None]
+        want = torch.zeros((d._v.n_loc + 1, K, K)).index_add_(
+            0, plan.seg, torch.einsum("rwk,rwl->rkl", vm, vm))
+        assert torch.equal(prec, want[:-1])
+        want = torch.zeros((d._v.n_loc + 1, K)).index_add_(
+            0, plan.seg, torch.einsum("rwk,rw->rk", vm, plan.values * plan.mask))
+        assert torch.equal(rhs, want[:-1])
+    assert all(b.seg_order is None for row in _sampler(data)._v.plans for b in row)
+
+
 def test_ring_exchange_moves_real_copies():
     """After s forwards shard p holds block (p - s) mod P, in a receive
     buffer of its own: the bytes moved."""
@@ -334,6 +361,7 @@ def test_launcher_trains_the_distributed_sampler_on_the_cpu(capsys):
     assert "(4 shards, engine=fused, mode=ring, plan=balanced)" in out
     rmse = float(out.split("test rmse ")[1].split()[0])
     assert np.isfinite(rmse)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
-        bpmf_train.main(["--bpmf", "--mode", "async", "--engine", "sgld",
-                         "--device", "cpu"])
+    # the sgld engine rides the same modes (tests/test_torch_sgld.py)
+    bpmf_train.main(["--bpmf", "--mode", "async", "--engine", "sgld", "--shards", "4",
+                     "--device", "cpu", "--sweeps", "3", "--scale", "0.002"])
+    assert "(4 shards, engine=sgld, mode=async, plan=balanced)" in capsys.readouterr().out

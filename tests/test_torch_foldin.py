@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 from repro.data.sparse import SparseRatings as JRatings  # noqa: E402

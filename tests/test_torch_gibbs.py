@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -188,3 +191,40 @@ def test_quickstart_end_to_end_same_top_n(data, tmp_path):
     np.testing.assert_allclose(vt, np.asarray(vj), rtol=1e-4, atol=1e-4)
     for row, u in zip(it, users):
         assert not np.isin(row, SeenIndex(train)[u]).any()
+
+
+# ---------------------------------------------------------------------------
+# the order-fixed segment sum
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("tail", [(8,), (8, 8)])
+def test_segment_reduce_rows_adds_in_row_order_as_index_add_does(stacked, tail):
+    """On the CPU the order-fixed sum gives index_add_'s bits (it adds in
+    row order too) and those of the fused kernel's plain version; some
+    segments are empty."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 60, 2000)).astype(np.int32)
+    shape = ((3,) if stacked else ()) + (2000,) + tail
+    rows = torch.tensor((rng.normal(size=shape) * np.exp(3 * rng.normal(size=shape)))
+                        .astype(np.float32))
+    got = tg.segment_reduce_rows(rows, torch.tensor(kops.segment_offsets(seg, 60)),
+                                 stacked=stacked)
+    axis = 1 if stacked else 0
+    out = list(rows.shape)
+    out[axis] = 60
+    assert torch.equal(got, torch.zeros(out).index_add_(axis, torch.tensor(seg).long(), rows))
+    assert torch.equal(got, kref.segment_sums_in_order(rows, torch.tensor(seg), 60,
+                                                       stacked=stacked))
+
+
+def test_sum_rows_by_id_is_the_scatter_add_in_draw_order():
+    """Duplicate ids in random order: the stable sort keeps each id's rows
+    in the order they came, so the sum is index_add_'s on the CPU."""
+    rng = np.random.default_rng(1)
+    ids = torch.tensor(rng.integers(0, 40, 500))
+    rows = torch.tensor(rng.normal(size=(500, 8)).astype(np.float32))
+    want = torch.zeros(45, 8).index_add_(0, ids, rows)
+    assert torch.equal(tg.sum_rows_by_id(rows, ids, 45), want)

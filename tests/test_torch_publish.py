@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro.serve import PublicationChannel as JChannel  # noqa: E402
 from repro.serve import RecommendFrontend as JFrontend  # noqa: E402

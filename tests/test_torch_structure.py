@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest-xdist runs several workers on the same cores,
+# and torch's default thread count each would oversubscribe them
+torch.set_num_threads(1)
 
 from repro_torch.checkpoint import RetainedSample  # noqa: E402
 from repro_torch.core import GibbsSampler  # noqa: E402
@@ -45,11 +48,12 @@ def _imported_roots(tree: ast.AST):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
-    assert {"core/partition.py", "core/exchange.py", "core/distributed.py"} <= {
+    assert {"core/partition.py", "core/exchange.py", "core/distributed.py", "core/als.py",
+            "core/sgld.py", "optim/schedule.py"} <= {
         f.relative_to(PORT).as_posix() for f in files}
     bad = [
-        (str(f.relative_to(PORT)), root)
-        for f in files
+        (str(f.relative_to(ROOT)), root)
+        for f in files + [ROOT / "chip_smoke.py"]
         for root in _imported_roots(ast.parse(f.read_text()))
         if root in FORBIDDEN
     ]
@@ -217,6 +221,28 @@ def test_distributed_sampler_defaults_to_the_card_and_raises_without_one(no_card
                         engine="fused")
     state = d.run(2, seed=0)
     assert all(torch.isfinite(x).all() and x.device.type == "cpu" for x in state.u)
+
+
+def test_als_and_sgld_default_to_the_card_and_raise_without_one(no_card):
+    from repro_torch.core import ALS, DistributedSGLD, SGLDSampler
+    from repro_torch.core.distributed import shard_devices
+
+    ratings, _, _ = synthetic_lowrank(20, 10, k_true=2, nnz=80, seed=0)
+    for cls in (ALS, SGLDSampler, DistributedSGLD):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(ratings, k=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedSGLD(ratings, k=4, devices=["cuda"] * 2)
+    for argv in (["--bpmf", "--engine", "sgld", "--sweeps", "2"],
+                 ["--bpmf", "--engine", "sgld", "--mode", "async", "--shards", "2"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bpmf_train.main(argv)
+    # asked for, the CPU runs them end to end
+    assert np.isfinite(ALS(ratings, k=4, device="cpu").run(2).u.numpy()).all()
+    s = SGLDSampler(ratings, k=4, burn_in=1, device="cpu")
+    assert s.run(3, seed=0).u.device.type == "cpu"
+    d = DistributedSGLD(ratings, k=4, devices=shard_devices(2, "cpu"), mode="async")
+    assert all(torch.isfinite(x).all() for x in d.run(3, seed=0).u)
 
 
 def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
