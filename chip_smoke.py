@@ -107,8 +107,8 @@ no kernels line and no result line. Phases:
               plain version; timed
               beside its bound (4 bf16 tensor passes a visible pair) and
               the bound of P V on the fp32 pipes and, at softcap 0, beside
-              scaled_dot_product_attention; a digest of an fp32 output, to
-              hold the fp32 kernel's bits against another commit's
+              scaled_dot_product_attention; digests of an fp32 and a bf16
+              output, to hold the kernels' bits against another commit's
  16. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
@@ -122,27 +122,48 @@ no kernels line and no result line. Phases:
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 18. lm_faults   faults planted one at a time in the bf16 flash launches
+ 18. lm_train gemma2-2b training, lm_eval's parameters freed first: the
+              flash backward kernel through FlashAttention at (8, 8,192,
+              256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
+              on peaked scores (q x 6) and in fp32 at S = 2,000, each
+              head's dq, dk and dv within one bf16 ulp of its largest
+              magnitude of the float64 plain version, timed beside its
+              bound and, at softcap 0, scaled_dot_product_attention's
+              backward; the full-width step's gradients on the flash path
+              against the direct path and both against the fp32 direct
+              path (loss, global norm, each parameter); make_train_step at
+              every published width, 26 layers, remat on, B = 1, S =
+              8,192: a warm-up step whose loss is lm_eval's bit for bit,
+              3 timed steps (seconds, tokens/s, peak memory, model-FLOPs
+              share, launches a step), a profiled step and a step at S =
+              4,096; runtime.Trainer at reduced gemma2-2b with a failure
+              at step 7 (restored bit for bit from step 5, final step 12);
+              lm_eval's parameters drawn again from their seed
+ 19. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
-              last also under the wq x 16 forwards) and in the decode step
-              (it misses its own slot): each must fail one of the checks of
-              phase 16 or 17
- 19. report   one JSON line of kernels, the card line, and the last line
+              last also under the wq x 16 forwards), in the decode step
+              (it misses its own slot) and in the bf16 backward launches
+              (lse read a row off, the softcap dropped): each must fail one
+              of the checks of phase 16, 17 or 18
+ 20. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 16 and 17, the serving tier's paths are
+The main path is phases 6, 9, 16, 17 and 18, the serving tier's paths are
 phases 10 and 11, the distributed sampler's phase 13 and the SGLD and ALS
 path phase 14: the launch counters are set to 0 just before each and read
 just after (the kernels line's `launches`, `foldin_launches`,
-`cotrain_launches`, `dist_launches` and `sgld_launches`, the last all 0).
-foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
-and sgld need data. Any failed check exits non-zero
-before the last line. No BPMF phase was cut to make room for the LM ones.
+`cotrain_launches`, `dist_launches`, `sgld_launches` and `lm_train_launches`,
+the SGLD ones all 0; lm_train's are its 3 timed steps). foldin and cotrain
+need train, serve_faults needs foldin and cotrain, dist and sgld need data,
+lm_train needs lm_eval, lm_faults needs lm_eval, lm_serve and lm_train. Any
+failed check exits non-zero before the last line. No BPMF phase was cut to
+make room for the LM ones.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -256,6 +277,31 @@ LM_WQ_FP32_LOGITS_ATOL = 5e-2
 # FLASH_BF16_ULP_TOL's 1e-5, as the fp32 forward's layers sit up to 3.5e-5
 # from float64 there. The scaled forwards' limit is 1e-4.
 WQ_BF16_LAYER_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+# LM training (phase lm_train)
+BWD_SEED = 23                          # the backward check's inputs
+BWD_FP32_SEQ = 2000                    # the fp32 backward case's S, ragged against its tiles
+# The backward kernel against its float64 plain version: each gradient of
+# each head within one bf16 ulp of its largest magnitude (the lm_kernels
+# convention), and an atol of at least 1e-5, the forward's floor
+# (FLASH_BF16_ULP_TOL): a gradient entry that is 0 exactly comes out of
+# fp32 sums in two orders at about 1e-7.
+GRAD_ULP_FLOOR = 1e-5
+LM_TRAIN_STEPS = 3                     # timed steps after one warm-up
+LM_TRAIN_SHORT = 4096                  # the train_4k shape's length (models/api.py::LM_SHAPES)
+# The full-width gradients of the two attention paths (lm_train). They
+# differ by bf16 rounding: the direct path rounds the probabilities to bf16
+# before P V (as the JAX package's does) and the flash path keeps them in
+# fp32, and the 26 layers carry that on. Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W (PR 22): the losses 1.1e-5 apart relative (LM_LOSS_RTOL
+# holds them), the global gradient norms 6.8e-5 and 9.3e-5 apart relative,
+# each parameter's gradient at most 0.019 apart relative in the 2-norm
+# (the attention projections of the first layers), and each parameter's
+# flash gradient 0.93-1.14 times as far from the fp32 direct path's (bf16
+# weights cast to fp32) as the bf16 direct path's, median 0.99. The limits
+# sit at 5x, 2.6x and the lm_eval noise factor (NOISE_FACTOR).
+GRAD_NORM_RTOL = 5e-4
+LM_GRAD_RTOL = 0.05
+GRAD_NOISE_FACTOR = NOISE_FACTOR
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -303,7 +349,7 @@ def card_line() -> str:
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_faults")
+          "lm_eval", "lm_serve", "lm_train", "lm_faults")
 
 
 def main() -> int:
@@ -2604,6 +2650,10 @@ class Smoke:
         digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"  fp32 flash output (8, {LM_SEQ}, 256), window 0, softcap 50, inputs "
               f"of seed {FP32_DIGEST_SEED}: sha256 {digest}")
+        out = ops.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), causal=True,
+                                  window=0, softcap=50.0)
+        digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"  bf16 flash output, the same inputs rounded to bf16: sha256 {digest}")
         del out
         # scores of std 16 (q x WQ_SCALE), most of whose tails the softcap
         # bends, as in lm_eval's scaled forwards: the kernel in fp32
@@ -2704,8 +2754,9 @@ class Smoke:
         labels = torch.as_tensor(batch["labels"], device=self.dev)
 
         def forward(c):
+            # the parameters lm_train leaves in self.lm (it frees and re-draws them)
             with torch.no_grad():
-                logits = tfm.decoder_forward(params, c, tokens, positions=positions)[0]
+                logits = tfm.decoder_forward(self.lm[1], c, tokens, positions=positions)[0]
                 return float(tfm.cross_entropy(logits, labels)[0]), logits[:, -1].clone()
 
         f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
@@ -2727,6 +2778,7 @@ class Smoke:
             self.check(ok, what)
         self.lm_runs, self.lm_layers, self.lm_forward = runs, per_layer, forward
         self.lm_eval_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak)
+        self.lm_eval_loss = loss
         # the same four forwards with every wq x WQ_SCALE: attention scores
         # whose tails pass the softcap of 50 (lm_faults needs them)
         with self.scaled_wq():
@@ -3034,6 +3086,437 @@ class Smoke:
                 self.noise_verdict(dec["bf16"], full16, full32,
                                    "bf16 prefill(t[:-1]) + decode(t[-1])", "bf16 prefill(t)")]
 
+    # ------------------------------------------------------------ LM training
+    def lm_train(self):
+        """gemma2-2b training on the card: the backward kernel alone, the
+        two attention paths' gradients, the full-width train step and the
+        Trainer. lm_eval's parameters are freed first (the step needs the
+        room) and drawn again from the same seed at the end, for
+        lm_faults."""
+        import gc
+
+        torch = self.torch
+        model = self.lm[0]
+        digest = self.params_digest(self.lm[1])
+        self.lm = (model, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        verdicts, err = self.bwd_verdicts()
+        for ok, what in verdicts:
+            self.check(ok, what)
+        self.bwd_timing(err)
+        self.train_grads(model.cfg)
+        self.train_steps(model.cfg)
+        self.trainer_reduced()
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.lm = (model, model.init(seed=0))
+        self.check(self.params_digest(self.lm[1]) == digest,
+                   "lm_eval's parameters drawn again from seed 0 are the ones lm_eval "
+                   "ran (per-parameter float64 sums and sums of squares equal)")
+
+    def params_digest(self, params) -> list:
+        torch = self.torch
+        with torch.no_grad():
+            return [(float(p.double().sum()), float(p.double().square().sum()))
+                    for p in params.parameters()]
+
+    def bwd_inputs(self):
+        """The backward check's cases: (tag, dtype name, q, k, v, dO, kw).
+        q (8, S, 256), k and v (4, S, 256), dO of q's shape, all seeded."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(BWD_SEED)
+        bh, bhk, d = 8, 4, 256
+
+        def draw(s, dtype, q_scale=1.0):
+            q = (q_scale * torch.randn(bh, s, d, generator=g, device=self.dev)).to(dtype)
+            k, v = (torch.randn(bhk, s, d, generator=g, device=self.dev).to(dtype)
+                    for _ in range(2))
+            do = torch.randn(bh, s, d, generator=g, device=self.dev).to(dtype)
+            return q, k, v, do
+
+        cap = dict(causal=True, softcap=50.0)
+        cases = []
+        for tag, dtype, s, q_scale, window in (
+                ("local", torch.bfloat16, LM_SEQ, 1.0, 4096),
+                ("global", torch.bfloat16, LM_SEQ, 1.0, 0),
+                (f"local, q x {PEAK_SCALE:g}", torch.bfloat16, LM_SEQ, PEAK_SCALE, 4096),
+                ("global fp32", torch.float32, BWD_FP32_SEQ, 1.0, 0)):
+            q, k, v, do = draw(s, dtype, q_scale)
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            cases.append((f"{tag} ({bh}, {s}, {d}) {name}, window {window}, softcap 50",
+                          name, q, k, v, do, dict(cap, window=window)))
+        return cases
+
+    def bwd_exact(self, q, k, v, do, kw):
+        """The float64 gradients, head by head: the plain forward's lse and
+        output and the plain backward of each query head against its KV
+        head, dK and dV summed over each group's heads in head order."""
+        torch, ref = self.torch, self.ref
+        rep = q.shape[0] // k.shape[0]
+        dq = torch.zeros(q.shape, dtype=torch.float64, device=self.dev)
+        dk, dv = dq.new_zeros(k.shape), dq.new_zeros(k.shape)
+        for h in range(q.shape[0]):
+            one = [t[i:i + 1].double() for t, i in ((q, h), (k, h // rep), (v, h // rep),
+                                                    (do, h))]
+            _, lse, o = ref.flash_attention_fwd_ref(*one[:3], **kw)
+            gq, gk, gv = ref.flash_attention_bwd_ref(*one, lse, o, **kw)
+            dq[h] = gq[0]
+            dk[h // rep] += gk[0]
+            dv[h // rep] += gv[0]
+            del one, lse, o, gq, gk, gv
+        return dq, dk, dv
+
+    def bwd_verdicts(self) -> tuple[list[tuple[bool, str]], float]:
+        """The backward kernel through FlashAttention (forward kernel with
+        lse and the fp32 output, then flash_attention_bwd) against the
+        float64 plain versions, head by head: each of dq, dk and dv of each
+        head within one bf16 ulp of its largest magnitude (GRAD_ULP), at
+        the training step's shapes, peaked scores and in fp32. Returns the
+        verdicts and the largest error."""
+        torch, ops = self.torch, self.ops
+        out, largest = [], 0.0
+        for tag, name, q, k, v, do, kw in self.bwd_inputs():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            ops.reset_launches()
+            o = ops.flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(o, leaves, do)
+            self.sync()
+            n = ops.launches()
+            out.append((n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1,
+                        f"flash_attention_bwd {tag}: one forward and one backward launch "
+                        f"({n['flash_attention']}, {n['flash_attention_bwd']})"))
+            want = self.bwd_exact(q, k, v, do, kw)
+            for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+                worst, errs = 0.0, []
+                for h in range(g.shape[0]):
+                    top = float(w[h].abs().max())
+                    atol = max(2.0 ** (math.floor(math.log2(top)) - 7), GRAD_ULP_FLOOR)
+                    err = float((g[h].double() - w[h]).abs().max())
+                    errs.append(err)
+                    worst = max(worst, err / atol)
+                out.append((worst <= 1.0,
+                            f"flash_attention_bwd {tag}: {gname} of each head within one "
+                            f"bf16 ulp of its largest magnitude (at least {GRAD_ULP_FLOOR:g}) "
+                            f"of the float64 plain version: worst err / ulp {worst:.3f}, "
+                            f"max abs err {max(errs):.3e}"))
+                largest = max(largest, max(errs))
+            del leaves, o, got, want
+        return out, largest
+
+    def bwd_timing(self, err: float):
+        """The backward launch of each kind at the step's shapes, beside its
+        bound, its plain version and, at softcap 0, the backward of
+        scaled_dot_product_attention; the kernels line's row."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        bh, bhk, d = 8, 4, 256
+        scale = d ** -0.5
+        per = {}
+        for window, kind in ((4096, "local"), (0, "global")):
+            q = self.randn(bh, LM_SEQ, d).to(torch.bfloat16)
+            k, v = (self.randn(bhk, LM_SEQ, d).to(torch.bfloat16) for _ in range(2))
+            do = self.randn(bh, LM_SEQ, d).to(torch.bfloat16)
+            pairs = bh * visible_pairs(LM_SEQ, window)
+            n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
+                       + q.numel() * 4 + bh * LM_SEQ * 4)
+            tb = n_bytes / HBM_BYTES_PER_S * 1e3
+            bms = max(tb, 11 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3)
+            b32 = max(tb, 5 * 2.0 * d * pairs / FP32_FLOPS * 1e3)
+            res = {}
+            for cap in (50.0, 0.0):
+                kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+                _, lse, o32 = ops._flash_forward(q, k, v, True, window, cap, scale, keep=True)
+                res[cap] = self.cuda_ms(lambda: ops.flash_attention_bwd(
+                    q, k, v, do, lse, o32, **kw))
+                if cap:
+                    pms = self.cuda_ms(lambda: ref.flash_attention_bwd_ref(
+                        q, k, v, do, lse, o32, **kw), reps=1)
+                del lse, o32
+            mask = None
+            if window:
+                pos = torch.arange(LM_SEQ, device=self.dev)
+                diff = pos[:, None] - pos[None, :]
+                mask = (diff >= 0) & (diff < window)
+            leaves = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            lib0 = self.cuda_ms(lambda: torch.autograd.grad(out, leaves, do[None],
+                                                            retain_graph=True))
+            print(f"    flash_attention_bwd {kind}: {res[50.0]:.3f} ms kernel, {pms:.3f} ms "
+                  f"plain, bound {bms:.3f} ms (operations: 11 bf16 tensor passes a visible "
+                  f"pair, S and dP, and dV, dQ and dK with P and dS split in three; kernel "
+                  f"at {res[50.0] / bms:.1f}x); the same 5 products on the fp32 pipes "
+                  f"{b32:.3f} ms (kernel at {res[50.0] / b32:.2f}x); softcap 0: "
+                  f"{res[0.0]:.3f} ms kernel, {lib0:.3f} ms scaled_dot_product_attention's "
+                  f"backward")
+            per[kind] = dict(ms=res[50.0], plain=pms, bound=bms, b32=b32, ms0=res[0.0],
+                             lib0=lib0)
+            del q, k, v, do, leaves, out, mask
+        n = 13
+
+        def total(key):
+            return n * (per["local"][key] + per["global"][key])
+
+        self.add_row("flash_attention_bwd", "flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:78",
+                     max_abs_err=err, ms=total("ms"), plain_ms=total("plain"),
+                     bound_ms=total("bound"), bound_by="operations", library_ms=None,
+                     shapes=f"one gemma2-2b train step's attention backward: 13 local "
+                            f"(window 4096) + 13 global launches, q (8, {LM_SEQ}, 256), "
+                            f"k/v (4, {LM_SEQ}, 256) bf16, causal, softcap 50; bound: 11 "
+                            "bf16 tensor passes a visible pair; no library call applies "
+                            "a softcap",
+                     replaces_note="the Pallas kernel has no backward: the JAX package "
+                                   "differentiates its chunked scan, "
+                                   "src/repro/models/layers.py:364",
+                     bound_ms_fp32_pipes=total("b32"),
+                     softcap0_ms=total("ms0"), softcap0_library_ms=total("lib0"),
+                     softcap0_library="scaled_dot_product_attention's backward, "
+                                      "enable_gqa, the same causal and window mask")
+
+    def grads_of(self, model, params, batch) -> tuple[float, dict]:
+        """(loss, {name: gradient}) of one loss_fn and backward; the
+        gradients are taken off the parameters."""
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = model.loss_fn(params, batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def train_grads(self, cfg):
+        """The flash path's gradients against the direct path's, from the
+        same parameters on the same batch (B = 1, S = 8,192), and both
+        against the fp32 direct path's (the bf16 weights cast to fp32)."""
+        import dataclasses
+
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import DecoderModel
+        from repro_torch.optim.adamw import global_norm
+
+        torch, ops = self.torch, self.ops
+        model = DecoderModel(cfg)
+        params = model.init(seed=0)
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        direct = dataclasses.replace(cfg, chunked_attn_min_len=LM_SEQ + 1)
+        runs = {}
+        for name, c in (("flash bf16", cfg), ("direct bf16", direct),
+                        ("direct fp32", dataclasses.replace(direct, dtype=torch.float32))):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, grads = self.grads_of(DecoderModel(c), params, batch)
+            self.sync()
+            n = ops.launches()
+            runs[name] = (loss, grads, float(global_norm(grads)))
+            print(f"  {name}: loss {loss:.6f}, grad norm {runs[name][2]:.6f}, "
+                  f"{time.perf_counter() - t0:.2f} s, launches {n}")
+            if name == "flash bf16":
+                self.check(n["flash_attention"] == 2 * cfg.n_layers
+                           and n["flash_attention_bwd"] == cfg.n_layers,
+                           "flash bf16 loss and backward: 52 flash launches (forward and "
+                           "recompute) and 26 backward launches")
+            else:
+                self.check(sum(n.values()) == 0, f"{name}: no launch of a kernel of the port")
+        (lf, gf, nf), (ld, gd, nd), (l32, g32, n32) = runs.values()
+        self.check(lf == self.lm_eval_loss,
+                   f"the flash path's loss with grad, {lf:.6f}, is lm_eval's no-grad loss "
+                   f"{self.lm_eval_loss:.6f} bit for bit")
+        self.check(abs(lf - ld) <= LM_LOSS_RTOL * abs(ld),
+                   f"loss with grad: flash {lf:.6f} against direct {ld:.6f}: |diff| "
+                   f"{abs(lf - ld):.2e} <= {LM_LOSS_RTOL} x |loss|")
+        self.check(abs(nf - nd) <= GRAD_NORM_RTOL * nd,
+                   f"global gradient norm: flash {nf:.6f} against direct {nd:.6f}: |diff| "
+                   f"{abs(nf - nd):.2e} <= {GRAD_NORM_RTOL} x norm (fp32 direct {n32:.6f})")
+        worst_rel, worst_ratio, rows = 0.0, 0.0, []
+        for name in gf:
+            f, dd, r = (x[name].float() for x in (gf, gd, g32))
+            ef, ed = float((f - r).norm()), float((dd - r).norm())
+            rel = float((f - dd).norm()) / max(float(dd.norm()), 1e-30)
+            ratio = ef / max(ed, 1e-30)
+            rows.append((name, rel, ratio))
+            worst_rel, worst_ratio = max(worst_rel, rel), max(worst_ratio, ratio)
+        for name, rel, ratio in sorted(rows, key=lambda r: -r[1])[:6]:
+            print(f"    {name}: |flash - direct| / |direct| {rel:.3e}; |flash - fp32| / "
+                  f"|direct - fp32| {ratio:.3f}")
+        ratios = sorted(r[2] for r in rows)
+        print(f"  per-parameter |flash - fp32| / |direct - fp32| over {len(rows)} tensors: "
+              f"median {ratios[len(ratios) // 2]:.3f}, max {ratios[-1]:.3f}")
+        self.check(worst_rel <= LM_GRAD_RTOL,
+                   f"each parameter's gradient, flash path against direct path: "
+                   f"|flash - direct| / |direct| <= {LM_GRAD_RTOL} (worst {worst_rel:.3e})")
+        self.check(worst_ratio <= GRAD_NOISE_FACTOR,
+                   f"each parameter's gradient on the flash path no farther from the fp32 "
+                   f"gradient than {GRAD_NOISE_FACTOR}x the direct bf16 path's (in the "
+                   f"2-norm; worst {worst_ratio:.3f})")
+        self.lm_grad_norm = nf
+        del runs, gf, gd, g32, params
+
+    def train_steps(self, cfg):
+        """make_train_step at full width: one warm-up step, LM_TRAIN_STEPS
+        timed (the main path), a profiled one and one at S = 4,096 (the
+        train_4k shape's length, the direct path)."""
+        import gc
+
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        opt = AdamWConfig()
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, 0, opt)
+        self.sync()
+        n_params = sum(p.numel() for p in state.params.parameters())
+        print(f"train state on the card: {n_params:,} parameters, bf16, and fp32 AdamW "
+              f"moments in {time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        step = make_train_step(cfg, opt)
+        data = TokenStream(cfg, 1, LM_SEQ, seed=0)
+        batches = [data(i) for i in range(LM_TRAIN_STEPS + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batches[0])                # warm-up
+        first = (float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
+        warm_peak = torch.cuda.max_memory_allocated() / 1e9
+        self.check(first[0] == self.lm_eval_loss,
+                   f"the first step's loss {first[0]:.6f} is lm_eval's no-grad loss on the "
+                   f"same batch, {self.lm_eval_loss:.6f}, bit for bit")
+        self.check(first[1] == self.lm_grad_norm,
+                   f"the first step's grad_norm {first[1]:.6f} is the flash gradients' "
+                   f"global norm {self.lm_grad_norm:.6f} bit for bit")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                      # the main path starts here
+        times, losses = [], []
+        for batch in batches[1:]:
+            self.sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = ops.launches()                 # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        self.path_launches["lm_train"] = launches
+        self.main_launches["flash_attention_bwd"] = launches["flash_attention_bwd"]
+        dt = sum(times) / len(times)
+        per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
+        attn = 12.0 * cfg.hd * cfg.n_heads * (cfg.n_layers // 2) * (
+            visible_pairs(LM_SEQ, cfg.sliding_window) + visible_pairs(LM_SEQ, 0))
+        flops = 6.0 * n_params * LM_SEQ + attn
+        share = flops / (dt * BF16_TENSOR_FLOPS)
+        print(f"train step at B=1, S={LM_SEQ}, remat on: {dt:.3f} s a step "
+              f"({', '.join(f'{t:.3f}' for t in times)}), {LM_SEQ / dt:,.0f} tokens/s, "
+              f"peak device memory {peak:.2f} GB (warm-up step {warm_peak:.2f} GB), "
+              f"model FLOPs {flops / 1e12:.1f} TFLOP a step (6 N tokens + attention "
+              f"{attn / 1e12:.1f}), {share:.3f} of {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s; "
+              f"launches a step {per}; losses {first[0]:.5f} then "
+              f"{', '.join(f'{x:.5f}' for x in losses)}, lr {first[2]:.3g} first")
+        self.check(launches["flash_attention"] == 2 * cfg.n_layers * LM_TRAIN_STEPS
+                   and launches["flash_attention_bwd"] == cfg.n_layers * LM_TRAIN_STEPS
+                   and sum(launches.values()) == 3 * cfg.n_layers * LM_TRAIN_STEPS,
+                   f"each step launched the flash forward twice a layer (forward and "
+                   f"recompute, {2 * cfg.n_layers}) and its backward once "
+                   f"({cfg.n_layers}), and no other kernel of the port")
+        self.check(all(self.np.isfinite(x) for x in losses + list(first)),
+                   "every step's loss and grad_norm are finite")
+        self.check(peak < 80.0, f"peak device memory {peak:.2f} GB is under 80 GB")
+        self.lm_train_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak,
+                                     share=share)
+
+        def kind(key):
+            for part, name in (("flash_mma_kernel", "flash forward"),
+                               ("flash_bwd_dkdv", "flash backward dk dv"),
+                               ("flash_bwd_dq", "flash backward dq"),
+                               ("flash_bwd_delta", "flash backward delta"),
+                               ("simt_sgemm", "fp32 products (the head's backward)"),
+                               ("nvjet", "bf16 products"), ("gemm", "other products"),
+                               ("elementwise", "elementwise"), ("reduce", "reductions")):
+                if part in key:
+                    return name
+            return "other"
+
+        events = self._profile(lambda: step(state, batches[1]), dt * 1e3, "train step")
+        if events:
+            groups: dict[str, list] = {}
+            for e in events:
+                g = groups.setdefault(kind(e.key), [0.0, 0])
+                g[0] += e.device_time_total / 1e3
+                g[1] += e.count
+            busy = sum(g[0] for g in groups.values())
+            for name, (ms, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
+                print(f"  train step split: {name:36s} {ms:9.2f} ms  x{count:<6d} "
+                      f"({ms / busy:.3f} of device busy)")
+        short = TokenStream(cfg, 1, LM_TRAIN_SHORT, seed=0)(0)
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        self.sync()
+        t0 = time.perf_counter()
+        state, m = step(state, short)
+        loss = float(m["loss"])
+        dt4 = time.perf_counter() - t0
+        n = ops.launches()
+        print(f"train step at B=1, S={LM_TRAIN_SHORT} (train_4k's length, the direct "
+              f"path): {dt4:.3f} s, loss {loss:.5f}, grad norm {float(m['grad_norm']):.4f}, "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {n}")
+        self.check(bool(self.np.isfinite(loss)) and sum(n.values()) == 0,
+                   f"the S = {LM_TRAIN_SHORT} step takes the direct path (no launch of a "
+                   "kernel of the port) and its loss is finite")
+        del state, step, m
+        gc.collect()
+
+    def trainer_reduced(self):
+        """runtime.Trainer on the card at reduced gemma2-2b (S = 64: the flash
+        kernels in every layer) with a failure injected at step 7: it
+        recovers from the step-5 checkpoint, which restores the state saved
+        there bit for bit, and reaches step 12."""
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.runtime import Trainer, TrainerConfig
+        from repro_torch.runtime.trainer import state_arrays
+
+        np, ops = self.np, self.ops
+        cfg = reduced(get_config("gemma2-2b"))
+        opt = AdamWConfig(lr=1e-3)
+        tr = Trainer(make_train_step(cfg, opt, total_steps=100),
+                     init_train_state(cfg, 0, opt), TokenStream(cfg, 2, 64, seed=0),
+                     TrainerConfig(ckpt_dir=str(Path(self.tmp.name) / "lm_ckpt"),
+                                   ckpt_every=5, use_async_ckpt=False, fail_at_steps=(7,)))
+        saved, restored = {}, []
+        real_save, real_recover = tr._save, tr._recover
+
+        def save():
+            saved[tr.step] = state_arrays(tr.state)
+            real_save()
+
+        def recover():
+            real_recover()
+            live, disk = state_arrays(tr.state), tr.store.read_arrays(tr.step)
+            same = (live.keys() == saved[tr.step].keys()
+                    and all(np.array_equal(a, saved[tr.step][k])
+                            and a.dtype == saved[tr.step][k].dtype
+                            and np.array_equal(a, disk[f"['{k}']"]) for k, a in live.items()))
+            restored.append((tr.step, same, len(live)))
+
+        tr._save, tr._recover = save, recover
+        ops.reset_launches()
+        out = tr.run(12, log_every=100)
+        n = ops.launches()
+        print(f"Trainer at reduced gemma2-2b on the card: final step {out['final_step']}, "
+              f"recoveries {out['recoveries']}, restores {restored}, loss "
+              f"{out['loss_history'][0]:.4f} -> {out['loss_history'][-1]:.4f}, launches {n}")
+        self.check(out["final_step"] == 12 and out["recoveries"] == 1
+                   and [r[0] for r in restored] == [5],
+                   "the Trainer recovered once, from the step-5 checkpoint, and reached "
+                   "step 12")
+        self.check(all(r[1] for r in restored),
+                   f"the restored state equals the state saved at step 5 bit for bit, in "
+                   f"memory and on disk ({restored[0][2] if restored else 0} arrays)")
+        self.check(n["flash_attention_bwd"] > 0 and all(
+            np.isfinite(x) for x in out["loss_history"]),
+            "the reduced steps ran the backward kernel and every loss is finite")
+
     def lm_faults(self):
         """Faults planted in the LM path, one at a time, each run through the
         checks of lm_eval or lm_serve: at least one of them must fail. The
@@ -3069,6 +3552,21 @@ class Smoke:
                 kw["q_offset"] = kw["q_offset"] - 1
             return real_mha(q, k, v, **kw)
 
+        real_bwd = ops.flash_attention_bwd
+
+        def bwd_plant(change):
+            def planted(q, k, v, do, lse, o, **kw):
+                if q.dtype == torch.bfloat16:
+                    lse, kw = change(lse, dict(kw))
+                return real_bwd(q, k, v, do, lse, o, **kw)
+            return planted
+
+        def lse_row_off(lse, kw):
+            return lse.roll(1, dims=1), kw
+
+        def bwd_softcap_dropped(lse, kw):
+            return lse, dict(kw, softcap=0.0)
+
         plants = [("flash, bf16: softcap dropped", ops, "flash_attention",
                    flash_plant(softcap_dropped), "forward"),
                   ("flash, bf16: softcap dropped", ops, "flash_attention",
@@ -3078,7 +3576,11 @@ class Smoke:
                   ("flash, bf16: K read a row off", ops, "flash_attention",
                    flash_plant(k_row_off), "forward"),
                   ("decode: the step misses its own slot", layers, "multi_head_attention",
-                   decode_slot_off, "cache")]
+                   decode_slot_off, "cache"),
+                  ("backward, bf16: lse read a row off", ops, "flash_attention_bwd",
+                   bwd_plant(lse_row_off), "backward"),
+                  ("backward, bf16: softcap dropped", ops, "flash_attention_bwd",
+                   bwd_plant(bwd_softcap_dropped), "backward")]
         cfg = self.lm[0].cfg
         for name, mod, attr, fn, checks in plants:
             saved = getattr(mod, attr)
@@ -3095,6 +3597,8 @@ class Smoke:
                     verdicts = self.scaled_verdicts(
                         dict(self.lm_wq_runs, **planted),
                         dict(self.lm_wq_layers, **{"flash bf16": recs}))
+                elif checks == "backward":
+                    verdicts = self.bwd_verdicts()[0]
                 else:
                     dec = {n: self.split_decode(m, self.lm_prompts)
                            for n, m in self.lm_models.items()}
@@ -3106,7 +3610,7 @@ class Smoke:
                 print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
             self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
                        f"{len(verdicts)} {checks} checks")
-        self.check(ops.flash_attention is real_flash
+        self.check(ops.flash_attention is real_flash and ops.flash_attention_bwd is real_bwd
                    and layers.multi_head_attention is real_mha, "every plant undone")
 
 

@@ -35,6 +35,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads > 1 else 1,
         head_dim=32,
         vocab_size=512,
+        remat=False,
         chunked_attn_min_len=64,
         attn_chunk=32,
         n_layers=2,

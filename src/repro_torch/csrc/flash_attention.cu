@@ -85,6 +85,12 @@
 // in place of cp.async, and warp specialisation (a producer warp that
 // keeps the copies in flight beside consumer warpgroups).
 //
+// For the backward (csrc/flash_attention_bwd.cu) both kernels also write,
+// when given the pointers, each row's log-sum-exp m + log(l) and, for bf16,
+// the fp32 quotients the output rounds. That is a second instantiation of
+// each kernel (KEEP), so the launch without them compiles, and computes,
+// as before they existed.
+//
 // Masking. A masked score is -inf and the row maximum starts at -inf. A
 // row whose scores so far are all masked keeps p = 0 and l = 0, so a tile
 // that is wholly masked for one row (the window's lower edge) adds
@@ -137,11 +143,11 @@ constexpr int smem_bytes() {
   return (BQ * (D + PAD) + BK * (D + PAD) + BK * D + WARPS * BK * RPW) * 4;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int rep, int causal, int window,
-    float softcap, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
+    int causal, int window, float softcap, float scale) {
   constexpr int LD = D + PAD;
   // a lane owns D / 32 accumulator columns: four adjacent ones in each
   // 128-wide group when D >= 128 (float4 reads of V), else one in each
@@ -273,6 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     const int qpos = q0 + row0 + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (KEEP && lane == 0) lse[(size_t)bh * Sq + qpos] = m[i] + logf(l[i]);
     T* orow = o + ((size_t)bh * Sq + qpos) * D;
 #pragma unroll
     for (int g = 0; g < GROUPS; ++g) {
@@ -285,18 +292,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int rep, int Sq, int Sk, int causal, int window, float softcap,
-           float scale, cudaStream_t stream) {
+template <typename T, int D, bool KEEP>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int BH, int rep, int Sq, int Sk, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<T, D, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<T, D, KEEP><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, rep, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, rep, causal,
       window, softcap, scale);
   return (int)cudaGetLastError();
 }
@@ -394,11 +401,12 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int valid,
   }
 }
 
-template <int D>
+template <int D, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int rep,
-    int causal, int window, float softcap, float scale) {
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ o32,
+    float* __restrict__ lse, int Sq, int Sk, int rep, int causal, int window,
+    float softcap, float scale) {
   constexpr int LD = D + PAD;
   constexpr int NO = D / 8;         // n-tiles of a warp's O
   extern __shared__ __align__(16) bf16 smem_bf16[];
@@ -572,35 +580,56 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+    if (KEEP) {                     // the same quotients, before the rounding
+      float* frow = o32 + ((size_t)bh * Sq + qpos) * D + tig * 2;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(frow + n * 8) =
+            make_float2(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+    }
+    if (KEEP && tig == 0) lse[(size_t)bh * Sq + qpos] = m[r] + logf(l[r]);
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int rep, int Sq, int Sk, int causal, int window, float softcap,
-           float scale, cudaStream_t stream) {
+template <int D, bool KEEP>
+int launch(const void* q, const void* k, const void* v, void* o, float* o32,
+           float* lse, int BH, int rep, int Sq, int Sk, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_mma_kernel<D, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  flash_mma_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  flash_mma_kernel<D, KEEP><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, rep, causal,
-      window, softcap, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), o32, lse, Sq, Sk, rep,
+      causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace mma
 
+template <int D, bool KEEP>
+int launch_k(const void* q, const void* k, const void* v, void* o, float* o32,
+             float* lse, int BH, int rep, int Sq, int Sk, int bf16, int causal,
+             int window, float softcap, float scale, cudaStream_t stream) {
+  return bf16 ? mma::launch<D, KEEP>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, causal,
+                                     window, softcap, scale, stream)
+              : launch<float, D, KEEP>(q, k, v, o, lse, BH, rep, Sq, Sk, causal,
+                                       window, softcap, scale, stream);
+}
+
+// KEEP (lse, and o32 for bf16, given) is a separate instantiation, so the
+// forward without them compiles as it did before they existed
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int BH,
-             int rep, int Sq, int Sk, int bf16, int causal, int window,
-             float softcap, float scale, cudaStream_t stream) {
-  return bf16 ? mma::launch<D>(q, k, v, o, BH, rep, Sq, Sk, causal, window,
-                               softcap, scale, stream)
-              : launch<float, D>(q, k, v, o, BH, rep, Sq, Sk, causal, window,
-                                 softcap, scale, stream);
+int launch_d(const void* q, const void* k, const void* v, void* o, float* o32,
+             float* lse, int BH, int rep, int Sq, int Sk, int bf16, int causal,
+             int window, float softcap, float scale, cudaStream_t stream) {
+  return lse != nullptr
+             ? launch_k<D, true>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, bf16, causal,
+                                 window, softcap, scale, stream)
+             : launch_k<D, false>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, bf16, causal,
+                                  window, softcap, scale, stream);
 }
 
 }  // namespace
@@ -608,21 +637,30 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int BH,
 // q (BH, Sq, D), k and v (BHk, Sk, D), o (BH, Sq, D), all contiguous, of
 // one dtype: bf16 when `bf16` is 1 (the tensor-core kernel), else fp32
 // (the SIMT kernel). BH must be a multiple of BHk and D one of 32, 64,
-// 128, 256. Returns the CUDA error code of the launch.
+// 128, 256. For the backward, lse (BH, Sq) fp32 takes each row's
+// log-sum-exp m + log(l), and o32 (BH, Sq, D), bf16 only, the fp32
+// quotients that o rounds (an fp32 o is its own); null pointers write
+// neither and leave the arithmetic as it is. Returns the CUDA error code
+// of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int BH, int BHk,
-                                      int Sq, int Sk, int D, int bf16,
-                                      int causal, int window, float softcap,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, void* o32,
+                                      void* lse, int BH, int BHk, int Sq,
+                                      int Sk, int D, int bf16, int causal,
+                                      int window, float softcap, float scale,
+                                      void* stream) {
   if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
+  // o32 comes with lse for bf16 and never for fp32 (its o is fp32)
+  if ((o32 != nullptr) != (lse != nullptr && bf16)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rep = BH / BHk;
+  float* f = static_cast<float*>(o32);
+  float* l = static_cast<float*>(lse);
   switch (D) {
-    case 32: return launch_d<32>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 64: return launch_d<64>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 128: return launch_d<128>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 256: return launch_d<256>(q, k, v, o, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 32: return launch_d<32>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 64: return launch_d<64>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 128: return launch_d<128>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 256: return launch_d<256>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

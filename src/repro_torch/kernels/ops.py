@@ -1,4 +1,4 @@
-"""Public wrappers of the five CUDA kernels.
+"""Public wrappers of the CUDA kernels.
 
 Each wrapper takes the plain PyTorch version (`kernels/ref.py`) for a tensor
 on the CPU and nothing else; for a CUDA tensor it checks device, type, shape
@@ -17,7 +17,9 @@ identity block (`pad_rank_systems`): the only padding they get.
 Top-N pads the width to a multiple of 4 with zero columns
 (`topn_operands`) and scores the catalogue in slabs whose scratch is
 bounded (`topn_slab`). Flash attention pads nothing: its kernels mask a
-ragged sequence themselves.
+ragged sequence themselves. With grad, `flash_attention` is an autograd
+Function (`FlashAttention`) whose backward is `flash_attention_bwd`, the
+backward kernel on the card and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.kernels import build, ref
 #: move under _launch_lock.
 LAUNCHES = dict.fromkeys(
     ("gather_syrk_seg", "masked_syrk", "chol_solve_sample", "topn_scores",
-     "flash_attention"), 0
+     "flash_attention", "flash_attention_bwd"), 0
 )
 _launch_lock = threading.Lock()
 
@@ -409,6 +411,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     must be a multiple of its KV block, min(128, max(16, S_k)). On the card
     bf16 and fp32 take different kernels (FLASH_KERNEL_NAMES), both counted
     as one `flash_attention` launch.
+
+    With grad enabled and an input that requires it, the call goes through
+    `FlashAttention`: the forward also keeps each row's log-sum-exp and the
+    fp32 output, and the backward is `flash_attention_bwd`. Without grad
+    the launch is the plain forward, which writes neither.
     """
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
@@ -418,9 +425,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing "
                          f"{bh}; got {tuple(k.shape)} and {tuple(v.shape)}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    args = (bool(causal), int(window), float(softcap), scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if sq != sk:
+            raise ValueError(f"the flash backward takes S_q == S_k, got {sq} and {sk}")
+        return FlashAttention.apply(q, k, v, *args)
     if not _on_cuda(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
+    return _flash_forward(q, k, v, *args, keep=False)[0]
+
+
+def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
+    """One launch of the forward kernel: (out, lse, o32). With `keep` the
+    kernel also writes each row's log-sum-exp (BH, S) and, for bf16, the
+    fp32 output before its rounding (o32 is out itself for fp32); without
+    it both are None and the kernel takes today's path."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
     dev = q.device
     if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
@@ -428,22 +450,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash attention kernel takes D in {FLASH_HEAD_DIMS}, got {d}")
     if sq == 0 or sk == 0:
         raise ValueError("flash attention needs at least one query and one key")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the flash attention kernel has no backward pass "
-                           "yet; call it under torch.no_grad()")
     q, k, v = (_aligned(_require(n, t, dev, q.dtype))
                for n, t in (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
+    lse = o32 = None
+    if keep:
+        lse = torch.empty((bh, sq), device=dev, dtype=torch.float32)
+        o32 = out if q.dtype == torch.float32 else torch.empty(
+            q.shape, device=dev, dtype=torch.float32)
     lib = build.library("flash_attention")
     with _on_card(q):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
-            sq, sk, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if o32 is None or o32 is out else o32.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, bhk, sq, sk, d,
+            int(q.dtype == torch.bfloat16), int(causal), int(window),
             float(softcap), scale, _stream(q),
         )
     build.check("flash_attention", err)
     _count("flash_attention")
-    return out
+    return out, lse, o32
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with a backward: the forward keeps q, k, v, each
+    row's log-sum-exp and the fp32 output (D = rowsum(dO o) is taken from
+    it, not from the output rounded to bf16), and the backward is
+    `flash_attention_bwd`, looked up when it runs. On the card both are
+    the kernels; on the CPU the plain versions (`ref.flash_attention_fwd_ref`,
+    `ref.flash_attention_bwd_ref`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        if _on_cuda(q):
+            out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale,
+                                           keep=True)
+        else:
+            out, lse, o32 = ref.flash_attention_fwd_ref(
+                q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, o32, lse)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o32, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, o32, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, *,
+                        causal: bool, window: int, softcap: float, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of flash_attention(q, k, v) for the output
+    cotangent do, from the forward's lse (BH, S) and fp32 output o: one
+    launch of csrc/flash_attention_bwd.cu (three kernels: D = rowsum(dO o),
+    dQ a query tile a block, dK and dV a KV tile a block; no atomics). S_q
+    must equal S_k. The plain version (`ref.flash_attention_bwd_ref`) for
+    CPU tensors; a CUDA tensor the kernel cannot take raises."""
+    bh, s, d = q.shape
+    bhk = k.shape[0]
+    if not _on_cuda(q):
+        return ref.flash_attention_bwd_ref(q, k, v, do, lse, o, causal=causal,
+                                           window=window, softcap=softcap, scale=scale)
+    dev = q.device
+    if q.dtype not in FLASH_KERNEL_NAMES:
+        raise ValueError(f"flash attention backward takes bf16 or fp32, got {q.dtype}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash attention backward takes D in {FLASH_HEAD_DIMS}, got {d}")
+    if k.shape != v.shape or k.shape[1:] != (s, d) or bhk == 0 or bh % bhk:
+        raise ValueError(f"k and v must be (BHk, {s}, {d}) with BHk dividing {bh}; "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if do.shape != q.shape or o.shape != q.shape or lse.shape != (bh, s) or s == 0:
+        raise ValueError(f"do and o must be {tuple(q.shape)} and lse {(bh, s)}; got "
+                         f"{tuple(do.shape)}, {tuple(o.shape)}, {tuple(lse.shape)}")
+    q, k, v, do = (_aligned(_require(n, t, dev, q.dtype))
+                   for n, t in (("q", q), ("k", k), ("v", v), ("do", do)))
+    o = _aligned(_require("o", o, dev, torch.float32))
+    lse = _require("lse", lse, dev, torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bh, s), device=dev, dtype=torch.float32)
+    lib = build.library("flash_attention_bwd")
+    with _on_card(q):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, bhk, s, d, int(q.dtype == torch.bfloat16),
+            int(causal), int(window), float(softcap), float(scale), _stream(q),
+        )
+    build.check("flash_attention_bwd", err)
+    _count("flash_attention_bwd")
+    return dq, dk, dv
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its kernel computes, in the same arithmetic
 where the order matters: the wrappers in `ops.py` run these for tensors on
@@ -160,6 +160,29 @@ def topn_scores_ref(u: torch.Tensor, v: torch.Tensor, topk: int
     return vals[:, :topk], idx[:, :topk].to(torch.int32)
 
 
+def _attention_scores(q, k, *, causal, window, softcap, scale, work):
+    """The scores of q (BH, S, D) against k (BHk, S, D), GQA-expanded, in
+    `work`: (scaled and capped scores, t = tanh(s / softcap) or None, the
+    visibility mask)."""
+    bh, sq, d = q.shape
+    rep = bh // k.shape[0]
+    k = k.to(work).repeat_interleave(rep, dim=0) if rep > 1 else k.to(work)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.to(work), k) * scale
+    t = None
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    return s, t, mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0, scale: float | None = None
@@ -171,22 +194,81 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The scale comes before the softcap and the softcap before the mask;
     masked scores are -1e30, as in `repro/kernels/ref.py`.
     """
-    bh, sq, d = q.shape
-    rep = bh // k.shape[0]
-    k = k.repeat_interleave(rep, dim=0) if rep > 1 else k
-    v = v.repeat_interleave(rep, dim=0) if rep > 1 else v
-    sk = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    if softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window > 0:
-        mask &= (qpos - kpos) < window
+    s, _, mask = _attention_scores(q, k, causal=causal, window=window,
+                                   softcap=softcap, scale=scale, work=torch.float32)
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    rep = q.shape[0] // k.shape[0]
+    v = v.float().repeat_interleave(rep, dim=0) if rep > 1 else v.float()
+    return torch.einsum("bqk,bkd->bqd", p, v).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward that a backward needs: (out in q's dtype, lse (BH, S)
+    and the unrounded output (BH, S, D)), computed in fp32 (float64 for
+    float64 inputs). lse is each row's log-sum-exp of its visible scores,
+    which the kernel writes as m + log(l); every row sees at least its own
+    key (Sq == Sk)."""
+    work = torch.promote_types(q.dtype, torch.float32)
+    s, _, mask = _attention_scores(q, k, causal=causal, window=window,
+                                   softcap=softcap, scale=scale, work=work)
     s = torch.where(mask, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)          # flash_attention_ref's arithmetic
+    rep = q.shape[0] // k.shape[0]
+    v = v.to(work).repeat_interleave(rep, dim=0) if rep > 1 else v.to(work)
+    o = torch.einsum("bqk,bkd->bqd", p, v)
+    return o.to(q.dtype), lse, o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of flash attention, each in its input's
+    dtype, from the forward's lse and unrounded output o, in fp32 (float64
+    for float64 inputs), in the backward kernel's order:
+
+        s' = softcap(scale q k^T)       P = exp(s' - lse), 0 where masked
+        dV = P^T dO     dP = dO V^T     D = rowsum(dO o)
+        dS' = P (dP - D)                dS = dS' (1 - (s'/c)^2) with a softcap c
+        dQ = scale dS K                 dK = scale dS^T Q
+
+    With GQA (BHk < BH) dK and dV are summed over each KV head's query
+    heads bh = hk * rep .. hk * rep + rep - 1, in head order.
+    """
+    work = torch.promote_types(q.dtype, torch.float32)
+    bh, sq, d = q.shape
+    bhk = k.shape[0]
+    rep = bh // bhk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s, t, mask = _attention_scores(q, k, causal=causal, window=window,
+                                   softcap=softcap, scale=scale, work=work)
+    p = torch.where(mask, torch.exp(s - lse.to(work)[..., None]), 0.0)
+    del s
+    dof = do.to(work)
+    ke = k.to(work).repeat_interleave(rep, dim=0) if rep > 1 else k.to(work)
+    ve = v.to(work).repeat_interleave(rep, dim=0) if rep > 1 else v.to(work)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, ve)
+    delta = (dof * o.to(work)).sum(-1)
+    ds = p * (dp - delta[..., None])
+    del p, dp
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = scale * torch.einsum("bqk,bkd->bqd", ds, ke)
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.to(work))
+
+    def by_group(x):
+        if rep == 1:
+            return x
+        x = x.reshape(bhk, rep, *x.shape[1:])
+        out = x[:, 0]
+        for r in range(1, rep):
+            out = out + x[:, r]
+        return out
+
+    return dq.to(q.dtype), by_group(dk).to(k.dtype), by_group(dv).to(v.dtype)

@@ -19,14 +19,81 @@ costing about --minibatch padded rating lanes a half-step):
     PYTHONPATH=src python -m repro_torch.launch.train --bpmf --engine sgld --sweeps 400
 
 Runs on the card ("--device cpu" for the plain path). LM training stays a
-library, as in the reference.
+library, as in the reference: `init_train_state` and `make_train_step`
+below, driven by `runtime.Trainer` (examples/train_lm_torch.py). The
+reference's pspec and sharding helpers wait for more than one card
+(ROADMAP.md, item 7).
 """
 from __future__ import annotations
 
 import argparse
 import tempfile
+from typing import NamedTuple
+
+import torch
 
 from repro_torch.core.gibbs import ENGINES
+from repro_torch.models import build_model
+from repro_torch.models.layers import ModelConfig
+from repro_torch.models.transformer import Decoder
+from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update, cosine_schedule
+
+
+# ---------------------------------------------------------------------------
+# LM training step (the reference's make_train_step)
+# ---------------------------------------------------------------------------
+class TrainState(NamedTuple):
+    params: Decoder
+    opt: AdamWState
+    step: torch.Tensor               # 0-d int32, on the CPU
+
+
+def init_train_state(cfg: ModelConfig, seed: int, opt_cfg: AdamWConfig, *,
+                     device: str | torch.device = "cuda") -> TrainState:
+    """Parameters drawn from `seed` on `device` (DecoderModel.init) and a
+    zero AdamW state beside them."""
+    params = build_model(cfg, device=device).init(seed)
+    return TrainState(params=params, opt=adamw_init(params, opt_cfg),
+                      step=torch.zeros((), dtype=torch.int32))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, total_steps: int = 100_000,
+                    device: str | torch.device = "cuda"):
+    """train_step(state, batch) -> (state, metrics): the loss, its gradient
+    by autograd (the flash kernel's backward on the card; each layer
+    recomputed under `cfg.remat`), then clipping and AdamW at the cosine
+    schedule's rate, warm-up min(2000, total_steps // 10). The parameters
+    and moments are updated in place and the gradients freed; metrics
+    holds "ce", "tokens", "grad_norm", "loss" and "lr"."""
+    model = build_model(cfg, device=device)
+    warmup = min(2000, total_steps // 10)
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        params = state.params
+        for p in params.parameters():
+            p.grad = None
+        loss, metrics = model.loss_fn(params, batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        lr = cosine_schedule(state.step, peak_lr=opt_cfg.lr, warmup_steps=warmup,
+                             total_steps=total_steps)
+        _, opt, om = adamw_update(grads, state.opt, params, opt_cfg, lr=lr)
+        del grads
+        for p in params.parameters():
+            p.grad = None
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        metrics.update(om)
+        metrics["loss"] = loss.detach()
+        metrics["lr"] = lr
+        return TrainState(params=params, opt=opt, step=state.step + 1), metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# BPMF training CLI (train -> retain; optionally train-while-serve)
+# ---------------------------------------------------------------------------
 
 
 def bpmf_train_main(args) -> None:

@@ -11,8 +11,9 @@ The JAX package's four entry points, with the parameters as the port's
 A batch holds "tokens" (and "labels" for the loss) as numpy arrays or
 tensors. The model runs on `device`, "cuda" by default; without a card it
 raises unless the caller asks for "cpu". Prefill and decode run under
-torch.no_grad(); loss_fn leaves autograd to the caller, and on the card
-the flash kernel (no backward pass yet) needs no_grad too.
+torch.no_grad(); loss_fn leaves autograd to the caller and is
+differentiable on the card as on the CPU: the flash kernel's backward is a
+kernel too (`kernels/ops.py::FlashAttention`).
 """
 from __future__ import annotations
 
@@ -76,11 +77,15 @@ class DecoderModel:
         return torch.as_tensor(np.asarray(x), device=self.device)
 
     def loss_fn(self, params: tfm.Decoder, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(mean next-token loss, metrics); differentiable, through the flash
+        backward kernel on the card. The head takes HEAD_CHUNK rows at a
+        time with grad or without (`tfm.head_loss`)."""
         tokens = self._ids(batch["tokens"])
         b, s = tokens.shape
-        logits, _ = tfm.decoder_forward(params, self.cfg, tokens,
-                                        positions=_positions_for(b, s, self.device))
-        return tfm.cross_entropy(logits, self._ids(batch["labels"]))
+        h, _ = tfm.decoder_hidden(params, self.cfg, tokens,
+                                  positions=_positions_for(b, s, self.device))
+        # the JAX loss adds 0.01 * the MoE aux loss, which is 0 for a dense model
+        return tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return tfm.init_decode_cache(self.cfg, batch, max_len, device=self.device)

@@ -59,6 +59,8 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
     chunked_attn_min_len: int = 8192 # cache-free sequences this long take the kernel
+    remat: bool = True               # recompute each layer in the backward
+    remat_policy: str = "nothing"    # only "nothing" is ported (ROADMAP.md, item 12.4)
 
     @property
     def hd(self) -> int:
@@ -100,13 +102,23 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in fp32 for bf16 (or fp32) operands: every product is exact and
-    the sums are fp32, as XLA's `preferred_element_type=float32`. a is
-    (..., m, k) and b (k, n) or (..., k, n) with a's leading axes."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
+    """a @ b in fp32 for bf16 operands: every product is exact and the sums
+    are fp32, as XLA's `preferred_element_type=float32` (fp32 or float64
+    operands of one dtype multiply as they are). a is
+    (..., m, k) and b (k, n) or (..., k, n) with a's leading axes. On the
+    card bf16 operands go through `MatmulF32`, whose backward is JAX's
+    transpose of such a product; on the CPU autograd differentiates
+    a.float() @ b.float(), which is the same function."""
+    if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
     if not a.is_cuda:
         return a.float() @ b.float()
+    return MatmulF32.apply(a, b)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 out (a and b of one dtype), through torch.mm or
+    torch.bmm: a (..., m, k), b (k, n) or (..., k, n)."""
     if b.dim() == 2:
         return torch.mm(a.reshape(-1, a.shape[-1]), b,
                         out_dtype=torch.float32).reshape(a.shape[:-1] + b.shape[-1:])
@@ -114,6 +126,35 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.bmm(a.reshape((-1,) + a.shape[-2:]), b.reshape((-1,) + b.shape[-2:]),
                     out_dtype=torch.float32)
     return out.reshape(lead + out.shape[-2:])
+
+
+class MatmulF32(torch.autograd.Function):
+    """a @ b with fp32 out for bf16 operands on the card (cuBLAS). The
+    backward is the transpose JAX takes of a `preferred_element_type=
+    float32` product: the fp32 cotangent times the other operand (exact in
+    fp32), summed in fp32, then cast to the operand's dtype:
+    da = (g @ b^T).to(a.dtype), db = (a^T g).to(b.dtype), with b's leading
+    axes summed where b is 2-D and a is not."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                a2 = a.reshape(-1, a.shape[-1]).float()
+                db = (a2.t() @ g.reshape(-1, g.shape[-1])).to(b.dtype)
+            else:
+                db = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return da, db
 
 
 # ---------------------------------------------------------------------------

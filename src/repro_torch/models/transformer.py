@@ -12,6 +12,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.layers import (
@@ -87,6 +88,12 @@ def decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
     return h + m, new_cache
 
 
+def _layer_out(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, window: int) -> torch.Tensor:
+    """A cache-free layer's output alone: the function a checkpoint wraps."""
+    return decoder_layer(p, h, cfg, positions=positions, window=window)[0]
+
+
 # ---------------------------------------------------------------------------
 # Decoder model
 # ---------------------------------------------------------------------------
@@ -127,12 +134,43 @@ def init_decoder(cfg: ModelConfig, *, generator: torch.Generator | None,
 def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                     positions: torch.Tensor, caches: dict | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
-    """tokens (B, S) -> (fp32 logits (B, S, V), new caches or None).
+    """tokens (B, S) -> (fp32 logits (B, S, V), new caches or None): the
+    stack (`decoder_hidden`), then the tied fp32 unembedding and the logit
+    softcap."""
+    h, new_caches = decoder_hidden(params, cfg, tokens, positions=positions, caches=caches)
+    logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
+    if cfg.logit_softcap > 0:
+        cap = cfg.logit_softcap
+        if torch.is_grad_enabled() and logits.requires_grad:
+            # out of place: tanh keeps its output for the backward
+            logits = torch.tanh(logits / cap) * cap
+        else:
+            # in place: at S = 8,192 the fp32 logits are 8.4 GB
+            logits.div_(cap).tanh_().mul_(cap)
+    return logits, new_caches
+
+
+def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   positions: torch.Tensor, caches: dict | None = None
+                   ) -> tuple[torch.Tensor, dict | None]:
+    """tokens (B, S) -> (the final norm's output (B, S, D), new caches or
+    None): the embedding and the layers.
 
     `cfg` governs every layer (the modules' own configs are not read), so
     one set of parameters runs under a changed config, such as a
     `chunked_attn_min_len` that sends a long sequence down the direct path.
+
+    With grad enabled and `cfg.remat`, each cache-free layer runs under
+    `torch.utils.checkpoint` (non-reentrant): the backward keeps only the
+    layer's input and recomputes the rest, the JAX package's
+    `jax.checkpoint` with policy "nothing". The other policies are not
+    ported (ROADMAP.md, item 12.4).
     """
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; only \"nothing\" "
+            "(full recompute) is: ROADMAP.md, queue 1 item 12.4")
     h = params.embed.to(cfg.dtype)[tokens]
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in JAX
@@ -142,19 +180,18 @@ def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]}
-        h, _ = decoder_layer(layer, h, cfg, positions=positions, window=windows[i],
-                             cache=cache)
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _layer_out, layer, h, cfg, positions, windows[i], use_reentrant=False)
+        else:
+            h, _ = decoder_layer(layer, h, cfg, positions=positions, window=windows[i],
+                                 cache=cache)
     h = apply_norm(params.ln_final, h, cfg)
-    logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
-    if cfg.logit_softcap > 0:
-        # in place: at S = 8,192 the fp32 logits are 8.4 GB
-        cap = cfg.logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
     new_caches = None
     if caches is not None:
         new_caches = {"k": caches["k"], "v": caches["v"],
                       "pos": caches["pos"] + positions.shape[-1]}
-    return logits, new_caches
+    return h, new_caches
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -183,6 +220,87 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return loss, {"ce": loss, "tokens": n}
 
 
+#: rows (batch x sequence positions) of the logits a chunk of `head_loss`:
+#: 1,024 rows of gemma2-2b's vocabulary are 1.05 GB of fp32 logits
+HEAD_CHUNK = 1024
+
+
+def head_loss(params: Decoder, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor
+              ) -> tuple[torch.Tensor, dict]:
+    """The head of the loss: `cross_entropy` of the softcapped fp32 logits
+    of `decoder_forward`, from the final norm's output h (B, S, D), without
+    the (B, S, V) logits. `HeadLoss` takes HEAD_CHUNK rows at a time, adds
+    the chunks' sums in order, and recomputes each chunk in the backward:
+    the same function as decoder_forward + cross_entropy (one chunk gives
+    its bits). At S = 8,192 the whole logits are 8.4 GB in fp32, and a
+    backward through them holds several copies at once."""
+    labels = labels.reshape(-1)
+    valid = (labels >= 0).float()
+    n = valid.sum().clamp(min=1.0)
+    total = HeadLoss.apply(h.reshape(-1, h.shape[-1]), params.embed.to(cfg.dtype),
+                           labels, cfg.logit_softcap)
+    loss = total / n
+    return loss, {"ce": loss, "tokens": n}
+
+
+def _chunk_logits(h: torch.Tensor, w: torch.Tensor, cap: float
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(softcapped fp32 logits of rows h against w, tanh(logits / cap) or
+    None); decoder_forward's arithmetic."""
+    z = matmul_f32(h, w.t())
+    if cap <= 0:
+        return z, None
+    t = torch.tanh(z.div_(cap))
+    return t * cap, t
+
+
+class HeadLoss(torch.autograd.Function):
+    """sum over rows r with label >= 0 of logsumexp(s_r) - s_r[label_r],
+    s = softcap(h w^T) in fp32, taken HEAD_CHUNK rows at a time in row
+    order. The backward recomputes each chunk's logits and takes the
+    transpose JAX takes: ds = g (softmax(s) - onehot(label)) for valid rows,
+    dz = ds (1 - t^2) under the softcap, dh = dz w and dw = sum over the
+    chunks of dz^T h, in fp32, each cast once to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, cap):
+        work = torch.promote_types(h.dtype, torch.float32)
+        total = torch.zeros((), dtype=work, device=h.device)
+        for lo in range(0, h.shape[0], HEAD_CHUNK):
+            s, _ = _chunk_logits(h[lo:lo + HEAD_CHUNK], w, cap)
+            lab = labels[lo:lo + HEAD_CHUNK]
+            lse = torch.logsumexp(s, dim=-1)
+            gold = s.gather(-1, lab.clamp(min=0).long()[:, None])[:, 0]
+            total = total + ((lse - gold) * (lab >= 0).to(work)).sum()
+            del s
+        ctx.save_for_backward(h, w, labels)
+        ctx.cap = cap
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels = ctx.saved_tensors
+        dh = torch.empty_like(h)
+        work = torch.promote_types(h.dtype, torch.float32)
+        dw = torch.zeros(w.shape, dtype=work, device=w.device)
+        w32 = w.to(work)
+        for lo in range(0, h.shape[0], HEAD_CHUNK):
+            hc, lab = h[lo:lo + HEAD_CHUNK], labels[lo:lo + HEAD_CHUNK]
+            s, t = _chunk_logits(hc, w, ctx.cap)
+            scale = g * (lab >= 0).to(work)
+            ds = torch.softmax(s, dim=-1).mul_(scale[:, None])
+            del s
+            rows = torch.arange(hc.shape[0], device=h.device)
+            ds[rows, lab.clamp(min=0).long()] -= scale
+            if t is not None:
+                ds.mul_(1.0 - t * t)
+                del t
+            dh[lo:lo + HEAD_CHUNK] = (ds @ w32).to(h.dtype)
+            dw.addmm_(ds.t(), hc.to(work))
+            del ds
+        return dh, dw.to(w.dtype), None, None
+
+
 # ---------------------------------------------------------------------------
 # Parameters carried across from the JAX package
 # ---------------------------------------------------------------------------
@@ -207,6 +325,16 @@ def _tree_paths(tree: Any, prefix: tuple[str, ...] = ()):
         yield prefix
 
 
+def param_leaf(tree: Any, name: str) -> tuple[list[str], Any]:
+    """The JAX tree path of the port's parameter `name` and its value: a
+    layer's parameter is slice i of the stacked leaf "layers/..."."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        path = ["layers", *parts[2:]]
+        return path, _leaf(tree, path)[int(parts[1])]
+    return parts, _leaf(tree, parts)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                       device: torch.device | str = "cuda") -> Decoder:
     """The JAX decoder's parameter tree (numpy arrays, layers stacked on a
@@ -222,13 +350,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     used = set()
     with torch.no_grad():
         for name, param in model.named_parameters():
-            parts = name.split(".")
-            if parts[0] == "layers":
-                path = ["layers", *parts[2:]]
-                value = _leaf(tree, path)[int(parts[1])]
-            else:
-                path = parts
-                value = _leaf(tree, path)
+            path, value = param_leaf(tree, name)
             value = _as_tensor(value)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: tree has {tuple(value.shape)}, "

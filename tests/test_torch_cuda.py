@@ -20,6 +20,9 @@ Tolerances, and why:
     products in the same order with the same roundings.
   * flash_attention: 3e-4 in fp32 and 3e-2 in bf16, the JAX kernel tests'
     own (tests/test_kernels.py:88, 91); both sum in fp32 in another order.
+    Its backward: each gradient within one bf16 ulp of its largest
+    magnitude of the float64 plain version (3e-4 of it in fp32), as
+    chip_smoke.py holds it at the training step's shapes (`_grads_hold`).
     3e-2 is as large as the outputs of N(0,1) inputs over long sequences,
     so bf16 results are also held to one bf16 ulp of the value (rtol
     2^-7, atol 1e-5): kernel and plain version both compute in fp32 and
@@ -391,8 +394,16 @@ def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda):
                             q[..., :48].contiguous())                  # D = 48
     with pytest.raises(ValueError):
         ops.flash_attention(q, q.double(), q)                          # mixed dtypes
-    with pytest.raises(RuntimeError):                                  # no backward
-        ops.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+    with pytest.raises(ValueError):                                    # S_q != S_k
+        ops.flash_attention(q.requires_grad_(), q[:, :32].detach(), q[:, :32].detach())
+    lse = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError):                                    # fp16 backward
+        ops.flash_attention_bwd(q.half(), q.half(), q.half(), q.half(), lse, q.detach(),
+                                causal=True, window=0, softcap=0.0, scale=0.125)
+    with pytest.raises(ValueError):                                    # o not fp32
+        ops.flash_attention_bwd(*(q.detach().bfloat16() for _ in range(4)), lse,
+                                q.detach().bfloat16(), causal=True, window=0,
+                                softcap=0.0, scale=0.125)
 
 
 def _flash_inputs(g, bh, bhk, s, d, q_scale, dtype, device):
@@ -801,3 +812,192 @@ def test_sgld_chains_deterministic_on_the_card(cuda):
         for name in ("u", "v"):
             assert all(torch.equal(a, b) for a, b in zip(getattr(states[0], name),
                                                          getattr(states[1], name))), mode
+
+
+# ---------------------------------------------------------------------------
+# the flash backward and the training path
+# ---------------------------------------------------------------------------
+def _flash_grads(q, k, v, do, **kw):
+    """(out, dq, dk, dv) through ops.flash_attention with grad."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, **kw)
+    return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+
+def _exact_grads(q, k, v, do, **kw):
+    """The gradients in float64 from the plain versions, the forward's lse
+    and output computed in float64 too."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    _, lse, o = ref.flash_attention_fwd_ref(qd, kd, vd, **kw)
+    return ref.flash_attention_bwd_ref(qd, kd, vd, dod, lse, o, **kw)
+
+
+def _grads_hold(got, want, dtype):
+    """Each gradient within one bf16 ulp of its largest magnitude (bf16) or
+    3e-4 of it (fp32, whose sums run in another order), with an atol of at
+    least 1e-5, the one the forward's bf16 checks take: a gradient that is
+    0 exactly (one token: dP = D) comes out of two fp32 sums in different
+    orders at about 1e-7."""
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype, name
+        top = float(w.abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        atol = max(ulp if dtype == torch.bfloat16 else 3e-4 * top, 1e-5)
+        err = float((g.double() - w).abs().max())
+        assert err <= atol, f"{name}: max abs err {err:.3e} > {atol:.3e} (max |g| {top:.3e})"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_bwd_kernel_matches_plain(cuda, d, dtype):
+    """Every head width in both dtypes, GQA 2, window 48, softcap 50, a
+    ragged S: the kernel's gradients against the float64 plain version."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = _flash_inputs(g, 4, 2, 100, d, 1.0, dtype, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, window=48, softcap=50.0)
+    ops.reset_launches()
+    out, *got = _flash_grads(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == 1
+    assert ops.launches()["flash_attention_bwd"] == 1
+    _grads_hold(got, _exact_grads(q, k, v, do, **kw), dtype)
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))   # the same forward bits
+
+
+@pytest.mark.parametrize("bh,bhk,s,d,window,cap,q_scale,causal", [
+    (8, 4, 1000, 256, 0, 50.0, 1.0, True),      # gemma2's heads, global
+    (8, 4, 1000, 256, 256, 50.0, 6.0, True),    # peaked scores, local
+    (8, 8, 257, 128, 32, 0.0, 1.0, True),       # window at a tile edge
+    (8, 2, 300, 64, 31, 30.0, 16.0, True),      # GQA 4, scores past the cap
+    (4, 2, 256, 128, 0, 50.0, 1.0, False),      # non-causal
+    (2, 2, 1, 64, 0, 50.0, 1.0, True),          # one token
+])
+def test_flash_bwd_kernel_edges(cuda, bh, bhk, s, d, window, cap, q_scale, causal):
+    g = torch.Generator(device=cuda).manual_seed(s + d + window)
+    q, k, v = _flash_inputs(g, bh, bhk, s, d, q_scale, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    _, *got = _flash_grads(q, k, v, do, **kw)
+    _grads_hold(got, _exact_grads(q, k, v, do, **kw), torch.bfloat16)
+
+
+def test_flash_bwd_kernel_is_the_same_from_run_to_run(cuda):
+    """No atomics: two backward launches give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _flash_inputs(g, 8, 4, 700, 256, 1.0, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=True, window=128, softcap=50.0)
+    a, b = _flash_grads(q, k, v, do, **kw), _flash_grads(q, k, v, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_forward_writes_lse_and_the_fp32_output(cuda):
+    """With grad the forward kernel also writes each row's log-sum-exp and
+    the fp32 output it rounds; its bf16 output keeps its bits."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_inputs(g, 4, 2, 333, 128, 1.0, dtype, cuda)
+        kw = dict(causal=True, window=100, softcap=50.0)
+        out, lse, o32 = ops._flash_forward(q, k, v, True, 100, 50.0, 128 ** -0.5, keep=True)
+        assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+        _, lse64, o64 = ref.flash_attention_fwd_ref(q.double(), k.double(), v.double(), **kw)
+        torch.testing.assert_close(lse.double(), lse64, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(o32.double(), o64, rtol=3e-4, atol=3e-4)
+        assert torch.equal(o32.to(dtype), out)
+
+
+def test_matmul_f32_differentiates_on_the_card(cuda):
+    """matmul_f32 on bf16 CUDA operands under grad: no raise, and the
+    gradients of the CPU's a.float() @ b.float(), cast to bf16."""
+    from repro_torch.models.layers import matmul_f32
+
+    g = torch.Generator().manual_seed(0)
+    for shape_a, shape_b in (((2, 3, 40, 64), (64, 50)), ((2, 3, 40, 64), (2, 3, 64, 50))):
+        a = torch.randn(shape_a, generator=g).bfloat16()
+        b = torch.randn(shape_b, generator=g).bfloat16()
+        w = torch.randn(shape_a[:-1] + (50,), generator=g)
+        grads = []
+        for dev in ("cpu", cuda):
+            ad, bd = (t.to(dev).requires_grad_() for t in (a, b))
+            out = matmul_f32(ad, bd)
+            assert out.dtype == torch.float32
+            grads.append([t.cpu() for t in torch.autograd.grad((out * w.to(dev)).sum(),
+                                                               (ad, bd))])
+        for x, y in zip(*grads):
+            assert x.dtype == y.dtype == torch.bfloat16
+            torch.testing.assert_close(y.float(), x.float(), rtol=2.0 ** -7, atol=1e-3)
+
+
+def test_bf16_clipping_on_the_card_rounds_once_in_fp32(cuda):
+    """Clipping bf16 gradients on the card: each entry is the fp32 product
+    of the gradient and the fp32 scale, rounded to bf16 once, bit for bit
+    the CPU's from the same scale (a bf16 `g.mul_(scale)` on the card
+    rounds the scale to bf16 first); adamw_update clips as it reads, so
+    its moments are those of the clipped gradients (fp32, rtol 1e-6)."""
+    from repro_torch.optim import adamw
+
+    g = torch.Generator().manual_seed(0)
+    grads = {f"layers.0.w{i}": (3.0 * torch.randn(64, 300, generator=g)).bfloat16()
+             for i in range(3)}
+    card = {n: t.to(cuda) for n, t in grads.items()}
+    clipped, gnorm = adamw.clip_by_global_norm({n: t.clone() for n, t in card.items()},
+                                               1.0)
+    scale = min(1.0, 1.0 / max(float(gnorm), 1e-9))
+    assert scale < 1.0
+    for n, t in clipped.items():
+        assert torch.equal(t.cpu(), (grads[n].float() * scale).bfloat16()), n
+
+    cfg = adamw.AdamWConfig(lr=0.01)
+    params = {n: torch.randn(t.shape, generator=g).bfloat16().to(cuda)
+              for n, t in grads.items()}
+    state = adamw.adamw_init(params, cfg)
+    _, state, metrics = adamw.adamw_update(card, state, params, cfg)
+    assert float(metrics["grad_norm"]) == float(gnorm)
+    for n, t in card.items():
+        assert torch.equal(t.cpu(), grads[n]), n                     # left as it was
+        want = (1 - cfg.b1) * (grads[n].float() * scale).bfloat16().float()
+        torch.testing.assert_close(state.m[n].cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step on the card (the flash forward and backward
+    kernels in every layer) against the same step on the CPU, in fp32 from
+    the same parameters: loss and grad_norm at rtol 1e-4, each parameter
+    within 2 lr (an AdamW step moves an entry by about lr), and all but a
+    few entries within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), dtype=torch.float32,
+                              param_dtype=torch.float32, remat=True)
+    opt = AdamWConfig(lr=1e-3)
+    batch = TokenStream(cfg, 2, 64, seed=0)(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(cfg, 0, opt, device="cpu")
+        if dev == "cuda":
+            state.params.to(cuda)
+            state = state._replace(opt=state.opt._replace(
+                m={n: t.to(cuda) for n, t in state.opt.m.items()},
+                v={n: t.to(cuda) for n, t in state.opt.v.items()}))
+        step = make_train_step(cfg, opt, total_steps=5, device=dev)
+        ops.reset_launches()
+        state, metrics = step(state, batch)
+        counts = ops.launches()
+        out[dev] = (state, metrics, counts)
+    assert out["cuda"][2]["flash_attention"] == 2 * cfg.n_layers      # forward, recompute
+    assert out["cuda"][2]["flash_attention_bwd"] == cfg.n_layers
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(out["cuda"][1][key]), float(out["cpu"][1][key]),
+                                   rtol=1e-4)
+    lr = float(out["cpu"][1]["lr"])
+    cpu = dict(out["cpu"][0].params.named_parameters())
+    for name, p in out["cuda"][0].params.named_parameters():
+        diff = (p.detach().cpu() - cpu[name].detach()).abs()
+        assert float(diff.max()) <= 2 * lr, name
+        assert int((diff > 1e-6).sum()) <= max(2, diff.numel() // 1000), name

@@ -218,6 +218,9 @@ def test_configs_match_jax():
             if f.name not in ("dtype", "param_dtype"):
                 assert getattr(port, f.name) == getattr(jax_cfg, f.name), f.name
         assert port.hd == jax_cfg.hd
+        assert (port.remat, port.remat_policy) == (jax_cfg.remat, jax_cfg.remat_policy)
+    assert get_config("gemma2-2b").remat and get_config("gemma2-2b").remat_policy == "nothing"
+    assert not reduced(get_config("gemma2-2b")).remat
     for name in ("smollm-360m", "no-such-model"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(name)

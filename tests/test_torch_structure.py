@@ -49,11 +49,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
     assert {"core/partition.py", "core/exchange.py", "core/distributed.py", "core/als.py",
-            "core/sgld.py", "optim/schedule.py"} <= {
+            "core/sgld.py", "optim/schedule.py", "optim/adamw.py", "runtime/__init__.py",
+            "runtime/trainer.py", "launch/train.py"} <= {
         f.relative_to(PORT).as_posix() for f in files}
     bad = [
         (str(f.relative_to(ROOT)), root)
-        for f in files + [ROOT / "chip_smoke.py"]
+        for f in files + [ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py"]
         for root in _imported_roots(ast.parse(f.read_text()))
         if root in FORBIDDEN
     ]
@@ -257,6 +258,24 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
     model = DecoderModel(cfg, device="cpu")
     out = model.prefill_fn(model.init(seed=0), {"tokens": np.zeros((1, 4), np.int32)})
     assert out["logits"].device.type == "cpu" and torch.isfinite(out["logits"]).all()
+
+
+def test_lm_training_defaults_to_the_card_and_raises_without_one(no_card):
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    cfg = reduced(get_config("gemma2-2b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, 0, AdamWConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, AdamWConfig())
+    # asked for, the CPU takes a step
+    state = init_train_state(cfg, 0, AdamWConfig(), device="cpu")
+    step = make_train_step(cfg, AdamWConfig(), total_steps=5, device="cpu")
+    batch = {"tokens": np.zeros((1, 8), np.int32), "labels": np.ones((1, 8), np.int32)}
+    state, metrics = step(state, batch)
+    assert int(state.step) == 1 and np.isfinite(float(metrics["loss"]))
+    assert all(p.device.type == "cpu" and p.grad is None for p in state.params.parameters())
 
 
 def test_lm_launcher_runs_on_the_cpu_when_asked():
