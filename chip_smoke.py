@@ -105,9 +105,10 @@ no kernels line and no result line. Phases:
               the kernel lies within an ulp of float64; at q x 16 and
               softcap 0 within 3e-2 and no farther from float64 than the
               plain version; timed
-              beside its bound (4 bf16 tensor passes a visible pair) and
-              the bound of P V on the fp32 pipes and, at softcap 0, beside
-              scaled_dot_product_attention; digests of an fp32 and a bf16
+              beside its bound (4 bf16 tensor passes a visible pair), the
+              bound of P V on the fp32 pipes and flex_attention (compiled,
+              softcap 50 by score_mod) and, at softcap 0,
+              beside scaled_dot_product_attention; digests of an fp32 and a bf16
               output, to hold the kernels' bits against another commit's
  16. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
@@ -127,9 +128,11 @@ no kernels line and no result line. Phases:
               256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
               on peaked scores (q x 6) and in fp32 at S = 2,000, each
               head's dq, dk and dv within one bf16 ulp of its largest
-              magnitude of the float64 plain version, timed beside its
-              bound and, at softcap 0, scaled_dot_product_attention's
-              backward; the full-width step's gradients on the flash path
+              magnitude of the float64 plain version and, in bf16, few of
+              their elements more than half their own bf16 ulp from it;
+              timed beside its bound (with its achieved bf16 TFLOP/s),
+              flex_attention's backward and, at softcap 0,
+              scaled_dot_product_attention's backward; the full-width step's gradients on the flash path
               against the direct path and both against the fp32 direct
               path (loss, global norm, each parameter); make_train_step at
               every published width, 26 layers, remat on, B = 1, S =
@@ -143,8 +146,10 @@ no kernels line and no result line. Phases:
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
-              (lse read a row off, the softcap dropped): each must fail one
-              of the checks of phase 16, 17 or 18
+              (lse read a row off, the softcap dropped, and a build of the
+              kernel that takes P and dS in one bf16 term instead of
+              three): each must fail one of the checks of phase 16, 17 or
+              18
  20. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
@@ -164,6 +169,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -286,6 +292,19 @@ BWD_FP32_SEQ = 2000                    # the fp32 backward case's S, ragged agai
 # (FLASH_BF16_ULP_TOL): a gradient entry that is 0 exactly comes out of
 # fp32 sums in two orders at about 1e-7.
 GRAD_ULP_FLOOR = 1e-5
+# That limit cannot tell how P and dS enter the tensor-core products: a
+# build that takes them in one bf16 term (x2 and x3 dropped from
+# add_product) passes it at 0.59-0.92 ulp. The bf16 gradients are
+# therefore also held element by element: a sum rounded to bf16 once is
+# float64's value rounded to bf16 except where float64 lies within the
+# sum's error of a rounding midpoint, so at most this share of a
+# gradient's elements may lie more than half their own bf16 ulp from
+# float64. On an NVIDIA H100 80GB HBM3 at 700 W the kernel's shares are
+# 4.1e-3 to 1.26e-2 in the three bf16 cases and the one-term build's
+# 0.370-0.426 (phase lm_faults plants it). A two-term build's, 4.4e-3 to
+# 9.8e-3, cannot be told from the kernel's by its output: what the third
+# term carries lies below the error of the tensor cores' sums.
+BWD_MISROUNDED_SHARE = 0.05
 LM_TRAIN_STEPS = 3                     # timed steps after one warm-up
 LM_TRAIN_SHORT = 4096                  # the train_4k shape's length (models/api.py::LM_SHAPES)
 # The full-width gradients of the two attention paths (lm_train). They
@@ -370,6 +389,11 @@ def main() -> int:
               "working directory", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # torch.compile (the flex_attention library times) keeps its caches in
+    # the checkout's build directory and compiles in this process
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(src.parent / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(src.parent / "build" / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -428,6 +452,12 @@ class Smoke:
         self.own_src = own_src
         self.rows: dict[str, dict] = {}
         self.main_launches: dict[str, int] = {}
+        # flex_attention, the library call of the flash rows at softcap 50:
+        # one score_mod and one block mask a window, made once so that the
+        # compiled call is not traced again
+        self.flex_compiled = None
+        self.flex_masks: dict[int, object] = {}
+        self.flex_softcap = lambda score, b, h, q_idx, kv_idx: 50.0 * torch.tanh(score / 50.0)
         # the serving tier's paths (foldin, cotrain): their launches apart
         self.path_launches: dict[str, dict[str, int]] = {}
 
@@ -494,6 +524,26 @@ class Smoke:
 
     def randn(self, *shape):
         return self.torch.randn(shape, generator=self.gen, device=self.dev)
+
+    def flex(self, window: int):
+        """torch.nn.attention.flex_attention under torch.compile, and the
+        keyword arguments with which it computes the flash kernels'
+        function at the LM shapes: causal with the window (a block mask),
+        softcap 50 (a score_mod), GQA (enable_gqa). For the kernels line's
+        library times only: the port never calls it."""
+        torch = self.torch
+        from torch.nn.attention import flex_attention as fa
+
+        if window not in self.flex_masks:
+            def visible(b, h, q_idx, kv_idx):
+                seen = q_idx >= kv_idx
+                return seen & (q_idx - kv_idx < window) if window else seen
+            self.flex_masks[window] = fa.create_block_mask(visible, None, None, LM_SEQ,
+                                                           LM_SEQ, device=self.dev)
+        if self.flex_compiled is None:
+            self.flex_compiled = torch.compile(fa.flex_attention, dynamic=False)
+        return self.flex_compiled, dict(score_mod=self.flex_softcap,
+                                        block_mask=self.flex_masks[window], enable_gqa=True)
 
     def add_row(self, name, source, replaces, **kw):
         self.rows[name] = dict(name=name, route="cuda",
@@ -2600,15 +2650,23 @@ class Smoke:
                               "scaled_dot_product_attention", FLASH_TOL["bf16"])
             ms0 = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw0))
             lms0 = self.cuda_ms(sdpa)
+            # softcap 50: flex_attention computes it in one library call
+            flex, fkw = self.flex(window)
+            self.close(flex(q[None], k[None], v[None], **fkw)[0].float(),
+                       ops.flash_attention(q, k, v, **kw).float(),
+                       f"flash_attention {kind} softcap 50: flex_attention against the "
+                       "kernel", FLASH_TOL["bf16"])
+            lms = self.cuda_ms(lambda: flex(q[None], k[None], v[None], **fkw))
             print(f"    flash_attention {kind}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
                   f"bound {bms:.3f} ms ({by}: 4 bf16 tensor passes a visible pair, "
                   f"QK^T and the 3-term P V; kernel at {ms / bms:.2f}x); with P V on "
                   f"the fp32 pipes {b_pv32:.3f} ms (kernel at {ms / b_pv32:.2f}x); all "
                   f"at the fp32 peak {b32:.3f} ms, both products in one bf16 tensor "
-                  f"pass each {b16:.3f} ms; softcap 0: {ms0:.3f} ms kernel, {lms0:.3f} ms "
-                  f"scaled_dot_product_attention (agree to {err0:.2e})")
+                  f"pass each {b16:.3f} ms; flex_attention {lms:.3f} ms; softcap 0: "
+                  f"{ms0:.3f} ms kernel, {lms0:.3f} ms scaled_dot_product_attention (agree "
+                  f"to {err0:.2e})")
             per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b_pv32=b_pv32,
-                             b32=b32, b16=b16, by=by, ms0=ms0, lib0=lms0)
+                             b32=b32, b16=b16, by=by, ms0=ms0, lib0=lms0, lib=lms)
             del mask
         del q, k, v
         # peaked scores, where the softcap and each key count: the kernel
@@ -2673,12 +2731,15 @@ class Smoke:
                      max_abs_err=max(p["err"] for p in per.values()), ms=total("ms"),
                      plain_ms=total("plain"), bound_ms=total("bound"),
                      bound_by=per["global"]["by"],
-                     library_ms=None,
+                     library_ms=total("lib"),
+                     library="torch.nn.attention.flex_attention under torch.compile: "
+                             "score_mod 50 tanh(s / 50), a causal and window block mask, "
+                             "enable_gqa",
                      shapes=f"one gemma2-2b forward's attention: 13 local (window 4096) + "
                             f"13 global launches, q (8, {LM_SEQ}, 256), k/v (4, {LM_SEQ}, "
                             "256) bf16, causal, softcap 50; bound: 4 bf16 tensor passes "
                             "a visible pair (QK^T, and P V with the fp32 P split into "
-                            "three exact bf16 terms); no library call applies a softcap",
+                            "three exact bf16 terms)",
                      bound_ms_pv_fp32_pipes=total("b_pv32"),
                      bound_note="bound_ms was bound_ms_pv_fp32_pipes (QK^T at the bf16 "
                                 "tensor peak, P V at the fp32 peak) while P V ran on the "
@@ -3171,9 +3232,11 @@ class Smoke:
         """The backward kernel through FlashAttention (forward kernel with
         lse and the fp32 output, then flash_attention_bwd) against the
         float64 plain versions, head by head: each of dq, dk and dv of each
-        head within one bf16 ulp of its largest magnitude (GRAD_ULP), at
-        the training step's shapes, peaked scores and in fp32. Returns the
-        verdicts and the largest error."""
+        head within one bf16 ulp of its largest magnitude (GRAD_ULP_FLOOR),
+        at the training step's shapes, peaked scores and in fp32, and in
+        bf16 at most BWD_MISROUNDED_SHARE of each gradient's elements more
+        than half their own bf16 ulp from float64. Returns the verdicts and
+        the largest error."""
         torch, ops = self.torch, self.ops
         out, largest = [], 0.0
         for tag, name, q, k, v, do, kw in self.bwd_inputs():
@@ -3188,26 +3251,48 @@ class Smoke:
                         f"({n['flash_attention']}, {n['flash_attention_bwd']})"))
             want = self.bwd_exact(q, k, v, do, kw)
             for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
-                worst, errs = 0.0, []
-                for h in range(g.shape[0]):
-                    top = float(w[h].abs().max())
-                    atol = max(2.0 ** (math.floor(math.log2(top)) - 7), GRAD_ULP_FLOOR)
-                    err = float((g[h].double() - w[h]).abs().max())
-                    errs.append(err)
-                    worst = max(worst, err / atol)
+                worst, err, share = self.grad_errors(g, w)
+                if name == "bf16":
+                    out.append((share <= BWD_MISROUNDED_SHARE,
+                                f"flash_attention_bwd {tag}: {gname}'s elements not float64's "
+                                f"value rounded to bf16 (more than half their own bf16 ulp "
+                                f"from it): a share of {share:.2e} (at most "
+                                f"{BWD_MISROUNDED_SHARE:g})"))
                 out.append((worst <= 1.0,
                             f"flash_attention_bwd {tag}: {gname} of each head within one "
                             f"bf16 ulp of its largest magnitude (at least {GRAD_ULP_FLOOR:g}) "
                             f"of the float64 plain version: worst err / ulp {worst:.3f}, "
-                            f"max abs err {max(errs):.3e}"))
-                largest = max(largest, max(errs))
+                            f"max abs err {err:.3e}"))
+                largest = max(largest, err)
             del leaves, o, got, want
         return out, largest
 
+    def grad_errors(self, g, w) -> tuple[float, float, float]:
+        """A gradient g (H, S, D) against its float64 value w, head by head:
+        the worst error over one bf16 ulp of its head's largest magnitude
+        (at least GRAD_ULP_FLOOR), the largest error, and the share of
+        elements more than half their own bf16 ulp from w."""
+        torch = self.torch
+        worst, largest, off = 0.0, 0.0, 0
+        for h in range(g.shape[0]):
+            top = float(w[h].abs().max())
+            atol = max(2.0 ** (math.floor(math.log2(top)) - 7), GRAD_ULP_FLOOR)
+            diff = (g[h].double() - w[h]).abs()
+            largest = max(largest, float(diff.max()))
+            worst = max(worst, float(diff.max()) / atol)
+            # half of each element's own bf16 ulp (0 where float64 is 0)
+            half_ulp = torch.exp2(torch.floor(torch.log2(w[h].abs())) - 8)
+            off += int((diff > half_ulp).sum())
+            del diff, half_ulp
+        return worst, largest, off / g.numel()
+
     def bwd_timing(self, err: float):
         """The backward launch of each kind at the step's shapes, beside its
-        bound, its plain version and, at softcap 0, the backward of
-        scaled_dot_product_attention; the kernels line's row."""
+        bound, its achieved bf16 TFLOP/s (of the 11 passes the bound counts
+        and of the 13 the kernels compute), its plain version, the backward
+        of flex_attention (the library call of the same function) and, at
+        softcap 0, the backward of scaled_dot_product_attention; the kernels
+        line's row."""
         torch, ops, ref = self.torch, self.ops, self.ref
         bh, bhk, d = 8, 4, 256
         scale = d ** -0.5
@@ -3231,7 +3316,30 @@ class Smoke:
                 if cap:
                     pms = self.cuda_ms(lambda: ref.flash_attention_bwd_ref(
                         q, k, v, do, lse, o32, **kw), reps=1)
+                    grads = ops.flash_attention_bwd(q, k, v, do, lse, o32, **kw)
                 del lse, o32
+            # softcap 50: the backward of flex_attention
+            flex, fkw = self.flex(window)
+            fleaves = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+            fout = flex(*fleaves, scale=scale, **fkw)
+            fgrads = torch.autograd.grad(fout, fleaves, do[None], retain_graph=True)
+            worst = max(float((fg[0].float() - g.float()).abs().max() / g.float().abs().max())
+                        for fg, g in zip(fgrads, grads))
+            self.check(worst <= FLASH_TOL["bf16"]["rtol"],
+                       f"flash_attention_bwd {kind} softcap 50: flex_attention's backward "
+                       f"within {FLASH_TOL['bf16']['rtol']:g} of each gradient's "
+                       f"largest magnitude of the kernel's: {worst:.2e}")
+            # how close each comes to float64 (bwd_verdicts' two measures)
+            want = self.bwd_exact(q, k, v, do, dict(causal=True, window=window, softcap=50.0))
+            for who, gs in (("kernel", grads), ("flex_attention", [fg[0] for fg in fgrads])):
+                errs = [self.grad_errors(g, w) for g, w in zip(gs, want)]
+                print(f"    flash_attention_bwd {kind}: {who} against float64: dq, dk, dv "
+                      f"worst err / ulp of the largest "
+                      f"{', '.join(f'{e[0]:.3f}' for e in errs)}; misrounded shares "
+                      f"{', '.join(f'{e[2]:.2e}' for e in errs)}")
+            lib = self.cuda_ms(lambda: torch.autograd.grad(fout, fleaves, do[None],
+                                                           retain_graph=True))
+            del fleaves, fout, fgrads, grads, want
             mask = None
             if window:
                 pos = torch.arange(LM_SEQ, device=self.dev)
@@ -3242,15 +3350,21 @@ class Smoke:
                 *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
             lib0 = self.cuda_ms(lambda: torch.autograd.grad(out, leaves, do[None],
                                                             retain_graph=True))
+            # achieved bf16 tensor rate: the 11 passes the bound counts, and the
+            # 13 the two kernels compute (S and dP in each of them)
+            rate = {n: n * 2.0 * d * pairs / (res[50.0] * 1e-3) / 1e12 for n in (11, 13)}
             print(f"    flash_attention_bwd {kind}: {res[50.0]:.3f} ms kernel, {pms:.3f} ms "
                   f"plain, bound {bms:.3f} ms (operations: 11 bf16 tensor passes a visible "
                   f"pair, S and dP, and dV, dQ and dK with P and dS split in three; kernel "
-                  f"at {res[50.0] / bms:.1f}x); the same 5 products on the fp32 pipes "
-                  f"{b32:.3f} ms (kernel at {res[50.0] / b32:.2f}x); softcap 0: "
-                  f"{res[0.0]:.3f} ms kernel, {lib0:.3f} ms scaled_dot_product_attention's "
-                  f"backward")
+                  f"at {res[50.0] / bms:.1f}x); achieved {rate[11]:.1f} TFLOP/s of the "
+                  f"11-pass work, {rate[13]:.1f} of the 13 passes computed, against "
+                  f"{BF16_TENSOR_FLOPS / 1e12:.0f}; the same 5 products on the fp32 pipes "
+                  f"{b32:.3f} ms (kernel at {res[50.0] / b32:.2f}x); flex_attention's "
+                  f"backward {lib:.3f} ms; softcap 0: {res[0.0]:.3f} ms kernel, "
+                  f"{lib0:.3f} ms scaled_dot_product_attention's backward")
             per[kind] = dict(ms=res[50.0], plain=pms, bound=bms, b32=b32, ms0=res[0.0],
-                             lib0=lib0)
+                             lib0=lib0, lib=lib, tflops11=rate[11],
+                             tflops13=rate[13])
             del q, k, v, do, leaves, out, mask
         n = 13
 
@@ -3259,17 +3373,25 @@ class Smoke:
 
         self.add_row("flash_attention_bwd", "flash_attention_bwd.cu",
                      "src/repro/kernels/flash_attention.py:78",
+                     status="redesigned: bf16 on the tensor cores (mma.sync, P and dS "
+                            "split into three bf16 terms, cp.async tiles); fp32 SIMT",
                      max_abs_err=err, ms=total("ms"), plain_ms=total("plain"),
-                     bound_ms=total("bound"), bound_by="operations", library_ms=None,
+                     bound_ms=total("bound"), bound_by="operations",
+                     library_ms=total("lib"),
+                     library="the backward of torch.nn.attention.flex_attention under "
+                             "torch.compile: score_mod 50 tanh(s / 50), a causal and window "
+                             "block mask, enable_gqa",
                      shapes=f"one gemma2-2b train step's attention backward: 13 local "
                             f"(window 4096) + 13 global launches, q (8, {LM_SEQ}, 256), "
                             f"k/v (4, {LM_SEQ}, 256) bf16, causal, softcap 50; bound: 11 "
-                            "bf16 tensor passes a visible pair; no library call applies "
-                            "a softcap",
+                            "bf16 tensor passes a visible pair",
                      replaces_note="the Pallas kernel has no backward: the JAX package "
                                    "differentiates its chunked scan, "
                                    "src/repro/models/layers.py:364",
                      bound_ms_fp32_pipes=total("b32"),
+                     local_ms=per["local"]["ms"], global_ms=per["global"]["ms"],
+                     tflops_11_passes={k: per[k]["tflops11"] for k in per},
+                     tflops_13_passes={k: per[k]["tflops13"] for k in per},
                      softcap0_ms=total("ms0"), softcap0_library_ms=total("lib0"),
                      softcap0_library="scaled_dot_product_attention's backward, "
                                       "enable_gqa, the same causal and window mask")
@@ -3567,6 +3689,15 @@ class Smoke:
         def bwd_softcap_dropped(lse, kw):
             return lse, dict(kw, softcap=0.0)
 
+        build = self.build_mod
+        real_library = build.library
+        one_term = self.planted_one_term_library()
+
+        def library_plant(lib):
+            def planted(name):
+                return lib if name == "flash_attention_bwd" else real_library(name)
+            return planted
+
         plants = [("flash, bf16: softcap dropped", ops, "flash_attention",
                    flash_plant(softcap_dropped), "forward"),
                   ("flash, bf16: softcap dropped", ops, "flash_attention",
@@ -3580,7 +3711,9 @@ class Smoke:
                   ("backward, bf16: lse read a row off", ops, "flash_attention_bwd",
                    bwd_plant(lse_row_off), "backward"),
                   ("backward, bf16: softcap dropped", ops, "flash_attention_bwd",
-                   bwd_plant(bwd_softcap_dropped), "backward")]
+                   bwd_plant(bwd_softcap_dropped), "backward"),
+                  ("backward, bf16: P and dS in one bf16 term (x2, x3 dropped)", build,
+                   "library", library_plant(one_term), "backward")]
         cfg = self.lm[0].cfg
         for name, mod, attr, fn, checks in plants:
             saved = getattr(mod, attr)
@@ -3611,8 +3744,39 @@ class Smoke:
             self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
                        f"{len(verdicts)} {checks} checks")
         self.check(ops.flash_attention is real_flash and ops.flash_attention_bwd is real_bwd
-                   and layers.multi_head_attention is real_mha, "every plant undone")
+                   and layers.multi_head_attention is real_mha
+                   and build.library is real_library, "every plant undone")
 
+    def planted_one_term_library(self):
+        """flash_attention_bwd.cu with P and dS taken in one bf16 term: the
+        MMAs of x2 and x3 dropped from add_product, built from the
+        checkout's source text into build/planted/ and loaded as the real
+        library is."""
+        import ctypes
+
+        build = self.build_mod
+        source = build.CSRC / build.KERNELS["flash_attention_bwd"][0]
+        text = source.read_text()
+        for x in ("x2", "x3"):
+            for half in ("acc[2 * dp], {}[kk], b[0], b[1]",
+                         "acc[2 * dp + 1], {}[kk], b[2], b[3]"):
+                line = f"      mma_bf16({half.format(x)});\n"
+                if text.count(line) != 1:
+                    raise RuntimeError(f"plant: '{line.strip()}' is not in {source.name} once")
+                text = text.replace(line, "")
+        out = build.BUILD_DIR.parent / "planted"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / source.name).write_text(text)
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                               str(out / "one_term.so"), str(out / source.name)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the one-term plant:\n{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(str(out / "one_term.so"))
+        for fn, argtypes in build.KERNELS["flash_attention_bwd"][1]:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        return lib
 
 def visible_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal sequence of s tokens attends, with a

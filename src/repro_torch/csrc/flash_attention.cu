@@ -102,6 +102,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int BQ = 64;              // query rows a block
@@ -326,80 +328,7 @@ constexpr int smem_bytes() {
   return (BQ + 4 * BK) * (D + PAD) * 2;   // Q, then 2 stages of K and 2 of V
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src into shared memory, or 16 zero bytes where !in
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (x, y) = h1 + h2 + h3 exactly, three bf16 pairs (x in the low halves):
-// each remainder is exact in fp32 and the last term holds what is left
-__device__ __forceinline__ void split3(float x, float y, uint32_t& h1,
-                                       uint32_t& h2, uint32_t& h3) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
-  const float2 af = __bfloat1622float2(a);
-  const float rx = x - af.x, ry = y - af.y;
-  const __nv_bfloat162 b = __floats2bfloat162_rn(rx, ry);
-  const float2 bf = __bfloat1622float2(b);
-  h1 = bits(a);
-  h2 = bits(b);
-  h3 = bits(__floats2bfloat162_rn(rx - bf.x, ry - bf.y));
-}
-
-// rows x D of src (row-major, D apart) into dst (D + PAD apart); rows at or
-// past `valid` are zero, so a ragged tail holds finite values
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int valid,
-                                          int rows) {
-  constexpr int C = D / 8;          // 16-byte pieces a row
-  for (int e = threadIdx.x; e < rows * C; e += THREADS) {
-    const int r = e / C, c = (e % C) * 8;
-    const bool in = r < valid;
-    cp_async16(dst + r * (D + PAD) + c, in ? src + (size_t)r * D + c : src, in);
-  }
-}
+using namespace tc;   // cp.async, ldmatrix, mma.sync, split3 (mma_bf16.cuh)
 
 template <int D, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
@@ -430,11 +359,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
 
-  load_rows<D>(qs, q + ((size_t)bh * Sq + q0) * D, min(BQ, Sq - q0), BQ);
+  load_rows<D, PAD, THREADS>(qs, q + ((size_t)bh * Sq + q0) * D, min(BQ, Sq - q0), BQ);
   if (kt_begin < kt_end) {
     const int k0 = kt_begin * BK;
-    load_rows<D>(ks, kb + (size_t)k0 * D, min(BK, Sk - k0), BK);
-    load_rows<D>(vs, vb + (size_t)k0 * D, min(BK, Sk - k0), BK);
+    load_rows<D, PAD, THREADS>(ks, kb + (size_t)k0 * D, min(BK, Sk - k0), BK);
+    load_rows<D, PAD, THREADS>(vs, vb + (size_t)k0 * D, min(BK, Sk - k0), BK);
   }
   cp_async_commit();
 
@@ -447,8 +376,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
   for (int kt = kt_begin, st = 0; kt < kt_end; ++kt, st ^= 1) {
     if (kt + 1 < kt_end) {          // the next tile's copies fly meanwhile
       const int k1 = (kt + 1) * BK;
-      load_rows<D>(ks + (st ^ 1) * BK * LD, kb + (size_t)k1 * D, min(BK, Sk - k1), BK);
-      load_rows<D>(vs + (st ^ 1) * BK * LD, vb + (size_t)k1 * D, min(BK, Sk - k1), BK);
+      load_rows<D, PAD, THREADS>(ks + (st ^ 1) * BK * LD, kb + (size_t)k1 * D,
+                                 min(BK, Sk - k1), BK);
+      load_rows<D, PAD, THREADS>(vs + (st ^ 1) * BK * LD, vb + (size_t)k1 * D,
+                                 min(BK, Sk - k1), BK);
     }
     cp_async_commit();
     cp_async_wait_one();            // this tile has landed

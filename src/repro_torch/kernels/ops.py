@@ -506,8 +506,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of flash_attention(q, k, v) for the output
     cotangent do, from the forward's lse (BH, S) and fp32 output o: one
     launch of csrc/flash_attention_bwd.cu (three kernels: D = rowsum(dO o),
-    dQ a query tile a block, dK and dV a KV tile a block; no atomics). S_q
-    must equal S_k. The plain version (`ref.flash_attention_bwd_ref`) for
+    dQ a query tile a block, dK and dV a KV tile a block; no atomics; bf16
+    on the tensor cores, fp32 on the fp32 pipes). S_q must equal S_k. The plain version (`ref.flash_attention_bwd_ref`) for
     CPU tensors; a CUDA tensor the kernel cannot take raises."""
     bh, s, d = q.shape
     bhk = k.shape[0]

@@ -22,7 +22,9 @@ Tolerances, and why:
     own (tests/test_kernels.py:88, 91); both sum in fp32 in another order.
     Its backward: each gradient within one bf16 ulp of its largest
     magnitude of the float64 plain version (3e-4 of it in fp32), as
-    chip_smoke.py holds it at the training step's shapes (`_grads_hold`).
+    chip_smoke.py holds it at the training step's shapes (`_grads_hold`);
+    bf16 runs its products on the tensor cores, P and dS split into three
+    bf16 terms, fp32 on the fp32 pipes, whose bits are held to a digest.
     3e-2 is as large as the outputs of N(0,1) inputs over long sequences,
     so bf16 results are also held to one bf16 ulp of the value (rtol
     2^-7, atol 1e-5): kernel and plain version both compute in fp32 and
@@ -890,6 +892,60 @@ def test_flash_bwd_kernel_is_the_same_from_run_to_run(cuda):
     kw = dict(causal=True, window=128, softcap=50.0)
     a, b = _flash_grads(q, k, v, do, **kw), _flash_grads(q, k, v, do, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# The bf16 backward's tiles (csrc/flash_attention_bwd.cu, namespace mma):
+# dq takes 128 query rows a block against 32-key tiles, dkdv 64 keys a block
+# (16 a warp pair) against 32-row query tiles.
+@pytest.mark.parametrize("bh,bhk,s,d,window,cap,q_scale", [
+    (4, 4, 127, 64, 0, 50.0, 1.0),     # GQA 1; S one below a dq block
+    (4, 2, 129, 128, 0, 50.0, 1.0),    # GQA 2; one above it
+    (8, 2, 63, 32, 0, 50.0, 1.0),      # GQA 4; one below a dkdv block
+    (4, 2, 65, 256, 0, 50.0, 6.0),     # one above it, peaked scores
+    (4, 1, 31, 64, 0, 0.0, 1.0),       # one below a 32-wide tile, no softcap
+    (4, 2, 33, 256, 0, 50.0, 1.0),     # one above it
+    (4, 2, 257, 32, 31, 50.0, 1.0),    # a window ending one key inside a 32-key tile
+    (4, 4, 257, 128, 33, 50.0, 6.0),   # one key outside it
+    (8, 2, 300, 256, 63, 30.0, 1.0),   # one key inside a 64-key block
+    (4, 2, 300, 64, 65, 50.0, 16.0),   # one key outside it, scores past the cap
+])
+def test_flash_bwd_mma_tile_edges(cuda, bh, bhk, s, d, window, cap, q_scale):
+    """The tensor-core backward at the edges of its tiles, every head width
+    and GQA 1, 2 and 4, held to the float64 plain version (`_grads_hold`)."""
+    g = torch.Generator(device=cuda).manual_seed(bh + s + d + window)
+    q, k, v = _flash_inputs(g, bh, bhk, s, d, q_scale, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=True, window=window, softcap=cap)
+    ops.reset_launches()
+    _, *got = _flash_grads(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention_bwd"] == 1
+    _grads_hold(got, _exact_grads(q, k, v, do, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("bh,bhk,s,d,window,cap,seed,want", [
+    (4, 2, 300, 128, 100, 50.0, 1, "d0fd42d6f1ceae76"),
+    (8, 4, 1000, 256, 0, 50.0, 2, "ce5b4baf71ffbbdc"),
+    (2, 2, 77, 32, 0, 0.0, 3, "a65aec47d66c426a"),
+    (4, 1, 200, 64, 31, 30.0, 4, "45b8d917bd70da9b"),
+])
+def test_flash_bwd_fp32_keeps_its_bits(cuda, bh, bhk, s, d, window, cap, seed, want):
+    """The fp32 backward (the SIMT kernels) and the fp32 forward give the
+    bits they gave before the bf16 backward moved to the tensor cores: the
+    first 16 hex digits of the sha256 of o, dq, dk and dv (fp32 bytes, in
+    that order), from numpy-seeded inputs (q, k, v, dO drawn in that
+    order), recorded from the SIMT-only build on an NVIDIA H100 80GB HBM3."""
+    import hashlib
+
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.tensor(rng.standard_normal((n, s, d)).astype(np.float32),
+                                device=cuda) for n in (bh, bhk, bhk, bh))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=True, window=window, softcap=cap)
+    h = hashlib.sha256()
+    for t in (out,) + torch.autograd.grad(out, leaves, do):
+        h.update(t.detach().cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == want
 
 
 def test_flash_forward_writes_lse_and_the_fp32_output(cuda):

@@ -359,3 +359,63 @@ def test_three_bf16_terms_carry_an_fp32_p_exactly():
     v = torch.from_numpy(rng.standard_normal(len(p)).astype(np.float32) * 8).to(torch.bfloat16)
     for term in (p1, p2, p3):
         assert torch.equal((term.float() * v.float()).double(), term.double() * v.double())
+
+
+def _three_bf16_terms(t):
+    """(x1, x2, x3, r1, r2) of the kernels' split3, in torch on the CPU."""
+    x1 = t.to(torch.bfloat16)
+    r1 = t - x1.float()
+    x2 = r1.to(torch.bfloat16)
+    r2 = r1 - x2.float()
+    return x1, x2, r2.to(torch.bfloat16), r1, r2
+
+
+def test_three_bf16_terms_carry_a_signed_fp32_ds_exactly():
+    """The premise of the bf16 flash backward's dV, dQ and dK
+    (csrc/flash_attention_bwd.cu): P and dS enter the MMAs as three bf16
+    terms, and dS is signed and of any magnitude. Every fp32 x with
+    2^-100 <= |x| < 2^60, of either sign, is the exact sum x1 + x2 + x3
+    (24 significant bits, 8 a term; the last term's bits stay above bf16's
+    subnormals): checked on every binade of that range and on values shaped
+    like dS, scale P (dP - D) (1 - t^2) from seeded draws at the training
+    step's head width. Each term times a bf16 operand (magnitudes 2^-8 to
+    2^8, as q, k and dO hold) is exact in fp32, and two terms leave up to
+    2^-16 of x. Below the range the split stays exact down to 2^-110; under
+    that the last term falls among bf16's subnormals and up to 2^-134 of x
+    is lost, far under the 1e-5 floor of the gradients' checks."""
+    rng = np.random.default_rng(23)
+    n = 1 << 18
+    sign = rng.choice([-1.0, 1.0], n)
+    binades = sign * np.exp2(rng.uniform(-100, 60, n))
+    # dS-shaped: scores and dP of a 256-wide head, its softcap of 50
+    d, scale, cap = 256, 256 ** -0.5, 50.0
+    s = (rng.standard_normal(n) * 16.0).astype(np.float32)
+    t = np.tanh(s * np.float32(scale) / np.float32(cap)).astype(np.float32)
+    p = np.exp(t * np.float32(cap) - np.float32(np.log(d))).astype(np.float32)
+    dp = (rng.standard_normal(n) * np.sqrt(d)).astype(np.float32)
+    delta = rng.standard_normal(n).astype(np.float32)
+    ds = (np.float32(scale) * p * (dp - delta) * (np.float32(1) - t * t)).astype(np.float32)
+    x = np.concatenate([binades, ds[ds != 0],
+                        [2.0 ** -100, -(2.0 ** -100), 2.0 ** 60 - 2.0 ** 36,
+                         -(1.0 + 2.0 ** -23)]]).astype(np.float32)
+    tx = torch.from_numpy(x)
+    x1, x2, x3, r1, r2 = _three_bf16_terms(tx)
+    exact = tx.double()
+    assert torch.equal(r1.double(), exact - x1.double())            # remainders exact
+    assert torch.equal(r2.double(), r1.double() - x2.double())
+    assert torch.equal(x3.float(), r2)                               # x3 holds the rest
+    assert torch.equal(x1.double() + x2.double() + x3.double(), exact)
+    two = x1.double() + x2.double()
+    assert not torch.equal(two, exact)
+    assert 0 < float(((two - exact).abs() / exact.abs()).max()) <= 2.0 ** -16
+    mag = np.exp2(np.round(rng.uniform(-8, 8, len(x)) * 8) / 8)
+    v = torch.from_numpy((rng.choice([-1.0, 1.0], len(x)) * mag).astype(np.float32))
+    v = v.to(torch.bfloat16)
+    for term in (x1, x2, x3):
+        assert torch.equal((term.float() * v.float()).double(), term.double() * v.double())
+    # below the range: exact to 2^-110, then at most 2^-134 lost
+    for lo, hi, lost in ((-110, -100, 0.0), (-126, -110, 2.0 ** -134)):
+        y = torch.from_numpy((sign * np.exp2(rng.uniform(lo, hi, n))).astype(np.float32))
+        y1, y2, y3, _, _ = _three_bf16_terms(y)
+        err = float((y.double() - (y1.double() + y2.double() + y3.double())).abs().max())
+        assert err <= lost and (lost == 0.0 or err > 0.0), (lo, hi, err)
