@@ -109,7 +109,14 @@ no kernels line and no result line. Phases:
               bound of P V on the fp32 pipes and flex_attention (compiled,
               softcap 50 by score_mod) and, at softcap 0,
               beside scaled_dot_product_attention; digests of an fp32 and a bf16
-              output, to hold the kernels' bits against another commit's
+              output, to hold the kernels' bits against another commit's;
+              then the flash pair at the other configs' shapes, (32, 8,192,
+              64) over 32 KV heads, (24, 8,192, 64) over 8 and (48, 8,192,
+              128) over 1, bf16, softcap 0, window 0: the forward against its
+              plain version and float64, the backward against float64 head
+              by head (lm_train's gates), each timed beside its bound, its
+              plain version and scaled_dot_product_attention's forward or
+              backward
  16. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
@@ -123,7 +130,22 @@ no kernels line and no result line. Phases:
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 18. lm_train gemma2-2b training, lm_eval's parameters freed first: the
+ 18. lm_dense smollm-360m, stablelm-1.6b, granite-20b and
+              granite-moe-3b-a800m at published widths, bf16, seeded init,
+              gemma2-2b's parameters freed first: DecoderModel.loss_fn at
+              B = 1, S = 8,192 (a flash launch a layer, a finite loss;
+              seconds, tokens/s, peak memory; the MoE's aux); generate()
+              with 4 x 2,048 prompts and 31 decode steps, and the cache
+              invariant in fp32 and bf16 (the MoE at a capacity factor
+              where nothing drops); the flash and direct paths' loss and
+              last-position logits in bf16 and fp32 (granite-20b at 8
+              layers); on the flash forward each layer norm against float64
+              (stablelm, its norms' scales and biases drawn apart from the
+              init's ones and zeros) and each MoE layer's dispatch buffer
+              and output bit for bit against a plain version built apart
+              from the port's sort (at the published capacity factor and at
+              0.5, where replicas drop)
+ 19. lm_train gemma2-2b training, lm_eval's parameters freed first: the
               flash backward kernel through FlashAttention at (8, 8,192,
               256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
               on peaked scores (q x 6) and in fp32 at S = 2,000, each
@@ -141,28 +163,40 @@ no kernels line and no result line. Phases:
               share, launches a step), a profiled step and a step at S =
               4,096; runtime.Trainer at reduced gemma2-2b with a failure
               at step 7 (restored bit for bit from step 5, final step 12);
-              lm_eval's parameters drawn again from their seed
- 19. lm_faults   faults planted one at a time in the bf16 flash launches
+              make_train_step of stablelm-1.6b and granite-moe-3b-a800m at
+              published widths (1 + 3 timed steps, remat on, B = 1, S =
+              8,192), the MoE's first step reached again bit for bit from a
+              fresh state; lm_eval's parameters drawn again from their seed
+ 20. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
               (lse read a row off, the softcap dropped, and a build of the
               kernel that takes P and dS in one bf16 term instead of
-              three): each must fail one of the checks of phase 16, 17 or
-              18
- 20. report   one JSON line of kernels, the card line, and the last line
+              three), in the MoE (a token's contributions added in
+              descending expert order; a dropped replica written at its
+              expert's last place) and in the layer norm (its bias
+              dropped): each must fail one of the checks of phase 16, 17,
+              18 or 19 (the MoE and norm checks at 4 layers, as they hold
+              each layer on its own input)
+ 21. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 16, 17 and 18, the serving tier's paths are
-phases 10 and 11, the distributed sampler's phase 13 and the SGLD and ALS
-path phase 14: the launch counters are set to 0 just before each and read
-just after (the kernels line's `launches`, `foldin_launches`,
-`cotrain_launches`, `dist_launches`, `sgld_launches` and `lm_train_launches`,
-the SGLD ones all 0; lm_train's are its 3 timed steps). foldin and cotrain
-need train, serve_faults needs foldin and cotrain, dist and sgld need data,
-lm_train needs lm_eval, lm_faults needs lm_eval, lm_serve and lm_train. Any
-failed check exits non-zero before the last line. No BPMF phase was cut to
-make room for the LM ones.
+The main path is phases 6, 9, 16, 17 and 19, the serving tier's paths are
+phases 10 and 11, the distributed sampler's phase 13, the SGLD and ALS
+path phase 14, and the other LMs phase 18 and the dense train steps of 19:
+the launch counters are set to 0 just before each and read just after (the
+kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
+`dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_train_launches`
+and `lm_train_dense_launches`, the SGLD ones all 0; lm_train's are its 3
+timed steps, lm_train_dense's the 3 timed steps of each dense config).
+foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
+and sgld need data, lm_train needs lm_eval,
+lm_faults needs lm_eval, lm_serve and lm_train. Any failed check exits
+non-zero before the last line. No BPMF phase was cut to make room for the
+LM ones, and no earlier LM phase either; granite-20b's two attention paths
+are compared at 8 of its 52 layers, and lm_faults holds the MoE and
+layer-norm checks at 4 layers.
 """
 from __future__ import annotations
 
@@ -321,6 +355,30 @@ LM_TRAIN_SHORT = 4096                  # the train_4k shape's length (models/api
 GRAD_NORM_RTOL = 5e-4
 LM_GRAD_RTOL = 0.05
 GRAD_NOISE_FACTOR = NOISE_FACTOR
+# The other dense configs and the MoE (phase lm_dense). Their attention
+# takes no softcap and no window on any layer; one sequence's flash
+# launches are (BH, S, D) = (32, 8,192, 64) for stablelm-1.6b (MHA, a group
+# of 1), (24, 8,192, 64) for granite-moe-3b-a800m (a group of 3; smollm's
+# 15 over 5 heads is the same group) and (48, 8,192, 128) for granite-20b
+# (MQA, a group of 48). Phase lm_kernels holds and times the flash pair at
+# these shapes.
+DENSE_FLASH_SHAPES = (("D 64, group 1", 32, 32, 64), ("D 64, group 3", 24, 8, 64),
+                      ("D 128, group 48", 48, 1, 128))
+DENSE_MODELS = ("smollm-360m", "stablelm-1.6b", "granite-20b", "granite-moe-3b-a800m")
+# granite-20b's direct path holds 48 x 8,192^2 fp32 scores a layer (12.9 GB,
+# three such tensors at once) beside its 40.6 GB of bf16 weights: its two
+# attention paths are compared at this depth, on weights drawn for it
+DENSE_DIRECT_DEPTH = {"granite-20b": 8}
+# the MoE's capacity checks also run at this capacity factor, where
+# replicas are dropped for certain (cap = 820 places against 1,638 replicas
+# an expert on average at S = 8,192)
+MOE_TIGHT_CAPACITY = 0.5
+# the depth at which lm_faults re-runs lm_dense's layer checks under its
+# MoE and layer-norm plants (the checks hold each layer on its own inputs)
+DENSE_FAULT_DEPTH = 4
+# the dense configs trained in phase lm_train beside gemma2-2b; granite-20b
+# is served only (its bf16 weights and AdamW's fp32 moments need 203 GB)
+DENSE_TRAINED = ("stablelm-1.6b", "granite-moe-3b-a800m")
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -368,7 +426,7 @@ def card_line() -> str:
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_train", "lm_faults")
+          "lm_eval", "lm_serve", "lm_dense", "lm_train", "lm_faults")
 
 
 def main() -> int:
@@ -2720,6 +2778,8 @@ class Smoke:
             check(q, k, v, f"(8, {LM_SEQ}, 256) fp32, q x {WQ_SCALE:g}, window {window}, "
                   "softcap 50", "fp32", causal=True, window=window, softcap=50.0)
         del q, k, v
+        self.dense_flash = {tag: self.dense_flash_shape(tag, bh, bhk, d)
+                            for tag, bh, bhk, d in DENSE_FLASH_SHAPES}
         # the row: one forward's attention, 13 local and 13 global launches
         n = 13
 
@@ -2749,7 +2809,148 @@ class Smoke:
                      softcap0_ms=total("ms0"),
                      softcap0_library_ms=total("lib0"),
                      softcap0_library="scaled_dot_product_attention, enable_gqa, "
-                                            "the same causal and window mask")
+                                            "the same causal and window mask",
+                     dense_shapes=self.dense_rows("fwd"))
+
+    def dense_flash_shape(self, tag, bh, bhk, d) -> dict:
+        """The flash pair at one of the other configs' shapes, (bh, 8,192, d)
+        queries over bhk KV heads, bf16, causal, softcap 0, window 0: the
+        forward against its plain version (3e-2 and one bf16 ulp) and
+        float64 (the kernel no farther than an ulp or the plain version),
+        the backward through FlashAttention against float64 head by head
+        (lm_train's gates: one bf16 ulp of each head's largest magnitude,
+        BWD_MISROUNDED_SHARE), each timed beside its bound, its plain
+        version and scaled_dot_product_attention (enable_gqa, is_causal)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        g = torch.Generator(device=self.dev).manual_seed(bh * 1000 + d)
+        q, k, v, do = (torch.randn(n, LM_SEQ, d, generator=g, device=self.dev).to(torch.bfloat16)
+                       for n in (bh, bhk, bhk, bh))
+        kw = dict(causal=True, window=0, softcap=0.0)
+        name = f"{tag} ({bh}, {LM_SEQ}, {d}) over {bhk} KV heads, softcap 0, window 0"
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        self.sync()
+        err = self.close(got.float(), want.float(), f"flash_attention {name}", FLASH_TOL["bf16"])
+        self.close(got.float(), want.float(), f"flash_attention {name}, within a bf16 ulp",
+                   FLASH_BF16_ULP_TOL)
+        rtol = FLASH_BF16_ULP_TOL["rtol"]
+        need = {"kernel": 0.0, "plain": 0.0}
+        for h0 in range(0, bh, 8):        # float64, 8 query heads at a time
+            exact = self.exact_heads(q, k, v, h0, min(h0 + 8, bh))
+            for who, out in (("kernel", got), ("plain", want)):
+                need[who] = max(need[who], float(((out[h0:h0 + 8].double() - exact).abs()
+                                                  - rtol * exact.abs()).max()))
+            del exact
+        self.check(need["kernel"] <= max(FLASH_BF16_ULP_TOL["atol"], need["plain"]),
+                   f"flash_attention {name} against float64: the kernel takes an atol of "
+                   f"{need['kernel']:.3e} beside the one-ulp rtol, the plain version "
+                   f"{need['plain']:.3e} (limit: {FLASH_BF16_ULP_TOL['atol']:g} or the plain "
+                   "version's)")
+        del got, want
+        # the backward, through FlashAttention: one launch of each kernel
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        o = ops.flash_attention(*leaves, **kw)
+        grads = torch.autograd.grad(o, leaves, do)
+        self.sync()
+        n = ops.launches()
+        self.check(n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1,
+                   f"flash_attention_bwd {name}: one forward and one backward launch "
+                   f"({n['flash_attention']}, {n['flash_attention_bwd']})")
+        exact = self.bwd_exact(q, k, v, do, kw)
+        bwd_err, worst_all = 0.0, 0.0
+        for gr, w, gname in zip(grads, exact, ("dq", "dk", "dv")):
+            worst, e, share = self.grad_errors(gr, w)
+            self.check(share <= BWD_MISROUNDED_SHARE,
+                       f"flash_attention_bwd {name}: {gname}'s elements more than half "
+                       f"their own bf16 ulp from float64: a share of {share:.2e} (at most "
+                       f"{BWD_MISROUNDED_SHARE:g})")
+            self.check(worst <= 1.0,
+                       f"flash_attention_bwd {name}: {gname} of each head within one bf16 "
+                       f"ulp of its largest magnitude (at least {GRAD_ULP_FLOOR:g}) of the "
+                       f"float64 plain version: worst err / ulp {worst:.3f}, max abs err "
+                       f"{e:.3e}")
+            bwd_err, worst_all = max(bwd_err, e), max(worst_all, worst)
+        del leaves, o, grads, exact
+        # times
+        pairs = bh * visible_pairs(LM_SEQ, 0)
+        tb = sum(t.numel() * t.element_size() for t in (q, k, v, q)) / HBM_BYTES_PER_S * 1e3
+        to = 4 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        fwd = dict(shape=name, max_abs_err=err, bound_ms=max(tb, to),
+                   bound_by="bytes" if tb >= to else "operations",
+                   ms=self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                   plain_ms=self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                         reps=1))
+
+        def sdpa(*t):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *(x[None] for x in t), is_causal=True, enable_gqa=True)[0]
+
+        self.close(sdpa(q, k, v).float(), ops.flash_attention(q, k, v, **kw).float(),
+                   f"flash_attention {name}: scaled_dot_product_attention against the "
+                   "kernel", FLASH_TOL["bf16"])
+        fwd["library_ms"] = self.cuda_ms(lambda: sdpa(q, k, v))
+        _, lse, o32 = ops._flash_forward(q, k, v, True, 0, 0.0, d ** -0.5, keep=True)
+        bw = dict(kw, scale=d ** -0.5)
+        tb = ((sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
+               + q.numel() * 4 + bh * LM_SEQ * 4) / HBM_BYTES_PER_S * 1e3)
+        bwd = dict(shape=name, max_abs_err=bwd_err, worst_ulp=worst_all,
+                   bound_ms=max(tb, 11 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3),
+                   bound_by="operations",
+                   ms=self.cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, **bw)),
+                   plain_ms=self.cuda_ms(lambda: self.plain_bwd_by_heads(q, k, v, do, lse, o32,
+                                                                         bw), reps=1))
+        del lse, o32
+        leaves = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                               enable_gqa=True)
+        bwd["library_ms"] = self.cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do[None], retain_graph=True))
+        del leaves, out
+        for kind, r in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
+            print(f"    {kind} {name}: {r['ms']:.3f} ms kernel, {r['plain_ms']:.3f} ms plain, "
+                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; kernel at "
+                  f"{r['ms'] / r['bound_ms']:.2f}x), scaled_dot_product_attention "
+                  f"{r['library_ms']:.3f} ms")
+        return dict(fwd=fwd, bwd=bwd)
+
+    def plain_bwd_by_heads(self, q, k, v, do, lse, o, kw):
+        """The plain backward taken 8 query heads at a time (the whole
+        (48, 8,192, 8,192) fp32 intermediates would not fit); dK and dV
+        summed over the chunks of a KV head's group in head order."""
+        torch, ref = self.torch, self.ref
+        bh, bhk = q.shape[0], k.shape[0]
+        rep = bh // bhk
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        # whole groups a chunk, or 8 heads of one group where a group is larger
+        step = 8 if rep % 8 == 0 else rep * max(1, 8 // rep)
+        for h0 in range(0, bh, step):
+            h1 = min(h0 + step, bh)
+            kv0, kv1 = h0 // rep, (h1 - 1) // rep + 1
+            gq, gk, gv = ref.flash_attention_bwd_ref(q[h0:h1], k[kv0:kv1], v[kv0:kv1],
+                                                     do[h0:h1], lse[h0:h1], o[h0:h1], **kw)
+            dq[h0:h1] = gq
+            dk[kv0:kv1] += gk.float()
+            dv[kv0:kv1] += gv.float()
+        return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+    def exact_heads(self, q, k, v, h0: int, h1: int):
+        """Causal attention (no window, no softcap) of query heads h0..h1-1
+        of (BH, S, D) q over their KV heads h // (BH / BHk), in float64."""
+        torch = self.torch
+        rep, s, d = q.shape[0] // k.shape[0], q.shape[1], q.shape[2]
+        idx = torch.arange(h0, h1, device=q.device) // rep
+        sc = (q[h0:h1].double() @ k[idx].double().transpose(-1, -2)).mul_(d ** -0.5)
+        pos = torch.arange(s, device=q.device)
+        sc.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
+        return torch.softmax(sc, dim=-1) @ v[idx].double()
+
+    def dense_rows(self, kind: str) -> dict:
+        """The kernels line's record of the flash pair at the other configs'
+        shapes (phase lm_kernels), by shape."""
+        return {tag: dict(r[kind]) for tag, r in self.dense_flash.items()}
 
     def lm_eval(self):
         import dataclasses
@@ -3061,6 +3262,13 @@ class Smoke:
         """lm_eval's checks of the kernel path's forwards (loss, last-position
         logits) against the direct path's, in bf16 and in fp32, and of each
         layer's attention on its own inputs."""
+        return self.path_verdicts(runs) + self.layer_verdicts(per_layer, "",
+                                                              FLASH_BF16_ULP_TOL)
+
+    def path_verdicts(self, runs: dict) -> list[tuple[bool, str]]:
+        """The kernel path's loss and last-position logits against the direct
+        path's: in bf16 the loss at LM_LOSS_RTOL and the logits within the
+        noise floor, in fp32 at LM_FP32_LOSS_RTOL and LM_FP32_TOL."""
         (lf, gf), (ld, gd) = runs["flash bf16"], runs["direct bf16"]
         (lf32, gf32), (ld32, ref) = runs["flash fp32"], runs["direct fp32"]
         return [
@@ -3073,7 +3281,7 @@ class Smoke:
              f"fp32 loss {lf32:.6f} against the direct path's {ld32:.6f}"),
             self.verdict(gf32, ref, "fp32 last-position logits against the direct path",
                          LM_FP32_TOL)[:2],
-        ] + self.layer_verdicts(per_layer, "", FLASH_BF16_ULP_TOL)
+        ]
 
     def lm_serve(self):
         import dataclasses
@@ -3147,6 +3355,378 @@ class Smoke:
                 self.noise_verdict(dec["bf16"], full16, full32,
                                    "bf16 prefill(t[:-1]) + decode(t[-1])", "bf16 prefill(t)")]
 
+    # ------------------------------------------------------------ other LMs
+    def lm_dense(self):
+        """smollm-360m, stablelm-1.6b, granite-20b and granite-moe-3b-a800m at
+        their published widths, bf16, weights from seed 0 (stablelm's layer
+        norms' scales and biases drawn apart, `perturb_norms`), one at a
+        time after gemma2-2b's parameters are freed: loss_fn at B = 1, S =
+        8,192 (the main path: a flash launch a layer), the MoE's capacity
+        and the layer norm held layer by layer, generate() and the cache
+        invariant, and the two attention paths' forwards."""
+        import gc
+
+        torch = self.torch
+        if getattr(self, "lm", (None, None))[1] is not None:
+            self.lm_digest = self.params_digest(self.lm[1])
+            self.lm = (self.lm[0], None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        total: dict[str, int] = {}
+        self.dense_numbers = {}
+        for name in DENSE_MODELS:
+            print(f"  -- {name}", flush=True)
+            launches = self.dense_model(name)
+            for key, n in launches.items():
+                total[key] = total.get(key, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.path_launches["lm_dense"] = total
+        for name, r in self.dense_numbers.items():
+            print(f"summary {name}: forward {r['s']:.3f} s at S={LM_SEQ} "
+                  f"({r['tokens_per_s']:,.0f} tokens/s, peak {r['peak_gb']:.2f} GB); prefill "
+                  f"{r['prefill_ms']:.1f} ms; decode {r['decode_tokens_per_s']:,.1f} tokens/s")
+
+    def dense_model(self, name: str) -> dict:
+        """One config of lm_dense; returns the launches of its timed loss_fn."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import DecoderModel
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config(name)
+        model = DecoderModel(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        self.perturb_norms(params, cfg)
+        self.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"{name} init on the card: {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        with torch.no_grad():
+            model.loss_fn(params, batch)               # warm-up
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()                       # the main path starts here
+            t0 = time.perf_counter()
+            loss, metrics = model.loss_fn(params, batch)
+            self.sync()
+            dt = time.perf_counter() - t0
+            launches = ops.launches()                  # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss, aux = float(loss), float(metrics["aux"])
+        print(f"{name} forward + loss at B=1, S={LM_SEQ}: {dt:.3f} s, {LM_SEQ / dt:,.0f} "
+              f"tokens/s, peak device memory {peak:.2f} GB, loss {loss:.5f} (ce "
+              f"{float(metrics['ce']):.5f}, aux {aux:.5f}); launches {launches}")
+        self.check(launches["flash_attention"] == cfg.n_layers
+                   and sum(launches.values()) == cfg.n_layers,
+                   f"{name}: the forward launched the flash kernel once a layer "
+                   f"({cfg.n_layers}) and no other kernel of the port")
+        self.check(bool(self.np.isfinite(loss)), f"{name}: the loss is finite")
+        self.check((aux > 0) == cfg.is_moe and self.np.isfinite(aux),
+                   f"{name}: the MoE aux loss is {'positive' if cfg.is_moe else '0'} and "
+                   f"finite ({aux:.5f})")
+        numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak, loss=loss, aux=aux,
+                       params=n_params)
+        with torch.no_grad():
+            events = self._profile(lambda: model.loss_fn(params, batch), dt * 1e3,
+                                   f"{name} forward")
+        self.print_split(events, f"{name} forward")
+        numbers.update(self.dense_serve(name, model, params))
+        # the two attention paths, at a cut depth where the direct one
+        # would not fit beside the weights
+        depth = DENSE_DIRECT_DEPTH.get(name)
+        if depth:
+            del params
+            self.sync()
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+            params = DecoderModel(cfg).init(seed=0)
+            self.perturb_norms(params, cfg)
+            print(f"{name}: the attention paths compared at {depth} of 52 layers, on "
+                  "weights drawn for that depth")
+        runs, drops = self.dense_runs(name, cfg, params, batch)
+        for ok, what in self.path_verdicts(runs):
+            self.check(ok, f"{name}: {what}")
+        numbers.update(drops)
+        if cfg.is_moe:
+            tight = dataclasses.replace(cfg, capacity_factor=MOE_TIGHT_CAPACITY)
+            verdicts, dropped = self.moe_verdicts(tight, params, batch)
+            for ok, what in verdicts:
+                self.check(ok, what)
+            self.check(dropped > 0, f"{name} at capacity factor {MOE_TIGHT_CAPACITY:g}: "
+                                    f"{dropped:,} replicas dropped (some must be)")
+            numbers["dropped_tight"] = dropped
+        self.dense_numbers[name] = numbers
+        del params
+        return launches
+
+    def perturb_norms(self, params, cfg):
+        """A layer norm's scale 1 + N(0, 0.1) and bias N(0, 0.1), drawn from
+        seed 2, where the init gives ones and zeros: a norm that drops its
+        bias then computes another function."""
+        from repro_torch.models.transformer import LayerNorm
+
+        if cfg.norm_type != "layer":
+            return
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(2)
+        with torch.no_grad():
+            for mod in params.modules():
+                if isinstance(mod, LayerNorm):
+                    mod.scale.add_(0.1 * torch.randn(mod.scale.shape, generator=g,
+                                                     device=self.dev).to(mod.scale.dtype))
+                    mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g,
+                                                     device=self.dev))
+
+    def dense_runs(self, name, cfg, params, batch):
+        """The four forwards (flash and direct, bf16 and fp32) of one config,
+        the flash bf16 one with its layer checks: the layer norm on its own
+        inputs against float64 and the MoE's capacity bit for bit
+        (`moe_verdicts`)."""
+        import dataclasses
+
+        from repro_torch.models import transformer as tfm
+
+        torch, ops = self.torch, self.ops
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        labels = torch.as_tensor(batch["labels"], device=self.dev)
+        positions = torch.arange(LM_SEQ, dtype=torch.int32, device=self.dev)[None]
+
+        def forward(c):
+            with torch.no_grad():
+                logits = tfm.decoder_forward(params, c, tokens, positions=positions)[0]
+                return float(tfm.cross_entropy(logits, labels)[0]), logits[:, -1].clone()
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+        runs, out = {}, {}
+        with self.norm_probe() as norms, self.moe_probe() as moes:
+            runs["flash bf16"] = forward(cfg)
+        for ok, what in self.norm_verdicts(norms, cfg, name):
+            self.check(ok, what)
+        if cfg.is_moe:
+            for ok, what in self.moe_layer_verdicts(moes, cfg, name):
+                self.check(ok, what)
+            out["dropped"] = sum(r["dropped"] for r in moes)
+        runs["flash fp32"] = forward(f32)
+        ops.reset_launches()
+        for tag, c in (("direct bf16", cfg), ("direct fp32", f32)):
+            runs[tag] = forward(dataclasses.replace(c, chunked_attn_min_len=LM_SEQ + 1))
+        self.check(ops.LAUNCHES["flash_attention"] == 0,
+                   f"{name}: the direct-path forwards launched no flash kernel")
+        for tag, (l, g) in runs.items():
+            print(f"  {name} {tag}: loss {l:.6f}")
+            self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
+                       f"{name} {tag}: loss and last-position logits are finite")
+        return runs, out
+
+    def norm_probe(self):
+        """A context in which every layer_norm call of the model is held on
+        its own inputs: the list it yields gets, per call, the least atol
+        with which the output lies within one rounding to the output's
+        dtype (rtol 2^-8 in bf16, 1e-6 in fp32) of the float64 layer norm
+        of the same input, scale and bias."""
+        import contextlib
+
+        from repro_torch.models import transformer as tfm
+
+        torch, recs = self.torch, []
+        inner = tfm.layer_norm
+
+        def probe(x, scale, bias, eps):
+            out = inner(x, scale, bias, eps)
+            xd = x.double()
+            mu = xd.mean(-1, keepdim=True)
+            y = (xd - mu) * torch.rsqrt(((xd - mu) ** 2).mean(-1, keepdim=True) + eps)
+            exact = y * scale.double() + bias.double()
+            rtol = 2.0 ** -8 if out.dtype == torch.bfloat16 else 1e-6
+            recs.append(float(((out.double() - exact).abs() - rtol * exact.abs()).max()))
+            return out
+
+        @contextlib.contextmanager
+        def ctx():
+            tfm.layer_norm = probe
+            try:
+                yield recs
+            finally:
+                tfm.layer_norm = inner
+
+        return ctx()
+
+    def norm_verdicts(self, recs, cfg, name) -> list[tuple[bool, str]]:
+        if cfg.norm_type != "layer":
+            return []
+        n = 2 * cfg.n_layers + 1
+        need = max(recs, default=float("inf"))
+        return [(len(recs) == n and need <= 1e-5,
+                 f"{name}: each of {len(recs)} layer norms ({n} expected) within one bf16 "
+                 f"rounding (rtol 2^-8, atol 1e-5) of the float64 layer norm of its own "
+                 f"input, scale and bias (the atol it takes: {need:.3e})")]
+
+    def moe_probe(self):
+        """A context in which every moe_block call is held on its own input
+        against `moe_reference`: the dispatch buffer and the combined output
+        bit for bit, and the replicas dropped at the capacity."""
+        import contextlib
+
+        from repro_torch.models import layers
+
+        recs, seen = [], {}
+        inner = {n: getattr(layers, n) for n in ("moe_route", "moe_experts", "moe_combine")}
+
+        def route(params, xf, cfg):
+            seen.update(params=params, xf=xf)
+            return inner["moe_route"](params, xf, cfg)
+
+        def experts(params, buf, cfg):
+            seen["buf"] = buf
+            y = inner["moe_experts"](params, buf, cfg)
+            seen["y"] = y
+            return y
+
+        def combine(y, r, cfg):
+            out = inner["moe_combine"](y, r, cfg)
+            recs.append(self.moe_reference(seen["params"], seen["xf"], seen["buf"], y, out,
+                                           cfg))
+            seen.clear()
+            return out
+
+        @contextlib.contextmanager
+        def ctx():
+            layers.moe_route, layers.moe_experts, layers.moe_combine = route, experts, combine
+            try:
+                yield recs
+            finally:
+                for n, fn in inner.items():
+                    setattr(layers, n, fn)
+
+        return ctx()
+
+    def moe_reference(self, params, xf, buf, y, out, cfg) -> dict:
+        """The capacity-bounded top-k MoE's plain version, built apart from
+        the port's sort and search: the router's fp32 softmax and its top
+        k (a stable descending sort), weights over max(sum, 1e-9), each token's rank among
+        an expert's tokens by a cumulative sum of one-hot choices (kept if
+        below the capacity), the buffer filled by those ranks, and each
+        token's kept contributions y[e, rank] w added in the activation
+        dtype from zero in ascending expert order. Against it: the port's
+        buffer and output, bit for bit."""
+        torch = self.torch
+        t, d = xf.shape
+        e, k = cfg.n_experts, cfg.n_experts_active
+        cap = max(int(math.ceil(t * k / e * cfg.capacity_factor)), 1)
+        probs = torch.softmax(xf.float() @ params.router, dim=-1)
+        # lax.top_k's order: the lower index first among equal values
+        top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_w, top_e = top_w[:, :k], top_e[:, :k]
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        top_e, order = torch.sort(top_e, dim=-1)
+        top_w = top_w.gather(1, order)
+        chosen = torch.zeros((t, e), dtype=torch.int64, device=xf.device)
+        chosen.scatter_(1, top_e, 1)
+        rank = (chosen.cumsum(0) - 1).gather(1, top_e)             # (t, k)
+        kept = rank < cap
+        ref_buf = torch.zeros_like(buf)
+        tok = torch.arange(t, device=xf.device)[:, None].expand(t, k)
+        ref_buf[top_e[kept], rank[kept]] = xf[tok[kept]]
+        ref_out = torch.zeros((t, d), dtype=out.dtype, device=out.device)
+        for j in range(k):
+            c = y[top_e[:, j], rank[:, j].clamp(max=cap - 1)] * top_w[:, j:j + 1].to(y.dtype)
+            ref_out = ref_out + torch.where(kept[:, j:j + 1], c, torch.zeros_like(c))
+        return dict(buf=bool(torch.equal(buf, ref_buf)), out=bool(torch.equal(out, ref_out)),
+                    dropped=int((~kept).sum()), cap=cap,
+                    out_err=float((out.float() - ref_out.float()).abs().max()))
+
+    def moe_layer_verdicts(self, recs, cfg, tag) -> list[tuple[bool, str]]:
+        bad = [i for i, r in enumerate(recs) if not (r["buf"] and r["out"])]
+        drops = [r["dropped"] for r in recs]
+        worst = max((r["out_err"] for r in recs), default=float("inf"))
+        print(f"  {tag}: replicas dropped at capacity {recs[0]['cap'] if recs else '-'} "
+              f"(capacity factor {cfg.capacity_factor:g}), layer by layer: {drops}")
+        return [(len(recs) == cfg.n_layers and not bad,
+                 f"{tag}: each of {len(recs)} MoE layers' dispatch buffer and output bit "
+                 f"for bit the plain version's on its own input (layers off: {bad}; "
+                 f"largest output difference {worst:.3e})")]
+
+    def moe_verdicts(self, cfg, params, batch) -> tuple[list[tuple[bool, str]], int]:
+        """The MoE layer checks on a flash bf16 forward under cfg (its
+        capacity factor): verdicts and the replicas dropped."""
+        from repro_torch.models import transformer as tfm
+
+        torch = self.torch
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=self.dev)[None]
+        with torch.no_grad(), self.moe_probe() as recs:
+            tfm.decoder_forward(params, cfg, tokens, positions=positions)
+        tag = f"{cfg.name} at capacity factor {cfg.capacity_factor:g}"
+        return self.moe_layer_verdicts(recs, cfg, tag), sum(r["dropped"] for r in recs)
+
+    def dense_serve(self, name, model, params) -> dict:
+        """launch.serve.generate (prefill of 4 x 2,048, 31 decode steps: no
+        flash launch) and the cache invariant prefill(t) == prefill(t[:-1])
+        + decode(t[-1]) in fp32 and bf16. The MoE's invariant is held at
+        capacity factor E / k, where the capacity is the batch's tokens and
+        no replica is dropped: at the published 1.25 a decode step of 4
+        tokens has a capacity of 1 an expert, so its drops differ from
+        prefill's by design (its distance is printed)."""
+        import dataclasses
+
+        from repro_torch.launch import serve
+        from repro_torch.models import DecoderModel
+
+        torch, ops = self.torch, self.ops
+        cfg = model.cfg
+        b, plen, max_new = LM_SERVE
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device=self.dev,
+                                dtype=torch.int32)
+        serve.generate(model, params, prompts, max_new)          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        toks, t_prefill, t_decode = serve.generate(model, params, prompts, max_new)
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_dec = b * (max_new - 1)
+        print(f"{name} serve {b} x {plen} prompts, {max_new - 1} decode steps: prefill "
+              f"{t_prefill * 1e3:.1f} ms, decode {n_dec / t_decode:,.1f} tokens/s "
+              f"({t_decode / (max_new - 1) * 1e3:.2f} ms a step), peak device memory "
+              f"{peak:.2f} GB")
+        self.check(sum(launches.values()) == 0 and tuple(toks.shape) == (b, max_new)
+                   and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                   f"{name}: prefill and decode launch no kernel of the port; the "
+                   "generated ids have the expected shape and range")
+        base = cfg
+        if cfg.is_moe:
+            base = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.n_experts_active)
+            full = model.prefill_fn(params, {"tokens": prompts})["logits"]
+            short = model.prefill_fn(params, {"tokens": prompts[:, :-1]})
+            _, dec = model.decode_fn(params, short["cache"], {"tokens": prompts[:, -1:]})
+            print(f"  {name} at the published capacity factor {cfg.capacity_factor:g}: "
+                  f"bf16 prefill(t) against prefill(t[:-1]) + decode(t[-1]): max abs diff "
+                  f"{float((full - dec).abs().max()):.3e} (printed, not held)")
+            del full, short, dec
+        full, dec = {}, {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            m = DecoderModel(dataclasses.replace(base, dtype=dt, param_dtype=dt))
+            full[tag] = m.prefill_fn(params, {"tokens": prompts})["logits"]
+            short = m.prefill_fn(params, {"tokens": prompts[:, :-1]})
+            _, dec[tag] = m.decode_fn(params, short["cache"], {"tokens": prompts[:, -1:]})
+            del short
+            self.check(bool(torch.isfinite(full[tag]).all() and torch.isfinite(dec[tag]).all()),
+                       f"{name}: {tag} prefill and decode logits are finite")
+        what = f"{name}: fp32 prefill(t) against prefill(t[:-1]) + decode(t[-1])"
+        for ok, text in (self.verdict(full["fp32"], dec["fp32"], what, CACHE_TOL)[:2],
+                         self.verdict(full["fp32"], dec["fp32"], what, LM_FP32_TOL)[:2],
+                         self.noise_verdict(dec["bf16"], full["bf16"], full["fp32"],
+                                            f"{name}: bf16 prefill(t[:-1]) + decode(t[-1])",
+                                            "bf16 prefill(t)")):
+            self.check(ok, text)
+        return dict(prefill_ms=t_prefill * 1e3, decode_tokens_per_s=n_dec / t_decode,
+                    decode_ms=t_decode / (max_new - 1) * 1e3, serve_peak_gb=peak)
+
     # ------------------------------------------------------------ LM training
     def lm_train(self):
         """gemma2-2b training on the card: the backward kernel alone, the
@@ -3158,7 +3738,8 @@ class Smoke:
 
         torch = self.torch
         model = self.lm[0]
-        digest = self.params_digest(self.lm[1])
+        # lm_dense frees them first and keeps their digest
+        digest = self.lm_digest if self.lm[1] is None else self.params_digest(self.lm[1])
         self.lm = (model, None)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3171,10 +3752,108 @@ class Smoke:
         self.trainer_reduced()
         gc.collect()
         torch.cuda.empty_cache()
+        launches: dict[str, int] = {}
+        for name in DENSE_TRAINED:
+            for key, n in self.dense_train_steps(name).items():
+                launches[key] = launches.get(key, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.path_launches["lm_train_dense"] = launches
         self.lm = (model, model.init(seed=0))
         self.check(self.params_digest(self.lm[1]) == digest,
                    "lm_eval's parameters drawn again from seed 0 are the ones lm_eval "
                    "ran (per-parameter float64 sums and sums of squares equal)")
+
+    def state_digest(self, state) -> list[tuple[int, int]]:
+        """Each parameter's and moment's bits as integers, summed plainly and
+        weighted by position (exact int64 sums on the card): equal lists
+        mean equal bits, up to a collision of both sums."""
+        torch = self.torch
+        out = []
+        tensors = (list(state.params.parameters()) + list(state.opt.m.values())
+                   + list(state.opt.v.values()))
+        with torch.no_grad():
+            for t in tensors:
+                bits = t.detach().reshape(-1).view(
+                    torch.int16 if t.element_size() == 2 else torch.int32).long()
+                w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+                out.append((int(bits.sum()), int((bits * w).sum())))
+                del bits, w
+        return out
+
+    def dense_train_steps(self, name: str) -> dict:
+        """make_train_step of one of DENSE_TRAINED at its published widths,
+        remat on, B = 1, S = 8,192: a warm-up step and LM_TRAIN_STEPS timed
+        (seconds, tokens/s, peak memory, launches a step); for the MoE, the
+        state after the warm-up step is reached again from a fresh state of
+        the same seed, bit for bit (no atomics in its forward or backward).
+        Returns the timed steps' launches."""
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config(name)
+        opt = AdamWConfig()
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, 0, opt)
+        self.sync()
+        n_params = sum(p.numel() for p in state.params.parameters())
+        print(f"{name} train state on the card: {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              "allocated")
+        step = make_train_step(cfg, opt)
+        data = TokenStream(cfg, 1, LM_SEQ, seed=0)
+        batches = [data(i) for i in range(LM_TRAIN_STEPS + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batches[0])                # warm-up
+        first = (float(m["loss"]), float(m["grad_norm"]))
+        digest = self.state_digest(state) if cfg.is_moe else None
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                      # the path starts here
+        times, losses = [], []
+        for batch in batches[1:]:
+            self.sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = ops.launches()                 # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dt = sum(times) / len(times)
+        per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
+        print(f"{name} train step at B=1, S={LM_SEQ}, remat on: {dt:.3f} s a step "
+              f"({', '.join(f'{t:.3f}' for t in times)}), {LM_SEQ / dt:,.0f} tokens/s, peak "
+              f"device memory {peak:.2f} GB; launches a step {per}; losses {first[0]:.5f} "
+              f"then {', '.join(f'{x:.5f}' for x in losses)}")
+        self.check(launches["flash_attention"] == 2 * cfg.n_layers * LM_TRAIN_STEPS
+                   and launches["flash_attention_bwd"] == cfg.n_layers * LM_TRAIN_STEPS
+                   and sum(launches.values()) == 3 * cfg.n_layers * LM_TRAIN_STEPS,
+                   f"{name}: each step launched the flash forward twice a layer "
+                   f"({2 * cfg.n_layers}) and its backward once ({cfg.n_layers}), and no "
+                   "other kernel of the port")
+        self.check(all(self.np.isfinite(x) for x in losses + list(first)),
+                   f"{name}: every step's loss and grad_norm are finite")
+        self.check(peak < 80.0, f"{name}: peak device memory {peak:.2f} GB is under 80 GB")
+        self.dense_train_numbers = getattr(self, "dense_train_numbers", {})
+        self.dense_train_numbers[name] = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak,
+                                              launches_a_step=per)
+        events = self._profile(lambda: step(state, batches[1]), dt * 1e3,
+                               f"{name} train step")
+        self.print_split(events, f"{name} train step")
+        if cfg.is_moe:
+            del state, m
+            self.sync()
+            again = init_train_state(cfg, 0, opt)
+            again, m = step(again, batches[0])
+            same = (float(m["loss"]), float(m["grad_norm"])) == first
+            self.check(same and self.state_digest(again) == digest,
+                       f"{name}: one step from a fresh state of seed 0 reaches the warm-up "
+                       f"step's loss, grad_norm, parameters and AdamW moments bit for bit "
+                       f"(loss {float(m['loss']):.6f} against {first[0]:.6f})")
+            del again
+        return launches
 
     def params_digest(self, params) -> list:
         torch = self.torch
@@ -3394,7 +4073,9 @@ class Smoke:
                      tflops_13_passes={k: per[k]["tflops13"] for k in per},
                      softcap0_ms=total("ms0"), softcap0_library_ms=total("lib0"),
                      softcap0_library="scaled_dot_product_attention's backward, "
-                                      "enable_gqa, the same causal and window mask")
+                                      "enable_gqa, the same causal and window mask",
+                     dense_shapes=self.dense_rows("bwd") if hasattr(self, "dense_flash")
+                     else {})
 
     def grads_of(self, model, params, batch) -> tuple[float, dict]:
         """(loss, {name: gradient}) of one loss_fn and backward; the
@@ -3545,29 +4226,8 @@ class Smoke:
         self.lm_train_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak,
                                      share=share)
 
-        def kind(key):
-            for part, name in (("flash_mma_kernel", "flash forward"),
-                               ("flash_bwd_dkdv", "flash backward dk dv"),
-                               ("flash_bwd_dq", "flash backward dq"),
-                               ("flash_bwd_delta", "flash backward delta"),
-                               ("simt_sgemm", "fp32 products (the head's backward)"),
-                               ("nvjet", "bf16 products"), ("gemm", "other products"),
-                               ("elementwise", "elementwise"), ("reduce", "reductions")):
-                if part in key:
-                    return name
-            return "other"
-
         events = self._profile(lambda: step(state, batches[1]), dt * 1e3, "train step")
-        if events:
-            groups: dict[str, list] = {}
-            for e in events:
-                g = groups.setdefault(kind(e.key), [0.0, 0])
-                g[0] += e.device_time_total / 1e3
-                g[1] += e.count
-            busy = sum(g[0] for g in groups.values())
-            for name, (ms, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
-                print(f"  train step split: {name:36s} {ms:9.2f} ms  x{count:<6d} "
-                      f"({ms / busy:.3f} of device busy)")
+        self.print_split(events, "train step")
         short = TokenStream(cfg, 1, LM_TRAIN_SHORT, seed=0)(0)
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -3585,6 +4245,36 @@ class Smoke:
                    "kernel of the port) and its loss is finite")
         del state, step, m
         gc.collect()
+
+    @staticmethod
+    def split_kind(key: str) -> str:
+        """The kind of a CUDA kernel, by its name in a profile."""
+        for part, name in (("flash_mma_kernel", "flash forward"),
+                           ("flash_bwd_dkdv", "flash backward dk dv"),
+                           ("flash_bwd_dq", "flash backward dq"),
+                           ("flash_bwd_delta", "flash backward delta"),
+                           ("simt_sgemm", "fp32 products (the head's backward)"),
+                           ("nvjet", "bf16 products"), ("gemm", "other products"),
+                           ("elementwise", "elementwise"), ("reduce", "reductions"),
+                           ("adix", "sorts"), ("ort", "sorts"), ("index", "index passes"),
+                           ("gather", "index passes"), ("catter", "index passes")):
+            if part in key:
+                return name
+        return "other"
+
+    def print_split(self, events, what: str) -> dict:
+        """A profile's device time by kernel kind, printed as `what split:`
+        lines; returns {kind: (ms, launches)}."""
+        groups: dict[str, list] = {}
+        for e in events:
+            g = groups.setdefault(self.split_kind(e.key), [0.0, 0])
+            g[0] += e.device_time_total / 1e3
+            g[1] += e.count
+        busy = sum(g[0] for g in groups.values())
+        for name, (ms, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
+            print(f"  {what} split: {name:36s} {ms:9.2f} ms  x{count:<6d} "
+                  f"({ms / busy:.3f} of device busy)")
+        return {name: tuple(g) for name, g in groups.items()}
 
     def trainer_reduced(self):
         """runtime.Trainer on the card at reduced gemma2-2b (S = 64: the flash
@@ -3698,7 +4388,16 @@ class Smoke:
                 return lib if name == "flash_attention_bwd" else real_library(name)
             return planted
 
-        plants = [("flash, bf16: softcap dropped", ops, "flash_attention",
+        from repro_torch.models import transformer as tfm
+
+        real_combine, real_route, real_ln = layers.moe_combine, layers.moe_route, tfm.layer_norm
+        for what in ("moe", "norm"):              # the checks hold at this depth
+            verdicts = self.dense_fault_verdicts(what)
+            self.check(all(ok for ok, _ in verdicts),
+                       f"lm_dense's {what} checks pass at {DENSE_FAULT_DEPTH} layers with no "
+                       f"plant ({sum(ok for ok, _ in verdicts)} of {len(verdicts)})")
+        plants = self.dense_plants() + [
+                  ("flash, bf16: softcap dropped", ops, "flash_attention",
                    flash_plant(softcap_dropped), "forward"),
                   ("flash, bf16: softcap dropped", ops, "flash_attention",
                    flash_plant(softcap_dropped), "forward, wq scaled"),
@@ -3732,6 +4431,8 @@ class Smoke:
                         dict(self.lm_wq_layers, **{"flash bf16": recs}))
                 elif checks == "backward":
                     verdicts = self.bwd_verdicts()[0]
+                elif checks in ("moe", "norm"):
+                    verdicts = self.dense_fault_verdicts(checks)
                 else:
                     dec = {n: self.split_decode(m, self.lm_prompts)
                            for n, m in self.lm_models.items()}
@@ -3745,7 +4446,80 @@ class Smoke:
                        f"{len(verdicts)} {checks} checks")
         self.check(ops.flash_attention is real_flash and ops.flash_attention_bwd is real_bwd
                    and layers.multi_head_attention is real_mha
-                   and build.library is real_library, "every plant undone")
+                   and build.library is real_library and layers.moe_combine is real_combine
+                   and layers.moe_route is real_route and tfm.layer_norm is real_ln,
+                   "every plant undone")
+        self.fault_models = None
+
+    def dense_plants(self) -> list[tuple]:
+        """lm_faults' plants in the MoE and the layer norm, each caught by
+        `dense_fault_verdicts`: (name, module, attribute, function, checks)."""
+        from repro_torch.models import layers
+        from repro_torch.models import transformer as tfm
+
+        torch = self.torch
+        real_combine, real_route, real_ln = layers.moe_combine, layers.moe_route, tfm.layer_norm
+
+        def descending_combine(y, r, cfg):
+            # a token's contributions added in descending expert order
+            t, k = r.top_e.shape
+            flip = torch.arange(k - 1, -1, -1, device=y.device)
+            perm = (torch.arange(t, device=y.device)[:, None] * k + flip).reshape(-1)
+            return real_combine(y, r._replace(top_e=r.top_e[:, flip], top_w=r.top_w[:, flip],
+                                              rep_slot=r.rep_slot[perm],
+                                              rep_keep=r.rep_keep[perm]), cfg)
+
+        def last_writer_route(params, xf, cfg):
+            # a full expert's last place holds its last replica, dropped or
+            # not, as an unmasked scatter would leave it
+            r = real_route(params, xf, cfg)
+            flat = r.top_e.reshape(-1)
+            last = torch.full_like(r.counts, -1).scatter_reduce_(
+                0, flat, torch.arange(flat.numel(), device=flat.device), "amax")
+            over = torch.nonzero(r.counts > r.cap).flatten()
+            slot_rep = r.slot_rep.clone()
+            slot_rep[over * r.cap + r.cap - 1] = last[over]
+            return r._replace(slot_rep=slot_rep)
+
+        def norm_without_bias(x, scale, bias, eps):
+            return real_ln(x, scale, torch.zeros_like(bias), eps)
+
+        return [("MoE: a token's contributions added in descending expert order", layers,
+                 "moe_combine", descending_combine, "moe"),
+                ("MoE: a dropped replica written at its expert's last live place", layers,
+                 "moe_route", last_writer_route, "moe"),
+                ("layer norm without its bias", tfm, "layer_norm", norm_without_bias, "norm")]
+
+    def dense_fault_verdicts(self, what: str) -> list[tuple[bool, str]]:
+        """lm_dense's layer checks at DENSE_FAULT_DEPTH layers, on weights
+        drawn for that depth from seed 0 (made once): "moe", granite-moe's
+        capacity checks at its published and its tight capacity factor;
+        "norm", stablelm's layer norms on their own inputs."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import DecoderModel
+        from repro_torch.models import transformer as tfm
+
+        torch = self.torch
+        if getattr(self, "fault_models", None) is None:
+            self.fault_models = {}
+            for key, name in (("moe", "granite-moe-3b-a800m"), ("norm", "stablelm-1.6b")):
+                cfg = dataclasses.replace(get_config(name), n_layers=DENSE_FAULT_DEPTH)
+                params = DecoderModel(cfg).init(seed=0)
+                self.perturb_norms(params, cfg)
+                self.fault_models[key] = (cfg, params, TokenStream(cfg, 1, LM_SEQ, seed=0)(0))
+        cfg, params, batch = self.fault_models[what]
+        if what == "moe":
+            tight = dataclasses.replace(cfg, capacity_factor=MOE_TIGHT_CAPACITY)
+            return self.moe_verdicts(cfg, params, batch)[0] + self.moe_verdicts(
+                tight, params, batch)[0]
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        positions = torch.arange(LM_SEQ, dtype=torch.int32, device=self.dev)[None]
+        with torch.no_grad(), self.norm_probe() as recs:
+            tfm.decoder_forward(params, cfg, tokens, positions=positions)
+        return self.norm_verdicts(recs, cfg, cfg.name)
 
     def planted_one_term_library(self):
         """flash_attention_bwd.cu with P and dS taken in one bf16 term: the

@@ -5,7 +5,8 @@ injection, resume), the counterpart of examples/train_lm.py.
     PYTHONPATH=src python examples/train_lm_torch.py --steps 300
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu --steps 20
 
-gemma2-2b is the only architecture the port has (the default). The config
+`--arch` takes any architecture the port has (gemma2-2b, the default,
+smollm-360m, stablelm-1.6b, granite-20b, granite-moe-3b-a800m). The config
 is cut as examples/train_lm.py cuts it: a quarter of the layers (at least
 2), d_model 512, 8 heads of 64, d_ff 1024, a vocabulary of at most 16,384,
 no remat, and the direct attention path. Runs on the card unless

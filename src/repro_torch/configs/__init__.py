@@ -2,17 +2,25 @@
 
 `get_config(name)` returns the full published config of a ported
 architecture; `reduced(cfg)` shrinks it to a CPU-runnable size of the same
-family, as `repro.configs.reduced` does. Only gemma2-2b is ported so far;
-any other name raises NotImplementedError, naming ROADMAP.md.
+family, as `repro.configs.reduced` does. The dense configs and the MoE
+granite-moe-3b-a800m are ported; any other name raises
+NotImplementedError, naming ROADMAP.md.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.gemma2_2b import CONFIG as gemma2_2b
+from repro_torch.configs.granite_20b import CONFIG as granite_20b
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from repro_torch.configs.smollm_360m import CONFIG as smollm_360m
+from repro_torch.configs.stablelm_1_6b import CONFIG as stablelm_1_6b
 from repro_torch.models.layers import ModelConfig
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (gemma2_2b,)}
+REGISTRY: dict[str, ModelConfig] = {
+    c.name: c
+    for c in (granite_moe_3b_a800m, granite_20b, gemma2_2b, stablelm_1_6b, smollm_360m)
+}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -26,8 +34,10 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Same-family miniature for CPU tests: the JAX package's dense rule."""
-    if cfg.family != "dense":
+    """Same-family miniature for CPU tests: the JAX package's dense rule,
+    and for an MoE config its MoE rule (8 experts, top 2, expert d_ff 64,
+    capacity factor 8: no replica is dropped)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family} is not ported; see ROADMAP.md")
     upd: dict = dict(
         d_model=128,
@@ -41,6 +51,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         n_layers=2,
         d_ff=256,
     )
+    if cfg.is_moe:
+        upd.update(n_experts=8, n_experts_pad=8, n_experts_active=2, moe_d_ff=64,
+                   d_ff=0, capacity_factor=8.0)
     if cfg.sliding_window:
         upd.update(sliding_window=16, local_global_period=cfg.local_global_period)
     return dataclasses.replace(cfg, **upd)

@@ -91,13 +91,29 @@
 // dO (32 rows each), 4 x 2 KB of P (1 - t^2) scale and two stages of lse
 // and D: 256 x 528 + 8,192 + 512 bytes = 140.5 KB at D = 256. ptxas: 246
 // (dkdv) and 247 (dq) registers at D = 256, no spill.
-// The products of a tile feed the running gradient as the MMA's C operand.
-// The forward sums each tile in fresh accumulators instead, because over
-// 8,192 keys the tensor cores' additions left peaked outputs more than a
-// bf16 ulp off; here the gate is each gradient within one bf16 ulp of its
-// head's largest magnitude, and on an H100 the running sums stay within
-// 0.508 ulp of float64 at the training step's shapes, q x 6 included
-// (fresh sums: 0.500, at 255 registers with a spill and 2-3% slower).
+// The products of a tile feed the running gradient as the MMA's C operand
+// in dq, and in dkdv at D = 256. The forward sums each tile in fresh
+// accumulators instead, because over 8,192 keys the tensor cores' additions
+// left peaked outputs more than a bf16 ulp off; here the gate is each
+// gradient within one bf16 ulp of its head's largest magnitude, and on an
+// H100 the running sums stay within 0.508 ulp of float64 at gemma2-2b's
+// shapes, q x 6 included (fresh sums: 0.500, at 255 registers with a spill
+// and 2-3% slower). A running sum's error grows with its length, though:
+// the tensor cores do not round each addition to nearest, so their error
+// drifts one way. dK and dV of a KV head sum over its whole group's query
+// heads, and at granite-20b's MQA (a group of 48, 48 x 8,192 queries a key)
+// 15% of dK's and dV's elements came out more than half their own bf16 ulp
+// from float64, against 0.7% at a group of 1. So at D <= 128, whose
+// shared memory has room for each lane's 16 x D fp32 sum (D / 2 floats a
+// lane: 32 KB a block at D = 64, 64 KB at 128), dkdv runs one query head's
+// tiles in the MMAs' running sum and adds each head's sum into those slots
+// with IEEE fp32 additions (`HEAD_SUMS`), so that a long group rounds as a
+// group of 1 does: 0.7% at the group of 48 (on an H100). In registers the
+// second sum cost 35% at D = 64 (138 registers a lane leave room for one
+// block an SM, where 105 left two); fresh accumulators for every tile
+// rounded better (0.05-0.11%) at the same cost. D = 256 keeps one running
+// sum (140.5 KB of shared memory and 246 registers leave no room), which
+// holds at gemma2-2b's group of 2.
 //
 // Next for the bf16 kernels: wgmma (a warpgroup's 64-row products with B
 // from shared memory, at the card's full tensor rate) and TMA copies on
@@ -513,11 +529,17 @@ constexpr int dq_smem_bytes() {
   return (2 * DQ_BQ + 4 * DQ_BK) * (D + PAD) * 2;   // Q, dO, 2 stages of K and of V
 }
 
+// dkdv adds each query head's running sum into dK and dV in IEEE fp32, in
+// shared memory, where it fits (the head comment says why)
+template <int D>
+constexpr bool HEAD_SUMS = D <= 128;
+
 template <int D>
 constexpr int dkdv_smem_bytes() {
   return (2 * KV_BK + 4 * KV_BQ) * (D + PAD) * 2    // K, V, 2 stages of Q and of dO
          + PAIRS * 16 * KV_BQ * 4                   // P (1 - t^2) scale, a tile a pair
-         + 2 * 2 * KV_BQ * 4;                       // 2 stages of lse and of D
+         + 2 * 2 * KV_BQ * 4                        // 2 stages of lse and of D
+         + (HEAD_SUMS<D> ? THREADS * (D / 2) * 4 : 0);   // each lane's head sums
 }
 
 // 4 bytes from src into shared memory, or 4 zero bytes where !in
@@ -732,6 +754,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
   float* pfs = reinterpret_cast<float*>(dos + 2 * KV_BQ * LD);   // a pair's 16 x KV_BQ
   float* ls = pfs + PAIRS * 16 * KV_BQ;                           // 2 stages of lse
   float* dl = ls + 2 * KV_BQ;                                     // 2 stages of D
+  float* tots = dl + 2 * KV_BQ;     // HEAD_SUMS: entry (n, c) of lane t at (4 n + c) THREADS + t
 
   const int k0 = blockIdx.y * KV_BK;  // the first tiles see the most rows
   const int hk = blockIdx.x;
@@ -779,6 +802,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
   float acc[D / 8][4];              // dV (role 0) or dK (role 1), rows kw + g and kw + g + 8
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // each head's running sum added into the gradient in IEEE fp32, in this
+  // lane's own slots of shared memory (no barrier: no other lane reads them)
+  if constexpr (HEAD_SUMS<D>) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tots[i * THREADS + threadIdx.x] = 0.f;
+  }
 
   for (int it = 0, st = 0; it < tiles; ++it, st ^= 1) {
     if (it + 1 < tiles) stage(it + 1, st ^ 1);   // the next tile's copies fly meanwhile
@@ -823,9 +852,29 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
       }
       add_product<D>(acc, s, role ? qt_s : dot_s, LD, lane);   // dV += P^T dO, dK += dS^T Q
     }
+    if constexpr (HEAD_SUMS<D>) {
+      if (it % nqt == nqt - 1) {    // a head's last tile: its sum into the slots
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float* t = tots + (n * 4 + c) * THREADS + threadIdx.x;
+            *t = __fadd_rn(*t, acc[n][c]);
+            acc[n][c] = 0.f;
+          }
+        }
+      }
+    }
     __syncthreads();                // every warp is done with this stage
   }
   cp_async_wait_all();              // no copy outlives the block (no tile ran)
+  if constexpr (HEAD_SUMS<D>) {      // the last tile was a head's last: acc is 0
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = tots[(n * 4 + c) * THREADS + threadIdx.x];
+    }
+  }
   store_acc<D>((role ? dk : dv) + (size_t)hk * S * D, acc, kw, S, lane);
 }
 

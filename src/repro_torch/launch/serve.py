@@ -7,7 +7,9 @@ LM mode, batched prefill then greedy (or sampled) decode:
         --batch 4 --prompt-len 2048 --max-new 32
 
 runs on the card; add `--reduced --device cpu` for the CPU-sized
-miniature on the plain path. Parameters are drawn from seed 0 and the
+miniature on the plain path. `--arch` takes every architecture the port
+has: gemma2-2b, smollm-360m, stablelm-1.6b, granite-20b and
+granite-moe-3b-a800m. Parameters are drawn from seed 0 and the
 prompts from seed 1 (torch.Generator; not the JAX launcher's numbers).
 Prefill and decode take the direct attention path, so the flash kernel
 does not run here.
@@ -411,7 +413,8 @@ def bpmf_main(args) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="an architecture of repro_torch.configs.REGISTRY")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,7 +1,7 @@
-"""The dense decoder LM (gemma2-2b), ported from `repro/models/`.
+"""The decoder LMs (the dense configs and the MoE), ported from `repro/models/`.
 
   layers.py       ModelConfig, norms, RoPE, attention (direct path and the
-                  flash kernel), MLP
+                  flash kernel), MLP, MoE (sort-based capacity dispatch)
   transformer.py  decoder layer and stack, decode caches, cross-entropy,
                   params_from_numpy (a JAX parameter tree as the port's)
   api.py          ShapeSpec, LM_SHAPES, DecoderModel (init, loss_fn,

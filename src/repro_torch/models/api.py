@@ -1,4 +1,4 @@
-"""Model API of the dense decoder LM, ported from `repro/models/api.py`.
+"""Model API of the decoder LMs (dense and MoE), ported from `repro/models/api.py`.
 
 The JAX package's four entry points, with the parameters as the port's
 `Decoder` module in place of the JAX pytree:
@@ -48,7 +48,7 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
-# Decoder-family model (dense)
+# Decoder-family model (dense and MoE)
 # ---------------------------------------------------------------------------
 def _positions_for(batch: int, seq: int, device: torch.device, offset: Any = 0
                    ) -> torch.Tensor:
@@ -56,9 +56,14 @@ def _positions_for(batch: int, seq: int, device: torch.device, offset: Any = 0
     return pos.expand(batch, seq)
 
 
+#: the decoder families the port runs; the SSM, hybrid, audio and VLM ones
+#: are ROADMAP.md's queue 1, item 12.3
+FAMILIES = ("dense", "moe")
+
+
 class DecoderModel:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family} is not ported to repro_torch yet; see "
                 f"ROADMAP.md (queue 1, item 12)")
@@ -77,15 +82,17 @@ class DecoderModel:
         return torch.as_tensor(np.asarray(x), device=self.device)
 
     def loss_fn(self, params: tfm.Decoder, batch: dict) -> tuple[torch.Tensor, dict]:
-        """(mean next-token loss, metrics); differentiable, through the flash
+        """(mean next-token loss + 0.01 * the layers' MoE aux loss, metrics
+        with "ce", "tokens" and "aux"); differentiable, through the flash
         backward kernel on the card. The head takes HEAD_CHUNK rows at a
         time with grad or without (`tfm.head_loss`)."""
         tokens = self._ids(batch["tokens"])
         b, s = tokens.shape
-        h, _ = tfm.decoder_hidden(params, self.cfg, tokens,
-                                  positions=_positions_for(b, s, self.device))
-        # the JAX loss adds 0.01 * the MoE aux loss, which is 0 for a dense model
-        return tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
+        h, _, aux = tfm.decoder_hidden(params, self.cfg, tokens,
+                                       positions=_positions_for(b, s, self.device))
+        loss, metrics = tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
+        metrics["aux"] = aux
+        return loss + 0.01 * aux, metrics
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return tfm.init_decode_cache(self.cfg, batch, max_len, device=self.device)
@@ -97,10 +104,12 @@ class DecoderModel:
         # headroom: decode steps append past the prompt; a cache sized
         # exactly S would clamp the first decode write onto slot S-1
         caches = self.init_cache(b, s + headroom)
-        logits, caches = tfm.decoder_forward(params, self.cfg, tokens,
-                                             positions=_positions_for(b, s, self.device),
-                                             caches=caches)
-        return {"logits": logits[:, -1], "cache": caches}
+        logits, caches, _ = tfm.decoder_forward(params, self.cfg, tokens,
+                                                positions=_positions_for(b, s, self.device),
+                                                caches=caches)
+        # a copy: the view logits[:, -1] would keep the whole (B, S, V) fp32
+        # logits alive (8.4 GB for gemma2-2b at 4 x 2,048)
+        return {"logits": logits[:, -1].clone(), "cache": caches}
 
     @torch.no_grad()
     def decode_fn(self, params: tfm.Decoder, cache: dict, batch: dict
@@ -109,11 +118,12 @@ class DecoderModel:
         are updated in place; use the returned cache from here on."""
         tokens = self._ids(batch["tokens"])                      # (B, 1)
         pos = _positions_for(tokens.shape[0], 1, self.device, offset=cache["pos"][0])
-        logits, cache = tfm.decoder_forward(params, self.cfg, tokens, positions=pos,
-                                            caches=cache)
+        logits, cache, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=pos,
+                                               caches=cache)
         return cache, logits[:, -1]
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> DecoderModel:
-    """The model of a config's family; only the dense decoder is ported."""
+    """The model of a config's family: the dense and MoE decoders are
+    ported (`FAMILIES`)."""
     return DecoderModel(cfg, device=device)

@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoder LM, ported from `repro/models/layers.py`.
+"""Building blocks of the decoder LMs, ported from `repro/models/layers.py`.
 
 The arithmetic is the JAX package's: activations and parameters in the
 config's dtype (bf16 for the published configs), norms, RoPE and softmax
@@ -10,13 +10,17 @@ long sequence (`chunk`) runs the hand-written flash kernel
 
 Parameters keep the JAX layout (`wq` is (d_model, H * hd) and the layer
 computes x @ wq), so `models/transformer.py::params_from_numpy` copies a
-JAX parameter tree leaf by leaf. MoE, M-RoPE, layer norm, cross-attention
-and the mesh helpers are not ported yet (ROADMAP.md, queue 1 item 12).
+JAX parameter tree leaf by leaf. The dense configs' variants (layer norm,
+QKV biases, ungated MLPs) and the MoE block's sort-based dispatch are
+here; M-RoPE, cross-attention, the MoE's grouped and expert-parallel
+dispatches and the mesh helpers are not ported yet (ROADMAP.md, queue 1
+item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,14 +34,13 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of `repro.models.layers.ModelConfig` that the dense
-    decoder of gemma2-2b reads, with the same names and defaults; dtypes
-    are torch's. The port ties the embeddings and gates the MLP, as
-    gemma2-2b does; QKV biases and untied or ungated variants come with
-    the other dense configs (ROADMAP.md, queue 1 item 12)."""
+    """The fields of `repro.models.layers.ModelConfig` that the dense and
+    MoE decoders read, with the same names and defaults; dtypes are
+    torch's. The SSM, hybrid, audio and VLM fields come with those
+    families (ROADMAP.md, queue 1 item 12.3)."""
 
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | moe are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +48,13 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // n_heads
+    # --- MoE ---
+    n_experts: int = 0
+    n_experts_active: int = 0
+    n_experts_pad: int = 0           # allocated experts (0 -> n_experts); the
+    moe_d_ff: int = 0                # pad experts are never routed to
+    capacity_factor: float = 1.25
+    # --- attention flavour ---
     rope_theta: float = 10_000.0
     sliding_window: int = 0          # 0 = full attention
     local_global_period: int = 0     # gemma2: every 2nd layer global
@@ -52,8 +62,12 @@ class ModelConfig:
     logit_softcap: float = 0.0
     attn_scale: float = 0.0          # 0 -> 1/sqrt(head_dim)
     norm_eps: float = 1e-6
+    norm_type: str = "rms"           # rms | layer
     post_norms: bool = False         # gemma2 sandwich norms
+    tie_embeddings: bool = True      # False: a separate (d_model, vocab) head
     mlp_act: str = "silu"            # silu | gelu (tanh approximation)
+    mlp_gated: bool = True           # gated (3-matrix) vs classic (2-matrix)
+    qkv_bias: bool = False
     embed_scale: bool = False        # gemma2 multiplies embeddings by sqrt(d)
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
@@ -61,10 +75,16 @@ class ModelConfig:
     chunked_attn_min_len: int = 8192 # cache-free sequences this long take the kernel
     remat: bool = True               # recompute each layer in the backward
     remat_policy: str = "nothing"    # only "nothing" is ported (ROADMAP.md, item 12.4)
+    moe_group_dispatch: bool = False # not ported: moe_block raises when set
+    moe_ep_shard_map: bool = False   # not ported: moe_block raises when set
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +113,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
     var = (x * x).mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (offset + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Mean, variance and rsqrt in fp32, then scale and bias, cast back."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -181,7 +212,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # Attention
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """Q, K, V and output projections (JAX layout: x @ w); the layer's
+    """Q, K, V and output projections (JAX layout: x @ w), and with
+    `cfg.qkv_bias` the Q, K and V biases (zeros at init); the layer's
     arithmetic is `attention_block`."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
@@ -196,6 +228,13 @@ class Attention(nn.Module):
         self.wk = w((d, cfg.n_kv_heads * hd))
         self.wv = w((d, cfg.n_kv_heads * hd))
         self.wo = w((cfg.n_heads * hd, d))
+        if cfg.qkv_bias:
+            def zeros(n):
+                return nn.Parameter(torch.zeros(n, dtype=cfg.param_dtype, device=device))
+
+            self.bq = zeros(cfg.n_heads * hd)
+            self.bk = zeros(cfg.n_kv_heads * hd)
+            self.bv = zeros(cfg.n_kv_heads * hd)
 
 
 def init_attention(cfg: ModelConfig, *, generator: torch.Generator | None,
@@ -310,6 +349,10 @@ def attention_block(
     q = (x @ params.wq.to(cfg.dtype)).reshape(b, s, h, hd)
     k = (x @ params.wk.to(cfg.dtype)).reshape(b, s, hk, hd)
     v = (x @ params.wv.to(cfg.dtype)).reshape(b, s, hk, hd)
+    if cfg.qkv_bias:
+        q = q + params.bq.to(cfg.dtype).reshape(h, hd)
+        k = k + params.bk.to(cfg.dtype).reshape(hk, hd)
+        v = v + params.bv.to(cfg.dtype).reshape(hk, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -340,7 +383,8 @@ def attention_block(
 # MLP
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
-    """Gated MLP weights; the arithmetic is `mlp_block`."""
+    """MLP weights, with `w_gate` only where `cfg.mlp_gated`; the
+    arithmetic is `mlp_block`."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
                  device: torch.device):
@@ -350,7 +394,8 @@ class MLP(nn.Module):
         def w(shape):
             return nn.Parameter(dense_init(generator, shape, cfg.param_dtype, device))
 
-        self.w_gate = w((d, f))
+        if cfg.mlp_gated:
+            self.w_gate = w((d, f))
         self.w_up = w((d, f))
         self.w_down = w((f, d))
 
@@ -366,6 +411,188 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """act(x w_gate) * (x w_up), or act(x w_up) ungated, then w_down."""
     u = x @ params.w_up.to(cfg.dtype)
-    hidden = _act(cfg, x @ params.w_gate.to(cfg.dtype)) * u
+    if cfg.mlp_gated:
+        hidden = _act(cfg, x @ params.w_gate.to(cfg.dtype)) * u
+    else:
+        hidden = _act(cfg, u)
     return hidden @ params.w_down.to(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch; gathers only)
+# ---------------------------------------------------------------------------
+class MoE(nn.Module):
+    """The router, (d_model, E) in fp32 and drawn in fp32, and the gated
+    experts' weights, E_pad of each (the pad experts are never routed to);
+    the arithmetic is `moe_block`."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        ep = cfg.n_experts_pad or e
+
+        def w(shape, dtype=cfg.param_dtype):
+            return nn.Parameter(dense_init(generator, shape, dtype, device))
+
+        self.router = w((d, e), torch.float32)
+        self.w_gate = w((ep, d, f))
+        self.w_up = w((ep, d, f))
+        self.w_down = w((ep, f, d))
+
+
+def init_moe(cfg: ModelConfig, *, generator: torch.Generator | None,
+             device: torch.device) -> MoE:
+    return MoE(cfg, generator=generator, device=device)
+
+
+class MoERoute(NamedTuple):
+    """Where each of a batch's T k token replicas goes. Replica i = t k + j
+    is token t's j-th expert in ascending expert order, the order in which
+    the JAX package's combine adds a token's contributions (its updates
+    are sorted by expert). Slot s = e cap + c is place c of expert e's
+    capacity buffer."""
+
+    top_e: torch.Tensor              # (T, k) int64, experts ascending a row
+    top_w: torch.Tensor              # (T, k) renormalised weights, fp32
+    counts: torch.Tensor             # (E_pad,) replicas routed to each expert
+    cap: int                         # places an expert
+    aux: torch.Tensor                # 0-d fp32 Switch load-balancing loss
+    rep_slot: torch.Tensor           # (T k,) each replica's slot ...
+    rep_keep: torch.Tensor           # ... where it fits in the capacity
+    slot_rep: torch.Tensor           # (E_pad cap,) each slot's replica ...
+    slot_used: torch.Tensor          # ... where one fills it
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last axis: the k largest values of each row
+    in descending order and their indices, the lower index first among
+    equal values (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+    out = x.index_select(0, idx)
+    if valid is not None:
+        out = out.masked_fill(~valid.view((-1,) + (1,) * (x.dim() - 1)), 0)
+    return out
+
+
+class _Route(torch.autograd.Function):
+    """out[i] = x[idx[i]] where valid[i], else 0. The backward is the same
+    kind of gather, dx[j] = g[inv[j]] where inv_valid[j]: the transpose
+    wherever idx maps its valid rows one to one onto the rows inv maps back.
+    So neither direction adds into a row: no `index_add_` or accumulating
+    `index_put_`, which are atomic on the card."""
+
+    @staticmethod
+    def forward(ctx, x, idx, valid, inv, inv_valid):
+        ctx.save_for_backward(inv, inv_valid)
+        return _take(x, idx, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, inv_valid = ctx.saved_tensors
+        return _take(g, inv, inv_valid), None, None, None, None
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(perm).scatter_(0, perm, torch.arange(perm.numel(),
+                                                                 device=perm.device))
+
+
+def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig) -> MoERoute:
+    """The router and the capacity-bounded assignment of
+    `repro/models/layers.py::moe_block` for tokens xf (T, d): fp32 softmax,
+    top k, weights renormalised by max(sum, 1e-9), the Switch auxiliary
+    loss E sum(me ce), a stable sort of the replicas by expert, each
+    replica's place in its expert from the exclusive cumsum of the counts,
+    and cap = max(ceil(T k / E capacity_factor), 1). A replica past the
+    capacity is dropped."""
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.n_experts_active
+    e_pad = cfg.n_experts_pad or e
+    dev, n = xf.device, t * k
+    probs = torch.softmax(xf.float() @ params.router, dim=-1)
+    top_w, top_e = top_k(probs, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    # a token's replicas in ascending expert order (its experts are distinct)
+    top_e, within = torch.sort(top_e, dim=-1)
+    perm = (torch.arange(t, device=dev)[:, None] * k + within).reshape(-1)
+    top_w = _Route.apply(top_w.reshape(n), perm, None, _inverse(perm), None).reshape(t, k)
+
+    flat_e = top_e.reshape(-1)
+    se, order = torch.sort(flat_e, stable=True)
+    experts = torch.arange(e_pad, device=dev)
+    offsets = torch.searchsorted(se, experts)               # exclusive cumsum
+    counts = torch.searchsorted(se, experts, right=True) - offsets
+    me = probs.mean(dim=0)
+    ce = counts[:e].float() / n
+    aux = e * torch.sum(me * ce)
+
+    cap = max(int(math.ceil(t * k / e * cfg.capacity_factor)), 1)
+    # each replica's place in its expert, back in replica order
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=dev) - offsets[se])
+    rep_keep = pos < cap
+    rep_slot = flat_e * cap + pos.clamp(max=cap - 1)
+    place = torch.arange(cap, device=dev)
+    slot_used = (place[None, :] < counts[:, None]).reshape(-1)
+    slot_rep = order[(offsets[:, None] + place[None, :]).clamp(max=n - 1).reshape(-1)]
+    return MoERoute(top_e, top_w, counts, cap, aux, rep_slot, rep_keep, slot_rep,
+                    slot_used)
+
+
+def moe_experts(params: MoE, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated expert MLPs on the (E_pad, cap, d) buffer."""
+    def w(p):
+        return p.to(cfg.dtype)
+
+    g = torch.bmm(buf, w(params.w_gate))
+    u = torch.bmm(buf, w(params.w_up))
+    return torch.bmm(_act(cfg, g) * u, w(params.w_down))
+
+
+def moe_combine(y: torch.Tensor, route: MoERoute, cfg: ModelConfig) -> torch.Tensor:
+    """Each token's kept replicas' expert outputs times their weights,
+    added in the activation dtype one at a time from zero in ascending
+    expert order, as the JAX package's `out.at[st_].add(back)` adds them.
+    A dropped replica adds 0."""
+    t, k = route.top_e.shape
+    d = y.shape[-1]
+    back = _Route.apply(y.reshape(-1, d), route.rep_slot, route.rep_keep,
+                        route.slot_rep, route.slot_used)
+    back = (back * route.top_w.reshape(-1, 1).to(cfg.dtype)).view(t, k, d)
+    out = torch.zeros((t, d), dtype=cfg.dtype, device=y.device)
+    for j in range(k):
+        out = out + back[:, j]
+    return out
+
+
+def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-bounded MoE with sort-based dispatch: the plain path
+    of `repro/models/layers.py::moe_block`. Returns (out (B, S, D), aux).
+
+    The replicas are the tokens expanded k times (the expand's backward
+    sums over k), moved into the (E_pad, cap, d) buffer and back by
+    gathers whose backwards are gathers too (`_Route`), so the gradients
+    are the same from run to run on the card. The grouped and expert-
+    parallel dispatches are not ported (ROADMAP.md, queue 1 items 7 and
+    12.4) and raise."""
+    if cfg.moe_group_dispatch or cfg.moe_ep_shard_map:
+        raise NotImplementedError(
+            "moe_group_dispatch and moe_ep_shard_map are not ported; see ROADMAP.md "
+            "(queue 1, items 7 and 12.4)")
+    b, s, d = x.shape
+    k = cfg.n_experts_active
+    e_pad = cfg.n_experts_pad or cfg.n_experts
+    xf = x.reshape(b * s, d)
+    route = moe_route(params, xf, cfg)
+    reps = xf[:, None, :].expand(b * s, k, d).reshape(b * s * k, d)
+    buf = _Route.apply(reps, route.slot_rep, route.slot_used, route.rep_slot,
+                       route.rep_keep).view(e_pad, route.cap, d)
+    y = moe_experts(params, buf, cfg)
+    return moe_combine(y, route, cfg).reshape(b, s, d), route.aux

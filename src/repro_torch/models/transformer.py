@@ -1,4 +1,4 @@
-"""The dense decoder stack, ported from `repro/models/transformer.py`.
+"""The decoder stack (dense and MoE), ported from `repro/models/transformer.py`.
 
 The JAX package stacks the layers on a leading n_layers axis and scans
 them; here they are a `ModuleList` walked by a Python loop, and gemma2's
@@ -18,13 +18,17 @@ from torch import nn
 from repro_torch.models.layers import (
     Attention,
     MLP,
+    MoE,
     ModelConfig,
     attention_block,
     dense_init,
     init_attention,
     init_mlp,
+    init_moe,
+    layer_norm,
     matmul_f32,
     mlp_block,
+    moe_block,
     rms_norm,
 )
 
@@ -42,11 +46,29 @@ class RMSNorm(nn.Module):
                                               device=device))
 
 
-def init_norm(cfg: ModelConfig, *, device: torch.device) -> RMSNorm:
+class LayerNorm(nn.Module):
+    """Layer norm's scale (ones) and bias (zeros), applied by `apply_norm`."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.param_dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
+                                             device=device))
+
+
+def init_norm(cfg: ModelConfig, *, device: torch.device) -> RMSNorm | LayerNorm:
+    """The norm of `cfg.norm_type`: "rms" or "layer"."""
+    if cfg.norm_type == "layer":
+        return LayerNorm(cfg, device=device)
+    if cfg.norm_type != "rms":
+        raise ValueError(f"norm_type {cfg.norm_type!r}: rms or layer")
     return RMSNorm(cfg, device=device)
 
 
-def apply_norm(p: RMSNorm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_norm(p: RMSNorm | LayerNorm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm_type == "layer":
+        return layer_norm(x, p.scale, p.bias, cfg.norm_eps)
     return rms_norm(x, p.scale, cfg.norm_eps)
 
 
@@ -54,7 +76,8 @@ def apply_norm(p: RMSNorm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Decoder layer
 # ---------------------------------------------------------------------------
 class DecoderLayer(nn.Module):
-    """A pre-norm block's parameters, with gemma2's post (sandwich) norms
+    """A pre-norm block's parameters: attention, then an MLP or, for an
+    MoE config, the experts (`moe`), with gemma2's post (sandwich) norms
     when configured; the arithmetic is `decoder_layer`."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
@@ -63,7 +86,10 @@ class DecoderLayer(nn.Module):
         self.ln_attn = init_norm(cfg, device=device)
         self.attn: Attention = init_attention(cfg, generator=generator, device=device)
         self.ln_mlp = init_norm(cfg, device=device)
-        self.mlp: MLP = init_mlp(cfg, generator=generator, device=device)
+        if cfg.is_moe:
+            self.moe: MoE = init_moe(cfg, generator=generator, device=device)
+        else:
+            self.mlp: MLP = init_mlp(cfg, generator=generator, device=device)
         if cfg.post_norms:
             self.ln_attn_post = init_norm(cfg, device=device)
             self.ln_mlp_post = init_norm(cfg, device=device)
@@ -76,22 +102,30 @@ def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator | None,
 
 def decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, window: int, cache: dict | None = None
-                  ) -> tuple[torch.Tensor, dict | None]:
+                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """(the layer's output, its new cache or None, the MoE auxiliary loss:
+    a 0-d fp32 zero for an MLP layer)."""
     a, new_cache = attention_block(p.attn, apply_norm(p.ln_attn, h, cfg), cfg,
                                    positions=positions, window=window, cache=cache)
     if cfg.post_norms:
         a = apply_norm(p.ln_attn_post, a, cfg)
     h = h + a
-    m = mlp_block(p.mlp, apply_norm(p.ln_mlp, h, cfg), cfg)
+    m_in = apply_norm(p.ln_mlp, h, cfg)
+    if cfg.is_moe:
+        m, aux = moe_block(p.moe, m_in, cfg)
+    else:
+        m = mlp_block(p.mlp, m_in, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.post_norms:
         m = apply_norm(p.ln_mlp_post, m, cfg)
-    return h + m, new_cache
+    return h + m, new_cache, aux
 
 
 def _layer_out(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, window: int) -> torch.Tensor:
-    """A cache-free layer's output alone: the function a checkpoint wraps."""
-    return decoder_layer(p, h, cfg, positions=positions, window=window)[0]
+               positions: torch.Tensor, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cache-free layer's output and aux: the function a checkpoint wraps."""
+    out, _, aux = decoder_layer(p, h, cfg, positions=positions, window=window)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +143,8 @@ def layer_windows(cfg: ModelConfig) -> torch.Tensor:
 
 
 class Decoder(nn.Module):
-    """The decoder's parameters (tied embedding, layers, final norm); the
+    """The decoder's parameters (embedding, layers, final norm and, where
+    the embeddings are not tied, the (d_model, vocab) head `unembed`); the
     arithmetic is `decoder_forward`."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
@@ -121,6 +156,9 @@ class Decoder(nn.Module):
             init_decoder_layer(cfg, generator=generator, device=device)
             for _ in range(cfg.n_layers))
         self.ln_final = init_norm(cfg, device=device)
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(dense_init(
+                generator, (cfg.d_model, cfg.vocab_size), cfg.param_dtype, device))
 
 
 def init_decoder(cfg: ModelConfig, *, generator: torch.Generator | None,
@@ -131,14 +169,23 @@ def init_decoder(cfg: ModelConfig, *, generator: torch.Generator | None,
     return Decoder(cfg, generator=generator, device=device)
 
 
+def head_weight(params: Decoder, cfg: ModelConfig) -> torch.Tensor:
+    """The head as a (vocab, d_model) operand in the activation dtype: the
+    tied embedding, or the transposed view of `unembed` (no copy of it)."""
+    if cfg.tie_embeddings:
+        return params.embed.to(cfg.dtype)
+    return params.unembed.to(cfg.dtype).t()
+
+
 def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                     positions: torch.Tensor, caches: dict | None = None
-                    ) -> tuple[torch.Tensor, dict | None]:
-    """tokens (B, S) -> (fp32 logits (B, S, V), new caches or None): the
-    stack (`decoder_hidden`), then the tied fp32 unembedding and the logit
-    softcap."""
-    h, new_caches = decoder_hidden(params, cfg, tokens, positions=positions, caches=caches)
-    logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
+                    ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """tokens (B, S) -> (fp32 logits (B, S, V), new caches or None, the
+    layers' summed MoE aux loss): the stack (`decoder_hidden`), then the
+    fp32 head (`head_weight`) and the logit softcap."""
+    h, new_caches, aux = decoder_hidden(params, cfg, tokens, positions=positions,
+                                        caches=caches)
+    logits = matmul_f32(h, head_weight(params, cfg).t())
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         if torch.is_grad_enabled() and logits.requires_grad:
@@ -147,14 +194,15 @@ def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             # in place: at S = 8,192 the fp32 logits are 8.4 GB
             logits.div_(cap).tanh_().mul_(cap)
-    return logits, new_caches
+    return logits, new_caches, aux
 
 
 def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                    positions: torch.Tensor, caches: dict | None = None
-                   ) -> tuple[torch.Tensor, dict | None]:
+                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """tokens (B, S) -> (the final norm's output (B, S, D), new caches or
-    None): the embedding and the layers.
+    None, the MoE aux loss summed over the layers in order, as the JAX
+    package's `_scan_layers` sums it): the embedding and the layers.
 
     `cfg` governs every layer (the modules' own configs are not read), so
     one set of parameters runs under a changed config, such as a
@@ -176,22 +224,25 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
         # the scale is rounded to the activation dtype first, as in JAX
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
     windows = layer_windows(cfg).tolist()
+    auxes = []
     for i, layer in enumerate(params.layers):
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]}
         if remat:
-            h = torch.utils.checkpoint.checkpoint(
+            h, aux = torch.utils.checkpoint.checkpoint(
                 _layer_out, layer, h, cfg, positions, windows[i], use_reentrant=False)
         else:
-            h, _ = decoder_layer(layer, h, cfg, positions=positions, window=windows[i],
-                                 cache=cache)
+            h, _, aux = decoder_layer(layer, h, cfg, positions=positions,
+                                      window=windows[i], cache=cache)
+        auxes.append(aux)
     h = apply_norm(params.ln_final, h, cfg)
     new_caches = None
     if caches is not None:
         new_caches = {"k": caches["k"], "v": caches["v"],
                       "pos": caches["pos"] + positions.shape[-1]}
-    return h, new_caches
+    aux = torch.stack(auxes).sum() if auxes else torch.zeros((), device=h.device)
+    return h, new_caches, aux
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -229,7 +280,8 @@ def head_loss(params: Decoder, cfg: ModelConfig, h: torch.Tensor, labels: torch.
               ) -> tuple[torch.Tensor, dict]:
     """The head of the loss: `cross_entropy` of the softcapped fp32 logits
     of `decoder_forward`, from the final norm's output h (B, S, D), without
-    the (B, S, V) logits. `HeadLoss` takes HEAD_CHUNK rows at a time, adds
+    the (B, S, V) logits. The head is `head_weight`'s (V, D) operand, tied
+    or the view of `unembed`. `HeadLoss` takes HEAD_CHUNK rows at a time, adds
     the chunks' sums in order, and recomputes each chunk in the backward:
     the same function as decoder_forward + cross_entropy (one chunk gives
     its bits). At S = 8,192 the whole logits are 8.4 GB in fp32, and a
@@ -237,7 +289,7 @@ def head_loss(params: Decoder, cfg: ModelConfig, h: torch.Tensor, labels: torch.
     labels = labels.reshape(-1)
     valid = (labels >= 0).float()
     n = valid.sum().clamp(min=1.0)
-    total = HeadLoss.apply(h.reshape(-1, h.shape[-1]), params.embed.to(cfg.dtype),
+    total = HeadLoss.apply(h.reshape(-1, h.shape[-1]), head_weight(params, cfg),
                            labels, cfg.logit_softcap)
     loss = total / n
     return loss, {"ce": loss, "tokens": n}
@@ -341,7 +393,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     leading n_layers axis) as the port's `Decoder` on `device`.
 
     Every leaf must have a parameter of the same shape and every parameter
-    a leaf; each value is cast to the config's parameter dtype.
+    a leaf, by the path its name gives (`unembed`, a layer norm's `bias`,
+    the attention's `bq`, `bk`, `bv` and the `moe` subtree included); a
+    leaf the port has no parameter for is refused. Each value is cast to
+    its parameter's dtype (the MoE router stays fp32).
     """
     from repro_torch.device import resolve_device
 
