@@ -105,7 +105,8 @@ no kernels line and no result line. Phases:
               the kernel lies within an ulp of float64; at q x 16 and
               softcap 0 within 3e-2 and no farther from float64 than the
               plain version; timed
-              beside its bound (4 bf16 tensor passes a visible pair), the
+              beside its bound (2 bf16 tensor passes a visible pair; the
+              kernel's 4 beside it), the
               bound of P V on the fp32 pipes and flex_attention (compiled,
               softcap 50 by score_mod) and, at softcap 0,
               beside scaled_dot_product_attention; digests of an fp32 and a bf16
@@ -145,7 +146,29 @@ no kernels line and no result line. Phases:
               and output bit for bit against a plain version built apart
               from the port's sort (at the published capacity factor and at
               0.5, where replicas drop)
- 19. lm_train gemma2-2b training, lm_eval's parameters freed first: the
+ 19. lm_ssm   xlstm-350m and zamba2-7b at published widths, bf16, seeded
+              init, gemma2-2b's parameters freed first: loss_fn at B = 1, S
+              = 8,192 (no kernel launch for the xLSTM, whose mLSTM and sLSTM
+              scans are plain PyTorch; one flash launch at D = 112 for each
+              of zamba's 3 shared-block applications) with seconds, tokens/s,
+              peak memory and the device's idle share; generate() with 4 x
+              2,048 prompts and 31 decode steps and the cache invariant in
+              fp32 and bf16; layer 0's chunked mLSTM / SSD scan on its own
+              inputs against its sequential form in fp32 and float64; each
+              of zamba's flash launches on its own inputs against the plain
+              version and float64 head by head, each shared-block
+              application recomputed from the one shared block to its bits,
+              and the flash and direct paths' loss and last-position logits
+              in bf16 and fp32; the flash forward alone at (32, 8,192, 112),
+              bf16 and fp32 at S = 8,192, 8,191 and 100 against the plain
+              version (and float64), timed beside its bound, its plain
+              version and scaled_dot_product_attention; four planted faults
+              (an fp32 flash build whose lanes cover 96 of 112 columns,
+              compiled from the source text into build/planted/, a D = 112
+              launch given the scale 1/sqrt(128), an mlstm_chunked without
+              its inter-chunk stabilizer, shared-block applications with
+              weights of their own), each of which must fail a check
+ 20. lm_train gemma2-2b training, lm_eval's parameters freed first: the
               flash backward kernel through FlashAttention at (8, 8,192,
               256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
               on peaked scores (q x 6) and in fp32 at S = 2,000, each
@@ -167,7 +190,7 @@ no kernels line and no result line. Phases:
               published widths (1 + 3 timed steps, remat on, B = 1, S =
               8,192), the MoE's first step reached again bit for bit from a
               fresh state; lm_eval's parameters drawn again from their seed
- 20. lm_faults   faults planted one at a time in the bf16 flash launches
+ 21. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
@@ -179,17 +202,19 @@ no kernels line and no result line. Phases:
               dropped): each must fail one of the checks of phase 16, 17,
               18 or 19 (the MoE and norm checks at 4 layers, as they hold
               each layer on its own input)
- 21. report   one JSON line of kernels, the card line, and the last line
+ 22. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 16, 17 and 19, the serving tier's paths are
+The main path is phases 6, 9, 16, 17 and 20, the serving tier's paths are
 phases 10 and 11, the distributed sampler's phase 13, the SGLD and ALS
-path phase 14, and the other LMs phase 18 and the dense train steps of 19:
-the launch counters are set to 0 just before each and read just after (the
-kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
-`dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_train_launches`
-and `lm_train_dense_launches`, the SGLD ones all 0; lm_train's are its 3
-timed steps, lm_train_dense's the 3 timed steps of each dense config).
+path phase 14, the other LMs phase 18 and the dense train steps of 20, and
+the SSM and hybrid LMs phase 19: the launch counters are set to 0 just
+before each and read just after (the kernels line's `launches`,
+`foldin_launches`, `cotrain_launches`, `dist_launches`, `sgld_launches`,
+`lm_dense_launches`, `lm_ssm_launches`, `lm_train_launches` and
+`lm_train_dense_launches`, the SGLD ones all 0; lm_ssm's are the two timed
+forwards', 3 flash launches in all; lm_train's are its 3 timed steps,
+lm_train_dense's the 3 timed steps of each dense config).
 foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
 and sgld need data, lm_train needs lm_eval,
 lm_faults needs lm_eval, lm_serve and lm_train. Any failed check exits
@@ -215,6 +240,13 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+# the flash pair's bounds count the function's products, one bf16 tensor
+# pass each over the visible (query, key) pairs: QK^T and P V forward; S, dV,
+# dP, dQ and dK backward. The bf16 kernels split the fp32 P (and dS) into
+# three exact bf16 terms, which makes 4 and 11 passes: printed beside the
+# bound as bound_ms_split3, the kernels' own floor, not the function's
+FLASH_FWD_PASSES, FLASH_FWD_SPLIT3_PASSES = 2, 4
+FLASH_BWD_PASSES, FLASH_BWD_SPLIT3_PASSES = 5, 11
 SECTOR = 32                            # bytes: the least the memory moves at once
 K = 64
 # flops of one rating's statistics: the symmetric v v^T needs K(K+1)/2
@@ -379,6 +411,39 @@ DENSE_FAULT_DEPTH = 4
 # the dense configs trained in phase lm_train beside gemma2-2b; granite-20b
 # is served only (its bf16 weights and AdamW's fp32 moments need 203 GB)
 DENSE_TRAINED = ("stablelm-1.6b", "granite-moe-3b-a800m")
+# The SSM and hybrid families (phase lm_ssm): xlstm-350m launches none of
+# the port's kernels (its mLSTM and sLSTM scans are plain PyTorch, as the JAX
+# package's are lax.scans), zamba2-7b one flash launch an application of its
+# shared attention block, (32, 8,192, 112) over 32 KV heads at B = 1
+SSM_MODELS = ("xlstm-350m", "zamba2-7b")
+SSM_WARM_SEQ = 1024                    # the xLSTM's warm-up forward: its sLSTM scan is per step
+# the xLSTM forward whose device-busy share is read: the profiler takes
+# about 0.2 ms of host time a kernel to read its trace back, and the xLSTM's
+# 8,192-token forward is 622,047 kernels
+SSM_PROFILE_SEQ = 1024
+# the prompt tokens of lm_ssm's cache invariants and of its serving warm-up
+SSM_SHORT = 512
+ZAMBA_FLASH = (32, 32, 112)            # (BH, BHk, D) of one zamba2-7b sequence
+SSM_RAGGED = (LM_SEQ - 1, 100)         # the D = 112 checks' ragged sequences
+FLASH112_SEED = 112
+# the chunked scans against their sequential forms (in fp32 and float64) on
+# layer 0's own inputs, and the fp32 flash kernel at D = 112 against its
+# plain version: the port's CPU tests' fp32 tolerance
+SSM_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH112_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+# the fp32 flash kernel's column layout, and the one it had before D = 112
+# (the 96-column plant of lm_ssm)
+FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
+  constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
+  constexpr int CPT = GROUPS * VEC;
+  static_assert(D % 4 == 0 && GROUPS * 32 * VEC >= D && (GROUPS - 1) * 32 * VEC < D,
+                "the lanes' columns cover D, and no group lies wholly past it");
+  static_assert(VEC == 4 || D % 32 == 0, "one column a lane a group needs D % 32 == 0");
+"""
+FLASH_LAYOUT_96 = """  constexpr int VEC = D >= 128 ? 4 : 1;
+  constexpr int CPT = D / 32;
+  constexpr int GROUPS = CPT / VEC;
+"""
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -426,7 +491,7 @@ def card_line() -> str:
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_dense", "lm_train", "lm_faults")
+          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_train", "lm_faults")
 
 
 def main() -> int:
@@ -1173,7 +1238,7 @@ class Smoke:
         self.state = state
 
     def _profile(self, fn, wall: float, what: str = "sweep", trace: Path | None = None,
-                 complete=bool) -> list:
+                 complete=bool, activities=("cpu", "cuda")) -> list:
         """Device time by kernel of one call of fn under torch.profiler; the
         idle share is taken against `wall`, the call's unprofiled time in ms
         (the profiler's own start-up would swamp a wall clock around it).
@@ -1195,7 +1260,9 @@ class Smoke:
         it; so the recorded call sits PROFILE_MARGIN_S of idle inside the
         window at each end. A trace that `complete(events)` rejects (by
         default: one without device time) is taken again, up to twice,
-        and said so (PERF.md §6)."""
+        and said so (PERF.md §6). `activities` names what the profiler
+        records: ("cuda",) keeps the host's events out of a call of
+        hundreds of thousands of launches."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1207,7 +1274,7 @@ class Smoke:
         for attempt in range(3):
             self.sync()
             traces = []
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            with profile(activities=[getattr(ProfilerActivity, a.upper()) for a in activities],
                          schedule=schedule(wait=0, warmup=1, active=1),
                          on_trace_ready=ready) as prof:
                 for recorded in (False, True):
@@ -2677,19 +2744,19 @@ class Smoke:
             faults(q, k, v, kind, "N(0,1) inputs", False, **kw)
             ms = self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
             pms = self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), reps=2)
-            # The bound: QK^T takes bf16 inputs, whose products are exact in
-            # fp32, so it is one bf16 tensor pass over the visible pairs. P
-            # stays fp32; split into three bf16 terms that sum to it exactly
-            # (csrc/flash_attention.cu), P V is three more passes: four in
-            # all. Beside it: the bound before the tensor-core kernel, with
-            # P V on the fp32 pipes, and both products at one peak.
+            # The bound: QK^T and P V, one bf16 tensor pass each over the
+            # visible pairs. Beside it: the kernel's four passes (P stays
+            # fp32, split into three bf16 terms that sum to it exactly,
+            # csrc/flash_attention.cu), the bound before the tensor-core
+            # kernel, with P V on the fp32 pipes, and both products at the
+            # fp32 peak.
             qk_flops = pv_flops = 2.0 * d * bh * visible_pairs(LM_SEQ, window)
             tb = n_bytes / HBM_BYTES_PER_S * 1e3
-            to = 4 * qk_flops / BF16_TENSOR_FLOPS * 1e3
+            to = FLASH_FWD_PASSES * qk_flops / BF16_TENSOR_FLOPS * 1e3
             bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+            b3 = max(tb, FLASH_FWD_SPLIT3_PASSES * qk_flops / BF16_TENSOR_FLOPS * 1e3)
             b_pv32 = max(tb, (qk_flops / BF16_TENSOR_FLOPS + pv_flops / FP32_FLOPS) * 1e3)
             b32 = max(tb, (qk_flops + pv_flops) / FP32_FLOPS * 1e3)
-            b16 = max(tb, (qk_flops + pv_flops) / BF16_TENSOR_FLOPS * 1e3)
             # softcap 0: the function scaled_dot_product_attention computes
             kw0 = dict(kw, softcap=0.0)
             mask = None
@@ -2716,15 +2783,15 @@ class Smoke:
                        "kernel", FLASH_TOL["bf16"])
             lms = self.cuda_ms(lambda: flex(q[None], k[None], v[None], **fkw))
             print(f"    flash_attention {kind}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
-                  f"bound {bms:.3f} ms ({by}: 4 bf16 tensor passes a visible pair, "
-                  f"QK^T and the 3-term P V; kernel at {ms / bms:.2f}x); with P V on "
-                  f"the fp32 pipes {b_pv32:.3f} ms (kernel at {ms / b_pv32:.2f}x); all "
-                  f"at the fp32 peak {b32:.3f} ms, both products in one bf16 tensor "
-                  f"pass each {b16:.3f} ms; flex_attention {lms:.3f} ms; softcap 0: "
+                  f"bound {bms:.3f} ms ({by}: 2 bf16 tensor passes a visible pair, "
+                  f"QK^T and P V; kernel at {ms / bms:.2f}x); the kernel's 4 passes, "
+                  f"QK^T and the 3-term P V, {b3:.3f} ms (kernel at {ms / b3:.2f}x); with "
+                  f"P V on the fp32 pipes {b_pv32:.3f} ms; all at the fp32 peak "
+                  f"{b32:.3f} ms; flex_attention {lms:.3f} ms; softcap 0: "
                   f"{ms0:.3f} ms kernel, {lms0:.3f} ms scaled_dot_product_attention (agree "
                   f"to {err0:.2e})")
-            per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b_pv32=b_pv32,
-                             b32=b32, b16=b16, by=by, ms0=ms0, lib0=lms0, lib=lms)
+            per[kind] = dict(err=err, ms=ms, plain=pms, bound=bms, b3=b3, b_pv32=b_pv32,
+                             b32=b32, by=by, ms0=ms0, lib0=lms0, lib=lms)
             del mask
         del q, k, v
         # peaked scores, where the softcap and each key count: the kernel
@@ -2797,15 +2864,15 @@ class Smoke:
                              "enable_gqa",
                      shapes=f"one gemma2-2b forward's attention: 13 local (window 4096) + "
                             f"13 global launches, q (8, {LM_SEQ}, 256), k/v (4, {LM_SEQ}, "
-                            "256) bf16, causal, softcap 50; bound: 4 bf16 tensor passes "
-                            "a visible pair (QK^T, and P V with the fp32 P split into "
-                            "three exact bf16 terms)",
+                            "256) bf16, causal, softcap 50; bound: 2 bf16 tensor passes "
+                            "a visible pair (QK^T and P V)",
+                     bound_ms_split3=total("b3"),
                      bound_ms_pv_fp32_pipes=total("b_pv32"),
-                     bound_note="bound_ms was bound_ms_pv_fp32_pipes (QK^T at the bf16 "
-                                "tensor peak, P V at the fp32 peak) while P V ran on the "
-                                "fp32 pipes; the bf16 kernel runs it on the tensor cores",
+                     bound_note="bound_ms_split3: the kernel's 4 passes, P V with the "
+                                "fp32 P split into three exact bf16 terms; "
+                                "bound_ms_pv_fp32_pipes: QK^T at the bf16 tensor peak, "
+                                "P V at the fp32 peak, as before the tensor-core kernel",
                      bound_ms_all_fp32_peak=total("b32"),
-                     bound_ms_all_bf16_tensor_peak=total("b16"),
                      softcap0_ms=total("ms0"),
                      softcap0_library_ms=total("lib0"),
                      softcap0_library="scaled_dot_product_attention, enable_gqa, "
@@ -2875,9 +2942,11 @@ class Smoke:
         # times
         pairs = bh * visible_pairs(LM_SEQ, 0)
         tb = sum(t.numel() * t.element_size() for t in (q, k, v, q)) / HBM_BYTES_PER_S * 1e3
-        to = 4 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        to = FLASH_FWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
         fwd = dict(shape=name, max_abs_err=err, bound_ms=max(tb, to),
                    bound_by="bytes" if tb >= to else "operations",
+                   bound_ms_split3=max(tb, FLASH_FWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                       / BF16_TENSOR_FLOPS * 1e3),
                    ms=self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                    plain_ms=self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
                                          reps=1))
@@ -2895,8 +2964,11 @@ class Smoke:
         tb = ((sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
                + q.numel() * 4 + bh * LM_SEQ * 4) / HBM_BYTES_PER_S * 1e3)
         bwd = dict(shape=name, max_abs_err=bwd_err, worst_ulp=worst_all,
-                   bound_ms=max(tb, 11 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3),
+                   bound_ms=max(tb, FLASH_BWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS
+                                * 1e3),
                    bound_by="operations",
+                   bound_ms_split3=max(tb, FLASH_BWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                       / BF16_TENSOR_FLOPS * 1e3),
                    ms=self.cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, **bw)),
                    plain_ms=self.cuda_ms(lambda: self.plain_bwd_by_heads(q, k, v, do, lse, o32,
                                                                          bw), reps=1))
@@ -2910,8 +2982,8 @@ class Smoke:
         for kind, r in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
             print(f"    {kind} {name}: {r['ms']:.3f} ms kernel, {r['plain_ms']:.3f} ms plain, "
                   f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; kernel at "
-                  f"{r['ms'] / r['bound_ms']:.2f}x), scaled_dot_product_attention "
-                  f"{r['library_ms']:.3f} ms")
+                  f"{r['ms'] / r['bound_ms']:.2f}x; split3 {r['bound_ms_split3']:.3f} ms), "
+                  f"scaled_dot_product_attention {r['library_ms']:.3f} ms")
         return dict(fwd=fwd, bwd=bwd)
 
     def plain_bwd_by_heads(self, q, k, v, do, lse, o, kw):
@@ -3664,18 +3736,21 @@ class Smoke:
         tag = f"{cfg.name} at capacity factor {cfg.capacity_factor:g}"
         return self.moe_layer_verdicts(recs, cfg, tag), sum(r["dropped"] for r in recs)
 
-    def dense_serve(self, name, model, params) -> dict:
+    def dense_serve(self, name, model, params, prefix: int | None = None) -> dict:
         """launch.serve.generate (prefill of 4 x 2,048, 31 decode steps: no
         flash launch) and the cache invariant prefill(t) == prefill(t[:-1])
-        + decode(t[-1]) in fp32 and bf16. The MoE's invariant is held at
-        capacity factor E / k, where the capacity is the batch's tokens and
-        no replica is dropped: at the published 1.25 a decode step of 4
-        tokens has a capacity of 1 an expert, so its drops differ from
-        prefill's by design (its distance is printed)."""
+        + decode(t[-1]) in fp32 and bf16. The warm-up is the same
+        generate() and the invariant is held on the whole prompts; with
+        `prefix`, the warm-up generates 2 tokens from the prompts' first
+        `prefix` tokens and the invariant is held on them. The MoE's
+        invariant is held at capacity factor E / k, where the capacity is
+        the batch's tokens and no replica is dropped: at the published 1.25
+        a decode step of 4 tokens has a capacity of 1 an expert, so its
+        drops differ from prefill's by design (its distance is printed)."""
         import dataclasses
 
         from repro_torch.launch import serve
-        from repro_torch.models import DecoderModel
+        from repro_torch.models import build_model
 
         torch, ops = self.torch, self.ops
         cfg = model.cfg
@@ -3683,7 +3758,10 @@ class Smoke:
         gen = torch.Generator(device=self.dev).manual_seed(1)
         prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device=self.dev,
                                 dtype=torch.int32)
-        serve.generate(model, params, prompts, max_new)          # warm-up
+        if prefix:                                                # warm-up
+            serve.generate(model, params, prompts[:, :prefix], 2)
+        else:
+            serve.generate(model, params, prompts, max_new)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         toks, t_prefill, t_decode = serve.generate(model, params, prompts, max_new)
@@ -3709,8 +3787,9 @@ class Smoke:
                   f"{float((full - dec).abs().max()):.3e} (printed, not held)")
             del full, short, dec
         full, dec = {}, {}
+        prompts = prompts[:, :prefix]
         for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-            m = DecoderModel(dataclasses.replace(base, dtype=dt, param_dtype=dt))
+            m = build_model(dataclasses.replace(base, dtype=dt, param_dtype=dt))
             full[tag] = m.prefill_fn(params, {"tokens": prompts})["logits"]
             short = m.prefill_fn(params, {"tokens": prompts[:, :-1]})
             _, dec[tag] = m.decode_fn(params, short["cache"], {"tokens": prompts[:, -1:]})
@@ -3726,6 +3805,522 @@ class Smoke:
             self.check(ok, text)
         return dict(prefill_ms=t_prefill * 1e3, decode_tokens_per_s=n_dec / t_decode,
                     decode_ms=t_decode / (max_new - 1) * 1e3, serve_peak_gb=peak)
+
+    # ------------------------------------------------------------ SSM and hybrid
+    def lm_ssm(self):
+        """xlstm-350m and zamba2-7b at their published widths, bf16, weights
+        from seed 0, one after the other (gemma2-2b's parameters freed
+        first, as lm_dense frees them): loss_fn at B = 1, S = 8,192 (the
+        main path: no kernel launch for the xLSTM, one flash launch an
+        application of zamba's shared block) with its device-busy share,
+        generate() and the cache invariant, layer 0's chunked scan against
+        its sequential form and float64, and for zamba its flash launches
+        and shared-block applications each on its own inputs and the two
+        attention paths; then the flash forward alone at zamba's shape and
+        four planted faults."""
+        import gc
+
+        from repro_torch.models import zamba
+
+        torch = self.torch
+        print(f"card: {card_line()}")
+        # the plants replace these; the checks call the true ones
+        self.true_shared_block = zamba.shared_block
+        if getattr(self, "lm", (None, None))[1] is not None:
+            self.lm_digest = self.params_digest(self.lm[1])
+            self.lm = (self.lm[0], None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.ssm_numbers, self.ssm_kept, total = {}, {}, {}
+        for name in SSM_MODELS:
+            print(f"  -- {name}", flush=True)
+            for key, n in self.ssm_model(name).items():
+                total[key] = total.get(key, 0) + n
+        self.path_launches["lm_ssm"] = total
+        lap = self.lap("lm_ssm")
+        # the plant's nvcc runs beside the flash checks, after every timed
+        # forward and serving run (they are host-bound)
+        planted = self.planted_library("flash_attention", [(FLASH_LAYOUT_NOW, FLASH_LAYOUT_96)],
+                                       "flash_96_columns", wait=False)
+        try:
+            row = self.flash_d112()
+            if "flash_attention" in self.rows:
+                self.rows["flash_attention"]["zamba2_shape"] = row
+            lap("the flash forward at D = 112")
+            self.ssm_faults(planted)
+            lap("the plants")
+        finally:
+            planted.stop()
+        self.ssm_kept = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, r in self.ssm_numbers.items():
+            print(f"summary {name}: forward {r['s']:.3f} s at S={LM_SEQ} "
+                  f"({r['tokens_per_s']:,.0f} tokens/s, peak {r['peak_gb']:.2f} GB, idle "
+                  f"share {r['idle']:.3f} at S={r['profiled_seq']}); prefill {r['prefill_ms']:.1f} "
+                  f"ms; decode {r['decode_tokens_per_s']:,.1f} tokens/s")
+        print(f"summary flash (32, {LM_SEQ}, 112): {row['ms']:.3f} ms kernel, bound "
+              f"{row['bound_ms']:.3f} ms (the kernel's 4 passes {row['bound_ms_split3']:.3f} "
+              f"ms), plain {row['plain_ms']:.3f} ms, "
+              f"scaled_dot_product_attention {row['library_ms']:.3f} ms")
+
+    def ssm_model(self, name: str) -> dict:
+        """One config of lm_ssm; returns the launches of its timed loss_fn."""
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import build_model
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config(name)
+        hybrid = cfg.family == "hybrid"
+        n_flash = cfg.n_layers // cfg.attn_every if hybrid else 0
+        model = build_model(cfg)
+        lap = self.lap(name)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        self.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"{name} init on the card: {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        with torch.no_grad():
+            # warm-up: cuBLAS plans, the allocator, the flash launch; the
+            # xLSTM's at a shorter sequence (its sLSTM scan takes seconds)
+            model.loss_fn(params, batch if hybrid else TokenStream(cfg, 1, SSM_WARM_SEQ,
+                                                                   seed=0)(0))
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()                       # the main path starts here
+            t0 = time.perf_counter()
+            loss, metrics = model.loss_fn(params, batch)
+            self.sync()
+            dt = time.perf_counter() - t0
+            launches = ops.launches()                  # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = float(loss)
+        print(f"{name} forward + loss at B=1, S={LM_SEQ}: {dt:.3f} s, {LM_SEQ / dt:,.0f} "
+              f"tokens/s, peak device memory {peak:.2f} GB, loss {loss:.5f}; launches "
+              f"{launches}")
+        what = (f"the flash kernel once an application of the shared block ({n_flash})"
+                if hybrid else "none of the port's kernels")
+        self.check(launches["flash_attention"] == n_flash and sum(launches.values()) == n_flash,
+                   f"{name}: the forward launched {what}: {launches}")
+        self.check(bool(self.np.isfinite(loss)) and float(metrics["tokens"]) == LM_SEQ,
+                   f"{name}: the loss is finite ({loss:.5f}), {LM_SEQ} labels counted")
+        lap("the timed forward and its warm-up")
+        # the device-busy share: the xLSTM's at a shorter sequence
+        # (SSM_PROFILE_SEQ; each of its steps and chunks costs the same at
+        # any S)
+        seq = LM_SEQ if hybrid else SSM_PROFILE_SEQ
+        short = batch if hybrid else TokenStream(cfg, 1, seq, seed=0)(0)
+        if not hybrid:
+            with torch.no_grad():
+                self.sync()
+                t0 = time.perf_counter()
+                model.loss_fn(params, short)
+                self.sync()
+                wall = time.perf_counter() - t0
+        else:
+            wall = dt
+        # CUDA activity alone: the host's events would swamp a forward of
+        # hundreds of thousands of launches
+        with torch.no_grad():
+            events = self._profile(lambda: model.loss_fn(params, short), wall * 1e3,
+                                   f"{name} forward at S={seq}", activities=("cuda",))
+        self.check(bool(events), f"{name}: the profiled forward at S={seq} holds device "
+                   "time (its idle share is measured)")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (wall * 1e3))
+        self.print_split(events, f"{name} forward at S={seq}")
+        lap("the profiled forward")
+        numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak, loss=loss,
+                       params=n_params, busy_ms=busy, idle=idle, profiled_seq=seq)
+        numbers.update(self.dense_serve(name, model, params, prefix=SSM_SHORT))
+        lap("serving and the cache invariant")
+        # layer 0's scan on its own full-width inputs
+        rec = self.layer0_scan(cfg, params, batch)
+        for ok, text in self.scan_verdicts(cfg, rec):
+            self.check(ok, text)
+        lap("layer 0's scan")
+        kept = dict(cfg=cfg, params=params, batch=batch, scan=rec)
+        if hybrid:
+            for ok, text in self.zamba_probe_verdicts(cfg, params, batch):
+                self.check(ok, text)
+            lap("the flash launches and shared-block applications on their inputs")
+            for ok, text in self.path_verdicts(self.zamba_runs(cfg, params, batch)):
+                self.check(ok, f"{name}: {text}")
+            lap("the two attention paths")
+        self.ssm_numbers[name] = numbers
+        self.ssm_kept[name] = kept
+        return launches
+
+    @staticmethod
+    def lap(what: str):
+        """A function printing the seconds since its last call (or since
+        this one), with `what` and the step it names."""
+        last = [time.perf_counter()]
+
+        def lap(step: str):
+            now = time.perf_counter()
+            print(f"  ({what}: {step} {now - last[0]:.1f} s)", flush=True)
+            last[0] = now
+        return lap
+
+    def layer0_scan(self, cfg, params, batch) -> tuple:
+        """The inputs of layer 0's chunked scan, as the bf16 forward gives
+        them: (function name, args, kwargs) of its mlstm_chunked (xLSTM) or
+        ssd_chunked (Mamba2) call."""
+        from repro_torch.models import mamba, ssm
+
+        torch = self.torch
+        mod, fn = (mamba, "ssd_chunked") if cfg.family == "hybrid" else (ssm, "mlstm_chunked")
+        real, recs = getattr(mod, fn), []
+
+        def record(*a, **kw):
+            recs.append((a, kw))
+            return real(*a, **kw)
+
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        setattr(mod, fn, record)
+        try:
+            with torch.no_grad():
+                h = params.embed.to(cfg.dtype)[tokens]
+                if cfg.family == "hybrid":
+                    mamba.mamba2_block(params.mamba[0][0], h, cfg, None)
+                else:
+                    ssm.mlstm_block(params.mlstm[0][0], h, cfg, None)
+        finally:
+            setattr(mod, fn, real)
+        return (fn,) + recs[0]
+
+    def scan_verdicts(self, cfg, rec) -> list[tuple[bool, str]]:
+        """Layer 0's chunked scan (`ssm.mlstm_chunked` or
+        `mamba.ssd_chunked`, as the module holds it) on its recorded inputs,
+        against the sequential form (`mlstm_sequential`, or `ssd_step` a
+        position at a time) in fp32 and against the same in float64: output
+        and final state at SSM_TOL."""
+        from repro_torch.models import mamba, ssm
+
+        torch = self.torch
+        fn, args, kw = rec
+        name = cfg.name
+        with torch.no_grad():
+            if fn == "mlstm_chunked":
+                def seq(a):
+                    return ssm.mlstm_sequential(*a[:5], ssm.MLSTMState(*a[5]))
+                got = ssm.mlstm_chunked(*args[:5], ssm.MLSTMState(*args[5]), **kw)
+                wide = tuple(t.double() for t in args[:5]) + (
+                    tuple(t.double() for t in args[5]),)
+                states = ("c", "n", "m")
+            else:
+                def seq(a):
+                    x, dt, aa, b, c, st = a
+                    ys = []
+                    for t in range(x.shape[1]):
+                        y, st = mamba.ssd_step(x[:, t], dt[:, t], aa, b[:, t], c[:, t], st)
+                        ys.append(y)
+                    return torch.stack(ys, dim=1), (st,)
+                got = mamba.ssd_chunked(*args, **kw)
+                got = (got[0], (got[1],))
+                wide = tuple(t.double() for t in args)
+                states = ("h",)
+            ref32 = seq(args)
+            ref64 = seq(wide)
+            self.sync()
+        out = []
+        for tag, want in (("its sequential form in fp32", ref32), ("float64", ref64)):
+            ok, text, _ = self.verdict(got[0], want[0], f"{name} layer 0: {fn}'s output "
+                                       f"against {tag}", SSM_TOL)
+            out.append((ok, text))
+            for s, a, b in zip(states, got[1], want[1]):
+                ok, text, _ = self.verdict(a, b, f"{name} layer 0: {fn}'s final state {s} "
+                                           f"against {tag}", SSM_TOL)
+                out.append((ok, text))
+        print(f"  {name} layer 0: the sequential form's output against float64: max abs "
+              f"err {self.max_err(ref32[0], ref64[0]):.3e} (inputs {tuple(args[0].shape)})")
+        return out
+
+    def zamba_probe_verdicts(self, cfg, params, batch) -> list[tuple[bool, str]]:
+        """A bf16 zamba forward whose flash launches and shared-block
+        applications are each held on their own inputs: each launch against
+        the plain version (3e-2 and one bf16 ulp) and against float64 head by
+        head (within one bf16 ulp of the head's largest magnitude); each
+        application recomputed from the model's one shared block on its
+        recorded input, to the same bits."""
+        from repro_torch.models import zamba
+
+        torch, ops, ref = self.torch, self.ops, self.ref
+        n_groups = zamba.zamba_groups(cfg)[0]
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        s = tokens.shape[1]
+        n_flash = n_groups if s >= cfg.chunked_attn_min_len else 0
+        positions = torch.arange(s, dtype=torch.int32, device=self.dev)[None]
+        real_flash, real_shared = ops.flash_attention, zamba.shared_block
+        flash, shared = [], []
+
+        def flash_probe(q, k, v, **kw):
+            out = real_flash(q, k, v, **kw)
+            flash.append((q, k, v, kw, out))
+            return out
+
+        def shared_probe(p, h, c, **kw):
+            out = real_shared(p, h, c, **kw)
+            shared.append((p, h, kw, out[0]))
+            return out
+
+        ops.flash_attention, zamba.shared_block = flash_probe, shared_probe
+        try:
+            with torch.no_grad():
+                zamba.zamba_forward(params, cfg, tokens, positions=positions)
+        finally:
+            ops.flash_attention, zamba.shared_block = real_flash, real_shared
+        self.sync()
+        out = [(len(flash) == n_flash and len(shared) == n_groups,
+                f"zamba2-7b at S={s}: {len(flash)} flash launches and {len(shared)} "
+                f"shared-block applications recorded ({n_flash} and {n_groups})")]
+        rtol = FLASH_BF16_ULP_TOL["rtol"]
+        for i, (q, k, v, kw, got) in enumerate(flash):
+            tag = f"zamba2-7b flash launch {i} {tuple(q.shape)} over {k.shape[0]} KV heads"
+            with torch.no_grad():
+                want = ref.flash_attention_ref(q, k, v, **kw).float()
+            out.append(self.verdict(got.float(), want, f"{tag} against the plain version",
+                                    FLASH_TOL["bf16"])[:2])
+            out.append(self.verdict(got.float(), want, f"{tag} within a bf16 ulp of the "
+                                    "plain version", FLASH_BF16_ULP_TOL)[:2])
+            del want
+            assert kw["window"] == 0 and kw["softcap"] == 0.0 and kw["causal"]
+            worst, err = 0.0, 0.0
+            for h0 in range(0, q.shape[0], 8):
+                exact = self.exact_heads(q, k, v, h0, min(h0 + 8, q.shape[0]))
+                e = (got[h0:h0 + 8].double() - exact).abs().flatten(1).amax(dim=1)
+                top = exact.abs().flatten(1).amax(dim=1)
+                ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+                worst, err = max(worst, float((e / ulp).max())), max(err, float(e.max()))
+                del exact
+            out.append((worst <= 1.0, f"{tag} against float64 head by head: worst err / "
+                        f"(one bf16 ulp of the head's largest magnitude) {worst:.3f}, max abs "
+                        f"err {err:.3e}"))
+        for i, (p, h, kw, got) in enumerate(shared):
+            with torch.no_grad():
+                again = self.true_shared_block(params.shared, h, cfg, **kw)[0]
+            same = p is params.shared and torch.equal(again, got)
+            out.append((same, f"zamba2-7b shared-block application {i}: the model's one "
+                        f"shared block recomputed on its input gives its bits (max abs diff "
+                        f"{float((again.float() - got.float()).abs().max()):.3e})"))
+        del flash, shared
+        return out
+
+    def zamba_runs(self, cfg, params, batch) -> dict:
+        """zamba's forward down the flash and the direct attention paths, in
+        bf16 and fp32 (the bf16 weights cast per use): (loss, last-position
+        logits) each."""
+        import dataclasses
+
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models import zamba
+
+        torch, ops = self.torch, self.ops
+        tokens = torch.as_tensor(batch["tokens"], device=self.dev)
+        labels = torch.as_tensor(batch["labels"], device=self.dev)
+        positions = torch.arange(LM_SEQ, dtype=torch.int32, device=self.dev)[None]
+
+        def forward(c):
+            with torch.no_grad():
+                logits = zamba.zamba_forward(params, c, tokens, positions=positions)[0]
+                return float(tfm.cross_entropy(logits, labels)[0]), logits[:, -1].clone()
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+        runs = {"flash bf16": forward(cfg), "flash fp32": forward(f32)}
+        ops.reset_launches()
+        for tag, c in (("direct bf16", cfg), ("direct fp32", f32)):
+            runs[tag] = forward(dataclasses.replace(c, chunked_attn_min_len=LM_SEQ + 1))
+        self.check(ops.launches()["flash_attention"] == 0,
+                   "zamba2-7b: the direct-path forwards launched no flash kernel")
+        for tag, (l, g) in runs.items():
+            print(f"  zamba2-7b {tag}: loss {l:.6f}")
+            self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
+                       f"zamba2-7b {tag}: loss and last-position logits are finite")
+        return runs
+
+    def flash_d112(self) -> dict:
+        """The flash forward alone at zamba2-7b's shape, (32, 8,192, 112) over
+        32 KV heads, causal, softcap 0, window 0: held in bf16 and fp32 at S
+        = 8,192 and ragged (`flash112_verdicts`), timed beside its bound (2
+        bf16 tensor passes a visible pair; the kernel's 4 beside it), its
+        plain version and scaled_dot_product_attention. Returns the kernels
+        line's record."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        bh, bhk, d = ZAMBA_FLASH
+        for ok, text in self.flash112_verdicts(FLASH112_SEED, ("bf16", "fp32")):
+            self.check(ok, text)
+        g = torch.Generator(device=self.dev).manual_seed(FLASH112_SEED)
+        q, k, v = (torch.randn(n, LM_SEQ, d, generator=g, device=self.dev).to(torch.bfloat16)
+                   for n in (bh, bhk, bhk))
+        kw = dict(causal=True, window=0, softcap=0.0)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0]
+
+        err = self.close(sdpa().float(), ops.flash_attention(q, k, v, **kw).float(),
+                         f"flash_attention (32, {LM_SEQ}, 112): scaled_dot_product_attention "
+                         "against the kernel", FLASH_TOL["bf16"])
+        pairs = bh * visible_pairs(LM_SEQ, 0)
+        tb = sum(t.numel() * t.element_size() for t in (q, k, v, q)) / HBM_BYTES_PER_S * 1e3
+        to = FLASH_FWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        row = dict(shape=f"zamba2-7b's shared attention ({bh}, {LM_SEQ}, {d}) over {bhk} KV "
+                         "heads, bf16, causal, softcap 0, window 0",
+                   max_abs_err=self.max_err(ops.flash_attention(q, k, v, **kw).float(),
+                                            ref.flash_attention_ref(q, k, v, **kw).float()),
+                   ms=self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                   plain_ms=self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                         reps=1),
+                   bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                   bound_ms_split3=max(tb, FLASH_FWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                       / BF16_TENSOR_FLOPS * 1e3),
+                   library_ms=self.cuda_ms(sdpa), library="scaled_dot_product_attention, "
+                   "is_causal", library_max_abs_err=err)
+        print(f"    flash_attention (32, {LM_SEQ}, 112): {row['ms']:.3f} ms kernel, "
+              f"{row['plain_ms']:.3f} ms plain, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}: 2 bf16 tensor passes a visible pair; kernel at "
+              f"{row['ms'] / row['bound_ms']:.2f}x), the kernel's 4 passes "
+              f"{row['bound_ms_split3']:.3f} ms (kernel at "
+              f"{row['ms'] / row['bound_ms_split3']:.2f}x), scaled_dot_product_attention "
+              f"{row['library_ms']:.3f} ms")
+        return row
+
+    def flash112_verdicts(self, seed: int, dtypes) -> list[tuple[bool, str]]:
+        """The flash forward at D = 112 against its plain version on inputs
+        of `seed`, (32, S, 112) over 32 KV heads at S = 8,192, 8,191 and 100:
+        fp32 at FLASH112_FP32_TOL, bf16 at 3e-2 and one bf16 ulp, and at S =
+        8,192 against float64 head by head (the kernel within an ulp, or no
+        farther than the plain version)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        bh, bhk, d = ZAMBA_FLASH
+        kw = dict(causal=True, window=0, softcap=0.0)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        out = []
+        for s in (LM_SEQ,) + SSM_RAGGED:
+            base = [torch.randn(n, s, d, generator=g, device=self.dev) for n in (bh, bhk, bhk)]
+            for name in dtypes:
+                dtype = torch.bfloat16 if name == "bf16" else torch.float32
+                q, k, v = (t.to(dtype) for t in base)
+                got = ops.flash_attention(q, k, v, **kw).float()
+                want = ref.flash_attention_ref(q, k, v, **kw).float()
+                self.sync()
+                tag = f"flash_attention ({bh}, {s}, {d}) {name}, inputs of seed {seed}"
+                if name == "fp32":
+                    out.append(self.verdict(got, want, tag, FLASH112_FP32_TOL)[:2])
+                    out.append(self.verdict(got[..., 96:], want[..., 96:], f"{tag}, columns "
+                                            "96-111", FLASH112_FP32_TOL)[:2])
+                    continue
+                out.append(self.verdict(got, want, tag, FLASH_TOL["bf16"])[:2])
+                out.append(self.verdict(got, want, f"{tag}, within a bf16 ulp",
+                                        FLASH_BF16_ULP_TOL)[:2])
+                if s == LM_SEQ:
+                    rtol = FLASH_BF16_ULP_TOL["rtol"]
+                    need = {"kernel": 0.0, "plain": 0.0}
+                    for h0 in range(0, bh, 8):
+                        exact = self.exact_heads(q, k, v, h0, min(h0 + 8, bh))
+                        for who, o in (("kernel", got), ("plain", want)):
+                            need[who] = max(need[who], float(
+                                ((o[h0:h0 + 8].double() - exact).abs()
+                                 - rtol * exact.abs()).max()))
+                        del exact
+                    out.append((need["kernel"] <= max(FLASH_BF16_ULP_TOL["atol"], need["plain"]),
+                                f"{tag} against float64: the kernel takes an atol of "
+                                f"{need['kernel']:.3e} beside the one-ulp rtol, the plain version "
+                                f"{need['plain']:.3e}"))
+                del got, want
+        return out
+
+    def planted_function(self, module, name: str, old: str, new: str):
+        """module.name compiled again from its source text with `old` (which
+        must appear once) replaced by `new`, in the module's namespace."""
+        import inspect
+
+        src = inspect.getsource(getattr(module, name))
+        if src.count(old) != 1:
+            raise RuntimeError(f"plant: '{old}' is not in {module.__name__}.{name} once")
+        ns = dict(vars(module))
+        exec(compile(src.replace(old, new), f"<planted {module.__name__}.{name}>", "exec"), ns)
+        return ns[name]
+
+    def ssm_faults(self, planted_build):
+        """lm_ssm's plants, one at a time; each must fail a check of the
+        phase: the fp32 flash kernel built with lanes over 96 of 112
+        columns, a D = 112 launch given the scale 1/sqrt(128), an
+        mlstm_chunked without the inter-chunk stabilizer, and a zamba
+        forward whose shared-block applications each draw their own
+        weights."""
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import ssm, zamba
+
+        torch, ops, build = self.torch, self.ops, self.build_mod
+        xl, zb = self.ssm_kept["xlstm-350m"], self.ssm_kept["zamba2-7b"]
+        cfg = zb["cfg"]
+        n_groups = zamba.zamba_groups(cfg)[0]
+        real_library, real_flash = build.library, ops.flash_attention
+        real_chunked, real_shared = ssm.mlstm_chunked, zamba.shared_block
+        lib96 = planted_build()
+
+        def library_96(name):
+            return lib96 if name == "flash_attention" else real_library(name)
+
+        def scale_128(q, k, v, **kw):
+            if q.shape[-1] == 112:
+                kw = dict(kw, scale=128 ** -0.5)
+            return real_flash(q, k, v, **kw)
+
+        no_stabilizer = self.planted_function(
+            ssm, "mlstm_chunked", "inter_scale = torch.exp(inter_b - m_new)",
+            "inter_scale = torch.ones_like(inter_b)")
+        # the shared-block plant's forward: a sequence that takes the direct
+        # attention path (the plant is in the block's weights, not its kernel)
+        short = TokenStream(cfg, 1, SSM_SHORT, seed=0)(0)
+        gens = [torch.Generator(device=self.dev).manual_seed(100 + i) for i in range(n_groups)]
+        own = [zamba.SharedBlock(cfg, generator=g, device=self.dev) for g in gens]
+        applied = [0]
+
+        def own_weights(p, h, c, **kw):
+            applied[0] += 1
+            return real_shared(own[(applied[0] - 1) % n_groups], h, c, **kw)
+
+        plants = [
+            ("flash fp32 at D = 112: lanes over 96 of 112 columns (CPT = D / 32)", build,
+             "library", library_96,
+             lambda: self.flash112_verdicts(FLASH112_SEED + 1, ("fp32",))),
+            ("flash at D = 112 given the scale 1/sqrt(128)", ops, "flash_attention", scale_128,
+             lambda: self.zamba_probe_verdicts(cfg, zb["params"], zb["batch"])),
+            ("mlstm_chunked without the inter-chunk stabilizer (inter_scale = 1)", ssm,
+             "mlstm_chunked", no_stabilizer,
+             lambda: self.scan_verdicts(xl["cfg"], xl["scan"])),
+            ("zamba's shared-block applications each with weights of their own", zamba,
+             "shared_block", own_weights,
+             lambda: self.zamba_probe_verdicts(cfg, zb["params"], short)),
+        ]
+        for name, mod, attr, fn, checks in plants:
+            saved = getattr(mod, attr)
+            setattr(mod, attr, fn)
+            try:
+                verdicts = checks()
+            finally:
+                setattr(mod, attr, saved)
+            caught = [what for ok, what in verdicts if not ok]
+            for ok, what in verdicts:
+                print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
+            self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
+                       f"{len(verdicts)} checks")
+        # the inputs of the first plant, through the real kernel: the checks hold
+        verdicts = self.flash112_verdicts(FLASH112_SEED + 1, ("fp32",))
+        self.check(all(ok for ok, _ in verdicts),
+                   f"the 96-column plant's checks pass with no plant "
+                   f"({sum(ok for ok, _ in verdicts)} of {len(verdicts)})")
+        self.check(build.library is real_library and ops.flash_attention is real_flash
+                   and ssm.mlstm_chunked is real_chunked and zamba.shared_block is real_shared,
+                   "every plant undone")
+        del own
 
     # ------------------------------------------------------------ LM training
     def lm_train(self):
@@ -3967,8 +4562,9 @@ class Smoke:
 
     def bwd_timing(self, err: float):
         """The backward launch of each kind at the step's shapes, beside its
-        bound, its achieved bf16 TFLOP/s (of the 11 passes the bound counts
-        and of the 13 the kernels compute), its plain version, the backward
+        bound (5 bf16 tensor passes; the kernels' 11 beside it), its achieved
+        bf16 TFLOP/s (of the 11 passes of the split products and of the 13
+        the kernels compute), its plain version, the backward
         of flex_attention (the library call of the same function) and, at
         softcap 0, the backward of scaled_dot_product_attention; the kernels
         line's row."""
@@ -3984,8 +4580,9 @@ class Smoke:
             n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
                        + q.numel() * 4 + bh * LM_SEQ * 4)
             tb = n_bytes / HBM_BYTES_PER_S * 1e3
-            bms = max(tb, 11 * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3)
-            b32 = max(tb, 5 * 2.0 * d * pairs / FP32_FLOPS * 1e3)
+            bms = max(tb, FLASH_BWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3)
+            b3 = max(tb, FLASH_BWD_SPLIT3_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3)
+            b32 = max(tb, FLASH_BWD_PASSES * 2.0 * d * pairs / FP32_FLOPS * 1e3)
             res = {}
             for cap in (50.0, 0.0):
                 kw = dict(causal=True, window=window, softcap=cap, scale=scale)
@@ -4029,19 +4626,20 @@ class Smoke:
                 *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
             lib0 = self.cuda_ms(lambda: torch.autograd.grad(out, leaves, do[None],
                                                             retain_graph=True))
-            # achieved bf16 tensor rate: the 11 passes the bound counts, and the
-            # 13 the two kernels compute (S and dP in each of them)
+            # achieved bf16 tensor rate: the 11 passes of the split products,
+            # and the 13 the two kernels compute (S and dP in each of them)
             rate = {n: n * 2.0 * d * pairs / (res[50.0] * 1e-3) / 1e12 for n in (11, 13)}
             print(f"    flash_attention_bwd {kind}: {res[50.0]:.3f} ms kernel, {pms:.3f} ms "
-                  f"plain, bound {bms:.3f} ms (operations: 11 bf16 tensor passes a visible "
-                  f"pair, S and dP, and dV, dQ and dK with P and dS split in three; kernel "
-                  f"at {res[50.0] / bms:.1f}x); achieved {rate[11]:.1f} TFLOP/s of the "
+                  f"plain, bound {bms:.3f} ms (operations: 5 bf16 tensor passes a visible "
+                  f"pair, S, dP, dV, dQ and dK; kernel at {res[50.0] / bms:.1f}x); the "
+                  f"kernels' 11 passes, with P and dS split in three, {b3:.3f} ms (kernel "
+                  f"at {res[50.0] / b3:.1f}x); achieved {rate[11]:.1f} TFLOP/s of the "
                   f"11-pass work, {rate[13]:.1f} of the 13 passes computed, against "
                   f"{BF16_TENSOR_FLOPS / 1e12:.0f}; the same 5 products on the fp32 pipes "
                   f"{b32:.3f} ms (kernel at {res[50.0] / b32:.2f}x); flex_attention's "
                   f"backward {lib:.3f} ms; softcap 0: {res[0.0]:.3f} ms kernel, "
                   f"{lib0:.3f} ms scaled_dot_product_attention's backward")
-            per[kind] = dict(ms=res[50.0], plain=pms, bound=bms, b32=b32, ms0=res[0.0],
+            per[kind] = dict(ms=res[50.0], plain=pms, bound=bms, b3=b3, b32=b32, ms0=res[0.0],
                              lib0=lib0, lib=lib, tflops11=rate[11],
                              tflops13=rate[13])
             del q, k, v, do, leaves, out, mask
@@ -4062,11 +4660,12 @@ class Smoke:
                              "block mask, enable_gqa",
                      shapes=f"one gemma2-2b train step's attention backward: 13 local "
                             f"(window 4096) + 13 global launches, q (8, {LM_SEQ}, 256), "
-                            f"k/v (4, {LM_SEQ}, 256) bf16, causal, softcap 50; bound: 11 "
+                            f"k/v (4, {LM_SEQ}, 256) bf16, causal, softcap 50; bound: 5 "
                             "bf16 tensor passes a visible pair",
                      replaces_note="the Pallas kernel has no backward: the JAX package "
                                    "differentiates its chunked scan, "
                                    "src/repro/models/layers.py:364",
+                     bound_ms_split3=total("b3"),
                      bound_ms_fp32_pipes=total("b32"),
                      local_ms=per["local"]["ms"], global_ms=per["global"]["ms"],
                      tflops_11_passes={k: per[k]["tflops11"] for k in per},
@@ -4381,7 +4980,14 @@ class Smoke:
 
         build = self.build_mod
         real_library = build.library
-        one_term = self.planted_one_term_library()
+        # P and dS taken in one bf16 term: the MMAs of x2 and x3 dropped
+        # from add_product
+        one_term = self.planted_library(
+            "flash_attention_bwd",
+            [(f"      mma_bf16({half.format(x)});\n", "") for x in ("x2", "x3")
+             for half in ("acc[2 * dp], {}[kk], b[0], b[1]",
+                          "acc[2 * dp + 1], {}[kk], b[2], b[3]")],
+            "one_term")
 
         def library_plant(lib):
             def planted(name):
@@ -4521,36 +5127,48 @@ class Smoke:
             tfm.decoder_forward(params, cfg, tokens, positions=positions)
         return self.norm_verdicts(recs, cfg, cfg.name)
 
-    def planted_one_term_library(self):
-        """flash_attention_bwd.cu with P and dS taken in one bf16 term: the
-        MMAs of x2 and x3 dropped from add_product, built from the
-        checkout's source text into build/planted/ and loaded as the real
-        library is."""
+    def planted_library(self, kernel: str, edits, name: str, *, wait: bool = True):
+        """The library of `kernel` built from the checkout's source text with
+        each (old, new) of `edits` applied (each old must appear once) into
+        build/planted/<name>.so and loaded as the real library is. With
+        wait=False nvcc runs in the background and a function is returned
+        that waits for it and loads the library; its `stop()` ends that
+        nvcc if it still runs."""
         import ctypes
 
         build = self.build_mod
-        source = build.CSRC / build.KERNELS["flash_attention_bwd"][0]
+        source = build.CSRC / build.KERNELS[kernel][0]
         text = source.read_text()
-        for x in ("x2", "x3"):
-            for half in ("acc[2 * dp], {}[kk], b[0], b[1]",
-                         "acc[2 * dp + 1], {}[kk], b[2], b[3]"):
-                line = f"      mma_bf16({half.format(x)});\n"
-                if text.count(line) != 1:
-                    raise RuntimeError(f"plant: '{line.strip()}' is not in {source.name} once")
-                text = text.replace(line, "")
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"plant {name}: '{old.strip()[:70]}' is not in "
+                                   f"{source.name} once")
+            text = text.replace(old, new)
         out = build.BUILD_DIR.parent / "planted"
         out.mkdir(parents=True, exist_ok=True)
-        (out / source.name).write_text(text)
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-                               str(out / "one_term.so"), str(out / source.name)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the one-term plant:\n{proc.stdout}{proc.stderr}")
-        lib = ctypes.CDLL(str(out / "one_term.so"))
-        for fn, argtypes in build.KERNELS["flash_attention_bwd"][1]:
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        return lib
+        (out / f"{name}.cu").write_text(text)
+        lib_path = out / f"{name}.so"
+        proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                                 str(lib_path), str(out / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def load():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the plant {name}:\n{log}")
+            lib = ctypes.CDLL(str(lib_path))
+            for fn, argtypes in build.KERNELS[kernel][1]:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            return lib
+
+        def stop():
+            proc.kill()                # nothing, once it has ended
+            proc.wait()
+
+        load.stop = stop
+        return load() if wait else load
+
 
 def visible_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal sequence of s tokens attends, with a

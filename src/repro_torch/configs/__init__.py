@@ -2,9 +2,9 @@
 
 `get_config(name)` returns the full published config of a ported
 architecture; `reduced(cfg)` shrinks it to a CPU-runnable size of the same
-family, as `repro.configs.reduced` does. The dense configs and the MoE
-granite-moe-3b-a800m are ported; any other name raises
-NotImplementedError, naming ROADMAP.md.
+family, as `repro.configs.reduced` does. The dense configs, the MoE
+granite-moe-3b-a800m, the SSM xlstm-350m and the hybrid zamba2-7b are
+ported; any other name raises NotImplementedError, naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -15,11 +15,14 @@ from repro_torch.configs.granite_20b import CONFIG as granite_20b
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from repro_torch.configs.smollm_360m import CONFIG as smollm_360m
 from repro_torch.configs.stablelm_1_6b import CONFIG as stablelm_1_6b
+from repro_torch.configs.xlstm_350m import CONFIG as xlstm_350m
+from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
 from repro_torch.models.layers import ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
-    for c in (granite_moe_3b_a800m, granite_20b, gemma2_2b, stablelm_1_6b, smollm_360m)
+    for c in (granite_moe_3b_a800m, granite_20b, gemma2_2b, stablelm_1_6b, smollm_360m,
+              xlstm_350m, zamba2_7b)
 }
 
 
@@ -34,10 +37,12 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Same-family miniature for CPU tests: the JAX package's dense rule,
-    and for an MoE config its MoE rule (8 experts, top 2, expert d_ff 64,
-    capacity factor 8: no replica is dropped)."""
-    if cfg.family not in ("dense", "moe"):
+    """Same-family miniature for CPU tests: the JAX package's rules. Dense
+    and MoE: 2 layers, and for an MoE config 8 experts, top 2, expert d_ff
+    64, capacity factor 8 (no replica is dropped). SSM: 4 layers in groups
+    of 2 (one mLSTM and one sLSTM). Hybrid: 4 Mamba2 layers with the shared
+    block every 2, d_ff 256, SSM state 16, SSD heads of 32."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family} is not ported; see ROADMAP.md")
     upd: dict = dict(
         d_model=128,
@@ -48,9 +53,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         remat=False,
         chunked_attn_min_len=64,
         attn_chunk=32,
-        n_layers=2,
-        d_ff=256,
     )
+    if cfg.family == "ssm":
+        upd.update(n_layers=4, slstm_every=2, d_ff=0)
+    elif cfg.family == "hybrid":
+        upd.update(n_layers=4, attn_every=2, d_ff=256, ssm_state=16, ssm_headdim=32)
+    else:
+        upd.update(n_layers=2, d_ff=256)
     if cfg.is_moe:
         upd.update(n_experts=8, n_experts_pad=8, n_experts_active=2, moe_d_ff=64,
                    d_ff=0, capacity_factor=8.0)

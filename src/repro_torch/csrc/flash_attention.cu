@@ -151,12 +151,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
     int causal, int window, float softcap, float scale) {
   constexpr int LD = D + PAD;
-  // a lane owns D / 32 accumulator columns: four adjacent ones in each
-  // 128-wide group when D >= 128 (float4 reads of V), else one in each
-  // 32-wide group
-  constexpr int VEC = D >= 128 ? 4 : 1;
-  constexpr int CPT = D / 32;
-  constexpr int GROUPS = CPT / VEC;
+  // a lane owns four adjacent accumulator columns in each 128-wide group
+  // (float4 reads of V) when D >= 128 or D is no multiple of 32, else one
+  // in each 32-wide group. At D = 112 the one group's lanes 0-27 own its
+  // columns and lanes 28-31 none: D / 32 columns a lane would leave 16 of
+  // the 112 unwritten. The layout at D = 32, 64, 128 and 256 is the one
+  // these widths always had.
+  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
+  constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
+  constexpr int CPT = GROUPS * VEC;
+  static_assert(D % 4 == 0 && GROUPS * 32 * VEC >= D && (GROUPS - 1) * 32 * VEC < D,
+                "the lanes' columns cover D, and no group lies wholly past it");
+  static_assert(VEC == 4 || D % 32 == 0, "one column a lane a group needs D % 32 == 0");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                   // BQ x LD
   float* ks = qs + BQ * LD;           // BK x LD
@@ -259,6 +265,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
 #pragma unroll
       for (int g = 0; g < GROUPS; ++g) {
         if constexpr (VEC == 4) {
+          if (D % 128 != 0 && g * 128 + lane * 4 >= D) continue;   // an idle lane
           const float4 vv = *reinterpret_cast<const float4*>(vrow + g * 128 + lane * 4);
 #pragma unroll
           for (int i = 0; i < RPW; ++i) {
@@ -288,7 +295,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int col = g * 32 * VEC + lane * VEC + e;
-        orow[col] = Four<T>::to(acc[i][g * VEC + e] / denom);
+        if (D % (32 * VEC) == 0 || col < D)
+          orow[col] = Four<T>::to(acc[i][g * VEC + e] / denom);
       }
     }
   }
@@ -338,6 +346,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
     float softcap, float scale) {
   constexpr int LD = D + PAD;
   constexpr int NO = D / 8;         // n-tiles of a warp's O
+  // D / 16 k-steps of QK^T and D / 16 pairs of O's n-tiles; an odd count
+  // (7 at D = 112) is fine, as neither loop steps by two. Rows of LD bf16
+  // are a whole number of 16-byte pieces (cp.async, ldmatrix), and an
+  // odd number of them (15 at D = 112, 17 at 128), so the 8 rows an
+  // ldmatrix reads fall in 8 different bank quads.
+  static_assert(D % 16 == 0 && (LD * 2) % 16 == 0 && (LD * 2 / 16) % 2 == 1,
+                "whole k-steps and n-tile pairs, conflict-free ldmatrix rows");
   extern __shared__ __align__(16) bf16 smem_bf16[];
   bf16* qs = smem_bf16;             // BQ x LD
   bf16* ks = qs + BQ * LD;          // 2 stages of BK x LD
@@ -568,7 +583,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* o32,
 // q (BH, Sq, D), k and v (BHk, Sk, D), o (BH, Sq, D), all contiguous, of
 // one dtype: bf16 when `bf16` is 1 (the tensor-core kernel), else fp32
 // (the SIMT kernel). BH must be a multiple of BHk and D one of 32, 64,
-// 128, 256. For the backward, lse (BH, Sq) fp32 takes each row's
+// 112, 128, 256 (112: zamba2-7b's shared attention). For the backward, lse (BH, Sq) fp32 takes each row's
 // log-sum-exp m + log(l), and o32 (BH, Sq, D), bf16 only, the fp32
 // quotients that o rounds (an fp32 o is its own); null pointers write
 // neither and leave the arithmetic as it is. Returns the CUDA error code
@@ -590,6 +605,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (D) {
     case 32: return launch_d<32>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
     case 64: return launch_d<64>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 112: return launch_d<112>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
     case 128: return launch_d<128>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
     case 256: return launch_d<256>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;

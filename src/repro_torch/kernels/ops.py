@@ -387,7 +387,13 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
     return vals, idx
 
 
-FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for
+#: the head widths the forward kernels are built for (112: zamba2-7b's
+#: shared attention block)
+FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)
+#: the head widths the backward kernels are built for: no model the port
+#: trains has D = 112 (zamba2-7b is served only on one card; ROADMAP.md,
+#: queue 1 item 7)
+FLASH_BWD_HEAD_DIMS = (32, 64, 128, 256)
 #: the CUDA kernel each dtype launches (csrc/flash_attention.cu), as a
 #: profiler names it: bf16 on the tensor cores, fp32 on the fp32 pipes
 FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_mma_kernel",
@@ -517,8 +523,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention backward takes bf16 or fp32, got {q.dtype}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash attention backward takes D in {FLASH_HEAD_DIMS}, got {d}")
+    if d not in FLASH_BWD_HEAD_DIMS:
+        raise ValueError(
+            f"flash attention backward takes D in {FLASH_BWD_HEAD_DIMS}, got {d}: the "
+            "backward kernels are not built for it (ROADMAP.md, queue 1 item 7: "
+            "zamba2-7b's training waits for several cards)")
     if k.shape != v.shape or k.shape[1:] != (s, d) or bhk == 0 or bh % bhk:
         raise ValueError(f"k and v must be (BHk, {s}, {d}) with BHk dividing {bh}; "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")

@@ -8,11 +8,12 @@ LM mode, batched prefill then greedy (or sampled) decode:
 
 runs on the card; add `--reduced --device cpu` for the CPU-sized
 miniature on the plain path. `--arch` takes every architecture the port
-has: gemma2-2b, smollm-360m, stablelm-1.6b, granite-20b and
-granite-moe-3b-a800m. Parameters are drawn from seed 0 and the
-prompts from seed 1 (torch.Generator; not the JAX launcher's numbers).
-Prefill and decode take the direct attention path, so the flash kernel
-does not run here.
+has: gemma2-2b, smollm-360m, stablelm-1.6b, granite-20b,
+granite-moe-3b-a800m, xlstm-350m and zamba2-7b (`models.build_model`
+picks the model of the config's family). Parameters are drawn from seed
+0 and the prompts from seed 1 (torch.Generator; not the JAX launcher's
+numbers). Prefill and decode take the direct attention path, so the
+flash kernel does not run here.
 
 BPMF mode, top-N from retained Gibbs draws through the request-batching
 frontend, reporting queries/s and p50/p99 latency (without --samples it
@@ -55,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
-from repro_torch.models import DecoderModel, build_model
+from repro_torch.models import DecoderModel, XLSTMModel, ZambaModel, build_model
 
 
 def _sync(device: torch.device) -> None:
@@ -63,7 +64,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: DecoderModel, params, prompts: torch.Tensor, max_new: int, *,
+def generate(model: DecoderModel | XLSTMModel | ZambaModel, params, prompts: torch.Tensor,
+             max_new: int, *,
              temperature: float = 0.0, generator: torch.Generator | None = None
              ) -> tuple[torch.Tensor, float, float]:
     """Prefill `prompts` (B, P), then max_new - 1 decode steps.
@@ -74,7 +76,10 @@ def generate(model: DecoderModel, params, prompts: torch.Tensor, max_new: int, *
     dev = model.device
     _sync(dev)
     t0 = time.perf_counter()
-    out = model.prefill_fn(params, {"tokens": prompts}, headroom=max_new + 8)
+    # a cache that grows (K/V buffers) is sized for the new tokens; the
+    # xLSTM's states are of a fixed size and its prefill takes no headroom
+    kw = {"headroom": max_new + 8} if model.cache_grows else {}
+    out = model.prefill_fn(params, {"tokens": prompts}, **kw)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -9,12 +9,13 @@ long sequence (`chunk`) runs the hand-written flash kernel
 (`kernels/ops.py::flash_attention`); everything else is plain PyTorch.
 
 Parameters keep the JAX layout (`wq` is (d_model, H * hd) and the layer
-computes x @ wq), so `models/transformer.py::params_from_numpy` copies a
+computes x @ wq), so `models/api.py::params_from_numpy` copies a
 JAX parameter tree leaf by leaf. The dense configs' variants (layer norm,
 QKV biases, ungated MLPs) and the MoE block's sort-based dispatch are
-here; M-RoPE, cross-attention, the MoE's grouped and expert-parallel
-dispatches and the mesh helpers are not ported yet (ROADMAP.md, queue 1
-item 12).
+here, and `ModelConfig` carries the SSM and hybrid families' fields
+(`models/ssm.py`, `models/mamba.py`, `models/zamba.py` read them); M-RoPE,
+cross-attention, the MoE's grouped and expert-parallel dispatches and the
+mesh helpers are not ported yet (ROADMAP.md, queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -34,13 +35,13 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of `repro.models.layers.ModelConfig` that the dense and
-    MoE decoders read, with the same names and defaults; dtypes are
-    torch's. The SSM, hybrid, audio and VLM fields come with those
+    """The fields of `repro.models.layers.ModelConfig` that the dense, MoE,
+    SSM (xLSTM) and hybrid (Zamba2) models read, with the same names and
+    defaults; dtypes are torch's. The audio and VLM fields come with those
     families (ROADMAP.md, queue 1 item 12.3)."""
 
     name: str
-    family: str                      # dense | moe are ported
+    family: str                      # dense | moe | ssm | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,6 +70,14 @@ class ModelConfig:
     mlp_gated: bool = True           # gated (3-matrix) vs classic (2-matrix)
     qkv_bias: bool = False
     embed_scale: bool = False        # gemma2 multiplies embeddings by sqrt(d)
+    # --- ssm / hybrid ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    attn_every: int = 0              # zamba: shared attn block period
+    slstm_every: int = 0             # xlstm: one sLSTM per group of this size
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
@@ -77,6 +86,9 @@ class ModelConfig:
     remat_policy: str = "nothing"    # only "nothing" is ported (ROADMAP.md, item 12.4)
     moe_group_dispatch: bool = False # not ported: moe_block raises when set
     moe_ep_shard_map: bool = False   # not ported: moe_block raises when set
+    ssm_chunk: int = 128             # SSD chunk length (xLSTM's mLSTM keeps 64)
+    ssd_fold_decay: bool = False     # fold exp(cumsum) into B/C, skip decay tensor
+    slstm_reshard: bool = False      # sLSTM gate pre-activations held in bf16
 
     @property
     def hd(self) -> int:

@@ -165,7 +165,7 @@ def init_decoder(cfg: ModelConfig, *, generator: torch.Generator | None,
                  device: torch.device) -> Decoder:
     """A decoder with parameters drawn from `generator` on `device` (the
     JAX initialisers' distributions; not their numbers), or left empty for
-    `params_from_numpy` when generator is None."""
+    `load_numpy` when generator is None."""
     return Decoder(cfg, generator=generator, device=device)
 
 
@@ -378,41 +378,50 @@ def _tree_paths(tree: Any, prefix: tuple[str, ...] = ()):
 
 
 def param_leaf(tree: Any, name: str) -> tuple[list[str], Any]:
-    """The JAX tree path of the port's parameter `name` and its value: a
-    layer's parameter is slice i of the stacked leaf "layers/..."."""
+    """The JAX tree path of the port's parameter `name` and its value. The
+    name's integer parts index the stacked leaf its other parts name: a
+    decoder layer's "layers.3.attn.wq" is slice [3] of "layers/attn/wq",
+    an xLSTM "mlstm.1.4.w_up" slice [1, 4] of "mlstm/w_up", a Zamba2
+    "mamba.0.2.in_proj" slice [0, 2] of "mamba/in_proj"."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        path = ["layers", *parts[2:]]
-        return path, _leaf(tree, path)[int(parts[1])]
-    return parts, _leaf(tree, parts)
+    path = [p for p in parts if not p.isdigit()]
+    idx = tuple(int(p) for p in parts if p.isdigit())
+    value = _leaf(tree, path)
+    return path, value[idx] if idx else value
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, *,
-                      device: torch.device | str = "cuda") -> Decoder:
-    """The JAX decoder's parameter tree (numpy arrays, layers stacked on a
-    leading n_layers axis) as the port's `Decoder` on `device`.
+def load_numpy(model: nn.Module, tree: dict) -> nn.Module:
+    """`model`'s parameters filled from a JAX model's parameter tree (numpy
+    arrays, stacked layers on their leading axes); returns `model`.
 
     Every leaf must have a parameter of the same shape and every parameter
-    a leaf, by the path its name gives (`unembed`, a layer norm's `bias`,
-    the attention's `bq`, `bk`, `bv` and the `moe` subtree included); a
-    leaf the port has no parameter for is refused. Each value is cast to
-    its parameter's dtype (the MoE router stays fp32).
+    a leaf, by the path its name gives (`param_leaf`), and a stacked leaf's
+    leading axes must be the port's: each slice one parameter. A leaf the
+    port has no parameter for, or a slice too many, is refused (ValueError),
+    as is a missing leaf (KeyError). Each value is cast to its parameter's
+    dtype; the fp32 parameters (the MoE router, the xLSTM gates, the
+    Mamba2 `a_log`, `dt_bias`, `d_skip`) stay fp32.
     """
-    from repro_torch.device import resolve_device
-
-    device = resolve_device(device)
-    model = init_decoder(cfg, generator=None, device=device)
-    used = set()
+    slices: dict[tuple[str, ...], set] = {}
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path, value = param_leaf(tree, name)
+            try:
+                path, value = param_leaf(tree, name)
+            except KeyError as err:
+                raise KeyError(f"{name}: the tree has no leaf for it ({err})") from None
             value = _as_tensor(value)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: tree has {tuple(value.shape)}, "
                                  f"the port's parameter is {tuple(param.shape)}")
             param.copy_(value.to(param.dtype))
-            used.add(tuple(path))
-    extra = [p for p in _tree_paths(tree) if p not in used]
+            slices.setdefault(tuple(path), set()).add(
+                tuple(int(p) for p in name.split(".") if p.isdigit()))
+    extra = [p for p in _tree_paths(tree) if p not in slices]
     if extra:
         raise ValueError(f"leaves with no parameter in the port: {extra}")
+    for path, idx in slices.items():
+        lead = np.shape(_leaf(tree, list(path)))[:len(next(iter(idx)))]
+        if len(idx) != int(np.prod(lead, dtype=np.int64)):
+            raise ValueError(f"leaf {'/'.join(path)} stacks {lead} slices, the port has "
+                             f"{len(idx)} parameters for it")
     return model

@@ -1,0 +1,144 @@
+"""The Zamba2-style hybrid, ported from `repro/models/zamba.py`: a Mamba2
+backbone and one *shared* attention + MLP block applied after every
+`attn_every` Mamba2 layers, its weights tied across the applications.
+
+The shared block is the decoder's `attention_block` and `mlp_block`: a
+cache-free sequence of at least `chunked_attn_min_len` tokens takes the
+flash kernel (zamba2-7b: 32 heads of 112, one launch an application), a
+prefill or decode step the direct path. Each application keeps its own
+K/V cache ("attn_k", "attn_v": (G, B, T, Hk, hd)), written in place, as
+are the stacked Mamba2 states: the states passed in are consumed.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import (
+    Attention,
+    MLP,
+    ModelConfig,
+    attention_block,
+    dense_init,
+    init_attention,
+    init_mlp,
+    matmul_f32,
+    mlp_block,
+    rms_norm,
+)
+from repro_torch.models.mamba import (
+    Mamba2Block,
+    Mamba2State,
+    mamba2_block,
+    mamba2_init_state,
+)
+from repro_torch.models.transformer import RMSNorm, apply_norm, init_norm
+
+
+def zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, Mamba2 layers a group): the shared block follows each group."""
+    n_per = cfg.attn_every
+    return cfg.n_layers // n_per, n_per
+
+
+class SharedBlock(nn.Module):
+    """The one attention + MLP block every group applies; the arithmetic
+    is `shared_block`."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        self.ln_attn = init_norm(cfg, device=device)
+        self.attn: Attention = init_attention(cfg, generator=generator, device=device)
+        self.ln_mlp = init_norm(cfg, device=device)
+        self.mlp: MLP = init_mlp(cfg, generator=generator, device=device)
+
+
+class Zamba(nn.Module):
+    """The hybrid's parameters: the tied embedding, `mamba[g][i]`, the one
+    `shared` block and the final norm; the arithmetic is `zamba_forward`."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        n_groups, n_per = zamba_groups(cfg)
+        self.embed = nn.Parameter(dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                             cfg.param_dtype, device, scale=0.02))
+        self.mamba = nn.ModuleList(
+            nn.ModuleList(Mamba2Block(cfg, generator=generator, device=device)
+                          for _ in range(n_per))
+            for _ in range(n_groups))
+        self.shared = SharedBlock(cfg, generator=generator, device=device)
+        self.ln_final = RMSNorm(cfg, device=device)
+
+
+def init_zamba(cfg: ModelConfig, *, generator: torch.Generator | None,
+               device: torch.device) -> Zamba:
+    """Parameters drawn from `generator` on `device` (the JAX initialisers'
+    distributions, not their numbers), or left empty for
+    `params_from_numpy` when generator is None."""
+    return Zamba(cfg, generator=generator, device=device)
+
+
+def shared_block(p: SharedBlock, h: torch.Tensor, cfg: ModelConfig, *,
+                 positions: torch.Tensor, cache: dict | None = None
+                 ) -> tuple[torch.Tensor, dict | None]:
+    """One application of the shared block: pre-norm causal attention (no
+    window), then the pre-norm MLP, each added to h."""
+    a, new_cache = attention_block(p.attn, apply_norm(p.ln_attn, h, cfg), cfg,
+                                   positions=positions, cache=cache)
+    h = h + a
+    return h + mlp_block(p.mlp, apply_norm(p.ln_mlp, h, cfg), cfg), new_cache
+
+
+def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  positions: torch.Tensor, states: dict | None = None,
+                  chunk: int | None = None) -> tuple[torch.Tensor, dict | None]:
+    """tokens (B, S) -> (fp32 logits (B, S, V), new states or None).
+
+    With `states` (`zamba_init_states`'s layout) each Mamba2 layer starts
+    from its state and conv cache and each application of the shared block
+    attends over its own group's K/V cache from its position; all are
+    updated in place, and the returned dict carries "attn_pos" + S.
+    `cfg.remat` is not read: zamba2-7b is served only (ROADMAP.md)."""
+    h = params.embed.to(cfg.dtype)[tokens]
+    decode = states is not None
+    for g, group in enumerate(params.mamba):
+        for i, block in enumerate(group):
+            st = None
+            if decode:
+                st = Mamba2State(h=states["mamba_h"][g, i], conv=states["mamba_conv"][g, i])
+            out, new_st = mamba2_block(block, h, cfg, st, chunk=chunk)
+            h = h + out
+            if decode:
+                states["mamba_h"][g, i].copy_(new_st.h)
+                states["mamba_conv"][g, i].copy_(new_st.conv)
+        cache = None
+        if decode:
+            cache = {"k": states["attn_k"][g], "v": states["attn_v"][g],
+                     "pos": states["attn_pos"][g]}
+        h, _ = shared_block(params.shared, h, cfg, positions=positions, cache=cache)
+    h = rms_norm(h, params.ln_final.scale, cfg.norm_eps)
+    logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
+    new_states = None
+    if decode:
+        new_states = dict(states, attn_pos=states["attn_pos"] + tokens.shape[1])
+    return logits, new_states
+
+
+def zamba_init_states(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device: torch.device | str = "cpu") -> dict:
+    """{"mamba_h": (G, n_per, B, H, N, P) fp32, "mamba_conv": (G, n_per, B,
+    W - 1, C), "attn_k" / "attn_v": (G, B, max_len, Hk, hd) in the
+    activation dtype, "attn_pos": (G,) int32}, as the JAX package lays them
+    out."""
+    n_groups, n_per = zamba_groups(cfg)
+    m0 = mamba2_init_state(cfg, batch, device=device)
+    kv = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {
+        "mamba_h": m0.h.expand((n_groups, n_per) + m0.h.shape).clone(),
+        "mamba_conv": m0.conv.expand((n_groups, n_per) + m0.conv.shape).clone(),
+        "attn_k": torch.zeros(kv, dtype=cfg.dtype, device=device),
+        "attn_v": torch.zeros(kv, dtype=cfg.dtype, device=device),
+        "attn_pos": torch.zeros(n_groups, dtype=torch.int32, device=device),
+    }

@@ -1186,3 +1186,73 @@ def test_flash_bwd_long_group_sums_round_like_float64(cuda):
         half_ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 8)
         share = float((diff > half_ulp).double().mean())
         assert share <= 0.05, f"{name}: {share:.3f} of the elements misrounded"
+
+
+# ---------------------------------------------------------------------------
+# zamba2-7b's head width (D = 112) and the SSM and hybrid families
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bh,bhk,s", [(4, 4, 1), (4, 4, 63), (4, 4, 64), (4, 4, 65),
+                                      (4, 2, 127), (4, 4, 128), (4, 4, 129), (2, 2, 1000)])
+def test_flash_kernels_at_d112_match_plain(cuda, bh, bhk, s):
+    """Both forward kernels at D = 112, at tile edges (the fp32 kernel's 64
+    query rows and 32 keys, the bf16 kernel's 128 and 64) and a ragged S:
+    fp32 within 3e-4 of the plain version and 1e-4 where its lanes own
+    columns the old layout dropped (96-111); bf16 within 3e-2, one bf16
+    ulp of the plain version and of float64."""
+    g = torch.Generator(device=cuda).manual_seed(112 + s)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    q, k, v = _flash_inputs(g, bh, bhk, s, 112, 1.0, torch.float32, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(got[..., 96:], want[..., 96:], rtol=1e-4, atol=1e-4)
+    _flash_bf16_holds(*(t.to(torch.bfloat16) for t in (q, k, v)), **kw)
+
+
+def test_flash_bwd_at_d112_raises_before_any_launch(cuda):
+    q = torch.randn(2, 64, 112, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 64, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ops.flash_attention_bwd(q, q, q, q, lse, q.float(), causal=True, window=0,
+                                softcap=0.0, scale=112 ** -0.5)
+    leaf = q.clone().requires_grad_()
+    out = ops.flash_attention(leaf, q, q)        # the forward is built at 112
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        out.float().sum().backward()
+    assert ops.launches()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("name", ["xlstm-350m", "zamba2-7b"])
+def test_reduced_ssm_and_hybrid_forward_on_the_card_matches_the_cpu(cuda, name):
+    """The reduced model's fp32 loss_fn and prefill logits on the card
+    against the CPU plain path (S = 64: zamba's shared block takes the flash
+    kernel once a group on the card), at 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(reduced(get_config(name)), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    card_model = build_model(cfg, device=cuda)
+    card_params = card_model.init(seed=0)
+    card_params.load_state_dict(params.state_dict())
+    batch = TokenStream(cfg, 2, 64, seed=1)(0)
+    ops.reset_launches()
+    with torch.no_grad():
+        got, _ = card_model.loss_fn(card_params, batch)
+        want, _ = cpu_model.loss_fn(params, batch)
+    torch.cuda.synchronize()
+    flash = ops.launches()["flash_attention"]
+    assert flash == (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+    prompt = {"tokens": batch["tokens"][:, :40]}
+    torch.testing.assert_close(card_model.prefill_fn(card_params, prompt)["logits"].cpu(),
+                               cpu_model.prefill_fn(params, prompt)["logits"],
+                               rtol=1e-4, atol=1e-4)

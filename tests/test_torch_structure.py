@@ -52,7 +52,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "core/sgld.py", "optim/schedule.py", "optim/adamw.py", "runtime/__init__.py",
             "runtime/trainer.py", "launch/train.py", "configs/smollm_360m.py",
             "configs/stablelm_1_6b.py", "configs/granite_20b.py",
-            "configs/granite_moe_3b_a800m.py"} <= {
+            "configs/granite_moe_3b_a800m.py", "configs/xlstm_350m.py",
+            "configs/zamba2_7b.py", "models/ssm.py", "models/mamba.py",
+            "models/zamba.py"} <= {
         f.relative_to(PORT).as_posix() for f in files}
     bad = [
         (str(f.relative_to(ROOT)), root)
@@ -262,6 +264,26 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
     assert out["logits"].device.type == "cpu" and torch.isfinite(out["logits"]).all()
 
 
+@pytest.mark.parametrize("name", ["xlstm-350m", "zamba2-7b"])
+def test_ssm_and_hybrid_entry_points_default_to_the_card(name, no_card):
+    from repro_torch.models import XLSTMModel, ZambaModel
+
+    cfg = reduced(get_config(name))
+    kind = XLSTMModel if cfg.family == "ssm" else ZambaModel
+    for make in (kind, build_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_serve.main(["--arch", name, "--reduced", "--batch", "1", "--prompt-len", "4",
+                       "--max-new", "2"])
+    model = build_model(cfg, device="cpu")
+    assert type(model) is kind
+    out = model.prefill_fn(model.init(seed=0), {"tokens": np.zeros((1, 4), np.int32)})
+    assert out["logits"].device.type == "cpu" and torch.isfinite(out["logits"]).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DecoderModel(cfg, device="cpu")
+
+
 def test_lm_training_defaults_to_the_card_and_raises_without_one(no_card):
     from repro_torch.launch.train import init_train_state, make_train_step
     from repro_torch.optim import AdamWConfig
@@ -294,7 +316,7 @@ def test_lm_launcher_runs_on_the_cpu_when_asked():
 
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m", "stablelm-1.6b", "granite-20b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b"])
 def test_config_registry_matches_the_jax_registry(name):
     """Every config the port registers is the JAX package's, field for
     field (dtypes by name), in full and in `reduced`; each field of the
@@ -316,15 +338,12 @@ def test_config_registry_matches_the_jax_registry(name):
         assert (port.hd, port.is_moe) == (ref.hd, ref.is_moe)
         missing = {f.name for f in dataclasses.fields(ref)} - {
             f.name for f in dataclasses.fields(port)}
-        assert missing == {"ssm_state", "ssm_conv", "ssm_headdim", "ssm_expand",
-                           "ssm_groups", "attn_every", "slstm_every", "encoder_layers",
-                           "encoder_seq", "n_patches", "mrope_sections", "moment_dtype",
-                           "fsdp_pod", "attn_probs_bf16", "ssm_chunk", "ssd_fold_decay",
-                           "slstm_reshard"}, missing
+        assert missing == {"encoder_layers", "encoder_seq", "n_patches", "mrope_sections",
+                           "moment_dtype", "fsdp_pod", "attn_probs_bf16"}, missing
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "stablelm-1.6b", "granite-20b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b"])
 def test_lm_launcher_serves_each_ported_arch_on_the_cpu(name, capsys):
     lm_serve.main(["--arch", name, "--reduced", "--device", "cpu", "--batch", "2",
                    "--prompt-len", "16", "--max-new", "4"])
