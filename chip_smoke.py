@@ -167,8 +167,35 @@ no kernels line and no result line. Phases:
               compiled from the source text into build/planted/, a D = 112
               launch given the scale 1/sqrt(128), an mlstm_chunked without
               its inter-chunk stabilizer, shared-block applications with
-              weights of their own), each of which must fail a check
- 20. lm_train gemma2-2b training, lm_eval's parameters freed first: the
+              weights of their own), each of which must fail a check;
+              then xlstm-350m's make_train_step at published width, B =
+              1, S = 2,048: a warm-up and 2 timed steps with remat (step
+              seconds, tokens/s, peak memory) and one step without, whose
+              peak the remat steps' must undercut by 10%, and a plant of
+              the forward that ignored remat, which must fail that check
+ 20. lm_mm    whisper-medium and qwen2-vl-7b at published widths, bf16,
+              seeded init, gemma2-2b's parameters freed first: loss_fn at
+              B = 1, S = 8,192 (whisper: 1,500 frames and 8,192 tokens, a
+              causal self-attention and a non-causal cross-attention flash
+              launch a decoder layer, 48; qwen2-vl: 1,024 patches and
+              7,168 tokens, a launch a layer, 28) with seconds, tokens/s,
+              peak memory and the device's idle share; the first and last
+              layers' flash launches each on its own inputs against the
+              plain version and float64 head by head (one bf16 ulp of the
+              head's largest magnitude), the cross launch's ragged tail
+              included; the flash and direct paths' loss and last-position
+              logits at full depth in bf16 and fp32; generate() with 4
+              prompts of 2,048 positions (whisper over its 1,500 frames,
+              qwen2-vl 1,024 patches and 1,024 tokens) and 31 decode
+              steps; the cache invariant on 512 tokens in fp32 and bf16,
+              qwen2-vl on Qwen2-VL's own positions (patches at t = 0 on a
+              32 x 32 grid, text from 32 on all three channels); the flash
+              forward alone at the three new shapes, timed beside its
+              bound, its plain version and scaled_dot_product_attention;
+              two plants (whisper's cross launches fed K and V
+              zero-padded to 1,536 keys, qwen2-vl decode positions from
+              the cache's index), each of which must fail a check
+ 21. lm_train gemma2-2b training, lm_eval's parameters freed first: the
               flash backward kernel through FlashAttention at (8, 8,192,
               256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
               on peaked scores (q x 6) and in fp32 at S = 2,000, each
@@ -190,7 +217,7 @@ no kernels line and no result line. Phases:
               published widths (1 + 3 timed steps, remat on, B = 1, S =
               8,192), the MoE's first step reached again bit for bit from a
               fresh state; lm_eval's parameters drawn again from their seed
- 21. lm_faults   faults planted one at a time in the bf16 flash launches
+ 22. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
@@ -202,21 +229,23 @@ no kernels line and no result line. Phases:
               dropped): each must fail one of the checks of phase 16, 17,
               18 or 19 (the MoE and norm checks at 4 layers, as they hold
               each layer on its own input)
- 22. report   one JSON line of kernels, the card line, and the last line
+ 23. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 16, 17 and 20, the serving tier's paths are
+The main path is phases 6, 9, 16, 17 and 21, the serving tier's paths are
 phases 10 and 11, the distributed sampler's phase 13, the SGLD and ALS
-path phase 14, the other LMs phase 18 and the dense train steps of 20, and
-the SSM and hybrid LMs phase 19: the launch counters are set to 0 just
-before each and read just after (the kernels line's `launches`,
-`foldin_launches`, `cotrain_launches`, `dist_launches`, `sgld_launches`,
-`lm_dense_launches`, `lm_ssm_launches`, `lm_train_launches` and
-`lm_train_dense_launches`, the SGLD ones all 0; lm_ssm's are the two timed
-forwards', 3 flash launches in all; lm_train's are its 3 timed steps,
-lm_train_dense's the 3 timed steps of each dense config).
+path phase 14, the other LMs phase 18 and the dense train steps of 21,
+the SSM and hybrid LMs phase 19 and the audio and VLM LMs phase 20: the
+launch counters are set to 0 just before each and read just after (the
+kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
+`dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_ssm_launches`,
+`lm_mm_launches`, `lm_train_launches` and `lm_train_dense_launches`, the
+SGLD ones all 0; lm_ssm's are the two timed forwards', 3 flash launches in
+all; lm_mm's the two timed forwards', 48 + 28 flash launches; lm_train's
+are its 3 timed steps, lm_train_dense's the 3 timed steps of each dense
+config; the xLSTM's train steps launch none and are checked to).
 foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
-and sgld need data, lm_train needs lm_eval,
+and sgld need data, lm_mm needs none, lm_train needs lm_eval,
 lm_faults needs lm_eval, lm_serve and lm_train. Any failed check exits
 non-zero before the last line. No BPMF phase was cut to make room for the
 LM ones, and no earlier LM phase either; granite-20b's two attention paths
@@ -431,6 +460,33 @@ FLASH112_SEED = 112
 # plain version: the port's CPU tests' fp32 tolerance
 SSM_TOL = dict(rtol=1e-4, atol=1e-4)
 FLASH112_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+# xlstm-350m's train step (phase lm_ssm): B = 1 at this S (its sLSTM is a
+# per-step loop on the host: the forward alone took 5.3-11.4 s at 8,192),
+# 1 + 2 steps with remat, then one without; the remat step's peak device
+# memory must lie below the other's by at least this share, which the
+# allocator's noise cannot make up and a forward that ignores remat cannot
+# reach
+XLSTM_TRAIN_SEQ = 2048
+XLSTM_TRAIN_STEPS = 2
+REMAT_PEAK_MARGIN = 0.1
+# The audio and VLM families (phase lm_mm). whisper-medium's decoder at S =
+# 8,192 launches the flash kernel twice a layer: its causal self-attention,
+# (16, 8,192, 64) over 16 KV heads, and its non-causal cross-attention over
+# the encoder's 1,500 frames, (16, 8,192 x 1,500, 64), ragged against the
+# kernel's 64-key tiles; its encoder none (1,500 frames are fewer than
+# chunked_attn_min_len). qwen2-vl-7b's 1,024 patches and 7,168 tokens
+# launch it once a layer, (28, 8,192, 128) over 4 KV heads (a group of 7).
+MM_MODELS = ("whisper-medium", "qwen2-vl-7b")
+MM_FLASH_SHAPES = (("whisper self-attention", 16, 16, LM_SEQ, LM_SEQ, 64, True),
+                   ("whisper cross-attention", 16, 16, LM_SEQ, 1500, 64, False),
+                   ("qwen2-vl attention", 28, 4, LM_SEQ, LM_SEQ, 128, True))
+MM_ROW_KEYS = {"whisper self-attention": "whisper_self_shape",
+               "whisper cross-attention": "whisper_cross_shape",
+               "qwen2-vl attention": "qwen2_vl_shape"}
+MM_FLASH_SEED = 64
+MM_SHORT = 512                         # text tokens of lm_mm's cache invariant
+MM_GRID = 32                           # qwen2-vl's 1,024 patches on a 32 x 32 (h, w) grid
+MM_PAD_KEYS = 1536                     # the cross-attention plant's zero-padded keys
 # the fp32 flash kernel's column layout, and the one it had before D = 112
 # (the 96-column plant of lm_ssm)
 FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
@@ -491,7 +547,7 @@ def card_line() -> str:
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_train", "lm_faults")
+          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train", "lm_faults")
 
 
 def main() -> int:
@@ -3008,15 +3064,18 @@ class Smoke:
             dv[kv0:kv1] += gv.float()
         return dq, dk.to(k.dtype), dv.to(v.dtype)
 
-    def exact_heads(self, q, k, v, h0: int, h1: int):
-        """Causal attention (no window, no softcap) of query heads h0..h1-1
-        of (BH, S, D) q over their KV heads h // (BH / BHk), in float64."""
+    def exact_heads(self, q, k, v, h0: int, h1: int, causal: bool = True):
+        """Attention (no window, no softcap) of query heads h0..h1-1 of
+        (BH, S_q, D) q over their KV heads h // (BH / BHk) of (BHk, S_k, D),
+        causal or not, in float64."""
         torch = self.torch
-        rep, s, d = q.shape[0] // k.shape[0], q.shape[1], q.shape[2]
+        rep, d = q.shape[0] // k.shape[0], q.shape[2]
         idx = torch.arange(h0, h1, device=q.device) // rep
         sc = (q[h0:h1].double() @ k[idx].double().transpose(-1, -2)).mul_(d ** -0.5)
-        pos = torch.arange(s, device=q.device)
-        sc.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
+        if causal:
+            qp = torch.arange(q.shape[1], device=q.device)
+            kp = torch.arange(k.shape[1], device=q.device)
+            sc.masked_fill_(qp[:, None] < kp[None, :], float("-inf"))
         return torch.softmax(sc, dim=-1) @ v[idx].double()
 
     def dense_rows(self, kind: str) -> dict:
@@ -3854,11 +3913,18 @@ class Smoke:
         self.ssm_kept = None
         gc.collect()
         torch.cuda.empty_cache()
+        xt = self.xlstm_train()
+        lap("xlstm-350m's train steps")
+        gc.collect()
+        torch.cuda.empty_cache()
         for name, r in self.ssm_numbers.items():
             print(f"summary {name}: forward {r['s']:.3f} s at S={LM_SEQ} "
                   f"({r['tokens_per_s']:,.0f} tokens/s, peak {r['peak_gb']:.2f} GB, idle "
                   f"share {r['idle']:.3f} at S={r['profiled_seq']}); prefill {r['prefill_ms']:.1f} "
                   f"ms; decode {r['decode_tokens_per_s']:,.1f} tokens/s")
+        print(f"summary xlstm-350m train step at B=1, S={XLSTM_TRAIN_SEQ}: {xt['s']:.3f} s "
+              f"({xt['tokens_per_s']:,.0f} tokens/s), peak {xt['peak_gb']:.2f} GB with remat, "
+              f"{xt['plain_peak_gb']:.2f} GB without ({xt['plain_s']:.3f} s)")
         print(f"summary flash (32, {LM_SEQ}, 112): {row['ms']:.3f} ms kernel, bound "
               f"{row['bound_ms']:.3f} ms (the kernel's 4 passes {row['bound_ms_split3']:.3f} "
               f"ms), plain {row['plain_ms']:.3f} ms, "
@@ -3955,6 +4021,80 @@ class Smoke:
         self.ssm_kept[name] = kept
         return launches
 
+    def xlstm_train(self) -> dict:
+        """xlstm-350m's make_train_step at its published width, bf16, seed 0,
+        B = 1, S = XLSTM_TRAIN_SEQ: a warm-up step and XLSTM_TRAIN_STEPS timed
+        steps with remat (each mLSTM block recomputed in the backward), then
+        one step without: seconds, tokens/s and each step's peak device
+        memory. The remat steps' peak must lie REMAT_PEAK_MARGIN below the
+        other's, and a plant of the forward that ignored remat must fail
+        that check. No kernel of the port runs in it."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch import train
+        from repro_torch.models import ssm
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config("xlstm-350m")
+        opt = AdamWConfig()
+        state = [train.init_train_state(cfg, 0, opt)]
+        data = TokenStream(cfg, 1, XLSTM_TRAIN_SEQ, seed=0)
+        steps = {remat: train.make_train_step(dataclasses.replace(cfg, remat=remat), opt,
+                                              total_steps=100) for remat in (True, False)}
+
+        def run(remat: bool, i: int) -> tuple[dict, float, float]:
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state[0], metrics = steps[remat](state[0], data(i))
+            self.sync()
+            return metrics, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+        run(True, 0)                                   # warm-up
+        ops.reset_launches()
+        timed = [run(True, 1 + i) for i in range(XLSTM_TRAIN_STEPS)]
+        launches = ops.launches()
+        plain = run(False, 1 + XLSTM_TRAIN_STEPS)
+        for tag, (m, dt, peak) in [(f"remat step {i + 1}", r) for i, r in enumerate(timed)] + [
+                ("step without remat", plain)]:
+            print(f"xlstm-350m train {tag} at B=1, S={XLSTM_TRAIN_SEQ}: {dt:.3f} s, "
+                  f"{XLSTM_TRAIN_SEQ / dt:,.0f} tokens/s, peak device memory {peak:.3f} GB, "
+                  f"loss {float(m['loss']):.5f}, grad norm {float(m['grad_norm']):.4f}")
+            self.check(bool(self.np.isfinite(float(m["loss"]))
+                            and self.np.isfinite(float(m["grad_norm"]))),
+                       f"xlstm-350m train {tag}: loss and gradient norm are finite")
+        self.check(sum(launches.values()) == 0,
+                   f"xlstm-350m's train steps launched no kernel of the port: {launches}")
+        peak_remat, peak_plain = max(r[2] for r in timed), plain[2]
+
+        def lower(peak: float, what: str) -> tuple[bool, str]:
+            return (peak <= (1 - REMAT_PEAK_MARGIN) * peak_plain,
+                    f"xlstm-350m: the {what} step's peak device memory {peak:.3f} GB lies "
+                    f"{REMAT_PEAK_MARGIN:.0%} or more below the step without remat's "
+                    f"{peak_plain:.3f} GB")
+
+        self.check(*lower(peak_remat, "remat"))
+        # the plant: the forward as it was before it read cfg.remat
+        planted = self.planted_function(ssm, "xlstm_forward",
+                                        "remat = not decode and remat_on(cfg)", "remat = False")
+        real = ssm.xlstm_forward
+        ssm.xlstm_forward = planted
+        try:
+            _, _, peak_planted = run(True, 2 + XLSTM_TRAIN_STEPS)
+        finally:
+            ssm.xlstm_forward = real
+        ok, text = lower(peak_planted, "planted (remat not read) remat")
+        print(f"    xlstm_forward with remat not read: {'passes' if ok else 'FAILS'} {text}")
+        self.check(not ok, "planted fault 'xlstm_forward with remat not read' fails the peak "
+                   "memory check")
+        dt = sum(r[1] for r in timed) / len(timed)
+        state[0] = None
+        return dict(s=dt, tokens_per_s=XLSTM_TRAIN_SEQ / dt, peak_gb=peak_remat,
+                    plain_s=plain[1], plain_peak_gb=peak_plain, planted_peak_gb=peak_planted)
+
     @staticmethod
     def lap(what: str):
         """A function printing the seconds since its last call (or since
@@ -4050,7 +4190,7 @@ class Smoke:
         recorded input, to the same bits."""
         from repro_torch.models import zamba
 
-        torch, ops, ref = self.torch, self.ops, self.ref
+        torch, ops = self.torch, self.ops
         n_groups = zamba.zamba_groups(cfg)[0]
         tokens = torch.as_tensor(batch["tokens"], device=self.dev)
         s = tokens.shape[1]
@@ -4079,28 +4219,9 @@ class Smoke:
         out = [(len(flash) == n_flash and len(shared) == n_groups,
                 f"zamba2-7b at S={s}: {len(flash)} flash launches and {len(shared)} "
                 f"shared-block applications recorded ({n_flash} and {n_groups})")]
-        rtol = FLASH_BF16_ULP_TOL["rtol"]
         for i, (q, k, v, kw, got) in enumerate(flash):
             tag = f"zamba2-7b flash launch {i} {tuple(q.shape)} over {k.shape[0]} KV heads"
-            with torch.no_grad():
-                want = ref.flash_attention_ref(q, k, v, **kw).float()
-            out.append(self.verdict(got.float(), want, f"{tag} against the plain version",
-                                    FLASH_TOL["bf16"])[:2])
-            out.append(self.verdict(got.float(), want, f"{tag} within a bf16 ulp of the "
-                                    "plain version", FLASH_BF16_ULP_TOL)[:2])
-            del want
-            assert kw["window"] == 0 and kw["softcap"] == 0.0 and kw["causal"]
-            worst, err = 0.0, 0.0
-            for h0 in range(0, q.shape[0], 8):
-                exact = self.exact_heads(q, k, v, h0, min(h0 + 8, q.shape[0]))
-                e = (got[h0:h0 + 8].double() - exact).abs().flatten(1).amax(dim=1)
-                top = exact.abs().flatten(1).amax(dim=1)
-                ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
-                worst, err = max(worst, float((e / ulp).max())), max(err, float(e.max()))
-                del exact
-            out.append((worst <= 1.0, f"{tag} against float64 head by head: worst err / "
-                        f"(one bf16 ulp of the head's largest magnitude) {worst:.3f}, max abs "
-                        f"err {err:.3e}"))
+            out.extend(self.launch_verdicts(tag, q, k, v, kw, got))
         for i, (p, h, kw, got) in enumerate(shared):
             with torch.no_grad():
                 again = self.true_shared_block(params.shared, h, cfg, **kw)[0]
@@ -4321,6 +4442,420 @@ class Smoke:
                    and ssm.mlstm_chunked is real_chunked and zamba.shared_block is real_shared,
                    "every plant undone")
         del own
+
+    # ------------------------------------------------------------ audio and VLM
+    def lm_mm(self):
+        """whisper-medium and qwen2-vl-7b at their published widths, bf16,
+        weights from seed 0, one after the other (gemma2-2b's parameters
+        freed first, as lm_dense frees them): loss_fn at B = 1, S = 8,192
+        (the main path: whisper's decoder launches the flash kernel twice a
+        layer, causal self-attention and non-causal cross-attention over
+        1,500 frames; qwen2-vl once a layer over 1,024 patches and 7,168
+        tokens) with its device-busy share, the first and last layers'
+        flash launches each on its own inputs, the two attention paths,
+        generate() and the cache invariant on Qwen2-VL's own positions,
+        one planted fault a model; then the flash forward alone at the
+        three new shapes."""
+        import gc
+
+        torch = self.torch
+        print(f"card: {card_line()}")
+        if getattr(self, "lm", (None, None))[1] is not None:
+            self.lm_digest = self.params_digest(self.lm[1])
+            self.lm = (self.lm[0], None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.mm_numbers, total = {}, {}
+        for name in MM_MODELS:
+            print(f"  -- {name}", flush=True)
+            for key, n in self.mm_model(name).items():
+                total[key] = total.get(key, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.path_launches["lm_mm"] = total
+        lap = self.lap("lm_mm")
+        rows = {tag: self.mm_flash_row(tag, *shape) for tag, *shape in MM_FLASH_SHAPES}
+        if "flash_attention" in self.rows:
+            for tag, row in rows.items():
+                self.rows["flash_attention"][MM_ROW_KEYS[tag]] = row
+        lap("the flash forward at the three shapes")
+        for name, r in self.mm_numbers.items():
+            print(f"summary {name}: forward {r['s']:.3f} s at S={LM_SEQ} "
+                  f"({r['tokens_per_s']:,.0f} tokens/s, peak {r['peak_gb']:.2f} GB, idle "
+                  f"share {r['idle']:.3f}); prefill {r['prefill_ms']:.1f} ms; decode "
+                  f"{r['decode_tokens_per_s']:,.1f} tokens/s")
+        for tag, row in rows.items():
+            print(f"summary flash {tag} {row['dims']}: {row['ms']:.3f} ms kernel, bound "
+                  f"{row['bound_ms']:.3f} ms (the kernel's 4 passes {row['bound_ms_split3']:.3f} "
+                  f"ms), plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
+                  f"{row['library_ms']:.3f} ms")
+
+    def mm_model(self, name: str) -> dict:
+        """One config of lm_mm; returns the launches of its timed loss_fn."""
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import build_model
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config(name)
+        audio = cfg.family == "audio"
+        n_flash = (2 if audio else 1) * cfg.n_layers
+        model = build_model(cfg)
+        lap = self.lap(name)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        self.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"{name} init on the card: {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        n_text = LM_SEQ if audio else LM_SEQ - cfg.n_patches
+        batch = TokenStream(cfg, 1, n_text, seed=0)(0)
+        with torch.no_grad():
+            model.loss_fn(params, batch)               # warm-up
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()                       # the main path starts here
+            t0 = time.perf_counter()
+            loss, metrics = model.loss_fn(params, batch)
+            self.sync()
+            dt = time.perf_counter() - t0
+            launches = ops.launches()                  # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = float(loss)
+        what = ("a causal self-attention and a non-causal cross-attention a decoder layer"
+                if audio else "one a layer")
+        inputs = (f"{cfg.encoder_seq:,} frames, {n_text:,} tokens" if audio else
+                  f"{cfg.n_patches:,} patches, {n_text:,} tokens")
+        print(f"{name} forward + loss at B=1, S={LM_SEQ} ({inputs}): {dt:.3f} s, "
+              f"{LM_SEQ / dt:,.0f} tokens/s, peak device memory {peak:.2f} GB, loss "
+              f"{loss:.5f}; launches {launches}")
+        self.check(launches["flash_attention"] == n_flash and sum(launches.values()) == n_flash,
+                   f"{name}: the forward launched the flash kernel {n_flash} times ({what}) "
+                   f"and no other kernel of the port: {launches}")
+        self.check(bool(self.np.isfinite(loss)) and float(metrics["tokens"]) == n_text,
+                   f"{name}: the loss is finite ({loss:.5f}), {n_text} labels counted")
+        lap("the timed forward and its warm-up")
+        with torch.no_grad():
+            events = self._profile(lambda: model.loss_fn(params, batch), dt * 1e3,
+                                   f"{name} forward at S={LM_SEQ}", activities=("cuda",))
+        self.check(bool(events), f"{name}: the profiled forward holds device time (its idle "
+                   "share is measured)")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (dt * 1e3))
+        self.print_split(events, f"{name} forward at S={LM_SEQ}")
+        lap("the profiled forward")
+        numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak, loss=loss,
+                       params=n_params, busy_ms=busy, idle=idle)
+        wanted = ((0, 1, n_flash - 2, n_flash - 1) if audio else (0, n_flash - 1))
+        for ok, text in self.mm_probe_verdicts(cfg, model, params, batch, wanted):
+            self.check(ok, text)
+        lap("the first and last layers' flash launches on their inputs")
+        for ok, text in self.path_verdicts(self.mm_runs(model, params, batch)):
+            self.check(ok, f"{name}: {text}")
+        lap("the two attention paths")
+        numbers.update(self.mm_serve(name, model, params))
+        lap("serving")
+        for ok, text in self.mm_cache_verdicts(model, params):
+            self.check(ok, text)
+        lap("the cache invariant")
+        self.mm_fault(model, params, batch, wanted)
+        lap("the plant")
+        self.mm_numbers[name] = numbers
+        return launches
+
+    def launch_verdicts(self, tag, q, k, v, kw, got) -> list[tuple[bool, str]]:
+        """One bf16 flash launch on its own inputs: against the plain version
+        (3e-2 and one bf16 ulp) and against float64 head by head, within one
+        bf16 ulp of the head's largest magnitude."""
+        torch, ref = self.torch, self.ref
+        with torch.no_grad():
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+        out = [self.verdict(got.float(), want, f"{tag} against the plain version",
+                            FLASH_TOL["bf16"])[:2],
+               self.verdict(got.float(), want, f"{tag} within a bf16 ulp of the plain version",
+                            FLASH_BF16_ULP_TOL)[:2]]
+        del want
+        assert kw["window"] == 0 and kw["softcap"] == 0.0
+        worst, err = 0.0, 0.0
+        for h0 in range(0, q.shape[0], 8):
+            h1 = min(h0 + 8, q.shape[0])
+            exact = self.exact_heads(q, k, v, h0, h1, kw["causal"])
+            e = (got[h0:h1].double() - exact).abs().flatten(1).amax(dim=1)
+            top = exact.abs().flatten(1).amax(dim=1)
+            ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+            worst, err = max(worst, float((e / ulp).max())), max(err, float(e.max()))
+            del exact
+        out.append((worst <= 1.0, f"{tag} against float64 head by head: worst err / (one "
+                    f"bf16 ulp of the head's largest magnitude) {worst:.3f}, max abs err "
+                    f"{err:.3e}"))
+        return out
+
+    def mm_probe_verdicts(self, cfg, model, params, batch, wanted) -> list[tuple[bool, str]]:
+        """A bf16 forward whose flash launches numbered `wanted` (in launch
+        order: whisper's layer i launches self-attention 2i and
+        cross-attention 2i + 1) are each held on their own inputs
+        (`launch_verdicts`)."""
+        torch, ops = self.torch, self.ops
+        real, recs, count = ops.flash_attention, [], [0]
+
+        def probe(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            if count[0] in wanted:
+                recs.append((count[0], q, k, v, kw, out))
+            count[0] += 1
+            return out
+
+        ops.flash_attention = probe
+        try:
+            with torch.no_grad():
+                model.loss_fn(params, batch)
+        finally:
+            ops.flash_attention = real
+        self.sync()
+        out = [(len(recs) == len(wanted), f"{cfg.name}: flash launches {wanted} recorded "
+                f"({[r[0] for r in recs]} of {count[0]})")]
+        per_layer = 2 if cfg.family == "audio" else 1
+        for i, q, k, v, kw, got in recs:
+            kind = ("" if per_layer == 1 else
+                    " self-attention" if i % 2 == 0 else " cross-attention")
+            tag = (f"{cfg.name} layer {i // per_layer}{kind} flash launch {tuple(q.shape)} over "
+                   f"{tuple(k.shape)}, {'causal' if kw['causal'] else 'non-causal'}")
+            out.extend(self.launch_verdicts(tag, q, k, v, kw, got))
+        del recs
+        return out
+
+    def mm_runs(self, model, params, batch) -> dict:
+        """The forward down the flash and the direct attention paths at full
+        depth, in bf16 and fp32 (the bf16 weights cast per use): (loss,
+        last-position logits) each. The loss is loss_fn's (the head in
+        chunks); the logits are the last position's row of the head."""
+        import dataclasses
+
+        from repro_torch.models import build_model
+        from repro_torch.models import transformer as tfm
+
+        torch, ops = self.torch, self.ops
+        cfg = model.cfg
+
+        def forward(c):
+            m = build_model(c)
+            with torch.no_grad():
+                if c.family == "audio":
+                    enc = tfm.encoder_forward(params, c, m._ids(batch["frames"]))
+                    h, _ = tfm.encdec_hidden(params, c, m._ids(batch["tokens"]), enc)
+                else:
+                    embeds, positions, tokens = m._embeds_and_positions(params, batch)
+                    h, _, _ = tfm.decoder_hidden(params, c, tokens, positions=positions,
+                                                 embeds=embeds)
+                loss, _ = tfm.head_loss(params, c, h, m._ids(batch["labels"]))
+                last = tfm.matmul_f32(h[:, -1:], tfm.head_weight(params, c).t())[:, 0]
+                return float(loss), last
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+        runs = {"flash bf16": forward(cfg), "flash fp32": forward(f32)}
+        ops.reset_launches()
+        for tag, c in (("direct bf16", cfg), ("direct fp32", f32)):
+            runs[tag] = forward(dataclasses.replace(c, chunked_attn_min_len=LM_SEQ + 1))
+        self.check(ops.launches()["flash_attention"] == 0,
+                   f"{cfg.name}: the direct-path forwards launched no flash kernel")
+        for tag, (l, g) in runs.items():
+            print(f"  {cfg.name} {tag}: loss {l:.6f}")
+            self.check(bool(self.np.isfinite(l) and torch.isfinite(g).all()),
+                       f"{cfg.name} {tag}: loss and last-position logits are finite")
+        return runs
+
+    def mm_inputs(self, cfg, b: int, n_text: int, *, grid: bool, seed: int = 1):
+        """(prompts (b, n_text), the stubs' prefill inputs): whisper's frames;
+        qwen2-vl's patch embeddings and positions, 0 .. S - 1 on every
+        channel (the launcher's) or, with `grid`, Qwen2-VL's own: the
+        patches at t = 0 on a MM_GRID x MM_GRID (h, w) grid and the text
+        from MM_GRID on all three channels."""
+        from repro_torch.launch import serve
+
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        prompts = torch.randint(0, cfg.vocab_size, (b, n_text), generator=gen,
+                                device=self.dev, dtype=torch.int32)
+        inputs = serve.stub_inputs(cfg, b, n_text, gen)
+        if grid and cfg.family == "vlm":
+            idx = torch.arange(cfg.n_patches, device=self.dev)
+            patches = torch.stack([torch.zeros_like(idx), idx // MM_GRID, idx % MM_GRID])
+            text = (MM_GRID + torch.arange(n_text, device=self.dev)).expand(3, n_text)
+            inputs["positions"] = torch.cat([patches, text], dim=1).to(torch.int32).expand(
+                b, 3, cfg.n_patches + n_text)
+        return prompts, inputs
+
+    def mm_serve(self, name, model, params) -> dict:
+        """launch.serve.generate: prefill of 4 prompts of 2,048 positions
+        (whisper's 2,048 tokens over its 1,500 frames; qwen2-vl's 1,024
+        patches and 1,024 tokens), then 31 greedy decode steps; no flash
+        launch."""
+        from repro_torch.launch import serve
+
+        torch, ops = self.torch, self.ops
+        cfg = model.cfg
+        b, plen, max_new = LM_SERVE
+        n_text = plen if cfg.family == "audio" else plen - cfg.n_patches
+        prompts, inputs = self.mm_inputs(cfg, b, n_text, grid=False)
+        serve.generate(model, params, prompts, max_new, inputs=inputs)     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        toks, t_prefill, t_decode = serve.generate(model, params, prompts, max_new,
+                                                   inputs=inputs)
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_dec = b * (max_new - 1)
+        print(f"{name} serve {b} x {plen} positions ({n_text} tokens), {max_new - 1} decode "
+              f"steps: prefill {t_prefill * 1e3:.1f} ms, decode {n_dec / t_decode:,.1f} "
+              f"tokens/s ({t_decode / (max_new - 1) * 1e3:.2f} ms a step), peak device "
+              f"memory {peak:.2f} GB")
+        self.check(sum(launches.values()) == 0 and tuple(toks.shape) == (b, max_new)
+                   and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                   f"{name}: prefill and decode launch no kernel of the port; the generated "
+                   "ids have the expected shape and range")
+        return dict(prefill_ms=t_prefill * 1e3, decode_tokens_per_s=n_dec / t_decode,
+                    decode_ms=t_decode / (max_new - 1) * 1e3, serve_peak_gb=peak)
+
+    def mm_invariant(self, model, params) -> tuple[dict, dict]:
+        """prefill(t) and prefill(t[:-1]) + decode(t[-1]) on MM_SHORT tokens
+        of 4 prompts (whisper over its frames; qwen2-vl after its patches,
+        on Qwen2-VL's grid positions, the decode step at the batch's
+        position MM_GRID + MM_SHORT - 1), in bf16 and fp32: ({dtype: full
+        logits}, {dtype: decode logits})."""
+        import dataclasses
+
+        from repro_torch.models import build_model
+
+        torch = self.torch
+        cfg = model.cfg
+        b = LM_SERVE[0]
+        prompts, inputs = self.mm_inputs(cfg, b, MM_SHORT, grid=True)
+        short_inputs = dict(inputs)
+        step = {"tokens": prompts[:, -1:]}
+        if "positions" in inputs:
+            short_inputs["positions"] = inputs["positions"][:, :, :-1]
+            step["positions"] = inputs["positions"][:, :, -1:]
+        full, dec = {}, {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            m = build_model(dataclasses.replace(cfg, dtype=dt, param_dtype=dt))
+            full[tag] = m.prefill_fn(params, {"tokens": prompts, **inputs})["logits"]
+            short = m.prefill_fn(params, {"tokens": prompts[:, :-1], **short_inputs})
+            _, dec[tag] = m.decode_fn(params, short["cache"], step)
+            del short
+        return full, dec
+
+    def mm_cache_verdicts(self, model, params) -> list[tuple[bool, str]]:
+        """The cache invariant (`mm_invariant`): fp32 at CACHE_TOL and
+        LM_FP32_TOL, bf16 within the noise floor of the bf16 prefill."""
+        name = model.cfg.name
+        full, dec = self.mm_invariant(model, params)
+        out = [(bool(self.torch.isfinite(full[t]).all() and self.torch.isfinite(dec[t]).all()),
+                f"{name}: {t} prefill and decode logits are finite") for t in full]
+        what = f"{name}: fp32 prefill(t) against prefill(t[:-1]) + decode(t[-1])"
+        out += [self.verdict(full["fp32"], dec["fp32"], what, CACHE_TOL)[:2],
+                self.verdict(full["fp32"], dec["fp32"], what, LM_FP32_TOL)[:2],
+                self.noise_verdict(dec["bf16"], full["bf16"], full["fp32"],
+                                   f"{name}: bf16 prefill(t[:-1]) + decode(t[-1])",
+                                   "bf16 prefill(t)")]
+        return out
+
+    def mm_fault(self, model, params, batch, wanted):
+        """lm_mm's plant for this model, which must fail a check: whisper's
+        cross launches fed K and V zero-padded to MM_PAD_KEYS keys (the
+        reference's chunked fault), held by the per-launch checks; qwen2-vl
+        decode steps whose M-RoPE positions are the cache's index, held by
+        the cache invariant."""
+        from repro_torch.models import api
+
+        ops = self.ops
+        cfg = model.cfg
+        if cfg.family == "audio":
+            real = ops.flash_attention
+            F = self.torch.nn.functional
+
+            def padded(q, k, v, **kw):
+                if not kw["causal"]:
+                    k, v = (F.pad(t, (0, 0, 0, MM_PAD_KEYS - t.shape[1])) for t in (k, v))
+                return real(q, k, v, **kw)
+
+            plant = ("whisper's cross launches given K and V zero-padded to "
+                     f"{MM_PAD_KEYS} keys", ops, "flash_attention", padded,
+                     lambda: self.mm_probe_verdicts(cfg, model, params, batch, wanted))
+        else:
+            real = api.DecoderModel.decode_fn
+
+            def index_positions(self_, params_, cache, step):
+                pos = cache["pos"][0].to(self.torch.int32).expand(step["tokens"].shape[0], 3, 1)
+                return real(self_, params_, cache, dict(step, positions=pos))
+
+            plant = ("qwen2-vl decode positions taken from the cache's index", api.DecoderModel,
+                     "decode_fn", index_positions,
+                     lambda: self.mm_cache_verdicts(model, params))
+        what, owner, attr, fn, checks = plant
+        saved = getattr(owner, attr)
+        setattr(owner, attr, fn)
+        try:
+            verdicts = checks()
+        finally:
+            setattr(owner, attr, saved)
+        caught = [text for ok, text in verdicts if not ok]
+        for ok, text in verdicts:
+            print(f"    {what}: {'passes' if ok else 'FAILS'} {text}")
+        self.check(bool(caught), f"planted fault '{what}' fails {len(caught)} of "
+                   f"{len(verdicts)} checks")
+        self.check(getattr(owner, attr) is saved, "the plant undone")
+
+    def mm_flash_row(self, tag, bh, bhk, sq, sk, d, causal) -> dict:
+        """The flash forward alone at one of lm_mm's shapes, bf16, softcap 0,
+        window 0, on inputs of MM_FLASH_SEED: against its plain version and
+        scaled_dot_product_attention (is_causal as the shape is, GQA by
+        enable_gqa), timed beside its bound (2 bf16 tensor passes a visible
+        pair; the kernel's 4 beside it), its plain version and SDPA."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        g = torch.Generator(device=self.dev).manual_seed(MM_FLASH_SEED + bh + d)
+        q = torch.randn(bh, sq, d, generator=g, device=self.dev).to(torch.bfloat16)
+        k, v = (torch.randn(bhk, sk, d, generator=g, device=self.dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=causal, window=0, softcap=0.0)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal, enable_gqa=True)[0]
+
+        dims = f"({bh}, {sq}{'' if sq == sk else f' x {sk}'}, {d}) over {bhk} KV heads"
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        err = self.close(got, want, f"flash_attention {tag} {dims} against its plain version",
+                         FLASH_TOL["bf16"])
+        self.close(got, want, f"flash_attention {tag} {dims} within a bf16 ulp of its plain "
+                   "version", FLASH_BF16_ULP_TOL)
+        lib_err = self.close(sdpa().float(), got, f"flash_attention {tag} {dims}: "
+                             "scaled_dot_product_attention against the kernel",
+                             FLASH_TOL["bf16"])
+        del got, want
+        pairs = bh * (visible_pairs(sq, 0) if causal else sq * sk)
+        tb = sum(t.numel() * t.element_size() for t in (q, k, v, q)) / HBM_BYTES_PER_S * 1e3
+        to = FLASH_FWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        row = dict(shape=f"{tag} {dims}, bf16, {'causal' if causal else 'non-causal'}, "
+                         "softcap 0, window 0", dims=dims, max_abs_err=err,
+                   ms=self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                   plain_ms=self.cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                         reps=1),
+                   bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                   bound_ms_split3=max(tb, FLASH_FWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                       / BF16_TENSOR_FLOPS * 1e3),
+                   library_ms=self.cuda_ms(sdpa),
+                   library=f"scaled_dot_product_attention, is_causal={causal}, enable_gqa",
+                   library_max_abs_err=lib_err)
+        print(f"    flash_attention {tag} {dims}: {row['ms']:.3f} ms kernel, "
+              f"{row['plain_ms']:.3f} ms plain, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}: 2 bf16 tensor passes a visible pair; kernel at "
+              f"{row['ms'] / row['bound_ms']:.2f}x), the kernel's 4 passes "
+              f"{row['bound_ms_split3']:.3f} ms (kernel at "
+              f"{row['ms'] / row['bound_ms_split3']:.2f}x), scaled_dot_product_attention "
+              f"{row['library_ms']:.3f} ms")
+        return row
 
     # ------------------------------------------------------------ LM training
     def lm_train(self):

@@ -3,9 +3,11 @@
 Deterministic, seekable batch stream (batch i is a pure function of (seed,
 i)). Tokens follow a zipf marginal with a first-order mixing structure so
 a model can reduce loss; labels are the next tokens. The batches are bit
-for bit the JAX package's for the same config, batch, length and seed.
-Only the token families are copied: the audio and VLM stubs are not
-ported (ROADMAP.md, queue 1 item 12).
+for bit the JAX package's for the same config, batch, length and seed,
+the audio and VLM stubs' too: an audio batch carries (B, encoder_seq,
+d_model) frame embeddings, a VLM batch (B, n_patches, d_model) patch
+embeddings, (B, 3, n_patches + S) positions (the same sequence on the
+three M-RoPE channels) and labels of -1 over the patches.
 """
 from __future__ import annotations
 
@@ -43,7 +45,21 @@ class TokenStream:
         for t in range(s):
             succ = self._succ[toks[:, t], pick[:, t]]
             toks[:, t + 1] = np.where(follow[:, t], succ, fresh[:, t])
-        return {
+        batch = {
             "tokens": toks[:, :-1],
             "labels": toks[:, 1:].astype(np.int32),
         }
+        cfg = self.cfg
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+        if cfg.family == "vlm":
+            npch = cfg.n_patches
+            batch["patch_embeds"] = rng.standard_normal((b, npch, cfg.d_model),
+                                                        dtype=np.float32)
+            full = npch + s
+            batch["positions"] = np.broadcast_to(np.arange(full, dtype=np.int32),
+                                                 (b, 3, full)).copy()
+            batch["labels"] = np.concatenate(
+                [np.full((b, npch), -1, np.int32), batch["labels"]], axis=1)
+        return batch

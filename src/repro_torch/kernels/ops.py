@@ -400,11 +400,6 @@ FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_mma_kernel",
                       torch.float32: "flash_kernel<float"}
 
 
-def _flash_block(s: int) -> int:
-    """The JAX wrapper's KV block for a sequence of s keys."""
-    return min(128, max(16, s))
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
                     scale: float | None = None) -> torch.Tensor:
@@ -412,21 +407,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window (0 = none), logit softcap (0 = none), scale (None = 1/sqrt(D)).
 
     k and v may carry fewer heads than q (GQA): BHk must divide BH, and
-    query block bh reads KV block bh // (BH // BHk). A ragged S is masked.
-    Raises ValueError where the JAX wrapper does: without causality, S_k
-    must be a multiple of its KV block, min(128, max(16, S_k)). On the card
-    bf16 and fp32 take different kernels (FLASH_KERNEL_NAMES), both counted
-    as one `flash_attention` launch.
+    query block bh reads KV block bh // (BH // BHk). S_q and S_k may
+    differ (a cross-attention: whisper's decoder against its 1,500 encoder
+    frames), and a ragged S_k, causal or not, is masked: the kernel sees
+    no key at or past S_k. The JAX Pallas wrapper raises for a non-causal
+    S_k that is no multiple of its KV block, and the JAX chunked path pads
+    such an S_k with zero keys that enter the softmax (ROADMAP.md, queue 3);
+    this wrapper computes the exact softmax, as the JAX direct path does.
+    On the card bf16 and fp32 take different kernels (FLASH_KERNEL_NAMES),
+    both counted as one `flash_attention` launch.
 
     With grad enabled and an input that requires it, the call goes through
     `FlashAttention`: the forward also keeps each row's log-sum-exp and the
-    fp32 output, and the backward is `flash_attention_bwd`. Without grad
+    fp32 output, and the backward is `flash_attention_bwd`, which takes
+    S_q == S_k only: a call with grad and S_q != S_k raises. Without grad
     the launch is the plain forward, which writes neither.
     """
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
-    if not causal and sk % _flash_block(sk):
-        raise ValueError("non-causal flash path requires S_k % block == 0")
     if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk:
         raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing "
                          f"{bh}; got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -434,7 +432,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (bool(causal), int(window), float(softcap), scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if sq != sk:
-            raise ValueError(f"the flash backward takes S_q == S_k, got {sq} and {sk}")
+            raise ValueError(
+                f"the flash backward takes S_q == S_k, got {sq} and {sk}: a cross-attention "
+                "such as whisper's trains on no path of the port yet (ROADMAP.md, queue 1 "
+                "item 12.3); call it without grad")
         return FlashAttention.apply(q, k, v, *args)
     if not _on_cuda(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -9,10 +9,15 @@ LM mode, batched prefill then greedy (or sampled) decode:
 runs on the card; add `--reduced --device cpu` for the CPU-sized
 miniature on the plain path. `--arch` takes every architecture the port
 has: gemma2-2b, smollm-360m, stablelm-1.6b, granite-20b,
-granite-moe-3b-a800m, xlstm-350m and zamba2-7b (`models.build_model`
-picks the model of the config's family). Parameters are drawn from seed
-0 and the prompts from seed 1 (torch.Generator; not the JAX launcher's
-numbers). Prefill and decode take the direct attention path, so the
+granite-moe-3b-a800m, xlstm-350m, zamba2-7b, whisper-medium and
+qwen2-vl-7b (`models.build_model` picks the model of the config's
+family). Parameters are drawn from seed 0 and the prompts from seed 1
+(torch.Generator; not the JAX launcher's numbers), and so are the
+modality stubs' inputs, as the JAX launcher builds them: whisper's
+encoder_seq frame embeddings and qwen2-vl's n_patches patch embeddings
+(each 0.1 times a standard normal), the VLM's prefill positions 0 ..
+n_patches + P - 1 on its three M-RoPE channels, and each decode step's
+the next one. Prefill and decode take the direct attention path, so the
 flash kernel does not run here.
 
 BPMF mode, top-N from retained Gibbs draws through the request-batching
@@ -56,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
-from repro_torch.models import DecoderModel, XLSTMModel, ZambaModel, build_model
+from repro_torch.models import DecoderModel, EncDecModel, XLSTMModel, ZambaModel, build_model
 
 
 def _sync(device: torch.device) -> None:
@@ -64,22 +69,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: DecoderModel | XLSTMModel | ZambaModel, params, prompts: torch.Tensor,
-             max_new: int, *,
+def generate(model: DecoderModel | EncDecModel | XLSTMModel | ZambaModel, params,
+             prompts: torch.Tensor, max_new: int, *, inputs: dict | None = None,
              temperature: float = 0.0, generator: torch.Generator | None = None
              ) -> tuple[torch.Tensor, float, float]:
-    """Prefill `prompts` (B, P), then max_new - 1 decode steps.
+    """Prefill `prompts` (B, P) with the modality stubs' `inputs` (whisper's
+    "frames"; the VLM's "patch_embeds" and (B, 3, S) "positions"), then
+    max_new - 1 decode steps. A VLM decode step's M-RoPE position is one
+    past the row's largest prefill position, then one more each step (on
+    all three channels: Qwen2-VL's rule for text after the patches).
 
     Returns (the max_new new tokens (B, max_new), prefill seconds, decode
     seconds); greedy at temperature 0, else sampled from softmax(logits / T).
     """
     dev = model.device
+    inputs = inputs or {}
     _sync(dev)
     t0 = time.perf_counter()
     # a cache that grows (K/V buffers) is sized for the new tokens; the
     # xLSTM's states are of a fixed size and its prefill takes no headroom
     kw = {"headroom": max_new + 8} if model.cache_grows else {}
-    out = model.prefill_fn(params, {"tokens": prompts}, **kw)
+    out = model.prefill_fn(params, {"tokens": prompts, **inputs}, **kw)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -92,9 +102,16 @@ def generate(model: DecoderModel | XLSTMModel | ZambaModel, params, prompts: tor
     cache = out["cache"]
     tok = pick(out["logits"])
     toks = [tok]
+    pos0 = None
+    if "positions" in inputs:
+        nxt = torch.as_tensor(inputs["positions"], device=dev).amax(dim=(1, 2)) + 1
+        pos0 = nxt.to(torch.int32)[:, None, None].expand(-1, 3, 1)
     t0 = time.perf_counter()
-    for _ in range(max_new - 1):
-        cache, logits = model.decode_fn(params, cache, {"tokens": tok})
+    for i in range(max_new - 1):
+        step = {"tokens": tok}
+        if pos0 is not None:
+            step["positions"] = pos0 + i
+        cache, logits = model.decode_fn(params, cache, step)
         tok = pick(logits)
         toks.append(tok)
     _sync(dev)
@@ -416,6 +433,26 @@ def bpmf_main(args) -> None:
           f"p50 {lat['p50']*1e3:.2f} ms  p99 {lat['p99']*1e3:.2f} ms")
 
 
+def stub_inputs(cfg, batch: int, prompt_len: int, generator: torch.Generator) -> dict:
+    """The modality stubs' prefill inputs beside `batch` prompts of
+    `prompt_len` tokens, as the JAX launcher builds them: whisper's
+    (B, encoder_seq, D) frames, or the VLM's (B, n_patches, D) patch
+    embeddings, each 0.1 times a standard normal from `generator`, and its
+    positions 0 .. n_patches + prompt_len - 1 on all three channels; {}
+    for the other families."""
+    dev = generator.device
+    if cfg.family == "audio":
+        return {"frames": 0.1 * torch.randn(batch, cfg.encoder_seq, cfg.d_model,
+                                            generator=generator, device=dev)}
+    if cfg.family == "vlm":
+        total = cfg.n_patches + prompt_len
+        return {"patch_embeds": 0.1 * torch.randn(batch, cfg.n_patches, cfg.d_model,
+                                                  generator=generator, device=dev),
+                "positions": torch.arange(total, dtype=torch.int32,
+                                          device=dev).expand(batch, 3, total)}
+    return {}
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
@@ -471,6 +508,8 @@ def main(argv: list[str] | None = None) -> None:
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=model.device, dtype=torch.int32)
     gen_toks, t_prefill, t_decode = generate(model, params, prompts, args.max_new,
+                                             inputs=stub_inputs(cfg, args.batch,
+                                                                args.prompt_len, gen),
                                              temperature=args.temperature, generator=gen)
     n_tok = args.batch * (args.max_new - 1)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "

@@ -33,9 +33,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.gibbs import ENGINES
+from torch import nn
+
 from repro_torch.models import build_model
 from repro_torch.models.layers import ModelConfig
-from repro_torch.models.transformer import Decoder
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update, cosine_schedule
 
 
@@ -43,15 +44,15 @@ from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update,
 # LM training step (the reference's make_train_step)
 # ---------------------------------------------------------------------------
 class TrainState(NamedTuple):
-    params: Decoder
+    params: nn.Module                # the family's parameter module (Decoder, XLSTM, ...)
     opt: AdamWState
     step: torch.Tensor               # 0-d int32, on the CPU
 
 
 def init_train_state(cfg: ModelConfig, seed: int, opt_cfg: AdamWConfig, *,
                      device: str | torch.device = "cuda") -> TrainState:
-    """Parameters drawn from `seed` on `device` (DecoderModel.init) and a
-    zero AdamW state beside them."""
+    """Parameters drawn from `seed` on `device` (the family's model's
+    `init`, `build_model`) and a zero AdamW state beside them."""
     params = build_model(cfg, device=device).init(seed)
     return TrainState(params=params, opt=adamw_init(params, opt_cfg),
                       step=torch.zeros((), dtype=torch.int32))
@@ -59,12 +60,15 @@ def init_train_state(cfg: ModelConfig, seed: int, opt_cfg: AdamWConfig, *,
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, total_steps: int = 100_000,
                     device: str | torch.device = "cuda"):
-    """train_step(state, batch) -> (state, metrics): the loss, its gradient
-    by autograd (the flash kernel's backward on the card; each layer
-    recomputed under `cfg.remat`), then clipping and AdamW at the cosine
-    schedule's rate, warm-up min(2000, total_steps // 10). The parameters
-    and moments are updated in place and the gradients freed; metrics
-    holds "ce", "tokens", "grad_norm", "loss" and "lr"."""
+    """train_step(state, batch) -> (state, metrics) for a model of any
+    ported family (`build_model`): the loss, its gradient by autograd (the
+    flash kernel's backward on the card; under `cfg.remat` each decoder
+    layer, or each xLSTM mLSTM block or Mamba2 block, recomputed), then
+    clipping and AdamW at the cosine schedule's rate, warm-up min(2000,
+    total_steps // 10), every stacked leaf decayed as JAX decays it
+    (`optim.adamw.jax_rank`). The parameters and moments are updated in
+    place and the gradients freed; metrics holds "ce", "tokens",
+    "grad_norm", "loss" and "lr" (and a decoder's "aux")."""
     model = build_model(cfg, device=device)
     warmup = min(2000, total_steps // 10)
 

@@ -1,8 +1,9 @@
 """Model API of the LMs, ported from `repro/models/api.py`: the decoders
-(dense and MoE), the xLSTM (ssm) and the Zamba2 hybrid.
+(dense, MoE and the VLM), whisper's encoder-decoder (audio), the xLSTM
+(ssm) and the Zamba2 hybrid.
 
 The JAX package's four entry points, with the parameters as the port's
-modules (`Decoder`, `XLSTM`, `Zamba`) in place of the JAX pytree:
+modules (`Decoder`, `EncDec`, `XLSTM`, `Zamba`) in place of the JAX pytree:
 
     init(seed)                      -> params
     loss_fn(params, batch)          -> (loss, metrics)
@@ -10,15 +11,23 @@ modules (`Decoder`, `XLSTM`, `Zamba`) in place of the JAX pytree:
     decode_fn(params, cache, batch) -> (new_cache, logits)
 
 A batch holds "tokens" (and "labels" for the loss) as numpy arrays or
-tensors. The model runs on `device`, "cuda" by default; without a card it
-raises unless the caller asks for "cpu". Prefill and decode run under
-torch.no_grad(); loss_fn leaves autograd to the caller and is
-differentiable on the card as on the CPU: the flash kernel's backward is a
-kernel too (`kernels/ops.py::FlashAttention`).
+tensors, and the modality stubs' inputs as `data.tokens.TokenStream` makes
+them: whisper's "frames" (B, encoder_seq, D); the VLM's "patch_embeds"
+(B, n_patches, D), put before the text, and its M-RoPE "positions"
+(B, 3, S) at prefill and (B, 3, 1) at each decode step, which the caller
+gives (the decode cache's index is no M-RoPE position). The model runs on
+`device`, "cuda" by default; without a card it raises unless the caller
+asks for "cpu". Prefill and decode run under torch.no_grad(); loss_fn
+leaves autograd to the caller and is differentiable on the card as on the
+CPU: the flash kernel's backward is a kernel too
+(`kernels/ops.py::FlashAttention`). It takes S_q == S_k, so whisper's
+loss_fn raises under grad once its cross-attention takes the flash route
+(more than `attn_chunk` frames at `chunked_attn_min_len` tokens or more).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -29,6 +38,10 @@ from repro_torch.models import ssm as xl
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba as zb
 from repro_torch.models.layers import ModelConfig
+
+#: the JAX package's EncDecModel default: rows of whisper's decoder
+#: position table
+MAX_DEC_LEN = 32_768
 
 
 # ---------------------------------------------------------------------------
@@ -51,7 +64,7 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
-# Decoder-family model (dense and MoE)
+# Decoder-family model (dense, MoE and VLM)
 # ---------------------------------------------------------------------------
 def _positions_for(batch: int, seq: int, device: torch.device, offset: Any = 0
                    ) -> torch.Tensor:
@@ -59,10 +72,9 @@ def _positions_for(batch: int, seq: int, device: torch.device, offset: Any = 0
     return pos.expand(batch, seq)
 
 
-#: the families DecoderModel runs; the SSM and hybrid families are
-#: XLSTMModel's and ZambaModel's (`build_model`), and the audio and VLM
-#: ones are ROADMAP.md's queue 1, item 12.3
-FAMILIES = ("dense", "moe")
+#: the families DecoderModel runs; the audio, SSM and hybrid families are
+#: EncDecModel's, XLSTMModel's and ZambaModel's (`build_model`)
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class _LM:
@@ -83,9 +95,8 @@ class _LM:
             raise NotImplementedError(
                 f"{type(self).__name__} runs the families {self.family}, not "
                 f"{cfg.family}: build_model(cfg) gives the model of each ported family "
-                "(dense and moe: DecoderModel, ssm: XLSTMModel, hybrid: ZambaModel); "
-                "the audio and VLM families are not ported yet, see ROADMAP.md "
-                "(queue 1, item 12)")
+                "(dense, moe and vlm: DecoderModel, audio: EncDecModel, ssm: XLSTMModel, "
+                "hybrid: ZambaModel); ROADMAP.md (queue 1) lists what is left to port")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -99,6 +110,8 @@ class _LM:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _ids(self, x: Any) -> torch.Tensor:
+        """A batch entry (numpy or a tensor) on the model's device: ids,
+        positions or the stubs' fp32 embeddings."""
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -108,15 +121,28 @@ class DecoderModel(_LM):
     family = FAMILIES
     make_params = staticmethod(tfm.init_decoder)
 
+    def _embeds_and_positions(self, params: tfm.Decoder, batch: dict
+                              ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
+        """(embeds or None, positions, tokens or None): for the VLM the
+        patch embeddings before the text's embeddings and the batch's
+        (B, 3, S) positions; otherwise the tokens and positions 0..S-1."""
+        tokens = self._ids(batch["tokens"])
+        if self.cfg.family == "vlm":
+            cfg = self.cfg
+            patches = self._ids(batch["patch_embeds"]).to(cfg.dtype)
+            embeds = torch.cat([patches, params.embed.to(cfg.dtype)[tokens]], dim=1)
+            return embeds, self._ids(batch["positions"]), None
+        return None, _positions_for(*tokens.shape, self.device), tokens
+
     def loss_fn(self, params: tfm.Decoder, batch: dict) -> tuple[torch.Tensor, dict]:
         """(mean next-token loss + 0.01 * the layers' MoE aux loss, metrics
         with "ce", "tokens" and "aux"); differentiable, through the flash
         backward kernel on the card. The head takes HEAD_CHUNK rows at a
-        time with grad or without (`tfm.head_loss`)."""
-        tokens = self._ids(batch["tokens"])
-        b, s = tokens.shape
-        h, _, aux = tfm.decoder_hidden(params, self.cfg, tokens,
-                                       positions=_positions_for(b, s, self.device))
+        time with grad or without (`tfm.head_loss`). A VLM batch's labels
+        cover its patches too (-1 there, not counted)."""
+        embeds, positions, tokens = self._embeds_and_positions(params, batch)
+        h, _, aux = tfm.decoder_hidden(params, self.cfg, tokens, positions=positions,
+                                       embeds=embeds)
         loss, metrics = tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
         metrics["aux"] = aux
         return loss + 0.01 * aux, metrics
@@ -126,14 +152,13 @@ class DecoderModel(_LM):
 
     @torch.no_grad()
     def prefill_fn(self, params: tfm.Decoder, batch: dict, *, headroom: int = 64) -> dict:
-        tokens = self._ids(batch["tokens"])
-        b, s = tokens.shape
+        embeds, positions, tokens = self._embeds_and_positions(params, batch)
+        b, s = positions.shape[0], positions.shape[-1]
         # headroom: decode steps append past the prompt; a cache sized
         # exactly S would clamp the first decode write onto slot S-1
         caches = self.init_cache(b, s + headroom)
-        logits, caches, _ = tfm.decoder_forward(params, self.cfg, tokens,
-                                                positions=_positions_for(b, s, self.device),
-                                                caches=caches)
+        logits, caches, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=positions,
+                                                embeds=embeds, caches=caches)
         # a copy: the view logits[:, -1] would keep the whole (B, S, V) fp32
         # logits alive (8.4 GB for gemma2-2b at 4 x 2,048)
         return {"logits": logits[:, -1].clone(), "cache": caches}
@@ -141,12 +166,83 @@ class DecoderModel(_LM):
     @torch.no_grad()
     def decode_fn(self, params: tfm.Decoder, cache: dict, batch: dict
                   ) -> tuple[dict, torch.Tensor]:
-        """One token a row at the cache's position. The cache's K/V buffers
-        are updated in place; use the returned cache from here on."""
+        """One token a row, written at the cache's index. The rotary
+        positions are the cache's index too, except for the VLM, whose
+        (B, 3, 1) M-RoPE positions come from batch["positions"]. The
+        cache's K/V buffers are updated in place; use the returned cache
+        from here on."""
         tokens = self._ids(batch["tokens"])                      # (B, 1)
+        if self.cfg.family == "vlm":
+            embeds = params.embed.to(self.cfg.dtype)[tokens]
+            logits, cache, _ = tfm.decoder_forward(
+                params, self.cfg, None, positions=self._ids(batch["positions"]),
+                embeds=embeds, caches=cache)
+            return cache, logits[:, -1]
         pos = _positions_for(tokens.shape[0], 1, self.device, offset=cache["pos"][0])
         logits, cache, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=pos,
                                                caches=cache)
+        return cache, logits[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+class EncDecModel(_LM):
+    """Whisper's entry points, as `repro.models.api.EncDecModel`'s. The
+    cache-free decoder of a long sequence runs the flash kernel twice a
+    layer: its causal self-attention and its non-causal cross-attention
+    over the encoder's frames (a ragged S_k of 1,500 at full width).
+    Prefill and decode take the direct path, the cross-attention over the
+    static K/V of `tfm.init_cross_cache`."""
+
+    family = ("audio",)
+
+    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
+                 max_dec_len: int = MAX_DEC_LEN):
+        super().__init__(cfg, device)
+        self.max_dec_len = max_dec_len
+        self.make_params = functools.partial(tfm.init_encdec, max_dec_len=max_dec_len)
+
+    def loss_fn(self, params: tfm.EncDec, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(mean next-token loss, metrics with "ce" and "tokens") of the
+        encoder and the cache-free decoder; the head takes HEAD_CHUNK rows
+        at a time (`tfm.head_loss`)."""
+        enc = tfm.encoder_forward(params, self.cfg, self._ids(batch["frames"]))
+        h, _ = tfm.encdec_hidden(params, self.cfg, self._ids(batch["tokens"]), enc)
+        return tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """{"k", "v": (L, B, max_len, Hk, hd), "pos": (L,) int32, "ck", "cv":
+        (L, B, encoder_seq, Hk, hd)}, zeros, as the JAX package lays it out."""
+        cfg = self.cfg
+        cache = tfm.init_decode_cache(cfg, batch, max_len, device=self.device)
+        xshape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+        cache["ck"] = torch.zeros(xshape, dtype=cfg.dtype, device=self.device)
+        cache["cv"] = torch.zeros(xshape, dtype=cfg.dtype, device=self.device)
+        return cache
+
+    @torch.no_grad()
+    def prefill_fn(self, params: tfm.EncDec, batch: dict, *, headroom: int = 64) -> dict:
+        """The frames through the encoder, every layer's cross-attention K/V
+        of its output, then the prompt through the decoder from position
+        0, writing the self-attention cache."""
+        tokens = self._ids(batch["tokens"])
+        b, s = tokens.shape
+        enc = tfm.encoder_forward(params, self.cfg, self._ids(batch["frames"]))
+        ck, cv = tfm.init_cross_cache(params, self.cfg, enc)
+        caches = dict(tfm.init_decode_cache(self.cfg, b, s + headroom, device=self.device),
+                      ck=ck, cv=cv)
+        logits, caches = tfm.encdec_forward(params, self.cfg, tokens, enc, pos_offset=0,
+                                            caches=caches)
+        return {"logits": logits[:, -1].clone(), "cache": caches}
+
+    @torch.no_grad()
+    def decode_fn(self, params: tfm.EncDec, cache: dict, batch: dict
+                  ) -> tuple[dict, torch.Tensor]:
+        """One token a row at the cache's position; the self-attention
+        cache is updated in place."""
+        logits, cache = tfm.encdec_forward(params, self.cfg, self._ids(batch["tokens"]), None,
+                                           pos_offset=cache["pos"][0], caches=cache)
         return cache, logits[:, -1]
 
 
@@ -234,9 +330,11 @@ class ZambaModel(_LM):
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
-    """The model of a config's family: DecoderModel (dense, moe),
-    XLSTMModel (ssm) or ZambaModel (hybrid); any other family raises
-    NotImplementedError, naming ROADMAP.md."""
+    """The model of a config's family: DecoderModel (dense, moe, vlm),
+    EncDecModel (audio), XLSTMModel (ssm) or ZambaModel (hybrid); any
+    other family raises NotImplementedError, naming ROADMAP.md."""
+    if cfg.family == "audio":
+        return EncDecModel(cfg, device=device)
     if cfg.family == "ssm":
         return XLSTMModel(cfg, device=device)
     if cfg.family == "hybrid":
@@ -248,9 +346,14 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                       device: str | torch.device = "cuda") -> torch.nn.Module:
     """A JAX model's parameter tree (numpy arrays, stacked layers on their
     leading axes) as the parameter module of `cfg.family`'s model on
-    `device`: `Decoder` (dense and MoE; layers stacked (L, ...)), `XLSTM`
-    (ssm; `mlstm` (G, n_m, ...), `slstm` (G, ...)) or `Zamba` (hybrid;
-    `mamba` (G, n_per, ...), one unstacked `shared` block). What it
-    refuses: `models/transformer.py::load_numpy`."""
-    model = build_model(cfg, device=device)
+    `device`: `Decoder` (dense, MoE and VLM; layers stacked (L, ...)),
+    `EncDec` (audio; `enc_layers` and `dec_layers` stacked (L, ...), a
+    `dec_pos` table of as many rows as the tree's), `XLSTM` (ssm; `mlstm`
+    (G, n_m, ...), `slstm` (G, ...)) or `Zamba` (hybrid; `mamba` (G, n_per,
+    ...), one unstacked `shared` block). What it refuses:
+    `models/transformer.py::load_numpy`."""
+    if cfg.family == "audio" and "dec_pos" in tree:
+        model = EncDecModel(cfg, device=device, max_dec_len=int(np.shape(tree["dec_pos"])[0]))
+    else:
+        model = build_model(cfg, device=device)
     return tfm.load_numpy(model.make_params(cfg, generator=None, device=model.device), tree)

@@ -12,10 +12,12 @@ Parameters keep the JAX layout (`wq` is (d_model, H * hd) and the layer
 computes x @ wq), so `models/api.py::params_from_numpy` copies a
 JAX parameter tree leaf by leaf. The dense configs' variants (layer norm,
 QKV biases, ungated MLPs) and the MoE block's sort-based dispatch are
-here, and `ModelConfig` carries the SSM and hybrid families' fields
-(`models/ssm.py`, `models/mamba.py`, `models/zamba.py` read them); M-RoPE,
-cross-attention, the MoE's grouped and expert-parallel dispatches and the
-mesh helpers are not ported yet (ROADMAP.md, queue 1 item 12).
+here, and `ModelConfig` carries the SSM, hybrid, audio and VLM families'
+fields (`models/ssm.py`, `models/mamba.py`, `models/zamba.py` and the
+whisper stack of `models/transformer.py` read them), as `attention_block`
+carries Qwen2-VL's M-RoPE (`apply_mrope`) and whisper's non-causal and
+cross-attention. The MoE's grouped and expert-parallel dispatches and the
+mesh helpers are not ported yet (ROADMAP.md, queue 1 items 7 and 12.4).
 """
 from __future__ import annotations
 
@@ -36,12 +38,11 @@ from repro_torch.kernels import ops
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of `repro.models.layers.ModelConfig` that the dense, MoE,
-    SSM (xLSTM) and hybrid (Zamba2) models read, with the same names and
-    defaults; dtypes are torch's. The audio and VLM fields come with those
-    families (ROADMAP.md, queue 1 item 12.3)."""
+    SSM (xLSTM), hybrid (Zamba2), audio (whisper) and VLM (Qwen2-VL)
+    models read, with the same names and defaults; dtypes are torch's."""
 
     name: str
-    family: str                      # dense | moe | ssm | hybrid are ported
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,6 +79,12 @@ class ModelConfig:
     ssm_groups: int = 1
     attn_every: int = 0              # zamba: shared attn block period
     slstm_every: int = 0             # xlstm: one sLSTM per group of this size
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0             # frames the encoder takes (the conv stub's output)
+    # --- vlm ---
+    n_patches: int = 0               # patch embeddings put before the text
+    mrope_sections: tuple[int, ...] = ()   # M-RoPE's (t, h, w) lanes of hd / 2
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
@@ -220,6 +227,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (B, S, H, hd), positions (B, 3, S) for
+    the (t, h, w) axes. The hd / 2 frequency lanes are cut into `sections`
+    (summing to hd / 2), and each section rotates by its own position
+    channel; otherwise `apply_rope`'s arithmetic."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {sections} must sum to hd / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    lane_pos = positions.float().index_select(1, sec_id)      # (B, hd/2, S)
+    angles = lane_pos.transpose(1, 2) * freqs                  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -294,19 +322,24 @@ def multi_head_attention(
     rounds the probabilities to q's dtype before P V, as the JAX package
     does. With `chunk` (a cache-free sequence of more than `chunk` keys)
     the flash kernel computes the same softmax with fp32 probabilities and
-    never materialises the scores: the JAX package's chunked path. That
-    branch takes only what the model gives it, Sq == Sk from position 0,
-    and raises on anything else. The JAX signature's `kv_len` has no
-    caller in the dense decoder and is not ported.
+    never materialises the scores: where the JAX package takes its chunked
+    path. That branch takes what the models give it, queries from position
+    0 (q_offset 0) and, with causality, Sq == Sk; without, Sq and Sk may
+    differ (whisper's cross-attention). It raises on anything else. A
+    ragged Sk is masked exactly, as on the JAX direct
+    path: the JAX chunked path pads it with zero keys that enter the
+    softmax without causality, a fault of the reference that the port does
+    not copy (ROADMAP.md, queue 3). The JAX signature's `kv_len` has no
+    caller in the models and is not ported.
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = scale or (1.0 / math.sqrt(hd))
 
     if chunk and sk > chunk:
-        if sq != sk or not (isinstance(q_offset, int) and q_offset == 0):
-            raise ValueError("the flash path takes a cache-free sequence: "
-                             "Sq == Sk and q_offset 0")
+        if not (isinstance(q_offset, int) and q_offset == 0) or (causal and sq != sk):
+            raise ValueError("the flash path takes a cache-free sequence: q_offset 0, "
+                             "and Sq == Sk where causal")
         return _flash(q, k, v, causal=causal, window=window,
                       softcap=attn_softcap, scale=scale)
 
@@ -331,7 +364,7 @@ def _flash(q, k, v, *, causal, window, softcap, scale):
     hk = k.shape[2]
 
     def flat(x, n):
-        return x.transpose(1, 2).reshape(b * n, s, hd).contiguous()
+        return x.transpose(1, 2).reshape(b * n, x.shape[1], hd).contiguous()
 
     out = ops.flash_attention(flat(q, h), flat(k, hk), flat(v, hk), causal=causal,
                               window=window, softcap=softcap, scale=scale)
@@ -343,30 +376,54 @@ def attention_block(
     x: torch.Tensor,                 # (B, S, D)
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,         # (B, S)
+    positions: torch.Tensor,         # (B, S), or (B, 3, S) for M-RoPE
+    causal: bool = True,
     window: int = 0,
-    cache: dict | None = None,       # {"k", "v", "pos"} of this layer
+    kv_src: torch.Tensor | None = None,   # cross-attention source (B, S_k, D)
+    cache: dict | None = None,       # {"k", "v", "pos"}, or a static {"k", "v"}
+    use_rope: bool = True,
 ) -> tuple[torch.Tensor, dict | None]:
-    """Projection + RoPE + causal attention + output projection.
+    """Projection + RoPE + attention + output projection.
 
-    With `cache` ((B, T, Hk, hd) buffers and a 0-d int position), the new
-    K/V are written at `pos` and the queries attend over the whole buffer
-    with causality from q_offset = pos masking the unwritten slots. The
-    buffers are updated in place (the JAX package returns new ones), so
-    the cache passed in is consumed. The write start is clamped to
-    [0, T - S], as `jax.lax.dynamic_update_slice` clamps it.
+    RoPE (M-RoPE where `cfg.mrope_sections`) applies to self-attention
+    with `use_rope`; K and V come from `kv_src` where it is given. With a
+    decode cache ((B, T, Hk, hd) buffers and a 0-d int "pos"), the new K/V
+    are written at `pos` and the queries attend over the whole buffer with
+    causality from q_offset = pos masking the unwritten slots. The buffers
+    are updated in place (the JAX package returns new ones), so the cache
+    passed in is consumed; the write start is clamped to [0, T - S], as
+    `jax.lax.dynamic_update_slice` clamps it. A cache without "pos" is a
+    static cross-attention cache (whisper's K/V of the encoder output,
+    `transformer.init_cross_cache`): the queries attend over all of it,
+    and x's own K/V, which the JAX package computes and drops, are not
+    computed. Without a cache, a sequence of at least
+    `cfg.chunked_attn_min_len` queries over more than `cfg.attn_chunk` keys
+    takes the flash kernel (`multi_head_attention`), causal or not.
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ params.wq.to(cfg.dtype)).reshape(b, s, h, hd)
-    k = (x @ params.wk.to(cfg.dtype)).reshape(b, s, hk, hd)
-    v = (x @ params.wv.to(cfg.dtype)).reshape(b, s, hk, hd)
     if cfg.qkv_bias:
         q = q + params.bq.to(cfg.dtype).reshape(h, hd)
+    if cache is not None and (kv_src is not None or "pos" not in cache):
+        out = multi_head_attention(
+            q, cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype), causal=False,
+            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+        out = out.reshape(b, s, h * hd) @ params.wo.to(cfg.dtype)
+        return out, cache
+    src = x if kv_src is None else kv_src
+    k = (src @ params.wk.to(cfg.dtype)).reshape(b, src.shape[1], hk, hd)
+    v = (src @ params.wv.to(cfg.dtype)).reshape(b, src.shape[1], hk, hd)
+    if cfg.qkv_bias:
         k = k + params.bk.to(cfg.dtype).reshape(hk, hd)
         v = v + params.bv.to(cfg.dtype).reshape(hk, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope and kv_src is None:
+        if cfg.mrope_sections:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -384,7 +441,7 @@ def attention_block(
     else:
         chunk = cfg.attn_chunk if s >= cfg.chunked_attn_min_len else 0
         out = multi_head_attention(
-            q, k, v, causal=True, window=window, attn_softcap=cfg.attn_softcap,
+            q, k, v, causal=causal, window=window, attn_softcap=cfg.attn_softcap,
             scale=cfg.attn_scale, chunk=chunk,
         )
     out = out.reshape(b, s, h * hd) @ params.wo.to(cfg.dtype)

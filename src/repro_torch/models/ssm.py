@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import ModelConfig, dense_init, matmul_f32, rms_norm
-from repro_torch.models.transformer import RMSNorm
+from repro_torch.models.transformer import RMSNorm, checkpointed, remat_on
 
 #: the mLSTM chunk xlstm_forward uses, whatever `cfg.ssm_chunk` says (the
 #: JAX package's `xlstm_forward(..., chunk=64)`, which its model never
@@ -339,13 +339,19 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
     its state and conv cache, and they are updated in place and returned;
     a prefill of S > 1 positions runs the chunked mLSTM from the given
     state, a decode step the sequential one. Without states the forward
-    starts from zero and returns none. `cfg.remat` is not read: the
-    forward is differentiable through autograd, but xLSTM training
-    (recomputation of the blocks) is not ported yet (ROADMAP.md)."""
+    starts from zero and returns none; under grad with `cfg.remat` each
+    mLSTM block (its residual add included) then runs under
+    torch.utils.checkpoint and is recomputed in the backward, the JAX
+    package's `jax.checkpoint(m_body)`. The sLSTM stays outside the
+    checkpoint, as there."""
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
+    remat = not decode and remat_on(cfg)
     for g, (group, sblock) in enumerate(zip(params.mlstm, params.slstm)):
         for i, block in enumerate(group):
+            if remat:
+                h = checkpointed(_mlstm_residual, block, h, cfg, chunk)
+                continue
             st = cv = None
             if decode:
                 st = MLSTMState(*(a[g, i] for a in states["mlstm"]))
@@ -365,6 +371,13 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
     h = rms_norm(h, params.ln_final.scale, cfg.norm_eps)
     logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
     return logits, states
+
+
+def _mlstm_residual(block: MLSTMBlock, h: torch.Tensor, cfg: ModelConfig, chunk: int
+                    ) -> torch.Tensor:
+    """h plus a stateless mLSTM block's output: the function a checkpoint
+    wraps."""
+    return h + mlstm_block(block, h, cfg, None, None, chunk=chunk)[0]
 
 
 def xlstm_init_states(cfg: ModelConfig, batch: int, *,

@@ -1,9 +1,14 @@
-"""The decoder stack (dense and MoE), ported from `repro/models/transformer.py`.
+"""The decoder stack (dense, MoE and the VLM's) and whisper's encoder-decoder,
+ported from `repro/models/transformer.py`.
 
 The JAX package stacks the layers on a leading n_layers axis and scans
 them; here they are a `ModuleList` walked by a Python loop, and gemma2's
 alternating local/global windows are plain ints per layer. Decode caches
-keep the JAX layout: {"k", "v": (L, B, T, Hk, hd), "pos": (L,) int32}.
+keep the JAX layout: {"k", "v": (L, B, T, Hk, hd), "pos": (L,) int32}, and
+whisper's adds its cross-attention K/V {"ck", "cv": (L, B, S_enc, Hk, hd)}.
+Under grad with `cfg.remat` every cache-free layer, the encoder's and the
+cross-decoder's too, runs under `torch.utils.checkpoint`, where the JAX
+package wraps its scan bodies in `jax.checkpoint`.
 """
 from __future__ import annotations
 
@@ -128,6 +133,19 @@ def _layer_out(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig,
     return out, aux
 
 
+def remat_on(cfg: ModelConfig) -> bool:
+    """Whether a cache-free stack recomputes its layers: under grad with
+    `cfg.remat`, as the JAX package's `jax.checkpoint` does in its
+    backward (with no grad there is nothing to recompute)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def checkpointed(fn, *args):
+    """fn(*args) under torch.utils.checkpoint, non-reentrant: the backward
+    keeps the inputs and recomputes the rest."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # Decoder model
 # ---------------------------------------------------------------------------
@@ -177,14 +195,17 @@ def head_weight(params: Decoder, cfg: ModelConfig) -> torch.Tensor:
     return params.unembed.to(cfg.dtype).t()
 
 
-def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
-                    positions: torch.Tensor, caches: dict | None = None
+def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | None, *,
+                    positions: torch.Tensor, embeds: torch.Tensor | None = None,
+                    caches: dict | None = None
                     ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """tokens (B, S) -> (fp32 logits (B, S, V), new caches or None, the
     layers' summed MoE aux loss): the stack (`decoder_hidden`), then the
-    fp32 head (`head_weight`) and the logit softcap."""
+    fp32 head (`head_weight`) and the logit softcap. `embeds` (B, S, D)
+    takes the place of the tokens' embeddings (the VLM's patches and
+    text)."""
     h, new_caches, aux = decoder_hidden(params, cfg, tokens, positions=positions,
-                                        caches=caches)
+                                        embeds=embeds, caches=caches)
     logits = matmul_f32(h, head_weight(params, cfg).t())
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
@@ -197,12 +218,17 @@ def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, new_caches, aux
 
 
-def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
-                   positions: torch.Tensor, caches: dict | None = None
+def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | None, *,
+                   positions: torch.Tensor, embeds: torch.Tensor | None = None,
+                   caches: dict | None = None
                    ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """tokens (B, S) -> (the final norm's output (B, S, D), new caches or
     None, the MoE aux loss summed over the layers in order, as the JAX
     package's `_scan_layers` sums it): the embedding and the layers.
+    Precomputed `embeds` (B, S, D), cast to the activation dtype, replace
+    the tokens' embeddings (the VLM stub's patches before its text); the
+    positions are then (B, 3, S) M-RoPE channels where the config has
+    `mrope_sections`.
 
     `cfg` governs every layer (the modules' own configs are not read), so
     one set of parameters runs under a changed config, such as a
@@ -214,12 +240,12 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
     `jax.checkpoint` with policy "nothing". The other policies are not
     ported (ROADMAP.md, item 12.4).
     """
-    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    remat = caches is None and remat_on(cfg)
     if remat and cfg.remat_policy != "nothing":
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported; only \"nothing\" "
             "(full recompute) is: ROADMAP.md, queue 1 item 12.4")
-    h = params.embed.to(cfg.dtype)[tokens]
+    h = params.embed.to(cfg.dtype)[tokens] if embeds is None else embeds.to(cfg.dtype)
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in JAX
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
@@ -230,8 +256,7 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]}
         if remat:
-            h, aux = torch.utils.checkpoint.checkpoint(
-                _layer_out, layer, h, cfg, positions, windows[i], use_reentrant=False)
+            h, aux = checkpointed(_layer_out, layer, h, cfg, positions, windows[i])
         else:
             h, _, aux = decoder_layer(layer, h, cfg, positions=positions,
                                       window=windows[i], cache=cache)
@@ -351,6 +376,186 @@ class HeadLoss(torch.autograd.Function):
             dw.addmm_(ds.t(), hc.to(work))
             del ds
         return dh, dw.to(w.dtype), None, None
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper backbone; the conv frontend is a stub)
+# ---------------------------------------------------------------------------
+class EncoderLayer(nn.Module):
+    """A whisper encoder layer's parameters: layer norms, attention, MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        self.ln_attn = LayerNorm(cfg, device=device)
+        self.attn: Attention = init_attention(cfg, generator=generator, device=device)
+        self.ln_mlp = LayerNorm(cfg, device=device)
+        self.mlp: MLP = init_mlp(cfg, generator=generator, device=device)
+
+
+class CrossDecoderLayer(nn.Module):
+    """A whisper decoder layer's parameters: causal self-attention,
+    cross-attention over the encoder's output, MLP, each after a layer
+    norm."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        self.ln_self = LayerNorm(cfg, device=device)
+        self.self_attn: Attention = init_attention(cfg, generator=generator, device=device)
+        self.ln_cross = LayerNorm(cfg, device=device)
+        self.cross_attn: Attention = init_attention(cfg, generator=generator, device=device)
+        self.ln_mlp = LayerNorm(cfg, device=device)
+        self.mlp: MLP = init_mlp(cfg, generator=generator, device=device)
+
+
+class EncDec(nn.Module):
+    """Whisper's parameters: the encoder's learned positions (encoder_seq
+    rows), its layers and final norm, the tied token embedding, the
+    decoder's learned positions (`max_dec_len` rows), its layers and final
+    norm; the arithmetic is `encoder_forward` and `encdec_forward`. Every
+    norm is a layer norm, whatever `cfg.norm_type` says, as in the JAX
+    package."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None,
+                 device: torch.device, max_dec_len: int = 0):
+        super().__init__()
+        d = cfg.d_model
+
+        def table(rows):
+            return nn.Parameter(dense_init(generator, (rows, d), cfg.param_dtype, device,
+                                           scale=0.02))
+
+        self.enc_pos = table(cfg.encoder_seq)
+        self.enc_layers = nn.ModuleList(
+            EncoderLayer(cfg, generator=generator, device=device)
+            for _ in range(cfg.encoder_layers))
+        self.enc_ln_final = LayerNorm(cfg, device=device)
+        self.embed = table(cfg.vocab_size)
+        self.dec_pos = table(max_dec_len or 4096)
+        self.dec_layers = nn.ModuleList(
+            CrossDecoderLayer(cfg, generator=generator, device=device)
+            for _ in range(cfg.n_layers))
+        self.dec_ln_final = LayerNorm(cfg, device=device)
+
+
+def init_encdec(cfg: ModelConfig, *, generator: torch.Generator | None,
+                device: torch.device, max_dec_len: int = 0) -> EncDec:
+    """Whisper's parameters drawn from `generator` on `device` (the JAX
+    initialisers' distributions, not their numbers), or left empty for
+    `load_numpy` when generator is None; max_dec_len 0 means 4,096 decoder
+    positions, as in the JAX package."""
+    return EncDec(cfg, generator=generator, device=device, max_dec_len=max_dec_len)
+
+
+def _ln(p: LayerNorm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return layer_norm(x, p.scale, p.bias, cfg.norm_eps)
+
+
+def encoder_layer(p: EncoderLayer, h: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm non-causal self-attention (no RoPE) and MLP, each added."""
+    a, _ = attention_block(p.attn, _ln(p.ln_attn, h, cfg), cfg, positions=positions,
+                           causal=False, use_rope=False)
+    h = h + a
+    return h + mlp_block(p.mlp, _ln(p.ln_mlp, h, cfg), cfg)
+
+
+def encoder_forward(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, S_enc, D), the conv frontend's stub output -> the encoder's
+    output (B, S_enc, D) in the activation dtype, after its final norm."""
+    h = frames.to(cfg.dtype) + params.enc_pos.to(cfg.dtype)[None]
+    positions = torch.arange(h.shape[1], dtype=torch.int32,
+                             device=h.device).expand(h.shape[:2])
+    remat = remat_on(cfg)
+    for layer in params.enc_layers:
+        if remat:
+            h = checkpointed(encoder_layer, layer, h, cfg, positions)
+        else:
+            h = encoder_layer(layer, h, cfg, positions)
+    return _ln(params.enc_ln_final, h, cfg)
+
+
+def crossdec_layer(p: CrossDecoderLayer, h: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor, enc_out: torch.Tensor | None,
+                   self_cache: dict | None = None, cross_cache: dict | None = None
+                   ) -> torch.Tensor:
+    """Pre-norm causal self-attention (no RoPE; a decode cache where given),
+    cross-attention over enc_out or the static cross cache, and MLP, each
+    added. The self cache is written in place."""
+    a, _ = attention_block(p.self_attn, _ln(p.ln_self, h, cfg), cfg, positions=positions,
+                           causal=True, cache=self_cache, use_rope=False)
+    h = h + a
+    c_in = _ln(p.ln_cross, h, cfg)
+    if cross_cache is not None:
+        c, _ = attention_block(p.cross_attn, c_in, cfg, positions=positions, causal=False,
+                               cache=cross_cache, use_rope=False)
+    else:
+        c, _ = attention_block(p.cross_attn, c_in, cfg, positions=positions, causal=False,
+                               kv_src=enc_out, use_rope=False)
+    h = h + c
+    return h + mlp_block(p.mlp, _ln(p.ln_mlp, h, cfg), cfg)
+
+
+def encdec_hidden(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
+                  enc_out: torch.Tensor | None, *, pos_offset: torch.Tensor | int = 0,
+                  caches: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """tokens (B, S) -> (the decoder's final norm output (B, S, D), new
+    caches or None). The decoder positions start at `pos_offset` (its rows
+    of `dec_pos` clamped into the table, as `jax.lax.dynamic_slice_in_dim`
+    clamps them). With `caches` ({"k", "v", "pos", "ck", "cv"}) the
+    self-attention K/V are written in place and the cross-attention reads
+    "ck"/"cv" (enc_out is not read); without, it attends over enc_out."""
+    b, s = tokens.shape
+    dev = tokens.device
+    steps = torch.arange(s, dtype=torch.int32, device=dev)
+    positions = (pos_offset + steps).expand(b, s)
+    start = torch.as_tensor(pos_offset, device=dev).clamp(0, params.dec_pos.shape[0] - s)
+    pos_emb = params.dec_pos.to(cfg.dtype).index_select(0, (start + steps).long())
+    h = params.embed.to(cfg.dtype)[tokens] + pos_emb[None]
+    remat = caches is None and remat_on(cfg)
+    for i, layer in enumerate(params.dec_layers):
+        if caches is not None:
+            h = crossdec_layer(layer, h, cfg, positions, None,
+                               {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]},
+                               {"k": caches["ck"][i], "v": caches["cv"][i]})
+        elif remat:
+            h = checkpointed(crossdec_layer, layer, h, cfg, positions, enc_out)
+        else:
+            h = crossdec_layer(layer, h, cfg, positions, enc_out)
+    h = _ln(params.dec_ln_final, h, cfg)
+    new_caches = None
+    if caches is not None:
+        new_caches = dict(caches, pos=caches["pos"] + s)
+    return h, new_caches
+
+
+def encdec_forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
+                   enc_out: torch.Tensor | None, *, pos_offset: torch.Tensor | int = 0,
+                   caches: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """tokens (B, S) -> (fp32 logits (B, S, V) against the tied embedding,
+    new caches or None): `encdec_hidden`, then the head."""
+    h, new_caches = encdec_hidden(params, cfg, tokens, enc_out, pos_offset=pos_offset,
+                                  caches=caches)
+    return matmul_f32(h, params.embed.to(cfg.dtype).t()), new_caches
+
+
+def init_cross_cache(params: EncDec, cfg: ModelConfig, enc_out: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross-attention K and V of the encoder output,
+    stacked: two (L, B, S_enc, Hk, hd) tensors in the activation dtype."""
+    b, se, _ = enc_out.shape
+    ks, vs = [], []
+    for layer in params.dec_layers:
+        p = layer.cross_attn
+        k = (enc_out @ p.wk.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+        v = (enc_out @ p.wv.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+        if cfg.qkv_bias:
+            k = k + p.bk.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
+            v = v + p.bv.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,13 @@ from repro_torch.models.mamba import (
     mamba2_block,
     mamba2_init_state,
 )
-from repro_torch.models.transformer import RMSNorm, apply_norm, init_norm
+from repro_torch.models.transformer import (
+    RMSNorm,
+    apply_norm,
+    checkpointed,
+    init_norm,
+    remat_on,
+)
 
 
 def zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -100,11 +106,18 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     from its state and conv cache and each application of the shared block
     attends over its own group's K/V cache from its position; all are
     updated in place, and the returned dict carries "attn_pos" + S.
-    `cfg.remat` is not read: zamba2-7b is served only (ROADMAP.md)."""
+    Without states, under grad with `cfg.remat`, each Mamba2 block (its
+    residual add included) runs under torch.utils.checkpoint and is
+    recomputed in the backward, the JAX package's `jax.checkpoint(m_body)`;
+    the shared block stays outside it, as there."""
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
+    remat = not decode and remat_on(cfg)
     for g, group in enumerate(params.mamba):
         for i, block in enumerate(group):
+            if remat:
+                h = checkpointed(_mamba_residual, block, h, cfg, chunk)
+                continue
             st = None
             if decode:
                 st = Mamba2State(h=states["mamba_h"][g, i], conv=states["mamba_conv"][g, i])
@@ -124,6 +137,13 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     if decode:
         new_states = dict(states, attn_pos=states["attn_pos"] + tokens.shape[1])
     return logits, new_states
+
+
+def _mamba_residual(block: Mamba2Block, h: torch.Tensor, cfg: ModelConfig,
+                    chunk: int | None) -> torch.Tensor:
+    """h plus a stateless Mamba2 block's output: the function a checkpoint
+    wraps."""
+    return h + mamba2_block(block, h, cfg, None, chunk=chunk)[0]
 
 
 def zamba_init_states(cfg: ModelConfig, batch: int, max_len: int, *,

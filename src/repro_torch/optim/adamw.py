@@ -6,9 +6,13 @@ tensor a layer, in `named_parameters()` order. Two things follow:
 
   * weight decay applies to a leaf of rank 2 or more in JAX. A per-layer
     tensor of the port is one slice of a stacked JAX leaf, so its JAX rank
-    is its own plus one (`jax_rank`): the per-layer norm scales are
-    decayed, as they are in JAX, and only the top-level 1-D leaves (the
-    final norm's scale) are not;
+    is its own plus the axes it is stacked on (`jax_rank`): one for a
+    decoder's `layers`, whisper's `enc_layers` and `dec_layers` and the
+    xLSTM's `slstm`, two for the xLSTM's `mlstm` and Zamba2's `mamba`,
+    none for Zamba2's one `shared` block. So the per-layer norm scales,
+    biases and gates are decayed, as they are in JAX, and only the
+    unstacked 1-D leaves (the final norms' scales, the shared block's
+    norms) are not;
   * the moments and parameters are updated in place, one leaf at a time
     and in slices of at most UPDATE_SLICE elements, in fp32 with each
     result cast back to its tensor's dtype, as JAX computes it. An
@@ -49,13 +53,13 @@ class AdamWState(NamedTuple):
     step: torch.Tensor               # 0-d int32, on the CPU
 
 
-#: prefixes of the parameters that the JAX package stacks on a layer axis
-STACKED = ("layers.",)
-
-
 def jax_rank(name: str, p: torch.Tensor) -> int:
-    """The rank of the JAX leaf that parameter `name` is (a slice of)."""
-    return p.dim() + (1 if name.startswith(STACKED) else 0)
+    """The rank of the JAX leaf that parameter `name` is (a slice of): its
+    own rank plus one for each integer part of its name, each of which
+    indexes a stacked axis of the JAX leaf (`param_leaf`'s rule):
+    "layers.3.attn.bq" is a (L, H hd) leaf, "mlstm.1.4.b_if" a (G, n_m, 2H)
+    one, "shared.ln_attn.scale" a (d,) one."""
+    return p.dim() + sum(part.isdigit() for part in name.split("."))
 
 
 def _named(params: nn.Module | Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:

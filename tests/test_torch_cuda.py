@@ -416,11 +416,12 @@ def _flash_inputs(g, bh, bhk, s, d, q_scale, dtype, device):
 
 
 def _exact_attention(q, k, v, *, causal, window, softcap):
-    """The attention of the same inputs in float64, head by head."""
+    """The attention of the same inputs in float64, head by head (S_q
+    queries over S_k keys, both from position 0)."""
     rep = q.shape[0] // k.shape[0]
-    s, d = q.shape[1], q.shape[2]
-    pos = torch.arange(s, device=q.device)
-    diff = pos[:, None] - pos[None, :]
+    d = q.shape[2]
+    diff = (torch.arange(q.shape[1], device=q.device)[:, None]
+            - torch.arange(k.shape[1], device=q.device)[None, :])
     seen = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window:
         seen &= diff < window
@@ -1253,6 +1254,93 @@ def test_reduced_ssm_and_hybrid_forward_on_the_card_matches_the_cpu(cuda, name):
     assert flash == (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
     prompt = {"tokens": batch["tokens"][:, :40]}
+    torch.testing.assert_close(card_model.prefill_fn(card_params, prompt)["logits"].cpu(),
+                               cpu_model.prefill_fn(params, prompt)["logits"],
+                               rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# whisper-medium's cross-attention and qwen2-vl-7b's group of 7
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sq,sk", [(256, 150), (64, 1500), (1000, 65), (130, 63), (17, 1)])
+def test_flash_non_causal_ragged_keys_match_plain(cuda, sq, sk):
+    """whisper's cross-attention: S_q queries over S_k keys without
+    causality, S_k ragged against the fp32 kernel's 32-key and the bf16
+    kernel's 64-key tiles (1,500 frames at full width), D = 64, 4 heads
+    over 4: fp32 within 3e-4 of the plain version, bf16 within 3e-2 and
+    one bf16 ulp of the plain version and of float64. The same inputs with
+    K and V zero-padded to a multiple of 128 keys (the JAX chunked path's
+    fault) give another output."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(4, sq, 64, generator=g, device=cuda)
+    k, v = (torch.randn(4, sk, 64, generator=g, device=cuda) for _ in range(2))
+    kw = dict(causal=False, window=0, softcap=0.0)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launches()["flash_attention"] == 1 and got.shape == q.shape
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw),
+                               rtol=3e-4, atol=3e-4)
+    _flash_bf16_holds(*(t.to(torch.bfloat16) for t in (q, k, v)), **kw)
+    pad = -sk % 128
+    if pad:
+        kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+        assert not torch.allclose(ops.flash_attention(q, kp, vp, **kw), got,
+                                  rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 1000])
+def test_flash_d128_group_of_7_matches_plain(cuda, s):
+    """qwen2-vl-7b's attention: D = 128, causal, 14 query heads over 2 KV
+    heads (a group of 7, 28 over 4 at full width), at the tile edges: fp32
+    within 3e-4 of the plain version, bf16 within 3e-2 and one bf16 ulp of
+    the plain version and of float64."""
+    g = torch.Generator(device=cuda).manual_seed(700 + s)
+    q, k, v = _flash_inputs(g, 14, 2, s, 128, 1.0, torch.float32, cuda)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launches()["flash_attention"] == 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw),
+                               rtol=3e-4, atol=3e-4)
+    _flash_bf16_holds(*(t.to(torch.bfloat16) for t in (q, k, v)), **kw)
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "qwen2-vl-7b"])
+def test_reduced_audio_and_vlm_forward_on_the_card_matches_the_cpu(cuda, name):
+    """The reduced model's fp32 loss_fn and prefill logits on the card
+    against the CPU plain path, at 1e-4. S = 64 takes the flash kernel:
+    qwen2-vl's attention (8 patches and 56 tokens) once a layer, whisper's
+    self-attention and, over 40 frames (more than the chunk of 32), its
+    non-causal cross-attention with a ragged tail, twice a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(reduced(get_config(name)), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, encoder_seq=40)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    card_model = build_model(cfg, device=cuda)
+    card_params = card_model.init(seed=0)
+    card_params.load_state_dict(params.state_dict())
+    n_text = 64 - cfg.n_patches
+    batch = TokenStream(cfg, 2, n_text, seed=1)(0)
+    ops.reset_launches()
+    with torch.no_grad():
+        got, _ = card_model.loss_fn(card_params, batch)
+        want, _ = cpu_model.loss_fn(params, batch)
+    torch.cuda.synchronize()
+    per_layer = 2 if cfg.family == "audio" else 1
+    assert ops.launches()["flash_attention"] == per_layer * cfg.n_layers
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    prompt["tokens"] = batch["tokens"][:, :20]
+    if cfg.family == "vlm":
+        prompt["positions"] = batch["positions"][:, :, :cfg.n_patches + 20]
     torch.testing.assert_close(card_model.prefill_fn(card_params, prompt)["logits"].cpu(),
                                cpu_model.prefill_fn(params, prompt)["logits"],
                                rtol=1e-4, atol=1e-4)

@@ -17,6 +17,8 @@ activations (conv inputs, K, V) are held to the JAX package's own distance
 from its fp32 forward (`_noise_close`, chip_smoke.py's noise-floor rule);
 the flash plain version against the interpret-mode kernel at the
 reference's own flash tolerance, 3e-4 in fp32 (tests/test_kernels.py:88).
+Remat on and off: gradients equal bit for bit (the same operations,
+recomputed).
 """
 import dataclasses
 
@@ -355,3 +357,58 @@ def test_flash_plain_version_at_d112_matches_pallas_interpret(bh, bhk, s):
     # and through the wrapper, which on the CPU is the plain version
     _close(ops.flash_attention(*(torch.tensor(a) for a in (q, k, v))), got, dict(rtol=0, atol=0))
     assert 112 in ops.FLASH_HEAD_DIMS and 112 not in ops.FLASH_BWD_HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# remat: each Mamba2 block recomputed in the backward
+# ---------------------------------------------------------------------------
+def _grads_and_saved_bytes(model, params, batch):
+    """(loss, {name: grad}, bytes autograd saved outside any checkpoint)
+    of one loss_fn and its backward. A checkpoint's own saved tensors go
+    through its own hooks, which sit inside the counting ones."""
+    for p in params.parameters():
+        p.grad = None
+    saved = [0]
+
+    def pack(t):
+        saved[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = model.loss_fn(params, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in params.named_parameters()}, saved[0]
+
+
+@pytest.mark.parametrize("seq", [64, 32])
+def test_zamba_remat_recomputes_each_mamba2_block(seq, monkeypatch):
+    """Under grad with cfg.remat each Mamba2 block runs under
+    torch.utils.checkpoint, as the JAX package's jax.checkpoint(m_body),
+    on both attention paths of the shared block (S = 64 takes the flash
+    wrapper, 32 the direct path): the gradients are those without remat
+    bit for bit, autograd keeps fewer bytes, and each block's forward runs
+    a second time in the backward. The shared block stays outside the
+    checkpoint (applied once a group)."""
+    _, tcfg, _, _, _, tparams = _models()
+    batch = TokenStream(tcfg, 2, seq, seed=3)(0)
+    calls = {"mamba2_block": 0, "shared_block": 0}
+    for name in calls:
+        real = getattr(tzamba, name)
+
+        def counted(*a, _r=real, _n=name, **k):
+            calls[_n] += 1
+            return _r(*a, **k)
+        monkeypatch.setattr(tzamba, name, counted)
+    n_groups, n_per = tzamba.zamba_groups(tcfg)
+    runs = {}
+    for remat in (False, True):
+        calls.update(mamba2_block=0, shared_block=0)
+        model = ZambaModel(dataclasses.replace(tcfg, remat=remat), device="cpu")
+        runs[remat] = _grads_and_saved_bytes(model, tparams, batch) + (dict(calls),)
+    (l0, g0, b0, c0), (l1, g1, b1, c1) = runs[False], runs[True]
+    assert l0 == l1
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+    assert b1 < b0, (b1, b0)
+    assert c0 == {"mamba2_block": n_groups * n_per, "shared_block": n_groups}
+    assert c1 == {"mamba2_block": 2 * n_groups * n_per, "shared_block": n_groups}

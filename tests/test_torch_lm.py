@@ -101,18 +101,26 @@ def test_flash_plain_dtypes(name):
 
 
 def test_flash_raises_where_the_jax_wrapper_raises():
+    """Without causality the JAX Pallas wrapper raises for an S_k that is no
+    multiple of its KV block (200, 10). The port's wrapper takes such an
+    S_k (whisper's cross-attention over 1,500 frames) and masks the ragged
+    tail: there it equals the JAX direct path, multi_head_attention with
+    chunk=0, which is exact. Where S_k is a multiple (256, 48), it equals
+    the JAX wrapper."""
     rng = np.random.default_rng(1)
-    for s, raises in ((200, True), (10, True), (256, False), (48, False)):
+    for s, jax_raises in ((200, True), (10, True), (256, False), (48, False)):
         q, k, v = (_normal(rng, (2, s, 32)) for _ in range(3))
-        if raises:
+        got = ops.flash_attention(*(torch.tensor(x) for x in (q, k, v)), causal=False)
+        if jax_raises:
             with pytest.raises(ValueError):
                 jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=False)
-            with pytest.raises(ValueError):
-                ops.flash_attention(*(torch.tensor(x) for x in (q, k, v)), causal=False)
+            # (BH, S, D) heads as the direct path's (B = 1, S, H, hd)
+            want = jl.multi_head_attention(*(jnp.asarray(x).transpose(1, 0, 2)[None]
+                                             for x in (q, k, v)), causal=False, chunk=0)
+            want = np.asarray(want)[0].transpose(1, 0, 2)
         else:
-            got = ops.flash_attention(*(torch.tensor(x) for x in (q, k, v)), causal=False)
             want = jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=False)
-            _close(got, want, F32)
+        _close(got, want, F32)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +229,9 @@ def test_configs_match_jax():
         assert (port.remat, port.remat_policy) == (jax_cfg.remat, jax_cfg.remat_policy)
     assert get_config("gemma2-2b").remat and get_config("gemma2-2b").remat_policy == "nothing"
     assert not reduced(get_config("gemma2-2b")).remat
-    for name in ("whisper-medium", "kimi-k2-1t-a32b", "no-such-model"):
+    # whisper-medium is ported; kimi-k2 waits for several cards
+    assert get_config("whisper-medium").family == "audio"
+    for name in ("kimi-k2-1t-a32b", "no-such-model"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(name)
     ssm = dataclasses.replace(get_config("gemma2-2b"), family="ssm")

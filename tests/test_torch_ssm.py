@@ -12,7 +12,8 @@ reduced model (the same fp32 arithmetic, summed in other orders); bf16
 3e-2, the JAX package's own (tests/test_models.py:79), for logits, losses
 and the fp32 recurrent states. The bf16 conv caches, raw bf16 activations,
 are held to the JAX package's own distance from its fp32 forward
-(`_noise_close`, chip_smoke.py's noise-floor rule).
+(`_noise_close`, chip_smoke.py's noise-floor rule). Remat on and off:
+gradients equal bit for bit (the same operations, recomputed).
 """
 import dataclasses
 
@@ -389,3 +390,60 @@ def test_build_model_gives_the_xlstm():
     assert isinstance(build_model(cfg, device="cpu"), XLSTMModel)
     model = build_model(get_config("xlstm-350m"), device="cpu")
     assert isinstance(model, XLSTMModel) and model.cfg.n_layers == 24
+
+
+# ---------------------------------------------------------------------------
+# remat: each mLSTM block recomputed in the backward
+# ---------------------------------------------------------------------------
+def _grads_and_saved_bytes(model, params, batch):
+    """(loss, {name: grad}, bytes autograd saved outside any checkpoint)
+    of one loss_fn and its backward. A checkpoint's own saved tensors go
+    through its own hooks, which sit inside the counting ones."""
+    for p in params.parameters():
+        p.grad = None
+    saved = [0]
+
+    def pack(t):
+        saved[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = model.loss_fn(params, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in params.named_parameters()}, saved[0]
+
+
+def test_xlstm_remat_recomputes_each_mlstm_block(monkeypatch):
+    """Under grad with cfg.remat each mLSTM block runs under
+    torch.utils.checkpoint, as the JAX package's jax.checkpoint(m_body):
+    the gradients are those without remat bit for bit, autograd keeps
+    fewer bytes, and each block's forward runs a second time in the
+    backward. The sLSTM stays outside the checkpoint (run once)."""
+    _, tcfg, _, _, _, tparams = _models()
+    batch = TokenStream(tcfg, 2, 70, seed=3)(0)
+    calls = {"mlstm": 0, "slstm": 0}
+    for name in calls:
+        real = getattr(tssm, f"{name}_block")
+
+        def counted(*a, _r=real, _n=name, **k):
+            calls[_n] += 1
+            return _r(*a, **k)
+        monkeypatch.setattr(tssm, f"{name}_block", counted)
+    n_groups, n_m = tssm.xlstm_groups(tcfg)
+    runs = {}
+    for remat in (False, True):
+        calls.update(mlstm=0, slstm=0)
+        model = XLSTMModel(dataclasses.replace(tcfg, remat=remat), device="cpu")
+        runs[remat] = _grads_and_saved_bytes(model, tparams, batch) + (dict(calls),)
+    (l0, g0, b0, c0), (l1, g1, b1, c1) = runs[False], runs[True]
+    assert l0 == l1
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+    assert b1 < b0, (b1, b0)
+    assert c0 == {"mlstm": n_groups * n_m, "slstm": n_groups}
+    assert c1 == {"mlstm": 2 * n_groups * n_m, "slstm": n_groups}
+    # without grad there is nothing to recompute: remat changes nothing
+    with torch.no_grad():
+        a, _ = XLSTMModel(dataclasses.replace(tcfg, remat=True), device="cpu").loss_fn(
+            tparams, batch)
+    assert float(a) == l0

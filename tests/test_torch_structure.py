@@ -284,6 +284,29 @@ def test_ssm_and_hybrid_entry_points_default_to_the_card(name, no_card):
         DecoderModel(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("name", ["whisper-medium", "qwen2-vl-7b"])
+def test_audio_and_vlm_entry_points_default_to_the_card(name, no_card):
+    """build_model gives whisper's EncDecModel and qwen2-vl's DecoderModel,
+    each raising without a card unless asked for the CPU, where a prefill
+    with the stubs' inputs (the launcher's) runs."""
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import EncDecModel
+
+    cfg = reduced(get_config(name))
+    kind = EncDecModel if cfg.family == "audio" else DecoderModel
+    for make in (kind, build_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_serve.main(["--arch", name, "--reduced", "--batch", "1", "--prompt-len", "4",
+                       "--max-new", "2"])
+    model = build_model(cfg, device="cpu")
+    assert type(model) is kind
+    inputs = stub_inputs(cfg, 1, 4, torch.Generator().manual_seed(0))
+    out = model.prefill_fn(model.init(seed=0), {"tokens": np.zeros((1, 4), np.int32), **inputs})
+    assert out["logits"].device.type == "cpu" and torch.isfinite(out["logits"]).all()
+
+
 def test_lm_training_defaults_to_the_card_and_raises_without_one(no_card):
     from repro_torch.launch.train import init_train_state, make_train_step
     from repro_torch.optim import AdamWConfig
@@ -316,11 +339,14 @@ def test_lm_launcher_runs_on_the_cpu_when_asked():
 
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m", "stablelm-1.6b", "granite-20b",
-                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b"])
+                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b",
+                                  "whisper-medium", "qwen2-vl-7b"])
 def test_config_registry_matches_the_jax_registry(name):
     """Every config the port registers is the JAX package's, field for
     field (dtypes by name), in full and in `reduced`; each field of the
-    JAX config that the port lacks is one of a family not ported yet."""
+    JAX config that the port lacks is one no ported path reads: the
+    moments' dtype (the port's AdamWConfig carries it), the pod-axis
+    sharding and the bf16 probabilities of a perf variant."""
     import dataclasses
 
     from repro.configs import REGISTRY as JREGISTRY, reduced as jreduced
@@ -338,12 +364,12 @@ def test_config_registry_matches_the_jax_registry(name):
         assert (port.hd, port.is_moe) == (ref.hd, ref.is_moe)
         missing = {f.name for f in dataclasses.fields(ref)} - {
             f.name for f in dataclasses.fields(port)}
-        assert missing == {"encoder_layers", "encoder_seq", "n_patches", "mrope_sections",
-                           "moment_dtype", "fsdp_pod", "attn_probs_bf16"}, missing
+        assert missing == {"moment_dtype", "fsdp_pod", "attn_probs_bf16"}, missing
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "stablelm-1.6b", "granite-20b",
-                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b"])
+                                  "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b",
+                                  "whisper-medium", "qwen2-vl-7b"])
 def test_lm_launcher_serves_each_ported_arch_on_the_cpu(name, capsys):
     lm_serve.main(["--arch", name, "--reduced", "--device", "cpu", "--batch", "2",
                    "--prompt-len", "16", "--max-new", "4"])

@@ -29,8 +29,22 @@ Tolerances, and why:
     ulp (rtol 2^-8), the moments as in fp32. The global norm at rtol 1e-5:
     an fp32 sum of some 400,000 squares, taken in another order (1.4e-6
     apart in bf16).
-  * three training steps in fp32: loss, grad_norm and lr at rtol 1e-5;
-    the parameters at rtol 1e-4 and atol 1e-6. An AdamW step moves each
+  * one AdamW step over the reduced xLSTM, Zamba2, whisper and Qwen2-VL
+    trees in fp32: rtol 1e-6 and atol 5e-7, one fp32 ulp of the update's
+    operands (p and lr delta, up to about 4 in magnitude), which cancel
+    where the new parameter is small: 1 of whisper's 4.2 million
+    `dec_pos` entries lands 1.2e-7 from JAX's at 8.4e-3 (XLA's CPU code
+    may fuse the multiply and the subtract); the moments as the gemma2-2b
+    step's.
+  * three training steps in fp32 (gemma2-2b's and the xLSTM's): loss,
+    grad_norm and lr at rtol 1e-5; the parameters at rtol 1e-4 and atol
+    1e-6. The xLSTM's steps take Adam's eps at 1e-3 in both packages (and a
+    weight decay of 0.5, so that the decay of its stacked 1-D leaves shows
+    above that atol): at init some of its gradients lie within the two
+    packages' fp32 noise of zero (the sLSTM's gate biases, about 1e-11),
+    and at eps 1e-8 m / (sqrt(v) + eps) makes a step of up to lr out of
+    that noise (7% of one sLSTM's gate biases landed 5e-6 from JAX's);
+    at 1e-3 such a step stays linear in its gradient. An AdamW step moves each
     entry by about lr m / sqrt(v); the first steps' updates are about lr
     times the sign of the gradient, which the two packages agree on
     wherever the gradient is above their fp32 noise.
@@ -427,6 +441,49 @@ def test_weight_decay_follows_the_jax_leaf_rank():
             if tadamw.jax_rank(n, p) < 2} == {"ln_final.scale"}
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b", "whisper-medium",
+                                  "qwen2-vl-7b"])
+def test_adamw_decays_stacked_leaves_as_jax_does(arch):
+    """One AdamW step, with weight decay and clipping, over a random fp32
+    state of the reduced model's tree against repro.optim.adamw: the
+    port decays exactly the leaves of rank >= 2 in JAX (jax_rank), which
+    for these trees are stacked on one axis (enc_layers, dec_layers,
+    slstm, layers) or two (mlstm, mamba), and not Zamba2's unstacked
+    `shared` block's 1-D leaves."""
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), param_dtype=jnp.float32)
+    tcfg = dataclasses.replace(reduced(get_config(arch)), param_dtype=torch.float32)
+    shapes = jax.eval_shape(lambda: jbuild_model(jcfg).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(11)
+    params, grads, m = (_random_tree(rng, shapes) for _ in range(3))
+    v = _random_tree(rng, shapes, positive=True)
+    jstate = jadamw.AdamWState(m=jax.tree.map(jnp.asarray, m),
+                               v=jax.tree.map(jnp.asarray, v), step=jnp.asarray(2, jnp.int32))
+    jp, jg = (jax.tree.map(jnp.asarray, t) for t in (params, grads))
+    tparams = params_from_numpy(params, tcfg, device="cpu")
+    tgrads = {n: torch.tensor(np.asarray(_port_leaf(grads, n))) for n, _ in
+              tparams.named_parameters()}
+    tstate = tadamw.opt_state_from_numpy(jstate, tparams)
+    for n, p in tparams.named_parameters():
+        assert (tadamw.jax_rank(n, p) >= 2) == (np.ndim(_leaf_of(params, n)) >= 2), n
+    jnew, jnew_state, jm = jadamw.adamw_update(jg, jstate, jp,
+                                               jadamw.AdamWConfig(lr=0.05, weight_decay=0.5),
+                                               lr=0.02)
+    _, tnew_state, tm = tadamw.adamw_update(tgrads, tstate, tparams,
+                                            tadamw.AdamWConfig(lr=0.05, weight_decay=0.5),
+                                            lr=0.02)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-5)
+    for n, p in tparams.named_parameters():
+        np.testing.assert_allclose(_np(p), _np(_port_leaf(jnew, n)), rtol=1e-6, atol=5e-7,
+                                   err_msg=n)
+        np.testing.assert_allclose(_np(tnew_state.m[n]), _np(_port_leaf(jnew_state.m, n)),
+                                   rtol=1e-6, atol=1e-7, err_msg=n)
+
+
+def _leaf_of(tree, name):
+    """The whole (stacked) JAX leaf that port parameter `name` slices."""
+    return tt._leaf(tree, tt.param_leaf(tree, name)[0])
+
+
 def test_adamw_updates_a_large_leaf_in_slices(monkeypatch):
     """Slicing a leaf's update (UPDATE_SLICE) changes no bit."""
     g = torch.Generator().manual_seed(0)
@@ -462,6 +519,41 @@ def test_three_train_steps_match_jax():
     jstep = jax.jit(jtrain.make_train_step(jcfg, jopt, total_steps=20))
     tstep = ttrain.make_train_step(tcfg, topt, total_steps=20, device="cpu")
     data, jdata = TokenStream(tcfg, 2, 64, seed=1), JTokenStream(jcfg, 2, 64, seed=1)
+    for i in range(3):
+        jstate, jm = jstep(jstate, jdata(i))
+        tstate, tm = tstep(tstate, data(i))
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5,
+                                       err_msg=f"step {i} {key}")
+    assert int(tstate.step) == 3 and int(tstate.opt.step) == 3
+    for n, p in tparams.named_parameters():
+        np.testing.assert_allclose(_np(p), _np(_port_leaf(jstate.params, n)), rtol=1e-4,
+                                   atol=1e-6, err_msg=n)
+
+
+def test_three_xlstm_train_steps_match_jax():
+    """make_train_step of the reduced xlstm-350m against the JAX package's
+    jitted one for 3 steps from the same state, in fp32, remat on in
+    both (each mLSTM block recomputed): loss, grad_norm and lr each step,
+    and the final parameters, the stacked gates and norms decayed as JAX
+    decays them."""
+    jdt, tdt = DTYPES["fp32"]
+    jcfg = dataclasses.replace(jreduced(jget_config("xlstm-350m")), dtype=jdt,
+                               param_dtype=jdt, remat=True)
+    tcfg = dataclasses.replace(reduced(get_config("xlstm-350m")), dtype=tdt,
+                               param_dtype=tdt, remat=True)
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    opt = dict(lr=1e-3, eps=1e-3, weight_decay=0.5)
+    jopt, topt = jadamw.AdamWConfig(**opt), tadamw.AdamWConfig(**opt)
+    jstate = jtrain.TrainState(params=jparams, opt=jadamw.adamw_init(jparams, jopt),
+                               step=jnp.zeros((), jnp.int32))
+    tstate = ttrain.TrainState(params=tparams,
+                               opt=tadamw.opt_state_from_numpy(jstate.opt, tparams),
+                               step=torch.zeros((), dtype=torch.int32))
+    jstep = jax.jit(jtrain.make_train_step(jcfg, jopt, total_steps=20))
+    tstep = ttrain.make_train_step(tcfg, topt, total_steps=20, device="cpu")
+    data, jdata = TokenStream(tcfg, 2, 70, seed=1), JTokenStream(jcfg, 2, 70, seed=1)
     for i in range(3):
         jstate, jm = jstep(jstate, jdata(i))
         tstate, tm = tstep(tstate, data(i))
