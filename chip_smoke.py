@@ -151,7 +151,9 @@ no kernels line and no result line. Phases:
               = 8,192 (no kernel launch for the xLSTM, whose mLSTM and sLSTM
               scans are plain PyTorch; one flash launch at D = 112 for each
               of zamba's 3 shared-block applications) with seconds, tokens/s,
-              peak memory and the device's idle share; generate() with 4 x
+              peak memory and the device's idle share (from a profile at S
+              = 512); zamba2-7b's forward under the `opt` variant beside it;
+              generate() with 4 x
               2,048 prompts and 31 decode steps and the cache invariant in
               fp32 and bf16; layer 0's chunked mLSTM / SSD scan on its own
               inputs against its sequential form in fp32 and float64; each
@@ -169,7 +171,7 @@ no kernels line and no result line. Phases:
               its inter-chunk stabilizer, shared-block applications with
               weights of their own), each of which must fail a check;
               then xlstm-350m's make_train_step at published width, B =
-              1, S = 2,048: a warm-up and 2 timed steps with remat (step
+              1, S = 2,048: a warm-up and 1 timed step with remat (step
               seconds, tokens/s, peak memory) and one step without, whose
               peak the remat steps' must undercut by 10%, and a plant of
               the forward that ignored remat, which must fail that check
@@ -217,7 +219,24 @@ no kernels line and no result line. Phases:
               published widths (1 + 3 timed steps, remat on, B = 1, S =
               8,192), the MoE's first step reached again bit for bit from a
               fresh state; lm_eval's parameters drawn again from their seed
- 22. lm_faults   faults planted one at a time in the bf16 flash launches
+ 22. lm_train_mm  whisper-medium's training at published widths (needs no
+              other phase): the backward kernel at the cross-attention's
+              (16, 8,192 x 1,500, 64), non-causal, on the first and last
+              decoder layers' own inputs, each head's dq, dk and dv within
+              one bf16 ulp of float64 and few elements more than half
+              their own ulp off, two runs to the same bits; timed beside
+              its bound, its plain version and the backward of
+              scaled_dot_product_attention, also at the self-attention's
+              (16, 8,192, 64); the full-width gradients of the flash path
+              against the direct path and both against the fp32 direct
+              path; make_train_step, B = 1, S = 8,192, remat on, 1 + 3
+              timed steps (seconds, tokens/s, peak memory, 96 forward and
+              48 backward launches a step) and a profiled one (the idle
+              share); two builds of the backward planted in its ragged KV
+              tile: the mask's k < S_k dropped alone (zero keys in P: the
+              same bits) and with the tile loaded whole (what lies past
+              S_k in P: the check must fail)
+ 23. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
@@ -229,7 +248,7 @@ no kernels line and no result line. Phases:
               dropped): each must fail one of the checks of phase 16, 17,
               18 or 19 (the MoE and norm checks at 4 layers, as they hold
               each layer on its own input)
- 23. report   one JSON line of kernels, the card line, and the last line
+ 24. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
 The main path is phases 6, 9, 16, 17 and 21, the serving tier's paths are
@@ -239,14 +258,24 @@ the SSM and hybrid LMs phase 19 and the audio and VLM LMs phase 20: the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
 `dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_ssm_launches`,
-`lm_mm_launches`, `lm_train_launches` and `lm_train_dense_launches`, the
+`lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches` and
+`lm_train_mm_launches`, the
 SGLD ones all 0; lm_ssm's are the two timed forwards', 3 flash launches in
 all; lm_mm's the two timed forwards', 48 + 28 flash launches; lm_train's
 are its 3 timed steps, lm_train_dense's the 3 timed steps of each dense
 config; the xLSTM's train steps launch none and are checked to).
 foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
 and sgld need data, lm_mm needs none, lm_train needs lm_eval,
-lm_faults needs lm_eval, lm_serve and lm_train. Any failed check exits
+lm_train_mm needs none, lm_faults needs lm_eval, lm_serve and lm_train.
+The `opt` variant (configs/variants.py) runs inside earlier phases:
+granite-moe-3b-a800m's forward at B = 1 (bit for bit the global dispatch),
+a prefill of 4 x 2,048 a group a prompt (lm_dense) and a train step from
+a fresh state (bit for bit the base step, lm_train); zamba2-7b's forward
+with its idle share (lm_ssm). So do the remat policies (lm_train:
+stablelm-1.6b's step under "dots", a flash forward a layer where
+"nothing" launches two; gemma2-2b's S = 4,096 step under "attn_probs"),
+the row-level gather_syrk (kernels, bit for bit) and compressed_psum on
+the card against the CPU (lm_train, bit for bit). Any failed check exits
 non-zero before the last line. No BPMF phase was cut to make room for the
 LM ones, and no earlier LM phase either; granite-20b's two attention paths
 are compared at 8 of its 52 layers, and lm_faults holds the MoE and
@@ -446,10 +475,13 @@ DENSE_TRAINED = ("stablelm-1.6b", "granite-moe-3b-a800m")
 # shared attention block, (32, 8,192, 112) over 32 KV heads at B = 1
 SSM_MODELS = ("xlstm-350m", "zamba2-7b")
 SSM_WARM_SEQ = 1024                    # the xLSTM's warm-up forward: its sLSTM scan is per step
-# the xLSTM forward whose device-busy share is read: the profiler takes
-# about 0.2 ms of host time a kernel to read its trace back, and the xLSTM's
-# 8,192-token forward is 622,047 kernels
-SSM_PROFILE_SEQ = 1024
+# the SSM and hybrid forwards whose device-busy share is read: the profiler
+# takes about 0.2 ms of host time a kernel to read its trace back, and the
+# xLSTM's 8,192-token forward is 622,047 kernels, zamba2-7b's 170,000 (30 s
+# of lm_ssm; its forward under opt 192,494 kernels, 55 s); each of their
+# steps and chunks costs the same at any S (512 for both, where the xLSTM's
+# was read at 1,024 and zamba2-7b's at 8,192 before)
+SSM_PROFILE_SEQ = 512
 # the prompt tokens of lm_ssm's cache invariants and of its serving warm-up
 SSM_SHORT = 512
 ZAMBA_FLASH = (32, 32, 112)            # (BH, BHk, D) of one zamba2-7b sequence
@@ -462,12 +494,13 @@ SSM_TOL = dict(rtol=1e-4, atol=1e-4)
 FLASH112_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 # xlstm-350m's train step (phase lm_ssm): B = 1 at this S (its sLSTM is a
 # per-step loop on the host: the forward alone took 5.3-11.4 s at 8,192),
-# 1 + 2 steps with remat, then one without; the remat step's peak device
+# 1 + 1 steps with remat (1 + 2 before whisper's training needed the
+# time), then one without; the remat step's peak device
 # memory must lie below the other's by at least this share, which the
 # allocator's noise cannot make up and a forward that ignores remat cannot
 # reach
 XLSTM_TRAIN_SEQ = 2048
-XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_STEPS = 1
 REMAT_PEAK_MARGIN = 0.1
 # The audio and VLM families (phase lm_mm). whisper-medium's decoder at S =
 # 8,192 launches the flash kernel twice a layer: its causal self-attention,
@@ -487,6 +520,16 @@ MM_FLASH_SEED = 64
 MM_SHORT = 512                         # text tokens of lm_mm's cache invariant
 MM_GRID = 32                           # qwen2-vl's 1,024 patches on a 32 x 32 (h, w) grid
 MM_PAD_KEYS = 1536                     # the cross-attention plant's zero-padded keys
+# whisper-medium's training (phase lm_train_mm): B = 1, S = 8,192 decoder
+# tokens over its 1,500 frames, remat on. A step launches the flash forward
+# 96 times (24 self- and 24 cross-attentions, each again in the recompute)
+# and its backward 48 times, 24 of them at S_q != S_k. The backward alone
+# is held at the cross-attention's shape on the first and last decoder
+# layers' own inputs, against dO of this seed.
+MM_BWD_SEED = 27
+# keys past S_k that the ragged-keys plant's K and V buffers hold: the
+# plant loads whole tiles from past S_k, so the memory there is real
+MM_PLANT_PAD_KEYS = 64
 # the fp32 flash kernel's column layout, and the one it had before D = 112
 # (the 96-column plant of lm_ssm)
 FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
@@ -547,7 +590,8 @@ def card_line() -> str:
 
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train", "lm_faults")
+          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train", "lm_train_mm",
+          "lm_faults")
 
 
 def main() -> int:
@@ -796,6 +840,29 @@ class Smoke:
         return [("item", b, u) for b in s.item_buckets] + [
             ("user", b, v) for b in s.user_buckets]
 
+    def row_level_gather_syrk(self, u, v):
+        """ops.gather_syrk, every row its own segment, on the identity bucket
+        of the ChEMBL plans with the most entries: one launch of
+        gather_syrk_seg's identity path, bit for bit its plain version."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        side, b, cp = max(((side, b, cp) for side, b, cp in self._bucket_sides(u, v)
+                           if b.identity_segments), key=lambda x: x[1].indices.numel())
+        r, w = b.indices.shape
+        before = ops.launches()["gather_syrk_seg"]
+        pk, rk = ops.gather_syrk(b.indices, b.values, b.mask, cp)
+        self.sync()
+        n = ops.launches()["gather_syrk_seg"] - before
+        pp, rp = ref.gather_syrk_seg_ref(b.indices, b.values, b.mask,
+                                         torch.arange(r, dtype=torch.int32, device=self.dev),
+                                         r, cp, identity_segments=True)
+        ms = self.cuda_ms(lambda: ops.gather_syrk(b.indices, b.values, b.mask, cp), reps=20)
+        self.check(n == 1 and tuple(pk.shape) == (r, K, K) and torch.equal(pk, pp)
+                   and torch.equal(rk, rp),
+                   f"gather_syrk (row level) on the {side} width-{w} bucket ({r} rows): one "
+                   f"gather_syrk_seg launch ({n}), prec and rhs equal the plain version's bit "
+                   f"for bit; {ms:.3f} ms")
+        del pk, rk, pp, rp
+
     def kernels(self):
         torch, ops, ref = self.torch, self.ops, self.ref
         s = self.sampler
@@ -882,6 +949,7 @@ class Smoke:
                              ("bytes", n_bytes), ("flops", flops)):
                 tot[key] += val
             tot["err"] = max(tot["err"], err)
+        self.row_level_gather_syrk(u, v)
         bms, by = self.bound_ms(tot["bytes"], tot["flops"])
         alone = f", {tot['launcher']:.3f} ms launcher alone" if direct else ""
         print(f"  gather_syrk_seg, one sweep's buckets: {tot['ms']:.3f} ms kernel{alone}, "
@@ -3568,6 +3636,8 @@ class Smoke:
                                    f"{name} forward")
         self.print_split(events, f"{name} forward")
         numbers.update(self.dense_serve(name, model, params))
+        if cfg.is_moe:
+            numbers.update(self.moe_opt(cfg, params, batch, loss, aux, dt))
         # the two attention paths, at a cut depth where the direct one
         # would not fit beside the weights
         depth = DENSE_DIRECT_DEPTH.get(name)
@@ -3594,6 +3664,58 @@ class Smoke:
         self.dense_numbers[name] = numbers
         del params
         return launches
+
+    def moe_opt(self, cfg, params, batch, loss, aux, dt) -> dict:
+        """The MoE under the `opt` variant (configs/variants.py: the grouped
+        dispatch, each sequence its own group; bf16 probabilities, which the
+        flash path never forms): its forward at B = 1, S = 8,192, one
+        sequence and so one group, gives the base forward's loss and aux
+        bit for bit, timed beside it; a prefill of 4 x 2,048 routes each
+        prompt in its own group (a quarter of the global capacity), timed
+        beside the base prefill, its logits finite."""
+        from repro_torch.configs import apply_variant
+        from repro_torch.models import DecoderModel
+
+        torch, ops = self.torch, self.ops
+        ocfg = apply_variant(cfg, "opt")
+        model = DecoderModel(ocfg)
+        base_model = DecoderModel(cfg)
+        with torch.no_grad():
+            model.loss_fn(params, batch)                   # warm-up
+            ops.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            oloss, om = model.loss_fn(params, batch)
+            self.sync()
+            odt = time.perf_counter() - t0
+            n = ops.launches()
+            oloss, oaux = float(oloss), float(om["aux"])
+            self.check(oloss == loss and oaux == aux and n["flash_attention"] == cfg.n_layers,
+                       f"{cfg.name} under opt at B = 1 (one dispatch group): loss {oloss:.6f} "
+                       f"and aux {oaux:.6f} are the global dispatch's {loss:.6f}, {aux:.6f} "
+                       f"bit for bit; {n['flash_attention']} flash launches")
+            b, plen, _ = LM_SERVE
+            gen = torch.Generator(device=self.dev).manual_seed(1)
+            prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                                    device=self.dev, dtype=torch.int32)
+            times, logits = {}, {}
+            for tag, m in (("base", base_model), ("opt", model)):
+                m.prefill_fn(params, {"tokens": prompts})
+                self.sync()
+                t0 = time.perf_counter()
+                logits[tag] = m.prefill_fn(params, {"tokens": prompts})["logits"]
+                self.sync()
+                times[tag] = time.perf_counter() - t0
+            diff = float((logits["opt"] - logits["base"]).abs().max())
+            self.check(bool(torch.isfinite(logits["opt"]).all()),
+                       f"{cfg.name} under opt: the prefill of {b} x {plen} (a dispatch group a "
+                       f"prompt) gives finite logits, {diff:.3e} from the global dispatch's")
+        print(f"  {cfg.name} under opt: forward {odt:.3f} s at B=1, S={LM_SEQ} (base "
+              f"{dt:.3f} s); prefill {b} x {plen} {times['opt'] * 1e3:.1f} ms, a group a "
+              f"prompt (base, one group: {times['base'] * 1e3:.1f} ms)")
+        del logits
+        return dict(opt_s=odt, opt_prefill_ms=times["opt"] * 1e3,
+                    base_prefill_ms=times["base"] * 1e3)
 
     def perturb_norms(self, params, cfg):
         """A layer norm's scale 1 + N(0, 0.1) and bias N(0, 0.1), drawn from
@@ -3708,9 +3830,9 @@ class Smoke:
         recs, seen = [], {}
         inner = {n: getattr(layers, n) for n in ("moe_route", "moe_experts", "moe_combine")}
 
-        def route(params, xf, cfg):
+        def route(params, xf, cfg, groups=1):
             seen.update(params=params, xf=xf)
-            return inner["moe_route"](params, xf, cfg)
+            return inner["moe_route"](params, xf, cfg, groups)
 
         def experts(params, buf, cfg):
             seen["buf"] = buf
@@ -3975,20 +4097,11 @@ class Smoke:
         self.check(bool(self.np.isfinite(loss)) and float(metrics["tokens"]) == LM_SEQ,
                    f"{name}: the loss is finite ({loss:.5f}), {LM_SEQ} labels counted")
         lap("the timed forward and its warm-up")
-        # the device-busy share: the xLSTM's at a shorter sequence
-        # (SSM_PROFILE_SEQ; each of its steps and chunks costs the same at
-        # any S)
-        seq = LM_SEQ if hybrid else SSM_PROFILE_SEQ
-        short = batch if hybrid else TokenStream(cfg, 1, seq, seed=0)(0)
-        if not hybrid:
-            with torch.no_grad():
-                self.sync()
-                t0 = time.perf_counter()
-                model.loss_fn(params, short)
-                self.sync()
-                wall = time.perf_counter() - t0
-        else:
-            wall = dt
+        # the device-busy share at a shorter sequence (SSM_PROFILE_SEQ; each
+        # step and chunk of the scans costs the same at any S)
+        seq = SSM_PROFILE_SEQ
+        short = TokenStream(cfg, 1, seq, seed=0)(0)
+        wall = self.short_wall(model, params, short)
         # CUDA activity alone: the host's events would swamp a forward of
         # hundreds of thousands of launches
         with torch.no_grad():
@@ -4002,6 +4115,9 @@ class Smoke:
         lap("the profiled forward")
         numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak, loss=loss,
                        params=n_params, busy_ms=busy, idle=idle, profiled_seq=seq)
+        if hybrid:
+            numbers.update(self.zamba_opt(cfg, params, batch, loss, dt, n_flash))
+            lap("the forward under opt")
         numbers.update(self.dense_serve(name, model, params, prefix=SSM_SHORT))
         lap("serving and the cache invariant")
         # layer 0's scan on its own full-width inputs
@@ -4020,6 +4136,58 @@ class Smoke:
         self.ssm_numbers[name] = numbers
         self.ssm_kept[name] = kept
         return launches
+
+    def short_wall(self, model, params, short) -> float:
+        """Seconds of one no-grad loss_fn on the short batch, the wall a
+        profile of it is read against."""
+        torch = self.torch
+        with torch.no_grad():
+            self.sync()
+            t0 = time.perf_counter()
+            model.loss_fn(params, short)
+            self.sync()
+            return time.perf_counter() - t0
+
+    def zamba_opt(self, cfg, params, batch, loss, dt, n_flash) -> dict:
+        """zamba2-7b's forward at B = 1, S = 8,192 under the `opt` variant
+        (the SSD scan at chunk 64 with its decay folded into B and C; bf16
+        probabilities, which its flash launches never form): seconds beside
+        the base forward's, its loss beside the base loss, and the device's
+        idle share at SSM_PROFILE_SEQ, as the base forward's."""
+        from repro_torch.configs import apply_variant
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import build_model
+
+        torch, ops = self.torch, self.ops
+        model = build_model(apply_variant(cfg, "opt"))
+        with torch.no_grad():
+            model.loss_fn(params, batch)       # warm-up, as the base forward's
+            ops.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            oloss, _ = model.loss_fn(params, batch)
+            self.sync()
+            odt = time.perf_counter() - t0
+            n = ops.launches()
+        short = TokenStream(cfg, 1, SSM_PROFILE_SEQ, seed=0)(0)
+        wall = self.short_wall(model, params, short)
+        with torch.no_grad():
+            events = self._profile(lambda: model.loss_fn(params, short), wall * 1e3,
+                                   f"{cfg.name} forward under opt at S={SSM_PROFILE_SEQ}",
+                                   activities=("cuda",))
+        oloss = float(oloss)
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (wall * 1e3))
+        self.print_split(events, f"{cfg.name} forward under opt at S={SSM_PROFILE_SEQ}")
+        self.check(bool(events) and n["flash_attention"] == n_flash
+                   and bool(self.np.isfinite(oloss)),
+                   f"{cfg.name} under opt (ssm_chunk 64, ssd_fold_decay): {n_flash} flash "
+                   f"launches, a finite loss {oloss:.5f} (base {loss:.5f}, |diff| "
+                   f"{abs(oloss - loss):.2e}), the profile holds device time")
+        print(f"summary {cfg.name} under opt: forward {odt:.3f} s at S={LM_SEQ} (base "
+              f"{dt:.3f} s), idle share {idle:.3f} at S={SSM_PROFILE_SEQ} (busy {busy:.1f} ms "
+              f"of {wall * 1e3:.1f})")
+        return dict(opt_s=odt, opt_idle=idle, opt_busy_ms=busy, opt_loss=oloss)
 
     def xlstm_train(self) -> dict:
         """xlstm-350m's make_train_step at its published width, bf16, seed 0,
@@ -4877,6 +5045,7 @@ class Smoke:
         for ok, what in verdicts:
             self.check(ok, what)
         self.bwd_timing(err)
+        self.compress_check()
         self.train_grads(model.cfg)
         self.train_steps(model.cfg)
         self.trainer_reduced()
@@ -4893,6 +5062,411 @@ class Smoke:
         self.check(self.params_digest(self.lm[1]) == digest,
                    "lm_eval's parameters drawn again from seed 0 are the ones lm_eval "
                    "ran (per-parameter float64 sums and sums of squares equal)")
+
+    # ------------------------------------------------------------ whisper training
+    def lm_train_mm(self):
+        """whisper-medium's training at its published widths (needs no other
+        phase): the backward kernel at the cross-attention's shape, (16,
+        8,192 x 1,500, 64) non-causal, on the first and last decoder
+        layers' own inputs against float64 head by head, twice to the same
+        bits, timed beside its bound, its plain version and
+        scaled_dot_product_attention's backward (and at the self-attention's
+        (16, 8,192, 64)); the flash path's full-width gradients against the
+        direct path's and both against the fp32 direct path's;
+        make_train_step, 1 + LM_TRAIN_STEPS timed steps (seconds, tokens/s,
+        peak memory, launches a step, the idle share of a profiled step);
+        then two builds of the backward planted in its ragged KV tile."""
+        import gc
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        print(f"card: {card_line()}")
+        lap = self.lap("lm_train_mm")
+        # the plants compile while the real kernel is checked: the mask's
+        # k < S_k dropped alone, and with it the ragged tile loaded whole
+        mask_edit = ("bool vis = qpos < Sq && kpos < Sk;", "bool vis = qpos < Sq;")
+        whole = [(f"{src} + (size_t)k0 * D, min(DQ_BK, Sk - k0), DQ_BK);",
+                  f"{src} + (size_t)k0 * D, DQ_BK, DQ_BK);") for src in ("kb", "vb")]
+        whole += [(f"{src} + (size_t)k1 * D,\n                                 "
+                   "min(DQ_BK, Sk - k1), DQ_BK);",
+                   f"{src} + (size_t)k1 * D,\n                                 DQ_BK, DQ_BK);")
+                  for src in ("kb", "vb")]
+        plants = {"mask_only": self.planted_library("flash_attention_bwd", [mask_edit],
+                                                    "ragged_mask_only", wait=False),
+                  "ragged_keys": self.planted_library("flash_attention_bwd",
+                                                      [mask_edit] + whole,
+                                                      "ragged_keys_in_p", wait=False)}
+        try:
+            cfg = get_config("whisper-medium")
+            opt = AdamWConfig()
+            t0 = time.perf_counter()
+            state = init_train_state(cfg, 0, opt)
+            self.sync()
+            n_params = sum(p.numel() for p in state.params.parameters())
+            print(f"whisper-medium train state on the card: {n_params:,} parameters, bf16, "
+                  f"and fp32 AdamW moments in {time.perf_counter() - t0:.2f} s; "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+            data = TokenStream(cfg, 1, LM_SEQ, seed=0)
+            batches = [data(i) for i in range(LM_TRAIN_STEPS + 1)]
+            cross = self.mm_cross_inputs(cfg, state.params, batches[0])
+            lap("init and the recorded cross-attention inputs")
+            err = 0.0
+            for tag, (q, k, v, kw) in cross.items():
+                verdicts, e = self.mm_bwd_verdicts(tag, q, k, v, kw)
+                for ok, what in verdicts:
+                    self.check(ok, what)
+                err = max(err, e)
+            lap("the backward on the first and last layers' inputs")
+            q, k, v, kw = cross["layer 0"]
+            rows = {"whisper cross-attention": self.mm_bwd_row(
+                        "whisper cross-attention", q, k, v, kw, err)}
+            qs = self.randn(16, LM_SEQ, 64).to(torch.bfloat16)
+            ks, vs = (self.randn(16, LM_SEQ, 64).to(torch.bfloat16) for _ in range(2))
+            rows["whisper self-attention"] = self.mm_bwd_row(
+                "whisper self-attention", qs, ks, vs, dict(kw, causal=True), None)
+            del qs, ks, vs
+            if "flash_attention_bwd" in self.rows:
+                for tag, row in rows.items():
+                    self.rows["flash_attention_bwd"][MM_ROW_KEYS[tag]] = row
+            lap("the backward timed at whisper's two shapes")
+            self.mm_train_grads(cfg, state.params, batches[0])
+            lap("the two attention paths' gradients")
+            self.mm_train_steps(cfg, state, make_train_step(cfg, opt), batches)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("the train steps")
+            for ok, what in self.mm_bwd_plants(plants, cross["layer 0"]):
+                self.check(ok, what)
+            lap("the plants")
+        finally:
+            for load in plants.values():
+                load.stop()
+        del cross
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def mm_cross_inputs(self, cfg, params, batch) -> dict:
+        """The first and last decoder layers' cross-attention flash launches
+        of a no-grad forward, on their own inputs: {tag: (q, k, v, kw)}.
+        Whisper's decoder layer i launches self-attention 2i, then
+        cross-attention 2i + 1."""
+        from repro_torch.models import build_model
+
+        torch, ops = self.torch, self.ops
+        wanted = {1: "layer 0", 2 * cfg.n_layers - 1: f"layer {cfg.n_layers - 1}"}
+        real, recs, count = ops.flash_attention, {}, [0]
+
+        def probe(q, k, v, **kw):
+            if count[0] in wanted:
+                recs[wanted[count[0]]] = (q, k, v, kw)
+            count[0] += 1
+            return real(q, k, v, **kw)
+
+        ops.flash_attention = probe
+        try:
+            with torch.no_grad():
+                build_model(cfg).loss_fn(params, batch)
+        finally:
+            ops.flash_attention = real
+        self.check(len(recs) == 2 and count[0] == 2 * cfg.n_layers and all(
+            tuple(q.shape) == (16, LM_SEQ, 64) and tuple(k.shape) == (16, cfg.encoder_seq, 64)
+            and not kw["causal"] for q, k, v, kw in recs.values()),
+            f"whisper-medium: the first and last cross-attention launches recorded, "
+            f"(16, {LM_SEQ}, 64) over (16, {cfg.encoder_seq}, 64), non-causal "
+            f"({sorted(recs)} of {count[0]} launches)")
+        return recs
+
+    def mm_bwd_verdicts(self, tag, q, k, v, kw) -> tuple[list[tuple[bool, str]], float]:
+        """The backward through FlashAttention at S_q != S_k on one layer's
+        inputs, dO of MM_BWD_SEED: one forward and one backward launch; dq,
+        dk and dv of each head within one bf16 ulp of its largest magnitude
+        of float64 (`bwd_exact`) and at most BWD_MISROUNDED_SHARE of their
+        elements more than half their own bf16 ulp from it; a second
+        backward gives the same bits. Returns the verdicts and the largest
+        error."""
+        torch, ops = self.torch, self.ops
+        g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED)
+        do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
+        dims = f"({q.shape[0]}, {q.shape[1]} x {k.shape[1]}, {q.shape[2]}) non-causal"
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        o = ops.flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(o, leaves, do, retain_graph=True)
+        self.sync()
+        n = ops.launches()
+        again = torch.autograd.grad(o, leaves, do)
+        out = [(n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1,
+                f"flash_attention_bwd whisper {tag} {dims}: one forward and one backward "
+                f"launch ({n['flash_attention']}, {n['flash_attention_bwd']})"),
+               (all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_attention_bwd whisper {tag} {dims}: two backward launches give the "
+                "same bits")]
+        want = self.bwd_exact(q, k, v, do, kw)
+        largest = 0.0
+        for gr, w, gname in zip(got, want, ("dq", "dk", "dv")):
+            worst, err, share = self.grad_errors(gr, w)
+            out.append((share <= BWD_MISROUNDED_SHARE,
+                        f"flash_attention_bwd whisper {tag} {dims}: {gname}'s elements more "
+                        f"than half their own bf16 ulp from float64: a share of {share:.2e} "
+                        f"(at most {BWD_MISROUNDED_SHARE:g})"))
+            out.append((worst <= 1.0,
+                        f"flash_attention_bwd whisper {tag} {dims}: {gname} of each head "
+                        f"within one bf16 ulp of its largest magnitude (at least "
+                        f"{GRAD_ULP_FLOOR:g}) of float64: worst err / ulp {worst:.3f}, max "
+                        f"abs err {err:.3e}"))
+            largest = max(largest, err)
+        del leaves, o, got, again, want
+        return out, largest
+
+    def mm_bwd_row(self, tag, q, k, v, kw, err) -> dict:
+        """The backward launch alone at one of whisper's shapes (its
+        forward's lse and o32 from the kernel), dO seeded: timed beside its
+        bound (5 bf16 tensor passes a visible pair), its plain version and
+        the backward of scaled_dot_product_attention (is_causal as the
+        shape is); err, where given, is the float64 check's."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        bh, sq, d = q.shape
+        bhk, sk, _ = k.shape
+        causal = kw["causal"]
+        g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED + 1)
+        do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
+        _, lse, o32 = ops._flash_forward(q, k, v, causal, kw["window"], kw["softcap"],
+                                          kw["scale"], keep=True)
+        bkw = dict(causal=causal, window=kw["window"], softcap=kw["softcap"],
+                   scale=kw["scale"])
+        ms = self.cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, **bkw))
+        pms = self.cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, lse, o32, **bkw),
+                           reps=1)
+        grads = ops.flash_attention_bwd(q, k, v, do, lse, o32, **bkw)
+        leaves = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, scale=kw["scale"], enable_gqa=True)
+        lgrads = torch.autograd.grad(out, leaves, do[None], retain_graph=True)
+        lib_err = max(float((a[0].float() - b.float()).abs().max() / b.float().abs().max())
+                      for a, b in zip(lgrads, grads))
+        lib = self.cuda_ms(lambda: torch.autograd.grad(out, leaves, do[None],
+                                                       retain_graph=True))
+        pairs = bh * (visible_pairs(sq, 0) if causal else sq * sk)
+        n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
+                   + o32.numel() * 4 + lse.numel() * 4)
+        tb = n_bytes / HBM_BYTES_PER_S * 1e3
+        to = FLASH_BWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        dims = f"({bh}, {sq}{'' if sq == sk else f' x {sk}'}, {d}) over {bhk} KV heads"
+        row = dict(shape=f"{tag} {dims}, bf16, {'causal' if causal else 'non-causal'}, "
+                         "softcap 0, window 0", dims=dims, max_abs_err=err, ms=ms,
+                   plain_ms=pms, bound_ms=max(tb, to),
+                   bound_by="bytes" if tb >= to else "operations",
+                   bound_ms_split3=max(tb, FLASH_BWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                       / BF16_TENSOR_FLOPS * 1e3),
+                   library_ms=lib,
+                   library=f"the backward of scaled_dot_product_attention, is_causal={causal}",
+                   library_rel_err=lib_err)
+        print(f"    flash_attention_bwd {tag} {dims}: {ms:.3f} ms kernel, {pms:.3f} ms "
+              f"plain, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: 5 bf16 tensor "
+              f"passes a visible pair; kernel at {ms / row['bound_ms']:.1f}x), the "
+              f"kernels' 11 passes {row['bound_ms_split3']:.3f} ms, "
+              f"scaled_dot_product_attention's backward {lib:.3f} ms (within {lib_err:.2e} "
+              "of each gradient's largest magnitude of the kernel's)")
+        self.check(lib_err <= FLASH_TOL["bf16"]["rtol"],
+                   f"flash_attention_bwd {tag} {dims}: scaled_dot_product_attention's "
+                   f"backward within {FLASH_TOL['bf16']['rtol']:g} of each gradient's largest "
+                   f"magnitude of the kernel's: {lib_err:.2e}")
+        del lse, o32, grads, leaves, out, lgrads, do
+        return row
+
+    def mm_train_grads(self, cfg, params, batch):
+        """whisper-medium's full-width gradients (B = 1, S = 8,192 over 1,500
+        frames): the flash path (48 forward launches and 24 recomputed, 48
+        backward) against the direct path (chunked_attn_min_len above S:
+        no launch), and both against the fp32 direct path, with lm_train's
+        limits: the losses within LM_LOSS_RTOL, the global norms within
+        GRAD_NORM_RTOL, each parameter within LM_GRAD_RTOL in the 2-norm
+        and no farther from fp32 than GRAD_NOISE_FACTOR times the direct
+        bf16 path."""
+        import dataclasses
+
+        from repro_torch.models import build_model
+        from repro_torch.optim.adamw import global_norm
+
+        torch, ops = self.torch, self.ops
+        direct = dataclasses.replace(cfg, chunked_attn_min_len=LM_SEQ + 1)
+        runs = {}
+        for name, c in (("flash bf16", cfg), ("direct bf16", direct),
+                        ("direct fp32", dataclasses.replace(direct, dtype=torch.float32))):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, grads = self.grads_of(build_model(c), params, batch)
+            self.sync()
+            n = ops.launches()
+            runs[name] = (loss, grads, float(global_norm(grads)))
+            print(f"  whisper-medium {name}: loss {loss:.6f}, grad norm {runs[name][2]:.6f}, "
+                  f"{time.perf_counter() - t0:.2f} s, launches {n}")
+            if name == "flash bf16":
+                self.check(n["flash_attention"] == 4 * cfg.n_layers
+                           and n["flash_attention_bwd"] == 2 * cfg.n_layers
+                           and sum(n.values()) == 6 * cfg.n_layers,
+                           f"whisper-medium flash bf16 loss and backward: {4 * cfg.n_layers} "
+                           f"flash launches (forward and recompute) and {2 * cfg.n_layers} "
+                           f"backward launches: {n}")
+            else:
+                self.check(sum(n.values()) == 0,
+                           f"whisper-medium {name}: no launch of a kernel of the port")
+        (lf, gf, nf), (ld, gd, nd), (l32, g32, n32) = runs.values()
+        self.check(abs(lf - ld) <= LM_LOSS_RTOL * abs(ld),
+                   f"whisper-medium loss with grad: flash {lf:.6f} against direct {ld:.6f}: "
+                   f"|diff| {abs(lf - ld):.2e} <= {LM_LOSS_RTOL} x |loss|")
+        self.check(abs(nf - nd) <= GRAD_NORM_RTOL * nd,
+                   f"whisper-medium global gradient norm: flash {nf:.6f} against direct "
+                   f"{nd:.6f}: |diff| {abs(nf - nd):.2e} <= {GRAD_NORM_RTOL} x norm (fp32 "
+                   f"direct {n32:.6f})")
+        rows = []
+        for name in gf:
+            f, dd, r = (x[name].float() for x in (gf, gd, g32))
+            ed = float((dd - r).norm())
+            rel = float((f - dd).norm()) / max(float(dd.norm()), 1e-30)
+            ratio = float((f - r).norm()) / max(ed, 1e-30)
+            # a gradient the bf16 direct path gives exactly (to fp32's bits)
+            # has no noise floor to be held to; it is held by rel alone
+            rows.append((name, rel, ratio if ed > 0 else 0.0))
+        for name, rel, ratio in sorted(rows, key=lambda r: -r[1])[:6]:
+            print(f"    {name}: |flash - direct| / |direct| {rel:.3e}; |flash - fp32| / "
+                  f"|direct - fp32| {ratio:.3f}")
+        ratios = sorted(r[2] for r in rows)
+        # The key biases' gradients are 0 in exact arithmetic (a key bias
+        # adds q . bk to every score of a row, which the softmax cancels):
+        # each path's is its own rounding noise, 1.5-1.6 times the other's
+        # apart on an H100, so the relative limit has no signal there.
+        # They are held by the noise ratio below, as every parameter is.
+        worst_rel = max(r[1] for r in rows if not r[0].endswith(".bk"))
+        worst_ratio = ratios[-1]
+        print(f"  whisper-medium per-parameter |flash - fp32| / |direct - fp32| over "
+              f"{len(rows)} tensors: median {ratios[len(ratios) // 2]:.3f}, max {worst_ratio:.3f}")
+        self.check(worst_rel <= LM_GRAD_RTOL,
+                   f"whisper-medium: each parameter's gradient but the key biases' (0 in "
+                   f"exact arithmetic), flash path against direct path: |flash - direct| / "
+                   f"|direct| <= {LM_GRAD_RTOL} (worst {worst_rel:.3e})")
+        self.check(worst_ratio <= GRAD_NOISE_FACTOR,
+                   f"whisper-medium: each parameter's gradient on the flash path no farther "
+                   f"from the fp32 gradient than {GRAD_NOISE_FACTOR}x the direct bf16 path's "
+                   f"(in the 2-norm; worst {worst_ratio:.3f})")
+        self.mm_grad_norm = nf
+        del runs, gf, gd, g32
+
+    def mm_train_steps(self, cfg, state, step, batches):
+        """make_train_step of whisper-medium: one warm-up step (its
+        grad_norm the flash gradients' norm bit for bit), LM_TRAIN_STEPS
+        timed (the path: launches counted from just before to just after),
+        and a profiled one for the device's idle share."""
+        torch, ops = self.torch, self.ops
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batches[0])                # warm-up
+        first = (float(m["loss"]), float(m["grad_norm"]))
+        self.check(first[1] == self.mm_grad_norm,
+                   f"whisper-medium: the first step's grad_norm {first[1]:.6f} is the flash "
+                   f"gradients' global norm {self.mm_grad_norm:.6f} bit for bit")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                      # the path starts here
+        times, losses = [], []
+        for batch in batches[1:]:
+            self.sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = ops.launches()                 # ... and is read here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        self.path_launches["lm_train_mm"] = launches
+        dt = sum(times) / len(times)
+        per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
+        n = cfg.n_layers
+        print(f"whisper-medium train step at B=1, S={LM_SEQ} over {cfg.encoder_seq} frames, "
+              f"remat on: {dt:.3f} s a step ({', '.join(f'{t:.3f}' for t in times)}), "
+              f"{LM_SEQ / dt:,.0f} tokens/s, peak device memory {peak:.2f} GB; launches a "
+              f"step {per}; losses {first[0]:.5f} then {', '.join(f'{x:.5f}' for x in losses)}")
+        self.check(launches["flash_attention"] == 4 * n * LM_TRAIN_STEPS
+                   and launches["flash_attention_bwd"] == 2 * n * LM_TRAIN_STEPS
+                   and sum(launches.values()) == 6 * n * LM_TRAIN_STEPS,
+                   f"whisper-medium: each step launched the flash forward {4 * n} times (a "
+                   f"self- and a cross-attention a layer, each again in the recompute) and its "
+                   f"backward {2 * n} times ({n} at S_q != S_k), and no other kernel of the "
+                   f"port: {per}")
+        self.check(all(self.np.isfinite(x) for x in losses + list(first)),
+                   "whisper-medium: every step's loss and grad_norm are finite")
+        self.check(peak < 80.0, f"whisper-medium: peak device memory {peak:.2f} GB is under "
+                   "80 GB")
+        events = self._profile(lambda: step(state, batches[1]), dt * 1e3,
+                               "whisper-medium train step", activities=("cuda",))
+        self.check(bool(events), "whisper-medium: the profiled train step holds device time "
+                   "(its idle share is measured)")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (dt * 1e3))
+        self.print_split(events, "whisper-medium train step")
+        print(f"summary whisper-medium train step: {dt:.3f} s at B=1, S={LM_SEQ} "
+              f"({LM_SEQ / dt:,.0f} tokens/s, peak {peak:.2f} GB, idle share {idle:.3f}); "
+              f"launches a step {per}")
+        self.mm_train_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak,
+                                     idle=idle, launches_a_step=per)
+
+    def mm_bwd_plants(self, plants, inputs) -> list[tuple[bool, str]]:
+        """Two builds of the backward planted in the ragged KV tile of S_k =
+        1,500 (23 x 64 + 28 keys), each through the cross-attention check
+        (`mm_bwd_verdicts`) on layer 0's inputs, with K and V in buffers
+        that hold MM_PLANT_PAD_KEYS real rows past S_k. The mask's k < S_k
+        dropped alone lets the tile's zero-filled keys into P: they add
+        dS 0 = 0 to dQ, and their own dK and dV rows are never written, so
+        its gradients are the kernel's bit for bit. With the tile's keys
+        also loaded whole (what lies past S_k enters P) the check must
+        fail."""
+        torch, ops = self.torch, self.ops
+        build = self.build_mod
+        q, k, v, kw = inputs
+        pad = MM_PLANT_PAD_KEYS * k.shape[-1]
+
+        def padded(t):
+            buf = torch.randn(t.numel() + pad, generator=self.gen, device=self.dev).to(t.dtype)
+            buf[:t.numel()] = t.reshape(-1)
+            return buf[:t.numel()].view(t.shape)
+
+        kp, vp = padded(k), padded(v)
+        real_library = build.library
+        g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED)
+        do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
+
+        def grads():
+            leaves = [t.detach().requires_grad_() for t in (q, kp, vp)]
+            return torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
+
+        want = grads()
+        out = []
+        for name, load in plants.items():
+            lib = load()
+            build.library = lambda n, _lib=lib: _lib if n == "flash_attention_bwd" \
+                else real_library(n)
+            try:
+                if name == "mask_only":
+                    got = grads()
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    out.append((same, "plant 'the backward's mask without k < S_k': the "
+                                "ragged tile's zero keys in P change no bit of dq, dk, dv"))
+                    del got
+                else:
+                    verdicts, _ = self.mm_bwd_verdicts("layer 0, planted", q, kp, vp, kw)
+                    caught = [what for ok, what in verdicts if not ok]
+                    for ok, what in verdicts:
+                        print(f"    ragged keys in P: {'passes' if ok else 'FAILS'} {what}")
+                    out.append((bool(caught), f"planted fault 'the ragged tile's keys past "
+                                f"S_k in P (mask without k < S_k, the tile loaded whole)' "
+                                f"fails {len(caught)} of {len(verdicts)} backward checks"))
+            finally:
+                build.library = real_library
+        out.append((build.library is real_library, "lm_train_mm's plants undone"))
+        del kp, vp, want, do
+        return out
 
     def state_digest(self, state) -> list[tuple[int, int]]:
         """Each parameter's and moment's bits as integers, summed plainly and
@@ -4918,7 +5492,7 @@ class Smoke:
         state after the warm-up step is reached again from a fresh state of
         the same seed, bit for bit (no atomics in its forward or backward).
         Returns the timed steps' launches."""
-        from repro_torch.configs import get_config
+        from repro_torch.configs import apply_variant, get_config
         from repro_torch.data.tokens import TokenStream
         from repro_torch.launch.train import init_train_state, make_train_step
         from repro_torch.optim import AdamWConfig
@@ -4972,18 +5546,56 @@ class Smoke:
         events = self._profile(lambda: step(state, batches[1]), dt * 1e3,
                                f"{name} train step")
         self.print_split(events, f"{name} train step")
+        if not cfg.is_moe:
+            self.dense_train_numbers[name].update(self.dots_steps(cfg, opt, state, batches,
+                                                                  dt, peak))
         if cfg.is_moe:
             del state, m
             self.sync()
+            # under `opt` (the grouped dispatch: at B = 1 one group, the
+            # global dispatch's sort and capacity) from a fresh state
             again = init_train_state(cfg, 0, opt)
-            again, m = step(again, batches[0])
+            again, m = make_train_step(apply_variant(cfg, "opt"), opt)(again, batches[0])
             same = (float(m["loss"]), float(m["grad_norm"])) == first
             self.check(same and self.state_digest(again) == digest,
-                       f"{name}: one step from a fresh state of seed 0 reaches the warm-up "
-                       f"step's loss, grad_norm, parameters and AdamW moments bit for bit "
-                       f"(loss {float(m['loss']):.6f} against {first[0]:.6f})")
+                       f"{name}: one step under opt (the grouped dispatch, one group at B = 1) "
+                       f"from a fresh state of seed 0 reaches the base warm-up step's loss, "
+                       f"grad_norm, parameters and AdamW moments bit for bit (loss "
+                       f"{float(m['loss']):.6f} against {first[0]:.6f})")
             del again
         return launches
+
+    def dots_steps(self, cfg, opt, state, batches, dt, peak) -> dict:
+        """Two steps of make_train_step under remat policy "dots" (each
+        product's output and the flash forward's kept for the backward):
+        the second timed, with its peak memory and launches, beside the
+        "nothing" steps' (dt, peak): its backward recomputes no flash
+        forward, so a step launches it once a layer."""
+        import dataclasses
+
+        from repro_torch.launch.train import make_train_step
+
+        torch, ops = self.torch, self.ops
+        step = make_train_step(dataclasses.replace(cfg, remat_policy="dots"), opt)
+        state, _ = step(state, batches[1])
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[2])
+        ddt = time.perf_counter() - t0
+        n = ops.launches()
+        dpeak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{cfg.name} train step under remat_policy \"dots\": {ddt:.3f} s ({LM_SEQ / ddt:,.0f} "
+              f"tokens/s), peak {dpeak:.2f} GB, launches {dict((k, v) for k, v in n.items() if v)}"
+              f" (\"nothing\": {dt:.3f} s, peak {peak:.2f} GB)")
+        self.check(n["flash_attention"] == cfg.n_layers
+                   and n["flash_attention_bwd"] == cfg.n_layers
+                   and bool(self.np.isfinite(float(m["loss"]))),
+                   f"{cfg.name} under \"dots\": a step launches the flash forward once a layer "
+                   f"({n['flash_attention']}, \"nothing\" twice) and its backward once "
+                   f"({n['flash_attention_bwd']}); the loss is finite")
+        return dict(dots_s=ddt, dots_peak_gb=dpeak, dots_launches=n)
 
     def params_digest(self, params) -> list:
         torch = self.torch
@@ -5211,6 +5823,34 @@ class Smoke:
                      dense_shapes=self.dense_rows("bwd") if hasattr(self, "dense_flash")
                      else {})
 
+    def compress_check(self):
+        """optim.compressed_psum over 4 shards' gradient trees on the card,
+        two rounds carrying the error, against the same on the CPU: the
+        sums and residuals equal bit for bit."""
+        from repro_torch.optim import compress_init, compressed_psum
+
+        torch = self.torch
+        shapes = {"w": (2048, 1024), "b": (1024,), "e": (50_000, 64)}
+        g = torch.Generator().manual_seed(5)
+        rounds = [[{n: torch.randn(shp, generator=g) * (1e-3 if n == "b" else 1.0)
+                    for n, shp in shapes.items()} for _ in range(4)] for _ in range(2)]
+        out = {}
+        for where in ("cuda", "cpu"):
+            zero = {n: torch.zeros(shp, device=where) for n, shp in shapes.items()}
+            states = [compress_init(zero) for _ in range(4)]
+            sums = []
+            for trees in rounds:
+                s, states = compressed_psum([{n: t.to(where) for n, t in tr.items()}
+                                             for tr in trees], states)
+                sums.append(s[0])
+            out[where] = (sums, states)
+        same = all(torch.equal(a[n].cpu(), b[n]) for a, b in zip(out["cuda"][0], out["cpu"][0])
+                   for n in shapes)
+        same &= all(torch.equal(a.error[n].cpu(), b.error[n])
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]) for n in shapes)
+        self.check(same, "compressed_psum over 4 shards, two rounds with error feedback: the "
+                   "card's sums and residuals equal the CPU's bit for bit")
+
     def grads_of(self, model, params, batch) -> tuple[float, dict]:
         """(loss, {name: gradient}) of one loss_fn and backward; the
         gradients are taken off the parameters."""
@@ -5293,7 +5933,9 @@ class Smoke:
     def train_steps(self, cfg):
         """make_train_step at full width: one warm-up step, LM_TRAIN_STEPS
         timed (the main path), a profiled one and one at S = 4,096 (the
-        train_4k shape's length, the direct path)."""
+        train_4k shape's length, the direct path), under remat policies
+        "nothing" and "attn_probs"."""
+        import dataclasses
         import gc
 
         from repro_torch.data.tokens import TokenStream
@@ -5377,7 +6019,27 @@ class Smoke:
         self.check(bool(self.np.isfinite(loss)) and sum(n.values()) == 0,
                    f"the S = {LM_TRAIN_SHORT} step takes the direct path (no launch of a "
                    "kernel of the port) and its loss is finite")
-        del state, step, m
+        peak4 = torch.cuda.max_memory_allocated() / 1e9
+        # remat policy "attn_probs": each layer keeps its bf16 probabilities
+        # (8 x 4,096^2 x 2 bytes = 268 MB) for the backward
+        probs_step = make_train_step(dataclasses.replace(cfg, remat_policy="attn_probs"), opt)
+        torch.cuda.reset_peak_memory_stats()
+        self.sync()
+        t0 = time.perf_counter()
+        state, m = probs_step(state, short)
+        dtp = time.perf_counter() - t0
+        peakp = torch.cuda.max_memory_allocated() / 1e9
+        kept = cfg.n_layers * cfg.n_heads * LM_TRAIN_SHORT ** 2 * 2 / 1e9
+        print(f"train step at B=1, S={LM_TRAIN_SHORT} under remat_policy \"attn_probs\": "
+              f"{dtp:.3f} s, peak {peakp:.2f} GB (\"nothing\": {dt4:.3f} s, peak "
+              f"{peak4:.2f} GB; the probabilities kept come to {kept:.2f} GB)")
+        self.check(bool(self.np.isfinite(float(m["loss"]))) and peakp > peak4,
+                   f"the S = {LM_TRAIN_SHORT} step under \"attn_probs\" keeps more than "
+                   f"\"nothing\" ({peakp:.2f} GB against {peak4:.2f} GB peak) and its loss is "
+                   "finite")
+        self.lm_train_numbers.update(short_s=dt4, short_peak_gb=peak4, attn_probs_s=dtp,
+                                     attn_probs_peak_gb=peakp)
+        del state, step, probs_step, m
         gc.collect()
 
     @staticmethod
@@ -5610,10 +6272,10 @@ class Smoke:
                                               rep_slot=r.rep_slot[perm],
                                               rep_keep=r.rep_keep[perm]), cfg)
 
-        def last_writer_route(params, xf, cfg):
+        def last_writer_route(params, xf, cfg, groups=1):
             # a full expert's last place holds its last replica, dropped or
-            # not, as an unmasked scatter would leave it
-            r = real_route(params, xf, cfg)
+            # not, as an unmasked scatter would leave it (one dispatch group)
+            r = real_route(params, xf, cfg, groups)
             flat = r.top_e.reshape(-1)
             last = torch.full_like(r.counts, -1).scatter_reduce_(
                 0, flat, torch.arange(flat.numel(), device=flat.device), "amax")

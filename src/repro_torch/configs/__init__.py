@@ -6,6 +6,8 @@ family, as `repro.configs.reduced` does. The dense configs, the MoE
 granite-moe-3b-a800m, the SSM xlstm-350m, the hybrid zamba2-7b, the audio
 whisper-medium and the VLM qwen2-vl-7b are ported; kimi-k2-1t-a32b, which
 needs several cards, raises NotImplementedError, naming ROADMAP.md.
+`apply_variant(cfg, "opt")` applies the JAX package's perf overlay
+(`configs/variants.py`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a8
 from repro_torch.configs.qwen2_vl_7b import CONFIG as qwen2_vl_7b
 from repro_torch.configs.smollm_360m import CONFIG as smollm_360m
 from repro_torch.configs.stablelm_1_6b import CONFIG as stablelm_1_6b
+from repro_torch.configs.variants import VARIANTS, apply_variant, optimized
 from repro_torch.configs.whisper_medium import CONFIG as whisper_medium
 from repro_torch.configs.xlstm_350m import CONFIG as xlstm_350m
 from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
@@ -77,4 +80,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **upd)
 
 
-__all__ = ["REGISTRY", "get_config", "reduced", "ModelConfig"]
+__all__ = ["REGISTRY", "VARIANTS", "ModelConfig", "apply_variant", "get_config",
+           "optimized", "reduced"]

@@ -5,8 +5,10 @@
 // (flash_attention_pallas) has no backward: the JAX package differentiates
 // its chunked jnp scan (repro/models/layers.py, _chunked_attention), in
 // fp32 from end to end. This kernel computes that gradient from the
-// forward's per-row log-sum-exp (lse) and its fp32 output o, over
-// (BH, S, D) with BHk dividing BH (P and dS are never rounded):
+// forward's per-row log-sum-exp (lse) and its fp32 output o, for q
+// (BH, S_q, D) against k and v (BHk, S_k, D) with BHk dividing BH (P and
+// dS are never rounded). S_q and S_k differ in a cross-attention:
+// whisper's decoder, 8,192 queries over 1,500 encoder frames:
 //
 //   s'  = softcap(scale q k^T), t = tanh(s / softcap)     as the forward
 //   P   = exp(s' - lse), 0 where masked
@@ -123,8 +125,16 @@
 // visits, are the band the causal mask and the window leave; a warp (pair)
 // skips a tile none of its rows can see, and inside a tile every pair is
 // masked on its own (causal, window, ragged tail), so a masked pair has
-// P = 0 and adds nothing. Rows and keys past S are staged as zeros and
-// never written.
+// P = 0 and adds nothing. Rows past S_q and keys past S_k are staged as
+// zeros and never written. The dq grid runs over S_q's tiles, each block
+// looping over the KV tiles up to S_k; the dkdv grid over S_k's tiles,
+// each block looping over the query tiles up to S_q. Q, dO, lse and D
+// stride by S_q, K and V by S_k. Positions are absolute on both sides, as
+// in the forward (causal: k <= q). In a ragged KV tile (1,500 = 23 x 64 +
+// 28 keys) either guard alone keeps the outputs exact: a zero key that
+// escaped the mask would add dS 0 = 0 to dQ (P comes from the forward's
+// lse, so it moves no other pair), and its own dK and dV rows are never
+// written; a key past S_k that were loaded but masked has P = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -213,14 +223,14 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos, const 
 }
 
 struct Mask {
-  int S, causal, window;
+  int Sq, Sk, causal, window;
   float softcap, scale;
 
   // P of one pair from its raw score s and the row's lse, 0 where masked,
   // and the factor (1 - t^2) that dS takes from the softcap (1 without one)
   __device__ __forceinline__ float prob(float s, int qpos, int kpos, float lse,
                                         float& fac) const {
-    bool vis = qpos < S && kpos < S;
+    bool vis = qpos < Sq && kpos < Sk;
     if (causal) vis = vis && qpos >= kpos;
     if (window > 0) vis = vis && qpos - kpos < window;
     float x = s * scale, t = 0.f;
@@ -325,7 +335,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int S, int rep, Mask mask) {
+    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk, int rep,
+    Mask mask) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                 // BQ x LD
@@ -336,15 +347,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
   float* ls = dst + BKV * TLD;      // BQ: lse
   float* dl = ls + BQ;              // BQ: D
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (Sq + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;   // longest rows first
   const int h = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * RPW;
-  const int valid = min(BQ, S - q0);
-  const size_t qoff = (size_t)h * S + q0;
-  const float* kb = k + (size_t)(h / rep) * S * D;
-  const float* vb = v + (size_t)(h / rep) * S * D;
+  const int valid = min(BQ, Sq - q0);
+  const size_t qoff = (size_t)h * Sq + q0;
+  const float* kb = k + (size_t)(h / rep) * Sk * D;
+  const float* vb = v + (size_t)(h / rep) * Sk * D;
 
   load_tile<D>(qs, q + qoff * D, valid, BQ);
   load_tile<D>(dos, dout + qoff * D, valid, BQ);
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
 
   // the KV tiles some row of this tile can see
   const int q_last = q0 + valid - 1;
-  int kt_end = (S + BKV - 1) / BKV;
+  int kt_end = (Sk + BKV - 1) / BKV;
   if (mask.causal) kt_end = min(kt_end, q_last / BKV + 1);
   int kt_begin = 0;
   if (mask.window > 0 && q0 - mask.window + 1 > 0) kt_begin = (q0 - mask.window + 1) / BKV;
@@ -370,8 +381,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();                // every warp is done with the last tile
-    load_tile<D>(ks, kb + (size_t)k0 * D, min(BKV, S - k0), BKV);
-    load_tile<D>(vs, vb + (size_t)k0 * D, min(BKV, S - k0), BKV);
+    load_tile<D>(ks, kb + (size_t)k0 * D, min(BKV, Sk - k0), BKV);
+    load_tile<D>(vs, vb + (size_t)k0 * D, min(BKV, Sk - k0), BKV);
     __syncthreads();
 
     float s[RPW], dp[RPW], ds[RPW];
@@ -400,8 +411,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-    int rep, Mask mask) {
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+    int Sk, int rep, Mask mask) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                 // BKV x LD
@@ -417,8 +428,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
   const int hk = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * RPW;      // the warp's query rows, then its key rows
-  const int kvalid = min(BKV, S - k0);
-  const size_t koff = (size_t)hk * S + k0;
+  const int kvalid = min(BKV, Sk - k0);
+  const size_t koff = (size_t)hk * Sk + k0;
 
   load_tile<D>(ks, k + koff * D, kvalid, BKV);
   load_tile<D>(vs, v + koff * D, kvalid, BKV);
@@ -426,7 +437,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
   // the query tiles that see some key of this tile
   const int k_last = k0 + kvalid - 1;
   const int q_begin = mask.causal ? k0 : 0;
-  const int q_end = mask.window > 0 ? min(S, k_last + mask.window) : S;
+  const int q_end = mask.window > 0 ? min(Sq, k_last + mask.window) : Sq;
   const int qt_begin = q_begin / BQ, qt_end = (q_end + BQ - 1) / BQ;
 
   float acc_k[RPW][D / 32], acc_v[RPW][D / 32];
@@ -438,8 +449,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
   for (int h = hk * rep; h < (hk + 1) * rep; ++h) {   // the group's heads, in order
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
-      const int valid = min(BQ, S - q0);
-      const size_t qoff = (size_t)h * S + q0;
+      const int valid = min(BQ, Sq - q0);
+      const size_t qoff = (size_t)h * Sq + q0;
       __syncthreads();              // every warp is done with the last tile
       load_tile<D>(qs, q + qoff * D, valid, BQ);
       load_tile<D>(dos, dout + qoff * D, valid, BQ);
@@ -481,8 +492,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq, void* dk, void* dv, int BH, int rep, int S, Mask mask,
-           cudaStream_t stream) {
+           const void* delta, void* dq, void* dk, void* dv, int BH, int rep, int Sq, int Sk,
+           Mask mask, cudaStream_t stream) {
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
@@ -493,8 +504,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<dim3(BH, (S + BQ - 1) / BQ), THREADS, dq_bytes, stream>>>(
-      qp, kp, vp, dop, lp, dl, static_cast<float*>(dq), S, rep, mask);
+  flash_bwd_dq_kernel<D><<<dim3(BH, (Sq + BQ - 1) / BQ), THREADS, dq_bytes, stream>>>(
+      qp, kp, vp, dop, lp, dl, static_cast<float*>(dq), Sq, Sk, rep, mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -502,9 +513,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<D><<<dim3(BH / rep, (S + BKV - 1) / BKV), THREADS, kv_bytes,
+  flash_bwd_dkdv_kernel<D><<<dim3(BH / rep, (Sk + BKV - 1) / BKV), THREADS, kv_bytes,
                              stream>>>(qp, kp, vp, dop, lp, dl, static_cast<float*>(dk),
-                                       static_cast<float*>(dv), S, rep, mask);
+                                       static_cast<float*>(dv), Sq, Sk, rep, mask);
   return (int)cudaGetLastError();
 }
 
@@ -652,7 +663,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int rep, Mask mask) {
+    const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int rep,
+    Mask mask) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) bf16 smem_bf16[];
   bf16* qs = smem_bf16;             // DQ_BQ x LD
@@ -661,18 +673,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
   bf16* vs = ks + 2 * DQ_BK * LD;   // 2 stages of DQ_BK x LD
 
   const int h = blockIdx.x;
-  const int nq = (S + DQ_BQ - 1) / DQ_BQ;
+  const int nq = (Sq + DQ_BQ - 1) / DQ_BQ;
   const int q0 = (nq - 1 - (int)blockIdx.y) * DQ_BQ;   // longest rows first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int qw = q0 + warp * 16;    // the warp's first row
-  const int valid = min(DQ_BQ, S - q0);
-  const size_t qoff = (size_t)h * S + q0;
-  const bf16* kb = k + (size_t)(h / rep) * S * D;
-  const bf16* vb = v + (size_t)(h / rep) * S * D;
+  const int valid = min(DQ_BQ, Sq - q0);
+  const size_t qoff = (size_t)h * Sq + q0;
+  const bf16* kb = k + (size_t)(h / rep) * Sk * D;
+  const bf16* vb = v + (size_t)(h / rep) * Sk * D;
 
   // the KV tiles some row of this block can see
-  int kt_end = (S + DQ_BK - 1) / DQ_BK;
+  int kt_end = (Sk + DQ_BK - 1) / DQ_BK;
   if (mask.causal) kt_end = min(kt_end, (q0 + valid - 1) / DQ_BK + 1);
   int kt_begin = 0;
   if (mask.window > 0 && q0 - mask.window + 1 > 0) kt_begin = (q0 - mask.window + 1) / DQ_BK;
@@ -681,8 +693,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
   load_rows<D, PAD, THREADS>(dos, dout + qoff * D, valid, DQ_BQ);
   if (kt_begin < kt_end) {
     const int k0 = kt_begin * DQ_BK;
-    load_rows<D, PAD, THREADS>(ks, kb + (size_t)k0 * D, min(DQ_BK, S - k0), DQ_BK);
-    load_rows<D, PAD, THREADS>(vs, vb + (size_t)k0 * D, min(DQ_BK, S - k0), DQ_BK);
+    load_rows<D, PAD, THREADS>(ks, kb + (size_t)k0 * D, min(DQ_BK, Sk - k0), DQ_BK);
+    load_rows<D, PAD, THREADS>(vs, vb + (size_t)k0 * D, min(DQ_BK, Sk - k0), DQ_BK);
   }
   cp_async_commit();
 
@@ -692,8 +704,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = qw + g + r * 8;
-    rl[r] = qpos < S ? lse[(size_t)h * S + qpos] : 0.f;
-    rd[r] = qpos < S ? delta[(size_t)h * S + qpos] : 0.f;
+    rl[r] = qpos < Sq ? lse[(size_t)h * Sq + qpos] : 0.f;
+    rd[r] = qpos < Sq ? delta[(size_t)h * Sq + qpos] : 0.f;
   }
 
   float acc[D / 8][4];
@@ -704,9 +716,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     if (kt + 1 < kt_end) {          // the next tile's copies fly meanwhile
       const int k1 = (kt + 1) * DQ_BK;
       load_rows<D, PAD, THREADS>(ks + (st ^ 1) * DQ_BK * LD, kb + (size_t)k1 * D,
-                                 min(DQ_BK, S - k1), DQ_BK);
+                                 min(DQ_BK, Sk - k1), DQ_BK);
       load_rows<D, PAD, THREADS>(vs + (st ^ 1) * DQ_BK * LD, vb + (size_t)k1 * D,
-                                 min(DQ_BK, S - k1), DQ_BK);
+                                 min(DQ_BK, Sk - k1), DQ_BK);
     }
     cp_async_commit();
     cp_async_wait_one();            // this tile has landed
@@ -716,7 +728,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     const bf16* kt_s = ks + st * DQ_BK * LD;
     const bf16* vt_s = vs + st * DQ_BK * LD;
     // whether any row of the warp sees a key of the tile
-    const bool seen = qw < S && !(mask.causal && k0 > qw + 15) &&
+    const bool seen = qw < Sq && !(mask.causal && k0 > qw + 15) &&
                       !(mask.window > 0 && qw - (k0 + DQ_BK - 1) >= mask.window);
     if (seen) {
       float s[NT][4], dp[NT][4];
@@ -736,15 +748,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     __syncthreads();                // every warp is done with this stage
   }
   cp_async_wait_all();              // no copy outlives the block (no tile ran)
-  store_acc<D>(dq + (size_t)h * S * D, acc, qw, S, lane);
+  store_acc<D>(dq + (size_t)h * Sq * D, acc, qw, Sq, lane);
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-    int rep, Mask mask) {
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+    int Sk, int rep, Mask mask) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) bf16 smem_bf16[];
   bf16* ks = smem_bf16;             // KV_BK x LD
@@ -764,24 +776,25 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
   // warp p + PAIRS dP^T, dS and dK
   const int pair = warp % PAIRS, role = warp / PAIRS;
   const int kw = k0 + pair * 16;
-  const int kvalid = min(KV_BK, S - k0);
-  const size_t koff = (size_t)hk * S + k0;
+  const int kvalid = min(KV_BK, Sk - k0);
+  const size_t koff = (size_t)hk * Sk + k0;
 
   load_rows<D, PAD, THREADS>(ks, k + koff * D, kvalid, KV_BK);
   load_rows<D, PAD, THREADS>(vs, v + koff * D, kvalid, KV_BK);
 
   // the query tiles that see some key of this block, for each of the
-  // group's heads in order: tile `it` is head hk rep + it / nqt
+  // group's heads in order: tile `it` is head hk rep + it / nqt (none
+  // where a causal block's keys lie past every query, S_k > S_q)
   const int q_begin = mask.causal ? k0 : 0;
-  const int q_end = mask.window > 0 ? min(S, k0 + kvalid - 1 + mask.window) : S;
+  const int q_end = mask.window > 0 ? min(Sq, k0 + kvalid - 1 + mask.window) : Sq;
   const int qt_begin = q_begin / KV_BQ;
-  const int nqt = (q_end + KV_BQ - 1) / KV_BQ - qt_begin;
+  const int nqt = max(0, (q_end + KV_BQ - 1) / KV_BQ - qt_begin);
   const int tiles = rep * nqt;
 
   auto stage = [&](int it, int st) {  // tile it's Q, dO, lse and D into stage st
     const int q0 = (qt_begin + it % nqt) * KV_BQ;
-    const int valid = min(KV_BQ, S - q0);
-    const size_t qoff = (size_t)(hk * rep + it / nqt) * S + q0;
+    const int valid = min(KV_BQ, Sq - q0);
+    const size_t qoff = (size_t)(hk * rep + it / nqt) * Sq + q0;
     load_rows<D, PAD, THREADS>(qs + st * KV_BQ * LD, q + qoff * D, valid, KV_BQ);
     load_rows<D, PAD, THREADS>(dos + st * KV_BQ * LD, dout + qoff * D, valid, KV_BQ);
     if (threadIdx.x < 2 * KV_BQ) {
@@ -820,7 +833,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
     const bf16* dot_s = dos + st * KV_BQ * LD;
     // whether some query of the tile sees a key of the pair: the same in
     // both warps of the pair, so both take the named barrier or neither
-    const bool seen = kw < S && !(mask.causal && q0 + KV_BQ - 1 < kw) &&
+    const bool seen = kw < Sk && !(mask.causal && q0 + KV_BQ - 1 < kw) &&
                       !(mask.window > 0 && q0 - (kw + 15) >= mask.window);
     if (seen) {
       // entry (n, c): key kw + g + (c >> 1) 8, query q0 + n 8 + 2 tig + (c & 1)
@@ -875,13 +888,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
       for (int c = 0; c < 4; ++c) acc[n][c] = tots[(n * 4 + c) * THREADS + threadIdx.x];
     }
   }
-  store_acc<D>((role ? dk : dv) + (size_t)hk * S * D, acc, kw, S, lane);
+  store_acc<D>((role ? dk : dv) + (size_t)hk * Sk * D, acc, kw, Sk, lane);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq, void* dk, void* dv, int BH, int rep, int S, Mask mask,
-           cudaStream_t stream) {
+           const void* delta, void* dq, void* dk, void* dv, int BH, int rep, int Sq, int Sk,
+           Mask mask, cudaStream_t stream) {
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -892,9 +905,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_mma_kernel<D><<<dim3(BH, (S + DQ_BQ - 1) / DQ_BQ), THREADS, dq_bytes,
-                               stream>>>(qp, kp, vp, dop, lp, dl, static_cast<bf16*>(dq), S,
-                                         rep, mask);
+  flash_bwd_dq_mma_kernel<D><<<dim3(BH, (Sq + DQ_BQ - 1) / DQ_BQ), THREADS, dq_bytes,
+                               stream>>>(qp, kp, vp, dop, lp, dl, static_cast<bf16*>(dq), Sq,
+                                         Sk, rep, mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -902,9 +915,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_mma_kernel<D><<<dim3(BH / rep, (S + KV_BK - 1) / KV_BK), THREADS, kv_bytes,
-                                 stream>>>(qp, kp, vp, dop, lp, dl, static_cast<bf16*>(dk),
-                                           static_cast<bf16*>(dv), S, rep, mask);
+  flash_bwd_dkdv_mma_kernel<D><<<dim3(BH / rep, (Sk + KV_BK - 1) / KV_BK), THREADS,
+                                 kv_bytes, stream>>>(qp, kp, vp, dop, lp, dl,
+                                                     static_cast<bf16*>(dk),
+                                                     static_cast<bf16*>(dv), Sq, Sk, rep,
+                                                     mask);
   return (int)cudaGetLastError();
 }
 
@@ -913,8 +928,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const void* lse, void* delta, void* dq, void* dk, void* dv, int BH, int rep,
-             int S, int bf16_, Mask mask, cudaStream_t stream) {
-  const int rows = BH * S;
+             int Sq, int Sk, int bf16_, Mask mask, cudaStream_t stream) {
+  const int rows = BH * Sq;
   const float* op = static_cast<const float*>(o);
   float* dl = static_cast<float*>(delta);
   if (bf16_)
@@ -925,35 +940,37 @@ int launch_d(const void* q, const void* k, const void* v, const void* o, const v
         op, static_cast<const float*>(dout), dl, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return bf16_ ? mma::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, BH, rep, S, mask,
+  return bf16_ ? mma::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, mask,
                                 stream)
-               : launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, BH, rep, S, mask, stream);
+               : launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, mask,
+                           stream);
 }
 
 }  // namespace
 
-// q, dout, dq (BH, S, D), k, v, dk, dv (BHk, S, D), all contiguous, of one
-// dtype: bf16 when `bf16` is 1, else fp32; o (BH, S, D) fp32, the
-// forward's output before rounding; lse (BH, S) fp32, the forward's
-// per-row log-sum-exp; delta (BH, S) fp32 scratch. BH must be a multiple
+// q, dout, dq (BH, Sq, D), k, v, dk, dv (BHk, Sk, D), all contiguous, of
+// one dtype: bf16 when `bf16` is 1, else fp32; o (BH, Sq, D) fp32, the
+// forward's output before rounding; lse (BH, Sq) fp32, the forward's
+// per-row log-sum-exp; delta (BH, Sq) fp32 scratch. BH must be a multiple
 // of BHk and D one of 32, 64, 128, 256. Three kernels on `stream`, in
 // order: delta, dq, dk and dv. Returns the CUDA error code of the first
 // launch that fails, else of the last.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout,
                                           const void* lse, void* delta, void* dq,
-                                          void* dk, void* dv, int BH, int BHk, int S,
-                                          int D, int bf16, int causal, int window,
+                                          void* dk, void* dv, int BH, int BHk, int Sq,
+                                          int Sk, int D, int bf16, int causal, int window,
                                           float softcap, float scale, void* stream) {
-  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rep = BH / BHk;
-  const Mask mask{S, causal, window, softcap, scale};
+  const Mask mask{Sq, Sk, causal, window, softcap, scale};
   switch (D) {
-    case 32: return launch_d<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, S, bf16, mask, st);
-    case 64: return launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, S, bf16, mask, st);
-    case 128: return launch_d<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, S, bf16, mask, st);
-    case 256: return launch_d<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, S, bf16, mask, st);
+    case 32: return launch_d<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
+    case 64: return launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
+    case 128: return launch_d<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
+    case 256: return launch_d<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

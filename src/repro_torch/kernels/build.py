@@ -51,8 +51,8 @@ KERNELS = {
     ]),
     "flash_attention_bwd": ("flash_attention_bwd.cu", [
         ("flash_attention_bwd_launch",
-         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-          _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+          _F, _P]),
     ]),
 }
 

@@ -228,6 +228,18 @@ def gather_syrk_seg(
     return (prec, rhs) if stacked else (prec[0], rhs[0])
 
 
+def gather_syrk(indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-level fused gather + syrk, `repro/kernels/ops.py::gather_syrk`:
+    every row is its own segment, so prec is (..., R, K, K) and rhs
+    (..., R, K), one row's statistics each. `gather_syrk_seg` with identity
+    segments: its kernel's identity path on the card (counted as a
+    `gather_syrk_seg` launch), its plain version on the CPU."""
+    r = indices.shape[0]
+    seg = torch.arange(r, dtype=torch.int32, device=v.device)
+    return gather_syrk_seg(indices, values, mask, seg, r, v, identity_segments=True)
+
+
 def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., R, W, K) x (..., R, W) -> (prec (..., R, K, K), rhs (..., R, K)).
@@ -419,9 +431,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     With grad enabled and an input that requires it, the call goes through
     `FlashAttention`: the forward also keeps each row's log-sum-exp and the
-    fp32 output, and the backward is `flash_attention_bwd`, which takes
-    S_q == S_k only: a call with grad and S_q != S_k raises. Without grad
-    the launch is the plain forward, which writes neither.
+    fp32 output, and the backward is `flash_attention_bwd`, S_q != S_k
+    included. Without grad the launch is the plain forward, which writes
+    neither.
     """
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
@@ -431,11 +443,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     args = (bool(causal), int(window), float(softcap), scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if sq != sk:
-            raise ValueError(
-                f"the flash backward takes S_q == S_k, got {sq} and {sk}: a cross-attention "
-                "such as whisper's trains on no path of the port yet (ROADMAP.md, queue 1 "
-                "item 12.3); call it without grad")
         return FlashAttention.apply(q, k, v, *args)
     if not _on_cuda(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -447,7 +454,7 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
     """One launch of the forward kernel: (out, lse, o32). With `keep` the
     kernel also writes each row's log-sum-exp (BH, S) and, for bf16, the
     fp32 output before its rounding (o32 is out itself for fp32); without
-    it both are None and the kernel takes today's path."""
+    it both are None and the kernel takes today's path. lse is (BH, S_q)."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     dev = q.device
@@ -479,23 +486,38 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
     return out, lse, o32
 
 
+@torch.library.custom_op("repro_torch::flash_forward", mutates_args=())
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  window: int, softcap: float, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`FlashAttention`'s forward as one dispatcher op, so that a selective
+    checkpoint's policy sees it and can keep its outputs (the remat policy
+    "dots", `models/transformer.py::REMAT_POLICIES`): (out, lse (BH, S_q),
+    o32), the kernel's launch on the card, `ref.flash_attention_fwd_ref`
+    on the CPU. o32 is empty where the output is already unrounded (fp32):
+    a custom op's outputs alias nothing."""
+    if _on_cuda(q):
+        out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale, keep=True)
+    else:
+        out, lse, o32 = ref.flash_attention_fwd_ref(
+            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+    if o32 is out:
+        o32 = out.new_empty(0, dtype=torch.float32)
+    return out, lse, o32
+
+
 class FlashAttention(torch.autograd.Function):
-    """flash_attention with a backward: the forward keeps q, k, v, each
-    row's log-sum-exp and the fp32 output (D = rowsum(dO o) is taken from
-    it, not from the output rounded to bf16), and the backward is
-    `flash_attention_bwd`, looked up when it runs. On the card both are
-    the kernels; on the CPU the plain versions (`ref.flash_attention_fwd_ref`,
-    `ref.flash_attention_bwd_ref`)."""
+    """flash_attention with a backward: the forward (`flash_forward`) keeps
+    q, k, v, each row's log-sum-exp and the fp32 output (D = rowsum(dO o)
+    is taken from it, not from the output rounded to bf16), and the
+    backward is `flash_attention_bwd`, looked up when it runs. On the card
+    both are the kernels; on the CPU the plain versions
+    (`ref.flash_attention_fwd_ref`, `ref.flash_attention_bwd_ref`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
-        if _on_cuda(q):
-            out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale,
-                                           keep=True)
-        else:
-            out, lse, o32 = ref.flash_attention_fwd_ref(
-                q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
-        ctx.save_for_backward(q, k, v, o32, lse)
+        out, lse, o32 = flash_forward(q, k, v, causal, window, softcap, scale)
+        ctx.save_for_backward(q, k, v, o32 if o32.numel() else out, lse)
         ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         return out
 
@@ -511,13 +533,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, window: int, softcap: float, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of flash_attention(q, k, v) for the output
-    cotangent do, from the forward's lse (BH, S) and fp32 output o: one
+    cotangent do, from the forward's lse (BH, S_q) and fp32 output o: one
     launch of csrc/flash_attention_bwd.cu (three kernels: D = rowsum(dO o),
     dQ a query tile a block, dK and dV a KV tile a block; no atomics; bf16
-    on the tensor cores, fp32 on the fp32 pipes). S_q must equal S_k. The plain version (`ref.flash_attention_bwd_ref`) for
-    CPU tensors; a CUDA tensor the kernel cannot take raises."""
-    bh, s, d = q.shape
-    bhk = k.shape[0]
+    on the tensor cores, fp32 on the fp32 pipes). q, do and o are
+    (BH, S_q, D), k and v (BHk, S_k, D). The plain version
+    (`ref.flash_attention_bwd_ref`) for CPU tensors; a CUDA tensor the
+    kernel cannot take raises."""
+    bh, sq, d = q.shape
+    bhk, sk = k.shape[:2]
     if not _on_cuda(q):
         return ref.flash_attention_bwd_ref(q, k, v, do, lse, o, causal=causal,
                                            window=window, softcap=softcap, scale=scale)
@@ -529,24 +553,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash attention backward takes D in {FLASH_BWD_HEAD_DIMS}, got {d}: the "
             "backward kernels are not built for it (ROADMAP.md, queue 1 item 7: "
             "zamba2-7b's training waits for several cards)")
-    if k.shape != v.shape or k.shape[1:] != (s, d) or bhk == 0 or bh % bhk:
-        raise ValueError(f"k and v must be (BHk, {s}, {d}) with BHk dividing {bh}; "
-                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
-    if do.shape != q.shape or o.shape != q.shape or lse.shape != (bh, s) or s == 0:
-        raise ValueError(f"do and o must be {tuple(q.shape)} and lse {(bh, s)}; got "
+    if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk or sk == 0:
+        raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing {bh} and "
+                         f"S_k > 0; got {tuple(k.shape)} and {tuple(v.shape)}")
+    if do.shape != q.shape or o.shape != q.shape or lse.shape != (bh, sq) or sq == 0:
+        raise ValueError(f"do and o must be {tuple(q.shape)} and lse {(bh, sq)}; got "
                          f"{tuple(do.shape)}, {tuple(o.shape)}, {tuple(lse.shape)}")
     q, k, v, do = (_aligned(_require(n, t, dev, q.dtype))
                    for n, t in (("q", q), ("k", k), ("v", v), ("do", do)))
     o = _aligned(_require("o", o, dev, torch.float32))
     lse = _require("lse", lse, dev, torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((bh, s), device=dev, dtype=torch.float32)
+    delta = torch.empty((bh, sq), device=dev, dtype=torch.float32)
     lib = build.library("flash_attention_bwd")
     with _on_card(q):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, bhk, s, d, int(q.dtype == torch.bfloat16),
+            dv.data_ptr(), bh, bhk, sq, sk, d, int(q.dtype == torch.bfloat16),
             int(causal), int(window), float(softcap), float(scale), _stream(q),
         )
     build.check("flash_attention_bwd", err)

@@ -206,11 +206,11 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
                             causal: bool = True, window: int = 0,
                             softcap: float = 0.0, scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The forward that a backward needs: (out in q's dtype, lse (BH, S)
-    and the unrounded output (BH, S, D)), computed in fp32 (float64 for
+    """The forward that a backward needs: (out in q's dtype, lse (BH, S_q)
+    and the unrounded output (BH, S_q, D)), computed in fp32 (float64 for
     float64 inputs). lse is each row's log-sum-exp of its visible scores,
-    which the kernel writes as m + log(l); every row sees at least its own
-    key (Sq == Sk)."""
+    which the kernel writes as m + log(l); every row sees at least one key
+    (its own where S_q == S_k, all S_k without causality)."""
     work = torch.promote_types(q.dtype, torch.float32)
     s, _, mask = _attention_scores(q, k, causal=causal, window=window,
                                    softcap=softcap, scale=scale, work=work)

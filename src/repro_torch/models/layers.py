@@ -16,13 +16,16 @@ here, and `ModelConfig` carries the SSM, hybrid, audio and VLM families'
 fields (`models/ssm.py`, `models/mamba.py`, `models/zamba.py` and the
 whisper stack of `models/transformer.py` read them), as `attention_block`
 carries Qwen2-VL's M-RoPE (`apply_mrope`) and whisper's non-causal and
-cross-attention. The MoE's grouped and expert-parallel dispatches and the
-mesh helpers are not ported yet (ROADMAP.md, queue 1 items 7 and 12.4).
+cross-attention. The MoE's grouped dispatch (`moe_group_dispatch`) is
+here; its expert-parallel shard_map and the mesh helpers wait for several
+cards (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -90,9 +93,10 @@ class ModelConfig:
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
     chunked_attn_min_len: int = 8192 # cache-free sequences this long take the kernel
     remat: bool = True               # recompute each layer in the backward
-    remat_policy: str = "nothing"    # only "nothing" is ported (ROADMAP.md, item 12.4)
-    moe_group_dispatch: bool = False # not ported: moe_block raises when set
-    moe_ep_shard_map: bool = False   # not ported: moe_block raises when set
+    remat_policy: str = "nothing"    # nothing | dots | attn_probs (transformer.REMAT_POLICIES)
+    attn_probs_bf16: bool = False    # the direct path's probabilities (and v) in bf16
+    moe_group_dispatch: bool = False # per-sequence dispatch groups (no global sort)
+    moe_ep_shard_map: bool = False   # EP shard_map under a mesh; none here: no effect
     ssm_chunk: int = 128             # SSD chunk length (xLSTM's mLSTM keeps 64)
     ssd_fold_decay: bool = False     # fold exp(cumsum) into B/C, skip decay tensor
     slstm_reshard: bool = False      # sLSTM gate pre-activations held in bf16
@@ -304,6 +308,27 @@ def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: b
     return mask
 
 
+_names = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """The ops run inside carry `name` for a remat policy
+    (`transformer.REMAT_POLICIES`), as `jax.ad_checkpoint.checkpoint_name`
+    names a value: the selective checkpoint's policy reads it when the op
+    runs."""
+    outer = getattr(_names, "name", None)
+    _names.name = name
+    try:
+        yield
+    finally:
+        _names.name = outer
+
+
+def current_checkpoint_name() -> str | None:
+    return getattr(_names, "name", None)
+
+
 def multi_head_attention(
     q: torch.Tensor,                 # (B, Sq, H, hd)
     k: torch.Tensor,                 # (B, Sk, Hk, hd)
@@ -315,6 +340,7 @@ def multi_head_attention(
     scale: float = 0.0,
     q_offset: torch.Tensor | int = 0,
     chunk: int = 0,
+    probs_bf16: bool = False,
 ) -> torch.Tensor:
     """Attention over (B, S, H, hd) heads; returns (B, Sq, H, hd).
 
@@ -331,6 +357,12 @@ def multi_head_attention(
     softmax without causality, a fault of the reference that the port does
     not copy (ROADMAP.md, queue 3). The JAX signature's `kv_len` has no
     caller in the models and is not ported.
+
+    `probs_bf16` (the config's `attn_probs_bf16`) rounds the direct path's
+    probabilities, and v, to bf16 before P V, whatever q's dtype. The flash
+    kernel writes no probability tensor, so the flag changes nothing on
+    that branch. The probabilities carry the checkpoint name "attn_probs",
+    which the remat policy of that name keeps.
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -351,9 +383,16 @@ def multi_head_attention(
     scores = softcap(scores, attn_softcap)
     mask = attention_scores_mask(q_pos, k_pos, causal=causal, window=window)
     scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs_dtype = torch.bfloat16 if probs_bf16 else q.dtype
+    if probs_dtype == torch.float32:
+        with checkpoint_name("attn_probs"):
+            probs = torch.softmax(scores, dim=-1)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        with checkpoint_name("attn_probs"):     # the cast's output is the named tensor
+            probs = probs.to(probs_dtype)
     del scores
-    out = matmul_f32(probs, v.transpose(1, 2).to(q.dtype))               # (B, H, Sq, hd)
+    out = matmul_f32(probs, v.transpose(1, 2).to(probs_dtype))           # (B, H, Sq, hd)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -442,7 +481,7 @@ def attention_block(
         chunk = cfg.attn_chunk if s >= cfg.chunked_attn_min_len else 0
         out = multi_head_attention(
             q, k, v, causal=causal, window=window, attn_softcap=cfg.attn_softcap,
-            scale=cfg.attn_scale, chunk=chunk,
+            scale=cfg.attn_scale, chunk=chunk, probs_bf16=cfg.attn_probs_bf16,
         )
     out = out.reshape(b, s, h * hd) @ params.wo.to(cfg.dtype)
     return out, new_cache
@@ -521,13 +560,16 @@ class MoERoute(NamedTuple):
     """Where each of a batch's T k token replicas goes. Replica i = t k + j
     is token t's j-th expert in ascending expert order, the order in which
     the JAX package's combine adds a token's contributions (its updates
-    are sorted by expert). Slot s = e cap + c is place c of expert e's
-    capacity buffer."""
+    are sorted by expert). With G dispatch groups (whole sequences of T / G
+    tokens), slot s = (e G + g) cap + c is place c of expert e's capacity
+    buffer in group g, so the buffer is (E_pad, G cap, d): the experts'
+    products take every group's places at once. One group is the global
+    dispatch."""
 
     top_e: torch.Tensor              # (T, k) int64, experts ascending a row
     top_w: torch.Tensor              # (T, k) renormalised weights, fp32
-    counts: torch.Tensor             # (E_pad,) replicas routed to each expert
-    cap: int                         # places an expert
+    counts: torch.Tensor             # (E_pad G,) replicas routed to each (expert, group)
+    cap: int                         # places an expert a group
     aux: torch.Tensor                # 0-d fp32 Switch load-balancing loss
     rep_slot: torch.Tensor           # (T k,) each replica's slot ...
     rep_keep: torch.Tensor           # ... where it fits in the capacity
@@ -573,18 +615,26 @@ def _inverse(perm: torch.Tensor) -> torch.Tensor:
                                                                  device=perm.device))
 
 
-def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig) -> MoERoute:
+def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig, groups: int = 1
+              ) -> MoERoute:
     """The router and the capacity-bounded assignment of
     `repro/models/layers.py::moe_block` for tokens xf (T, d): fp32 softmax,
     top k, weights renormalised by max(sum, 1e-9), the Switch auxiliary
-    loss E sum(me ce), a stable sort of the replicas by expert, each
-    replica's place in its expert from the exclusive cumsum of the counts,
-    and cap = max(ceil(T k / E capacity_factor), 1). A replica past the
-    capacity is dropped."""
+    loss E sum(me ce) over all T tokens, a stable sort of the replicas by
+    expert, each replica's place in its expert from the exclusive cumsum
+    of the counts, and cap = max(ceil(T k / E capacity_factor), 1). A
+    replica past the capacity is dropped. With `groups` G > 1 the sort,
+    the places and the capacity are each group's own (T / G consecutive
+    tokens, cap from T / G), as `_moe_grouped` routes each sequence: a
+    stable sort by (expert, group) leaves each group's replicas of an
+    expert in replica order, the places a group-local stable sort gives."""
     t = xf.shape[0]
     e, k = cfg.n_experts, cfg.n_experts_active
     e_pad = cfg.n_experts_pad or e
     dev, n = xf.device, t * k
+    g = groups
+    if t % g:
+        raise ValueError(f"{t} tokens do not split into {g} dispatch groups")
     probs = torch.softmax(xf.float() @ params.router, dim=-1)
     top_w, top_e = top_k(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
@@ -594,19 +644,21 @@ def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig) -> MoERoute:
     top_w = _Route.apply(top_w.reshape(n), perm, None, _inverse(perm), None).reshape(t, k)
 
     flat_e = top_e.reshape(-1)
-    se, order = torch.sort(flat_e, stable=True)
-    experts = torch.arange(e_pad, device=dev)
-    offsets = torch.searchsorted(se, experts)               # exclusive cumsum
-    counts = torch.searchsorted(se, experts, right=True) - offsets
+    # each replica's (expert, group) bucket: its expert when G = 1
+    key = flat_e * g + torch.arange(n, device=dev) // (n // g)
+    se, order = torch.sort(key, stable=True)
+    buckets = torch.arange(e_pad * g, device=dev)
+    offsets = torch.searchsorted(se, buckets)               # exclusive cumsum
+    counts = torch.searchsorted(se, buckets, right=True) - offsets
     me = probs.mean(dim=0)
-    ce = counts[:e].float() / n
+    ce = counts.view(e_pad, g).sum(dim=1)[:e].float() / n
     aux = e * torch.sum(me * ce)
 
-    cap = max(int(math.ceil(t * k / e * cfg.capacity_factor)), 1)
-    # each replica's place in its expert, back in replica order
+    cap = max(int(math.ceil(t // g * k / e * cfg.capacity_factor)), 1)
+    # each replica's place in its bucket, back in replica order
     pos = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=dev) - offsets[se])
     rep_keep = pos < cap
-    rep_slot = flat_e * cap + pos.clamp(max=cap - 1)
+    rep_slot = key * cap + pos.clamp(max=cap - 1)
     place = torch.arange(cap, device=dev)
     slot_used = (place[None, :] < counts[:, None]).reshape(-1)
     slot_rep = order[(offsets[:, None] + place[None, :]).clamp(max=n - 1).reshape(-1)]
@@ -646,22 +698,23 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
     of `repro/models/layers.py::moe_block`. Returns (out (B, S, D), aux).
 
     The replicas are the tokens expanded k times (the expand's backward
-    sums over k), moved into the (E_pad, cap, d) buffer and back by
+    sums over k), moved into the (E_pad, G cap, d) buffer and back by
     gathers whose backwards are gathers too (`_Route`), so the gradients
-    are the same from run to run on the card. The grouped and expert-
-    parallel dispatches are not ported (ROADMAP.md, queue 1 items 7 and
-    12.4) and raise."""
-    if cfg.moe_group_dispatch or cfg.moe_ep_shard_map:
-        raise NotImplementedError(
-            "moe_group_dispatch and moe_ep_shard_map are not ported; see ROADMAP.md "
-            "(queue 1, items 7 and 12.4)")
+    are the same from run to run on the card. With `moe_group_dispatch`
+    and S k >= 4 E each sequence is its own dispatch group (`_moe_grouped`:
+    routing, sort and capacity per sequence); at B = 1 that is the global
+    dispatch. `moe_ep_shard_map` takes the expert-parallel shard_map only
+    under an active mesh with a sequence axis, which the port never has
+    (ROADMAP.md, queue 1 item 7): the JAX package then falls through to the
+    dispatches below, and so does this."""
     b, s, d = x.shape
-    k = cfg.n_experts_active
-    e_pad = cfg.n_experts_pad or cfg.n_experts
+    e, k = cfg.n_experts, cfg.n_experts_active
+    e_pad = cfg.n_experts_pad or e
+    groups = b if cfg.moe_group_dispatch and s * k >= 4 * e else 1
     xf = x.reshape(b * s, d)
-    route = moe_route(params, xf, cfg)
+    route = moe_route(params, xf, cfg, groups)
     reps = xf[:, None, :].expand(b * s, k, d).reshape(b * s * k, d)
     buf = _Route.apply(reps, route.slot_rep, route.slot_used, route.rep_slot,
-                       route.rep_keep).view(e_pad, route.cap, d)
+                       route.rep_keep).view(e_pad, groups * route.cap, d)
     y = moe_experts(params, buf, cfg)
     return moe_combine(y, route, cfg).reshape(b, s, d), route.aux

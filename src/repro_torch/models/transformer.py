@@ -8,10 +8,12 @@ keep the JAX layout: {"k", "v": (L, B, T, Hk, hd), "pos": (L,) int32}, and
 whisper's adds its cross-attention K/V {"ck", "cv": (L, B, S_enc, Hk, hd)}.
 Under grad with `cfg.remat` every cache-free layer, the encoder's and the
 cross-decoder's too, runs under `torch.utils.checkpoint`, where the JAX
-package wraps its scan bodies in `jax.checkpoint`.
+package wraps its scan bodies in `jax.checkpoint`; the decoder's layers
+under `cfg.remat_policy` (`REMAT_POLICIES`), as its `_scan_layers`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -20,12 +22,14 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.kernels import ops  # noqa: F401  (registers repro_torch::flash_forward)
 from repro_torch.models.layers import (
     Attention,
     MLP,
     MoE,
     ModelConfig,
     attention_block,
+    current_checkpoint_name,
     dense_init,
     init_attention,
     init_mlp,
@@ -140,10 +144,49 @@ def remat_on(cfg: ModelConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def checkpointed(fn, *args):
+_aten = torch.ops.aten
+#: the ops whose outputs "dots" keeps: every matrix product (JAX's
+#: `dots_saveable` keeps each dot_general's output) and the flash forward's
+#: (out, lse, o32), so that its backward launches no flash forward
+DOTS = frozenset((_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm,
+                  torch.ops.repro_torch.flash_forward))
+
+
+# a selective checkpoint's policy: True keeps the op's output (MUST_SAVE),
+# False recomputes it (PREFER_RECOMPUTE)
+def _save_dots(ctx, op, *args, **kwargs) -> bool:
+    return op.overloadpacket in DOTS
+
+
+def _save_attn_probs(ctx, op, *args, **kwargs) -> bool:
+    return current_checkpoint_name() == "attn_probs"
+
+
+#: `cfg.remat_policy` -> what a checkpointed decoder layer keeps for its
+#: backward beside its inputs, as the JAX package's `_scan_layers` picks
+#: its `jax.checkpoint` policy: "nothing" recomputes the whole layer,
+#: "dots" keeps the products' outputs (`DOTS`) and recomputes the rest,
+#: "attn_probs" keeps only the direct path's probabilities (the ops run
+#: under `layers.checkpoint_name("attn_probs")`; the flash path names
+#: none, so there it keeps what "nothing" keeps). The selective
+#: checkpoint's policy sees dispatcher ops only; the flash forward is one
+#: (`ops.flash_forward`, a custom op).
+REMAT_POLICIES = {"nothing": None, "dots": _save_dots, "attn_probs": _save_attn_probs}
+
+
+def checkpointed(fn, *args, policy: str = "nothing"):
     """fn(*args) under torch.utils.checkpoint, non-reentrant: the backward
-    keeps the inputs and recomputes the rest."""
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    keeps the inputs, and what `policy` (`REMAT_POLICIES`) keeps, and
+    recomputes the rest."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not one of {sorted(REMAT_POLICIES)}")
+    keep = REMAT_POLICIES[policy]
+    if keep is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts, keep))
 
 
 # ---------------------------------------------------------------------------
@@ -235,16 +278,13 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | Non
     `chunked_attn_min_len` that sends a long sequence down the direct path.
 
     With grad enabled and `cfg.remat`, each cache-free layer runs under
-    `torch.utils.checkpoint` (non-reentrant): the backward keeps only the
-    layer's input and recomputes the rest, the JAX package's
-    `jax.checkpoint` with policy "nothing". The other policies are not
-    ported (ROADMAP.md, item 12.4).
+    `torch.utils.checkpoint` (non-reentrant): the backward keeps the
+    layer's input and what `cfg.remat_policy` keeps (`REMAT_POLICIES`),
+    and recomputes the rest, as the JAX package's `jax.checkpoint` under
+    the policy of that name. The gradients are the same bits under every
+    policy.
     """
     remat = caches is None and remat_on(cfg)
-    if remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; only \"nothing\" "
-            "(full recompute) is: ROADMAP.md, queue 1 item 12.4")
     h = params.embed.to(cfg.dtype)[tokens] if embeds is None else embeds.to(cfg.dtype)
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in JAX
@@ -256,7 +296,8 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | Non
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]}
         if remat:
-            h, aux = checkpointed(_layer_out, layer, h, cfg, positions, windows[i])
+            h, aux = checkpointed(_layer_out, layer, h, cfg, positions, windows[i],
+                                  policy=cfg.remat_policy)
         else:
             h, _, aux = decoder_layer(layer, h, cfg, positions=positions,
                                       window=windows[i], cache=cache)

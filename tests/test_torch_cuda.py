@@ -396,8 +396,10 @@ def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda):
                             q[..., :48].contiguous())                  # D = 48
     with pytest.raises(ValueError):
         ops.flash_attention(q, q.double(), q)                          # mixed dtypes
-    with pytest.raises(ValueError):                                    # S_q != S_k
-        ops.flash_attention(q.requires_grad_(), q[:, :32].detach(), q[:, :32].detach())
+    k32 = q[:, :32].contiguous()                                       # S_k = 32 < S_q
+    with pytest.raises(ValueError):                                    # lse (BH, S_k)
+        ops.flash_attention_bwd(q, k32, k32, q, torch.zeros(2, 32, device=cuda), q,
+                                causal=False, window=0, softcap=0.0, scale=0.125)
     lse = torch.zeros(2, 64, device=cuda)
     with pytest.raises(ValueError):                                    # fp16 backward
         ops.flash_attention_bwd(q.half(), q.half(), q.half(), q.half(), lse, q.detach(),
@@ -1344,3 +1346,120 @@ def test_reduced_audio_and_vlm_forward_on_the_card_matches_the_cpu(cuda, name):
     torch.testing.assert_close(card_model.prefill_fn(card_params, prompt)["logits"].cpu(),
                                cpu_model.prefill_fn(params, prompt)["logits"],
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the backward at S_q != S_k, whisper's training, the opt variant's paths
+# ---------------------------------------------------------------------------
+# S_k on both sides of the edges of the bf16 kernels' tiles (32 keys a dq
+# tile, 64 a dkdv block) and of the fp32 kernels' (32), S_q no multiple of
+# a tile, a group of 2, and whisper's 1,500 frames (23 x 64 + 28)
+SQ_NE_SK = [
+    # bh, bhk, sq, sk, d, causal, window, cap
+    (4, 4, 100, 1, 64, False, 0, 0.0),
+    (4, 2, 130, 15, 64, False, 0, 50.0),
+    (4, 4, 129, 63, 32, False, 0, 0.0),
+    (4, 4, 127, 64, 64, False, 0, 0.0),
+    (4, 2, 200, 65, 128, False, 0, 30.0),
+    (4, 4, 300, 1500, 64, False, 0, 0.0),
+    (4, 2, 70, 40, 64, True, 0, 30.0),        # causal, S_k < S_q
+    (4, 2, 40, 70, 256, True, 16, 50.0),      # causal window, S_k > S_q
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,bhk,sq,sk,d,causal,window,cap", SQ_NE_SK)
+def test_flash_bwd_at_sq_ne_sk(cuda, dtype, bh, bhk, sq, sk, d, causal, window, cap):
+    """The backward at S_q != S_k in both dtypes against the float64 plain
+    version (`_grads_hold`), one launch, and two runs to the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(bh + sq + 3 * sk + d)
+    q = torch.randn(bh, sq, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(bhk, sk, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    ops.reset_launches()
+    first = _flash_grads(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention_bwd"] == 1
+    _grads_hold(first[1:], _exact_grads(q, k, v, do, **kw), dtype)
+    again = _flash_grads(q, k, v, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_whisper_full_width_train_step_on_the_card(cuda):
+    """One make_train_step of whisper-medium at its published widths, B =
+    1, S = 8,192 decoder tokens over 1,500 frames, remat on: 96 flash
+    forward launches (a self- and a cross-attention a layer, each again in
+    the recompute) and 48 backward launches, a finite loss and grad_norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config("whisper-medium")
+    opt = AdamWConfig()
+    state = init_train_state(cfg, 0, opt)
+    step = make_train_step(cfg, opt)
+    batch = TokenStream(cfg, 1, 8192, seed=0)(0)
+    ops.reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    n = ops.launches()
+    assert n["flash_attention"] == 4 * cfg.n_layers and n["flash_attention_bwd"] == 2 * cfg.n_layers
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+
+
+def test_grouped_moe_at_one_sequence_is_the_global_dispatch_on_the_card(cuda):
+    """moe_block of reduced granite-moe-3b-a800m in bf16 at B = 1 under
+    moe_group_dispatch (one group) against the global dispatch on the card:
+    out, aux and every gradient bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(reduced(get_config("granite-moe-3b-a800m")), capacity_factor=1.0)
+    moe = layers.init_moe(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    x = torch.randn(1, 64, cfg.d_model, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(torch.bfloat16)
+    got = []
+    for group in (False, True):
+        for p in moe.parameters():
+            p.grad = None
+        xd = x.detach().clone().requires_grad_()
+        out, aux = layers.moe_block(moe, xd, dataclasses.replace(cfg, moe_group_dispatch=group))
+        (out.float().square().sum() + aux).backward()
+        got.append([out.detach(), aux.detach(), xd.grad] + [p.grad for p in moe.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def test_dots_step_launches_no_flash_forward_in_its_backward(cuda):
+    """make_train_step of reduced gemma2-2b (S = 64: the flash kernels in
+    every layer) under remat policies "nothing" and "dots": "nothing"
+    launches the flash forward twice a layer (forward and recompute),
+    "dots" once, which it keeps; both launch the backward once a layer and
+    give the same loss and grad_norm bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    base = dataclasses.replace(reduced(get_config("gemma2-2b")), remat=True)
+    opt = AdamWConfig(lr=1e-3)
+    batch = TokenStream(base, 2, 64, seed=0)(0)
+    out = {}
+    for policy in ("nothing", "dots"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        state = init_train_state(cfg, 0, opt, device=cuda)
+        ops.reset_launches()
+        state, m = make_train_step(cfg, opt, total_steps=5, device=cuda)(state, batch)
+        torch.cuda.synchronize()
+        out[policy] = (ops.launches(), float(m["loss"]), float(m["grad_norm"]))
+    n = base.n_layers
+    assert out["nothing"][0]["flash_attention"] == 2 * n
+    assert out["dots"][0]["flash_attention"] == n
+    assert out["nothing"][0]["flash_attention_bwd"] == out["dots"][0]["flash_attention_bwd"] == n
+    assert out["nothing"][1:] == out["dots"][1:]

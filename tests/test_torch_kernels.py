@@ -77,6 +77,30 @@ def test_gather_syrk_seg_plain_matches_jax(r, w, n, k, n_seg, s, bf16):
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("r,w,n,k,s", [(20, 8, 50, 16, 0), (13, 12, 60, 64, 0),
+                                       (9, 5, 30, 24, 3)])
+def test_gather_syrk_rows_match_jax(r, w, n, k, s):
+    """The row-level gather_syrk (every row its own segment) against
+    repro.kernels.ops.gather_syrk on its jnp path, at the fp32 tolerance
+    above, with a stacked draw axis in the last case; on the CPU it
+    launches nothing, and it is gather_syrk_seg with identity segments bit
+    for bit."""
+    rng = np.random.default_rng(r + w + k)
+    idx, val, msk, _ = _bucket(rng, r, w, n, r)
+    v = rng.normal(size=((s,) if s else ()) + (n, k)).astype(np.float32)
+    pj, bj = jops.gather_syrk(jnp.asarray(idx), jnp.asarray(val), jnp.asarray(msk),
+                              jnp.asarray(v), interpret=None)
+    ops.reset_launches()
+    pt, bt = ops.gather_syrk(_t(idx), _t(val), _t(msk), _t(v))
+    assert sum(ops.launches().values()) == 0
+    assert tuple(pt.shape) == tuple(pj.shape) == ((s,) if s else ()) + (r, k, k)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
+    ps, bs = ops.gather_syrk_seg(_t(idx), _t(val), _t(msk), torch.arange(r, dtype=torch.int32),
+                                 r, _t(v), identity_segments=True)
+    assert torch.equal(pt, ps) and torch.equal(bt, bs)
+
+
 def test_wrappers_do_not_count_cpu_calls():
     rng = np.random.default_rng(0)
     idx, val, msk, seg = _bucket(rng, 8, 8, 10, 4)

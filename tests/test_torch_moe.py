@@ -20,6 +20,10 @@ Tolerances, and why:
     router's product of 8 outputs is summed in another order (1.1e-6
     apart); a bf16 expert output one ulp off moves the sum by an ulp.
   * aux: rtol 1e-6; the mean over tokens is an fp32 sum in another order.
+  * the grouped dispatch (`moe_group_dispatch`, each sequence its own
+    group) against `_moe_grouped` at the same tolerances: bit for bit with
+    the shared functions, within the limits above with each package's own;
+    at one sequence it is the global dispatch bit for bit.
   * gradients in fp32: rtol 1e-4 and an atol of 1e-5 of each gradient's
     largest magnitude (tests/test_torch_train.py's).
   * the reduced decoder: rtol/atol 1e-4 in fp32 and 3e-2 in bf16
@@ -262,11 +266,142 @@ def test_top_k_takes_the_lower_index_first_among_ties():
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
 
 
+# ---------------------------------------------------------------------------
+# the grouped dispatch (moe_group_dispatch) and moe_ep_shard_map
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_moe_grouped_dispatch_bit_for_bit(dtype, cf, shared_elementwise):
+    """moe_group_dispatch: each of the 2 sequences is its own dispatch
+    group (routing, sort and capacity per sequence, cap = ceil(24 k / 8
+    cf)), and with the same elementwise functions and an exact router out
+    is `_moe_grouped`'s bits, dropped replicas included (aux at rtol
+    1e-6, as above). At capacity factor 1 the global dispatch drops other
+    replicas, so its output is not the grouped one's."""
+    jcfg, tcfg, jp, moe, x = _moe(dtype, cf, dyadic=True, moe_group_dispatch=True)
+    _no_ties(moe, x, tcfg)
+    xt = torch.tensor(x).to(tcfg.dtype)
+    route = tl.moe_route(moe, xt.reshape(-1, tcfg.d_model), tcfg, groups=2)
+    assert route.cap == max(1, -(-24 * 2 * int(cf) // 8)) and route.counts.shape == (16,)
+    with torch.no_grad():
+        out, aux = tl.moe_block(moe, xt, tcfg)
+        glob, _ = tl.moe_block(moe, xt, dataclasses.replace(tcfg, moe_group_dispatch=False))
+    jout, jaux = jl._moe_grouped(jp, jnp.asarray(x, jcfg.dtype), jcfg)
+    np.testing.assert_array_equal(_np(out), _np(jout))
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert (cf == 8.0) == np.array_equal(_np(glob), _np(out))
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_moe_grouped_dispatch_matches_jax(dtype, cf):
+    """Each package's own softmax and SiLU: the grouped dispatch within
+    the tolerances of test_moe_block_matches_jax of JAX's moe_block under
+    the same flag, and each group's counts its own."""
+    jcfg, tcfg, jp, moe, x = _moe(dtype, cf, moe_group_dispatch=True)
+    _no_ties(moe, x, tcfg)
+    with torch.no_grad():
+        out, aux = tl.moe_block(moe, torch.tensor(x).to(tcfg.dtype), tcfg)
+    jout, jaux = jl.moe_block(jp, jnp.asarray(x, jcfg.dtype), jcfg)
+    frac = 1e-5 if dtype == "fp32" else 2.0 ** -6
+    assert float(np.abs(_np(out) - _np(jout)).max()) <= frac * float(np.abs(_np(jout)).max())
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    k = jcfg.n_experts_active
+    xf = jnp.asarray(x, jcfg.dtype).reshape(48, -1)
+    _, jtop_e = jax.lax.top_k(jax.nn.softmax(xf.astype(jnp.float32) @ jp["router"], -1), k)
+    route = tl.moe_route(moe, torch.tensor(x).to(tcfg.dtype).reshape(48, -1), tcfg, groups=2)
+    per_group = np.stack([np.bincount(np.asarray(jtop_e)[24 * g:24 * (g + 1)].ravel(),
+                                      minlength=8) for g in range(2)], axis=1)
+    np.testing.assert_array_equal(route.counts.view(8, 2).numpy(), per_group)
+
+
 def test_moe_dispatches_not_ported_raise():
-    _, tcfg, _, moe, x = _moe("fp32", 8.0)
+    """Named when moe_group_dispatch and moe_ep_shard_map raised: both are
+    ported now, so each flag alone runs and gives JAX's moe_block under the
+    same flag (within test_moe_block_matches_jax's fp32 limit): the grouped
+    dispatch, and the EP flag falling through to the global dispatch
+    without a mesh."""
     for flag in ("moe_group_dispatch", "moe_ep_shard_map"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tl.moe_block(moe, torch.tensor(x), dataclasses.replace(tcfg, **{flag: True}))
+        jcfg, tcfg, jp, moe, x = _moe("fp32", 1.0, **{flag: True})
+        with torch.no_grad():
+            out, _ = tl.moe_block(moe, torch.tensor(x), tcfg)
+        jout, _ = jl.moe_block(jp, jnp.asarray(x), jcfg)
+        top = float(np.abs(_np(jout)).max())
+        assert float(np.abs(_np(out) - _np(jout)).max()) <= 1e-5 * top, flag
+
+
+@pytest.mark.parametrize("group", [False, True])
+def test_moe_ep_shard_map_without_a_mesh_falls_through(group):
+    """moe_ep_shard_map takes its shard_map only under an active mesh,
+    which the port never has: with it set the output is that of the flags
+    without it, as the JAX package's moe_block gives it without a mesh
+    (global dispatch alone, grouped with moe_group_dispatch)."""
+    jcfg, tcfg, jp, moe, x = _moe("fp32", 1.0, moe_ep_shard_map=True, moe_group_dispatch=group)
+    xt = torch.tensor(x)
+    with torch.no_grad():
+        out, _ = tl.moe_block(moe, xt, tcfg)
+        plain, _ = tl.moe_block(moe, xt, dataclasses.replace(tcfg, moe_ep_shard_map=False))
+    assert torch.equal(out, plain)
+    jout, _ = jl.moe_block(jp, jnp.asarray(x), jcfg)
+    assert float(np.abs(_np(out) - _np(jout)).max()) <= 1e-5 * float(np.abs(_np(jout)).max())
+
+
+def test_moe_grouped_dispatch_at_one_sequence_is_the_global_dispatch():
+    """At B = 1 the one group is the batch: the same sort and capacity, so
+    the grouped dispatch gives the global one's output and gradients bit
+    for bit (chip_smoke.py holds the same at full width on the card). At
+    S k < 4 E both take the global dispatch, as in JAX."""
+    _, tcfg, _, moe, x = _moe("bf16", 1.0)
+    outs = []
+    for group in (False, True):
+        xt = torch.tensor(x[:1]).bfloat16().requires_grad_()
+        for p in moe.parameters():
+            p.grad = None
+        out, aux = tl.moe_block(moe, xt, dataclasses.replace(tcfg, moe_group_dispatch=group))
+        (out.float().square().sum() + aux).backward()
+        outs.append([out.detach(), aux.detach(), xt.grad] + [p.grad for p in moe.parameters()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    short = torch.tensor(x[:, :15]).bfloat16()          # 15 x 2 < 4 x 8
+    with torch.no_grad():
+        a, _ = tl.moe_block(moe, short, dataclasses.replace(tcfg, moe_group_dispatch=True))
+        b, _ = tl.moe_block(moe, short, tcfg)
+    assert torch.equal(a, b)
+
+
+def test_moe_grouped_gradients_match_jax():
+    """The grouped dispatch's gradients of sum(out * c) + aux, fp32, with
+    dropped replicas, against jax.grad through moe_block under the same
+    flag, at test_moe_gradients_match_jax's tolerances; its backward adds
+    into no row by index either."""
+    jcfg, tcfg, jp, moe, x = _moe("fp32", 1.0, moe_group_dispatch=True)
+    c = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+
+    def jloss(params, xx):
+        out, aux = jl.moe_block(params, xx, jcfg)
+        return jnp.sum(out * c) + aux
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))({k: jnp.asarray(v) for k, v in jp.items()},
+                                               jnp.asarray(x))
+    xt = torch.tensor(x).requires_grad_()
+    out, aux = tl.moe_block(moe, xt, tcfg)
+    loss = (out * torch.tensor(c)).sum() + aux
+    names, stack, seen = set(), [loss.grad_fn], set()
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        stack.extend(f for f, _ in fn.next_functions)
+    assert not names & {"IndexBackward0", "IndexPutBackward0", "IndexAddBackward0",
+                        "ScatterAddBackward0", "IndexSelectBackward0"}
+    loss.backward()
+    for got, want, name in [(xt.grad, jgx, "x")] + [
+            (p.grad, jgp[n], n) for n, p in moe.named_parameters()]:
+        want = _np(want)
+        atol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(_np(got), want, rtol=1e-4, atol=atol, err_msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,7 @@ from repro_torch.models import layers as tl, transformer as tt  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.runtime.trainer import state_arrays  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -330,17 +331,130 @@ def test_remat_gradients_are_bit_equal(seq):
         assert torch.equal(g, grads[True][1][name]), name
 
 
+class _OpCounts(TorchDispatchMode):
+    """The dispatcher ops run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.n: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.n[name] = self.n.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _policy_run(cfg, params, batch, policy, monkeypatch):
+    """loss, gradients, the bytes the policy kept (beside the layers'
+    inputs), and the backward's matrix products and flash forwards."""
+    kept = [0]
+    real = tt.REMAT_POLICIES[policy]
+    if real is not None:
+        def counting(ctx, op, *args, **kwargs):
+            out = real(ctx, op, *args, **kwargs)
+            if out in (True, torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE):
+                outs = ctx.op_output if isinstance(ctx.op_output, (tuple, list)) \
+                    else [ctx.op_output]
+                kept[0] += sum(t.numel() * t.element_size() for t in outs)
+            return out
+        monkeypatch.setitem(tt.REMAT_POLICIES, policy, counting)
+    for p in params.parameters():
+        p.grad = None
+    model = DecoderModel(dataclasses.replace(cfg, remat=True, remat_policy=policy),
+                         device="cpu")
+    loss, _ = model.loss_fn(params, batch)
+    counts = _OpCounts()
+    with counts:
+        loss.backward()
+    monkeypatch.setitem(tt.REMAT_POLICIES, policy, real)
+    grads = {n: p.grad.clone() for n, p in params.named_parameters()}
+    gemms = counts.n.get("mm", 0) + counts.n.get("bmm", 0) + counts.n.get("addmm", 0)
+    return float(loss.detach()), grads, kept[0], gemms, counts.n.get("flash_forward", 0)
+
+
 def test_remat_policies_not_ported_raise():
+    """Named when "dots" and "attn_probs" raised under grad: both are
+    ported now, so each runs with grad at reduced gemma2-2b's bf16 (S = 16,
+    the direct path) to the loss and gradients of "nothing" bit for bit,
+    and without grad, where nothing is recomputed, to the same loss."""
     cfg = reduced(get_config("gemma2-2b"))
     params = DecoderModel(cfg, device="cpu").init(seed=0)
     batch = TokenStream(cfg, 1, 16, seed=0)(0)
-    for policy in ("dots", "attn_probs"):
+    runs = {}
+    for policy in ("nothing", "dots", "attn_probs"):
         model = DecoderModel(dataclasses.replace(cfg, remat=True, remat_policy=policy),
                              device="cpu")
-        with pytest.raises(NotImplementedError, match="12.4"):
-            model.loss_fn(params, batch)
-        with torch.no_grad():       # no backward: nothing to recompute
-            assert torch.isfinite(model.loss_fn(params, batch)[0])
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = model.loss_fn(params, batch)
+        loss.backward()
+        with torch.no_grad():
+            plain = model.loss_fn(params, batch)[0]
+        assert torch.equal(plain, loss.detach())
+        runs[policy] = [loss.detach()] + [p.grad.clone() for p in params.parameters()]
+    for policy in ("dots", "attn_probs"):
+        assert all(torch.equal(a, b) for a, b in zip(runs["nothing"], runs[policy])), policy
+
+
+@pytest.mark.parametrize("name", ["fp32", "bf16"])
+@pytest.mark.parametrize("seq", [64, 32])
+def test_remat_policies_give_equal_gradients_and_keep_what_they_name(seq, name,
+                                                                     monkeypatch):
+    """The three remat policies under torch.utils.checkpoint give the same
+    loss and gradients bit for bit, on both attention paths. "dots" keeps
+    every product's output and the flash forward's, so its backward
+    recomputes no product of the forward and launches no flash forward;
+    "attn_probs" keeps only the direct path's probabilities: on the flash
+    path (S = 64) nothing, as "nothing"; on the direct path (S = 32) the
+    (B, H, S, S) tensor of each layer, fewer bytes than "dots" keeps."""
+    _, tdt = DTYPES[name]
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), dtype=tdt, param_dtype=tdt)
+    params = DecoderModel(cfg, device="cpu").init(seed=1)
+    batch = TokenStream(cfg, 2, seq, seed=2)(0)
+    runs = {p: _policy_run(cfg, params, batch, p, monkeypatch)
+            for p in ("nothing", "attn_probs", "dots")}
+    loss, grads = runs["nothing"][:2]
+    for policy, (l2, g2, *_) in runs.items():
+        assert l2 == loss, policy
+        for n, g in grads.items():
+            assert torch.equal(g, g2[n]), (policy, n)
+    kept = {p: r[2] for p, r in runs.items()}
+    gemms = {p: r[3] for p, r in runs.items()}
+    flash = {p: r[4] for p, r in runs.items()}
+    probs = cfg.n_layers * 2 * cfg.n_heads * seq * seq * tdt.itemsize
+    assert kept["nothing"] == 0 and kept["dots"] > 0
+    assert kept["attn_probs"] == (0 if seq == 64 else probs) <= kept["dots"]
+    # the forward's products are recomputed under "nothing" and
+    # "attn_probs" (the softmax's backward needs the recomputed scores)
+    assert gemms["dots"] < gemms["attn_probs"] == gemms["nothing"]
+    assert flash == ({"nothing": 2, "attn_probs": 2, "dots": 0} if seq == 64
+                     else dict.fromkeys(runs, 0))
+
+
+@pytest.mark.parametrize("policy", ["dots", "attn_probs"])
+@pytest.mark.parametrize("seq", [64, 32])
+def test_remat_policy_gradients_match_jax(seq, policy):
+    """The reduced gemma2-2b's gradients in fp32 under remat with each
+    policy against jax.grad under the same policy (the flash path at S =
+    64, the direct at 32), at the reduced model's gradient tolerance."""
+    jcfg, tcfg, jmodel, jparams, tmodel, tparams = _models(
+        "fp32", remat=True, remat_policy=policy)
+    batch = TokenStream(tcfg, 2, seq, seed=3)(0)
+    loss, _ = tmodel.loss_fn(tparams, batch)
+    loss.backward()
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jmodel.loss_fn, has_aux=True))(
+        jparams, batch)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    for n, p in tparams.named_parameters():
+        _close_to_max(p.grad, _port_leaf(jgrads, n), rtol=1e-4, frac=1e-5)
+
+
+def test_an_unknown_remat_policy_raises():
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), remat=True,
+                              remat_policy="everything")
+    params = DecoderModel(cfg, device="cpu").init(seed=0)
+    with pytest.raises(ValueError, match="remat_policy"):
+        DecoderModel(cfg, device="cpu").loss_fn(params, TokenStream(cfg, 1, 16, seed=0)(0))
 
 
 # ---------------------------------------------------------------------------
