@@ -248,7 +248,29 @@ no kernels line and no result line. Phases:
               dropped): each must fail one of the checks of phase 16, 17,
               18 or 19 (the MoE and norm checks at 4 layers, as they hold
               each layer on its own input)
- 24. report   one JSON line of kernels, the card line, and the last line
+ 24. dryrun   the dry-run and cost model (repro_torch/launch/dryrun.py,
+              bpmf_dryrun.py, cost.py): (a) every cell of all_cells()
+              (each config x its LM shapes, kimi-k2-1t-a32b's included) on
+              the meta device at full size under the op-level cost counter,
+              in DRYRUN_JOBS processes, one line a cell (parameters, peak
+              GB, whether it fits one card, TFLOP, GB moved, the roofline's
+              dominant term and bound), every cell ending ok (one that does
+              not fit is a finding); meanwhile the host makes
+              movielens_like(1.0) (138,493 x 27,278, 20 M ratings) and its
+              grid plans at P = 4 (width "auto"); (b) three cells counted on
+              the meta device at their exact shapes and run on the card:
+              gemma2-2b's forward at B = 1, S = 8,192 (26 flash launches),
+              stablelm-1.6b's train step at B = 1, S = 8,192 (the flash
+              backward), and the ml20m ring sweep at K = 64 through
+              gather_syrk_seg; each prints the measured device-busy time
+              beside the modelled compute_s, memory_s and bound, and the
+              modelled peak beside torch.cuda.max_memory_allocated; the busy
+              time must be at least compute_s (at the bf16 peak, and with
+              fp32 products at the fp32 pipes' rate), the modelled peak
+              within DRYRUN_PEAK_RTOL of the measured one; the phase's host
+              time against DRYRUN_BUDGET_S. (c), the model-FLOPs share, is
+              phase 21's line: `models/api.py::model_flops_per_step`
+ 25. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
 The main path is phases 6, 9, 16, 17 and 21, the serving tier's paths are
@@ -294,17 +316,20 @@ import time
 import traceback
 from pathlib import Path
 
-# the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_TENSOR_FLOPS = 989e12
+# the card's published peaks, `repro_torch/launch/mesh.py`'s (NVIDIA H100
+# SXM data sheet), and the flash pair's visible pairs
+# (`repro_torch/kernels/ops.py::visible_pairs`): the bounds below; bound by
+# main() once it has found the port (`bind_port`)
+HBM_BYTES_PER_S = FP32_FLOPS = BF16_TENSOR_FLOPS = None
 # the flash pair's bounds count the function's products, one bf16 tensor
-# pass each over the visible (query, key) pairs: QK^T and P V forward; S, dV,
-# dP, dQ and dK backward. The bf16 kernels split the fp32 P (and dS) into
-# three exact bf16 terms, which makes 4 and 11 passes: printed beside the
-# bound as bound_ms_split3, the kernels' own floor, not the function's
-FLASH_FWD_PASSES, FLASH_FWD_SPLIT3_PASSES = 2, 4
-FLASH_BWD_PASSES, FLASH_BWD_SPLIT3_PASSES = 5, 11
+# pass each over the visible (query, key) pairs (`ops.FLASH_FWD_PASSES`, 2:
+# QK^T and P V forward; `ops.FLASH_BWD_PASSES`, 5: S, dV, dP, dQ and dK
+# backward; bound by `bind_port`). The bf16 kernels split the fp32 P (and
+# dS) into three exact bf16 terms, which makes 4 and 11 passes: printed
+# beside the bound as bound_ms_split3, the kernels' own floor, not the
+# function's
+FLASH_FWD_PASSES = FLASH_BWD_PASSES = None
+FLASH_FWD_SPLIT3_PASSES, FLASH_BWD_SPLIT3_PASSES = 4, 11
 SECTOR = 32                            # bytes: the least the memory moves at once
 K = 64
 # flops of one rating's statistics: the symmetric v v^T needs K(K+1)/2
@@ -346,7 +371,6 @@ SGLD_WARM = 5
 SGLD_DET_STEPS = 10                    # the two chains held bit for bit
 SGLD_GATE = 0.05                       # tests/test_sgld.py::test_sgld_converges_and_tracks_gibbs
 ALS_GATE = 0.02                        # tests/test_bpmf.py::test_bpmf_beats_or_matches_als
-PROFILE_MARGIN_S = 0.2                 # idle before and after the recorded call (_profile)
 # the LM path: gemma2-2b at full width
 LM_SEQ = 8192                          # the cache-free forward's S: chunked_attn_min_len
 LM_SERVE = (4, 2048, 32)               # prompts, prompt length, new tokens (31 decode steps)
@@ -532,6 +556,13 @@ MM_BWD_SEED = 27
 MM_PLANT_PAD_KEYS = 64
 # the fp32 flash kernel's column layout, and the one it had before D = 112
 # (the 96-column plant of lm_ssm)
+# phase dryrun: the meta sweep's processes (the card's host has 8 cores:
+# the rest make ml20m and its plans meanwhile), the modelled peak's
+# tolerance against the measured one, and the phase's budget of host time
+DRYRUN_JOBS = 4
+DRYRUN_PEAK_RTOL = 0.2
+DRYRUN_BUDGET_S = 120.0
+
 FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
   constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
   constexpr int CPT = GROUPS * VEC;
@@ -591,7 +622,7 @@ def card_line() -> str:
 PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
           "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
           "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train", "lm_train_mm",
-          "lm_faults")
+          "lm_faults", "dryrun")
 
 
 def main() -> int:
@@ -623,6 +654,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the kernels run only on the card",
               file=sys.stderr)
         return 2
+    bind_port()
     smoke = Smoke(torch, phases, own_src=args.src is None)
     print(f"package: {src / 'repro_torch'}")
     # bound before any runs: phase data sets attributes (train, test) that
@@ -660,8 +692,10 @@ class Smoke:
         import numpy as np
 
         from repro_torch.kernels import build, ops, ref
+        from repro_torch.launch import profile
 
         self.torch, self.np = torch, np
+        self.profile_mod = profile
         self.build_mod, self.ops, self.ref = build, ops, ref
         self.dev = torch.device("cuda")
         # stated, not assumed: fp32 products stay IEEE fp32 (no TF32)
@@ -689,17 +723,9 @@ class Smoke:
         self.torch.cuda.synchronize()
 
     def cuda_ms(self, fn, reps: int = 5) -> float:
-        """Mean device time of fn over reps calls after one warm-up call."""
-        fn()
-        self.sync()
-        start = self.torch.cuda.Event(enable_timing=True)
-        end = self.torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
+        """Mean device time of fn over reps calls after one warm-up call
+        (`repro_torch/launch/profile.py::cuda_ms`)."""
+        return self.profile_mod.cuda_ms(fn, reps)
 
     @staticmethod
     def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -1363,61 +1389,20 @@ class Smoke:
 
     def _profile(self, fn, wall: float, what: str = "sweep", trace: Path | None = None,
                  complete=bool, activities=("cpu", "cuda")) -> list:
-        """Device time by kernel of one call of fn under torch.profiler; the
-        idle share is taken against `wall`, the call's unprofiled time in ms
-        (the profiler's own start-up would swamp a wall clock around it).
-        Returns the trace's device events, one per kernel name, each with
-        its launch count (none where the trace holds no device time).
-
-        fn runs twice: once as the profiler's warm-up step, unrecorded, then
-        recorded. Recorded from the start, a profiler session after the
-        first in a process can miss the first kernel its window launches
-        (on the H100: top-N's score kernel, one of a sweep's). `trace` names
-        a file for the recorded call's timeline (a Chrome trace).
-
-        The profiler has dropped a trace's device events on the H100 now
-        and then: all of a top-N call's or part of one (1 of 2 kernels,
-        9 of 12), or part of a sweep's (364 of 397 kernels; a ring sweep's
-        652 of 760). The profiler keeps only device events that it places
-        inside its recording window, and a skew between the card's clock
-        and the host's can place the call's first or last kernels outside
-        it; so the recorded call sits PROFILE_MARGIN_S of idle inside the
-        window at each end. A trace that `complete(events)` rejects (by
-        default: one without device time) is taken again, up to twice,
-        and said so (PERF.md §6). `activities` names what the profiler
-        records: ("cuda",) keeps the host's events out of a call of
-        hundreds of thousands of launches."""
-        torch = self.torch
-        from torch.profiler import ProfilerActivity, profile, schedule
-
-        def ready(p):
-            traces.append(p.key_averages())
-            if trace is not None:
-                p.export_chrome_trace(str(trace))
-
-        for attempt in range(3):
-            self.sync()
-            traces = []
-            with profile(activities=[getattr(ProfilerActivity, a.upper()) for a in activities],
-                         schedule=schedule(wait=0, warmup=1, active=1),
-                         on_trace_ready=ready) as prof:
-                for recorded in (False, True):
-                    if recorded:
-                        time.sleep(PROFILE_MARGIN_S)
-                    fn()
-                    self.sync()
-                    if recorded:
-                        time.sleep(PROFILE_MARGIN_S)
-                    prof.step()
-            # the step's own span ("ProfilerStep*") is no kernel
-            events = [e for e in (traces[0] if traces else [])
-                      if getattr(e, "device_time_total", 0) > 0
-                      and e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")]
-            if complete(events) or attempt == 2:
-                break
+        """Device time by kernel of one call of fn under torch.profiler
+        (`repro_torch/launch/profile.py::profile_call`: a warm-up step, the
+        recorded call inside idle margins, a trace that `complete` rejects
+        taken again up to twice), printed with the idle share against
+        `wall`, the call's unprofiled time in ms. Returns the trace's device
+        events, one per kernel name, each with its launch count (none where
+        the trace holds no device time)."""
+        def retry(events):
             print(f"profiled {what}: the trace holds {sum(e.count for e in events)} "
                   "kernels, cut by the profiler; profiling again")
+
+        events = self.profile_mod.profile_call(fn, wall, complete=complete,
+                                               activities=activities, trace=trace,
+                                               on_retry=retry).events
         busy = sum(e.device_time_total for e in events) / 1e3
         if not events:
             print(f"profiled {what}: no device time in the trace (not measured)")
@@ -5940,6 +5925,7 @@ class Smoke:
 
         from repro_torch.data.tokens import TokenStream
         from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.models.api import ShapeSpec, model_flops_per_step
         from repro_torch.optim import AdamWConfig
 
         torch, ops = self.torch, self.ops
@@ -5979,15 +5965,22 @@ class Smoke:
         self.main_launches["flash_attention_bwd"] = launches["flash_attention_bwd"]
         dt = sum(times) / len(times)
         per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
+        # the model FLOPs of a step: the JAX package's definition,
+        # models/api.py::model_flops_per_step (6 N_active tokens), and beside
+        # it the same with attention's scores and P V (the function's 6 D
+        # products a visible pair a head: 2 forward, 4 backward)
+        model_flops = model_flops_per_step(cfg, ShapeSpec("lm_train", LM_SEQ, 1, "train"))
         attn = 12.0 * cfg.hd * cfg.n_heads * (cfg.n_layers // 2) * (
             visible_pairs(LM_SEQ, cfg.sliding_window) + visible_pairs(LM_SEQ, 0))
-        flops = 6.0 * n_params * LM_SEQ + attn
-        share = flops / (dt * BF16_TENSOR_FLOPS)
+        share = model_flops / (dt * BF16_TENSOR_FLOPS)
+        share_attn = (model_flops + attn) / (dt * BF16_TENSOR_FLOPS)
         print(f"train step at B=1, S={LM_SEQ}, remat on: {dt:.3f} s a step "
               f"({', '.join(f'{t:.3f}' for t in times)}), {LM_SEQ / dt:,.0f} tokens/s, "
               f"peak device memory {peak:.2f} GB (warm-up step {warm_peak:.2f} GB), "
-              f"model FLOPs {flops / 1e12:.1f} TFLOP a step (6 N tokens + attention "
-              f"{attn / 1e12:.1f}), {share:.3f} of {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s; "
+              f"model FLOPs share of {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s: {share:.3f} by "
+              f"model_flops_per_step (the JAX definition, 6 N_active tokens = "
+              f"{model_flops / 1e12:.1f} TFLOP a step), {share_attn:.3f} with attention "
+              f"({(model_flops + attn) / 1e12:.1f} TFLOP, attention {attn / 1e12:.1f}); "
               f"launches a step {per}; losses {first[0]:.5f} then "
               f"{', '.join(f'{x:.5f}' for x in losses)}, lr {first[2]:.3g} first")
         self.check(launches["flash_attention"] == 2 * cfg.n_layers * LM_TRAIN_STEPS
@@ -6000,7 +5993,7 @@ class Smoke:
                    "every step's loss and grad_norm are finite")
         self.check(peak < 80.0, f"peak device memory {peak:.2f} GB is under 80 GB")
         self.lm_train_numbers = dict(s=dt, tokens_per_s=LM_SEQ / dt, peak_gb=peak,
-                                     share=share)
+                                     share=share, share_attn=share_attn)
 
         events = self._profile(lambda: step(state, batches[1]), dt * 1e3, "train step")
         self.print_split(events, "train step")
@@ -6124,6 +6117,180 @@ class Smoke:
         self.check(n["flash_attention_bwd"] > 0 and all(
             np.isfinite(x) for x in out["loss_history"]),
             "the reduced steps ran the backward kernel and every loss is finite")
+
+    def dryrun(self):
+        """Phase dryrun (the module docstring): the meta sweep of every
+        cell, then three cells counted on the meta device and run on the
+        card."""
+        import dataclasses
+
+        from repro_torch.configs import REGISTRY, reduced
+        from repro_torch.launch import bpmf_dryrun, dryrun
+        from repro_torch.models.api import ShapeSpec
+
+        t_phase = time.perf_counter()
+        cells = dryrun.all_cells()
+        out, (sampler, info) = dryrun.sweep(
+            cells, jobs=DRYRUN_JOBS, save=False,
+            meanwhile=lambda: bpmf_dryrun.real_sampler("ml20m", "ring", DIST_SHARDS, K, "fused"))
+        recs = {(r["arch"], r["shape"]): r for r in out}
+        sweep_s = time.perf_counter() - t_phase
+        print(f"(a) the meta sweep: {len(recs)} cells in {sweep_s:.1f} s of host "
+              f"({DRYRUN_JOBS} processes; the longest cell "
+              f"{max(r['total_s'] for r in recs.values()):.1f} s); meanwhile ml20m "
+              f"{info['m']:,} x {info['n']:,}, {info['nnz']:,} ratings in "
+              f"{info['data_s']:.1f} s and its grid plans (P = {DIST_SHARDS}: widths "
+              f"{info['width_u']} and {info['width_v']}, {info['rows_u']:,} and "
+              f"{info['rows_v']:,} rows a block) in {info['plan_s']:.1f} s")
+        for cell in cells:
+            print("  " + dryrun.summary_line(recs[cell]))
+        bad = [c for c in cells if not recs[c]["ok"]]
+        for c in bad:
+            print(recs[c]["traceback"])
+        self.check(not bad and len(recs) == len(cells),
+                   f"every cell of all_cells() ({len(cells)}, kimi-k2-1t-a32b's included) "
+                   f"ends ok on the meta device{'; failed: ' + str(bad) if bad else ''}")
+        self.check(all(not r["launches"] for r in recs.values()),
+                   "the meta sweep launched no kernel of the port")
+        # the loops the counter cuts (`cost.steps`) against the same loops
+        # run whole, on this torch, at a small size
+        for arch, chunk in (("xlstm-350m", None), ("zamba2-7b", 32)):
+            cfg = dataclasses.replace(reduced(REGISTRY[arch]), remat=True,
+                                      ssm_chunk=chunk or REGISTRY[arch].ssm_chunk)
+            cut, full = dryrun.cut_and_full(cfg, ShapeSpec("train", 256, 1, "train"))
+            reps = cut.pop("repeated_ops")
+            full.pop("repeated_ops")
+            self.check(cut == full and reps > 0,
+                       f"reduced {arch}'s train step at S = 256, remat on: the cut loops "
+                       f"({reps:,} op calls counted as repeats) count what the full loops "
+                       f"count: {cut} against {full}")
+        over = [f"{a} {s}" for (a, s), r in sorted(recs.items())
+                if r["ok"] and not r["fits_one_card"]]
+        print(f"  does not fit one 80 GB card (a finding): {len(over)} of {len(cells)} "
+              f"cells: {', '.join(over)}")
+
+        self.dryrun_lm("gemma2-2b", "forward")
+        self.dryrun_lm("stablelm-1.6b", "train")
+        self.dryrun_bpmf(sampler, info)
+        del sampler
+        total = time.perf_counter() - t_phase
+        print(f"phase dryrun: {total:.1f} s of host (budget {DRYRUN_BUDGET_S:.0f} s)")
+        self.check(total <= DRYRUN_BUDGET_S,
+                   f"phase dryrun took {total:.1f} s, within {DRYRUN_BUDGET_S:.0f} s")
+
+    def dryrun_compare(self, what: str, rec: dict, busy_ms: float, measured_peak: int,
+                       max_alloc: int) -> None:
+        """A measured cell beside its count on the meta device: the busy
+        time against compute_s, the modelled peak against the measured."""
+        r = rec["roofline"]
+        model_peak = rec["memory"]["peak_bytes"]
+        print(f"  {what}: measured {busy_ms:.2f} ms device busy; modelled compute_s "
+              f"{r['compute_s'] * 1e3:.3f} ms (all products at the bf16 peak; "
+              f"{rec['compute_s_by_pipe'] * 1e3:.3f} ms with fp32 products on the fp32 "
+              f"pipes), memory_s {r['memory_s'] * 1e3:.3f} ms, step_lower_bound_s "
+              f"{r['step_lower_bound_s'] * 1e3:.3f} ms ({r['dominant']}); "
+              f"{rec['flops'] / 1e12:.3f} TFLOP, {rec['hbm_bytes'] / 1e9:.2f} GB moved; "
+              f"peak modelled {model_peak / 1e9:.3f} GB, measured {measured_peak / 1e9:.3f} "
+              f"GB (torch.cuda.max_memory_allocated {max_alloc / 1e9:.3f} GB, less what "
+              f"was allocated before the call and is not the cell's)")
+        self.check(busy_ms / 1e3 >= r["compute_s"] and busy_ms / 1e3 >= rec["compute_s_by_pipe"],
+                   f"{what}: the measured busy time ({busy_ms:.2f} ms) is at least the "
+                   f"modelled compute_s ({r['compute_s'] * 1e3:.3f} ms; by pipe "
+                   f"{rec['compute_s_by_pipe'] * 1e3:.3f} ms)")
+        gap = abs(model_peak - measured_peak) / measured_peak
+        self.check(gap <= DRYRUN_PEAK_RTOL,
+                   f"{what}: the modelled peak is within {DRYRUN_PEAK_RTOL:.0%} of the "
+                   f"measured one ({gap:.3f})")
+
+    def dryrun_lm(self, arch: str, kind: str) -> None:
+        """One LM cell at B = 1, S = LM_SEQ: counted on the meta device, then
+        run on the card once to warm up, once timed (launches, peak) and
+        once profiled."""
+        import gc
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.train import adamw_config, init_train_state, make_train_step
+        from repro_torch.models import build_model
+        from repro_torch.models.api import ShapeSpec
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config(arch)
+        shape = ShapeSpec(f"{kind}_{LM_SEQ}", LM_SEQ, 1, kind)
+        t0 = time.perf_counter()
+        counter, out_bytes = dryrun.lower_cell(cfg, shape)
+        rec = dryrun.cell_record(cfg, shape, counter, out_bytes)
+        meta_s = time.perf_counter() - t0
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if kind == "train":
+            state = init_train_state(cfg, 0, adamw_config(cfg))
+            step = make_train_step(cfg, adamw_config(cfg))
+            args = dryrun.tensors_of(state)
+
+            def call():
+                return step(state, batch)
+        else:
+            model = build_model(cfg)
+            params = model.init(seed=0)
+            args = dryrun.tensors_of(params)
+
+            def call():
+                with torch.no_grad():
+                    return model.loss_fn(params, batch)
+        call()                                    # warm-up
+        self.sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        call()
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launches().items() if v}
+        max_alloc = torch.cuda.max_memory_allocated()
+        measured = max_alloc - base + dryrun.storage_bytes(args)
+        events = self._profile(call, wall * 1e3, f"{arch} {kind}")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        print(f"(b) {arch} {kind} at B=1, S={LM_SEQ}: {wall:.3f} s on the card, launches "
+              f"{launches}; the meta pass {meta_s:.1f} s ({rec['ops']:,} ops, "
+              f"{rec['repeated_ops']:,} of them repeats of a loop's iteration); model "
+              f"FLOPs {rec['model_flops'] / 1e12:.2f} TFLOP, {rec['useful_flops_ratio']:.3f} "
+              f"of the counted")
+        want = ({"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+                if kind == "train" else {"flash_attention": cfg.n_layers})
+        self.check(launches == want, f"{arch} {kind}: the kernels launched {launches} "
+                   f"(want {want})")
+        if events:
+            self.dryrun_compare(f"{arch} {kind}", rec, busy, measured, max_alloc)
+        else:
+            self.check(False, f"{arch} {kind}: the profile holds device time")
+        del call, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dryrun_bpmf(self, sampler, info: dict) -> None:
+        """The ml20m ring sweep at K = 64 over P = 4 shards on the card
+        (`bpmf_dryrun.measure`: counted at the real plans' shapes, a warm-up
+        sweep, a timed one, a profiled one)."""
+        from repro_torch.launch import bpmf_dryrun
+
+        rec = bpmf_dryrun.measure("ml20m", "ring", DIST_SHARDS, K, "fused",
+                                  sampler=sampler, info=info)
+        print(f"(b) ml20m ring sweep, K = {K}, P = {DIST_SHARDS} on the card, engine fused: "
+              f"{rec['sweep_s']:.4f} s, launches {rec['launches']}, the meta pass "
+              f"{rec['meta_s']:.1f} s; model FLOPs {rec['model_flops'] / 1e12:.3f} TFLOP, "
+              f"{rec['useful_flops_ratio']:.3f} of the counted; exchange "
+              f"{rec['exchange_bytes'] / 1e9:.3f} GB; idle share {rec['idle_share']:.3f}")
+        self.check(rec["launches"].get("gather_syrk_seg", 0) == 2 * DIST_SHARDS ** 2
+                   and set(rec["launches"]) == {"gather_syrk_seg"},
+                   f"the ml20m ring sweep launched gather_syrk_seg {2 * DIST_SHARDS ** 2} "
+                   f"times (a block a shard a step, both phases) and no other kernel: "
+                   f"{rec['launches']}")
+        self.dryrun_compare("ml20m ring sweep", rec, rec["busy_ms"], rec["measured_peak_bytes"],
+                            rec["max_memory_allocated"])
 
     def lm_faults(self):
         """Faults planted in the LM path, one at a time, each run through the
@@ -6370,9 +6537,21 @@ class Smoke:
 def visible_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal sequence of s tokens attends, with a
     sliding window (0 = none): sum over q of min(q + 1, window)."""
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+    from repro_torch.kernels.ops import visible_pairs as pairs
+
+    return pairs(s, window=window)
+
+
+def bind_port() -> None:
+    """The card's roofline constants (`launch/mesh.py`) and the flash
+    pair's passes (`kernels/ops.py`) from the port."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+
+    global HBM_BYTES_PER_S, FP32_FLOPS, BF16_TENSOR_FLOPS, FLASH_FWD_PASSES, FLASH_BWD_PASSES
+    HBM_BYTES_PER_S, FP32_FLOPS, BF16_TENSOR_FLOPS = (
+        mesh.HBM_BYTES_PER_S, mesh.FP32_FLOPS, mesh.BF16_TENSOR_FLOPS)
+    FLASH_FWD_PASSES, FLASH_BWD_PASSES = ops.FLASH_FWD_PASSES, ops.FLASH_BWD_PASSES
 
 
 if __name__ == "__main__":

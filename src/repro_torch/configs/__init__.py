@@ -4,8 +4,9 @@
 architecture; `reduced(cfg)` shrinks it to a CPU-runnable size of the same
 family, as `repro.configs.reduced` does. The dense configs, the MoE
 granite-moe-3b-a800m, the SSM xlstm-350m, the hybrid zamba2-7b, the audio
-whisper-medium and the VLM qwen2-vl-7b are ported; kimi-k2-1t-a32b, which
-needs several cards, raises NotImplementedError, naming ROADMAP.md.
+whisper-medium, the VLM qwen2-vl-7b and the trillion-parameter MoE
+kimi-k2-1t-a32b (which runs only on the meta device here: the dry-run,
+`launch/dryrun.py`) are ported; any other name raises NotImplementedError.
 `apply_variant(cfg, "opt")` applies the JAX package's perf overlay
 (`configs/variants.py`).
 """
@@ -16,6 +17,7 @@ import dataclasses
 from repro_torch.configs.gemma2_2b import CONFIG as gemma2_2b
 from repro_torch.configs.granite_20b import CONFIG as granite_20b
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as kimi_k2_1t_a32b
 from repro_torch.configs.qwen2_vl_7b import CONFIG as qwen2_vl_7b
 from repro_torch.configs.smollm_360m import CONFIG as smollm_360m
 from repro_torch.configs.stablelm_1_6b import CONFIG as stablelm_1_6b
@@ -27,8 +29,8 @@ from repro_torch.models.layers import ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
-    for c in (granite_moe_3b_a800m, granite_20b, gemma2_2b, stablelm_1_6b, smollm_360m,
-              xlstm_350m, whisper_medium, zamba2_7b, qwen2_vl_7b)
+    for c in (granite_moe_3b_a800m, kimi_k2_1t_a32b, granite_20b, gemma2_2b, stablelm_1_6b,
+              smollm_360m, xlstm_350m, whisper_medium, zamba2_7b, qwen2_vl_7b)
 }
 
 
@@ -36,9 +38,8 @@ def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
     if key not in REGISTRY:
         raise NotImplementedError(
-            f"{name} is not an architecture of repro_torch (ported: "
-            f"{sorted(REGISTRY)}); ROADMAP.md (queue 1, items 7 and 12) lists the LM "
-            f"modules left to port, in order")
+            f"{name} is not an architecture of repro_torch (ported: {sorted(REGISTRY)}); "
+            "ROADMAP.md lists what is left to port")
     return REGISTRY[key]
 
 

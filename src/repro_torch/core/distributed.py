@@ -413,6 +413,26 @@ class DistributedBPMF:
                       for p, d in enumerate(self.devices))
         return _Side(n_loc=part.n_loc, ids=ids, valid=valid, plans=plans)
 
+    @classmethod
+    def from_sides(cls, m: int, n: int, u_side: _Side, v_side: _Side, *, k: int,
+                   alpha: float = 1.5, mode: str = "ring", engine: str = "einsum"
+                   ) -> "DistributedBPMF":
+        """A sampler over sides given as they are, with no ratings and no
+        planner: the dry-run's plans of the right shapes on the meta device
+        (`launch/bpmf_dryrun.py`). Its noise is drawn without a generator
+        (the meta device has none); it has no test split."""
+        self = cls.__new__(cls)
+        self.devices = [ids.device for ids in u_side.ids]
+        self.n_shards = len(self.devices)
+        self.k, self.alpha, self.mode, self.engine = k, alpha, mode, engine
+        self.global_mean, self.test = 0.0, None
+        self.m, self.n = m, n
+        self._u, self._v = u_side, v_side
+        self.prior = default_prior(k, device=self.devices[0])
+        self.generator = None
+        self._streams = {}
+        return self
+
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> DistState:
         """Reseed the generator and draw the initial factors, 0.1 N(0, 1)

@@ -20,12 +20,18 @@ collective is a copy or a fixed-order sum between the shards' tensors:
 
 No atomics: every sum runs in a fixed order, so the exchange modes give
 the same bits on every run. On the CPU the copies are plain copies.
+
+Each collective runs under `launch/cost.py::exchanging()`: what the ops
+inside it write is the exchange's bytes to the dry-run's cost counter, the
+analog of the JAX package's collective bytes.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+
+from repro_torch.launch.cost import exchanging
 
 
 def _event_now(device: torch.device) -> torch.cuda.Event:
@@ -78,6 +84,10 @@ class RingExchange:
             self._reading[p].append(_event_now(self.devices[p]))
 
     def forward(self) -> None:
+        with exchanging():
+            self._forward()
+
+    def _forward(self) -> None:
         n = len(self.blocks)
         slot = self._slot
         nxt, ready = [None] * n, [None] * n
@@ -123,12 +133,14 @@ class RingExchange:
 def all_gather(blocks: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
     """lax.all_gather + reshape: the P blocks in shard order, stacked along
     rows on `device`."""
-    return torch.cat([b.to(device) for b in blocks])
+    with exchanging():
+        return torch.cat([b.to(device) for b in blocks])
 
 
 def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """lax.psum: the parts summed in shard order on the first part's device."""
     total = parts[0]
-    for part in parts[1:]:
-        total = total + part.to(total.device)
+    with exchanging():
+        for part in parts[1:]:
+            total = total + part.to(total.device)
     return total

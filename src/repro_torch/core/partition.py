@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.buckets import workload_model
-from repro_torch.data.sparse import SparseRatings
+from repro_torch.data.sparse import SparseRatings, stable_argsort
 
 
 @dataclass(frozen=True)
@@ -138,14 +138,16 @@ def build_grid_plan(
     n_shards = item_part.ids.shape[0]
     n_loc = item_part.n_loc
 
-    # ratings grouped by (p, q, local item), each group in (row, col) order
-    order = np.lexsort((ratings.cols, ratings.rows))
+    # ratings grouped by (p, q, local item), each group in (row, col) order;
+    # each stable argsort of one int64 key is the lexsort of its parts
+    n_cols = int(ratings.shape[1])
+    order = stable_argsort(ratings.rows.astype(np.int64) * n_cols + ratings.cols)
     rows, cols = ratings.rows[order], ratings.cols[order]
     vals = ratings.vals[order]
     p = item_part.shard[rows].astype(np.int64)
     q = counter_part.shard[cols].astype(np.int64)
     litem = item_part.local[rows].astype(np.int64)
-    group_order = np.lexsort((litem, q, p))      # stable: keeps (row, col) order
+    group_order = stable_argsort((p * n_shards + q) * max(n_loc, 1) + litem)
     p, q, litem = p[group_order], q[group_order], litem[group_order]
     lcol = counter_part.local[cols[group_order]]
     vals = vals[group_order]
@@ -182,10 +184,12 @@ def build_grid_plan(
     val = np.zeros((n_shards, n_shards, r_max, width), np.float32)
     msk = np.zeros((n_shards, n_shards, r_max, width), np.float32)
     seg = np.full((n_shards, n_shards, r_max), n_loc, np.int32)
-    idx[p, q, r, w] = lcol
-    val[p, q, r, w] = vals
-    msk[p, q, r, w] = 1.0
-    seg[p, q, r] = litem
+    at_row = (p * n_shards + q) * r_max + r       # flat [p, q, r]
+    at = at_row * width + w                       # flat [p, q, r, w]
+    idx.reshape(-1)[at] = lcol
+    val.reshape(-1)[at] = vals
+    msk.reshape(-1)[at] = 1.0
+    seg.reshape(-1)[at_row] = litem
 
     # dense per-block renumbering of the (sorted) seg values + the map back
     # to local item slots, for the fused engine's in-kernel reduction

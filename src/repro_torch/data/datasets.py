@@ -11,8 +11,9 @@ paper's Fig 2 shows.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch.data.sparse import SparseRatings
+from repro_torch.data.sparse import SparseRatings, stable_argsort
 
 
 def synthetic_lowrank(
@@ -44,30 +45,37 @@ def synthetic_lowrank(
     # Cap at half density — beyond that rejection sampling stalls.
     target = min(nnz, n_users * n_items // 2)
     rows_list, cols_list = [], []
-    seen: set[int] = set()
+    seen = torch.empty(0, dtype=torch.int64)   # the keys kept so far, sorted
     attempts = 0
     while sum(len(r) for r in rows_list) < target and attempts < 8:
         m = int((target - sum(len(r) for r in rows_list)) * 1.4) + 16
-        r = rng.choice(n_users, size=m, p=user_p)
-        c = rng.choice(n_items, size=m, p=item_p)
+        r = _choice(rng, n_users, m, user_p)
+        c = _choice(rng, n_items, m, item_p)
         keys = r.astype(np.int64) * n_items + c
-        fresh = np.array([k not in seen for k in keys], dtype=bool)
+        fresh = ~_isin(keys, seen)
         keys_f = keys[fresh]
-        # in-batch dedupe
-        _, first = np.unique(keys_f, return_index=True)
+        # in-batch dedupe: the first of each key
+        order = stable_argsort(keys_f)
+        ordered = keys_f[order]
+        first = order[np.append(True, ordered[1:] != ordered[:-1])]
         keep = np.zeros(len(keys_f), dtype=bool)
         keep[first] = True
         r2, c2 = r[fresh][keep], c[fresh][keep]
-        seen.update(keys_f[keep].tolist())
+        seen = torch.sort(torch.cat([seen, torch.from_numpy(keys_f[keep])])).values
         rows_list.append(r2)
         cols_list.append(c2)
         attempts += 1
     rows = np.concatenate(rows_list)[:target].astype(np.int32)
     cols = np.concatenate(cols_list)[:target].astype(np.int32)
 
-    vals = np.einsum("nk,nk->n", u_true[rows], v_true[cols]) + rng.normal(
-        0.0, noise, size=rows.shape
-    )
+    # u_i . v_j a block of rows at a time (each row's sum as in one einsum),
+    # not the (nnz, k) gathers at once: 2.6 GB each for movielens_like(1.0)
+    step = 1 << 20
+    dots = np.concatenate([np.einsum("nk,nk->n", u_true[rows[i:i + step]],
+                                     v_true[cols[i:i + step]])
+                           for i in range(0, len(rows), step)]) if len(rows) else \
+        np.zeros(0)
+    vals = dots + rng.normal(0.0, noise, size=rows.shape)
     if clip is not None:
         vals = np.clip(vals, *clip)
     ratings = SparseRatings(
@@ -78,6 +86,25 @@ def synthetic_lowrank(
     )
     ratings.validate()
     return ratings, u_true, v_true
+
+
+def _choice(rng: np.random.Generator, n: int, size: int, p: np.ndarray) -> np.ndarray:
+    """rng.choice(n, size=size, p=p), the same draws: numpy's inverse-CDF
+    sampling (one rng.random(size), then the right-side search of its CDF),
+    the search by torch's, which spreads over the host's threads."""
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    u = rng.random(size)
+    return torch.searchsorted(torch.from_numpy(cdf), torch.from_numpy(u), right=True).numpy()
+
+
+def _isin(keys: np.ndarray, ordered: torch.Tensor) -> np.ndarray:
+    """np.isin(keys, ordered) for sorted unique `ordered`."""
+    if not len(ordered):
+        return np.zeros(len(keys), bool)
+    k = torch.from_numpy(keys)
+    at = torch.searchsorted(ordered, k).clamp_(max=len(ordered) - 1)
+    return (ordered[at] == k).numpy()
 
 
 def chembl_like(

@@ -20,15 +20,27 @@ bounded (`topn_slab`). Flash attention pads nothing: its kernels mask a
 ragged sequence themselves. With grad, `flash_attention` is an autograd
 Function (`FlashAttention`) whose backward is `flash_attention_bwd`, the
 backward kernel on the card and its plain version on the CPU.
+
+Each kernel is a dispatcher op (`torch.library.custom_op`, namespace
+`repro_torch`): gather_syrk_seg, masked_syrk, chol_solve_sample,
+topn_scores, flash_forward and flash_attention_bwd. On a CUDA tensor the op
+launches the kernel, on a CPU tensor it runs the plain version, and on the
+meta device its fake (`register_fake`) returns empty outputs of the
+kernel's shapes after the launch's shape checks, running nothing. Each op's
+flops, the function's work as `chip_smoke.py`'s bounds count it, are
+registered with `torch.utils.flop_counter` (`_flops_*` below): the cost
+counter of the dry-run (`launch/cost.py`) and the flop counter read them.
 """
 from __future__ import annotations
 
 import math
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -166,25 +178,16 @@ def gather_syrk_seg(
     segment. The kernel takes R and W as they are; identity buckets up to
     SYRK_NARROW_MAX_W wide take its narrow path.
     """
-    if not _on_cuda(v):
-        return ref.gather_syrk_seg_ref(
-            indices, values, mask, seg_ids, n_segments, v,
-            bf16_gather=bf16_gather, identity_segments=identity_segments,
-        )
-    dev = v.device
-    stacked = v.dim() == 3
-    k = v.shape[-1]
-    kp = kernel_rank(k)
-    # one copy of V per call where the rank is not instantiated; the sampler
-    # pads V once per half-sweep instead (core/gibbs.py::posterior_systems)
-    vs = pad_rank(v if stacked else v[None], kp)
-    s, n, _ = vs.shape
+    return _gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v,
+                            bf16_gather, identity_segments, seg_ptr)
+
+
+def _check_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v,
+                           identity_segments, seg_ptr) -> None:
+    """The launch's checks of shapes and types, which need no data."""
     if v.dtype != torch.float32:
         raise ValueError(f"v must be float32, got {v.dtype}")
-    indices = _require("indices", indices, dev, torch.int32)
-    values = _require("values", values, dev, torch.float32)
-    mask = _require("mask", mask, dev, torch.float32)
-    seg_ids = _require("seg_ids", seg_ids, dev, torch.int32)
+    kernel_rank(v.shape[-1])
     r, w = indices.shape
     if r == 0 or n_segments == 0:
         raise ValueError("gather_syrk_seg needs at least one row and segment")
@@ -195,6 +198,36 @@ def gather_syrk_seg(
         raise ValueError(f"values and mask must be {(r, w)} and seg_ids ({r},)")
     if identity_segments and n_segments != r:
         raise ValueError("an identity bucket has one segment a row")
+    if seg_ptr is not None and not identity_segments and seg_ptr.shape != (n_segments + 1,):
+        raise ValueError(f"seg_ptr must have {n_segments + 1} entries")
+
+
+@torch.library.custom_op("repro_torch::gather_syrk_seg", mutates_args=())
+def _gather_syrk_seg(indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                     seg_ids: torch.Tensor, n_segments: int, v: torch.Tensor,
+                     bf16_gather: bool, identity_segments: bool,
+                     seg_ptr: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gather_syrk_seg` as one op: the kernel's launch or the plain version."""
+    if not _on_cuda(v):
+        return ref.gather_syrk_seg_ref(
+            indices, values, mask, seg_ids, n_segments, v,
+            bf16_gather=bf16_gather, identity_segments=identity_segments,
+        )
+    dev = v.device
+    stacked = v.dim() == 3
+    k = v.shape[-1]
+    _check_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v,
+                           identity_segments, seg_ptr)
+    kp = kernel_rank(k)
+    # one copy of V per call where the rank is not instantiated; the sampler
+    # pads V once per half-sweep instead (core/gibbs.py::posterior_systems)
+    vs = pad_rank(v if stacked else v[None], kp)
+    s, n, _ = vs.shape
+    indices = _require("indices", indices, dev, torch.int32)
+    values = _require("values", values, dev, torch.float32)
+    mask = _require("mask", mask, dev, torch.float32)
+    seg_ids = _require("seg_ids", seg_ids, dev, torch.int32)
+    r, w = indices.shape
     vk = _aligned((vs.to(torch.bfloat16) if bf16_gather else vs).contiguous())
     if identity_segments:
         # the kernel writes each row's statistics straight into the output
@@ -203,8 +236,6 @@ def gather_syrk_seg(
         rows_prec = rows_rhs = ptr = None
     else:
         seg_ptr = _require("seg_ptr", seg_ptr, dev, torch.int32)
-        if seg_ptr.shape != (n_segments + 1,):
-            raise ValueError(f"seg_ptr must have {n_segments + 1} entries")
         # fp64 row partials for the second pass, which sums them by segment
         rows_prec = torch.empty((s, r, kp, kp), device=dev, dtype=torch.float64)
         rows_rhs = torch.empty((s, r, kp), device=dev, dtype=torch.float64)
@@ -226,6 +257,30 @@ def gather_syrk_seg(
     if kp != k:
         prec, rhs = prec[..., :k, :k], rhs[..., :k]
     return (prec, rhs) if stacked else (prec[0], rhs[0])
+
+
+@_gather_syrk_seg.register_fake
+def _(indices, values, mask, seg_ids, n_segments, v, bf16_gather, identity_segments, seg_ptr):
+    _check_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v,
+                           identity_segments, seg_ptr)
+    k = v.shape[-1]
+    lead = tuple(v.shape[:-2])
+    return (v.new_empty(lead + (n_segments, k, k)), v.new_empty(lead + (n_segments, k)))
+
+
+def syrk_flops(k: int) -> int:
+    """Operations of one rating's statistics at rank k: the symmetric
+    v v^T needs k(k + 1) / 2 multiply-adds, r v needs k."""
+    return k * (k + 1) + 2 * k
+
+
+@register_flop_formula(torch.ops.repro_torch.gather_syrk_seg)
+def _flops_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v, *args,
+                           out_shape=None, **kwargs) -> int:
+    """syrk_flops a rating slot of the plan (R W of them, a draw each):
+    the shapes do not say which slots are padding."""
+    draws = v[0] if len(v) == 3 else 1
+    return draws * indices[0] * indices[1] * syrk_flops(v[-1])
 
 
 def gather_syrk(indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
@@ -255,15 +310,27 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
                                 rv.reshape((-1, rv.shape[-1])))
         return (prec.reshape(lead + prec.shape[1:]),
                 rhs.reshape(lead + rhs.shape[1:]))
-    if not _on_cuda(vm):
-        return ref.masked_syrk_ref(vm, rv)
-    dev = vm.device
+    return _masked_syrk(vm, rv)
+
+
+def _check_masked_syrk(vm, rv) -> None:
     r, w, k = vm.shape
-    kp = kernel_rank(k)
+    kernel_rank(k)
     if r == 0:
         raise ValueError("masked_syrk needs at least one row")
     if rv.shape != (r, w):
         raise ValueError(f"rv must be {(r, w)}, got {tuple(rv.shape)}")
+
+
+@torch.library.custom_op("repro_torch::masked_syrk", mutates_args=())
+def _masked_syrk(vm: torch.Tensor, rv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`masked_syrk` of (R, W, K) rows as one op."""
+    if not _on_cuda(vm):
+        return ref.masked_syrk_ref(vm, rv)
+    dev = vm.device
+    _check_masked_syrk(vm, rv)
+    r, w, k = vm.shape
+    kp = kernel_rank(k)
     vm = _aligned(pad_rank(_require("vm", vm, dev, torch.float32), kp))
     rv = _require("rv", rv, dev, torch.float32)
     prec = torch.empty((r, kp, kp), device=dev, dtype=torch.float32)
@@ -281,6 +348,19 @@ def masked_syrk(vm: torch.Tensor, rv: torch.Tensor
     return prec, rhs
 
 
+@_masked_syrk.register_fake
+def _(vm, rv):
+    _check_masked_syrk(vm, rv)
+    r, _, k = vm.shape
+    return vm.new_empty((r, k, k), dtype=torch.float32), vm.new_empty((r, k), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.masked_syrk)
+def _flops_masked_syrk(vm, rv, *, out_shape=None, **kwargs) -> int:
+    """syrk_flops a slot of the (R, W) rows."""
+    return vm[0] * vm[1] * syrk_flops(vm[2])
+
+
 def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
                       ) -> torch.Tensor:
     """Batched x = Lambda^-1 rhs + L^-T z over any leading axes.
@@ -295,6 +375,22 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
                                 rhs.reshape((-1, rhs.shape[-1])),
                                 z.reshape((-1, z.shape[-1])))
         return out.reshape(lead + out.shape[1:])
+    return _chol_solve_sample(prec, rhs, z)
+
+
+def _check_chol_solve_sample(prec, rhs, z) -> None:
+    bsz, k, _ = prec.shape
+    kernel_rank(k)
+    if rhs.shape != (bsz, k) or z.shape != (bsz, k):
+        raise ValueError("rhs and z must be (B, K)")
+    if bsz == 0:
+        raise ValueError("chol_solve_sample needs at least one system")
+
+
+@torch.library.custom_op("repro_torch::chol_solve_sample", mutates_args=())
+def _chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
+                       ) -> torch.Tensor:
+    """`chol_solve_sample` of (B, K, K) systems as one op."""
     if not _on_cuda(prec):
         return ref.chol_solve_sample_ref(prec, rhs, z)
     dev = prec.device
@@ -303,10 +399,7 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
     prec = _require("prec", prec, dev, torch.float32)
     rhs = _require("rhs", rhs, dev, torch.float32)
     z = _require("z", z, dev, torch.float32)
-    if rhs.shape != (bsz, k) or z.shape != (bsz, k):
-        raise ValueError("rhs and z must be (B, K)")
-    if bsz == 0:
-        raise ValueError("chol_solve_sample needs at least one system")
+    _check_chol_solve_sample(prec, rhs, z)
     prec, rhs, z = (_aligned(x) for x in pad_rank_systems(prec, rhs, z, kp))
     out = torch.empty((bsz, kp), device=dev, dtype=torch.float32)
     lib = build.library("chol_solve_sample")
@@ -318,6 +411,19 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
     build.check("chol_solve_sample", err)
     _count("chol_solve_sample")
     return out if kp == k else out[:, :k].contiguous()
+
+
+@_chol_solve_sample.register_fake
+def _(prec, rhs, z):
+    _check_chol_solve_sample(prec, rhs, z)
+    return rhs.new_empty(rhs.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.chol_solve_sample)
+def _flops_chol_solve_sample(prec, rhs, z, *, out_shape=None, **kwargs) -> float:
+    """n (K^3 / 3 + 2 K^2): the factorisation and the two triangular solves."""
+    n, k = prec[0], prec[-1]
+    return n * (k ** 3 / 3 + 2 * k * k)
 
 
 TOPN_MAX_K = 8192  # the largest k whose keys the last sort holds in shared memory
@@ -367,19 +473,32 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
     scored in slabs of `topn_slab(...)` items, `slab` (a test's knob) asking
     for smaller ones; each slab is one scoring and one selection launch.
     """
-    b, d = u.shape
     n = v.shape[0]
     if not 0 < topk <= n:
         raise ValueError(f"topk must be in [1, {n}], got {topk}")
-    if not _on_cuda(u):
-        return ref.topn_scores_ref(u, v, topk)
-    dev = u.device
-    u = _require("u", u, dev, torch.float32)
-    v = _require("v", v, dev, torch.float32)
+    return _topn_scores(u, v, topk, slab)
+
+
+def _check_topn(u, v, topk) -> None:
+    d = u.shape[1]
     if v.shape[1] != d:
         raise ValueError(f"u and v need one width, got {d} and {v.shape[1]}")
     if topk > TOPN_MAX_K:
         raise ValueError(f"topn kernel takes topk <= {TOPN_MAX_K}, got {topk}")
+
+
+@torch.library.custom_op("repro_torch::topn_scores", mutates_args=())
+def _topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, slab: Optional[int]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`topn_scores` as one op."""
+    if not _on_cuda(u):
+        return ref.topn_scores_ref(u, v, topk)
+    b = u.shape[0]
+    n = v.shape[0]
+    dev = u.device
+    u = _require("u", u, dev, torch.float32)
+    v = _require("v", v, dev, torch.float32)
+    _check_topn(u, v, topk)
     u, v = topn_operands(u, v)
     width = topn_slab(b, n, topk, slab)
     scores = torch.empty((b, width), device=dev, dtype=torch.float32)
@@ -397,6 +516,20 @@ def topn_scores(u: torch.Tensor, v: torch.Tensor, topk: int, *,
     build.check("topn_scores", err)
     _count("topn_scores")
     return vals, idx
+
+
+@_topn_scores.register_fake
+def _(u, v, topk, slab):
+    _check_topn(u, v, topk)
+    b = u.shape[0]
+    return (u.new_empty((b, topk), dtype=torch.float32),
+            u.new_empty((b, topk), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.topn_scores)
+def _flops_topn_scores(u, v, topk, slab=None, *, out_shape=None, **kwargs) -> int:
+    """2 B N K: the scores; the selection does no products."""
+    return 2 * u[0] * v[0] * u[1]
 
 
 #: the head widths the forward kernels are built for (112: zamba2-7b's
@@ -444,10 +577,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (bool(causal), int(window), float(softcap), scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, *args)
-    if not _on_cuda(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
-    return _flash_forward(q, k, v, *args, keep=False)[0]
+    return flash_forward(q, k, v, *args, False)[0]
+
+
+#: the flash pair's products, one bf16 tensor pass each over the visible
+#: (query, key) pairs: QK^T and P V forward; S, dV, dP, dQ and dK backward
+FLASH_FWD_PASSES, FLASH_BWD_PASSES = 2, 5
+
+
+def visible_pairs(sq: int, sk: int | None = None, *, causal: bool = True,
+                  window: int = 0) -> int:
+    """(query, key) pairs an attention of sq queries over sk keys (sk = sq
+    when None) sees: all sq sk without a causal mask; with one, query q
+    sees the keys up to q, and with a sliding window (0 = none) at most the
+    last `window` of them: the sum over q of min(q + 1, sk, window)."""
+    sk = sq if sk is None else sk
+    if not causal:
+        return sq * sk
+    cap = sk if window <= 0 else min(sk, window)
+    # q + 1 < cap for q < cap - 1, then cap for every later query
+    ramp = min(sq, cap)
+    return ramp * (ramp + 1) // 2 + (sq - ramp) * cap
+
+
+def flash_flops(bh: int, sq: int, sk: int, d: int, *, causal: bool, window: int,
+                passes: int) -> int:
+    """2 D operations a visible pair a product, over BH query heads."""
+    return passes * 2 * d * bh * visible_pairs(sq, sk, causal=causal, window=window)
 
 
 def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
@@ -458,12 +614,7 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     dev = q.device
-    if q.dtype not in FLASH_KERNEL_NAMES:
-        raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes D in {FLASH_HEAD_DIMS}, got {d}")
-    if sq == 0 or sk == 0:
-        raise ValueError("flash attention needs at least one query and one key")
+    _check_flash(q, k, v)
     q, k, v = (_aligned(_require(n, t, dev, q.dtype))
                for n, t in (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
@@ -488,14 +639,24 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
 
 @torch.library.custom_op("repro_torch::flash_forward", mutates_args=())
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                  window: int, softcap: float, scale: float
+                  window: int, softcap: float, scale: float, keep: bool = True
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`FlashAttention`'s forward as one dispatcher op, so that a selective
+    """The flash forward as one dispatcher op, so that a selective
     checkpoint's policy sees it and can keep its outputs (the remat policy
     "dots", `models/transformer.py::REMAT_POLICIES`): (out, lse (BH, S_q),
     o32), the kernel's launch on the card, `ref.flash_attention_fwd_ref`
     on the CPU. o32 is empty where the output is already unrounded (fp32):
-    a custom op's outputs alias nothing."""
+    a custom op's outputs alias nothing. Without `keep` (the no-grad
+    forward: `ref.flash_attention_ref` on the CPU) lse and o32 are empty
+    and the kernel writes neither."""
+    if not keep:
+        if _on_cuda(q):
+            out = _flash_forward(q, k, v, causal, window, softcap, scale, keep=False)[0]
+        else:
+            out = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                          softcap=softcap, scale=scale)
+        empty = out.new_empty(0, dtype=torch.float32)
+        return out, empty, empty.clone()
     if _on_cuda(q):
         out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale, keep=True)
     else:
@@ -504,6 +665,38 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     if o32 is out:
         o32 = out.new_empty(0, dtype=torch.float32)
     return out, lse, o32
+
+
+def _check_flash(q, k, v) -> None:
+    """The forward launcher's checks of types and shapes, which need no data."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    if q.dtype not in FLASH_KERNEL_NAMES:
+        raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes D in {FLASH_HEAD_DIMS}, got {d}")
+    if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk:
+        raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing "
+                         f"{bh}; got {tuple(k.shape)} and {tuple(v.shape)}")
+    if sq == 0 or sk == 0:
+        raise ValueError("flash attention needs at least one query and one key")
+
+
+@flash_forward.register_fake
+def _(q, k, v, causal, window, softcap, scale, keep=True):
+    _check_flash(q, k, v)
+    bh, sq, _ = q.shape
+    if not keep:
+        return q.new_empty(q.shape), q.new_empty(0, dtype=torch.float32), \
+            q.new_empty(0, dtype=torch.float32)
+    o32 = q.new_empty(q.shape if q.dtype != torch.float32 else (0,), dtype=torch.float32)
+    return q.new_empty(q.shape), q.new_empty((bh, sq), dtype=torch.float32), o32
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_forward)
+def _flops_flash_forward(q, k, v, causal, window, *args, out_shape=None, **kwargs) -> int:
+    return flash_flops(q[0], q[1], k[1], q[2], causal=causal, window=window,
+                       passes=FLASH_FWD_PASSES)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -516,7 +709,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
-        out, lse, o32 = flash_forward(q, k, v, causal, window, softcap, scale)
+        out, lse, o32 = flash_forward(q, k, v, causal, window, softcap, scale, True)
         ctx.save_for_backward(q, k, v, o32 if o32.numel() else out, lse)
         ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         return out
@@ -540,12 +733,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (BH, S_q, D), k and v (BHk, S_k, D). The plain version
     (`ref.flash_attention_bwd_ref`) for CPU tensors; a CUDA tensor the
     kernel cannot take raises."""
+    return _flash_attention_bwd(q, k, v, do, lse, o, causal, window, softcap, scale)
+
+
+def _check_flash_bwd(q, k, v, do, lse, o) -> None:
     bh, sq, d = q.shape
     bhk, sk = k.shape[:2]
-    if not _on_cuda(q):
-        return ref.flash_attention_bwd_ref(q, k, v, do, lse, o, causal=causal,
-                                           window=window, softcap=softcap, scale=scale)
-    dev = q.device
     if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention backward takes bf16 or fp32, got {q.dtype}")
     if d not in FLASH_BWD_HEAD_DIMS:
@@ -559,6 +752,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.shape != q.shape or o.shape != q.shape or lse.shape != (bh, sq) or sq == 0:
         raise ValueError(f"do and o must be {tuple(q.shape)} and lse {(bh, sq)}; got "
                          f"{tuple(do.shape)}, {tuple(o.shape)}, {tuple(lse.shape)}")
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, causal: bool,
+                         window: int, softcap: float, scale: float
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_bwd` as one op."""
+    bh, sq, d = q.shape
+    bhk, sk = k.shape[:2]
+    if not _on_cuda(q):
+        return ref.flash_attention_bwd_ref(q, k, v, do, lse, o, causal=causal,
+                                           window=window, softcap=softcap, scale=scale)
+    dev = q.device
+    _check_flash_bwd(q, k, v, do, lse, o)
     q, k, v, do = (_aligned(_require(n, t, dev, q.dtype))
                    for n, t in (("q", q), ("k", k), ("v", v), ("do", do)))
     o = _aligned(_require("o", o, dev, torch.float32))
@@ -576,6 +784,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check("flash_attention_bwd", err)
     _count("flash_attention_bwd")
     return dq, dk, dv
+
+
+@_flash_attention_bwd.register_fake
+def _(q, k, v, do, lse, o, causal, window, softcap, scale):
+    _check_flash_bwd(q, k, v, do, lse, o)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flops_flash_bwd(q, k, v, do, lse, o, causal, window, *args, out_shape=None,
+                     **kwargs) -> int:
+    return flash_flops(q[0], q[1], k[1], q[2], causal=causal, window=window,
+                       passes=FLASH_BWD_PASSES)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

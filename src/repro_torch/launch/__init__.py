@@ -1,1 +1,4 @@
-"""Launchers of the port: `serve` (LM mode)."""
+"""Launchers of the port: `serve` (LM and BPMF serving), `train` (BPMF
+training; LM training as a library), `dryrun` and `bpmf_dryrun` (the
+meta device's sweep under the cost model `cost`), `mesh` (the card's
+peaks) and `profile` (the card's measurement helpers)."""

@@ -20,8 +20,9 @@ costing about --minibatch padded rating lanes a half-step):
 
 Runs on the card ("--device cpu" for the plain path). LM training stays a
 library, as in the reference: `init_train_state` and `make_train_step`
-below, driven by `runtime.Trainer` (examples/train_lm_torch.py). The
-reference's pspec and sharding helpers wait for more than one card
+below, driven by `runtime.Trainer` (examples/train_lm_torch.py);
+`train_state_shapes` builds the state on the meta device for the dry-run.
+The reference's pspec and sharding helpers wait for more than one card
 (ROADMAP.md, item 7).
 """
 from __future__ import annotations
@@ -56,6 +57,19 @@ def init_train_state(cfg: ModelConfig, seed: int, opt_cfg: AdamWConfig, *,
     params = build_model(cfg, device=device).init(seed)
     return TrainState(params=params, opt=adamw_init(params, opt_cfg),
                       step=torch.zeros((), dtype=torch.int32))
+
+
+def adamw_config(cfg: ModelConfig, **kw) -> AdamWConfig:
+    """AdamW with the config's moment dtype (bf16 for kimi-k2-1t-a32b), as
+    the JAX dry-run builds it."""
+    return AdamWConfig(moment_dtype=cfg.moment_dtype, **kw)
+
+
+def train_state_shapes(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None) -> TrainState:
+    """The train state on the meta device: parameters, AdamW moments in
+    `opt_cfg.moment_dtype` (`adamw_config(cfg)` when None) and the step,
+    with no data (the dry-run, `launch/dryrun.py`)."""
+    return init_train_state(cfg, 0, opt_cfg or adamw_config(cfg), device="meta")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, total_steps: int = 100_000,

@@ -13,7 +13,9 @@ hybrid.
   zamba.py        the hybrid: Mamba2 groups and one shared attention block
   api.py          ShapeSpec, LM_SHAPES, DecoderModel, EncDecModel,
                   XLSTMModel, ZambaModel (init, loss_fn, prefill_fn, decode_fn),
-                  build_model, params_from_numpy
+                  build_model, params_from_numpy; shape_by_name,
+                  supported_shapes, count_params, model_flops_per_step,
+                  input_specs (the dry-run's)
 """
 from repro_torch.models.api import (
     LM_SHAPES,
@@ -23,9 +25,15 @@ from repro_torch.models.api import (
     XLSTMModel,
     ZambaModel,
     build_model,
+    count_params,
+    input_specs,
+    model_flops_per_step,
     params_from_numpy,
+    shape_by_name,
+    supported_shapes,
 )
 from repro_torch.models.layers import ModelConfig
 
 __all__ = ["LM_SHAPES", "DecoderModel", "EncDecModel", "ModelConfig", "ShapeSpec",
-           "XLSTMModel", "ZambaModel", "build_model", "params_from_numpy"]
+           "XLSTMModel", "ZambaModel", "build_model", "count_params", "input_specs",
+           "model_flops_per_step", "params_from_numpy", "shape_by_name", "supported_shapes"]

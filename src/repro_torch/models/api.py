@@ -10,6 +10,10 @@ modules (`Decoder`, `EncDec`, `XLSTM`, `Zamba`) in place of the JAX pytree:
     prefill_fn(params, batch)       -> {"logits", "cache"}
     decode_fn(params, cache, batch) -> (new_cache, logits)
 
+`shape_by_name`, `supported_shapes`, `count_params`, `model_flops_per_step`
+and `input_specs` are the JAX package's, for the dry-run
+(`launch/dryrun.py`), which builds a model on the meta device.
+
 A batch holds "tokens" (and "labels" for the loss) as numpy arrays or
 tensors, and the modality stubs' inputs as `data.tokens.TokenStream` makes
 them: whisper's "frames" (B, encoder_seq, D); the VLM's "patch_embeds"
@@ -63,6 +67,20 @@ LM_SHAPES = (
 )
 
 
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def supported_shapes(cfg: ModelConfig) -> list[ShapeSpec]:
+    """LM_SHAPES, long_500k only for the sub-quadratic (ssm, hybrid)
+    families, as the JAX package's."""
+    return [s for s in LM_SHAPES
+            if s.name != "long_500k" or cfg.family in ("ssm", "hybrid")]
+
+
 # ---------------------------------------------------------------------------
 # Decoder-family model (dense, MoE and VLM)
 # ---------------------------------------------------------------------------
@@ -102,8 +120,10 @@ class _LM:
 
     def init(self, seed: int = 0) -> torch.nn.Module:
         """Parameters drawn on the model's device from a torch.Generator
-        seeded with `seed`."""
-        return self.make_params(self.cfg, generator=self._generator(seed),
+        seeded with `seed`; on the meta device (the dry-run) parameters of
+        the right shapes and dtypes, drawn from nothing and holding nothing."""
+        meta = self.device.type == "meta"
+        return self.make_params(self.cfg, generator=None if meta else self._generator(seed),
                                 device=self.device)
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -357,3 +377,84 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     else:
         model = build_model(cfg, device=device)
     return tfm.load_numpy(model.make_params(cfg, generator=None, device=model.device), tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameter counts, model FLOPs and input specs (the JAX package's)
+# ---------------------------------------------------------------------------
+def jax_leaf_shapes(params: torch.nn.Module) -> dict[str, tuple[int, ...]]:
+    """The JAX parameter tree's leaves, by the port's names with each layer
+    index as "*" ("layers.*.moe.w_gate"), and their shapes: the stacked
+    axes (one a layer index of the names: its count) before the per-layer
+    shape, `param_leaf`'s layout."""
+    lead: dict[str, list[int]] = {}
+    shape: dict[str, tuple[int, ...]] = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        key = ".".join("*" if q.isdigit() else q for q in parts)
+        idx = [int(q) for q in parts if q.isdigit()]
+        lead[key] = [max(a, i + 1) for a, i in zip(lead.get(key, [0] * len(idx)), idx)]
+        shape[key] = tuple(p.shape)
+    return {key: tuple(lead[key]) + shape[key] for key in shape}
+
+
+@functools.lru_cache(maxsize=None)
+def count_params(cfg: ModelConfig) -> tuple[float, float]:
+    """(total, active) parameter counts from the parameter shapes, built on
+    the meta device (nothing allocated). Active: an MoE expert leaf (a leaf
+    under "moe" with an axis of n_experts_pad) scaled by top-k / E_pad, so
+    the pad experts, never routed to, count toward neither, as the JAX
+    package's `count_params`."""
+    params = build_model(cfg, device="meta").init()
+    e_pad = cfg.n_experts_pad or cfg.n_experts
+    total = active = 0.0
+    for key, shape in jax_leaf_shapes(params).items():
+        n = float(np.prod(shape))
+        total += n
+        if cfg.is_moe and "moe" in key and e_pad and e_pad in shape:
+            active += n * (cfg.n_experts_active / e_pad)
+        else:
+            active += n
+    return total, active
+
+
+def tokens_per_step(shape: ShapeSpec) -> int:
+    """Tokens a step takes: B S, or B for a decode step."""
+    return shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+
+
+def model_flops_per_step(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """6 N_active tokens (train) or 2 N_active tokens (a forward), the JAX
+    package's definition: the dense products of the parameters alone,
+    attention's scores and P V left out."""
+    _, active = count_params(cfg)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * active * tokens_per_step(shape)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                device: str | torch.device = "meta") -> dict[str, torch.Tensor]:
+    """Every model input of a cell as an empty tensor of the JAX package's
+    shape and dtype (int32 ids and positions, fp32 stub embeddings), on the
+    meta device by default: the counterpart of its ShapeDtypeStructs."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def t(shp, dt):
+        return torch.empty(shp, dtype=dt, device=device)
+
+    if shape.kind == "decode":
+        batch = {"tokens": t((b, 1), i32)}
+        if cfg.family == "vlm":
+            batch["positions"] = t((b, 3, 1), i32)
+        return batch
+    batch = {"tokens": t((b, s), i32)}
+    if shape.kind == "train":
+        batch["labels"] = t((b, s), i32)
+    if cfg.family == "vlm":
+        batch["tokens"] = t((b, s - cfg.n_patches), i32)
+        batch["patch_embeds"] = t((b, cfg.n_patches, cfg.d_model), f32)
+        batch["positions"] = t((b, 3, s), i32)
+    if cfg.family == "audio":
+        batch["frames"] = t((b, cfg.encoder_seq, cfg.d_model), f32)
+    return batch

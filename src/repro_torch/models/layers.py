@@ -90,6 +90,8 @@ class ModelConfig:
     mrope_sections: tuple[int, ...] = ()   # M-RoPE's (t, h, w) lanes of hd / 2
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
+    moment_dtype: torch.dtype = torch.float32   # AdamW's m and v (bf16 for kimi)
+    fsdp_pod: bool = False           # the JAX mesh's pod-axis FSDP; none here: no effect
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
     chunked_attn_min_len: int = 8192 # cache-free sequences this long take the kernel
     remat: bool = True               # recompute each layer in the backward
@@ -160,12 +162,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     are fp32, as XLA's `preferred_element_type=float32` (fp32 or float64
     operands of one dtype multiply as they are). a is
     (..., m, k) and b (k, n) or (..., k, n) with a's leading axes. On the
-    card bf16 operands go through `MatmulF32`, whose backward is JAX's
-    transpose of such a product; on the CPU autograd differentiates
-    a.float() @ b.float(), which is the same function."""
+    card (and on the meta device, the dry-run's model of the card) bf16
+    operands go through `MatmulF32`, whose backward is JAX's transpose of
+    such a product; on the CPU autograd differentiates a.float() @
+    b.float(), which is the same function."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
-    if not a.is_cuda:
+    if a.device.type == "cpu":
         return a.float() @ b.float()
     return MatmulF32.apply(a, b)
 
@@ -241,8 +244,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if sum(sections) != hd // 2:
         raise ValueError(f"mrope sections {sections} must sum to hd / 2 = {hd // 2}")
     freqs = rope_freqs(hd, theta, x.device)
+    # output_size: the lanes' count is known without reading `sections`
+    # back, which a meta tensor cannot (launch/dryrun.py)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(sections, device=x.device))
+                                     torch.tensor(sections, device=x.device),
+                                     output_size=hd // 2)
     lane_pos = positions.float().index_select(1, sec_id)      # (B, hd/2, S)
     angles = lane_pos.transpose(1, 2) * freqs                  # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.cost import steps
 from repro_torch.models.layers import ModelConfig, dense_init, rms_norm
 from repro_torch.models.ssm import causal_conv1d, work
 from repro_torch.models.transformer import RMSNorm
@@ -90,7 +91,8 @@ def ssd_chunked(x, dt, a, b_in, c_in, state, *, chunk: int = 128,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     hst = work(state)
     ys = []
-    for j in range(nc):
+    loop = steps(nc)
+    for j in loop:
         sl = slice(j * chunk, (j + 1) * chunk)
         xb, dtb, bb, cb = x[:, sl], dt[:, sl], bh[:, sl], ch[:, sl]
         acum = torch.cumsum(a[None, None, :] * dtb, dim=1)       # (B, L, H), inclusive
@@ -117,7 +119,7 @@ def ssd_chunked(x, dt, a, b_in, c_in, state, *, chunk: int = 128,
             h_new = torch.exp(acum[:, -1])[:, :, None, None] * hst + upd
         hst = h_new
         ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1)[:, :s], hst
+    return torch.cat(loop.full(ys), dim=1)[:, :s], hst
 
 
 def ssd_step(x, dt, a, b_in, c_in, state) -> tuple[torch.Tensor, torch.Tensor]:

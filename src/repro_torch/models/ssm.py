@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.cost import steps
 from repro_torch.models.layers import ModelConfig, dense_init, matmul_f32, rms_norm
 from repro_torch.models.transformer import RMSNorm, checkpointed, remat_on
 
@@ -107,7 +108,8 @@ def mlstm_chunked(q, k, v, i_raw, f_raw, state: MLSTMState, *, chunk: int = MLST
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
     c, n, m = state
     out = []
-    for j in range(nc):
+    loop = steps(nc)
+    for j in loop:
         sl = slice(j * chunk, (j + 1) * chunk)
         qb, kb, vb, ib, fb = q[:, sl], k[:, sl], v[:, sl], i_raw[:, sl], f_raw[:, sl]
         logf = F.logsigmoid(fb)                                  # (B, L, H)
@@ -136,7 +138,7 @@ def mlstm_chunked(q, k, v, i_raw, f_raw, state: MLSTMState, *, chunk: int = MLST
                                                       wgt[..., None] * ks, vb)
         n = carry[..., None] * n + torch.einsum("bsh,bshk->bhk", wgt, ks)
         m = m_next
-    return torch.cat(out, dim=1)[:, :s], MLSTMState(c, n, m)
+    return torch.cat(loop.full(out), dim=1)[:, :s], MLSTMState(c, n, m)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +275,7 @@ def slstm_block(p: SLSTMBlock, x: torch.Tensor, cfg: ModelConfig,
     c, n, m, hh = state
     r = p.r_gates                                                # (H, hd, 4 hd)
     hs = torch.empty((b, s, h, hd), dtype=torch.float32, device=x.device)
-    for t in range(s):
+    for t in steps(s):
         # the recurrent product per head, (H, B, hd) @ (H, hd, 4 hd), as
         # (B, 4, H, hd) beside the step's input pre-activations
         rec = torch.bmm(hh.transpose(0, 1), r).reshape(h, b, 4, hd).permute(1, 2, 0, 3)

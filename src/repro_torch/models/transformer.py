@@ -23,6 +23,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops  # noqa: F401  (registers repro_torch::flash_forward)
+from repro_torch.launch.cost import steps
 from repro_torch.models.layers import (
     Attention,
     MLP,
@@ -384,7 +385,8 @@ class HeadLoss(torch.autograd.Function):
     def forward(ctx, h, w, labels, cap):
         work = torch.promote_types(h.dtype, torch.float32)
         total = torch.zeros((), dtype=work, device=h.device)
-        for lo in range(0, h.shape[0], HEAD_CHUNK):
+        for i in steps(-(-h.shape[0] // HEAD_CHUNK)):
+            lo = i * HEAD_CHUNK
             s, _ = _chunk_logits(h[lo:lo + HEAD_CHUNK], w, cap)
             lab = labels[lo:lo + HEAD_CHUNK]
             lse = torch.logsumexp(s, dim=-1)
@@ -402,7 +404,8 @@ class HeadLoss(torch.autograd.Function):
         work = torch.promote_types(h.dtype, torch.float32)
         dw = torch.zeros(w.shape, dtype=work, device=w.device)
         w32 = w.to(work)
-        for lo in range(0, h.shape[0], HEAD_CHUNK):
+        for i in steps(-(-h.shape[0] // HEAD_CHUNK)):
+            lo = i * HEAD_CHUNK
             hc, lab = h[lo:lo + HEAD_CHUNK], labels[lo:lo + HEAD_CHUNK]
             s, t = _chunk_logits(hc, w, ctx.cap)
             scale = g * (lab >= 0).to(work)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.launch.cost import steps
 from repro_torch.models.transformer import param_leaf
 
 #: entries of one leaf updated at a time: bounds the fp32 temporaries
@@ -166,8 +167,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
             decay = cfg.weight_decay > 0 and jax_rank(name, p) >= 2
             flat = [grads[name].reshape(-1)] + [
                 t.view(-1) for t in (state.m[name], state.v[name], p)]
-            for g_, m_, v_, p_ in zip(*(t.split(UPDATE_SLICE) for t in flat)):
-                _update_slice(g_, m_, v_, p_, cfg, lr, b1c, b2c, decay, scale)
+            parts = [t.split(UPDATE_SLICE) for t in flat]
+            for i in steps(len(parts[0])):
+                _update_slice(*(part[i] for part in parts), cfg, lr, b1c, b2c, decay, scale)
     return named, AdamWState(m=state.m, v=state.v, step=step), {"grad_norm": gnorm}
 
 

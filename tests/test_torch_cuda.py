@@ -1463,3 +1463,49 @@ def test_dots_step_launches_no_flash_forward_in_its_backward(cuda):
     assert out["dots"][0]["flash_attention"] == n
     assert out["nothing"][0]["flash_attention_bwd"] == out["dots"][0]["flash_attention_bwd"] == n
     assert out["nothing"][1:] == out["dots"][1:]
+
+
+def test_each_kernel_is_one_dispatcher_op_whose_fake_has_the_kernels_shapes(cuda):
+    """Each kernel's op on CUDA tensors launches its kernel once (one count
+    in ops.LAUNCHES) and gives outputs of the shapes and dtypes its fake
+    gives on the meta device; a cost counter sees each as one op."""
+    from repro_torch.launch.cost import CostCounter
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r, w, n, k = 12, 5, 40, 64
+    idx = torch.randint(0, n, (r, w), generator=g, device=cuda, dtype=torch.int32)
+    val = torch.randn((r, w), generator=g, device=cuda)
+    msk = (torch.rand((r, w), generator=g, device=cuda) > 0.3).float()
+    seg = torch.tensor([0, 0, 1, 1, 1, 2, 3, 3, 4, 5, 5, 5], dtype=torch.int32, device=cuda)
+    ptr = torch.tensor(ops.segment_offsets(seg.cpu().numpy(), 6), device=cuda)
+    v = torch.randn((2, n, k), generator=g, device=cuda)
+    a = torch.randn((r, k, k), generator=g, device=cuda)
+    prec = a @ a.transpose(1, 2) + k * torch.eye(k, device=cuda)
+    q = torch.randn((4, 256, 64), generator=g, device=cuda).bfloat16()
+    kv = torch.randn((2, 256, 64), generator=g, device=cuda).bfloat16()
+    _, lse, o32 = ops.flash_forward(q, kv, kv, True, 0, 0.0, 0.125, True)
+    calls = [
+        ("gather_syrk_seg", torch.ops.repro_torch.gather_syrk_seg,
+         (idx, val, msk, seg, 6, v, False, False, ptr)),
+        ("masked_syrk", torch.ops.repro_torch.masked_syrk,
+         (torch.randn((r, w, k), generator=g, device=cuda), val)),
+        ("chol_solve_sample", torch.ops.repro_torch.chol_solve_sample,
+         (prec, torch.randn((r, k), generator=g, device=cuda),
+          torch.randn((r, k), generator=g, device=cuda))),
+        ("topn_scores", torch.ops.repro_torch.topn_scores,
+         (torch.randn((6, k), generator=g, device=cuda), v[0], 7, None)),
+        ("flash_attention", torch.ops.repro_torch.flash_forward,
+         (q, kv, kv, True, 0, 0.0, 0.125, False)),
+        ("flash_attention_bwd", torch.ops.repro_torch.flash_attention_bwd,
+         (q, kv, kv, q, lse, o32, True, 0, 0.0, 0.125)),
+    ]
+    for name, op, args in calls:
+        ops.reset_launches()
+        with CostCounter() as counter:
+            real = op(*args)
+        torch.cuda.synchronize()
+        assert ops.launches()[name] == 1 and sum(ops.launches().values()) == 1, name
+        assert counter.n_ops == 1 and counter.flops > 0, name
+        fake = op(*(t.to("meta") if isinstance(t, torch.Tensor) else t for t in args))
+        assert [(t.shape, t.dtype) for t in real] == [(t.shape, t.dtype) for t in fake], name
+    assert sum(ops.launches().values()) == 1          # the fakes launched nothing

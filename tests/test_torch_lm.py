@@ -223,17 +223,22 @@ def test_configs_match_jax():
     for port, jax_cfg in ((get_config("gemma2-2b"), jget_config("gemma2-2b")),
                           (reduced(get_config("gemma2-2b")), jreduced(jget_config("gemma2-2b")))):
         for f in dataclasses.fields(port):
-            if f.name not in ("dtype", "param_dtype"):
+            if f.name.endswith("dtype"):
+                assert (str(getattr(port, f.name)).split(".")[-1]
+                        == np.dtype(getattr(jax_cfg, f.name)).name), f.name
+            else:
                 assert getattr(port, f.name) == getattr(jax_cfg, f.name), f.name
         assert port.hd == jax_cfg.hd
         assert (port.remat, port.remat_policy) == (jax_cfg.remat, jax_cfg.remat_policy)
     assert get_config("gemma2-2b").remat and get_config("gemma2-2b").remat_policy == "nothing"
     assert not reduced(get_config("gemma2-2b")).remat
-    # whisper-medium is ported; kimi-k2 waits for several cards
+    # whisper-medium and kimi-k2 are ported (kimi runs on the meta device only)
     assert get_config("whisper-medium").family == "audio"
-    for name in ("kimi-k2-1t-a32b", "no-such-model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(name)
+    from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as kimi
+
+    assert get_config("kimi-k2-1t-a32b") is kimi and kimi.moment_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config("no-such-model")
     ssm = dataclasses.replace(get_config("gemma2-2b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DecoderModel(ssm, device="cpu")

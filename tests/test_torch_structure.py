@@ -340,14 +340,12 @@ def test_lm_launcher_runs_on_the_cpu_when_asked():
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m", "stablelm-1.6b", "granite-20b",
                                   "granite-moe-3b-a800m", "xlstm-350m", "zamba2-7b",
-                                  "whisper-medium", "qwen2-vl-7b"])
+                                  "whisper-medium", "qwen2-vl-7b", "kimi-k2-1t-a32b"])
 def test_config_registry_matches_the_jax_registry(name):
     """Every config the port registers is the JAX package's, field for
-    field (dtypes by name), in full and in `reduced`; each field of the
-    JAX config that the port lacks is one no ported path reads: the
-    moments' dtype (the port's AdamWConfig carries it) and the pod-axis
-    sharding (the perf variant's bf16 probabilities, `attn_probs_bf16`,
-    are ported)."""
+    field (dtypes by name), in full and in `reduced`, and lacks no field of
+    the JAX config: the moments' dtype and the pod-axis sharding (which
+    has no effect without a mesh) are carried too."""
     import dataclasses
 
     from repro.configs import REGISTRY as JREGISTRY, reduced as jreduced
@@ -365,7 +363,7 @@ def test_config_registry_matches_the_jax_registry(name):
         assert (port.hd, port.is_moe) == (ref.hd, ref.is_moe)
         missing = {f.name for f in dataclasses.fields(ref)} - {
             f.name for f in dataclasses.fields(port)}
-        assert missing == {"moment_dtype", "fsdp_pod"}, missing
+        assert missing == set(), missing
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "stablelm-1.6b", "granite-20b",
