@@ -14,9 +14,16 @@ no kernels line and no result line. Phases:
   1. build    every CUDA kernel with nvcc (one process per source, all at
               once), and print the card's name and power limit and each
               kernel's ptxas lines (registers, spills), named by cu++filt
-  2. data     chembl_like(scale=1.0) with a 0.1 test split, and the
+  2. lint     the port's lint, `python -m repro_torch.analysis`, in a
+              subprocess on the tree the run started from (or --src): it
+              must exit 0; then its cuda-spill rule over this run's ptxas
+              output (a kernel built before the run is compiled again into
+              a temporary directory for it), each kernel entry's registers,
+              spill bytes and static shared memory printed; a spill not in
+              .repro-torch-lint-baseline.json fails the run
+  3. data     chembl_like(scale=1.0) with a 0.1 test split, and the
               balanced bucket plans of both sides (through GibbsSampler)
-  3. kernels  each BPMF training kernel at K = 64 against its plain
+  4. kernels  each BPMF training kernel at K = 64 against its plain
               PyTorch version on the card at the run's shapes (the syrk
               kernels bit for bit; the solve on both half-sweeps' systems
               as a sweep builds them and as the prior hyperparameters give
@@ -26,24 +33,24 @@ no kernels line and no result line. Phases:
               wrapper's host share), and each bucket the syrk kernels'
               narrow paths can stage down both paths, to show where the
               threshold lies
-  4. ranks    the same kernels at K = 16, 24 and 32 (24 through the
+  5. ranks    the same kernels at K = 16, 24 and 32 (24 through the
               wrappers' padding), the solve timed at each
-  5. topn     top-N at serving's shapes, bit for bit in one slab and in
+  6. topn     top-N at serving's shapes, bit for bit in one slab and in
               several, timed beside topk(u @ v.T); the CUDA kernels of one
               call counted in its profile
-  6. train    GibbsSampler(engine="fused") for 8 sweeps (burn-in 4),
+  7. train    GibbsSampler(engine="fused") for 8 sweeps (burn-in 4),
               retaining draws into a SampleStore, then 2 sweeps with
               engine="kernel"; the launch counts are asserted
-  7. parity   one half-sweep per side for "fused" and "kernel", and a
+  8. parity   one half-sweep per side for "fused" and "kernel", and a
               3-sweep "fused" chain, against the plain path under the same
               state and noise; then at the quickstart's shape and rank
               (chembl_like(0.01), k = 32, alpha 2.0) both half-sweeps and
               3-sweep chains of "fused" and "kernel" against "einsum"
-  8. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
-  9. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
+  9. learning movielens_like(0.05), alpha=4.0: posterior-mean RMSE <= 0.545
+ 10. serve    PosteriorEnsemble.load -> TopNRecommender.recommend for 4,096
               users with seen-item exclusion, against the plain path, and
               where one batch's time goes (kernel on the card, host)
- 10. foldin   cold-start fold-in of 4,096 ChEMBL users (their training
+ 11. foldin   cold-start fold-in of 4,096 ChEMBL users (their training
               ratings as new users) against the 4 retained draws, batches
               of 256 and 4,096, engines fused and kernel: every launch held
               against its plain version on its own inputs (syrk kernels
@@ -53,7 +60,7 @@ no kernels line and no result line. Phases:
               no plan-schema miss on a second batch of each profile; ms,
               launches and peak memory per batch, each kernel timed at the
               fold-in's shapes
- 11. cotrain  the chain of phase train goes on for 12 sweeps in a trainer
+ 12. cotrain  the chain of phase train goes on for 12 sweeps in a trainer
               thread, publishing each retained draw into a channel
               (window 4); a 4-host, 2-replica ClusterCoordinator attached
               to it (one host killed at its first stage) and a
@@ -65,11 +72,11 @@ no kernels line and no result line. Phases:
               then the quorum barrier at full size (the epoch holds while
               both owners of a shard hang mid-stage); queries/s, p50/p99,
               publish -> fresh p50/p99, the sweep while serving
- 12. serve_faults faults planted in the fold-in (statistics a user off,
+ 13. serve_faults faults planted in the fold-in (statistics a user off,
               the fused kernel given one draw's factors, noise in the
               posterior mean) and in the barrier (a commit after one
-              shard): each must fail a check of phase 10 or 11
- 13. dist     the paper's distributed sampler at the ChEMBL shape: P = 4
+              shard): each must fail a check of phase 11 or 12
+ 14. dist     the paper's distributed sampler at the ChEMBL shape: P = 4
               item shards on the one card (width "auto", K = 64, alpha
               1.5), modes ring, allgather and async through the fused
               engine and ring through einsum: every gather_syrk_seg launch
@@ -82,7 +89,7 @@ no kernels line and no result line. Phases:
               sweep (the exchange copies' ms and the share of it beside
               kernels); each launch of a ring and an allgather sweep timed
               at its shapes beside its plain version and its bound
- 14. sgld     the minibatch SGLD samplers and the ALS baseline, which launch
+ 15. sgld     the minibatch SGLD samplers and the ALS baseline, which launch
               none of the five kernels (einsum statistics, library solves):
               SGLDSampler at the ChEMBL shape (K = 64, alpha 1.5) at budgets
               of 4,096 and 65,536 lanes, step seconds, steps/s, sampled
@@ -95,7 +102,7 @@ no kernels line and no result line. Phases:
               allgather's, async's fresh v bit for bit ring's and a ring
               planted to forward the wrong way; the order-fixed segment sum
               bit for bit the plain version's on the ChEMBL buckets
- 15. lm_kernels  the flash-attention kernel against its plain version at
+ 16. lm_kernels  the flash-attention kernel against its plain version at
               the gemma2-2b forward's shapes, (8, 8,192, 256) bf16 with 4
               KV heads, causal, softcap 50, window 4,096 and 0; at a
               ragged S = 8,000 and in fp32; bf16 within 3e-2 and within a
@@ -118,7 +125,7 @@ no kernels line and no result line. Phases:
               by head (lm_train's gates), each timed beside its bound, its
               plain version and scaled_dot_product_attention's forward or
               backward
- 16. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
+ 17. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
               against the same forward down the direct attention path, in
@@ -127,11 +134,11 @@ no kernels line and no result line. Phases:
               attention scores pass the softcap of 50, with the two paths'
               distance at 1 to 26 layers; the forward's profile shows its
               26 launches on the bf16 tensor-core kernel
- 17. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
+ 18. lm_serve launch.serve.generate: prefill of 4 x 2,048 prompts, then 31
               greedy decode steps, with no flash launch; the cache
               invariant prefill(t) == prefill(t[:-1]) + decode(t[-1]) in
               fp32 and in bf16
- 18. lm_dense smollm-360m, stablelm-1.6b, granite-20b and
+ 19. lm_dense smollm-360m, stablelm-1.6b, granite-20b and
               granite-moe-3b-a800m at published widths, bf16, seeded init,
               gemma2-2b's parameters freed first: DecoderModel.loss_fn at
               B = 1, S = 8,192 (a flash launch a layer, a finite loss;
@@ -146,7 +153,7 @@ no kernels line and no result line. Phases:
               and output bit for bit against a plain version built apart
               from the port's sort (at the published capacity factor and at
               0.5, where replicas drop)
- 19. lm_ssm   xlstm-350m and zamba2-7b at published widths, bf16, seeded
+ 20. lm_ssm   xlstm-350m and zamba2-7b at published widths, bf16, seeded
               init, gemma2-2b's parameters freed first: loss_fn at B = 1, S
               = 8,192 (no kernel launch for the xLSTM, whose mLSTM and sLSTM
               scans are plain PyTorch; one flash launch at D = 112 for each
@@ -175,7 +182,7 @@ no kernels line and no result line. Phases:
               seconds, tokens/s, peak memory) and one step without, whose
               peak the remat steps' must undercut by 10%, and a plant of
               the forward that ignored remat, which must fail that check
- 20. lm_mm    whisper-medium and qwen2-vl-7b at published widths, bf16,
+ 21. lm_mm    whisper-medium and qwen2-vl-7b at published widths, bf16,
               seeded init, gemma2-2b's parameters freed first: loss_fn at
               B = 1, S = 8,192 (whisper: 1,500 frames and 8,192 tokens, a
               causal self-attention and a non-causal cross-attention flash
@@ -197,7 +204,7 @@ no kernels line and no result line. Phases:
               two plants (whisper's cross launches fed K and V
               zero-padded to 1,536 keys, qwen2-vl decode positions from
               the cache's index), each of which must fail a check
- 21. lm_train gemma2-2b training, lm_eval's parameters freed first: the
+ 22. lm_train gemma2-2b training, lm_eval's parameters freed first: the
               flash backward kernel through FlashAttention at (8, 8,192,
               256) bf16 with 4 KV heads, softcap 50, window 4,096 and 0,
               on peaked scores (q x 6) and in fp32 at S = 2,000, each
@@ -219,7 +226,7 @@ no kernels line and no result line. Phases:
               published widths (1 + 3 timed steps, remat on, B = 1, S =
               8,192), the MoE's first step reached again bit for bit from a
               fresh state; lm_eval's parameters drawn again from their seed
- 22. lm_train_mm  whisper-medium's training at published widths (needs no
+ 23. lm_train_mm  whisper-medium's training at published widths (needs no
               other phase): the backward kernel at the cross-attention's
               (16, 8,192 x 1,500, 64), non-causal, on the first and last
               decoder layers' own inputs, each head's dq, dk and dv within
@@ -236,7 +243,7 @@ no kernels line and no result line. Phases:
               tile: the mask's k < S_k dropped alone (zero keys in P: the
               same bits) and with the tile loaded whole (what lies past
               S_k in P: the check must fail)
- 23. lm_faults   faults planted one at a time in the bf16 flash launches
+ 24. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
@@ -245,10 +252,10 @@ no kernels line and no result line. Phases:
               three), in the MoE (a token's contributions added in
               descending expert order; a dropped replica written at its
               expert's last place) and in the layer norm (its bias
-              dropped): each must fail one of the checks of phase 16, 17,
-              18 or 19 (the MoE and norm checks at 4 layers, as they hold
+              dropped): each must fail one of the checks of phase 17, 18,
+              19 or 20 (the MoE and norm checks at 4 layers, as they hold
               each layer on its own input)
- 24. dryrun   the dry-run and cost model (repro_torch/launch/dryrun.py,
+ 25. dryrun   the dry-run and cost model (repro_torch/launch/dryrun.py,
               bpmf_dryrun.py, cost.py): (a) every cell of all_cells()
               (each config x its LM shapes, kimi-k2-1t-a32b's included) on
               the meta device at full size under the op-level cost counter,
@@ -269,14 +276,14 @@ no kernels line and no result line. Phases:
               fp32 products at the fp32 pipes' rate), the modelled peak
               within DRYRUN_PEAK_RTOL of the measured one; the phase's host
               time against DRYRUN_BUDGET_S. (c), the model-FLOPs share, is
-              phase 21's line: `models/api.py::model_flops_per_step`
- 25. report   one JSON line of kernels, the card line, and the last line
+              phase 22's line: `models/api.py::model_flops_per_step`
+ 26. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
-The main path is phases 6, 9, 16, 17 and 21, the serving tier's paths are
-phases 10 and 11, the distributed sampler's phase 13, the SGLD and ALS
-path phase 14, the other LMs phase 18 and the dense train steps of 21,
-the SSM and hybrid LMs phase 19 and the audio and VLM LMs phase 20: the
+The main path is phases 7, 10, 17, 18 and 22, the serving tier's paths are
+phases 11 and 12, the distributed sampler's phase 14, the SGLD and ALS
+path phase 15, the other LMs phase 19 and the dense train steps of 22,
+the SSM and hybrid LMs phase 20 and the audio and VLM LMs phase 21: the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
 `dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_ssm_launches`,
@@ -619,10 +626,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-PHASES = ("build", "data", "kernels", "ranks", "topn", "train", "parity", "learning",
-          "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld", "lm_kernels",
-          "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train", "lm_train_mm",
-          "lm_faults", "dryrun")
+PHASES = ("build", "lint", "data", "kernels", "ranks", "topn", "train", "parity",
+          "learning", "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld",
+          "lm_kernels", "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train",
+          "lm_train_mm", "lm_faults", "dryrun")
 
 
 def main() -> int:
@@ -836,6 +843,67 @@ class Smoke:
                     entry = kernel[m.group(1)]
                 elif "Used" in text or "spill" in text:
                     print(f"  ptxas {name} {entry}: {text.replace('ptxas info    :', '').strip()}")
+
+    def lint(self):
+        """The port's lint on the tree this run started from (the checkout,
+        or --src's), in a subprocess as a user runs it: it must exit 0. Its
+        cuda-spill rule reads this run's ptxas output of every kernel; a
+        kernel built before the run is compiled again into a temporary
+        directory for it. Each entry's registers, spills and static shared
+        memory are printed."""
+        build = self.build_mod
+        src = build.CSRC.parents[1]
+        root = src.parent
+        logs = dict(build.ptxas_log)
+        again = sorted(set(build.KERNELS) - set(logs))
+        out_dir = Path(self.tmp.name) / "ptxas"
+        out_dir.mkdir(exist_ok=True)
+        procs = {name: subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+             str(build.CSRC / build.KERNELS[name][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in again}
+        for name, proc in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+        if again:
+            print(f"  compiled again for their ptxas output: {', '.join(again)}")
+        from repro_torch.analysis import cuda as lint_cuda
+
+        specs = []
+        entries = {name: lint_cuda.ptxas_entries(log) for name, log in sorted(logs.items())}
+        names = demangle([e.name for es in entries.values() for e in es], build._nvcc())
+        for name, log in sorted(logs.items()):
+            source = (build.CSRC / build.KERNELS[name][0]).relative_to(root).as_posix()
+            (out_dir / f"{name}.log").write_text(log)
+            specs += ["--ptxas", f"{source}={out_dir / f'{name}.log'}"]
+            for e in entries[name]:
+                print(f"  ptxas {source} {names[e.name]}: {e.registers} registers, "
+                      f"spill {e.spill_stores} B stores / {e.spill_loads} B loads, "
+                      f"{e.smem} B static smem, {e.stack} B stack")
+        self.check(sum(map(len, entries.values())) > 0 and all(entries.values()),
+                   f"ptxas reported the entries of all {len(logs)} kernel sources")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--root", str(root),
+             "--format", "json", *specs],
+            capture_output=True, text=True, cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(src)))
+        try:
+            report = json.loads(out.stdout)
+        except json.JSONDecodeError:
+            report = {}
+        for f in report.get("findings", []):
+            print(f"  finding {f['path']}:{f['line']} {f['rule']} {f['scope']}: "
+                  f"{f['message']}")
+        print(f"  lint: {report.get('files_analyzed')} files and logs, "
+              f"{report.get('baseline', {}).get('suppressed')} baselined, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if out.returncode and not report:
+            print(out.stdout[-2000:], out.stderr[-2000:])
+        self.check(out.returncode == 0 and report.get("findings") == [],
+                   f"python -m repro_torch.analysis exits 0 with no new finding "
+                   f"(exit {out.returncode}, {report.get('summary')})")
 
     def data(self):
         from repro_torch.core import GibbsSampler
@@ -1148,7 +1216,7 @@ class Smoke:
         ptr = None if b.identity_segments else b.seg_ptr.data_ptr()
 
         def launch():
-            err = lib.gather_syrk_seg_launch(
+            err = lib.gather_syrk_seg_launch(  # repro-lint: disable=cuda-launch-guard (one card; the launcher alone is timed)
                 b.indices.data_ptr(), b.values.data_ptr(), b.mask.data_ptr(),
                 cp.data_ptr(), 0, *(None if x is None else x.data_ptr() for x in rows),
                 ptr, prec.data_ptr(), rhs.data_ptr(), r, w, n, 1, p, k, narrow_max_w,
@@ -1166,7 +1234,7 @@ class Smoke:
         r, w, k = vm.shape
         prec = torch.empty((r, k, k), device=self.dev)
         rhs = torch.empty((r, k), device=self.dev)
-        err = self.build_mod.library("masked_syrk").masked_syrk_launch(
+        err = self.build_mod.library("masked_syrk").masked_syrk_launch(  # repro-lint: disable=cuda-launch-guard (one card)
             vm.data_ptr(), rv.data_ptr(), prec.data_ptr(), rhs.data_ptr(), r, w, k,
             narrow_max_w, torch.cuda.current_stream().cuda_stream)
         self.build_mod.check("masked_syrk", err)

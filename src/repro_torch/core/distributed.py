@@ -500,7 +500,7 @@ class DistributedBPMF:
         v_src = state.v if (state.v_eval is None or not coupled) else state.v_eval
 
         def place(shards, part, n):
-            x = torch.cat([s.cpu() for s in shards]).numpy()
+            x = torch.cat([s.cpu() for s in shards]).numpy()  # repro-lint: disable=host-sync-in-loop (host-side eval, once a call)
             out = np.zeros((n, self.k), np.float32)
             real = part.ids >= 0
             out[part.ids[real]] = x[real.reshape(-1)]

@@ -1215,7 +1215,7 @@ def test_flash_kernels_at_d112_match_plain(cuda, bh, bhk, s):
 
 
 def test_flash_bwd_at_d112_raises_before_any_launch(cuda):
-    q = torch.randn(2, 64, 112, device=cuda, dtype=torch.bfloat16)
+    q = torch.randn(2, 64, 112, device=cuda, dtype=torch.bfloat16)  # repro-lint: disable=rng-global (values unused: it raises)
     lse = torch.zeros(2, 64, device=cuda)
     ops.reset_launches()
     with pytest.raises(ValueError, match="ROADMAP.md"):

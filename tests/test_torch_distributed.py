@@ -307,10 +307,10 @@ def test_einsum_block_sums_keep_their_cpu_order(data):
         rhs = torch.zeros((d._v.n_loc, K))
         td._accumulate_block(prec, rhs, full, plan, engine="einsum")
         vm = full[plan.indices.long()] * plan.mask[..., None]
-        want = torch.zeros((d._v.n_loc + 1, K, K)).index_add_(
+        want = torch.zeros((d._v.n_loc + 1, K, K)).index_add_(  # repro-lint: disable=ordered-sum (the CPU order held to)
             0, plan.seg, torch.einsum("rwk,rwl->rkl", vm, vm))
         assert torch.equal(prec, want[:-1])
-        want = torch.zeros((d._v.n_loc + 1, K)).index_add_(
+        want = torch.zeros((d._v.n_loc + 1, K)).index_add_(  # repro-lint: disable=ordered-sum (the CPU order held to)
             0, plan.seg, torch.einsum("rwk,rw->rk", vm, plan.values * plan.mask))
         assert torch.equal(rhs, want[:-1])
     assert all(b.seg_order is None for row in _sampler(data)._v.plans for b in row)

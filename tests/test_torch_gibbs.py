@@ -215,7 +215,7 @@ def test_segment_reduce_rows_adds_in_row_order_as_index_add_does(stacked, tail):
     axis = 1 if stacked else 0
     out = list(rows.shape)
     out[axis] = 60
-    assert torch.equal(got, torch.zeros(out).index_add_(axis, torch.tensor(seg).long(), rows))
+    assert torch.equal(got, torch.zeros(out).index_add_(axis, torch.tensor(seg).long(), rows))  # repro-lint: disable=ordered-sum (CPU reference)
     assert torch.equal(got, kref.segment_sums_in_order(rows, torch.tensor(seg), 60,
                                                        stacked=stacked))
 
@@ -226,5 +226,5 @@ def test_sum_rows_by_id_is_the_scatter_add_in_draw_order():
     rng = np.random.default_rng(1)
     ids = torch.tensor(rng.integers(0, 40, 500))
     rows = torch.tensor(rng.normal(size=(500, 8)).astype(np.float32))
-    want = torch.zeros(45, 8).index_add_(0, ids, rows)
+    want = torch.zeros(45, 8).index_add_(0, ids, rows)  # repro-lint: disable=ordered-sum (CPU reference)
     assert torch.equal(tg.sum_rows_by_id(rows, ids, 45), want)

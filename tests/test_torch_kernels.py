@@ -106,9 +106,9 @@ def test_wrappers_do_not_count_cpu_calls():
     idx, val, msk, seg = _bucket(rng, 8, 8, 10, 4)
     ops.reset_launches()
     ops.gather_syrk_seg(_t(idx), _t(val), _t(msk), _t(seg), 4,
-                        torch.randn(10, 8))
-    ops.masked_syrk(torch.randn(3, 4, 8), torch.randn(3, 4))
-    ops.topn_scores(torch.randn(2, 8), torch.randn(9, 8), 3)
+                        torch.randn(10, 8))  # repro-lint: disable=rng-global (values unused: the test counts launches)
+    ops.masked_syrk(torch.randn(3, 4, 8), torch.randn(3, 4))  # repro-lint: disable=rng-global (values unused)
+    ops.topn_scores(torch.randn(2, 8), torch.randn(9, 8), 3)  # repro-lint: disable=rng-global (values unused)
     assert set(ops.LAUNCHES.values()) == {0}
 
 

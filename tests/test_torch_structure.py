@@ -1,5 +1,6 @@
 """Structural rules of the port: it imports neither JAX nor the JAX
-package, its serving tier does no device work under a lock, and its entry
+package, its serving tier does no device work under a lock (the port's
+lint, `repro_torch.analysis`, sync-under-lock), and its entry
 points (the distributed sampler's too) run on the card unless asked for
 the CPU."""
 import ast
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 # and torch's default thread count each would oversubscribe them
 torch.set_num_threads(1)
 
+from repro_torch.analysis import analyze_source  # noqa: E402
 from repro_torch.checkpoint import RetainedSample  # noqa: E402
 from repro_torch.core import GibbsSampler  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
@@ -54,7 +56,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "configs/stablelm_1_6b.py", "configs/granite_20b.py",
             "configs/granite_moe_3b_a800m.py", "configs/xlstm_350m.py",
             "configs/zamba2_7b.py", "models/ssm.py", "models/mamba.py",
-            "models/zamba.py"} <= {
+            "models/zamba.py", "analysis/cli.py", "analysis/cuda.py"} <= {
         f.relative_to(PORT).as_posix() for f in files}
     bad = [
         (str(f.relative_to(ROOT)), root)
@@ -65,43 +67,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
-#: device work that must not run lexically inside `with self.<lock>:` in the
-#: serving tier (the reference's sync-under-lock lint knows only jax and
-#: numpy names): a torch call, or a method that copies, syncs or builds
-#: device tables
-DEVICE_METHODS = {"cpu", "item", "numpy", "to", "scoring_matrices"}
-LINT_OPT_OUT = "# repro-lint: disable=sync-under-lock"
-
-
-def _device_calls_under_locks(tree: ast.AST, lines: list[str]):
-    def held_body(node):
-        for child in ast.iter_child_nodes(node):
-            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
-                continue  # runs later, not under this lock
-            yield child
-            yield from held_body(child)
-
-    for node in ast.walk(tree):
-        if not isinstance(node, ast.With):
-            continue
-        locks = [item.context_expr for item in node.items
-                 if isinstance(item.context_expr, ast.Attribute)
-                 and isinstance(item.context_expr.value, ast.Name)
-                 and item.context_expr.value.id == "self"]
-        if not locks:
-            continue
-        for stmt in node.body:
-            for call in [stmt, *held_body(stmt)]:
-                if not isinstance(call, ast.Call):
-                    continue
-                f = call.func
-                root = f
-                while isinstance(root, ast.Attribute):
-                    root = root.value
-                flagged = ((isinstance(root, ast.Name) and root.id == "torch")
-                           or (isinstance(f, ast.Attribute) and f.attr in DEVICE_METHODS))
-                if flagged and LINT_OPT_OUT not in lines[call.lineno - 1]:
-                    yield call.lineno, ast.unparse(call)[:60]
+def _device_calls_under_locks(code: str, filename: str):
+    """(line, call) of each device call the port's lint flags under a lock
+    (`repro_torch.analysis`'s sync-under-lock: a torch call, or a method
+    that copies, syncs or builds device tables), suppressions honoured."""
+    lines = code.splitlines()
+    return [(f.line, lines[f.line - 1].strip()[:60])
+            for f in analyze_source(code, rules=["sync-under-lock"], filename=filename)]
 
 
 def test_no_device_work_under_a_serving_lock():
@@ -109,8 +81,7 @@ def test_no_device_work_under_a_serving_lock():
     assert {f.name for f in files} >= {"cluster.py", "frontend.py", "publish.py",
                                         "foldin.py", "faults.py"}
     bad = [(f.name, line, text) for f in files
-           for line, text in _device_calls_under_locks(
-               ast.parse(f.read_text()), f.read_text().splitlines())]
+           for line, text in _device_calls_under_locks(f.read_text(), f.name)]
     assert bad == []
 
 
@@ -126,8 +97,7 @@ class C:
             self.n += 1
         e = t.item()
 """
-    found = [line for line, _ in _device_calls_under_locks(ast.parse(src),
-                                                            src.splitlines())]
+    found = [line for line, _ in _device_calls_under_locks(src, "mod.py")]
     assert found == [5, 6, 7]
 
 

@@ -139,8 +139,8 @@ def test_flash_bwd_ref_gradcheck_at_sq_ne_sk():
 def test_flash_bwd_wrapper_checks_shapes_against_sq_and_sk():
     """On the CPU the wrapper takes the plain version at S_q != S_k; the
     lse it is given is (BH, S_q)."""
-    q = torch.randn(2, 5, 32)
-    k, v = torch.randn(1, 3, 32), torch.randn(1, 3, 32)
+    q = torch.randn(2, 5, 32)  # repro-lint: disable=rng-global (only shapes are checked)
+    k, v = torch.randn(1, 3, 32), torch.randn(1, 3, 32)  # repro-lint: disable=rng-global (shapes only)
     out, lse, o = ops.flash_forward(q, k, v, False, 0, 0.0, 32 ** -0.5)
     assert lse.shape == (2, 5) and o.numel() == 0    # fp32: out is unrounded
     dq, dk, dv = ops.flash_attention_bwd(q, k, v, torch.ones_like(q), lse, out,
