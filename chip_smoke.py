@@ -178,7 +178,7 @@ no kernels line and no result line. Phases:
               its inter-chunk stabilizer, shared-block applications with
               weights of their own), each of which must fail a check;
               then xlstm-350m's make_train_step at published width, B =
-              1, S = 2,048: a warm-up and 1 timed step with remat (step
+              1, S = 512: a warm-up and 1 timed step with remat (step
               seconds, tokens/s, peak memory) and one step without, whose
               peak the remat steps' must undercut by 10%, and a plant of
               the forward that ignored remat, which must fail that check
@@ -277,18 +277,45 @@ no kernels line and no result line. Phases:
               within DRYRUN_PEAK_RTOL of the measured one; the phase's host
               time against DRYRUN_BUDGET_S. (c), the model-FLOPs share, is
               phase 22's line: `models/api.py::model_flops_per_step`
- 26. report   one JSON line of kernels, the card line, and the last line
+ 26. mesh     the LM on a device mesh (needs no other phase): (a) the
+              flash pair with a query offset: gemma2-2b's local layer at
+              S = 8,192 (softcap 50, window 4,096) and whisper-medium's
+              cross-attention (8,192 x 1,500, non-causal), the queries cut
+              into MESH_SHARDS shards at their offsets, each shard's
+              forward and backward held to its plain version (the forward
+              at the flash gates, the backward head by head against
+              float64 within one bf16 ulp), the shards joined held to the
+              whole launch (rows, lse and dQ bit for bit: the offsets are
+              multiples of the query block; dK and dV summed at the
+              backward's gate), each timed beside the whole launch;
+              (b) gemma2-2b's full-width train step, B = 1, S = 8,192,
+              remat on, on `make_host_mesh()` (a (1, 1) DeviceMesh over an
+              NCCL group of one rank): params, moments and batch DTensors
+              placed by `train_state_pspecs`, the step through the layers'
+              regions and the flash pair; its loss and updated parameters
+              bit for bit those of the same step without a mesh; (c) the
+              reduced gemma2-2b trained on the card by the mesh-free
+              Trainer, resumed onto the host mesh by a Trainer with
+              `state_shardings` (`restore_resharded`), its next step bit
+              for bit the live state's; (d) the mesh dry-run in a
+              subprocess (the fake world and the NCCL group do not share a
+              process), started first: kimi-k2-1t-a32b train_4k on
+              2 x 16 x 16 with opt (the expert-parallel region), gemma2-2b
+              train_4k and granite-moe-3b-a800m prefill_32k on 16 x 16,
+              each ok with its per-device peak GB and whether it fits
+ 27. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
 The main path is phases 7, 10, 17, 18 and 22, the serving tier's paths are
 phases 11 and 12, the distributed sampler's phase 14, the SGLD and ALS
 path phase 15, the other LMs phase 19 and the dense train steps of 22,
-the SSM and hybrid LMs phase 20 and the audio and VLM LMs phase 21: the
+the SSM and hybrid LMs phase 20, the audio and VLM LMs phase 21 and the
+train step on a mesh phase 26 (b): the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
 `dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_ssm_launches`,
-`lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches` and
-`lm_train_mm_launches`, the
+`lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches`,
+`lm_train_mm_launches` and `mesh_launches`, the
 SGLD ones all 0; lm_ssm's are the two timed forwards', 3 flash launches in
 all; lm_mm's the two timed forwards', 48 + 28 flash launches; lm_train's
 are its 3 timed steps, lm_train_dense's the 3 timed steps of each dense
@@ -526,11 +553,12 @@ FLASH112_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 # xlstm-350m's train step (phase lm_ssm): B = 1 at this S (its sLSTM is a
 # per-step loop on the host: the forward alone took 5.3-11.4 s at 8,192),
 # 1 + 1 steps with remat (1 + 2 before whisper's training needed the
-# time), then one without; the remat step's peak device
+# time), then one without; S = 2,048 until phase mesh needed the time
+# (its steps took 80.1 s of lm_ssm there); the remat step's peak device
 # memory must lie below the other's by at least this share, which the
 # allocator's noise cannot make up and a forward that ignores remat cannot
 # reach
-XLSTM_TRAIN_SEQ = 2048
+XLSTM_TRAIN_SEQ = 512
 XLSTM_TRAIN_STEPS = 1
 REMAT_PEAK_MARGIN = 0.1
 # The audio and VLM families (phase lm_mm). whisper-medium's decoder at S =
@@ -569,6 +597,15 @@ MM_PLANT_PAD_KEYS = 64
 DRYRUN_JOBS = 4
 DRYRUN_PEAK_RTOL = 0.2
 DRYRUN_BUDGET_S = 120.0
+# phase mesh: the query shards of the flash pair's offset checks (a
+# 16-wide "model" axis), whisper's encoder frames, and the dry-run's cells
+# on the production meshes
+MESH_SHARDS = 16
+MESH_FRAMES = 1500
+MESH_CELLS = (("kimi-k2-1t-a32b", "train_4k", "multi", "opt"),
+              ("gemma2-2b", "train_4k", "single", "base"),
+              ("granite-moe-3b-a800m", "prefill_32k", "single", "base"))
+MESH_BUDGET_S = 120.0
 
 FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
   constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
@@ -629,7 +666,7 @@ def card_line() -> str:
 PHASES = ("build", "lint", "data", "kernels", "ranks", "topn", "train", "parity",
           "learning", "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld",
           "lm_kernels", "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train",
-          "lm_train_mm", "lm_faults", "dryrun")
+          "lm_train_mm", "lm_faults", "dryrun", "mesh")
 
 
 def main() -> int:
@@ -6186,6 +6223,229 @@ class Smoke:
             np.isfinite(x) for x in out["loss_history"]),
             "the reduced steps ran the backward kernel and every loss is finite")
 
+    # ------------------------------------------------------------ the mesh
+    def mesh(self):
+        """Phase mesh (the module docstring): the flash pair with a query
+        offset, gemma2-2b's train step on the host mesh, elastic restore
+        onto it, and the mesh dry-run in a subprocess."""
+        import logging
+
+        import repro_torch
+
+        t_phase = time.perf_counter()
+        # DTensor warns at each redistribution over two mesh axes at once
+        logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+        env = dict(os.environ, PYTHONPATH=str(Path(repro_torch.__file__).parents[1]),
+                   OMP_NUM_THREADS="1")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", MESH_DRYRUN_SCRIPT, json.dumps(MESH_CELLS)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            self.mesh_flash_offsets()
+            self.mesh_train_step()
+            self.mesh_restore()
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            from repro_torch.launch.mesh import close_host_group
+
+            close_host_group()
+        recs = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        print(f"(d) the mesh dry-run in a subprocess (a fake world of 256 or 512 ranks on the "
+              f"meta device; counts of the last rank, modelled, not measured):")
+        for rec in recs:
+            print("  " + rec["line"])
+        if proc.returncode or len(recs) != len(MESH_CELLS):
+            print(err[-4000:])
+        self.check(proc.returncode == 0 and len(recs) == len(MESH_CELLS)
+                   and all(r["ok"] for r in recs),
+                   f"the {len(MESH_CELLS)} mesh dry-run cells end ok")
+        for rec in recs:
+            if rec["ok"]:
+                print(f"  {rec['arch']} {rec['shape']} {rec['variant']} on {rec['mesh']}: "
+                      f"per-device peak {rec['peak_bytes'] / 1e9:.2f} GB, fits 80 GB: "
+                      f"{rec['fits']}; {rec['flops'] / 1e12:.2f} TFLOP and "
+                      f"{rec['collective_total_bytes'] / 1e9:.2f} GB of collectives a device "
+                      f"{rec['collective_counts']}, useful flops ratio "
+                      f"{rec['useful_flops_ratio']:.3f}")
+        took = time.perf_counter() - t_phase
+        self.check(took <= MESH_BUDGET_S,
+                   f"phase mesh took {took:.1f} s of host time (at most {MESH_BUDGET_S:g})")
+
+    def mesh_flash_offsets(self):
+        """(a) The flash pair over MESH_SHARDS query shards at their offsets
+        against the plain versions and against the whole launch."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        g = torch.Generator(device=self.dev).manual_seed(MESH_SHARDS)
+        cases = (("gemma2-2b local layer", 8, 4, LM_SEQ, LM_SEQ, 256,
+                  dict(causal=True, window=4096, softcap=50.0)),
+                 ("whisper-medium cross-attention", 16, 16, LM_SEQ, MESH_FRAMES, 64,
+                  dict(causal=False, window=0, softcap=0.0)))
+        for tag, bh, bhk, sq, sk, d, kw in cases:
+            q = torch.randn(bh, sq, d, generator=g, device=self.dev).to(torch.bfloat16)
+            k, v = (torch.randn(bhk, sk, d, generator=g, device=self.dev).to(torch.bfloat16)
+                    for _ in range(2))
+            do = torch.randn(q.shape, generator=g, device=self.dev).to(torch.bfloat16)
+
+            def grads(qq, off):
+                leaves = [t.detach().requires_grad_() for t in (qq, k, v)]
+                o = ops.flash_attention(*leaves, q_offset=off, **kw)
+                lo = off
+                return (o,) + torch.autograd.grad(o, leaves, do[:, lo:lo + qq.shape[1]])
+
+            whole = grads(q, 0)
+            n = sq // MESH_SHARDS
+            outs, dqs, dk, dv, worst, fwd_err = [], [], 0.0, 0.0, 0.0, 0.0
+            for i in range(MESH_SHARDS):
+                part = q[:, i * n:(i + 1) * n].contiguous()
+                o, gq, gk, gv = grads(part, i * n)
+                want = ref.flash_attention_ref(part, k, v, q_offset=i * n, **kw)
+                ok, _, e = self.verdict(o.float(), want.float(), "", FLASH_TOL["bf16"])
+                ok2, _, _ = self.verdict(o.float(), want.float(), "", FLASH_BF16_ULP_TOL)
+                fwd_err = max(fwd_err, e)
+                self.check(ok and ok2, f"flash forward, {tag}, shard {i} at offset {i * n}: "
+                           f"within {FLASH_TOL['bf16']} and {FLASH_BF16_ULP_TOL} of its plain "
+                           f"version (max abs err {e:.3e})")
+                exact = self.bwd_exact(part, k, v, do[:, i * n:(i + 1) * n].contiguous(),
+                                       dict(kw, q_offset=i * n))
+                for gr, w in zip((gq, gk, gv), exact):
+                    worst = max(worst, self.grad_errors(gr, w)[0])
+                del exact
+                outs.append(o.detach())
+                dqs.append(gq)
+                dk, dv = dk + gk.double(), dv + gv.double()
+            self.check(worst <= 1.0, f"flash backward, {tag}: every shard's dq, dk and dv "
+                       f"within one bf16 ulp of each head's largest magnitude of float64 at "
+                       f"its offset (worst err / ulp {worst:.3f})")
+            self.check(torch.equal(torch.cat(outs, 1), whole[0].detach())
+                       and torch.equal(torch.cat(dqs, 1), whole[1]),
+                       f"{tag}: the {MESH_SHARDS} shards' rows and dQ joined are the whole "
+                       f"launch's bit for bit (offsets of {n} rows, a multiple of the query "
+                       f"blocks)")
+            joined = max(self.grad_errors(s_.to(torch.bfloat16), w.double())[0]
+                         for s_, w in ((dk, whole[2]), (dv, whole[3])))
+            self.check(joined <= 1.0, f"{tag}: dK and dV summed over the shards within one "
+                       f"bf16 ulp of the whole launch's (worst err / ulp {joined:.3f})")
+            fwd = [self.cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))]
+            fwd.append(sum(self.cuda_ms(lambda i=i: ops.flash_attention(
+                q[:, i * n:(i + 1) * n], k, v, q_offset=i * n, **kw), reps=3)
+                for i in range(MESH_SHARDS)))
+            last = self.cuda_ms(lambda: ops.flash_attention(
+                q[:, sq - n:], k, v, q_offset=sq - n, **kw), reps=3)
+            print(f"(a) {tag} ({bh}, {sq} x {sk}, {d}): forward {fwd[0]:.3f} ms whole, "
+                  f"{fwd[1]:.3f} ms over {MESH_SHARDS} shards at their offsets, the last "
+                  f"shard (the busiest rank's) {last:.3f} ms; forward max abs err to plain "
+                  f"{fwd_err:.3e}")
+            key = "flash_attention_offset_ms"
+            if "flash_attention" in self.rows:
+                self.rows["flash_attention"].setdefault(key, {})[tag] = dict(
+                    whole_ms=fwd[0], shards_ms=fwd[1], last_shard_ms=last, shards=MESH_SHARDS)
+            del q, k, v, do, whole, outs, dqs, dk, dv
+
+    def mesh_train_step(self):
+        """(b) gemma2-2b's full-width train step on the host mesh against
+        the same step without one, bit for bit."""
+        import gc
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import init_train_state, make_train_step, shard_batch, \
+            shard_state
+        from repro_torch.models.api import ShapeSpec, input_pspecs
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        cfg = get_config("gemma2-2b")
+        opt = AdamWConfig()
+        step = make_train_step(cfg, opt)
+        batch = TokenStream(cfg, 1, LM_SEQ, seed=0)(0)
+        state = init_train_state(cfg, 0, opt)
+        state, m = step(state, batch)
+        want_loss = float(m["loss"])
+        want = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = make_host_mesh()
+        print(f"(b) the host mesh: {mesh} over an NCCL group of "
+              f"{torch.distributed.get_world_size()} rank")
+        state = shard_state(cfg, init_train_state(cfg, 0, opt), mesh)
+        dbatch = shard_batch({k: torch.as_tensor(v, device=self.dev) for k, v in batch.items()},
+                             input_pspecs(cfg, ShapeSpec("mesh", LM_SEQ, 1, "train"), mesh),
+                             mesh)
+        torch.cuda.reset_peak_memory_stats()
+        self.sync()
+        t0 = time.perf_counter()
+        ops.reset_launches()                      # the mesh path starts here
+        state, m = step(state, dbatch)
+        launches = ops.launches()                 # ... and is read here
+        self.sync()
+        dt = time.perf_counter() - t0
+        self.path_launches["mesh"] = launches
+        loss = float(m["loss"].full_tensor())
+        same = all(torch.equal(p.full_tensor(), want[n])
+                   for n, p in state.params.named_parameters())
+        kinds = {type(p).__name__ for p in state.params.parameters()} | {
+            type(t).__name__ for t in state.opt.m.values()}
+        print(f"(b) gemma2-2b's train step on the host mesh, B=1, S={LM_SEQ}, remat on: "
+              f"{dt:.3f} s, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+              f"loss {loss:.6f} (without a mesh {want_loss:.6f}), launches {launches}; "
+              f"state tensors {sorted(kinds)}")
+        self.check(kinds == {"DTensor"}, "the mesh step's parameters and moments are DTensors")
+        self.check(loss == want_loss and same,
+                   "the step on the host mesh gives the mesh-free step's loss and updated "
+                   "parameters bit for bit")
+        self.check(launches["flash_attention"] == 2 * cfg.n_layers
+                   and launches["flash_attention_bwd"] == cfg.n_layers,
+                   f"the mesh step launched the flash forward twice a layer and its backward "
+                   f"once ({launches['flash_attention']}, {launches['flash_attention_bwd']})")
+        del state, m, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def mesh_restore(self):
+        """(c) A checkpoint of the mesh-free Trainer resumed onto the host
+        mesh by a Trainer with state_shardings: its next step is the live
+        state's bit for bit."""
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import init_train_state, make_train_step, state_shardings
+        from repro_torch.models.api import ShapeSpec, input_pspecs
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.runtime import Trainer, TrainerConfig
+
+        torch = self.torch
+        cfg = reduced(get_config("gemma2-2b"))
+        opt = AdamWConfig(lr=1e-3)
+        step = make_train_step(cfg, opt, total_steps=100)
+        data = TokenStream(cfg, 2, 256, seed=0)
+        root = str(Path(self.tmp.name) / "mesh_ckpt")
+        live = Trainer(step, init_train_state(cfg, 0, opt), data,
+                       TrainerConfig(ckpt_dir=root, ckpt_every=3, use_async_ckpt=False))
+        live.run(3, log_every=100)                # checkpoints at 0 and 3
+        live.state, m_live = step(live.state, {k: torch.as_tensor(v, device=self.dev)
+                                               for k, v in data(3).items()})
+        mesh = make_host_mesh()
+        sh = state_shardings(cfg, init_train_state(cfg, 0, opt, device="meta"), mesh,
+                             input_pspecs(cfg, ShapeSpec("mesh", 256, 2, "train"), mesh))
+        resumed = Trainer(step, init_train_state(cfg, 0, opt, device="meta"), data,
+                          TrainerConfig(ckpt_dir=root, ckpt_every=100, use_async_ckpt=False),
+                          state_shardings=sh)
+        at = resumed.step
+        out = resumed.run(1, log_every=100)
+        same = all(torch.equal(p.full_tensor(), q) for p, q in zip(
+            resumed.state.params.parameters(), live.state.params.parameters()))
+        print(f"(c) the reduced gemma2-2b Trainer's step-{at} checkpoint restored onto "
+              f"{mesh}: next loss {out['loss_history'][0]:.6f}, the live state's "
+              f"{float(m_live['loss']):.6f}")
+        self.check(at == 3 and out["loss_history"][0] == float(m_live["loss"]) and same,
+                   "the state restored onto the host mesh (restore_resharded) takes the live "
+                   "state's next step bit for bit: its loss and parameters")
+
     def dryrun(self):
         """Phase dryrun (the module docstring): the meta sweep of every
         cell, then three cells counted on the meta device and run on the
@@ -6600,6 +6860,20 @@ class Smoke:
 
         load.stop = stop
         return load() if wait else load
+
+
+MESH_DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, mesh, variant in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, variant, save=False, mesh=mesh)
+    rec.pop("traceback", None) if rec["ok"] else None
+    print(json.dumps({k: rec.get(k) for k in (
+        "arch", "shape", "variant", "mesh", "n_devices", "ok", "error", "fits", "flops",
+        "collective_total_bytes", "collective_counts", "useful_flops_ratio", "total_s")}
+        | {"peak_bytes": rec.get("memory", {}).get("peak_bytes"),
+           "line": dryrun.summary_line(rec)}), flush=True)
+"""
 
 
 def visible_pairs(s: int, window: int) -> int:

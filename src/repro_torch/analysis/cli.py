@@ -47,8 +47,8 @@ RULE_DOCS = {
     "sync-under-lock": "torch call or device copy/sync while holding a lock",
     "rng-global": "torch draw without generator=, or a seed of the global generator",
     "ordered-sum": "atomic accumulating scatter (index_add_, scatter_add, "
-                   "accumulate=True, weighted bincount); collectives: none until "
-                   "several cards (ROADMAP item 7)",
+                   "accumulate=True, weighted bincount); the mesh's collectives "
+                   "run in one order on every rank (models/layers.py regions)",
     "tf32": "allow_tf32 set to other than False, or matmul precision below 'highest'",
     "cuda-float-atomic": "CUDA atomic or PTX red/atom on a target that is not an integer",
     "cuda-launch-guard": "kernel launcher called outside 'with _on_card(...)'",

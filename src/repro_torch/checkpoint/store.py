@@ -21,6 +21,7 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 def _to_host(x) -> np.ndarray:
@@ -109,3 +110,53 @@ class CheckpointStore:
         manifest = json.loads((d / "manifest.json").read_text())
         return {meta["path"]: np.load(d / meta["file"])
                 for meta in manifest["leaves"]}
+
+    def restore(self, like: dict, step: int | None = None, placements: dict | None = None,
+                mesh=None) -> dict:
+        """Step `step` (the latest when None) as {name: tensor} for every
+        name of `like` ({name: tensor}, whose shapes and dtypes the arrays
+        must have; the store's "['name']" paths match their names; bf16
+        from int16 bit patterns): on each template's device, or, where
+        `placements` ({name: DTensor placements} on `mesh`) names it, as a
+        DTensor of which this rank holds its slice (`shard_from_host`)."""
+        arrays = {k[2:-2] if k.startswith("['") else k: v
+                  for k, v in self.read_arrays(step).items()}
+        out = {}
+        for name, t in like.items():
+            if name not in arrays:
+                raise ValueError(f"checkpoint lacks {name}")
+            try:
+                src = host_tensor(arrays[name], t)
+            except ValueError as err:
+                raise ValueError(f"{name}: {err}") from None
+            if placements is not None and name in placements:
+                out[name] = shard_from_host(src, mesh, placements[name])
+            else:
+                out[name] = src.to(t.device)
+        return out
+
+
+def host_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A stored array as a host tensor of `like`'s dtype (bf16 from its
+    int16 bit patterns), its shape checked against like's."""
+    src = torch.from_numpy(np.array(arr))
+    if like.dtype == torch.bfloat16 and src.dtype == torch.int16:
+        src = src.view(torch.bfloat16)
+    if tuple(src.shape) != tuple(like.shape) or src.dtype != like.dtype:
+        raise ValueError(f"checkpoint has {tuple(src.shape)} {src.dtype}, the state "
+                         f"{tuple(like.shape)} {like.dtype}")
+    return src
+
+
+def shard_from_host(src: torch.Tensor, mesh, pl: tuple) -> torch.Tensor:
+    """This rank's shard of a host tensor, on the mesh's device, as a DTensor
+    of placements `pl`: sliced on the host, then copied (no collective)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(src.shape, mesh, pl)
+    local = src[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    return DTensor.from_local(local.contiguous().to(dev), mesh, pl, run_check=False,
+                              shape=src.shape, stride=src.contiguous().stride())

@@ -7,9 +7,10 @@ field for field.
     the flag changes nothing where the kernel runs;
   - for an MoE config, `moe_group_dispatch` (per-sequence dispatch groups:
     routing, sort and capacity per sequence) and `moe_ep_shard_map`, which
-    acts only under an active mesh, which the port never has (ROADMAP.md,
-    queue 1 item 7): it falls through to the grouped dispatch, as the JAX
-    package's does without a mesh;
+    acts only on a device mesh whose "model" axis is wider than one (the
+    expert-parallel region, `models/layers.py::_moe_sharded`): elsewhere
+    it falls through to the grouped dispatch, as the JAX package's does
+    without a mesh;
   - for the hybrid, the SSD scan at a chunk of 64 with its decay folded
     into B and C (`ssd_fold_decay`).
 remat_policy stays "nothing", and chunked_attn_min_len where it is, as in

@@ -149,7 +149,7 @@ template <typename T, int D, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
-    int causal, int window, float softcap, float scale) {
+    int causal, int window, float softcap, float scale, int qoff) {
   constexpr int LD = D + PAD;
   // a lane owns four adjacent accumulator columns in each 128-wide group
   // (float4 reads of V) when D >= 128 or D is no multiple of 32, else one
@@ -180,12 +180,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
 
   load_tile<T, D>(qs, LD, q + ((size_t)bh * Sq + q0) * D, min(BQ, Sq - q0), BQ);
 
-  // the KV tiles some row of this block can see
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  // the KV tiles some row of this block can see (row q at position qoff + q)
+  const int q_last = qoff + min(q0 + BQ, Sq) - 1;
   int kt_end = (Sk + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, q_last / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  if (window > 0 && qoff + q0 - window + 1 > 0) kt_begin = (qoff + q0 - window + 1) / BK;
 
   float m[RPW], l[RPW], acc[RPW][CPT];
 #pragma unroll
@@ -227,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     float p[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int qpos = q0 + row0 + i;
+      const int qpos = qoff + q0 + row0 + i;
       float x = s[i] * scale;
       if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
       bool seen = kpos < Sk;
@@ -305,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
 template <typename T, int D, bool KEEP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int BH, int rep, int Sq, int Sk, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           float softcap, float scale, int qoff, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, D, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -314,7 +314,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_kernel<T, D, KEEP><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, rep, causal,
-      window, softcap, scale);
+      window, softcap, scale, qoff);
   return (int)cudaGetLastError();
 }
 
@@ -343,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ o32,
     float* __restrict__ lse, int Sq, int Sk, int rep, int causal, int window,
-    float softcap, float scale) {
+    float softcap, float scale, int qoff) {
   constexpr int LD = D + PAD;
   constexpr int NO = D / 8;         // n-tiles of a warp's O
   // D / 16 k-steps of QK^T and D / 16 pairs of O's n-tiles; an odd count
@@ -364,15 +364,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;          // fragment row, column pair
   const int qw = q0 + warp * 16;                    // the warp's first row
+  const int qg = qoff + qw;                         // ... and its position
   const bf16* kb = k + (size_t)(bh / rep) * Sk * D;
   const bf16* vb = v + (size_t)(bh / rep) * Sk * D;
 
-  // the KV tiles some row of this block can see
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  // the KV tiles some row of this block can see (row q at position qoff + q)
+  const int q_last = qoff + min(q0 + BQ, Sq) - 1;
   int kt_end = (Sk + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, q_last / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  if (window > 0 && qoff + q0 - window + 1 > 0) kt_begin = (qoff + q0 - window + 1) / BK;
 
   load_rows<D, PAD, THREADS>(qs, q + ((size_t)bh * Sq + q0) * D, min(BQ, Sq - q0), BQ);
   if (kt_begin < kt_end) {
@@ -405,10 +406,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
     const bf16* vt_s = vs + st * BK * LD;
     // whether any row of the warp sees a key of the tile, and whether
     // some pair of the tile is masked
-    const bool seen = qw < Sq && !(causal && k0 > qw + 15) &&
-                      !(window > 0 && qw - (k0 + BK - 1) >= window);
-    const bool edge = (causal && k0 + BK - 1 > qw) ||
-                      (window > 0 && qw + 15 - k0 >= window) || k0 + BK > Sk;
+    const bool seen = qw < Sq && !(causal && k0 > qg + 15) &&
+                      !(window > 0 && qg - (k0 + BK - 1) >= window);
+    const bool edge = (causal && k0 + BK - 1 > qg) ||
+                      (window > 0 && qg + 15 - k0 >= window) || k0 + BK > Sk;
     if (seen) {
       // S = Q K^T
       float s[NS][4];
@@ -436,7 +437,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
           float x = s[n][c] * scale;
           if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
           if (edge) {
-            const int qpos = qw + g + (c >> 1) * 8;
+            const int qpos = qg + g + (c >> 1) * 8;
             const int kpos = k0 + n * 8 + tig * 2 + (c & 1);
             bool vis = kpos < Sk;
             if (causal) vis = vis && qpos >= kpos;
@@ -540,7 +541,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_mma_kernel(
 template <int D, bool KEEP>
 int launch(const void* q, const void* k, const void* v, void* o, float* o32,
            float* lse, int BH, int rep, int Sq, int Sk, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           float softcap, float scale, int qoff, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<D, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -549,7 +550,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* o32,
   flash_mma_kernel<D, KEEP><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), o32, lse, Sq, Sk, rep,
-      causal, window, softcap, scale);
+      causal, window, softcap, scale, qoff);
   return (int)cudaGetLastError();
 }
 
@@ -558,11 +559,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* o32,
 template <int D, bool KEEP>
 int launch_k(const void* q, const void* k, const void* v, void* o, float* o32,
              float* lse, int BH, int rep, int Sq, int Sk, int bf16, int causal,
-             int window, float softcap, float scale, cudaStream_t stream) {
+             int window, float softcap, float scale, int qoff, cudaStream_t stream) {
   return bf16 ? mma::launch<D, KEEP>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, causal,
-                                     window, softcap, scale, stream)
+                                     window, softcap, scale, qoff, stream)
               : launch<float, D, KEEP>(q, k, v, o, lse, BH, rep, Sq, Sk, causal,
-                                       window, softcap, scale, stream);
+                                       window, softcap, scale, qoff, stream);
 }
 
 // KEEP (lse, and o32 for bf16, given) is a separate instantiation, so the
@@ -570,12 +571,12 @@ int launch_k(const void* q, const void* k, const void* v, void* o, float* o32,
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* o32,
              float* lse, int BH, int rep, int Sq, int Sk, int bf16, int causal,
-             int window, float softcap, float scale, cudaStream_t stream) {
+             int window, float softcap, float scale, int qoff, cudaStream_t stream) {
   return lse != nullptr
              ? launch_k<D, true>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, bf16, causal,
-                                 window, softcap, scale, stream)
+                                 window, softcap, scale, qoff, stream)
              : launch_k<D, false>(q, k, v, o, o32, lse, BH, rep, Sq, Sk, bf16, causal,
-                                  window, softcap, scale, stream);
+                                  window, softcap, scale, qoff, stream);
 }
 
 }  // namespace
@@ -586,15 +587,17 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* o32,
 // 112, 128, 256 (112: zamba2-7b's shared attention). For the backward, lse (BH, Sq) fp32 takes each row's
 // log-sum-exp m + log(l), and o32 (BH, Sq, D), bf16 only, the fp32
 // quotients that o rounds (an fp32 o is its own); null pointers write
-// neither and leave the arithmetic as it is. Returns the CUDA error code
-// of the launch.
+// neither and leave the arithmetic as it is. Query row q sits at position
+// q_offset + q for the causal mask and the window (a shard of a
+// sequence's queries against all its keys; 0 for a whole sequence).
+// Returns the CUDA error code of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* o32,
                                       void* lse, int BH, int BHk, int Sq,
                                       int Sk, int D, int bf16, int causal,
                                       int window, float softcap, float scale,
-                                      void* stream) {
-  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0)
+                                      int q_offset, void* stream) {
+  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   // o32 comes with lse for bf16 and never for fp32 (its o is fp32)
   if ((o32 != nullptr) != (lse != nullptr && bf16)) return (int)cudaErrorInvalidValue;
@@ -603,11 +606,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   float* f = static_cast<float*>(o32);
   float* l = static_cast<float*>(lse);
   switch (D) {
-    case 32: return launch_d<32>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 64: return launch_d<64>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 112: return launch_d<112>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 128: return launch_d<128>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
-    case 256: return launch_d<256>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, s);
+    case 32: return launch_d<32>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, q_offset, s);
+    case 64: return launch_d<64>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, q_offset, s);
+    case 112: return launch_d<112>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, q_offset, s);
+    case 128: return launch_d<128>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, q_offset, s);
+    case 256: return launch_d<256>(q, k, v, o, f, l, BH, rep, Sq, Sk, bf16, causal, window, softcap, scale, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

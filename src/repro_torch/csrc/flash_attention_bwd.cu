@@ -225,14 +225,15 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos, const 
 struct Mask {
   int Sq, Sk, causal, window;
   float softcap, scale;
+  int qoff;         // the position of query row 0: a shard's offset in its sequence
 
   // P of one pair from its raw score s and the row's lse, 0 where masked,
   // and the factor (1 - t^2) that dS takes from the softcap (1 without one)
   __device__ __forceinline__ float prob(float s, int qpos, int kpos, float lse,
                                         float& fac) const {
     bool vis = qpos < Sq && kpos < Sk;
-    if (causal) vis = vis && qpos >= kpos;
-    if (window > 0) vis = vis && qpos - kpos < window;
+    if (causal) vis = vis && qpos + qoff >= kpos;
+    if (window > 0) vis = vis && qpos + qoff - kpos < window;
     float x = s * scale, t = 0.f;
     if (softcap > 0.f) {
       t = tanhf(x / softcap);
@@ -365,12 +366,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     dl[i] = i < valid ? delta[qoff + i] : 0.f;
   }
 
-  // the KV tiles some row of this tile can see
-  const int q_last = q0 + valid - 1;
+  // the KV tiles some row of this tile can see (rows at mask.qoff + q)
+  const int g0 = mask.qoff + q0;
+  const int q_last = g0 + valid - 1;
   int kt_end = (Sk + BKV - 1) / BKV;
   if (mask.causal) kt_end = min(kt_end, q_last / BKV + 1);
   int kt_begin = 0;
-  if (mask.window > 0 && q0 - mask.window + 1 > 0) kt_begin = (q0 - mask.window + 1) / BKV;
+  if (mask.window > 0 && g0 - mask.window + 1 > 0) kt_begin = (g0 - mask.window + 1) / BKV;
 
   float acc[RPW][D / 32];
 #pragma unroll
@@ -434,10 +436,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
   load_tile<D>(ks, k + koff * D, kvalid, BKV);
   load_tile<D>(vs, v + koff * D, kvalid, BKV);
 
-  // the query tiles that see some key of this tile
+  // the query tiles that see some key of this tile (query row q at
+  // position mask.qoff + q)
   const int k_last = k0 + kvalid - 1;
-  const int q_begin = mask.causal ? k0 : 0;
-  const int q_end = mask.window > 0 ? min(Sq, k_last + mask.window) : Sq;
+  const int q_begin = mask.causal ? max(0, k0 - mask.qoff) : 0;
+  const int q_end = mask.window > 0 ? max(0, min(Sq, k_last + mask.window - mask.qoff)) : Sq;
   const int qt_begin = q_begin / BQ, qt_end = (q_end + BQ - 1) / BQ;
 
   float acc_k[RPW][D / 32], acc_v[RPW][D / 32];
@@ -683,11 +686,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
   const bf16* kb = k + (size_t)(h / rep) * Sk * D;
   const bf16* vb = v + (size_t)(h / rep) * Sk * D;
 
-  // the KV tiles some row of this block can see
+  // the KV tiles some row of this block can see (rows at mask.qoff + q)
+  const int g0 = mask.qoff + q0;
   int kt_end = (Sk + DQ_BK - 1) / DQ_BK;
-  if (mask.causal) kt_end = min(kt_end, (q0 + valid - 1) / DQ_BK + 1);
+  if (mask.causal) kt_end = min(kt_end, (g0 + valid - 1) / DQ_BK + 1);
   int kt_begin = 0;
-  if (mask.window > 0 && q0 - mask.window + 1 > 0) kt_begin = (q0 - mask.window + 1) / DQ_BK;
+  if (mask.window > 0 && g0 - mask.window + 1 > 0) kt_begin = (g0 - mask.window + 1) / DQ_BK;
 
   load_rows<D, PAD, THREADS>(qs, q + qoff * D, valid, DQ_BQ);
   load_rows<D, PAD, THREADS>(dos, dout + qoff * D, valid, DQ_BQ);
@@ -728,8 +732,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     const bf16* kt_s = ks + st * DQ_BK * LD;
     const bf16* vt_s = vs + st * DQ_BK * LD;
     // whether any row of the warp sees a key of the tile
-    const bool seen = qw < Sq && !(mask.causal && k0 > qw + 15) &&
-                      !(mask.window > 0 && qw - (k0 + DQ_BK - 1) >= mask.window);
+    const int qg = mask.qoff + qw;  // the warp's first row's position
+    const bool seen = qw < Sq && !(mask.causal && k0 > qg + 15) &&
+                      !(mask.window > 0 && qg - (k0 + DQ_BK - 1) >= mask.window);
     if (seen) {
       float s[NT][4], dp[NT][4];
       scores<D>(s, qs + warp * 16 * LD, kt_s, LD, lane);      // S = Q K^T
@@ -785,8 +790,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
   // the query tiles that see some key of this block, for each of the
   // group's heads in order: tile `it` is head hk rep + it / nqt (none
   // where a causal block's keys lie past every query, S_k > S_q)
-  const int q_begin = mask.causal ? k0 : 0;
-  const int q_end = mask.window > 0 ? min(Sq, k0 + kvalid - 1 + mask.window) : Sq;
+  const int q_begin = mask.causal ? max(0, k0 - mask.qoff) : 0;
+  const int q_end =
+      mask.window > 0 ? max(0, min(Sq, k0 + kvalid - 1 + mask.window - mask.qoff)) : Sq;
   const int qt_begin = q_begin / KV_BQ;
   const int nqt = max(0, (q_end + KV_BQ - 1) / KV_BQ - qt_begin);
   const int tiles = rep * nqt;
@@ -833,8 +839,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
     const bf16* dot_s = dos + st * KV_BQ * LD;
     // whether some query of the tile sees a key of the pair: the same in
     // both warps of the pair, so both take the named barrier or neither
-    const bool seen = kw < Sk && !(mask.causal && q0 + KV_BQ - 1 < kw) &&
-                      !(mask.window > 0 && q0 - (kw + 15) >= mask.window);
+    const int g0 = mask.qoff + q0;  // the tile's first row's position
+    const bool seen = kw < Sk && !(mask.causal && g0 + KV_BQ - 1 < kw) &&
+                      !(mask.window > 0 && g0 - (kw + 15) >= mask.window);
     if (seen) {
       // entry (n, c): key kw + g + (c >> 1) 8, query q0 + n 8 + 2 tig + (c & 1)
       float s[NT][4];
@@ -952,7 +959,9 @@ int launch_d(const void* q, const void* k, const void* v, const void* o, const v
 // one dtype: bf16 when `bf16` is 1, else fp32; o (BH, Sq, D) fp32, the
 // forward's output before rounding; lse (BH, Sq) fp32, the forward's
 // per-row log-sum-exp; delta (BH, Sq) fp32 scratch. BH must be a multiple
-// of BHk and D one of 32, 64, 128, 256. Three kernels on `stream`, in
+// of BHk and D one of 32, 64, 128, 256. Query row q sits at position
+// q_offset + q for the causal mask and the window (a shard of a
+// sequence's queries against all its keys; 0 for a whole sequence). Three kernels on `stream`, in
 // order: delta, dq, dk and dv. Returns the CUDA error code of the first
 // launch that fails, else of the last.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -960,12 +969,13 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           const void* lse, void* delta, void* dq,
                                           void* dk, void* dv, int BH, int BHk, int Sq,
                                           int Sk, int D, int bf16, int causal, int window,
-                                          float softcap, float scale, void* stream) {
-  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0)
+                                          float softcap, float scale, int q_offset,
+                                          void* stream) {
+  if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || Sq <= 0 || Sk <= 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rep = BH / BHk;
-  const Mask mask{Sq, Sk, causal, window, softcap, scale};
+  const Mask mask{Sq, Sk, causal, window, softcap, scale, q_offset};
   switch (D) {
     case 32: return launch_d<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     case 64: return launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);

@@ -47,12 +47,12 @@ KERNELS = {
     ]),
     "flash_attention": ("flash_attention.cu", [
         ("flash_attention_launch",
-         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
+         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     ]),
     "flash_attention_bwd": ("flash_attention_bwd.cu", [
         ("flash_attention_bwd_launch",
          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-          _F, _P]),
+          _F, _I, _P]),
     ]),
 }
 

@@ -536,8 +536,8 @@ def _flops_topn_scores(u, v, topk, slab=None, *, out_shape=None, **kwargs) -> in
 #: shared attention block)
 FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)
 #: the head widths the backward kernels are built for: no model the port
-#: trains has D = 112 (zamba2-7b is served only on one card; ROADMAP.md,
-#: queue 1 item 7)
+#: trains on the card has D = 112 (zamba2-7b's training, 79.7 GB before
+#: any activation, waits for a mesh of cards; ROADMAP.md, queue 1 item 7)
 FLASH_BWD_HEAD_DIMS = (32, 64, 128, 256)
 #: the CUDA kernel each dtype launches (csrc/flash_attention.cu), as a
 #: profiler names it: bf16 on the tensor cores, fp32 on the fp32 pipes
@@ -547,7 +547,7 @@ FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_mma_kernel",
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
     """(BH, S, D) attention with an online softmax: causal mask, sliding
     window (0 = none), logit softcap (0 = none), scale (None = 1/sqrt(D)).
 
@@ -561,6 +561,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     this wrapper computes the exact softmax, as the JAX direct path does.
     On the card bf16 and fp32 take different kernels (FLASH_KERNEL_NAMES),
     both counted as one `flash_attention` launch.
+
+    The queries sit at positions q_offset .. q_offset + S_q - 1 for the
+    causal mask and the window, the keys at 0 .. S_k - 1: a shard of a
+    sequence's queries against all its keys (the model under a mesh shards
+    the queries over "model", `models/layers.py::attention_block`). Where
+    the offset is a multiple of the kernel's query block the shard's rows
+    are the whole launch's to the bit.
 
     With grad enabled and an input that requires it, the call goes through
     `FlashAttention`: the forward also keeps each row's log-sum-exp and the
@@ -576,8 +583,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     args = (bool(causal), int(window), float(softcap), scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, *args)
-    return flash_forward(q, k, v, *args, False)[0]
+        return FlashAttention.apply(q, k, v, *args, int(q_offset))
+    return flash_forward(q, k, v, *args, False, int(q_offset))[0]
 
 
 #: the flash pair's products, one bf16 tensor pass each over the visible
@@ -586,27 +593,33 @@ FLASH_FWD_PASSES, FLASH_BWD_PASSES = 2, 5
 
 
 def visible_pairs(sq: int, sk: int | None = None, *, causal: bool = True,
-                  window: int = 0) -> int:
+                  window: int = 0, q_offset: int = 0) -> int:
     """(query, key) pairs an attention of sq queries over sk keys (sk = sq
     when None) sees: all sq sk without a causal mask; with one, query q
-    sees the keys up to q, and with a sliding window (0 = none) at most the
-    last `window` of them: the sum over q of min(q + 1, sk, window)."""
+    (at positions q_offset .. q_offset + sq - 1) sees the keys up to q, and
+    with a sliding window (0 = none) at most the last `window` of them: the
+    sum over q of min(q + 1, sk, window)."""
     sk = sq if sk is None else sk
     if not causal:
         return sq * sk
     cap = sk if window <= 0 else min(sk, window)
-    # q + 1 < cap for q < cap - 1, then cap for every later query
-    ramp = min(sq, cap)
-    return ramp * (ramp + 1) // 2 + (sq - ramp) * cap
+
+    def upto(n: int) -> int:
+        # the queries 0 .. n - 1: q + 1 < cap for q < cap - 1, then cap
+        ramp = min(n, cap)
+        return ramp * (ramp + 1) // 2 + (n - ramp) * cap
+
+    return upto(q_offset + sq) - upto(q_offset)
 
 
 def flash_flops(bh: int, sq: int, sk: int, d: int, *, causal: bool, window: int,
-                passes: int) -> int:
+                passes: int, q_offset: int = 0) -> int:
     """2 D operations a visible pair a product, over BH query heads."""
-    return passes * 2 * d * bh * visible_pairs(sq, sk, causal=causal, window=window)
+    return passes * 2 * d * bh * visible_pairs(sq, sk, causal=causal, window=window,
+                                               q_offset=q_offset)
 
 
-def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
+def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool, q_offset: int = 0):
     """One launch of the forward kernel: (out, lse, o32). With `keep` the
     kernel also writes each row's log-sum-exp (BH, S) and, for bf16, the
     fp32 output before its rounding (o32 is out itself for fp32); without
@@ -614,7 +627,7 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     dev = q.device
-    _check_flash(q, k, v)
+    _check_flash(q, k, v, q_offset)
     q, k, v = (_aligned(_require(n, t, dev, q.dtype))
                for n, t in (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
@@ -630,7 +643,7 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
             None if o32 is None or o32 is out else o32.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, bhk, sq, sk, d,
             int(q.dtype == torch.bfloat16), int(causal), int(window),
-            float(softcap), scale, _stream(q),
+            float(softcap), scale, int(q_offset), _stream(q),
         )
     build.check("flash_attention", err)
     _count("flash_attention")
@@ -639,8 +652,8 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, *, keep: bool):
 
 @torch.library.custom_op("repro_torch::flash_forward", mutates_args=())
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                  window: int, softcap: float, scale: float, keep: bool = True
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  window: int, softcap: float, scale: float, keep: bool = True,
+                  q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash forward as one dispatcher op, so that a selective
     checkpoint's policy sees it and can keep its outputs (the remat policy
     "dots", `models/transformer.py::REMAT_POLICIES`): (out, lse (BH, S_q),
@@ -648,29 +661,35 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     on the CPU. o32 is empty where the output is already unrounded (fp32):
     a custom op's outputs alias nothing. Without `keep` (the no-grad
     forward: `ref.flash_attention_ref` on the CPU) lse and o32 are empty
-    and the kernel writes neither."""
+    and the kernel writes neither. `q_offset`: the queries' first position
+    (`flash_attention`)."""
     if not keep:
         if _on_cuda(q):
-            out = _flash_forward(q, k, v, causal, window, softcap, scale, keep=False)[0]
+            out = _flash_forward(q, k, v, causal, window, softcap, scale, keep=False,
+                                 q_offset=q_offset)[0]
         else:
             out = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                          softcap=softcap, scale=scale)
+                                          softcap=softcap, scale=scale, q_offset=q_offset)
         empty = out.new_empty(0, dtype=torch.float32)
         return out, empty, empty.clone()
     if _on_cuda(q):
-        out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale, keep=True)
+        out, lse, o32 = _flash_forward(q, k, v, causal, window, softcap, scale, keep=True,
+                                       q_offset=q_offset)
     else:
         out, lse, o32 = ref.flash_attention_fwd_ref(
-            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+            q_offset=q_offset)
     if o32 is out:
         o32 = out.new_empty(0, dtype=torch.float32)
     return out, lse, o32
 
 
-def _check_flash(q, k, v) -> None:
+def _check_flash(q, k, v, q_offset: int = 0) -> None:
     """The forward launcher's checks of types and shapes, which need no data."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
     if d not in FLASH_HEAD_DIMS:
@@ -683,8 +702,8 @@ def _check_flash(q, k, v) -> None:
 
 
 @flash_forward.register_fake
-def _(q, k, v, causal, window, softcap, scale, keep=True):
-    _check_flash(q, k, v)
+def _(q, k, v, causal, window, softcap, scale, keep=True, q_offset=0):
+    _check_flash(q, k, v, q_offset)
     bh, sq, _ = q.shape
     if not keep:
         return q.new_empty(q.shape), q.new_empty(0, dtype=torch.float32), \
@@ -694,9 +713,10 @@ def _(q, k, v, causal, window, softcap, scale, keep=True):
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_forward)
-def _flops_flash_forward(q, k, v, causal, window, *args, out_shape=None, **kwargs) -> int:
+def _flops_flash_forward(q, k, v, causal, window, softcap=0.0, scale=1.0, keep=True,
+                         q_offset=0, *, out_shape=None, **kwargs) -> int:
     return flash_flops(q[0], q[1], k[1], q[2], causal=causal, window=window,
-                       passes=FLASH_FWD_PASSES)
+                       passes=FLASH_FWD_PASSES, q_offset=q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -708,22 +728,24 @@ class FlashAttention(torch.autograd.Function):
     (`ref.flash_attention_fwd_ref`, `ref.flash_attention_bwd_ref`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
-        out, lse, o32 = flash_forward(q, k, v, causal, window, softcap, scale, True)
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset=0):
+        out, lse, o32 = flash_forward(q, k, v, causal, window, softcap, scale, True, q_offset)
         ctx.save_for_backward(q, k, v, o32 if o32.numel() else out, lse)
-        ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                        q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, o32, **ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, *,
-                        causal: bool, window: int, softcap: float, scale: float
+                        causal: bool, window: int, softcap: float, scale: float,
+                        q_offset: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of flash_attention(q, k, v) for the output
     cotangent do, from the forward's lse (BH, S_q) and fp32 output o: one
@@ -732,20 +754,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the tensor cores, fp32 on the fp32 pipes). q, do and o are
     (BH, S_q, D), k and v (BHk, S_k, D). The plain version
     (`ref.flash_attention_bwd_ref`) for CPU tensors; a CUDA tensor the
-    kernel cannot take raises."""
-    return _flash_attention_bwd(q, k, v, do, lse, o, causal, window, softcap, scale)
+    kernel cannot take raises. `q_offset`: the queries' first position, as
+    the forward's."""
+    return _flash_attention_bwd(q, k, v, do, lse, o, causal, window, softcap, scale,
+                                q_offset)
 
 
-def _check_flash_bwd(q, k, v, do, lse, o) -> None:
+def _check_flash_bwd(q, k, v, do, lse, o, q_offset: int = 0) -> None:
     bh, sq, d = q.shape
     bhk, sk = k.shape[:2]
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.dtype not in FLASH_KERNEL_NAMES:
         raise ValueError(f"flash attention backward takes bf16 or fp32, got {q.dtype}")
     if d not in FLASH_BWD_HEAD_DIMS:
         raise ValueError(
             f"flash attention backward takes D in {FLASH_BWD_HEAD_DIMS}, got {d}: the "
             "backward kernels are not built for it (ROADMAP.md, queue 1 item 7: "
-            "zamba2-7b's training waits for several cards)")
+            "zamba2-7b's training waits for a mesh of cards)")
     if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk or sk == 0:
         raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing {bh} and "
                          f"S_k > 0; got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -757,16 +783,17 @@ def _check_flash_bwd(q, k, v, do, lse, o) -> None:
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, causal: bool,
-                         window: int, softcap: float, scale: float
+                         window: int, softcap: float, scale: float, q_offset: int = 0
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`flash_attention_bwd` as one op."""
     bh, sq, d = q.shape
     bhk, sk = k.shape[:2]
     if not _on_cuda(q):
         return ref.flash_attention_bwd_ref(q, k, v, do, lse, o, causal=causal,
-                                           window=window, softcap=softcap, scale=scale)
+                                           window=window, softcap=softcap, scale=scale,
+                                           q_offset=q_offset)
     dev = q.device
-    _check_flash_bwd(q, k, v, do, lse, o)
+    _check_flash_bwd(q, k, v, do, lse, o, q_offset)
     q, k, v, do = (_aligned(_require(n, t, dev, q.dtype))
                    for n, t in (("q", q), ("k", k), ("v", v), ("do", do)))
     o = _aligned(_require("o", o, dev, torch.float32))
@@ -779,7 +806,8 @@ def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bh, bhk, sq, sk, d, int(q.dtype == torch.bfloat16),
-            int(causal), int(window), float(softcap), float(scale), _stream(q),
+            int(causal), int(window), float(softcap), float(scale), int(q_offset),
+            _stream(q),
         )
     build.check("flash_attention_bwd", err)
     _count("flash_attention_bwd")
@@ -787,16 +815,45 @@ def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @_flash_attention_bwd.register_fake
-def _(q, k, v, do, lse, o, causal, window, softcap, scale):
-    _check_flash_bwd(q, k, v, do, lse, o)
+def _(q, k, v, do, lse, o, causal, window, softcap, scale, q_offset=0):
+    _check_flash_bwd(q, k, v, do, lse, o, q_offset)
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-def _flops_flash_bwd(q, k, v, do, lse, o, causal, window, *args, out_shape=None,
-                     **kwargs) -> int:
+def _flops_flash_bwd(q, k, v, do, lse, o, causal, window, softcap=0.0, scale=1.0,
+                     q_offset=0, *, out_shape=None, **kwargs) -> int:
     return flash_flops(q[0], q[1], k[1], q[2], causal=causal, window=window,
-                       passes=FLASH_BWD_PASSES)
+                       passes=FLASH_BWD_PASSES, q_offset=q_offset)
+
+
+def _flash_strategies(n_in: int, n_out: int) -> list:
+    """The flash pair's DTensor strategies over one mesh axis: every tensor
+    replicated, or every tensor sharded on its batch-heads dim (K and V's
+    BHk with Q's BH: a query head's group stays on its rank where the axis
+    divides BHk). The sequence shards outside the op: a rank's queries
+    need their offset in the sequence, which is an argument of the op
+    (`q_offset`) and the same on every rank, so the model shards them in
+    a local_map region (`models/layers.py::attention_block`)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [([Replicate()] * n_out, [Replicate()] * n_in),
+            ([Shard(0)] * n_out, [Shard(0)] * n_in)]
+
+
+def _register_flash_sharding() -> None:
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_forward.default)
+    def _(q, k, v, causal, window, softcap, scale, keep=True, q_offset=0):
+        return [(out, ins + [None] * 6) for out, ins in _flash_strategies(3, 3)]
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _(q, k, v, do, lse, o, causal, window, softcap, scale, q_offset=0):
+        return [(out, ins + [None] * 5) for out, ins in _flash_strategies(6, 3)]
+
+
+_register_flash_sharding()
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -160,10 +160,10 @@ def topn_scores_ref(u: torch.Tensor, v: torch.Tensor, topk: int
     return vals[:, :topk], idx[:, :topk].to(torch.int32)
 
 
-def _attention_scores(q, k, *, causal, window, softcap, scale, work):
+def _attention_scores(q, k, *, causal, window, softcap, scale, work, q_offset=0):
     """The scores of q (BH, S, D) against k (BHk, S, D), GQA-expanded, in
     `work`: (scaled and capped scores, t = tanh(s / softcap) or None, the
-    visibility mask)."""
+    visibility mask). Query i is at position q_offset + i, key j at j."""
     bh, sq, d = q.shape
     rep = bh // k.shape[0]
     k = k.to(work).repeat_interleave(rep, dim=0) if rep > 1 else k.to(work)
@@ -173,7 +173,7 @@ def _attention_scores(q, k, *, causal, window, softcap, scale, work):
     if softcap > 0:
         t = torch.tanh(s / softcap)
         s = t * softcap
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
@@ -185,17 +185,19 @@ def _attention_scores(q, k, *, causal, window, softcap, scale, work):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        softcap: float = 0.0, scale: float | None = None
-                        ) -> torch.Tensor:
+                        softcap: float = 0.0, scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Direct softmax attention in fp32: q (BH, Sq, D), k and v (BHk, Sk, D)
     with BHk dividing BH (query block bh reads KV block bh // (BH // BHk))
-    -> (BH, Sq, D) in q's dtype.
+    -> (BH, Sq, D) in q's dtype. The queries sit at positions q_offset ..
+    q_offset + Sq - 1 for the causal mask and the window (a shard of a
+    sequence's queries against all its keys).
 
     The scale comes before the softcap and the softcap before the mask;
     masked scores are -1e30, as in `repro/kernels/ref.py`.
     """
-    s, _, mask = _attention_scores(q, k, causal=causal, window=window,
-                                   softcap=softcap, scale=scale, work=torch.float32)
+    s, _, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
+                                   scale=scale, work=torch.float32, q_offset=q_offset)
     p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
     rep = q.shape[0] // k.shape[0]
     v = v.float().repeat_interleave(rep, dim=0) if rep > 1 else v.float()
@@ -204,16 +206,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool = True, window: int = 0,
-                            softcap: float = 0.0, scale: float | None = None
+                            softcap: float = 0.0, scale: float | None = None,
+                            q_offset: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward that a backward needs: (out in q's dtype, lse (BH, S_q)
     and the unrounded output (BH, S_q, D)), computed in fp32 (float64 for
     float64 inputs). lse is each row's log-sum-exp of its visible scores,
     which the kernel writes as m + log(l); every row sees at least one key
-    (its own where S_q == S_k, all S_k without causality)."""
+    (its own where q_offset + S_q <= S_k, all S_k without causality)."""
     work = torch.promote_types(q.dtype, torch.float32)
-    s, _, mask = _attention_scores(q, k, causal=causal, window=window,
-                                   softcap=softcap, scale=scale, work=work)
+    s, _, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
+                                   scale=scale, work=work, q_offset=q_offset)
     s = torch.where(mask, s, -1e30)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)          # flash_attention_ref's arithmetic
@@ -226,7 +229,8 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, o: torch.Tensor, *,
                             causal: bool = True, window: int = 0,
-                            softcap: float = 0.0, scale: float | None = None
+                            softcap: float = 0.0, scale: float | None = None,
+                            q_offset: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of flash attention, each in its input's
     dtype, from the forward's lse and unrounded output o, in fp32 (float64
@@ -245,8 +249,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bhk = k.shape[0]
     rep = bh // bhk
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s, t, mask = _attention_scores(q, k, causal=causal, window=window,
-                                   softcap=softcap, scale=scale, work=work)
+    s, t, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
+                                   scale=scale, work=work, q_offset=q_offset)
     p = torch.where(mask, torch.exp(s - lse.to(work)[..., None]), 0.0)
     del s
     dof = do.to(work)

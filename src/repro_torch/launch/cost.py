@@ -57,8 +57,22 @@ it. So the counts are the full loop's: `tests/test_torch_dryrun.py`
 holds them to it. A loop recomputed inside the backward (remat) keeps its
 cut iterations' bytes until the backward reaches its nodes.
 
+On a device mesh (DTensors under a process group, `launch/mesh.py`) the
+counter counts one rank's work: an op on DTensors is handed on to
+DTensor (the mode returns NotImplemented), whose sharding propagation
+runs on fake tensors (not counted) and whose local ops and collectives
+come back through the mode on the rank's local tensors, as do the ops
+inside a `local_map` region. The collectives (`_c10d_functional`'s, which
+DTensor and the regions issue) count by kind as the HLO model names them
+(all-gather, all-reduce, reduce-scatter, all-to-all, collective-permute):
+their operand bytes, their calls and the bytes on the wire (the HLO
+model's factors of the operand bytes for a group of g ranks). The rank is
+the fake world's last (`mesh.fake_world`), which under causal sequence
+sharding holds the last queries, the most work.
+
 `roofline_terms` is the JAX package's, keyword for keyword; its link term
-reads the exchange bytes over NVLink (`launch/mesh.py`).
+reads the exchange bytes, or on a mesh the collective bytes, over NVLink
+(`launch/mesh.py`).
 """
 from __future__ import annotations
 
@@ -69,6 +83,8 @@ from collections import defaultdict
 from typing import Any, Callable, Iterable, Iterator
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils.flop_counter import flop_registry
@@ -90,6 +106,18 @@ def exchanging() -> Iterator[None]:
         yield
     finally:
         _exchange_state.on = outer
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """The ops run inside count nothing: shape-only work a real run does
+    not do (a mesh's cache template, whose shards are allocated apart)."""
+    outer = getattr(_exchange_state, "off", False)
+    _exchange_state.off = True
+    try:
+        yield
+    finally:
+        _exchange_state.off = outer
 
 
 #: ops that move no bytes of their own: views, metadata, and the
@@ -191,7 +219,7 @@ class _Op:
     it returned one tensor; or, in place, its first argument)."""
 
     __slots__ = ("name", "calls", "flops", "tflops", "bytes", "exch", "scratch",
-                 "specs", "single", "inplace")
+                 "specs", "single", "inplace", "coll", "coll_bytes", "wire")
 
     def __init__(self, name, flops, tflops, nbytes, exch, scratch, specs=None,
                  single=False, inplace=False):
@@ -199,6 +227,34 @@ class _Op:
         self.flops, self.tflops, self.bytes = flops, tflops, nbytes
         self.exch, self.scratch = exch, scratch
         self.specs, self.single, self.inplace = specs, single, inplace
+        self.coll, self.coll_bytes, self.wire = None, 0.0, 0.0
+
+
+#: the HLO model's collective kinds, and the `_c10d_functional` ops of each
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLLECTIVE_OPS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+                   "reduce_scatter_tensor": "reduce-scatter",
+                   "all_to_all_single": "all-to-all"}
+
+
+def wire_factor(kind: str, g: int) -> float:
+    """Bytes on the wire a rank, as a multiple of the operand's bytes, for
+    a group of g ranks (`repro/launch/hlo_analysis.py`'s factors)."""
+    if g <= 1:
+        return 0.0
+    return {"all-gather": g - 1.0, "reduce-scatter": (g - 1.0) / g,
+            "all-reduce": 2.0 * (g - 1.0) / g, "all-to-all": (g - 1.0) / g,
+            "collective-permute": 1.0}.get(kind, 1.0)
+
+
+def _group_size(group: Any) -> int:
+    """The ranks of a collective's group (its name, or the group)."""
+    if not isinstance(group, str):
+        return group.size()
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(group).size()
 
 
 #: the keys of a cut loop's marks in its autograd nodes' metadata: its
@@ -416,6 +472,18 @@ class CostCounter(TorchDispatchMode):
     def exchange_bytes(self) -> float:
         return self._total("exch")
 
+    def collectives(self) -> dict:
+        """{"bytes", "counts", "wire_bytes"}: each by collective kind
+        (COLLECTIVES), the operand bytes, the calls and the bytes on the
+        wire of the rank's collectives."""
+        out = {f: dict.fromkeys(COLLECTIVES, 0.0) for f in ("bytes", "counts", "wire_bytes")}
+        for op in self._records():
+            if op.coll is not None:
+                out["bytes"][op.coll] += op.calls * op.coll_bytes
+                out["counts"][op.coll] += op.calls
+                out["wire_bytes"][op.coll] += op.calls * op.wire
+        return out
+
     @property
     def n_ops(self) -> int:
         return sum(op.calls for op in self._records())
@@ -475,6 +543,13 @@ class CostCounter(TorchDispatchMode):
         return "other"
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(_exchange_state, "off", False):
+            return func(*args, **(kwargs or {}))
+        for t in types:
+            if issubclass(t, DTensor):
+                return NotImplemented       # DTensor's local ops come back here
+            if issubclass(t, FakeTensor):
+                return func(*args, **(kwargs or {}))   # sharding propagation
         fid = id(func)
         kind = self._kinds.get(fid)
         if kind is None:
@@ -587,11 +662,17 @@ class CostCounter(TorchDispatchMode):
         reads = tensors[1:] if kind == "inplace" and packet in WRITE_ONLY else tensors
         written = _out_bytes(out)
         nbytes = float(sum(_nbytes(t) for t in reads) + written)
+        coll = _COLLECTIVE_OPS.get(packet.__name__) \
+            if func.namespace in ("_c10d_functional", "_c10d_functional_autograd") else None
         fn = WORKSPACE.get(packet.__name__) if func.namespace == "repro_torch" else None
         scratch = int(fn(*args, **kwargs)) if fn is not None else 0
         op = _Op(str(packet), flops, tflops, nbytes,
                  float(written) if getattr(_exchange_state, "on", False) else 0.0, scratch,
                  inplace=kind == "inplace" and keyed)
+        if coll is not None:
+            operand = float(_nbytes(tensors[0]))
+            op.coll, op.coll_bytes = coll, operand
+            op.wire = operand * wire_factor(coll, _group_size(args[-1]))
         if keyed and kind == "fresh":
             flat = [out] if isinstance(out, torch.Tensor) else \
                 list(out) if isinstance(out, (tuple, list)) else None

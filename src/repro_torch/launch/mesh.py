@@ -1,4 +1,19 @@
-"""The card's roofline constants, the counterpart of `repro/launch/mesh.py`'s.
+"""The device mesh and the card's roofline constants, the counterpart of
+`repro/launch/mesh.py`.
+
+The mesh is a `torch.distributed.device_mesh.DeviceMesh` with the JAX
+package's shapes and axis names: (16, 16) ("data", "model") for one pod of
+256 cards, (2, 16, 16) ("pod", "data", "model") for two. A mesh spans
+the ranks of the default process group, one rank a card:
+
+  - `make_production_mesh` needs a world of 256 or 512 ranks: on the meta
+    device that is `fake_world(n)`, a process group of n ranks that moves
+    no data (`torch.testing._internal.distributed.fake_pg`), in which this
+    process is the last rank (the busiest under causal sequence sharding,
+    `launch/dryrun.py`);
+  - `make_host_mesh` covers the ranks the group has, (data, model), opening
+    a group of one rank (NCCL on the card, gloo on the CPU, over an
+    in-process store) where none is open: one card is a (1, 1) mesh.
 
 The port runs on one NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit.
 The rates are the published peaks of NVIDIA's data sheet, dense, without
@@ -7,12 +22,21 @@ share is stated beside the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit`). `launch/cost.py::roofline_terms`
 and `chip_smoke.py`'s bounds read them.
 
-The JAX module's mesh helpers (`make_production_mesh`,
-`serving_host_devices`, `make_host_mesh`) wait for a host with several
-cards (ROADMAP.md, queue 1 item 7); NVLINK_BYTES_PER_S is here for that
-slice and for the dry-run's link term.
+`serving_host_devices` (the serving tier's lead devices) waits for the
+serving tier's mesh (ROADMAP.md, queue 1 item 7). NVLINK_BYTES_PER_S is
+the dry-run's link term.
 """
 from __future__ import annotations
+
+import contextlib
+import math
+from typing import Iterator
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.device import resolve_device
 
 #: the card the constants describe, and the power limit they assume
 CARD = "NVIDIA H100 80GB HBM3"
@@ -26,3 +50,70 @@ FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 #: NVLink to the other cards of the host, each way (900 GB/s both ways)
 NVLINK_BYTES_PER_S = 450e9
+
+
+#: the production meshes' shapes and axis names, the JAX package's
+POD_MESH = ((16, 16), ("data", "model"))
+MULTI_POD_MESH = ((2, 16, 16), ("pod", "data", "model"))
+
+
+def _device_type(device: str | torch.device) -> str:
+    """The mesh's device type: "cuda" on the card, "cpu" for the CPU and
+    for the meta device (a fake world's shards are meta tensors)."""
+    dev = torch.device(device)
+    return "cpu" if dev.type == "meta" else resolve_device(dev).type
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "cuda") -> DeviceMesh:
+    """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model")
+    with `multi_pod`, over the default group's ranks, which must number
+    256 or 512 (`fake_world` on the meta device)."""
+    shape, axes = MULTI_POD_MESH if multi_pod else POD_MESH
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise RuntimeError(f"mesh {shape} needs a world of {need} ranks, have {have}: "
+                           f"open one with launch.mesh.fake_world({need}) on the meta device")
+    return init_device_mesh(_device_type(device), shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(model: int = 1, *, device: str | torch.device = "cuda") -> DeviceMesh:
+    """A (data, model) mesh over the default group's ranks, model the
+    largest divisor of the world size up to `model`. Without a group, one
+    of one rank is opened over an in-process store (NCCL on the card, gloo
+    on the CPU): `close_host_group` closes it."""
+    dtype = _device_type(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dtype == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+        _opened.append(True)
+    n = dist.get_world_size()
+    model = max(d for d in range(1, max(1, min(model, n)) + 1) if n % d == 0)
+    return init_device_mesh(dtype, (n // model, model), mesh_dim_names=("data", "model"))
+
+
+_opened: list[bool] = []
+
+
+def close_host_group() -> None:
+    """Close the group `make_host_mesh` opened, if it opened one."""
+    if _opened and dist.is_initialized():
+        dist.destroy_process_group()
+    _opened.clear()
+
+
+@contextlib.contextmanager
+def fake_world(n: int) -> Iterator[None]:
+    """A process group of n ranks that moves no data, for meshes of meta
+    tensors (the dry-run): this process is rank n - 1, the last index on
+    every mesh axis. Closed again on exit; raises if a group is open."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already open in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=n - 1, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

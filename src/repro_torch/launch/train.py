@@ -22,14 +22,15 @@ Runs on the card ("--device cpu" for the plain path). LM training stays a
 library, as in the reference: `init_train_state` and `make_train_step`
 below, driven by `runtime.Trainer` (examples/train_lm_torch.py);
 `train_state_shapes` builds the state on the meta device for the dry-run.
-The reference's pspec and sharding helpers wait for more than one card
-(ROADMAP.md, item 7).
+On a device mesh the state's parameters and moments are DTensors placed by
+`models/api.py::train_state_pspecs` (`shardings_of`, `shard_state`) and
+the step runs under `models.layers.active_mesh(mesh)`.
 """
 from __future__ import annotations
 
 import argparse
 import tempfile
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -37,7 +38,8 @@ from repro_torch.core.gibbs import ENGINES
 from torch import nn
 
 from repro_torch.models import build_model
-from repro_torch.models.layers import ModelConfig
+from repro_torch.models.api import placements, train_state_pspecs
+from repro_torch.models.layers import ModelConfig, active_mesh, get_active_mesh
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update, cosine_schedule
 
 
@@ -72,6 +74,71 @@ def train_state_shapes(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None) -> 
     return init_train_state(cfg, 0, opt_cfg or adamw_config(cfg), device="meta")
 
 
+class StateShardings(NamedTuple):
+    """Where a train state lives on a mesh (`runtime.Trainer`'s
+    state_shardings): the mesh, the state's specs (`train_state_pspecs`)
+    and, optionally, the inputs' (`input_pspecs`), by which the trainer
+    places each batch."""
+
+    mesh: Any
+    specs: Any
+    batch: dict | None = None
+
+
+def state_shardings(cfg: ModelConfig, state: TrainState, mesh, batch_specs: dict | None = None
+                    ) -> StateShardings:
+    return StateShardings(mesh, train_state_pspecs(cfg, state, mesh), batch_specs)
+
+
+def mesh_of(params: nn.Module):
+    """The DeviceMesh of a parameter module on a mesh, else None."""
+    from torch.distributed.tensor import DTensor
+
+    p = next(params.parameters(), None)
+    return p.device_mesh if isinstance(p, DTensor) else None
+
+
+def shardings_of(specs: dict, mesh) -> dict:
+    """{name: the DTensor placements of its spec on `mesh`}: the JAX
+    package's `shardings_of` (NamedShardings of a PartitionSpec tree)."""
+    return {name: placements(spec, mesh) for name, spec in specs.items()}
+
+
+def _distribute(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+
+
+def shard_module(module: nn.Module, placed: dict, mesh) -> nn.Module:
+    """`module` with each parameter replaced, in place, by a DTensor
+    parameter of its placements (`placed`: `shardings_of`), each rank
+    keeping its slice of the values it holds (the same on every rank)."""
+    for name, p in list(module.named_parameters()):
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path)) if path else module
+        setattr(owner, leaf, nn.Parameter(_distribute(p, mesh, placed[name]),
+                                          requires_grad=p.requires_grad))
+    return module
+
+
+def shard_state(cfg: ModelConfig, state: TrainState, mesh) -> TrainState:
+    """The train state on `mesh`: parameters and AdamW moments as DTensors
+    placed by `train_state_pspecs` (the moments as their parameters), the
+    steps as they are (host scalars)."""
+    specs = train_state_pspecs(cfg, state, mesh)
+    m = {n: _distribute(t, mesh, placements(specs.opt.m[n], mesh)) for n, t in state.opt.m.items()}
+    v = {n: _distribute(t, mesh, placements(specs.opt.v[n], mesh)) for n, t in state.opt.v.items()}
+    return TrainState(params=shard_module(state.params, shardings_of(specs.params, mesh), mesh),
+                      opt=AdamWState(m=m, v=v, step=state.opt.step), step=state.step)
+
+
+def shard_batch(batch: dict, specs: dict, mesh) -> dict:
+    """A batch's tensors placed by their specs (`input_pspecs`)."""
+    return {k: _distribute(torch.as_tensor(v), mesh, placements(specs[k], mesh))
+            for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, total_steps: int = 100_000,
                     device: str | torch.device = "cuda"):
     """train_step(state, batch) -> (state, metrics) for a model of any
@@ -82,11 +149,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, total_steps: int 
     total_steps // 10), every stacked leaf decayed as JAX decays it
     (`optim.adamw.jax_rank`). The parameters and moments are updated in
     place and the gradients freed; metrics holds "ce", "tokens",
-    "grad_norm", "loss" and "lr" (and a decoder's "aux")."""
+    "grad_norm", "loss" and "lr" (and a decoder's "aux"). A state on a mesh
+    (`shard_state`) steps under `models.layers.active_mesh` of it, its
+    gradients placed as its parameters."""
     model = build_model(cfg, device=device)
     warmup = min(2000, total_steps // 10)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        mesh = mesh_of(state.params)
+        if mesh is not None and get_active_mesh() is None:
+            with active_mesh(mesh):
+                return train_step(state, batch)
         params = state.params
         for p in params.parameters():
             p.grad = None

@@ -12,7 +12,12 @@ modules (`Decoder`, `EncDec`, `XLSTM`, `Zamba`) in place of the JAX pytree:
 
 `shape_by_name`, `supported_shapes`, `count_params`, `model_flops_per_step`
 and `input_specs` are the JAX package's, for the dry-run
-(`launch/dryrun.py`), which builds a model on the meta device.
+(`launch/dryrun.py`), which builds a model on the meta device. So are the
+sharding rules (`param_pspecs`, `train_state_pspecs`, `batch_axes_for`,
+`input_pspecs`, `cache_pspecs`): a spec is a tuple with one entry a
+tensor dim, an axis name, a tuple of names or None, as a JAX PartitionSpec
+lists them, and `placements` turns one into a DeviceMesh's DTensor
+placements.
 
 A batch holds "tokens" (and "labels" for the loss) as numpy arrays or
 tensors, and the modality stubs' inputs as `data.tokens.TokenStream` makes
@@ -36,11 +41,13 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as xl
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba as zb
+from repro_torch.models import layers as ly
 from repro_torch.models.layers import ModelConfig
 
 #: the JAX package's EncDecModel default: rows of whisper's decoder
@@ -90,6 +97,46 @@ def _positions_for(batch: int, seq: int, device: torch.device, offset: Any = 0
     return pos.expand(batch, seq)
 
 
+def _positions_like(tokens: torch.Tensor, device: torch.device, offset: Any = 0
+                    ) -> torch.Tensor:
+    """The positions offset .. offset + S - 1 of (B, S) tokens, placed as
+    the tokens under a mesh (each rank's slice of them)."""
+    if isinstance(offset, ly.DTensor):
+        offset = offset.to_local()
+    pos = _positions_for(*tokens.shape, device, offset=offset)
+    return ly.shard_like(pos.contiguous(), tokens) if ly.in_region(tokens) else pos
+
+
+def _cache_rows(t: int) -> int:
+    """Cache rows for t positions: under a mesh a multiple of the sequence
+    axis, so that the cache shards over it (`cache_pspecs`)."""
+    mesh = ly.get_active_mesh()
+    if mesh is None or ly.SEQ_AXIS not in mesh.mesh_dim_names:
+        return t
+    m = mesh.size(mesh.mesh_dim_names.index(ly.SEQ_AXIS))
+    return -(-t // m) * m
+
+
+def _last_row(logits: torch.Tensor) -> torch.Tensor:
+    """A copy of logits[:, -1]; under a mesh, the sequence's last row from
+    the rank that holds it, summed over the sequence axis (one row moves,
+    not the logits)."""
+    if not ly.in_region(logits):
+        return logits[:, -1].clone()
+
+    def fn(_, x):
+        sh = ly.seq_shard()
+        row = x[:, -1].clone()
+        if not sh.seq or sh.size == 1:
+            return row
+        if sh.index != sh.size - 1:
+            row = torch.zeros_like(row)
+        return ly.all_reduce_axes(row, (ly.SEQ_AXIS,))
+
+    pl = tuple(ly.Replicate() if q == ly.Shard(1) else q for q in logits.placements)
+    return ly.region(fn, None, (logits,), pl)
+
+
 #: the families DecoderModel runs; the audio, SSM and hybrid families are
 #: EncDecModel's, XLSTMModel's and ZambaModel's (`build_model`)
 FAMILIES = ("dense", "moe", "vlm")
@@ -126,6 +173,11 @@ class _LM:
         return self.make_params(self.cfg, generator=None if meta else self._generator(seed),
                                 device=self.device)
 
+    def init_cache(self, batch: int, max_len: int = 0) -> Any:
+        """The family's decode cache (`empty_cache`: zeros), placed by
+        `cache_pspecs` under an active mesh."""
+        return _placed(self.cfg, self.empty_cache, batch, max_len, self.device)
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -149,10 +201,15 @@ class DecoderModel(_LM):
         tokens = self._ids(batch["tokens"])
         if self.cfg.family == "vlm":
             cfg = self.cfg
-            patches = self._ids(batch["patch_embeds"]).to(cfg.dtype)
-            embeds = torch.cat([patches, params.embed.to(cfg.dtype)[tokens]], dim=1)
-            return embeds, self._ids(batch["positions"]), None
-        return None, _positions_for(*tokens.shape, self.device), tokens
+            patches = self._ids(batch["patch_embeds"])
+            positions = self._ids(batch["positions"])
+            if ly.in_region(tokens):
+                embeds = _vlm_embeds_sharded(params, cfg, patches, tokens, positions)
+            else:
+                embeds = torch.cat([patches.to(cfg.dtype), params.embed.to(cfg.dtype)[tokens]],
+                                   dim=1)
+            return embeds, positions, None
+        return None, _positions_like(tokens, self.device), tokens
 
     def loss_fn(self, params: tfm.Decoder, batch: dict) -> tuple[torch.Tensor, dict]:
         """(mean next-token loss + 0.01 * the layers' MoE aux loss, metrics
@@ -167,8 +224,8 @@ class DecoderModel(_LM):
         metrics["aux"] = aux
         return loss + 0.01 * aux, metrics
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return tfm.init_decode_cache(self.cfg, batch, max_len, device=self.device)
+    def empty_cache(self, batch: int, max_len: int, device: Any = None) -> dict:
+        return tfm.init_decode_cache(self.cfg, batch, max_len, device=device or self.device)
 
     @torch.no_grad()
     def prefill_fn(self, params: tfm.Decoder, batch: dict, *, headroom: int = 64) -> dict:
@@ -176,12 +233,12 @@ class DecoderModel(_LM):
         b, s = positions.shape[0], positions.shape[-1]
         # headroom: decode steps append past the prompt; a cache sized
         # exactly S would clamp the first decode write onto slot S-1
-        caches = self.init_cache(b, s + headroom)
+        caches = self.init_cache(b, _cache_rows(s + headroom))
         logits, caches, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=positions,
                                                 embeds=embeds, caches=caches)
         # a copy: the view logits[:, -1] would keep the whole (B, S, V) fp32
         # logits alive (8.4 GB for gemma2-2b at 4 x 2,048)
-        return {"logits": logits[:, -1].clone(), "cache": caches}
+        return {"logits": _last_row(logits), "cache": caches}
 
     @torch.no_grad()
     def decode_fn(self, params: tfm.Decoder, cache: dict, batch: dict
@@ -193,12 +250,16 @@ class DecoderModel(_LM):
         from here on."""
         tokens = self._ids(batch["tokens"])                      # (B, 1)
         if self.cfg.family == "vlm":
-            embeds = params.embed.to(self.cfg.dtype)[tokens]
+            positions = self._ids(batch["positions"])
+            if ly.in_region(tokens):
+                embeds = ly.region(functools.partial(tfm._embed_tokens, cfg=self.cfg), None,
+                                   (tokens,), tuple(tokens.placements), whole=(params.embed,))
+            else:
+                embeds = params.embed.to(self.cfg.dtype)[tokens]
             logits, cache, _ = tfm.decoder_forward(
-                params, self.cfg, None, positions=self._ids(batch["positions"]),
-                embeds=embeds, caches=cache)
+                params, self.cfg, None, positions=positions, embeds=embeds, caches=cache)
             return cache, logits[:, -1]
-        pos = _positions_for(tokens.shape[0], 1, self.device, offset=cache["pos"][0])
+        pos = _positions_like(tokens, self.device, offset=cache["pos"][0])
         logits, cache, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=pos,
                                                caches=cache)
         return cache, logits[:, -1]
@@ -231,14 +292,14 @@ class EncDecModel(_LM):
         h, _ = tfm.encdec_hidden(params, self.cfg, self._ids(batch["tokens"]), enc)
         return tfm.head_loss(params, self.cfg, h, self._ids(batch["labels"]))
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def empty_cache(self, batch: int, max_len: int, device: Any = None) -> dict:
         """{"k", "v": (L, B, max_len, Hk, hd), "pos": (L,) int32, "ck", "cv":
         (L, B, encoder_seq, Hk, hd)}, zeros, as the JAX package lays it out."""
-        cfg = self.cfg
-        cache = tfm.init_decode_cache(cfg, batch, max_len, device=self.device)
+        cfg, device = self.cfg, device or self.device
+        cache = tfm.init_decode_cache(cfg, batch, max_len, device=device)
         xshape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
-        cache["ck"] = torch.zeros(xshape, dtype=cfg.dtype, device=self.device)
-        cache["cv"] = torch.zeros(xshape, dtype=cfg.dtype, device=self.device)
+        cache["ck"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
+        cache["cv"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
         return cache
 
     @torch.no_grad()
@@ -250,11 +311,14 @@ class EncDecModel(_LM):
         b, s = tokens.shape
         enc = tfm.encoder_forward(params, self.cfg, self._ids(batch["frames"]))
         ck, cv = tfm.init_cross_cache(params, self.cfg, enc)
-        caches = dict(tfm.init_decode_cache(self.cfg, b, s + headroom, device=self.device),
-                      ck=ck, cv=cv)
+        rows = _cache_rows(s + headroom)
+        def self_cache(batch_: int, rows_: int, device: Any) -> dict:
+            return tfm.init_decode_cache(self.cfg, batch_, rows_, device=device)
+
+        caches = dict(_placed(self.cfg, self_cache, b, rows, self.device), ck=ck, cv=cv)
         logits, caches = tfm.encdec_forward(params, self.cfg, tokens, enc, pos_offset=0,
                                             caches=caches)
-        return {"logits": logits[:, -1].clone(), "cache": caches}
+        return {"logits": _last_row(logits), "cache": caches}
 
     @torch.no_grad()
     def decode_fn(self, params: tfm.EncDec, cache: dict, batch: dict
@@ -284,8 +348,8 @@ class XLSTMModel(_LM):
         logits, _ = xl.xlstm_forward(params, self.cfg, self._ids(batch["tokens"]))
         return tfm.cross_entropy(logits, self._ids(batch["labels"]))
 
-    def init_cache(self, batch: int, max_len: int = 0) -> dict:
-        return xl.xlstm_init_states(self.cfg, batch, device=self.device)
+    def empty_cache(self, batch: int, max_len: int = 0, device: Any = None) -> dict:
+        return xl.xlstm_init_states(self.cfg, batch, device=device or self.device)
 
     @torch.no_grad()
     def prefill_fn(self, params: xl.XLSTM, batch: dict) -> dict:
@@ -294,7 +358,7 @@ class XLSTMModel(_LM):
         tokens = self._ids(batch["tokens"])
         states = self.init_cache(tokens.shape[0])
         logits, states = xl.xlstm_forward(params, self.cfg, tokens, states)
-        return {"logits": logits[:, -1].clone(), "cache": states}
+        return {"logits": _last_row(logits), "cache": states}
 
     @torch.no_grad()
     def decode_fn(self, params: xl.XLSTM, cache: dict, batch: dict
@@ -321,21 +385,21 @@ class ZambaModel(_LM):
         cache-free forward."""
         tokens = self._ids(batch["tokens"])
         logits, _ = zb.zamba_forward(params, self.cfg, tokens,
-                                     positions=_positions_for(*tokens.shape, self.device))
+                                     positions=_positions_like(tokens, self.device))
         return tfm.cross_entropy(logits, self._ids(batch["labels"]))
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return zb.zamba_init_states(self.cfg, batch, max_len, device=self.device)
+    def empty_cache(self, batch: int, max_len: int, device: Any = None) -> dict:
+        return zb.zamba_init_states(self.cfg, batch, max_len, device=device or self.device)
 
     @torch.no_grad()
     def prefill_fn(self, params: zb.Zamba, batch: dict, *, headroom: int = 64) -> dict:
         tokens = self._ids(batch["tokens"])
         b, s = tokens.shape
-        states = self.init_cache(b, s + headroom)
+        states = self.init_cache(b, _cache_rows(s + headroom))
         logits, states = zb.zamba_forward(params, self.cfg, tokens,
-                                          positions=_positions_for(b, s, self.device),
+                                          positions=_positions_like(tokens, self.device),
                                           states=states)
-        return {"logits": logits[:, -1].clone(), "cache": states}
+        return {"logits": _last_row(logits), "cache": states}
 
     @torch.no_grad()
     def decode_fn(self, params: zb.Zamba, cache: dict, batch: dict
@@ -347,6 +411,64 @@ class ZambaModel(_LM):
         logits, cache = zb.zamba_forward(params, self.cfg, tokens, positions=pos,
                                          states=cache)
         return cache, logits[:, -1]
+
+
+def _placed(cfg: ModelConfig, empty: Any, batch: int, max_len: int,
+            device: torch.device) -> Any:
+    """The cache that `empty(batch, max_len, device)` makes, placed by
+    `cache_pspecs` under an active mesh: each rank allocates only its
+    shards, filled as the whole cache's entries are (every leaf of a cache
+    is one value: zeros, or the sLSTM's stabilizer); `empty` itself
+    without a mesh."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.launch.cost import uncounted
+
+    mesh = ly.get_active_mesh()
+    if mesh is None:
+        return empty(batch, max_len, device)
+    specs = cache_pspecs(cfg, ShapeSpec("cache", max_len, batch, "decode"), mesh)
+    with uncounted():
+        shapes = empty(batch, max_len, torch.device("meta"))
+    fills = empty(1, 1, torch.device("cpu"))
+
+    def leaf(t, fill, spec):
+        value = fill.reshape(-1)[:1]
+        if not bool((fill == value).all()):
+            raise ValueError("a cache leaf that is not one value cannot be made shard by shard")
+        pl = ly.spec_placements(spec, mesh)
+        shape, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        local = torch.full(shape, value.item(), dtype=t.dtype, device=device)
+        return ly.DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape,
+                                     stride=t.stride())
+
+    def walk(tree, fill, spec):
+        if isinstance(tree, dict):
+            return {key: walk(tree[key], fill[key], spec[key]) for key in tree}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(*x) for x in zip(tree, fill, spec))
+        return leaf(tree, fill, spec)
+
+    return walk(shapes, fills, specs)
+
+
+def _vlm_embeds_sharded(params: tfm.Decoder, cfg: ModelConfig, patches: torch.Tensor,
+                        tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The VLM's (B, S, D) embeddings under a mesh, placed as its positions'
+    sequence: the patches and the text's embeddings joined on each rank
+    (the text gathered over the sequence axis), then the rank's slice."""
+    seq_sharded = positions.placements  # (B, 3, S): the sequence is dim 2
+    out = tuple(ly.Shard(1) if q == ly.Shard(2) else q for q in seq_sharded)
+
+    def fn(_, toks, pt, embed):
+        sh = ly.seq_shard()
+        if any(q == ly.Shard(1) for q in tokens.placements):
+            toks = ly.gather_axes(toks, 1, (ly.SEQ_AXIS,))
+        full = torch.cat([pt.to(cfg.dtype), embed.to(cfg.dtype)[toks]], dim=1)
+        seq = any(q == ly.Shard(2) for q in seq_sharded)
+        return ly.seq_chunk(full, 1) if seq and sh.size > 1 else full
+
+    return ly.region(fn, None, (tokens, patches), out, whole=(params.embed,))
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
@@ -458,3 +580,175 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
     if cfg.family == "audio":
         batch["frames"] = t((b, cfg.encoder_seq, cfg.d_model), f32)
     return batch
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (FSDP + expert parallelism), the JAX package's
+# ---------------------------------------------------------------------------
+#: the JAX leaves stacked on one and on two leading axes (the port's
+#: parameters are per layer: the integer parts of a name index those axes)
+STACKED1 = ("layers", "enc_layers", "dec_layers", "slstm")
+STACKED2 = ("mlstm", "mamba")
+
+Spec = tuple   # one entry a dim: an axis name, a tuple of names, or None
+
+
+def mesh_axes(mesh: Any) -> dict[str, int]:
+    """{axis name: size} of a DeviceMesh, or of such a dict itself."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def stacked_axes(name: str) -> int:
+    """The stacked axes of the JAX leaf of the port's parameter `name`
+    (JAX's STACKED rule on its path): the integer parts of the name."""
+    path = "/".join(q for q in name.split(".") if not q.isdigit())
+    if any(k in path for k in STACKED2) and "shared" not in path:
+        return 2
+    return 1 if any(k in path for k in STACKED1) else 0
+
+
+def _param_spec(name: str, shape: tuple[int, ...], axes: dict[str, int],
+                fsdp_pod: bool) -> Spec:
+    """`repro.models.api.param_pspecs`'s rule on the leaf's body dims, which
+    are the port tensor's own: vectors replicate; an MoE expert tensor's
+    expert dim shards over "model"; the largest remaining dim that the FSDP
+    extent divides shards over it ("data", or ("pod", "data") with
+    `fsdp_pod` on a mesh with a pod axis), else, with both FSDP axes, the
+    largest that "data" divides over "data"."""
+    if stacked_axes(name) != sum(q.isdigit() for q in name.split(".")):
+        raise ValueError(f"{name}: its stacked axes and its layer indices disagree")
+    dsize, msize = axes.get("data", 1), axes.get("model", 1)
+    fsdp = ("pod", "data") if fsdp_pod and "pod" in axes else ("data",)
+    fsdp_size = int(np.prod([axes[a] for a in fsdp if a in axes]))
+    names: list = [None] * len(shape)
+    body = list(range(len(shape)))
+    if len(body) < 2:
+        return tuple(names)
+    if "moe" in name.split(".") and len(body) == 3 and msize > 1 and shape[0] % msize == 0:
+        names[0] = "model"
+        body = body[1:]
+    for i in sorted(body, key=lambda i: -shape[i]):
+        if shape[i] % fsdp_size == 0 and fsdp_size > 1:
+            names[i] = fsdp if len(fsdp) > 1 else fsdp[0]
+            break
+        if len(fsdp) > 1 and shape[i] % dsize == 0 and dsize > 1:
+            names[i] = "data"
+            break
+    return tuple(names)
+
+
+def param_pspecs(cfg: ModelConfig, params: torch.nn.Module | dict, mesh: Any
+                 ) -> dict[str, Spec]:
+    """{parameter name: spec} (`_param_spec`) of a parameter module or of a
+    {name: tensor} dict (an AdamW moment)."""
+    axes = mesh_axes(mesh)
+    named = params.named_parameters() if isinstance(params, torch.nn.Module) \
+        else params.items()
+    return {n: _param_spec(n, tuple(t.shape), axes, cfg.fsdp_pod) for n, t in named}
+
+
+def train_state_pspecs(cfg: ModelConfig, state: Any, mesh: Any) -> Any:
+    """The train state's specs, as the state (`launch/train.py::TrainState`):
+    the AdamW moments shard as their parameters, the steps replicate."""
+    from repro_torch.optim import AdamWState
+
+    return type(state)(
+        params=param_pspecs(cfg, state.params, mesh),
+        opt=AdamWState(m=param_pspecs(cfg, state.opt.m, mesh),
+                       v=param_pspecs(cfg, state.opt.v, mesh), step=()),
+        step=())
+
+
+def batch_axes_for(mesh: Any, batch: int) -> tuple[str, ...]:
+    """The largest prefix of (pod, data) whose product divides the batch."""
+    axes = mesh_axes(mesh)
+    use, div = [], 1
+    for a in ("pod", "data"):
+        if axes.get(a, 1) > 1 and batch % (div * axes[a]) == 0:
+            use.append(a)
+            div *= axes[a]
+    return tuple(use)
+
+
+def input_pspecs(cfg: ModelConfig, shape: ShapeSpec, mesh: Any) -> dict[str, Spec]:
+    """Each input's spec: batch over `batch_axes_for`, a train or prefill
+    sequence over "model" where "model" divides it (the frames' too)."""
+    axes = mesh_axes(mesh)
+    baxes = batch_axes_for(axes, shape.global_batch)
+    bspec = baxes if baxes else None
+    msize = axes.get("model", 1)
+
+    def seq_spec(n):
+        return "model" if shape.kind != "decode" and n % msize == 0 else None
+
+    out: dict[str, Spec] = {}
+    for name, t in input_specs(cfg, shape).items():
+        if name in ("tokens", "labels"):
+            seq = None if t.shape[-1] == 1 or shape.kind == "decode" else seq_spec(t.shape[-1])
+            out[name] = (bspec, seq)
+        elif name == "patch_embeds":
+            out[name] = (bspec, None, None)
+        elif name == "positions":
+            out[name] = (bspec, None, seq_spec(t.shape[-1]) if t.shape[-1] > 1 else None)
+        elif name == "frames":
+            out[name] = (bspec, seq_spec(t.shape[1]), None)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, shape: ShapeSpec, mesh: Any) -> dict:
+    """The decode cache's specs, as the cache (`init_cache` on the meta
+    device): a K/V cache (L or G, B, S, Hk, hd) shards its batch over
+    `batch_axes_for` and its sequence over "model" (over ("data", "model")
+    when no batch axis divides the batch: one long sequence); positions
+    replicate; a recurrent state shards its first dim after the leading
+    one that "model" divides (its heads)."""
+    axes = mesh_axes(mesh)
+    baxes = batch_axes_for(axes, shape.global_batch)
+    bspec = baxes if baxes else None
+    seq_axes = ("model",) if baxes else tuple(a for a in ("data", "model") if a in axes)
+    seq = seq_axes if len(seq_axes) > 1 else seq_axes[0]
+    msize = axes.get("model", 1)
+    from repro_torch.launch.cost import uncounted
+
+    with uncounted():
+        cache = build_model(cfg, device="meta").empty_cache(shape.global_batch, shape.seq_len)
+
+    def divisible(n, ax) -> bool:
+        ax = (ax,) if isinstance(ax, str) else ax
+        return n % int(np.prod([axes.get(a, 1) for a in ax])) == 0
+
+    def spec_for(key: str, t: torch.Tensor) -> Spec:
+        names: list = [None] * t.dim()
+        if key in ("k", "v", "ck", "cv", "attn_k", "attn_v"):
+            names[1] = bspec
+            names[2] = seq if divisible(t.shape[2], seq) else None
+        elif key not in ("pos", "attn_pos"):
+            for i, d in enumerate(t.shape):
+                if i >= 1 and d % msize == 0 and d >= msize and msize > 1:
+                    names[i] = "model"
+                    break
+        return tuple(names)
+
+    def walk(tree: Any, key: str) -> Any:
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, str(i)) for i, v in enumerate(tree))
+        return spec_for(key, tree)
+
+    return walk(cache, "")
+
+
+def placements(spec: Spec, mesh: Any) -> tuple:
+    """A spec as the DTensor placements of `mesh` (a DeviceMesh): each mesh
+    axis a dim's entry names shards that dim (Shard), in the entry's order
+    of names where it lists several (JAX's major-to-minor order), and every
+    other mesh axis replicates."""
+    out = []
+    for axis in mesh.mesh_dim_names:
+        dim = next((d for d, e in enumerate(spec)
+                    if e == axis or (isinstance(e, tuple) and axis in e)), None)
+        out.append(Replicate() if dim is None else Shard(dim))
+    return tuple(out)

@@ -17,22 +17,390 @@ fields (`models/ssm.py`, `models/mamba.py`, `models/zamba.py` and the
 whisper stack of `models/transformer.py` read them), as `attention_block`
 carries Qwen2-VL's M-RoPE (`apply_mrope`) and whisper's non-causal and
 cross-attention. The MoE's grouped dispatch (`moe_group_dispatch`) is
-here; its expert-parallel shard_map and the mesh helpers wait for several
-cards (ROADMAP.md, queue 1 item 7).
+here, and so is the mesh: under `active_mesh(mesh)` (a DeviceMesh with the
+JAX axes) the parameters and activations are DTensors, `constrain` places
+a value as the JAX package's sharding constraint names it, and the regions
+that DTensor has no rule for run under `local_map` with the collectives
+the JAX package's shard_map uses (`_moe_sharded`, the attention's
+sequence-sharded queries and the split-softmax decode).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops
+
+
+# ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+#: the batch shards over these mesh axes (those the mesh has), the
+#: sequence over SEQ_AXIS: the JAX package's token-sharded activations
+BATCH_AXES = ("pod", "data")
+SEQ_AXIS = "model"
+
+# the mesh that the model's regions run on, made visible to the layers as
+# the JAX package's `active_mesh` makes its concrete mesh visible
+_ACTIVE_MESH: list = []
+
+
+@contextlib.contextmanager
+def active_mesh(mesh):
+    _ACTIVE_MESH.append(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE_MESH.pop()
+
+
+def get_active_mesh():
+    return _ACTIVE_MESH[-1] if _ACTIVE_MESH else None
+
+
+def mesh_spec(spec: tuple, mesh) -> tuple:
+    """A spec with the axes `mesh` lacks dropped (BATCH_AXES names "pod"
+    on a mesh without one)."""
+    names = set(mesh.mesh_dim_names)
+
+    def keep(e):
+        if isinstance(e, tuple):
+            e = tuple(a for a in e if a in names)
+            return e if len(e) > 1 else (e[0] if e else None)
+        return e if e in names else None
+
+    return tuple(keep(e) for e in spec)
+
+
+def spec_placements(spec: tuple, mesh) -> tuple:
+    """`models/api.py::placements` of a spec, after `mesh_spec`."""
+    from repro_torch.models.api import placements
+
+    return placements(mesh_spec(spec, mesh), mesh)
+
+
+def constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """x redistributed to `spec` (one entry a dim, as a PartitionSpec;
+    `fit_spec`: as far as the mesh divides x's dims) under an active mesh
+    where x is a DTensor; x itself otherwise, as the JAX
+    `with_sharding_constraint` is a no-op outside a mesh."""
+    mesh = get_active_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    want = spec_placements(fit_spec(spec, tuple(x.shape), mesh), mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def activation_spec() -> tuple:
+    """(B, S, D) activations: batch over (pod, data), sequence over model."""
+    return (BATCH_AXES, SEQ_AXIS, None)
+
+
+def fit_spec(spec: tuple, shape: tuple[int, ...], mesh) -> tuple:
+    """`mesh_spec` with every entry whose axes do not divide its dim
+    dropped: a (B, 1, D) decode step keeps its sequence whole, as the JAX
+    input shardings keep any dim the mesh does not divide."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out = []
+    for e, n in zip(mesh_spec(spec, mesh), shape):
+        ax = (e,) if isinstance(e, str) else (e or ())
+        out.append(e if n % math.prod(sizes[a] for a in ax) == 0 else None)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# local_map regions: what DTensor has no rule for runs on each rank's shard
+# ---------------------------------------------------------------------------
+class SeqShard(NamedTuple):
+    """Where the code inside a region runs: the mesh; this rank's index on
+    SEQ_AXIS and that axis's size (0 and 1 on a mesh without one), and
+    whether the region's tokens are sharded over it (`seq`); the batch
+    axes the mesh has, their product, and whether the tokens' batch is
+    sharded over them (`batch`); and how
+    many ranks hold each token (`replicas`: a sum over the tokens that
+    leaves the region Partial is divided by it)."""
+
+    mesh: Any
+    index: int
+    size: int
+    seq: bool
+    batch_axes: tuple[str, ...]
+    batch_size: int
+    batch: bool
+    replicas: int
+
+    @property
+    def world(self) -> int:
+        return self.mesh.size()
+
+
+_region = threading.local()
+
+
+def seq_shard() -> SeqShard | None:
+    """The region this code runs in, or None outside one."""
+    return getattr(_region, "shard", None)
+
+
+@contextlib.contextmanager
+def _in_region(mesh, tokens: tuple):
+    """Inside a region whose tokens have the placements `tokens`."""
+    outer = seq_shard()
+    names = mesh.mesh_dim_names
+    index, size = (mesh.get_local_rank(SEQ_AXIS), mesh.size(names.index(SEQ_AXIS))) \
+        if SEQ_AXIS in names else (0, 1)
+    seq = SEQ_AXIS in names and tokens[names.index(SEQ_AXIS)] == Shard(1)
+    baxes = tuple(a for a in BATCH_AXES if a in names)
+    batch = any(tokens[names.index(a)] == Shard(0) for a in baxes)
+    bsize = math.prod(mesh.size(names.index(a)) for a in baxes)
+    replicas = math.prod(mesh.size(i) for i, q in enumerate(tokens) if q == Replicate())
+    _region.shard = SeqShard(mesh, index, size, seq, baxes, bsize, batch, replicas)
+    try:
+        yield
+    finally:
+        _region.shard = outer
+
+
+# the tiled collectives with a backward (the "_single_" names where this
+# torch has them: the "_tensor_" ones warn there)
+_all_gather = getattr(funcol, "all_gather_single_autograd", None) or \
+    funcol.all_gather_tensor_autograd
+_reduce_scatter = getattr(funcol, "reduce_scatter_single_autograd", None) or \
+    funcol.reduce_scatter_tensor_autograd
+
+
+def _group(mesh, axis: str):
+    return (mesh, mesh.mesh_dim_names.index(axis))
+
+
+def _axis_size(axis: str) -> int:
+    mesh = seq_shard().mesh
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def gather_axes(x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
+    """x's shards over the mesh `axes` (major first) joined along `dim`, on
+    each rank of them: the tiled all-gather, whose backward reduce-scatters
+    (each rank's use of the whole adds into every shard's gradient)."""
+    mesh = seq_shard().mesh
+    for axis in reversed(axes):
+        if _axis_size(axis) > 1:
+            x = _all_gather(x.contiguous(), dim, _group(mesh, axis))
+    return x
+
+
+def reduce_scatter_axes(x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
+    """The sum over the ranks of `axes` of x, each rank keeping its shard
+    of `dim` (major axis first): the reduce-scatter, whose backward
+    all-gathers."""
+    mesh = seq_shard().mesh
+    for axis in axes:
+        if _axis_size(axis) > 1:
+            x = _reduce_scatter(x.contiguous(), "sum", dim, _group(mesh, axis))
+    return x
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over a mesh axis's ranks; the backward sums the gradients
+    the same way (each rank's gradient is its share, `region`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def all_reduce_axes(x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    """The sum of x over the ranks of `axes`, on each of them."""
+    mesh = seq_shard().mesh
+    for axis in axes:
+        if _axis_size(axis) > 1:
+            x = _AllReduce.apply(x, _group(mesh, axis))
+    return x
+
+
+def seq_chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's SEQ_AXIS shard of a dim that every rank holds whole."""
+    sh = seq_shard()
+    if sh is None or sh.size == 1:
+        return x
+    n = x.shape[dim] // sh.size
+    return x.narrow(dim, sh.index * n, n)
+
+
+def expert_sharded(name: str, p: torch.Tensor) -> bool:
+    """Whether a region keeps the parameter `name` sharded over SEQ_AXIS:
+    an MoE expert tensor whose expert dim the parameter rules put there
+    (`models/api.py::param_pspecs`); every other parameter enters whole."""
+    mesh = get_active_mesh()
+    if not isinstance(p, DTensor) or SEQ_AXIS not in mesh.mesh_dim_names:
+        return False
+    axis = mesh.mesh_dim_names.index(SEQ_AXIS)
+    return "moe" in name.split(".") and p.dim() == 3 and p.placements[axis] == Shard(0)
+
+
+class _GradShare(torch.autograd.Function):
+    """x itself; its gradient times `share`: an output held whole on n ranks
+    (Replicate over them) hands each its 1/n share of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, share):
+        ctx.share = share
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None
+
+
+def _shared(out: Any, placements: tuple, mesh) -> Any:
+    if not isinstance(out, torch.Tensor):
+        return out
+    n = math.prod(mesh.size(i) for i, p in enumerate(placements) if p == Replicate())
+    return out if n == 1 or not out.requires_grad else _GradShare.apply(out, 1.0 / n)
+
+
+class _Bound(nn.Module):
+    def __init__(self, fn: Callable, block: nn.Module | None):
+        super().__init__()
+        self.fn, self.block = fn, block
+
+    def forward(self, *args):
+        return self.fn(self.block, *args)
+
+
+def region(fn: Callable, block: nn.Module | None, args: tuple, out_placements: tuple, *,
+           whole: tuple = ()):
+    """fn(block, *args) on each rank's shards under `local_map`, as the JAX
+    package's GSPMD partitions it: `args` are DTensors, which enter as
+    placed (their gradients leave so); the block's parameters enter whole
+    (the FSDP all-gather: a `redistribute` to Replicate, whose backward
+    reduce-scatters) but for MoE expert tensors, which keep their experts
+    sharded over SEQ_AXIS (`expert_sharded`). Inside, the code is the plain
+    path on local tensors: `seq_shard()` tells the attention and the MoE
+    where the rank's tokens sit, and their collectives run over the mesh's
+    groups.
+
+    The backward runs on shares: each rank's gradient of a value is its
+    share, and the shares sum to the gradient. An output held whole on n
+    ranks (Replicate) hands each 1/n of its gradient (`_GradShare`), a
+    collective's backward sums shares (`gather_axes`, `all_reduce_axes`),
+    and what enters leaves Partial over the axes it was not sharded on: a
+    parameter's gradient is summed over the ranks and scattered to its own
+    placements by the redistribute's backward. An output that every rank
+    computes in full leaves Partial, divided by the world size
+    (`SeqShard.world`) inside. `whole`:
+    parameters that are not the block's, which enter whole as its do and
+    follow the args into fn. args[0] holds the tokens: their placements
+    tell the code inside how they are sharded (`SeqShard`)."""
+    mesh = get_active_mesh()
+    named = list(block.named_parameters()) if block is not None else []
+    named += [(f"_whole.{i}", w) for i, w in enumerate(whole)]
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    part = tuple(Partial() for _ in range(mesh.ndim))
+    axis = mesh.mesh_dim_names.index(SEQ_AXIS) if SEQ_AXIS in mesh.mesh_dim_names else -1
+    weights, w_in, w_grad = [], [], []
+    for name, p in named:
+        if expert_sharded(name, p):
+            want = tuple(p.placements[i] if i == axis else Replicate() for i in range(mesh.ndim))
+            grad = tuple(p.placements[i] if i == axis else Partial() for i in range(mesh.ndim))
+        else:
+            want, grad = rep, part
+        weights.append(p if tuple(p.placements) == want else p.redistribute(mesh, want))
+        w_in.append(want)
+        w_grad.append(grad)
+    names = [n for n, _ in named]
+    na, nb = len(args), len(named) - len(whole)
+    single = all(not isinstance(q, (tuple, list)) for q in out_placements)
+
+    def body(*local):
+        with _in_region(mesh, tuple(args[0].placements)):
+            extra = tuple(local[na + nb:])
+            if block is None:
+                out = fn(None, *local[:na], *extra)
+            else:
+                params = {"block." + n: w for n, w in zip(names, local[na:na + nb])}
+                out = torch.func.functional_call(_Bound(fn, block), params,
+                                                 tuple(local[:na]) + extra)
+        if single:
+            return _shared(out, out_placements, mesh)
+        return tuple(_shared(o, pl, mesh) for o, pl in zip(out, out_placements))
+
+    placed = tuple(tuple(a.placements) for a in args)
+    shares = tuple(tuple(Partial() if q == Replicate() else q for q in pl) for pl in placed)
+    return local_map(body, out_placements=(out_placements,) if single else out_placements,
+                     in_placements=placed + tuple(w_in),
+                     in_grad_placements=shares + tuple(w_grad),
+                     device_mesh=mesh)(*args, *weights)
+
+
+def distribute(t: torch.Tensor, spec: tuple, mesh=None) -> torch.Tensor:
+    """t (whole on every rank) as a DTensor placed by `fit_spec`, each rank
+    keeping its slice (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = mesh or get_active_mesh()
+    return distribute_tensor(t, mesh, spec_placements(fit_spec(spec, tuple(t.shape), mesh), mesh),
+                             src_data_rank=None)
+
+
+def shard_like(t: torch.Tensor, like: DTensor) -> DTensor:
+    """t (whole on every rank) placed as `like`, each rank keeping its slice."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+
+
+def in_region(x: Any) -> bool:
+    """Whether x is a DTensor under an active mesh: the model then runs its
+    blocks as `region`s."""
+    return get_active_mesh() is not None and isinstance(x, DTensor)
+
+
+def partial_placements() -> tuple:
+    return tuple(Partial() for _ in range(get_active_mesh().ndim))
+
+
+def seq_region(fn: Callable, block: nn.Module, h: torch.Tensor, n_states: int = 0
+               ) -> tuple[torch.Tensor, ...]:
+    """A recurrent block under a mesh (the xLSTM's and Mamba2's scans, which
+    run along the whole sequence): h gathered over SEQ_AXIS, fn(block,
+    whole h) -> (out, *states) on every rank of it, and h plus the rank's
+    shard of out, as the JAX package constrains the scans' inputs whole
+    over the sequence. The states (batch first) leave sharded on their
+    batch as h is, whole elsewhere."""
+    def body(blk, hl):
+        sh = seq_shard()
+        whole = gather_axes(hl, 1, (SEQ_AXIS,)) if sh.seq else hl
+        out, *states = fn(blk, whole)
+        return (hl + (seq_chunk(out, 1) if sh.seq else out), *states)
+
+    st = tuple(Shard(0) if q == Shard(0) else Replicate() for q in h.placements)
+    return region(body, block, (h,), (tuple(h.placements),) + (st,) * n_states)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor redistributed to Replicate on every mesh axis (a Partial
+    sum all-reduced); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() for _ in range(x.device_mesh.ndim))
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
 # ---------------------------------------------------------------------------
@@ -91,14 +459,14 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     moment_dtype: torch.dtype = torch.float32   # AdamW's m and v (bf16 for kimi)
-    fsdp_pod: bool = False           # the JAX mesh's pod-axis FSDP; none here: no effect
+    fsdp_pod: bool = False           # FSDP over ("pod", "data") on a mesh with a pod axis
     attn_chunk: int = 1024           # KV block of the JAX chunked attention
     chunked_attn_min_len: int = 8192 # cache-free sequences this long take the kernel
     remat: bool = True               # recompute each layer in the backward
     remat_policy: str = "nothing"    # nothing | dots | attn_probs (transformer.REMAT_POLICIES)
     attn_probs_bf16: bool = False    # the direct path's probabilities (and v) in bf16
     moe_group_dispatch: bool = False # per-sequence dispatch groups (no global sort)
-    moe_ep_shard_map: bool = False   # EP shard_map under a mesh; none here: no effect
+    moe_ep_shard_map: bool = False   # the EP local_map region under a mesh with a model axis
     ssm_chunk: int = 128             # SSD chunk length (xLSTM's mLSTM keeps 64)
     ssd_fold_decay: bool = False     # fold exp(cumsum) into B/C, skip decay tensor
     slstm_reshard: bool = False      # sLSTM gate pre-activations held in bf16
@@ -355,9 +723,10 @@ def multi_head_attention(
     does. With `chunk` (a cache-free sequence of more than `chunk` keys)
     the flash kernel computes the same softmax with fp32 probabilities and
     never materialises the scores: where the JAX package takes its chunked
-    path. That branch takes what the models give it, queries from position
-    0 (q_offset 0) and, with causality, Sq == Sk; without, Sq and Sk may
-    differ (whisper's cross-attention). It raises on anything else. A
+    path. That branch takes what the models give it: with causality a
+    sequence's queries from an int q_offset (0, or a shard's offset under a
+    mesh) against its keys (q_offset + Sq <= Sk); without, any Sq and Sk
+    (whisper's cross-attention). It raises on anything else. A
     ragged Sk is masked exactly, as on the JAX direct
     path: the JAX chunked path pads it with zero keys that enter the
     softmax without causality, a fault of the reference that the port does
@@ -375,11 +744,11 @@ def multi_head_attention(
     scale = scale or (1.0 / math.sqrt(hd))
 
     if chunk and sk > chunk:
-        if not (isinstance(q_offset, int) and q_offset == 0) or (causal and sq != sk):
-            raise ValueError("the flash path takes a cache-free sequence: q_offset 0, "
-                             "and Sq == Sk where causal")
+        if not isinstance(q_offset, int) or (causal and q_offset + sq > sk):
+            raise ValueError("the flash path takes a cache-free sequence: an int q_offset, "
+                             "and q_offset + Sq <= Sk where causal")
         return _flash(q, k, v, causal=causal, window=window,
-                      softcap=attn_softcap, scale=scale)
+                      softcap=attn_softcap, scale=scale, q_offset=q_offset)
 
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
@@ -402,7 +771,7 @@ def multi_head_attention(
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _flash(q, k, v, *, causal, window, softcap, scale):
+def _flash(q, k, v, *, causal, window, softcap, scale, q_offset=0):
     """(B, S, H, hd) heads through the kernel's (B*H, S, hd) layout; k and v
     keep their Hk heads (the kernel maps each query head to its group)."""
     b, s, h, hd = q.shape
@@ -412,7 +781,7 @@ def _flash(q, k, v, *, causal, window, softcap, scale):
         return x.transpose(1, 2).reshape(b * n, x.shape[1], hd).contiguous()
 
     out = ops.flash_attention(flat(q, h), flat(k, hk), flat(v, hk), causal=causal,
-                              window=window, softcap=softcap, scale=scale)
+                              window=window, softcap=softcap, scale=scale, q_offset=q_offset)
     return out.reshape(b, h, s, hd).transpose(1, 2)
 
 
@@ -444,6 +813,14 @@ def attention_block(
     computed. Without a cache, a sequence of at least
     `cfg.chunked_attn_min_len` queries over more than `cfg.attn_chunk` keys
     takes the flash kernel (`multi_head_attention`), causal or not.
+
+    In a region (`seq_shard()`), x holds the rank's shard of the sequence:
+    the cache-free path gathers K and V over SEQ_AXIS (the JAX package
+    constrains them replicated there) and its queries attend from their
+    offset in the sequence, which also sets the path by the whole
+    sequence's length. A cross-attention's kv_src comes whole. A decode
+    cache sharded on its sequence (`models/api.py::cache_pspecs`) takes the
+    split softmax (`_decode_sharded`).
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -471,7 +848,14 @@ def attention_block(
             k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    sh = seq_shard()
+    if cache is not None and sh is not None and sh.size > 1:
+        if sh.seq:       # a prefill's shard of the prompt: every token's q, k, v
+            q, k, v = (gather_axes(t, 1, (SEQ_AXIS,)) for t in (q, k, v))
+        out, new_cache = _decode_sharded(q, k, v, cache, cfg, window, sh)
+        if sh.seq:
+            out = seq_chunk(out, 1)
+    elif cache is not None:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
         start = pos.clamp(0, ck.shape[1] - s).long()
@@ -484,13 +868,60 @@ def attention_block(
             attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, q_offset=pos,
         )
     else:
-        chunk = cfg.attn_chunk if s >= cfg.chunked_attn_min_len else 0
+        q_offset, s_all = 0, s
+        if sh is not None and sh.seq and sh.size > 1:
+            if kv_src is None:
+                k = gather_axes(k, 1, (SEQ_AXIS,))
+                v = gather_axes(v, 1, (SEQ_AXIS,))
+            q_offset, s_all = sh.index * s, s * sh.size
+        chunk = cfg.attn_chunk if s_all >= cfg.chunked_attn_min_len else 0
         out = multi_head_attention(
             q, k, v, causal=causal, window=window, attn_softcap=cfg.attn_softcap,
-            scale=cfg.attn_scale, chunk=chunk, probs_bf16=cfg.attn_probs_bf16,
+            scale=cfg.attn_scale, q_offset=q_offset, chunk=chunk,
+            probs_bf16=cfg.attn_probs_bf16,
         )
     out = out.reshape(b, s, h * hd) @ params.wo.to(cfg.dtype)
     return out, new_cache
+
+
+def _decode_sharded(q, k, v, cache: dict, cfg: ModelConfig, window: int, sh: SeqShard
+                    ) -> tuple[torch.Tensor, dict]:
+    """Attention of queries held whole on every rank of SEQ_AXIS (a decode
+    step's, or a prefill's gathered) over a K/V cache sharded on its
+    sequence over SEQ_AXIS: the rank that holds a new token's slot writes
+    its K/V there, each rank takes its slots' scores (causal from pos, the
+    window), their max, the sum of their exponentials and its share of
+    P V, and an all-reduce of the max, then of the rescaled sums and
+    shares, gives the softmax over the whole cache. The cache is never
+    gathered."""
+    b, s, h, hd = q.shape
+    ck, cv = cache["k"], cache["v"]                     # (B, T_loc, Hk, hd)
+    pos = cache["pos"]
+    t_loc = ck.shape[1]
+    lo = sh.index * t_loc
+    start = pos.clamp(0, t_loc * sh.size - s).long()
+    # each of the rank's slots takes token lo + j - start where one lands
+    tok = lo + torch.arange(t_loc, device=q.device) - start
+    lands = ((tok >= 0) & (tok < s))[None, :, None, None]
+    tok = tok.clamp(0, s - 1)
+    ck.copy_(torch.where(lands, k.to(ck.dtype).index_select(1, tok), ck))
+    cv.copy_(torch.where(lands, v.to(cv.dtype).index_select(1, tok), cv))
+    scale = cfg.attn_scale or (1.0 / math.sqrt(hd))
+    ke = _expand_kv(ck.to(cfg.dtype), h)
+    ve = _expand_kv(cv.to(cfg.dtype), h)
+    scores = matmul_f32(q.transpose(1, 2), ke.permute(0, 2, 3, 1)) * scale   # (B, H, s, T_loc)
+    scores = softcap(scores, cfg.attn_softcap)
+    q_pos = pos + torch.arange(s, dtype=torch.int32, device=q.device)
+    k_pos = lo + torch.arange(t_loc, dtype=torch.int32, device=q.device)
+    mask = attention_scores_mask(q_pos, k_pos, causal=True, window=window)
+    scores = torch.where(mask, scores, -1e30)
+    m = funcol.wait_tensor(funcol.all_reduce(scores.amax(dim=-1, keepdim=True).contiguous(),
+                                             "max", _group(sh.mesh, SEQ_AXIS)))
+    e = torch.exp(scores - m)
+    l_all = all_reduce_axes(e.sum(dim=-1, keepdim=True), (SEQ_AXIS,))
+    o = all_reduce_axes(matmul_f32(e, ve.transpose(1, 2).float()), (SEQ_AXIS,))
+    out = (o / l_all).transpose(1, 2).to(q.dtype)
+    return out, {"k": ck, "v": cv, "pos": pos + s}
 
 
 # ---------------------------------------------------------------------------
@@ -621,15 +1052,17 @@ def _inverse(perm: torch.Tensor) -> torch.Tensor:
                                                                  device=perm.device))
 
 
-def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig, groups: int = 1
-              ) -> MoERoute:
+def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig, groups: int = 1, *,
+              reduce: Callable | None = None, reduce_size: int = 1) -> MoERoute:
     """The router and the capacity-bounded assignment of
     `repro/models/layers.py::moe_block` for tokens xf (T, d): fp32 softmax,
     top k, weights renormalised by max(sum, 1e-9), the Switch auxiliary
     loss E sum(me ce) over all T tokens, a stable sort of the replicas by
     expert, each replica's place in its expert from the exclusive cumsum
     of the counts, and cap = max(ceil(T k / E capacity_factor), 1). A
-    replica past the capacity is dropped. With `groups` G > 1 the sort,
+    replica past the capacity is dropped. Under a mesh whose batch ranks
+    hold reduce_size such token sets, `reduce` sums the auxiliary loss's
+    per-expert sums over them, so that it is the whole batch's. With `groups` G > 1 the sort,
     the places and the capacity are each group's own (T / G consecutive
     tokens, cap from T / G), as `_moe_grouped` routes each sequence: a
     stable sort by (expert, group) leaves each group's replicas of an
@@ -656,8 +1089,12 @@ def moe_route(params: MoE, xf: torch.Tensor, cfg: ModelConfig, groups: int = 1
     buckets = torch.arange(e_pad * g, device=dev)
     offsets = torch.searchsorted(se, buckets)               # exclusive cumsum
     counts = torch.searchsorted(se, buckets, right=True) - offsets
-    me = probs.mean(dim=0)
-    ce = counts.view(e_pad, g).sum(dim=1)[:e].float() / n
+    if reduce is None:
+        me = probs.mean(dim=0)
+        ce = counts.view(e_pad, g).sum(dim=1)[:e].float() / n
+    else:
+        me = reduce(probs.sum(dim=0)) / (t * reduce_size)
+        ce = reduce(counts.view(e_pad, g).sum(dim=1)[:e].float()) / (n * reduce_size)
     aux = e * torch.sum(me * ce)
 
     cap = max(int(math.ceil(t // g * k / e * cfg.capacity_factor)), 1)
@@ -709,10 +1146,15 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
     are the same from run to run on the card. With `moe_group_dispatch`
     and S k >= 4 E each sequence is its own dispatch group (`_moe_grouped`:
     routing, sort and capacity per sequence); at B = 1 that is the global
-    dispatch. `moe_ep_shard_map` takes the expert-parallel shard_map only
-    under an active mesh with a sequence axis, which the port never has
-    (ROADMAP.md, queue 1 item 7): the JAX package then falls through to the
-    dispatches below, and so does this."""
+    dispatch. `moe_ep_shard_map` takes the expert-parallel region only in a
+    region of a mesh whose sequence axis is wider than one
+    (`_moe_sharded`); elsewhere it falls through to the dispatches below,
+    as the JAX package's does.
+
+    In a region (`seq_shard()`) the dispatch is `_moe_sharded`'s."""
+    sh = seq_shard()
+    if sh is not None:
+        return _moe_sharded(params, x, cfg, sh)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     e_pad = cfg.n_experts_pad or e
@@ -724,3 +1166,104 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
                        route.rep_keep).view(e_pad, groups * route.cap, d)
     y = moe_experts(params, buf, cfg)
     return moe_combine(y, route, cfg).reshape(b, s, d), route.aux
+
+
+def _my_slots(route: MoERoute, rows: int, e_lo: int, e_n: int, r_lo: int, r_n: int
+              ) -> tuple[torch.Tensor, ...]:
+    """The route restricted to one rank's block of the (E_pad, rows, d)
+    buffer: experts e_lo .. e_lo + e_n - 1, rows r_lo .. r_lo + r_n - 1 of
+    each (a row past `rows` is padding): (slot_rep, slot_used) of the
+    block's e_n r_n slots and (rep_slot, rep_keep) of each replica into
+    it, kept only where its slot is in the block."""
+    dev = route.rep_slot.device
+    e_idx = e_lo + torch.arange(e_n, device=dev)
+    r_idx = r_lo + torch.arange(r_n, device=dev)
+    valid = (r_idx < rows)[None, :].expand(e_n, r_n).reshape(-1)
+    gslot = (e_idx[:, None] * rows + r_idx.clamp(max=rows - 1)[None, :]).reshape(-1)
+    slot_rep = route.slot_rep[gslot]
+    slot_used = route.slot_used[gslot] & valid
+    e_of, r_of = route.rep_slot // rows, route.rep_slot % rows
+    mine = (route.rep_keep & (e_of >= e_lo) & (e_of < e_lo + e_n)
+            & (r_of >= r_lo) & (r_of < r_lo + r_n))
+    rep_slot = (e_of - e_lo).clamp(0, e_n - 1) * r_n + (r_of - r_lo).clamp(0, r_n - 1)
+    return slot_rep, slot_used, rep_slot, mine
+
+
+def _moe_sharded(params: MoE, x: torch.Tensor, cfg: ModelConfig, sh: SeqShard
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE in a region: x is the rank's (B_loc, S_loc, d) shard, the
+    expert weights the rank's experts where they are sharded over
+    SEQ_AXIS (`expert_sharded`), else all of them. The route is the one the
+    mesh-free path takes; each rank computes its block of the capacity
+    buffer and adds its experts' outputs into a partial output, which a
+    reduce-scatter sums into each rank's tokens:
+
+      - the global dispatch (base): every token gathered to every rank and
+        routed as one batch; a rank's block is its experts and its share
+        of the capacity rows over the batch axes;
+      - the grouped dispatch (`moe_group_dispatch`, S k >= 4 E): each
+        sequence gathered over SEQ_AXIS and routed as its own group, the
+        auxiliary loss's sums added over the batch axes, as `_moe_grouped`
+        routes the whole batch;
+      - expert parallelism (`moe_ep_shard_map`, S k >= 4 E, SEQ_AXIS wider
+        than one): the JAX package's `_moe_ep_shard_map` with its
+        collectives (the tokens gathered over SEQ_AXIS, each rank's
+        experts, the partial outputs summed over SEQ_AXIS), the grouped
+        route of the rank's sequences with its auxiliary loss averaged over
+        the batch axes, as its `pmean`.
+
+    Ranks that would compute the same block (the experts held whole, or a
+    batch held whole) split its rows among themselves, and an all-reduce
+    over them sums what a reduce-scatter does not. Returns the rank's
+    output shard and the auxiliary loss divided by the world size (the
+    region's Partial output)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    e_pad = cfg.n_experts_pad or e
+    seq_axes = (SEQ_AXIS,) if sh.seq else ()
+    batch_axes = sh.batch_axes if sh.batch else ()
+    s_all = s * sh.size if sh.seq else s
+    e_n = params.w_gate.shape[0]
+    e_split = e_n < e_pad
+    e_lo = sh.index * e_n if e_split else 0
+    long_seq = s_all * k >= 4 * e
+    ep = cfg.moe_ep_shard_map and long_seq and sh.size > 1
+    xs = gather_axes(x, 1, seq_axes)
+    # (axis, its rank's index, its size) of the axes whose ranks split rows
+    model_dup = [] if e_split or sh.size == 1 else [(SEQ_AXIS, sh.index, sh.size)]
+    batch_dup = [(a, sh.mesh.get_local_rank(a), _axis_size(a)) for a in sh.batch_axes]
+    if ep or (cfg.moe_group_dispatch and long_seq):
+        reduce = None
+        if not ep and batch_axes:
+            reduce = functools.partial(all_reduce_axes, axes=batch_axes)
+        route = moe_route(params, xs.reshape(b * s_all, d), cfg, b, reduce=reduce,
+                          reduce_size=sh.batch_size if batch_axes else 1)
+        rows = b * route.cap
+        dup = model_dup + ([] if batch_axes else batch_dup)
+        gathered = seq_axes
+    else:
+        xs = gather_axes(xs, 0, batch_axes)
+        route = moe_route(params, xs.reshape(-1, d), cfg, 1)
+        rows = route.cap
+        dup = batch_dup + model_dup
+        gathered = seq_axes + batch_axes
+    dup_n, dup_i = 1, 0
+    for _, idx, n in dup:
+        dup_n, dup_i = dup_n * n, dup_i * n + idx
+    r_n = -(-rows // dup_n)
+    slot_rep, slot_used, rep_slot, keep = _my_slots(route, rows, e_lo, e_n, dup_i * r_n, r_n)
+    t_all = xs.shape[0] * xs.shape[1]
+    xf = xs.reshape(t_all, d)
+    reps = xf[:, None, :].expand(t_all, k, d).reshape(t_all * k, d)
+    buf = _Route.apply(reps, slot_rep, slot_used, rep_slot, keep).view(e_n, r_n, d)
+    y = moe_experts(params, buf, cfg)
+    mine = route._replace(rep_slot=rep_slot, rep_keep=keep, slot_rep=slot_rep,
+                          slot_used=slot_used)
+    out = moe_combine(y, mine, cfg).view(xs.shape)
+    # a token's output is summed over the ranks whose blocks differ
+    differ = {a for a, _, _ in dup} | ({SEQ_AXIS} if e_split else set())
+    out = reduce_scatter_axes(out, 1, seq_axes)
+    out = reduce_scatter_axes(out, 0, tuple(a for a in batch_axes if a in gathered))
+    out = all_reduce_axes(out, tuple(a for a in sh.mesh.mesh_dim_names
+                                     if a in differ and a not in gathered))
+    return out, route.aux / sh.world

@@ -29,8 +29,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch.cost import steps
-from repro_torch.models.layers import ModelConfig, dense_init, matmul_f32, rms_norm
-from repro_torch.models.transformer import RMSNorm, checkpointed, remat_on
+from repro_torch.models.layers import (
+    ModelConfig,
+    activation_spec,
+    constrain,
+    dense_init,
+    in_region,
+    matmul_f32,
+    rms_norm,
+    seq_region,
+)
+from repro_torch.models.transformer import (
+    RMSNorm,
+    checkpointed,
+    final_logits,
+    remat_on,
+    sharded_embed,
+)
 
 #: the mLSTM chunk xlstm_forward uses, whatever `cfg.ssm_chunk` says (the
 #: JAX package's `xlstm_forward(..., chunk=64)`, which its model never
@@ -345,7 +360,13 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
     mLSTM block (its residual add included) then runs under
     torch.utils.checkpoint and is recomputed in the backward, the JAX
     package's `jax.checkpoint(m_body)`. The sLSTM stays outside the
-    checkpoint, as there."""
+    checkpoint, as there.
+
+    Under a mesh (tokens a DTensor) each block is a `seq_region`: the scan
+    runs over the whole sequence on every rank of the sequence axis, and
+    a prefill's states come from the regions, placed by the cache's rules."""
+    if in_region(tokens):
+        return _xlstm_sharded(params, cfg, tokens, states, chunk)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -373,6 +394,56 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
     h = rms_norm(h, params.ln_final.scale, cfg.norm_eps)
     logits = matmul_f32(h, params.embed.to(cfg.dtype).t())
     return logits, states
+
+
+def _xlstm_sharded(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
+                   states: dict | None, chunk: int) -> tuple[torch.Tensor, dict | None]:
+    """`xlstm_forward` under a mesh, from zero states (a prefill: its
+    final states returned; a decode step on a mesh is not ported)."""
+    prefill = states is not None
+    remat = not prefill and remat_on(cfg)
+    heads, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    h = sharded_embed(params.embed, tokens, cfg)
+    new_m: list = []
+    new_s: list = []
+
+    def m_fn(blk, x):
+        if not prefill:
+            return (mlstm_block(blk, x, cfg, None, None, chunk=chunk)[0],)
+        b = x.shape[0]
+        st = mlstm_init_state(b, heads, hd, hd, device=x.device)
+        cv = torch.zeros((b, cfg.ssm_conv - 1, cfg.d_model), dtype=cfg.dtype, device=x.device)
+        out, nst, ncv = mlstm_block(blk, x, cfg, st, cv, chunk=chunk)
+        return (out, *nst, ncv)
+
+    def s_fn(blk, x):
+        st = slstm_init_state(x.shape[0], heads, hd, device=x.device) if prefill else None
+        out, nst = slstm_block(blk, x, cfg, st)
+        return (out, *nst) if prefill else (out,)
+
+    def m_step(blk, x):
+        return seq_region(m_fn, blk, x)[0]
+
+    for group, sblock in zip(params.mlstm, params.slstm):
+        for block in group:
+            h = constrain(h, activation_spec())
+            if remat:
+                h = checkpointed(m_step, block, h)
+                continue
+            h, *st = seq_region(m_fn, block, h, 4 if prefill else 0)
+            new_m.append(st)
+        h, *st = seq_region(s_fn, sblock, constrain(h, activation_spec()), 4 if prefill else 0)
+        new_s.append(st)
+    logits = final_logits(h, params.ln_final.scale, params.embed, cfg)
+    if not prefill:
+        return logits, None
+    n_groups, n_m = xlstm_groups(cfg)
+    mlstm = tuple(torch.stack([torch.stack([new_m[g * n_m + i][j] for i in range(n_m)])
+                               for g in range(n_groups)]) for j in range(3))
+    conv = torch.stack([torch.stack([new_m[g * n_m + i][3] for i in range(n_m)])
+                        for g in range(n_groups)])
+    slstm = tuple(torch.stack([new_s[g][j] for g in range(n_groups)]) for j in range(4))
+    return logits, {"mlstm": mlstm, "slstm": slstm, "conv": conv}
 
 
 def _mlstm_residual(block: MLSTMBlock, h: torch.Tensor, cfg: ModelConfig, chunk: int

@@ -26,12 +26,16 @@ from repro_torch.kernels import ops  # noqa: F401  (registers repro_torch::flash
 from repro_torch.launch.cost import steps
 from repro_torch.models.layers import (
     Attention,
+    BATCH_AXES,
     MLP,
-    MoE,
     ModelConfig,
+    MoE,
+    activation_spec,
     attention_block,
+    constrain,
     current_checkpoint_name,
     dense_init,
+    in_region,
     init_attention,
     init_mlp,
     init_moe,
@@ -39,7 +43,12 @@ from repro_torch.models.layers import (
     matmul_f32,
     mlp_block,
     moe_block,
+    partial_placements,
+    region,
+    replicated,
     rms_norm,
+    seq_chunk,
+    seq_shard,
 )
 
 
@@ -136,6 +145,31 @@ def _layer_out(p: DecoderLayer, h: torch.Tensor, cfg: ModelConfig,
     """A cache-free layer's output and aux: the function a checkpoint wraps."""
     out, _, aux = decoder_layer(p, h, cfg, positions=positions, window=window)
     return out, aux
+
+
+def _layer_region(p: DecoderLayer, h: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_layer_out` of a cache-free layer under a mesh, as one region: h
+    and the positions as placed, the layer's weights whole (experts
+    sharded), out placed as h, aux Partial."""
+    def fn(layer, hh, pp):
+        return _layer_out(layer, hh, cfg, pp, window)
+
+    return region(fn, p, (h, positions), (tuple(h.placements), partial_placements()))
+
+
+def _cached_layer_region(p: DecoderLayer, h: torch.Tensor, positions: torch.Tensor,
+                         cfg: ModelConfig, window: int, cache: dict
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer with a decode cache under a mesh: the cache's K/V shards are
+    written in place inside the region."""
+    def fn(layer, hh, pp, ck, cv, pos):
+        out, _, aux = decoder_layer(layer, hh, cfg, positions=pp, window=window,
+                                    cache={"k": ck, "v": cv, "pos": pos})
+        return out, aux
+
+    return region(fn, p, (h, positions, cache["k"], cache["v"], cache["pos"]),
+                  (tuple(h.placements), partial_placements()))
 
 
 def remat_on(cfg: ModelConfig) -> bool:
@@ -250,7 +284,22 @@ def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | No
     text)."""
     h, new_caches, aux = decoder_hidden(params, cfg, tokens, positions=positions,
                                         embeds=embeds, caches=caches)
-    logits = matmul_f32(h, head_weight(params, cfg).t())
+    if in_region(h):
+        head = params.embed if cfg.tie_embeddings else params.unembed
+        logits = region(functools.partial(_logits, cfg=cfg), None, (h,), tuple(h.placements),
+                        whole=(head,))
+        return logits, new_caches, aux
+    logits = _logits(None, h, head_weight(params, cfg), cfg=cfg, ready=True)
+    return logits, new_caches, aux
+
+
+def _logits(_, h: torch.Tensor, head: torch.Tensor, *, cfg: ModelConfig,
+            ready: bool = False) -> torch.Tensor:
+    """The fp32 logits of h against the head (the parameter, or with
+    `ready` its (V, D) operand in the activation dtype) and the softcap."""
+    if not ready:
+        head = head.to(cfg.dtype) if cfg.tie_embeddings else head.to(cfg.dtype).t()
+    logits = matmul_f32(h, head.t())
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         if torch.is_grad_enabled() and logits.requires_grad:
@@ -259,7 +308,7 @@ def decoder_forward(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | No
         else:
             # in place: at S = 8,192 the fp32 logits are 8.4 GB
             logits.div_(cap).tanh_().mul_(cap)
-    return logits, new_caches, aux
+    return logits
 
 
 def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | None, *,
@@ -286,17 +335,28 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | Non
     policy.
     """
     remat = caches is None and remat_on(cfg)
-    h = params.embed.to(cfg.dtype)[tokens] if embeds is None else embeds.to(cfg.dtype)
-    if cfg.embed_scale:
-        # the scale is rounded to the activation dtype first, as in JAX
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    sharded = in_region(tokens if embeds is None else embeds)
+    if sharded and embeds is None:
+        h = region(functools.partial(_embed_tokens, cfg=cfg), None, (tokens,),
+                   tuple(tokens.placements), whole=(params.embed,))
+    else:
+        h = embed_tokens(params.embed, tokens, cfg) if embeds is None else embeds.to(cfg.dtype)
     windows = layer_windows(cfg).tolist()
     auxes = []
     for i, layer in enumerate(params.layers):
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"][i]}
-        if remat:
+        if sharded:
+            h = constrain(h, activation_spec())
+            if cache is not None:
+                h, aux = _cached_layer_region(layer, h, positions, cfg, windows[i], cache)
+            elif remat:
+                h, aux = checkpointed(_layer_region, layer, h, positions, cfg, windows[i],
+                                      policy=cfg.remat_policy)
+            else:
+                h, aux = _layer_region(layer, h, positions, cfg, windows[i])
+        elif remat:
             h, aux = checkpointed(_layer_out, layer, h, cfg, positions, windows[i],
                                   policy=cfg.remat_policy)
         else:
@@ -308,8 +368,23 @@ def decoder_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor | Non
     if caches is not None:
         new_caches = {"k": caches["k"], "v": caches["v"],
                       "pos": caches["pos"] + positions.shape[-1]}
-    aux = torch.stack(auxes).sum() if auxes else torch.zeros((), device=h.device)
-    return h, new_caches, aux
+    aux = torch.stack([replicated(a) for a in auxes]).sum() if auxes else \
+        torch.zeros((), device=h.device)
+    return constrain(h, activation_spec()), new_caches, aux
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The tokens' embeddings in the activation dtype, times sqrt(d_model)
+    (rounded to that dtype first, as in JAX) where `cfg.embed_scale`."""
+    h = embed.to(cfg.dtype)[tokens]
+    if cfg.embed_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    return h
+
+
+def _embed_tokens(_, tokens: torch.Tensor, embed: torch.Tensor, *, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    return embed_tokens(embed, tokens, cfg)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -327,7 +402,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token CE over valid (label >= 0) positions."""
+    """Mean next-token CE over valid (label >= 0) positions; under a mesh
+    each rank's sums of its rows, added over the ranks."""
+    if in_region(logits):
+        total, n = region(_nll_sums, None, (logits, labels),
+                          (partial_placements(), partial_placements()))
+        total, n = replicated(total), replicated(n).clamp(min=1.0)
+        loss = total / n
+        return loss, {"ce": loss, "tokens": n}
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -336,6 +418,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     n = valid.sum().clamp(min=1.0)
     loss = nll.sum() / n
     return loss, {"ce": loss, "tokens": n}
+
+
+def _nll_sums(_, logits: torch.Tensor, labels: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the summed loss of the valid rows, their count), each divided by
+    the ranks that hold the same rows (a region's Partial outputs)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    total, n = ((lse - gold) * valid).sum(), valid.sum()
+    reps = seq_shard().replicas
+    return (total / reps, n / reps) if reps > 1 else (total, n)
+
+
+def final_logits(h: torch.Tensor, scale: torch.Tensor, embed: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The fp32 logits of the final RMS norm of h against the tied embedding
+    (the xLSTM's and Zamba2's head); under a mesh each rank's rows."""
+    def fn(_, x, sc, emb):
+        return matmul_f32(rms_norm(x, sc, cfg.norm_eps), emb.to(cfg.dtype).t())
+
+    if in_region(h):
+        return region(fn, None, (h,), tuple(h.placements), whole=(scale, embed))
+    return fn(None, h, scale, embed)
+
+
+def sharded_embed(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """`embed_tokens`, under a mesh in a region (each rank its tokens'
+    rows, the embedding entering whole)."""
+    if in_region(tokens):
+        return region(functools.partial(_embed_tokens, cfg=cfg), None, (tokens,),
+                      tuple(tokens.placements), whole=(embed,))
+    return embed_tokens(embed, tokens, cfg)
 
 
 #: rows (batch x sequence positions) of the logits a chunk of `head_loss`:
@@ -353,13 +470,32 @@ def head_loss(params: Decoder, cfg: ModelConfig, h: torch.Tensor, labels: torch.
     the same function as decoder_forward + cross_entropy (one chunk gives
     its bits). At S = 8,192 the whole logits are 8.4 GB in fp32, and a
     backward through them holds several copies at once."""
-    labels = labels.reshape(-1)
-    valid = (labels >= 0).float()
-    n = valid.sum().clamp(min=1.0)
-    total = HeadLoss.apply(h.reshape(-1, h.shape[-1]), head_weight(params, cfg),
-                           labels, cfg.logit_softcap)
+    if in_region(h):
+        head = params.embed if cfg.tie_embeddings else params.unembed
+        total, n = region(functools.partial(_head_sums, cfg=cfg), None, (h, labels),
+                          (partial_placements(), partial_placements()), whole=(head,))
+        total, n = replicated(total), replicated(n).clamp(min=1.0)
+    else:
+        total, n = _head_sums(None, h, labels, head_weight(params, cfg), cfg=cfg, ready=True)
+        n = n.clamp(min=1.0)
     loss = total / n
     return loss, {"ce": loss, "tokens": n}
+
+
+def _head_sums(_, h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor, *,
+               cfg: ModelConfig, ready: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the summed loss of the valid rows, their count) of h against the
+    head (`_logits`'s `head` and `ready`); in a region each divided by
+    the ranks that hold the same tokens (the region's Partial outputs)."""
+    if not ready:
+        head = head.to(cfg.dtype) if cfg.tie_embeddings else head.to(cfg.dtype).t()
+    labels = labels.reshape(-1)
+    n = (labels >= 0).float().sum()
+    total = HeadLoss.apply(h.reshape(-1, h.shape[-1]), head, labels, cfg.logit_softcap)
+    sh = seq_shard()
+    if sh is not None and sh.replicas > 1:
+        total, n = total / sh.replicas, n / sh.replicas
+    return total, n
 
 
 def _chunk_logits(h: torch.Tensor, w: torch.Tensor, cap: float
@@ -508,16 +644,40 @@ def encoder_layer(p: EncoderLayer, h: torch.Tensor, cfg: ModelConfig,
 def encoder_forward(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, S_enc, D), the conv frontend's stub output -> the encoder's
     output (B, S_enc, D) in the activation dtype, after its final norm."""
+    remat = remat_on(cfg)
+    if in_region(frames):
+        def add_pos(_, f, pos):
+            sh = seq_shard()
+            pos = pos.to(cfg.dtype)
+            return f.to(cfg.dtype) + (seq_chunk(pos, 0) if sh.seq else pos)[None]
+
+        h = region(add_pos, None, (frames,), tuple(frames.placements), whole=(params.enc_pos,))
+        for layer in params.enc_layers:
+            h = constrain(h, activation_spec())
+            if remat:
+                h = checkpointed(_encoder_region, layer, h, cfg)
+            else:
+                h = _encoder_region(layer, h, cfg)
+        return _ln(params.enc_ln_final, h, cfg)
     h = frames.to(cfg.dtype) + params.enc_pos.to(cfg.dtype)[None]
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device).expand(h.shape[:2])
-    remat = remat_on(cfg)
     for layer in params.enc_layers:
         if remat:
             h = checkpointed(encoder_layer, layer, h, cfg, positions)
         else:
             h = encoder_layer(layer, h, cfg, positions)
     return _ln(params.enc_ln_final, h, cfg)
+
+
+def _encoder_region(layer: EncoderLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """An encoder layer under a mesh: the rank's frames attend over all of
+    them (K and V gathered, `attention_block`); no RoPE reads positions."""
+    def fn(p, x):
+        pos = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+        return encoder_layer(p, x, cfg, pos)
+
+    return region(fn, layer, (h,), tuple(h.placements))
 
 
 def crossdec_layer(p: CrossDecoderLayer, h: torch.Tensor, cfg: ModelConfig,
@@ -552,6 +712,11 @@ def encdec_hidden(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     "ck"/"cv" (enc_out is not read); without, it attends over enc_out."""
     b, s = tokens.shape
     dev = tokens.device
+    if in_region(tokens):
+        if not isinstance(pos_offset, int) or pos_offset:
+            raise NotImplementedError("whisper's decoder on a mesh runs from position 0: "
+                                      "its loss and its prefill (decode on a mesh: ROADMAP.md)")
+        return _encdec_hidden_sharded(params, cfg, tokens, enc_out, caches)
     steps = torch.arange(s, dtype=torch.int32, device=dev)
     positions = (pos_offset + steps).expand(b, s)
     start = torch.as_tensor(pos_offset, device=dev).clamp(0, params.dec_pos.shape[0] - s)
@@ -574,6 +739,53 @@ def encdec_hidden(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     return h, new_caches
 
 
+def _encdec_hidden_sharded(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
+                           enc_out: torch.Tensor | None, caches: dict | None
+                           ) -> tuple[torch.Tensor, dict | None]:
+    """`encdec_hidden` under a mesh from position 0: each rank's tokens with
+    their rows of the position table, each layer a region; cache-free, the
+    encoder's output whole over the sequence axis (the cross-attention's K
+    and V); with caches (a prefill), the self-attention caches written in
+    place (`attention_block`) and the static cross caches whole over the
+    sequence axis."""
+    def embed(_, toks, emb, table):
+        sh = seq_shard()
+        lo = sh.index * toks.shape[1] if sh.seq else 0
+        rows = table.to(cfg.dtype)[lo:lo + toks.shape[1]]
+        return emb.to(cfg.dtype)[toks] + rows[None]
+
+    h = region(embed, None, (tokens,), tuple(tokens.placements),
+               whole=(params.embed, params.dec_pos))
+    if caches is not None:
+        whole = (None, BATCH_AXES, None, None, None)
+        ck, cv = constrain(caches["ck"], whole), constrain(caches["cv"], whole)
+
+        def cached(p, x, k, v, pos, xk, xv):
+            pp = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+            return crossdec_layer(p, x, cfg, pp, None, {"k": k, "v": v, "pos": pos},
+                                  {"k": xk, "v": xv})
+
+        for i, layer in enumerate(params.dec_layers):
+            h = constrain(h, activation_spec())
+            h = region(cached, layer, (h, caches["k"][i], caches["v"][i], caches["pos"][i],
+                                       ck[i], cv[i]), tuple(h.placements))
+        return _ln(params.dec_ln_final, h, cfg), dict(caches, pos=caches["pos"] + tokens.shape[1])
+    enc = constrain(enc_out, (BATCH_AXES, None, None))
+    remat = remat_on(cfg)
+
+    def layer_fn(p, x, e):
+        pos = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+        return crossdec_layer(p, x, cfg, pos, e)
+
+    def run(p, x, e):
+        return region(layer_fn, p, (x, e), tuple(x.placements))
+
+    for layer in params.dec_layers:
+        h = constrain(h, activation_spec())
+        h = checkpointed(run, layer, h, enc) if remat else run(layer, h, enc)
+    return _ln(params.dec_ln_final, h, cfg), None
+
+
 def encdec_forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                    enc_out: torch.Tensor | None, *, pos_offset: torch.Tensor | int = 0,
                    caches: dict | None = None) -> tuple[torch.Tensor, dict | None]:
@@ -581,25 +793,39 @@ def encdec_forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     new caches or None): `encdec_hidden`, then the head."""
     h, new_caches = encdec_hidden(params, cfg, tokens, enc_out, pos_offset=pos_offset,
                                   caches=caches)
+    if in_region(h):
+        return region(functools.partial(_logits, cfg=cfg), None, (h,), tuple(h.placements),
+                      whole=(params.embed,)), new_caches
     return matmul_f32(h, params.embed.to(cfg.dtype).t()), new_caches
 
 
 def init_cross_cache(params: EncDec, cfg: ModelConfig, enc_out: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross-attention K and V of the encoder output,
-    stacked: two (L, B, S_enc, Hk, hd) tensors in the activation dtype."""
+    stacked: two (L, B, S_enc, Hk, hd) tensors in the activation dtype;
+    under a mesh each layer's a region, placed as the encoder's output."""
+    if in_region(enc_out):
+        def kv(p, e):
+            return _cross_kv(p, e, cfg)
+
+        pl = tuple(enc_out.placements)
+        pairs = [region(kv, layer.cross_attn, (enc_out,), (pl, pl)) for layer in params.dec_layers]
+        return torch.stack([k for k, _ in pairs]), torch.stack([v for _, v in pairs])
+    pairs = [_cross_kv(layer.cross_attn, enc_out, cfg) for layer in params.dec_layers]
+    return torch.stack([k for k, _ in pairs]), torch.stack([v for _, v in pairs])
+
+
+def _cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer's cross-attention K and V of the encoder output, each
+    (B, S_enc, Hk, hd)."""
     b, se, _ = enc_out.shape
-    ks, vs = [], []
-    for layer in params.dec_layers:
-        p = layer.cross_attn
-        k = (enc_out @ p.wk.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
-        v = (enc_out @ p.wv.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
-        if cfg.qkv_bias:
-            k = k + p.bk.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
-            v = v + p.bv.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
-        ks.append(k)
-        vs.append(v)
-    return torch.stack(ks), torch.stack(vs)
+    k = (enc_out @ p.wk.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p.wv.to(cfg.dtype)).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
+        v = v + p.bv.to(cfg.dtype).reshape(cfg.n_kv_heads, cfg.hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -18,13 +18,18 @@ from repro_torch.models.layers import (
     Attention,
     MLP,
     ModelConfig,
+    activation_spec,
     attention_block,
+    constrain,
     dense_init,
+    in_region,
     init_attention,
     init_mlp,
     matmul_f32,
     mlp_block,
+    region,
     rms_norm,
+    seq_region,
 )
 from repro_torch.models.mamba import (
     Mamba2Block,
@@ -36,8 +41,10 @@ from repro_torch.models.transformer import (
     RMSNorm,
     apply_norm,
     checkpointed,
+    final_logits,
     init_norm,
     remat_on,
+    sharded_embed,
 )
 
 
@@ -109,7 +116,14 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     Without states, under grad with `cfg.remat`, each Mamba2 block (its
     residual add included) runs under torch.utils.checkpoint and is
     recomputed in the backward, the JAX package's `jax.checkpoint(m_body)`;
-    the shared block stays outside it, as there."""
+    the shared block stays outside it, as there.
+
+    Under a mesh (tokens a DTensor) each Mamba2 block is a `seq_region`
+    (its scan over the whole sequence on every rank of the sequence axis)
+    and each application of the shared block a region whose queries are
+    the rank's; a prefill's Mamba2 states come from the regions."""
+    if in_region(tokens):
+        return _zamba_sharded(params, cfg, tokens, positions, states, chunk)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -137,6 +151,53 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     if decode:
         new_states = dict(states, attn_pos=states["attn_pos"] + tokens.shape[1])
     return logits, new_states
+
+
+def _zamba_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, states: dict | None, chunk: int | None
+                   ) -> tuple[torch.Tensor, dict | None]:
+    """`zamba_forward` under a mesh, from zero states (a prefill writes the
+    shared block's K/V caches in place and returns the Mamba2 states; a
+    decode step on a mesh is not ported)."""
+    prefill = states is not None
+    remat = not prefill and remat_on(cfg)
+    h = sharded_embed(params.embed, tokens, cfg)
+    new_m: list = []
+
+    def m_fn(blk, x):
+        if not prefill:
+            return (mamba2_block(blk, x, cfg, None, chunk=chunk)[0],)
+        out, nst = mamba2_block(blk, x, cfg, mamba2_init_state(cfg, x.shape[0], device=x.device),
+                                chunk=chunk)
+        return out, nst.h, nst.conv
+
+    def m_step(blk, x):
+        return seq_region(m_fn, blk, x)[0]
+
+    def shared(p, x, pp, *cache):
+        c = dict(zip(("k", "v", "pos"), cache)) if cache else None
+        return shared_block(p, x, cfg, positions=pp, cache=c)[0]
+
+    for g, group in enumerate(params.mamba):
+        for block in group:
+            h = constrain(h, activation_spec())
+            if remat:
+                h = checkpointed(m_step, block, h)
+                continue
+            h, *st = seq_region(m_fn, block, h, 2 if prefill else 0)
+            new_m.append(st)
+        h = constrain(h, activation_spec())
+        cache = (states["attn_k"][g], states["attn_v"][g], states["attn_pos"][g]) \
+            if prefill else ()
+        h = region(shared, params.shared, (h, positions, *cache), tuple(h.placements))
+    logits = final_logits(h, params.ln_final.scale, params.embed, cfg)
+    if not prefill:
+        return logits, None
+    n_groups, n_per = zamba_groups(cfg)
+    stack = [torch.stack([torch.stack([new_m[g * n_per + i][j] for i in range(n_per)])
+                          for g in range(n_groups)]) for j in range(2)]
+    return logits, dict(states, mamba_h=stack[0], mamba_conv=stack[1],
+                        attn_pos=states["attn_pos"] + tokens.shape[1])
 
 
 def _mamba_residual(block: Mamba2Block, h: torch.Tensor, cfg: ModelConfig,

@@ -29,6 +29,7 @@ from typing import Any, Mapping, NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.cost import steps
 from repro_torch.models.transformer import param_leaf
@@ -150,7 +151,10 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     {"grad_norm": the norm before clipping}). When cfg.clip_norm > 0 each
     slice's gradient is clipped as it is read (the gradients themselves are
     left as they are). `lr` may be a 0-d tensor (the schedule's) or a
-    number; cfg.lr when None."""
+    number; cfg.lr when None. Parameters that are DTensors (a train state
+    on a mesh) update shard by shard: each gradient placed as its
+    parameter, then the update on the local shards, the moments sharded as
+    their parameters; the norm of the clipping is the global one."""
     named = _named(params)
     grads = {n: grads[n] for n in named}
     if cfg.clip_norm > 0:
@@ -162,11 +166,17 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf
     b2c = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf
+    if isinstance(scale, DTensor):
+        scale = scale.to_local()
     with torch.no_grad():
         for name, p in named.items():
             decay = cfg.weight_decay > 0 and jax_rank(name, p) >= 2
-            flat = [grads[name].reshape(-1)] + [
-                t.view(-1) for t in (state.m[name], state.v[name], p)]
+            g, m, v, w = grads[name], state.m[name], state.v[name], p
+            if isinstance(p, DTensor):
+                if tuple(g.placements) != tuple(p.placements):
+                    g = g.redistribute(p.device_mesh, p.placements)
+                g, m, v, w = (t.to_local() for t in (g, m, v, p))
+            flat = [g.reshape(-1)] + [t.view(-1) for t in (m, v, w)]
             parts = [t.split(UPDATE_SLICE) for t in flat]
             for i in steps(len(parts[0])):
                 _update_slice(*(part[i] for part in parts), cfg, lr, b1c, b2c, decay, scale)

@@ -14,10 +14,13 @@ The state is a `launch.train.TrainState` (a model, its AdamW state and the
 step), updated in place by the train step. A checkpoint holds it as flat
 named arrays (`state_arrays`): "params.<name>", "m.<name>", "v.<name>",
 "opt_step" and "step"; bf16 tensors are stored as their int16 bit
-patterns, so a restore gives the saved bits back. The reference's
-`Trainer.rescale` has no code there either; resharding waits with
-`checkpoint/elastic.py` for more than one card (ROADMAP.md, items 7 and
-12.4).
+patterns, so a restore gives the saved bits back. With `state_shardings`
+(`launch.train.StateShardings`: a mesh and the state's specs) the state
+lives on the mesh as DTensors: a checkpoint gathers each tensor whole
+(rank 0 writes), and resume and recovery restore onto the mesh
+(`checkpoint/elastic.py::restore_resharded`), whatever mesh or card the
+checkpoint was written from. The reference's `Trainer.rescale` has no
+code there either (ROADMAP.md, item 12.4).
 """
 from __future__ import annotations
 
@@ -59,10 +62,15 @@ def state_tensors(state: Any) -> dict[str, torch.Tensor]:
 
 
 def state_arrays(state: Any) -> dict[str, np.ndarray]:
-    """The train state as host arrays by name; bf16 as int16 bit patterns."""
+    """The train state as host arrays by name; bf16 as int16 bit patterns.
+    A DTensor is gathered whole (a collective: every rank calls this)."""
+    from torch.distributed.tensor import DTensor
+
     out = {}
     for name, t in state_tensors(state).items():
         t = t.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         out[name] = t.cpu().numpy()
@@ -90,21 +98,25 @@ def load_state_arrays(state: Any, arrays: dict[str, np.ndarray]) -> None:
 
 class Trainer:
     def __init__(self, train_step: Callable, init_state: Any,
-                 data_fn: Callable[[int], dict], cfg: TrainerConfig = TrainerConfig()):
+                 data_fn: Callable[[int], dict], cfg: TrainerConfig = TrainerConfig(),
+                 state_shardings: Any = None):
         self.train_step = train_step
         self.data_fn = data_fn
         self.cfg = cfg
         root = cfg.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
         self.store = CheckpointStore(root, keep=cfg.keep, use_async=cfg.use_async_ckpt)
+        self.state_shardings = state_shardings
         self.state = init_state
-        self.device = init_state.params.embed.device
         latest = self.store.latest_step()
         if latest is not None:
-            load_state_arrays(self.state, self.store.read_arrays(latest))
+            self._load(latest)
             self.step = latest
             print(f"[trainer] resumed from step {latest}")
         else:
             self.step = 0
+        # the state's device (a DTensor's is its mesh's: `init_state` may be
+        # a meta-device template of a state restored onto a mesh)
+        self.device = self.state.params.embed.device
         self._failed: set[int] = set()
         self._durations: list[float] = []
         self.straggler_events = 0
@@ -116,15 +128,39 @@ class Trainer:
             self._failed.add(step)
             raise SimulatedFailure(f"injected failure at step {step}")
 
+    def _load(self, step: int) -> None:
+        """Checkpoint `step` into the state: in place, or onto the mesh of
+        `state_shardings`."""
+        if self.state_shardings is None:
+            load_state_arrays(self.state, self.store.read_arrays(step))
+            return
+        from repro_torch.checkpoint.elastic import restore_resharded
+
+        sh = self.state_shardings
+        self.state = restore_resharded(self.store, self.state, sh.specs, sh.mesh, step)
+
+    def _batch(self, step: int) -> dict:
+        """The step's batch on the state's device, or placed on the mesh by
+        `state_shardings.batch` (its inputs' specs)."""
+        raw = {k: torch.as_tensor(np.asarray(v)) for k, v in self.data_fn(step).items()}
+        sh = self.state_shardings
+        if sh is None or sh.batch is None:
+            return {k: v.to(self.device) for k, v in raw.items()}
+        from repro_torch.launch.train import shard_batch
+
+        return shard_batch({k: v.to(self.device) for k, v in raw.items()}, sh.batch, sh.mesh)
+
     def _save(self) -> None:
-        self.store.save(self.step, state_arrays(self.state))
+        arrays = state_arrays(self.state)
+        if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+            self.store.save(self.step, arrays)
 
     def _recover(self) -> None:
         self.store.wait()
         latest = self.store.latest_step()
         if latest is None:
             raise RuntimeError("failure before the first checkpoint: cannot recover")
-        load_state_arrays(self.state, self.store.read_arrays(latest))
+        self._load(latest)
         self.step = latest
         self.recoveries += 1
         print(f"[trainer] recovered from checkpoint at step {latest}")
@@ -141,10 +177,10 @@ class Trainer:
             try:
                 t0 = time.time()
                 self._maybe_inject_failure(self.step)
-                batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
-                         for k, v in self.data_fn(self.step).items()}
+                batch = self._batch(self.step)
                 self.state, metrics = self.train_step(self.state, batch)
-                loss = float(metrics["loss"])
+                loss = metrics["loss"]
+                loss = float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss)
                 dt = time.time() - t0
                 self._watch_straggler(dt)
                 self.step += 1

@@ -1509,3 +1509,49 @@ def test_each_kernel_is_one_dispatcher_op_whose_fake_has_the_kernels_shapes(cuda
         fake = op(*(t.to("meta") if isinstance(t, torch.Tensor) else t for t in args))
         assert [(t.shape, t.dtype) for t in real] == [(t.shape, t.dtype) for t in fake], name
     assert sum(ops.launches().values()) == 1          # the fakes launched nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window,cap,n_shards", [
+    (True, 4096, 50.0, 16),     # gemma2-2b's local layers, 16 shards
+    (True, 0, 50.0, 16),        # and its global ones
+    (True, 100, 30.0, 3),       # offsets off the query blocks
+    (False, 0, 0.0, 4),         # a cross-attention's queries over all keys
+])
+def test_flash_pair_with_query_offsets(cuda, dtype, causal, window, cap, n_shards):
+    """Q split into shards at their offsets over the same K and V: each
+    shard's forward and backward against the plain versions at their
+    offset, and the shards joined against the whole launch: the rows, lse
+    and dQ bit for bit where every offset is a multiple of the kernels'
+    query blocks (128 rows: BQ and DQ_BQ), else at the forward's and the
+    backward's gates; dK and dV summed over the shards at the backward's."""
+    s = 2048 if n_shards != 3 else 600
+    g = torch.Generator(device=cuda).manual_seed(s + n_shards)
+    q, k, v = _flash_inputs(g, 8, 4, s, 128, 1.0, dtype, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, *whole = _flash_grads(q, k, v, do, **kw)
+    step = -(-s // n_shards)
+    bounds = [(lo, min(lo + step, s)) for lo in range(0, s, step)]
+    aligned = all(lo % 128 == 0 for lo, _ in bounds)
+    outs, dqs, dk, dv = [], [], 0.0, 0.0
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    for lo, hi in bounds:
+        part = q[:, lo:hi].contiguous()
+        o, *gr = _flash_grads(part, k, v, do[:, lo:hi].contiguous(), q_offset=lo, **kw)
+        want = ref.flash_attention_ref(part, k, v, q_offset=lo, **kw)
+        torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+        qd, kd, vd, dod = (t.double() for t in (part, k, v, do[:, lo:hi]))
+        _, lse, of = ref.flash_attention_fwd_ref(qd, kd, vd, q_offset=lo, **kw)
+        _grads_hold(gr, ref.flash_attention_bwd_ref(qd, kd, vd, dod, lse, of, q_offset=lo,
+                                                    **kw), dtype)
+        outs.append(o)
+        dqs.append(gr[0])
+        dk, dv = dk + gr[1].double(), dv + gr[2].double()
+    joined, jdq = torch.cat(outs, 1), torch.cat(dqs, 1)
+    if aligned:
+        assert torch.equal(joined, out) and torch.equal(jdq, whole[0])
+    else:
+        torch.testing.assert_close(joined.float(), out.float(), rtol=tol, atol=tol)
+    _grads_hold((jdq, dk.to(dtype), dv.to(dtype)),
+                tuple(w.double() for w in whole), dtype)

@@ -443,3 +443,106 @@ def test_three_bf16_terms_carry_a_signed_fp32_ds_exactly():
         y1, y2, y3, _, _ = _three_bf16_terms(y)
         err = float((y.double() - (y1.double() + y2.double() + y3.double())).abs().max())
         assert err <= lost and (lost == 0.0 or err > 0.0), (lo, hi, err)
+
+
+# ---------------------------------------------------------------------------
+# the flash pair's query offset (a shard of a sequence's queries)
+# ---------------------------------------------------------------------------
+FLASH_OFFSET_CASES = [  # causal, window, softcap
+    (True, 0, 0.0), (True, 24, 50.0), (True, 40, 0.0), (False, 0, 30.0)]
+
+
+@pytest.mark.parametrize("causal,window,cap", FLASH_OFFSET_CASES)
+@pytest.mark.parametrize("offset", [0, 16, 37, 48])
+def test_flash_offset_plain_version_matches_jax(offset, causal, window, cap):
+    """The plain forward of 16 queries at `offset` over 64 keys (GQA 2)
+    against the JAX package's direct multi_head_attention(q_offset=) at the
+    flash tolerance (rtol/atol 5e-4, tests/test_torch_lm.py's), and the
+    model's flash branch (`chunk`) on the same shard."""
+    from repro.models import layers as jl
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as tl
+
+    rng = np.random.default_rng(offset)
+    q = rng.normal(size=(2, 16, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 64, 2, 32)).astype(np.float32) for _ in range(2))
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    want = np.asarray(jl.multi_head_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                              q_offset=offset, **kw))
+    flat = [torch.tensor(x).transpose(1, 2).reshape(-1, x.shape[1], 32) for x in (q, k, v)]
+    got = ref.flash_attention_ref(*flat, causal=causal, window=window, softcap=cap,
+                                  q_offset=offset)
+    got = got.reshape(2, 4, 16, 32).transpose(1, 2).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+    if causal and offset + 16 > 64:
+        return
+    branch = tl.multi_head_attention(*(torch.tensor(x) for x in (q, k, v)), chunk=16,
+                                     q_offset=offset, **kw)
+    np.testing.assert_allclose(branch.numpy(), want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("causal,window,cap", FLASH_OFFSET_CASES)
+def test_flash_offset_shards_join_to_the_whole(causal, window, cap):
+    """Four shards of 16 queries at offsets 0, 16, 32, 48 over the same 64
+    keys: the plain forward's rows, lse and dQ joined are the whole
+    launch's bits, and dK, dV summed over the shards its sums within 1e-6
+    of their largest magnitude (summed in another order)."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(4, 64, 32, generator=g)
+    k, v = (torch.randn(2, 64, 32, generator=g) for _ in range(2))
+    do = torch.randn(4, 64, 32, generator=g)
+    kw = dict(causal=causal, window=window, softcap=cap, scale=0.2)
+    out, lse, o = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, lse, o, **kw)
+    parts = []
+    for i in range(4):
+        sl = slice(16 * i, 16 * (i + 1))
+        po, pl, pf = ref.flash_attention_fwd_ref(q[:, sl], k, v, q_offset=16 * i, **kw)
+        parts.append((po, pl) + ref.flash_attention_bwd_ref(q[:, sl], k, v, do[:, sl], pl, pf,
+                                                            q_offset=16 * i, **kw))
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), out)
+    assert torch.equal(torch.cat([p[1] for p in parts], 1), lse)
+    assert torch.equal(torch.cat([p[2] for p in parts], 1), dq)
+    for want, got in ((dk, sum(p[3] for p in parts)), (dv, sum(p[4] for p in parts))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("sk,window", [(64, 0), (64, 24), (8192, 4096), (1500, 0)])
+@pytest.mark.parametrize("n_shards", [1, 4, 16])
+def test_visible_pairs_of_the_shards_sum_to_the_whole(sk, window, n_shards):
+    """The flops each shard's launch counts add up to the whole launch's,
+    causal; without causality every shard sees every key."""
+    n = sk // n_shards
+    whole = ops.visible_pairs(n * n_shards, sk, window=window)
+    assert sum(ops.visible_pairs(n, sk, window=window, q_offset=i * n)
+               for i in range(n_shards)) == whole
+    assert ops.visible_pairs(n, sk, causal=False, q_offset=n) == n * sk
+    want = sum(min(q + 1, sk, window or sk) for q in range(n * (n_shards - 1), n * n_shards))
+    assert ops.visible_pairs(n, sk, window=window, q_offset=n * (n_shards - 1)) == want
+
+
+def test_flash_ops_take_dtensors_sharded_on_batch_heads():
+    """The flash pair's DTensor rule: Q, K, V sharded on their batch-heads
+    dim run each rank's heads and keep that sharding (on the meta device,
+    in a fake world of 4 ranks); a negative offset raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import fake_world
+
+    meta = torch.device("meta")
+    q = torch.empty(8, 64, 32, device=meta)
+    kv = torch.empty(4, 64, 32, device=meta)
+    with fake_world(4):
+        m = init_device_mesh("cpu", (4,), mesh_dim_names=("model",))
+        dq, dk = (distribute_tensor(t, m, [Shard(0)]) for t in (q, kv))
+        out, lse, o32 = ops.flash_forward(dq, dk, dk, True, 0, 0.0, 0.1, True, 16)
+        assert [t.placements for t in (out, lse)] == [(Shard(0),), (Shard(0),)]
+        assert out.to_local().shape == (2, 64, 32) and lse.to_local().shape == (2, 64)
+        grads = ops.flash_attention_bwd(dq, dk, dk, out, lse, out, causal=True, window=0,
+                                        softcap=0.0, scale=0.1, q_offset=16)
+        assert [g.placements for g in grads] == [(Shard(0),)] * 3
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_forward(q, kv, kv, True, 0, 0.0, 0.1, True, -1)
