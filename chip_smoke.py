@@ -89,6 +89,17 @@ no kernels line and no result line. Phases:
               sweep (the exchange copies' ms and the share of it beside
               kernels); each launch of a ring and an allgather sweep timed
               at its shapes beside its plain version and its bound
+ 14b. dist_ranks  the same sampler with one shard a process: 4 ranks on
+              cuda:0 on a gloo group (blocks staged through pinned host
+              buffers), at phase dist's shape, state and noise; each
+              rank's shard of one sweep a mode bit for bit the one-process
+              P = 4 sampler's, the hyperparameters equal on every rank,
+              every gather_syrk_seg launch of the ranks' ring and allgather
+              sweeps bit for bit its plain version, a ring planted to
+              forward to r - 1 must fail; sweep seconds a mode (median of
+              3), rank 0's time blocked in the ring's waits, the
+              exchange's hidden share, peak memory a rank; then one rank
+              on an NCCL group, bit for bit the P = 1 sampler
  15. sgld     the minibatch SGLD samplers and the ALS baseline, which launch
               none of the five kernels (einsum statistics, library solves):
               SGLDSampler at the ChEMBL shape (K = 64, alpha 1.5) at budgets
@@ -307,21 +318,22 @@ no kernels line and no result line. Phases:
               {"ok": true, "device": {...}}
 
 The main path is phases 7, 10, 17, 18 and 22, the serving tier's paths are
-phases 11 and 12, the distributed sampler's phase 14, the SGLD and ALS
+phases 11 and 12, the distributed sampler's phases 14 and 14b, the SGLD and ALS
 path phase 15, the other LMs phase 19 and the dense train steps of 22,
 the SSM and hybrid LMs phase 20, the audio and VLM LMs phase 21 and the
 train step on a mesh phase 26 (b): the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
-`dist_launches`, `sgld_launches`, `lm_dense_launches`, `lm_ssm_launches`,
+`dist_launches`, `dist_ranks_launches` (the 4 ranks' sums), `sgld_launches`,
+`lm_dense_launches`, `lm_ssm_launches`,
 `lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches`,
 `lm_train_mm_launches` and `mesh_launches`, the
 SGLD ones all 0; lm_ssm's are the two timed forwards', 3 flash launches in
 all; lm_mm's the two timed forwards', 48 + 28 flash launches; lm_train's
 are its 3 timed steps, lm_train_dense's the 3 timed steps of each dense
 config; the xLSTM's train steps launch none and are checked to).
-foldin and cotrain need train, serve_faults needs foldin and cotrain, dist
-and sgld need data, lm_mm needs none, lm_train needs lm_eval,
+foldin and cotrain need train, serve_faults needs foldin and cotrain, dist,
+dist_ranks and sgld need data, lm_mm needs none, lm_train needs lm_eval,
 lm_train_mm needs none, lm_faults needs lm_eval, lm_serve and lm_train.
 The `opt` variant (configs/variants.py) runs inside earlier phases:
 granite-moe-3b-a800m's forward at B = 1 (bit for bit the global dispatch),
@@ -399,6 +411,9 @@ DIST_RUNS = (("ring", "fused"), ("allgather", "fused"), ("async", "fused"), ("ri
 DIST_SWEEPS = 8                        # the chain the RMSE gates read
 DIST_RMSE_ALLGATHER = 1e-3             # ring against allgather, examples/distributed_bpmf.py:43-44
 DIST_RMSE_ASYNC = 0.05                 # async against ring, tests/test_distributed.py:164
+DIST_RANK_SWEEPS = 3                   # timed sweeps a mode on the ranks (their median)
+DIST_RANK_TIMEOUT_S = 180              # a rank left waiting at a collective raises
+DIST_RANKS_BUDGET_S = 90.0             # the phase's time, printed against it
 SGLD_BUDGETS = (4096, 65536)           # padded lanes a half-step: the reference's default, 16x
 SGLD_TIMED = 20                        # steps timed, one by one, after SGLD_WARM
 SGLD_WARM = 5
@@ -664,7 +679,8 @@ def card_line() -> str:
 
 
 PHASES = ("build", "lint", "data", "kernels", "ranks", "topn", "train", "parity",
-          "learning", "serve", "foldin", "cotrain", "serve_faults", "dist", "sgld",
+          "learning", "serve", "foldin", "cotrain", "serve_faults", "dist", "dist_ranks",
+          "sgld",
           "lm_kernels", "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train",
           "lm_train_mm", "lm_faults", "dryrun", "mesh")
 
@@ -2635,6 +2651,142 @@ class Smoke:
         self.rows.setdefault("gather_syrk_seg", {}).update(row)
 
     # ------------------------------------------------------------ SGLD and ALS
+    def dist_ranks(self):
+        """The distributed sampler with one item shard a process: P = 4
+        ranks, all on cuda:0, on a gloo group (a card's blocks staged
+        through pinned host buffers; NCCL takes one rank a card), at phase
+        dist's shape, state and noise (init(seed=0), then draw_noise()).
+        Each rank runs one fused sweep of each mode, every gather_syrk_seg
+        launch of its ring and allgather sweeps held bit for bit against
+        the plain version on its inputs; each rank's shard must equal the
+        one-process P = 4 sampler's bit for bit and every rank's
+        hyperparameters each other's. A ring planted to forward to r - 1
+        must fail; then DIST_RANK_SWEEPS timed sweeps a mode (rank 0's time
+        blocked in the ring's waits, the exchange's hidden share, peak
+        memory a rank). Last, one rank on an NCCL group, bit for bit the
+        one-process P = 1 sampler in each mode."""
+        import torch.multiprocessing as mp
+
+        torch, np = self.torch, self.np
+        from repro_torch.core.distributed import DIST_MODES, DistributedBPMF
+
+        t_phase = time.perf_counter()
+        card = card_line()
+        d = Path(self.tmp.name) / "dist_ranks"
+        d.mkdir()
+        np.savez(d / "data.npz", **{f"{name}_{f}": getattr(r, f)
+                                    for name, r in (("train", self.train), ("test", self.test))
+                                    for f in ("rows", "cols", "vals")},
+                 shape=np.asarray(self.train.shape))
+        # the one-process references: P = 4 and P = 1 shards on the card
+        refs = {}
+        for world in (DIST_SHARDS, 1):
+            s0 = noise = None
+            for mode in DIST_MODES:
+                one = DistributedBPMF(self.train, self.test, devices=[self.dev] * world, k=K,
+                                      alpha=1.5, width="auto", mode=mode, engine="fused")
+                if s0 is None:
+                    s0 = one.init(seed=0)
+                    noise = one.draw_noise()
+                refs[world, mode] = _dist_record(one.sweep(s0, noise))
+                del one
+            del s0, noise
+            torch.cuda.empty_cache()
+        print(f"  one-process references (P = {DIST_SHARDS} and P = 1, each mode) in "
+              f"{time.perf_counter() - t_phase:.1f} s")
+
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        runs = {}
+        for backend, world in (("gloo", DIST_SHARDS), ("nccl", 1)):
+            t0 = time.perf_counter()
+            mp.spawn(dist_rank, args=(dict(dir=str(d), backend=backend, world=world),),
+                     nprocs=world)
+            runs[backend] = [json.loads((d / f"{backend}_rank{r}.json").read_text())
+                             for r in range(world)]
+            print(f"  {world} {backend} rank(s) spawned, run and joined in "
+                  f"{time.perf_counter() - t0:.1f} s (set-up "
+                  f"{[round(r['setup_s'], 2) for r in runs[backend]]} s a rank)")
+
+        ranks = runs["gloo"]
+        per_rank = {"ring": 2 * DIST_SHARDS, "allgather": 2, "async": 2 * DIST_SHARDS}
+        want = sum(per_rank.values())
+        counts = [r["launches"] for r in ranks]
+        print(f"dist_ranks path launches a rank (one ring, one allgather, one async sweep) "
+              f"{counts}")
+        self.check(all(c["gather_syrk_seg"] == want
+                       and sum(c.values()) == c["gather_syrk_seg"] for c in counts),
+                   f"each of the {DIST_SHARDS} ranks launched gather_syrk_seg {want} times "
+                   f"({per_rank}) and no other kernel")
+        self.path_launches["dist_ranks"] = {
+            name: sum(c[name] for c in counts) for name in counts[0]}
+        checked = [c for r in ranks for c in r["checked"]]
+        self.check(len(checked) == DIST_SHARDS * (per_rank["ring"] + per_rank["allgather"])
+                   and all(same for same, _ in checked),
+                   f"every gather_syrk_seg launch of the ranks' ring and allgather sweeps "
+                   f"({len(checked)}) equals its plain version on its inputs bit for bit "
+                   f"(max abs err {max((e for _, e in checked), default=0.0):.3e})")
+        for mode in DIST_MODES:
+            ref = refs[DIST_SHARDS, mode]
+            same = all(r["sweep"][mode][name] == ref[name][r["rank"]]
+                       for r in ranks for name in ("u", "v", "v_eval") if name in ref)
+            self.check(same, f"{mode}: each rank's shard of one sweep equals the one-process "
+                             f"P = {DIST_SHARDS} sweep's bit for bit (u, v"
+                             f"{', v_eval' if mode == 'async' else ''})")
+            hyper = {json.dumps(r["sweep"][mode]["hyper"]) for r in ranks}
+            self.check(len(hyper) == 1 and json.loads(hyper.pop()) == ref["hyper"],
+                       f"{mode}: every rank's hyperparameters equal each other's and the "
+                       "one-process sampler's bit for bit")
+        self.check(all(r["sweep"]["async"]["v"] == r["sweep"]["ring"]["v"] for r in ranks),
+                   "on the ranks, async's fresh v equals ring's bit for bit")
+        v_gather = torch.cat([torch.from_numpy(np.load(d / f"gloo_rank{r}_v_allgather.npy"))
+                              for r in range(DIST_SHARDS)])
+        planted = torch.cat([torch.from_numpy(np.load(d / f"gloo_rank{r}_v_plant.npy"))
+                             for r in range(DIST_SHARDS)])
+        ok, text, _ = self.verdict(planted, v_gather, "ranks' ring v against their allgather v")
+        print(f"    planted fault 'the ranks' ring forwards to r - 1': "
+              f"{'passes' if ok else 'FAILS'} {text}")
+        self.check(not ok and all(r["shift_restored"] for r in ranks),
+                   "planted fault 'the ranks' ring forwards to r - 1' fails the ring against "
+                   "allgather, and is undone")
+
+        numbers = {}
+        for mode in DIST_MODES:
+            t = [r["timing"][mode] for r in ranks]
+            lead = t[0]
+            hidden = (1.0 - lead["wait_s"] / lead["pair_s"]) if lead["pairs"] else float("nan")
+            numbers[mode] = dict(s=lead["median"], rank_s=[x["median"] for x in t],
+                                 wait_s=lead["wait_s"], pair_s=lead["pair_s"],
+                                 pairs=lead["pairs"], hidden_share=hidden,
+                                 peak_gb=[x["peak_gb"] for x in t])
+            exch = (f"rank 0 blocked {lead['wait_s']:.4f} s in the ring's waits of "
+                    f"{lead['pair_s']:.4f} s of {lead['pairs']} isend/irecv pairs, hidden "
+                    f"share {hidden:.3f}" if lead["pairs"] else "no ring (all-gathers)")
+            print(f"  dist_ranks {mode:9s}: {DIST_SHARDS} gloo ranks on one card, sweep "
+                  f"seconds {[round(x, 4) for x in lead['times']]} (rank 0), median "
+                  f"{lead['median']:.4f} s (ranks' medians "
+                  f"{[round(x['median'], 4) for x in t]}); {exch} over {DIST_RANK_SWEEPS} "
+                  f"sweeps; peak device memory a rank {[round(x['peak_gb'], 2) for x in t]} "
+                  f"GB; card {card}")
+        if "dist" in self.phases:
+            print(f"  beside phase dist's one-process fused sweeps (4 shards on the card): "
+                  f"{ {m: round(self.dist_numbers[m, 'fused']['s'], 4) for m in DIST_MODES} } s")
+        self.dist_rank_numbers = numbers
+
+        nccl = runs["nccl"][0]
+        for mode in DIST_MODES:
+            ref = refs[1, mode]
+            same = all(nccl["sweep"][mode][name] == ref[name][0]
+                       for name in ("u", "v", "v_eval") if name in ref)
+            self.check(same and nccl["sweep"][mode]["hyper"] == ref["hyper"],
+                       f"{mode}: one rank on an NCCL group equals the one-process P = 1 "
+                       "sweep bit for bit")
+        self.check(nccl["launches"]["gather_syrk_seg"] == 6,
+                   "the NCCL rank launched gather_syrk_seg 2 times a sweep of each mode")
+        print("  two NCCL ranks need two cards (NCCL takes one rank a card): "
+              "ROADMAP.md item 7")
+        print(f"  dist_ranks took {time.perf_counter() - t_phase:.1f} s "
+              f"(budget about {DIST_RANKS_BUDGET_S:.0f} s)")
+
     def sgld(self):
         """The minibatch SGLD samplers and the ALS baseline. Neither launches
         one of the five kernels: the statistics are einsums, the solves the
@@ -6874,6 +7026,172 @@ for arch, shape, mesh, variant in json.loads(sys.argv[1]):
         | {"peak_bytes": rec.get("memory", {}).get("peak_bytes"),
            "line": dryrun.summary_line(rec)}), flush=True)
 """
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes: equal digests, equal bits."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _dist_record(state) -> dict:
+    """A DistState's digests: each shard's u, v (and v_eval) in the state's
+    order, and the hyperparameters."""
+    rec = {name: [_digest(x) for x in getattr(state, name)]
+           for name in ("u", "v", "v_eval") if getattr(state, name) is not None}
+    rec["hyper"] = [_digest(getattr(getattr(state, side), f))
+                    for side in ("hyper_u", "hyper_v") for f in ("mu", "lam")]
+    return rec
+
+
+def _fingerprint(t, chunk: int = 1 << 24) -> tuple[int, int]:
+    """Two int64 sums (wrapping) of a tensor's 32-bit words, plain and
+    weighted by position: equal bits give equal fingerprints in any
+    order; on the card, without a copy of the tensor to the host."""
+    import torch
+
+    words = t.detach().contiguous().view(torch.int32).reshape(-1)
+    plain = weighted = 0
+    for i in range(0, words.numel(), chunk):
+        w = words[i:i + chunk].to(torch.int64)
+        pos = torch.arange(i, i + w.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+        plain += int(w.sum())
+        weighted += int((w * pos).sum())
+    return plain % (1 << 64), weighted % (1 << 64)
+
+
+def _max_abs_err(a, b, rows: int = 4096) -> float:
+    """max |a - b| in float64, a block of rows at a time."""
+    return max((float((a[i:i + rows].double() - b[i:i + rows].double()).abs().max())
+                for i in range(0, a.shape[0], rows)), default=0.0)
+
+
+def dist_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase dist_ranks, started by torch.multiprocessing.spawn:
+    opens the `cfg["backend"]` group of `cfg["world"]` ranks on cuda:0,
+    runs `_dist_rank_run` on a 1-D "items" mesh and writes its record to
+    cfg["dir"]. A rank that raises ends the spawn, which stops the others."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    out = Path(cfg["dir"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(cfg["backend"], init_method=f"file://{out / ('pg_' + cfg['backend'])}",
+                            rank=rank, world_size=cfg["world"],
+                            timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S))
+    try:
+        res = _dist_rank_run(rank, cfg, out)
+    finally:
+        dist.destroy_process_group()
+    (out / f"{cfg['backend']}_rank{rank}.json").write_text(json.dumps(res))
+
+
+def _dist_rank_run(rank: int, cfg: dict, out: Path) -> dict:
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import exchange
+    from repro_torch.core.distributed import DIST_MODES, DistributedBPMF
+    from repro_torch.data import SparseRatings
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_item_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_item_mesh(device="cuda")
+    a = np.load(out / "data.npz")
+    shape = tuple(int(x) for x in a["shape"])
+    train, test = (SparseRatings(a[f"{n}_rows"], a[f"{n}_cols"], a[f"{n}_vals"], shape)
+                   for n in ("train", "test"))
+    samplers = {mode: DistributedBPMF(train, test, mesh=mesh, k=K, alpha=1.5, width="auto",
+                                      mode=mode, engine="fused") for mode in DIST_MODES}
+    ring = samplers["ring"]
+    s0 = ring.init(seed=0)
+    noise = ring.draw_noise()
+    res = {"rank": rank, "setup_s": time.perf_counter() - t0}
+    # the ring's checks, its plant and the timing need several ranks: one
+    # rank (the NCCL run) sends nothing, so it runs the sweeps alone
+    full = cfg["world"] > 1
+
+    # the path: one sweep of each mode; each launch of ring and allgather is
+    # recorded (its counterpart block, which the ring overwrites, cloned;
+    # the fingerprint of its output) and held against the plain version
+    # after the sweeps, one rank at a time (the plain version's float64
+    # rows take several GB a rank)
+    real, recorded = ops.gather_syrk_seg, []
+
+    def recording(*args, **kw):
+        got = real(*args, **kw)
+        recorded.append((args[:5] + (args[5].clone(),), kw, [_fingerprint(x) for x in got]))
+        return got
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launches()
+    ops.gather_syrk_seg = recording if full else real
+    try:
+        first = {mode: samplers[mode].sweep(s0, noise) for mode in ("ring", "allgather")}
+    finally:
+        ops.gather_syrk_seg = real
+    first["async"] = samplers["async"].sweep(s0, noise)
+    torch.cuda.synchronize()
+    res["launches"] = ops.launches()
+    checked = []
+    for turn in range(cfg["world"]):
+        dist.barrier()
+        if rank != turn:
+            continue
+        for args, kw, prints in recorded:
+            again = real(*args, **kw)          # the same bits as the recorded launch's
+            want = ref.gather_syrk_seg_ref(*args)
+            same = ([_fingerprint(x) for x in again] == prints
+                    and torch.equal(again[0], want[0]) and torch.equal(again[1], want[1]))
+            err = 0.0 if same else max(_max_abs_err(again[0], want[0]),
+                                       _max_abs_err(again[1], want[1]))
+            checked.append((same, err))
+            del again, want
+        torch.cuda.empty_cache()
+    dist.barrier()
+    del recorded
+    res["checked"] = checked
+    res["sweep"] = {mode: {k: v[0] if isinstance(v, list) and k != "hyper" else v
+                           for k, v in _dist_record(st).items()}
+                    for mode, st in first.items()}
+    if not full:
+        return res
+    np.save(out / f"{cfg['backend']}_rank{rank}_v_allgather.npy", first["allgather"].v[0].cpu())
+
+    # the plant: every rank's ring forwards to r - 1 (and receives from r + 1)
+    exchange.RankRing.shift = -1
+    try:
+        planted = ring.sweep(s0, noise)
+    finally:
+        exchange.RankRing.shift = 1
+    np.save(out / f"{cfg['backend']}_rank{rank}_v_plant.npy", planted.v[0].cpu())
+    res["shift_restored"] = exchange.RankRing.shift == 1
+
+    # sweep seconds, the ring's waits and pairs, peak memory
+    res["timing"] = {}
+    for mode in DIST_MODES:
+        d, st = samplers[mode], first[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, times = dict(d.exchange.times), []
+        for _ in range(DIST_RANK_SWEEPS):
+            dist.barrier()
+            t1 = time.perf_counter()
+            st = d.sweep(st)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        after = d.exchange.times
+        res["timing"][mode] = dict(
+            times=times, median=statistics.median(times),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            **{key: after[key] - before[key] for key in ("pairs", "pair_s", "wait_s")})
+    return res
 
 
 def visible_pairs(s: int, window: int) -> int:

@@ -2,7 +2,7 @@
 
 The counterpart of `repro/analysis/` (repro-lint), whose passes know jax,
 `pl.pallas_call` and PRNG keys and so see nothing of torch or CUDA C++.
-Seven passes, stdlib only (`ast` for Python, `re` for CUDA C++ and ptxas
+Eight passes, stdlib only (`ast` for Python, `re` for CUDA C++ and ptxas
 output); the analyzer never imports the code it checks, nor torch, numpy,
 jax or `repro`, so it runs in a bare job and on the card's machine:
 
@@ -13,7 +13,10 @@ jax or `repro`, so it runs in a bare job and on the card's machine:
 * ``rng``    -- `rng-global`: draws from torch's global generator (JAX:
   `prng`).
 * ``sums``   -- `ordered-sum`: atomic accumulating scatters, whose order the
-  card does not fix (JAX: `collectives`).
+  card does not fix.
+* ``collectives`` -- `ppermute-perm`, `collective-branch`,
+  `collective-axis`: the ranks' point-to-point pairs, collectives on one
+  arm of a rank test, mesh dims no mesh declares (JAX: `collectives`).
 * ``tf32``   -- `tf32`: TF32 in fp32 products (JAX: `sharding`).
 * ``loops``  -- `host-sync-in-loop`: a host sync once an iteration in
   `core/`, `models/`, `kernels/` (JAX: `retrace`).

@@ -1,8 +1,9 @@
 """The port's lint CLI: `python -m repro_torch.analysis [paths...]`.
 
-Runs the seven passes (lock discipline, device work under a lock, global
-random draws, sums whose order the card does not fix, TF32, host syncs in
-loops, the CUDA kernels and their launchers) over the given files and
+Runs the eight passes (lock discipline, device work under a lock, global
+random draws, sums whose order the card does not fix, the ranks'
+collectives, TF32, host syncs in loops, the CUDA kernels and their
+launchers) over the given files and
 directories (default: ``src/repro_torch``, ``tests/test_torch_*.py`` and
 ``chip_smoke.py`` under ``--root``): every ``.py`` file, and every
 ``.cu``/``.cuh`` file for ``cuda-float-atomic``. ``--ptxas SOURCE=LOG``
@@ -32,11 +33,11 @@ from collections import Counter
 from pathlib import Path
 
 from repro_torch.analysis import baseline as baseline_mod
-from repro_torch.analysis import cuda, locks, loops, rng, sums, syncs, tf32
+from repro_torch.analysis import collectives, cuda, locks, loops, rng, sums, syncs, tf32
 from repro_torch.analysis.common import (CUDA_SUFFIXES, CudaSource, Finding,
                                          SourceFile, relative)
 
-PASSES = (locks, loops, syncs, rng, sums, tf32, cuda)
+PASSES = (locks, loops, syncs, rng, sums, collectives, tf32, cuda)
 
 RULE_DOCS = {
     "guarded-field": "read/write of a lock-guarded attribute outside the lock",
@@ -49,6 +50,14 @@ RULE_DOCS = {
     "ordered-sum": "atomic accumulating scatter (index_add_, scatter_add, "
                    "accumulate=True, weighted bincount); the mesh's collectives "
                    "run in one order on every rank (models/layers.py regions)",
+    "ppermute-perm": "a send to (rank + d) % n without a receive from (rank - d) % n "
+                     "over the same n in its isend/irecv/P2POp set, or a peer not "
+                     "taken % n",
+    "collective-branch": "a dist.*/funcol.* collective or P2POp on only one arm of an "
+                         "if whose test reads the rank (a deadlock)",
+    "collective-axis": "a mesh dim in mesh[...], get_group(...), get_local_rank(...) "
+                       "or mesh_dim= that no init_device_mesh(..., mesh_dim_names=...) "
+                       "of the tree declares",
     "tf32": "allow_tf32 set to other than False, or matmul precision below 'highest'",
     "cuda-float-atomic": "CUDA atomic or PTX red/atom on a target that is not an integer",
     "cuda-launch-guard": "kernel launcher called outside 'with _on_card(...)'",
@@ -110,18 +119,38 @@ def analyze_ptxas(logs: dict[str, str], rules: frozenset[str] = frozenset(ALL_RU
             for f in cuda.spill_findings(log, path, demangle)]
 
 
-def analyze_paths(paths: list[Path], root: Path,
-                  rules: frozenset[str] = frozenset(ALL_RULES),
-                  ) -> tuple[list[tuple[Finding, str]], list[str]]:
-    """(findings-with-keys, parse_errors) over every file under `paths`."""
-    findings: list[tuple[Finding, str]] = []
-    errors: list[str] = []
+def _parse(paths: list[Path], root: Path, errors: list[str]) -> list:
+    out = []
     for path in discover(paths):
         try:
-            sf = load_source(path, relative(path, root), path.read_text())
+            out.append(load_source(path, relative(path, root), path.read_text()))
         except SyntaxError as e:
             errors.append(f"{path}: {e.msg} (line {e.lineno})")
-            continue
+    return out
+
+
+def tree_mesh_dims(paths: list[Path], root: Path) -> set[str]:
+    """The mesh dims the Python files under `paths` declare (collective-axis
+    holds every file to the tree's declarations)."""
+    return set().union(*(collectives.declared_dims(sf) for sf in _parse(paths, root, [])
+                         if isinstance(sf, SourceFile)))
+
+
+def analyze_paths(paths: list[Path], root: Path,
+                  rules: frozenset[str] = frozenset(ALL_RULES),
+                  mesh_dims: set[str] | None = None,
+                  ) -> tuple[list[tuple[Finding, str]], list[str]]:
+    """(findings-with-keys, parse_errors) over every file under `paths`;
+    `mesh_dims` are the mesh dims the tree declares (default: those the
+    files under `paths` declare)."""
+    findings: list[tuple[Finding, str]] = []
+    errors: list[str] = []
+    sources = _parse(paths, root, errors)
+    if mesh_dims is None:
+        mesh_dims = set().union(*(collectives.declared_dims(sf) for sf in sources
+                                  if isinstance(sf, SourceFile)))
+    for sf in sources:
+        sf.mesh_dims = mesh_dims
         findings.extend(analyze_file(sf, rules))
     return findings, errors
 
@@ -208,6 +237,7 @@ def main(argv: list[str] | None = None) -> int:
             return 2
         logs[source or log] = Path(log).read_text()
 
+    mesh_dims = tree_mesh_dims(paths, root)
     if args.changed_only:
         changed = git_changed_files(root)
         if changed is None:
@@ -217,7 +247,7 @@ def main(argv: list[str] | None = None) -> int:
         paths = [p for p in discover(paths) if p.resolve() in changed]
 
     t0 = time.perf_counter()
-    findings, errors = analyze_paths(paths, root, rules)
+    findings, errors = analyze_paths(paths, root, rules, mesh_dims)
     if logs:
         findings += analyze_ptxas(logs, rules, cuda.demangler())
     elapsed = time.perf_counter() - t0

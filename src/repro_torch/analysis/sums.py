@@ -1,14 +1,14 @@
 """Pass 4 -- sums whose order the card does not fix (``ordered-sum``).
 
-The counterpart of `repro/analysis/collectives.py`. The JAX pass guards the
-SPMD exchanges of the distributed sampler. The port runs its shards in one
-process: the ring's forwards are copies and its sums fixed-order kernels
-(`core/exchange.py`), with no `torch.distributed`, so `ppermute-perm`,
-`collective-branch` and `collective-axis` have nothing to check until
-several cards run it (`ROADMAP.md` item 7). What the port does promise is
-the same bits from every run and every mode: the ring and the allgather
-sampler agree bit for bit (`core/distributed.py`), which holds only where
-no sum depends on the order threads reach memory. On the card an
+The JAX pass of the same slot, `repro/analysis/collectives.py`, guards the
+SPMD exchanges of the distributed sampler; its three rules have their
+counterparts in `analysis/collectives.py`, for the sampler's ranks
+(`core/exchange.py::RankExchange`). What the port also promises is the
+same bits from every run, every mode and every layout: the ring and the
+allgather sampler agree bit for bit, and so do the ranks and the
+one-process sampler (`core/distributed.py`), which holds only where no sum
+depends on the order threads reach memory (the ranks' psum is an
+all-gather and a sum in rank order, not an all_reduce). On the card an
 accumulating scatter is atomic, so its order, and its fp32 rounding,
 changes from run to run. Flagged, whatever the receiver, except numpy's
 (`np.`/`numpy.`, host code):

@@ -3,10 +3,24 @@
 The paper's central result (Sec 4.3, Fig 5-6) is that one-sided
 asynchronous communication hides most of the exchange behind computation
 while bulk-synchronous exchange hides none. `repro.core.distributed` runs
-the three exchange modes as one program over a mesh; this port runs them in
-one process that holds P shards, shard p's factor rows and plans on
-devices[p] (all on one card, or round-robin over several: `shard_devices`),
-the collectives as copies between them (`core/exchange.py`):
+the three exchange modes as one program over a mesh. This port runs them
+in one of two layouts (`core/exchange.py`):
+
+  devices=  one process holds the P shards, shard p's factor rows and
+            plans on devices[p] (all on one card, or round-robin over
+            several: `shard_devices`), the collectives copies between them;
+  mesh=     one process a shard: rank r of a 1-D DeviceMesh over "items"
+            (the JAX `AXIS`) holds shard r, and the collectives are
+            torch.distributed messages (isend/irecv, all-gather). Every
+            rank builds the same partitions and plans on the host and
+            keeps its own row of them; the hyperparameter draws and the
+            sweep's noise are drawn whole on every rank from a generator
+            seeded alike, so every rank holds the same hyperparameters,
+            and each takes its own rows of the noise.
+
+A shard's work is the same in both: rank r's sweep gives shard r of the
+one-process sweep bit for bit (same blocks in the same order, the same
+rank-order sums). The modes:
 
   "allgather"  gather the whole counterpart onto each shard, then sweep:
                all communication up front, none overlapped.
@@ -42,7 +56,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.exchange import RingExchange, all_gather, psum
+from repro_torch.core.exchange import LocalExchange, RankExchange, mesh_shard
 from repro_torch.core.gibbs import (
     SweepNoise,
     chol_subst_solve,
@@ -75,9 +89,11 @@ __all__ = [
 
 
 class DistState(NamedTuple):
-    u: tuple[torch.Tensor, ...]     # P (m_loc, K) user factor shards, shard p's on devices[p]
-    v: tuple[torch.Tensor, ...]     # P (n_loc, K)
-    hyper_u: HyperParams            # on devices[0]
+    # the shards this process holds (all P, or a rank's one), in the
+    # sampler's `shards` order, each on its device
+    u: tuple[torch.Tensor, ...]     # (m_loc, K) user factor shards
+    v: tuple[torch.Tensor, ...]     # (n_loc, K)
+    hyper_u: HyperParams            # on devices[0], the same on every rank
     hyper_v: HyperParams
     step: int
     # async mode only (None otherwise): the v the u draw was conditioned
@@ -153,19 +169,22 @@ def _block_plan(idx, val, msk, seg, seg_dense, seg_map, n_dense, n_loc, device
     )
 
 
-def _ring_plans(plan: GridPlan, devices) -> tuple[tuple[BlockPlan, ...], ...]:
-    """[p][q]: shard p's rows against counterpart block q, on devices[p]."""
+def _ring_plans(plan: GridPlan, devices, shards=None) -> tuple[tuple[BlockPlan, ...], ...]:
+    """[i][q]: shard shards[i]'s rows against counterpart block q, on
+    devices[i] (shards: every shard, one a device, by default)."""
     n_dense = plan.seg_dense[:, :, -1] + 1
+    shards = range(len(devices)) if shards is None else shards
     return tuple(
         tuple(_block_plan(plan.indices[p, q], plan.values[p, q], plan.mask[p, q],
                           plan.seg[p, q], plan.seg_dense[p, q], plan.seg_map[p, q],
-                          [int(n_dense[p, q])], plan.n_loc, devices[p])
+                          [int(n_dense[p, q])], plan.n_loc, dev)
               for q in range(plan.n_shards))
-        for p in range(plan.n_shards))
+        for p, dev in zip(shards, devices))
 
 
-def _flat_plans(plan: GridPlan, devices) -> tuple[BlockPlan, ...]:
-    """Per-shard flattened plan against the FULL counterpart (allgather).
+def _flat_plans(plan: GridPlan, devices, shards=None) -> tuple[BlockPlan, ...]:
+    """Per-shard flattened plan against the FULL counterpart (allgather),
+    [i] for shard shards[i] on devices[i].
 
     Block-local indices are rebased to gathered offsets q * n_counter_loc
     + i, and the per-block dense segment ids by the segment counts of the
@@ -174,15 +193,16 @@ def _flat_plans(plan: GridPlan, devices) -> tuple[BlockPlan, ...]:
     p_n, _, r, w = plan.indices.shape
     n_dense = plan.seg_dense[:, :, -1] + 1
     offs = (np.arange(p_n) * plan.n_counter_loc).astype(np.int32)[:, None, None]
+    shards = range(len(devices)) if shards is None else shards
     out = []
-    for p in range(p_n):
+    for p, dev in zip(shards, devices):
         base = np.concatenate([[0], np.cumsum(n_dense[p])[:-1]]).astype(np.int32)
         seg_map = np.concatenate([plan.seg_map[p, q, :n_dense[p, q]] for q in range(p_n)])
         out.append(_block_plan(
             (plan.indices[p] + offs).reshape(p_n * r, w),
             plan.values[p].reshape(p_n * r, w), plan.mask[p].reshape(p_n * r, w),
             plan.seg[p].reshape(p_n * r), (plan.seg_dense[p] + base[:, None]).reshape(-1),
-            seg_map, [int(d) for d in n_dense[p]], plan.n_loc, devices[p]))
+            seg_map, [int(d) for d in n_dense[p]], plan.n_loc, dev))
     return tuple(out)
 
 
@@ -227,9 +247,9 @@ def _rows_by_slot(plan: BlockPlan) -> tuple[torch.Tensor, ...]:
 
 
 class _Side(NamedTuple):
-    """One half-sweep's items: per shard, the slots' global ids (clamped at
-    0: the noise rows a padding slot reads), which slots are real, and the
-    plans (ring: [p][q]; allgather: [p])."""
+    """One half-sweep's items: per shard held, the slots' global ids
+    (clamped at 0: the noise rows a padding slot reads), which slots are
+    real, and the plans (ring: [i][q]; allgather: [i])."""
 
     n_loc: int
     ids: tuple[torch.Tensor, ...]
@@ -242,60 +262,61 @@ def _zeros(side: _Side, k: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
              torch.zeros((side.n_loc, k), device=d.device)) for d in side.valid]
 
 
-def _phase_ring(counter, side: _Side, engine, streams, k: int) -> list:
+def _phase_ring(counter, side: _Side, engine, ex, k: int) -> list:
     """One ring half-sweep's raw statistics: at step s shard p holds
     counterpart block (p - s) mod P and accumulates it through plan slice
-    [p, (p - s) mod P]; the partials are summed in step order."""
-    n = len(counter)
+    [p, (p - s) mod P]; the partials are summed in step order. `ex` is the
+    exchange (`core/exchange.py`); the shards are the ones it holds."""
+    n = ex.n
     acc = _zeros(side, k)
-    ring = RingExchange(counter, streams)
+    ring = ex.ring(counter)
     for s in range(n):
         last = s == n - 1
         if not last:
             ring.forward()          # step s + 1's blocks, beside this step's sums
-        for p in range(n):
-            _accumulate_block(*acc[p], ring.held(p), side.plans[p][(p - s) % n],
+        for i, p in enumerate(ex.shards):
+            _accumulate_block(*acc[i], ring.held(i), side.plans[i][(p - s) % n],
                               engine=engine)
-            ring.done(p)
+            ring.done(i)
         if not last:
             ring.advance()
     return acc
 
 
 def _phase_ring_async(u_blocks, v_blocks, v_side: _Side, u_side: _Side, engine,
-                      streams, k: int) -> tuple[list, list]:
+                      ex, k: int) -> tuple[list, list]:
     """Both phases' raw statistics in ONE ring: each step issues the
     forwards of the u and v blocks before either accumulate, then adds the
     movie statistics against the held u block and the user statistics
     against the held v block (the previous sweep's v)."""
-    n = len(u_blocks)
+    n = ex.n
     acc_v, acc_u = _zeros(v_side, k), _zeros(u_side, k)
-    ring_u = RingExchange(u_blocks, streams)
-    ring_v = RingExchange(v_blocks, streams)
+    ring_u = ex.ring(u_blocks)
+    ring_v = ex.ring(v_blocks)
     for s in range(n):
         last = s == n - 1
         if not last:
             ring_u.forward()
             ring_v.forward()
-        for p in range(n):
+        for i, p in enumerate(ex.shards):
             src = (p - s) % n
-            _accumulate_block(*acc_v[p], ring_u.held(p), v_side.plans[p][src], engine=engine)
-            ring_u.done(p)
-            _accumulate_block(*acc_u[p], ring_v.held(p), u_side.plans[p][src], engine=engine)
-            ring_v.done(p)
+            _accumulate_block(*acc_v[i], ring_u.held(i), v_side.plans[i][src], engine=engine)
+            ring_u.done(i)
+            _accumulate_block(*acc_u[i], ring_v.held(i), u_side.plans[i][src], engine=engine)
+            ring_v.done(i)
         if not last:
             ring_u.advance()
             ring_v.advance()
     return acc_v, acc_u
 
 
-def _phase_allgather(counter, side: _Side, engine, k: int) -> list:
+def _phase_allgather(counter, side: _Side, engine, ex, k: int) -> list:
     """Sync baseline: gather the whole counterpart onto each shard, then
     accumulate its flattened plan in one call."""
     acc = _zeros(side, k)
-    for p, (prec, rhs) in enumerate(acc):
-        full = all_gather(counter, prec.device)
-        _accumulate_block(prec, rhs, full, side.plans[p], engine=engine)
+    for i, (prec, rhs) in enumerate(acc):
+        full = ex.all_gather(counter, prec.device)
+        _accumulate_block(prec, rhs, full, side.plans[i], engine=engine)
         del full
     return acc
 
@@ -323,22 +344,33 @@ def _finish_phase(acc: list, side: _Side, hyper: HyperParams, alpha: float,
     return tuple(out)
 
 
-def _stats(x: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], n: int):
+def _stats(x: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], n: int, ex):
     """(sum x, sum x x^T, n) over the real rows of every shard: psum in
-    shard order on shard 0's device."""
+    shard order (`ex.psum`), on shard 0's device or on every rank."""
     xm = [torch.where(ok[:, None], xs, 0.0) for xs, ok in zip(x, valid)]
-    return psum([a.sum(0) for a in xm]), psum([a.T @ a for a in xm]), n
+    return ex.psum([a.sum(0) for a in xm]), ex.psum([a.T @ a for a in xm]), n
 
 
-def dist_state_from_numpy(*, u, v, hyper_u, hyper_v, devices, step=0, v_eval=None
-                          ) -> DistState:
+def dist_state_from_numpy(*, u, v, hyper_u, hyper_v, devices=None, mesh=None, step=0,
+                          v_eval=None) -> DistState:
     """The port's DistState from the reference's fields as numpy arrays: u
     and v (P, n_loc, K) by shard, hyper_u and hyper_v (mu, lam) pairs (a
     jax HyperParams converts field by field), v_eval (P, n_loc, K) or None.
-    The JAX PRNG key is not carried: the port's noise is explicit."""
+    With `devices` shard p goes to devices[p]; with `mesh` (a 1-D "items"
+    DeviceMesh) this rank's row r goes to its device: the JAX package's
+    state carried over to the ranks. The JAX PRNG key is not carried: the
+    port's noise is explicit."""
+    if (devices is None) == (mesh is None):
+        raise ValueError("pass devices= (the P shards here) or mesh= (this rank's shard)")
+    if mesh is None:
+        shard_ids = range(len(devices))
+    else:
+        rank, device = mesh_shard(mesh)
+        shard_ids, devices = (rank,), [device]
+
     def shards(a):
         a = np.asarray(a, np.float32)
-        return tuple(torch.tensor(a[p], device=d) for p, d in enumerate(devices))
+        return tuple(torch.tensor(a[p], device=d) for p, d in zip(shard_ids, devices))
 
     def hyper(pair):
         mu, lam = pair
@@ -351,12 +383,18 @@ def dist_state_from_numpy(*, u, v, hyper_u, hyper_v, devices, step=0, v_eval=Non
 
 
 class DistributedBPMF:
-    """BPMF over P item shards in one process, paper Sec 4.
+    """BPMF over P item shards, paper Sec 4: all P in this process
+    (`devices`), or this rank's one (`mesh`).
 
     `devices` holds each shard's device; the default is one shard a
     visible card (`shard_devices()`), and without a card it raises unless
     the caller passes CPU devices. One card takes several shards:
-    `devices=shard_devices(4)` puts four on cuda:0.
+    `devices=shard_devices(4)` puts four on cuda:0. `mesh` is a 1-D
+    DeviceMesh over the dim "items" (`launch/mesh.py::make_item_mesh`):
+    P is its size and this process holds shard r, its rank, on the
+    current card (a "cuda" mesh) or the CPU (a "cpu" mesh). Every rank
+    constructs the sampler and calls every method in the same order: each
+    sweep, `gather_factors` and `rmse` are collectives.
     """
 
     def __init__(
@@ -365,6 +403,7 @@ class DistributedBPMF:
         test: SparseRatings | None = None,
         *,
         devices: Sequence[torch.device] | None = None,
+        mesh=None,
         k: int = 32,
         alpha: float = 1.5,
         width: int | str = 32,       # "auto": degree-aware grid width
@@ -375,12 +414,23 @@ class DistributedBPMF:
             raise ValueError(f"mode must be one of {DIST_MODES}, got {mode!r}")
         if engine not in DIST_ENGINES:
             raise ValueError(f"engine must be one of {DIST_ENGINES}, got {engine!r}")
-        if devices is None:
-            devices = shard_devices()
-        # a card with its index: the copy streams are keyed by the tensors' devices
-        devices = [torch.empty(0, device=resolve_device(d)).device for d in devices]
+        if mesh is not None and devices is not None:
+            raise ValueError("pass devices= (P shards in this process) or mesh= (one "
+                             "shard a rank), not both")
+        if mesh is not None:
+            self.exchange = RankExchange(mesh)
+            devices = [self.exchange.device]
+        else:
+            if devices is None:
+                devices = shard_devices()
+            # a card with its index: the copy streams are keyed by the tensors' devices
+            devices = [torch.empty(0, device=resolve_device(d)).device for d in devices]
+            # one copy stream a card: the ring's forwards
+            self.exchange = LocalExchange(len(devices), {
+                d: torch.cuda.Stream(d) for d in set(devices) if d.type == "cuda"})
         self.devices = devices
-        self.n_shards = len(devices)
+        self.shards = self.exchange.shards
+        self.n_shards = self.exchange.n
         self.k = k
         self.alpha = alpha
         self.mode = mode
@@ -401,16 +451,14 @@ class DistributedBPMF:
         self.m, self.n = ratings.shape
         self._u = self._side(self.u_part, self.u_plan)
         self._v = self._side(self.v_part, self.v_plan)
-        # one copy stream a card: the ring's forwards
-        self._streams = {d: torch.cuda.Stream(d) for d in set(devices) if d.type == "cuda"}
 
     def _side(self, part, plan: GridPlan) -> _Side:
-        plans = (_flat_plans(plan, self.devices) if self.mode == "allgather"
-                 else _ring_plans(plan, self.devices))
+        plans = (_flat_plans(plan, self.devices, self.shards) if self.mode == "allgather"
+                 else _ring_plans(plan, self.devices, self.shards))
         ids = tuple(torch.as_tensor(np.maximum(part.ids[p], 0).astype(np.int64)).to(d)
-                    for p, d in enumerate(self.devices))
+                    for p, d in zip(self.shards, self.devices))
         valid = tuple(torch.as_tensor(part.ids[p] >= 0).to(d)
-                      for p, d in enumerate(self.devices))
+                      for p, d in zip(self.shards, self.devices))
         return _Side(n_loc=part.n_loc, ids=ids, valid=valid, plans=plans)
 
     @classmethod
@@ -423,26 +471,28 @@ class DistributedBPMF:
         (the meta device has none); it has no test split."""
         self = cls.__new__(cls)
         self.devices = [ids.device for ids in u_side.ids]
-        self.n_shards = len(self.devices)
+        self.exchange = LocalExchange(len(self.devices), {})
+        self.shards = self.exchange.shards
+        self.n_shards = self.exchange.n
         self.k, self.alpha, self.mode, self.engine = k, alpha, mode, engine
         self.global_mean, self.test = 0.0, None
         self.m, self.n = m, n
         self._u, self._v = u_side, v_side
         self.prior = default_prior(k, device=self.devices[0])
         self.generator = None
-        self._streams = {}
         return self
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> DistState:
         """Reseed the generator and draw the initial factors, 0.1 N(0, 1)
-        in every (shard, slot), as the reference does."""
+        in every (shard, slot), as the reference does; each process keeps
+        the shards it holds."""
         self.generator.manual_seed(seed)
         dev0, g = self.devices[0], self.generator
 
         def draw(n_loc):
             x = 0.1 * torch.randn((self.n_shards, n_loc, self.k), generator=g, device=dev0)
-            return tuple(x[p].to(d) for p, d in enumerate(self.devices))
+            return tuple(x[p].to(d) for p, d in zip(self.shards, self.devices))
 
         u = draw(self._u.n_loc)
         v = draw(self._v.n_loc)
@@ -451,7 +501,8 @@ class DistributedBPMF:
                          v_eval=v if self.mode == "async" else None)
 
     def draw_noise(self) -> SweepNoise:
-        """One sweep's noise from the generator, z in global id order."""
+        """One sweep's noise from the generator, z in global id order (whole
+        on every rank: each takes its own rows)."""
         return draw_sweep_noise(self.prior, self.m, self.n, self.generator)
 
     def sweep(self, state: DistState, noise: SweepNoise | None = None) -> DistState:
@@ -459,15 +510,14 @@ class DistributedBPMF:
         `noise` (drawn from the generator when None)."""
         if noise is None:
             noise = self.draw_noise()
-        k, alpha, engine = self.k, self.alpha, self.engine
+        k, alpha, engine, ex = self.k, self.alpha, self.engine, self.exchange
         # both hyper draws read the PREVIOUS sweep's factors in every mode
-        sv = _stats(state.v, self._v.valid, self.n)
+        sv = _stats(state.v, self._v.valid, self.n, ex)
         hyper_v = sample_normal_wishart(*sv, self.prior, noise.hyper_v)
         if self.mode == "async":
-            su = _stats(state.u, self._u.valid, self.m)
+            su = _stats(state.u, self._u.valid, self.m, ex)
             hyper_u = sample_normal_wishart(*su, self.prior, noise.hyper_u)
-            acc_v, acc_u = _phase_ring_async(state.u, state.v, self._v, self._u, engine,
-                                             self._streams, k)
+            acc_v, acc_u = _phase_ring_async(state.u, state.v, self._v, self._u, engine, ex, k)
             v_new = _finish_phase(acc_v, self._v, hyper_v, alpha, noise.z_v)
             u_new = _finish_phase(acc_u, self._u, hyper_u, alpha, noise.z_u)
             return DistState(u=u_new, v=v_new, hyper_u=hyper_u, hyper_v=hyper_v,
@@ -475,7 +525,7 @@ class DistributedBPMF:
 
         v_new = _finish_phase(self._phase(state.u, self._v), self._v, hyper_v, alpha,
                               noise.z_v)
-        su = _stats(state.u, self._u.valid, self.m)
+        su = _stats(state.u, self._u.valid, self.m, ex)
         hyper_u = sample_normal_wishart(*su, self.prior, noise.hyper_u)
         u_new = _finish_phase(self._phase(v_new, self._u), self._u, hyper_u, alpha,
                               noise.z_u)
@@ -484,12 +534,13 @@ class DistributedBPMF:
 
     def _phase(self, counter, side: _Side) -> list:
         if self.mode == "ring":
-            return _phase_ring(counter, side, self.engine, self._streams, self.k)
-        return _phase_allgather(counter, side, self.engine, self.k)
+            return _phase_ring(counter, side, self.engine, self.exchange, self.k)
+        return _phase_allgather(counter, side, self.engine, self.exchange, self.k)
 
     def gather_factors(self, state: DistState, *, coupled: bool = True
                        ) -> tuple[np.ndarray, np.ndarray]:
-        """(M, K), (N, K) in global entity order (host-side, for eval).
+        """(M, K), (N, K) in global entity order (host-side, for eval), on
+        every rank.
 
         In async mode the u draw conditioned on the PREVIOUS sweep's v, so
         the jointly-coupled sample, the one predictions must use, is
@@ -498,9 +549,10 @@ class DistributedBPMF:
         returned with coupled=False.
         """
         v_src = state.v if (state.v_eval is None or not coupled) else state.v_eval
+        host = torch.device("cpu")
 
         def place(shards, part, n):
-            x = torch.cat([s.cpu() for s in shards]).numpy()  # repro-lint: disable=host-sync-in-loop (host-side eval, once a call)
+            x = self.exchange.all_gather(shards, host).numpy()
             out = np.zeros((n, self.k), np.float32)
             real = part.ids >= 0
             out[part.ids[real]] = x[real.reshape(-1)]
@@ -518,9 +570,14 @@ class DistributedBPMF:
     verbose_every = 5
 
     def run(self, n_sweeps: int, seed: int = 0, verbose: bool = False) -> DistState:
+        """n_sweeps from `init(seed)`; with `verbose` the test RMSE every
+        `verbose_every` sweeps (a collective: every rank computes it), printed
+        by the process that holds shard 0."""
         state = self.init(seed)
         for i in range(n_sweeps):
             state = self.sweep(state)
             if verbose and (i % self.verbose_every == 0 or i == n_sweeps - 1):
-                print(f"sweep {i:3d} rmse {self.rmse(state):.4f}")
+                rmse = self.rmse(state)
+                if 0 in self.shards:
+                    print(f"sweep {i:3d} rmse {rmse:.4f}")
         return state

@@ -32,8 +32,9 @@ card.
 
 `SGLDSampler` subclasses `GibbsSampler` (plans, posterior-predictive sum,
 retention and publication through `run(store=, publish=)`);
-`DistributedSGLD` subclasses `DistributedBPMF` (P shards in one process, the
-ring, all-gather and stale-by-one async exchanges of `core/exchange.py`).
+`DistributedSGLD` subclasses `DistributedBPMF` (P shards in one process or
+one a rank of a mesh, the ring, all-gather and stale-by-one async exchanges
+of `core/exchange.py`).
 """
 from __future__ import annotations
 
@@ -49,7 +50,6 @@ from repro_torch.core.distributed import (
     _Side,
     _stats,
 )
-from repro_torch.core.exchange import RingExchange, all_gather
 from repro_torch.core.gibbs import (
     BPMFState,
     DeviceBucket,
@@ -197,10 +197,10 @@ class SGLDNoise(NamedTuple):
     `hyper_v` and `hyper_u` are None on a step that keeps its hypers
     (`hyper_every`). The row ids: for `SGLDSampler` one (n_rows[b],) tensor
     a bucket, None where the quota covers the bucket; for
-    `DistributedSGLD` [p][s] the ids into block (p, (p - s) mod P) that
-    shard p reads at ring step s (ring, async) or [p] the ids into shard
-    p's flattened plan (allgather), each on its shard's device. z is
-    (entities, K) in global id order."""
+    `DistributedSGLD` [i][s] the ids into block (p, (p - s) mod P) that
+    shard p, the i-th this process holds, reads at ring step s (ring,
+    async) or [i] the ids into shard p's flattened plan (allgather), each
+    on its shard's device. z is (entities, K) in global id order."""
 
     hyper_v: WishartNoise | None
     hyper_u: WishartNoise | None
@@ -384,70 +384,68 @@ def _sgld_grad_block(factors_pad: torch.Tensor, counter_blk: torch.Tensor, plan,
     return g.index_copy_(0, plan.slots, sums[:plan.slots.shape[0]])
 
 
-def _sgld_phase_ring(counter, factors, side: _Side, rows, s_rows: int, streams) -> list:
-    """The minibatch likelihood gradient of every shard over the P ring
+def _sgld_phase_ring(counter, factors, side: _Side, rows, s_rows: int, ex) -> list:
+    """The minibatch likelihood gradient of every shard held over the P ring
     steps: at step s shard p reads block (p - s) mod P through plan slice
-    [p, (p - s) mod P] with its rows [p][s], while the copies that forward
-    the blocks run beside it; the blocks' gradients are added in step
-    order."""
-    n, n_loc = len(counter), side.n_loc
+    [p, (p - s) mod P] with its rows [i][s], while the forwards of the
+    blocks run beside it; the blocks' gradients are added in step order."""
+    n, n_loc = ex.n, side.n_loc
     pads = [_pad_slot(f) for f in factors]
     grads = [torch.zeros_like(f) for f in factors]
-    ring = RingExchange(counter, streams)
+    ring = ex.ring(counter)
     for s in range(n):
         last = s == n - 1
         if not last:
             ring.forward()
-        for p in range(n):
-            dg = _sgld_grad_block(pads[p], ring.held(p), side.plans[p][(p - s) % n], n_loc,
-                                  rows[p][s], s_rows)
-            ring.done(p)
-            grads[p] = grads[p] + dg
+        for i, p in enumerate(ex.shards):
+            dg = _sgld_grad_block(pads[i], ring.held(i), side.plans[i][(p - s) % n], n_loc,
+                                  rows[i][s], s_rows)
+            ring.done(i)
+            grads[i] = grads[i] + dg
         if not last:
             ring.advance()
     return grads
 
 
 def _sgld_phase_async(u_blocks, v_blocks, v_side: _Side, u_side: _Side, rows_v, rows_u,
-                      v_rows: int, u_rows: int, streams) -> tuple[list, list]:
+                      v_rows: int, u_rows: int, ex) -> tuple[list, list]:
     """Both half-steps' gradients in ONE ring: each step issues the
     forwards of the u and v blocks before either gradient reads its held
     block; the user gradient reads the previous step's v."""
-    n = len(u_blocks)
+    n = ex.n
     vp, up = [_pad_slot(f) for f in v_blocks], [_pad_slot(f) for f in u_blocks]
     gv, gu = [torch.zeros_like(f) for f in v_blocks], [torch.zeros_like(f) for f in u_blocks]
-    ring_u = RingExchange(u_blocks, streams)
-    ring_v = RingExchange(v_blocks, streams)
+    ring_u = ex.ring(u_blocks)
+    ring_v = ex.ring(v_blocks)
     for s in range(n):
         last = s == n - 1
         if not last:
             ring_u.forward()
             ring_v.forward()
-        for p in range(n):
+        for i, p in enumerate(ex.shards):
             src = (p - s) % n
-            dgv = _sgld_grad_block(vp[p], ring_u.held(p), v_side.plans[p][src], v_side.n_loc,
-                                   rows_v[p][s], v_rows)
-            ring_u.done(p)
-            dgu = _sgld_grad_block(up[p], ring_v.held(p), u_side.plans[p][src], u_side.n_loc,
-                                   rows_u[p][s], u_rows)
-            ring_v.done(p)
-            gv[p] = gv[p] + dgv
-            gu[p] = gu[p] + dgu
+            dgv = _sgld_grad_block(vp[i], ring_u.held(i), v_side.plans[i][src], v_side.n_loc,
+                                   rows_v[i][s], v_rows)
+            ring_u.done(i)
+            dgu = _sgld_grad_block(up[i], ring_v.held(i), u_side.plans[i][src], u_side.n_loc,
+                                   rows_u[i][s], u_rows)
+            ring_v.done(i)
+            gv[i] = gv[i] + dgv
+            gu[i] = gu[i] + dgu
         if not last:
             ring_u.advance()
             ring_v.advance()
     return gv, gu
 
 
-def _sgld_phase_allgather(counter, factors, side: _Side, rows, s_rows: int) -> list:
+def _sgld_phase_allgather(counter, factors, side: _Side, rows, s_rows: int, ex) -> list:
     """Sync baseline: gather the whole counterpart onto each shard, then one
     draw of P * s_rows rows from its flattened plan."""
-    n = len(counter)
     out = []
-    for p, f in enumerate(factors):
-        full = all_gather(counter, f.device)
-        out.append(_sgld_grad_block(_pad_slot(f), full, side.plans[p], side.n_loc, rows[p],
-                                    n * s_rows))
+    for i, f in enumerate(factors):
+        full = ex.all_gather(counter, f.device)
+        out.append(_sgld_grad_block(_pad_slot(f), full, side.plans[i], side.n_loc, rows[i],
+                                    ex.n * s_rows))
         del full
     return out
 
@@ -464,7 +462,8 @@ def _sgld_finish(factors: torch.Tensor, g_lik: torch.Tensor, z: torch.Tensor,
 
 
 class DistributedSGLD(DistributedBPMF):
-    """Minibatch SGLD over the Gibbs grid partition, P shards in one process.
+    """Minibatch SGLD over the Gibbs grid partition, P shards in one process
+    (`devices`) or one a rank (`mesh`), as DistributedBPMF.
 
     The plans, the LPT entity sharding and the exchange modes are
     DistributedBPMF's; a block's work is a sampled gradient instead of a
@@ -483,6 +482,7 @@ class DistributedSGLD(DistributedBPMF):
         test: SparseRatings | None = None,
         *,
         devices: Sequence[torch.device] | None = None,
+        mesh=None,
         k: int = 32,
         alpha: float = 1.5,
         width: int | str = 32,
@@ -498,8 +498,8 @@ class DistributedSGLD(DistributedBPMF):
     ):
         self.minibatch = int(minibatch)
         self.init_scale = data_init_scale(ratings.vals, k)
-        super().__init__(ratings, test, devices=devices, k=k, alpha=alpha, width=width,
-                         mode=mode, engine="einsum")
+        super().__init__(ratings, test, devices=devices, mesh=mesh, k=k, alpha=alpha,
+                         width=width, mode=mode, engine="einsum")
         self.u_deg = self._shard_degrees(ratings.degrees(0), self.u_part)
         self.v_deg = self._shard_degrees(ratings.degrees(1), self.v_part)
         self.cfg = SGLDConfig(
@@ -514,13 +514,13 @@ class DistributedSGLD(DistributedBPMF):
         return int(min(r, max(1, round(self.minibatch / (self.n_shards * w)))))
 
     def _shard_degrees(self, degrees, part) -> tuple[torch.Tensor, ...]:
-        """Each shard's slots' degrees on the shard's device; padding slots
-        get 0 (a finite gain, 1 / lam_bar, zeroed by the finish)."""
+        """Each held shard's slots' degrees on the shard's device; padding
+        slots get 0 (a finite gain, 1 / lam_bar, zeroed by the finish)."""
         degrees = np.asarray(degrees, np.float32)
         return tuple(
-            torch.as_tensor(np.where(ids >= 0, degrees[np.maximum(ids, 0)], 0.0)
-                            .astype(np.float32)).to(d)
-            for ids, d in zip(part.ids, self.devices))
+            torch.as_tensor(np.where(part.ids[p] >= 0, degrees[np.maximum(part.ids[p], 0)],
+                                     0.0).astype(np.float32)).to(d)
+            for p, d in zip(self.shards, self.devices))
 
     def init(self, seed: int = 0) -> DistState:
         state = super().init(seed)
@@ -530,17 +530,25 @@ class DistributedSGLD(DistributedBPMF):
         return state._replace(u=u, v=v, v_eval=v if self.mode == "async" else None)
 
     def _draw_rows(self, plan, s_rows: int) -> tuple:
+        """Every shard's row ids, drawn in (shard, ring step) order whatever
+        the layout (so every rank's generator stays in step), each held
+        shard's on its device."""
         p_n, _, r, _ = plan.indices.shape
         dev0, g = self.devices[0], self.generator
 
-        def draw(count, total, dev):
+        def draw(count, total):
             if count >= total:
                 return None
-            return torch.randint(total, (count,), generator=g, device=dev0).to(dev)
+            return torch.randint(total, (count,), generator=g, device=dev0)
+
+        def put(x, dev):
+            return None if x is None else x.to(dev)
 
         if self.mode == "allgather":
-            return tuple(draw(p_n * s_rows, p_n * r, d) for d in self.devices)
-        return tuple(tuple(draw(s_rows, r, d) for _ in range(p_n)) for d in self.devices)
+            rows = [draw(p_n * s_rows, p_n * r) for _ in range(p_n)]
+            return tuple(put(rows[p], d) for p, d in zip(self.shards, self.devices))
+        rows = [[draw(s_rows, r) for _ in range(p_n)] for _ in range(p_n)]
+        return tuple(tuple(put(x, d) for x in rows[p]) for p, d in zip(self.shards, self.devices))
 
     def draw_noise(self) -> SGLDNoise:
         """One step's noise from the generator: the row ids in (shard, ring
@@ -577,8 +585,8 @@ class DistributedSGLD(DistributedBPMF):
 
     def _grad_phase(self, counter, factors, side: _Side, rows, s_rows: int) -> list:
         if self.mode == "ring":
-            return _sgld_phase_ring(counter, factors, side, rows, s_rows, self._streams)
-        return _sgld_phase_allgather(counter, factors, side, rows, s_rows)
+            return _sgld_phase_ring(counter, factors, side, rows, s_rows, self.exchange)
+        return _sgld_phase_allgather(counter, factors, side, rows, s_rows, self.exchange)
 
     def sweep(self, state: DistState, noise: SGLDNoise | None = None) -> DistState:
         """One SGLD step over the P shards, under `noise` (drawn from the
@@ -590,16 +598,16 @@ class DistributedSGLD(DistributedBPMF):
                                  t0=cfg.step_t0)
         temp = effective_temperature(state.step, cfg.temperature, cfg.temp_warmup)
         # exact hyper draws from the psum'd statistics of the previous factors
-        sv = _stats(state.v, self._v.valid, self.n)
+        sv = _stats(state.v, self._v.valid, self.n, self.exchange)
         hyper_v = sample_normal_wishart(*sv, self.prior, noise.hyper_v)
-        su = _stats(state.u, self._u.valid, self.m)
+        su = _stats(state.u, self._u.valid, self.m, self.exchange)
         hyper_u = sample_normal_wishart(*su, self.prior, noise.hyper_u)
         gain_v = self._gains(self.v_deg, hyper_v, su)
         gain_u = self._gains(self.u_deg, hyper_u, sv)
 
         if self.mode == "async":
             glv, glu = _sgld_phase_async(state.u, state.v, self._v, self._u, noise.rows_v,
-                                         noise.rows_u, cfg.v_rows, cfg.u_rows, self._streams)
+                                         noise.rows_u, cfg.v_rows, cfg.u_rows, self.exchange)
             v_new = self._finish(state.v, glv, self._v, hyper_v, gain_v, eps, temp, noise.z_v)
             u_new = self._finish(state.u, glu, self._u, hyper_u, gain_u, eps, temp, noise.z_u)
             # u_new's gradient read this v

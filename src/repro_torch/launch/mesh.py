@@ -13,7 +13,11 @@ the ranks of the default process group, one rank a card:
     `launch/dryrun.py`);
   - `make_host_mesh` covers the ranks the group has, (data, model), opening
     a group of one rank (NCCL on the card, gloo on the CPU, over an
-    in-process store) where none is open: one card is a (1, 1) mesh.
+    in-process store) where none is open: one card is a (1, 1) mesh;
+  - `make_item_mesh` is the distributed sampler's: 1-D over every rank,
+    the dim "items" (the JAX package's `AXIS`), one item shard a rank.
+    Under `torchrun`, `open_rank_group` opens the group from its
+    environment (NCCL on the card, gloo on the CPU).
 
 The port runs on one NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit.
 The rates are the published peaks of NVIDIA's data sheet, dense, without
@@ -29,7 +33,9 @@ the dry-run's link term.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import math
+import os
 from typing import Iterator
 
 import torch
@@ -94,6 +100,32 @@ def make_host_mesh(model: int = 1, *, device: str | torch.device = "cuda") -> De
 
 
 _opened: list[bool] = []
+
+#: how long a rank waits at a collective for the others before it raises
+RANK_TIMEOUT_S = 300
+
+
+def open_rank_group(device: str | torch.device = "cuda") -> None:
+    """The default group of a `torchrun` launch, from its environment
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): NCCL on the card, each
+    rank on its LOCAL_RANK's card, gloo on the CPU. A rank left waiting at
+    a collective raises after RANK_TIMEOUT_S."""
+    dtype = _device_type(device)
+    if dtype == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dtype == "cuda" else "gloo",
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+
+
+def make_item_mesh(*, device: str | torch.device = "cuda") -> DeviceMesh:
+    """The distributed sampler's mesh: 1-D over every rank of the open
+    default group, the dim "items"; rank r holds item shard r
+    (`core/distributed.py`). A "cuda" mesh takes each rank's current card."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_item_mesh needs an open process group: open_rank_group() "
+                           "under torchrun, or init_process_group")
+    return init_device_mesh(_device_type(device), (dist.get_world_size(),),
+                            mesh_dim_names=("items",))
 
 
 def close_host_group() -> None:

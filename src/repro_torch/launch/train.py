@@ -12,6 +12,13 @@ card, as they do on one):
 
     PYTHONPATH=src python -m repro_torch.launch.train --bpmf --mode async --shards 4
 
+Started by `torchrun` (WORLD_SIZE set), a distributed mode runs one shard a
+rank instead, over a 1-D "items" mesh of the launch's ranks (NCCL on the
+card, gloo with --device cpu), the ranks exchanging messages:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --bpmf --mode ring --device cpu
+
 `--engine sgld` trains the minibatch SGLD sampler instead of Gibbs, single
 device or with --mode/--shards (--sweeps then counts SGLD steps, each
 costing about --minibatch padded rating lanes a half-step):
@@ -29,6 +36,7 @@ the step runs under `models.layers.active_mesh(mesh)`.
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 from typing import Any, NamedTuple
 
@@ -203,25 +211,12 @@ def bpmf_train_main(args) -> None:
 
     train, test = _demo_data(args.scale, args.seed)
     if args.mode != "single":
-        from repro_torch.core.distributed import DistributedBPMF, shard_devices
-
-        kw = dict(devices=shard_devices(args.shards, args.device), k=args.k, alpha=4.0,
-                  mode=args.mode, width="auto" if args.plan == "balanced" else 32)
-        if args.engine == "sgld":
-            from repro_torch.core.sgld import DistributedSGLD
-
-            d = DistributedSGLD(train, test, minibatch=args.minibatch,
-                                step_size=args.step_size, **kw)
+        if "WORLD_SIZE" in os.environ:
+            _distributed_on_ranks(args, train, test)
         else:
-            d = DistributedBPMF(train, test, **kw,
-                                engine="fused" if args.engine == "fused" else "einsum")
-        print(f"training {train.shape[0]} x {train.shape[1]} ({train.nnz} ratings), "
-              f"k={args.k}, {args.sweeps} {_unit(args)} over {d.n_shards} shards on "
-              f"{sorted({str(x) for x in d.devices})}")
-        state = d.run(args.sweeps, seed=args.seed, verbose=True)
-        engine = "sgld" if args.engine == "sgld" else d.engine
-        print(f"test rmse {d.rmse(state):.4f} ({d.n_shards} shards, engine={engine}, "
-              f"mode={args.mode}, plan={args.plan})")
+            from repro_torch.core.distributed import shard_devices
+
+            _distributed(args, train, test, devices=shard_devices(args.shards, args.device))
         return
     widths = "balanced" if args.plan == "balanced" else (8, 32, 128)
     if args.engine == "sgld":
@@ -242,6 +237,53 @@ def bpmf_train_main(args) -> None:
     print(f"test rmse {sampler.rmse(state):.4f}; retained {len(store.steps())} "
           f"draws; serve them with: python -m repro_torch.launch.serve --bpmf "
           f"--samples {root}")
+
+
+def _distributed(args, train, test, **layout) -> None:
+    """Train the distributed sampler over `layout` (devices= or mesh=) and
+    print, from the process holding shard 0, the test RMSE."""
+    from repro_torch.core.distributed import DistributedBPMF
+
+    kw = dict(layout, k=args.k, alpha=4.0, mode=args.mode,
+              width="auto" if args.plan == "balanced" else 32)
+    if args.engine == "sgld":
+        from repro_torch.core.sgld import DistributedSGLD
+
+        d = DistributedSGLD(train, test, minibatch=args.minibatch,
+                            step_size=args.step_size, **kw)
+    else:
+        d = DistributedBPMF(train, test, **kw,
+                            engine="fused" if args.engine == "fused" else "einsum")
+    lead = 0 in d.shards
+    if lead:
+        print(f"training {train.shape[0]} x {train.shape[1]} ({train.nnz} ratings), "
+              f"k={args.k}, {args.sweeps} {_unit(args)} over {d.n_shards} shards on "
+              f"{sorted({str(x) for x in d.devices})}"
+              + (" (one a rank)" if "mesh" in layout else ""))
+    state = d.run(args.sweeps, seed=args.seed, verbose=True)
+    engine = "sgld" if args.engine == "sgld" else d.engine
+    rmse = d.rmse(state)
+    if lead:
+        print(f"test rmse {rmse:.4f} ({d.n_shards} shards, engine={engine}, "
+              f"mode={args.mode}, plan={args.plan})")
+
+
+def _distributed_on_ranks(args, train, test) -> None:
+    """The distributed sampler under torchrun: one shard a rank of the
+    launch, over its group (`launch/mesh.py::open_rank_group`)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_item_mesh, open_rank_group
+
+    world = int(os.environ["WORLD_SIZE"])
+    if args.shards not in (None, world):
+        raise SystemExit(f"under torchrun the shards are the {world} ranks; got --shards "
+                         f"{args.shards}")
+    open_rank_group(args.device)
+    try:
+        _distributed(args, train, test, mesh=make_item_mesh(device=args.device))
+    finally:
+        dist.destroy_process_group()
 
 
 def _unit(args) -> str:
@@ -287,7 +329,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--shards", type=int, default=None,
                     help="item shards of a distributed mode, laid out "
                          "round-robin over the visible cards (default: one a "
-                         "card; one on the CPU)")
+                         "card; one on the CPU); under torchrun, one a rank")
     ap.add_argument("--co-serve", action="store_true",
                     help="serve live recommendations from this process while "
                          "training, through the publication channel")

@@ -357,7 +357,7 @@ class XLSTMModel(_LM):
         mLSTM and the sLSTM scan, whose final states are the cache."""
         tokens = self._ids(batch["tokens"])
         states = self.init_cache(tokens.shape[0])
-        logits, states = xl.xlstm_forward(params, self.cfg, tokens, states)
+        logits, states = xl.xlstm_forward(params, self.cfg, tokens, states, prefill=True)
         return {"logits": _last_row(logits), "cache": states}
 
     @torch.no_grad()
@@ -398,7 +398,7 @@ class ZambaModel(_LM):
         states = self.init_cache(b, _cache_rows(s + headroom))
         logits, states = zb.zamba_forward(params, self.cfg, tokens,
                                           positions=_positions_like(tokens, self.device),
-                                          states=states)
+                                          states=states, prefill=True)
         return {"logits": _last_row(logits), "cache": states}
 
     @torch.no_grad()

@@ -348,8 +348,8 @@ def init_xlstm(cfg: ModelConfig, *, generator: torch.Generator | None,
 
 
 def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
-                  states: dict | None = None, *, chunk: int = MLSTM_CHUNK
-                  ) -> tuple[torch.Tensor, dict | None]:
+                  states: dict | None = None, *, chunk: int = MLSTM_CHUNK,
+                  prefill: bool = False) -> tuple[torch.Tensor, dict | None]:
     """tokens (B, S) -> (fp32 logits (B, S, V), new states or None).
 
     With `states` (`xlstm_init_states`'s layout) every block starts from
@@ -364,9 +364,11 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
 
     Under a mesh (tokens a DTensor) each block is a `seq_region`: the scan
     runs over the whole sequence on every rank of the sequence axis, and
-    a prefill's states come from the regions, placed by the cache's rules."""
+    a prefill's states come from the regions, placed by the cache's rules.
+    There only a prefill takes states: `prefill` says they are
+    `xlstm_init_states`' zeros; a decode step on a mesh raises."""
     if in_region(tokens):
-        return _xlstm_sharded(params, cfg, tokens, states, chunk)
+        return _xlstm_sharded(params, cfg, tokens, states, chunk, prefill)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -397,9 +399,14 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _xlstm_sharded(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
-                   states: dict | None, chunk: int) -> tuple[torch.Tensor, dict | None]:
+                   states: dict | None, chunk: int, from_zero: bool
+                   ) -> tuple[torch.Tensor, dict | None]:
     """`xlstm_forward` under a mesh, from zero states (a prefill: its
-    final states returned; a decode step on a mesh is not ported)."""
+    final states returned). A decode step, states that are not a prefill's
+    zeros, raises: it is not ported."""
+    if states is not None and not from_zero:
+        raise NotImplementedError("the xLSTM on a mesh runs from zero states: its loss and "
+                                  "its prefill (decode on a mesh: ROADMAP.md item 7)")
     prefill = states is not None
     remat = not prefill and remat_on(cfg)
     heads, hd = cfg.n_heads, cfg.d_model // cfg.n_heads

@@ -106,7 +106,8 @@ def shared_block(p: SharedBlock, h: torch.Tensor, cfg: ModelConfig, *,
 
 def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
                   positions: torch.Tensor, states: dict | None = None,
-                  chunk: int | None = None) -> tuple[torch.Tensor, dict | None]:
+                  chunk: int | None = None, prefill: bool = False
+                  ) -> tuple[torch.Tensor, dict | None]:
     """tokens (B, S) -> (fp32 logits (B, S, V), new states or None).
 
     With `states` (`zamba_init_states`'s layout) each Mamba2 layer starts
@@ -121,9 +122,11 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     Under a mesh (tokens a DTensor) each Mamba2 block is a `seq_region`
     (its scan over the whole sequence on every rank of the sequence axis)
     and each application of the shared block a region whose queries are
-    the rank's; a prefill's Mamba2 states come from the regions."""
+    the rank's; a prefill's Mamba2 states come from the regions. There
+    only a prefill takes states: `prefill` says they are
+    `zamba_init_states`' zeros; a decode step on a mesh raises."""
     if in_region(tokens):
-        return _zamba_sharded(params, cfg, tokens, positions, states, chunk)
+        return _zamba_sharded(params, cfg, tokens, positions, states, chunk, prefill)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -154,11 +157,15 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def _zamba_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
-                   positions: torch.Tensor, states: dict | None, chunk: int | None
-                   ) -> tuple[torch.Tensor, dict | None]:
+                   positions: torch.Tensor, states: dict | None, chunk: int | None,
+                   from_zero: bool) -> tuple[torch.Tensor, dict | None]:
     """`zamba_forward` under a mesh, from zero states (a prefill writes the
-    shared block's K/V caches in place and returns the Mamba2 states; a
-    decode step on a mesh is not ported)."""
+    shared block's K/V caches in place and returns the Mamba2 states). A
+    decode step, states that are not a prefill's zeros, raises: it is not
+    ported."""
+    if states is not None and not from_zero:
+        raise NotImplementedError("Zamba2 on a mesh runs from zero states: its loss and its "
+                                  "prefill (decode on a mesh: ROADMAP.md item 7)")
     prefill = states is not None
     remat = not prefill and remat_on(cfg)
     h = sharded_embed(params.embed, tokens, cfg)

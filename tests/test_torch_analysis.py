@@ -1,7 +1,8 @@
 """The port's lint (`python -m repro_torch.analysis`): a positive and a
-negative fixture for each of its thirteen rules, a mutant of a live file for
-each of the seven rules that guard the port's own faults (each flagged by
-its rule and by no other, the unmutated file clean), cuda-spill on recorded
+negative fixture for each of its sixteen rules, a mutant of a live file for
+each of the nine rules that guard the port's own faults (each flagged by
+its rule and by no other, the unmutated file clean), collective-axis over a
+tree whose mesh declaration is mutated, cuda-spill on recorded
 ptxas output, the CLI's exit codes, JSON report and baseline round trip,
 that the analyzer imports only the standard library, and the meta-test:
 the live tree is clean against the checked-in baseline, which holds only
@@ -165,6 +166,46 @@ SUMS_CLEAN = src("""
         return out, cnt, last, put
 """)
 
+PPERMUTE = src("""
+    import torch.distributed as dist
+
+    def forward(x, buf, group):
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
+        ops = [dist.P2POp(dist.isend, x, group=group, group_peer=(rank + 1) % n),
+               dist.P2POp(dist.irecv, buf, group=group, group_peer=(rank + 1) % n)]
+        return dist.batch_isend_irecv(ops)
+""")
+PPERMUTE_CLEAN = PPERMUTE.replace("dist.irecv, buf, group=group, group_peer=(rank + 1) % n",
+                                  "dist.irecv, buf, group=group, group_peer=(rank - 1) % n")
+
+BRANCH = src("""
+    import torch.distributed as dist
+
+    def save(t, rank, write):
+        if rank == 0:
+            dist.barrier()
+            write(t)
+""")
+BRANCH_CLEAN = src("""
+    import torch.distributed as dist
+
+    def save(t, rank, write):
+        dist.barrier()
+        if rank == 0:
+            write(t)
+""")
+
+AXIS = src("""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    def make():
+        return init_device_mesh("cpu", (4,), mesh_dim_names=("items",))
+
+    def group(mesh):
+        return mesh.get_group("item")
+""")
+AXIS_CLEAN = AXIS.replace('get_group("item")', 'get_group("items")')
+
 TF32 = src("""
     import torch
 
@@ -291,6 +332,9 @@ FIXTURES = {
     "sync-under-lock": ("src/repro_torch/serve/mod.py", SYNC, SYNC_CLEAN),
     "rng-global": ("src/repro_torch/core/mod.py", RNG, RNG_CLEAN),
     "ordered-sum": ("src/repro_torch/core/mod.py", SUMS, SUMS_CLEAN),
+    "ppermute-perm": ("src/repro_torch/core/mod.py", PPERMUTE, PPERMUTE_CLEAN),
+    "collective-branch": ("src/repro_torch/core/mod.py", BRANCH, BRANCH_CLEAN),
+    "collective-axis": ("src/repro_torch/core/mod.py", AXIS, AXIS_CLEAN),
     "tf32": ("src/repro_torch/device.py", TF32, TF32_CLEAN),
     "host-sync-in-loop": ("src/repro_torch/models/mod.py", LOOPS, LOOPS_CLEAN),
     "cuda-float-atomic": ("src/repro_torch/csrc/k.cu", ATOMIC, ATOMIC_CLEAN),
@@ -301,7 +345,8 @@ FIXTURES = {
 
 #: how many findings each positive fixture holds
 POSITIVE_COUNT = {"guarded-field": 1, "locked-call": 1, "lock-reacquire": 1,
-                  "sync-under-lock": 6, "rng-global": 3, "ordered-sum": 3, "tf32": 2,
+                  "sync-under-lock": 6, "rng-global": 3, "ordered-sum": 3,
+                  "ppermute-perm": 2, "collective-branch": 1, "collective-axis": 1, "tf32": 2,
                   "host-sync-in-loop": 3, "cuda-float-atomic": 1,
                   "cuda-launch-guard": 1, "cuda-launch-check": 1, "cuda-fallback": 2,
                   "cuda-spill": 1}
@@ -344,7 +389,7 @@ def test_negative_fixture_is_clean(rule):
 def test_every_pass_rule_is_documented_and_has_fixtures():
     implemented = {r for mod in PASSES for r in mod.RULES}
     assert implemented == set(RULE_DOCS) == set(ALL_RULES) == set(POSITIVE_COUNT)
-    assert len(ALL_RULES) == 13
+    assert len(ALL_RULES) == 16
     assert set(FIXTURES) | {"cuda-spill"} == set(ALL_RULES)
 
 
@@ -499,6 +544,74 @@ def test_ptxas_entries_and_spill_keys():
     assert spill_findings(PTXAS_CLEAN, FLASH_CU) == []
 
 
+@pytest.mark.parametrize("peer", ["rank + 1", "dist.get_rank() - 1"])
+def test_ppermute_perm_flags_a_peer_not_taken_mod_n(peer):
+    code = PPERMUTE_CLEAN.replace("group_peer=(rank + 1) % n", f"group_peer={peer}")
+    found = analyze_source(code, filename="src/repro_torch/core/mod.py")
+    assert rules_of(found) == ["ppermute-perm"] * 2 and "% n" in found[0].message, found
+
+
+def test_ppermute_perm_pairs_isend_and_irecv_through_the_class_attributes():
+    """Peers set in __init__ as a tuple and read in another method; the
+    send and the receive must share the offset and the modulus."""
+    code = src("""
+        import torch.distributed as dist
+
+        class Ring:
+            shift = 1
+
+            def __init__(self, ex):
+                n, r = ex.n, ex.rank
+                self.dst, self.src = (r + self.shift) % n, (r - self.shift) % n
+
+            def forward(self, x, buf):
+                return [dist.isend(x, dst=self.dst), dist.irecv(buf, src=self.src)]
+    """)
+    assert analyze_source(code, filename="src/repro_torch/core/mod.py") == []
+    for wrong in ("(r - self.shift) % (n + 1)", "(r - 2 * self.shift) % n"):
+        bad = code.replace("(r - self.shift) % n", wrong)
+        assert rules_of(analyze_source(bad, filename="src/repro_torch/core/mod.py")) == [
+            "ppermute-perm"] * 2, wrong
+
+
+def test_collective_branch_expands_same_file_calls_and_reads_the_rank():
+    code = src("""
+        import torch.distributed as dist
+
+        class Saver:
+            def _sync(self):
+                dist.all_gather_object([], 0)
+
+            def save(self, t):
+                if self.rank == 0:
+                    self._sync()
+                if t is None:
+                    self._sync()
+    """)
+    found = analyze_source(code, filename="src/repro_torch/core/mod.py")
+    assert rules_of(found) == ["collective-branch"] and found[0].line == 8, found
+
+
+def test_collective_axis_reads_the_whole_tree(tmp_path):
+    """A dim one file uses and another declares is clean; after the
+    declaration changes the use is flagged (the live exchange against the
+    live launcher)."""
+    from repro_torch.analysis.cli import analyze_paths
+
+    for rel in ("src/repro_torch/core/exchange.py", "src/repro_torch/launch/mesh.py"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text((ROOT / rel).read_text())
+    found, errors = analyze_paths([tmp_path / "src"], tmp_path)
+    assert found == [] and errors == []
+    mesh = tmp_path / "src/repro_torch/launch/mesh.py"
+    text = mesh.read_text()
+    assert text.count('mesh_dim_names=("items",)') == 1
+    mesh.write_text(text.replace('mesh_dim_names=("items",)', 'mesh_dim_names=("item",)'))
+    found, _ = analyze_paths([tmp_path / "src"], tmp_path)
+    assert [(f.rule, f.path) for f, _ in found] == [
+        ("collective-axis", "src/repro_torch/core/exchange.py")], found
+
+
 # ---------------------------------------------------------------------------
 # mutants of live files: each flagged by its rule and by no other
 # ---------------------------------------------------------------------------
@@ -541,6 +654,14 @@ MUTANTS = {
         text.replace("    with _on_card(v):\n", "", 1), "        err = lib.gather_syrk_seg_launch(",
         8)),
     "cuda-launch-check": (OPS, _once('    build.check("gather_syrk_seg", err)\n', "")),
+    # the ring receives from where it sends
+    "ppermute-perm": ("src/repro_torch/core/exchange.py", _once(
+        "self.dst, self.src = (r + self.shift) % n, (r - self.shift) % n",
+        "self.dst, self.src = (r + self.shift) % n, (r + self.shift) % n")),
+    # only the first rank compares the cards
+    "collective-branch": ("src/repro_torch/core/exchange.py", _once(
+        "        dist.all_gather_object(cards,",
+        "        if self.rank == 0:\n            dist.all_gather_object(cards,")),
     "cuda-fallback": (OPS, _swallowing),
 }
 

@@ -339,6 +339,42 @@ def test_sequence_sharded_decode_matches_the_unsharded_decode(runs):
 
 
 # ---------------------------------------------------------------------------
+# Decode on a mesh: ported for the decoders' K/V caches only
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_recurrent_decode_on_a_mesh_raises_and_prefill_matches(arch):
+    """The xLSTM's and Zamba2's decode on a mesh is not ported: a decode
+    step raises (it once ran a one-token prefill from zero states), while
+    a prefill of 16 tokens on the (1, 1) host mesh gives the mesh-free
+    logits. Reduced configs in fp32, on a gloo group of one rank."""
+    from repro_torch.launch.train import shard_module, shardings_of
+    from repro_torch.models.layers import active_mesh, distribute
+
+    cfg = dataclasses.replace(reduced(REGISTRY[arch]), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    model = api.build_model(cfg, device="cpu")
+    params = model.init(0)
+    rng = np.random.default_rng(31)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int64))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int64))
+    with torch.no_grad():
+        free = model.prefill_fn(params, {"tokens": prompt})["logits"]
+    mesh = lmesh.make_host_mesh(device="cpu")
+    try:
+        shard_module(params, shardings_of(api.param_pspecs(cfg, params, mesh), mesh), mesh)
+        with torch.no_grad(), active_mesh(mesh):
+            out = model.prefill_fn(params, {"tokens": distribute(prompt, (("data",), "model"))})
+            got = out["logits"]
+            got = got.full_tensor() if hasattr(got, "full_tensor") else got
+            np.testing.assert_array_equal(got.numpy(), free.numpy())
+            with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
+                model.decode_fn(params, out["cache"],
+                                {"tokens": distribute(nxt, (("data",), None))})
+    finally:
+        lmesh.close_host_group()
+
+
+# ---------------------------------------------------------------------------
 # The mesh dry-run
 # ---------------------------------------------------------------------------
 def test_mesh_dryrun_record_on_the_pod_mesh():
