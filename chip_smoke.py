@@ -313,7 +313,19 @@ no kernels line and no result line. Phases:
               process), started first: kimi-k2-1t-a32b train_4k on
               2 x 16 x 16 with opt (the expert-parallel region), gemma2-2b
               train_4k and granite-moe-3b-a800m prefill_32k on 16 x 16,
-              each ok with its per-device peak GB and whether it fits
+              zamba2-7b long_500k on 2 x 16 x 16 (its K/V sequence over
+              ("data", "model")) and whisper-medium decode_32k on 16 x 16,
+              each ok with its per-device peak GB and whether it fits;
+              (e) decode on the host mesh: xlstm-350m, zamba2-7b and
+              whisper-medium (over its 1,500 frames) at full width, a
+              prefill of MESH_DECODE_BATCH x MESH_DECODE_PROMPT tokens and
+              MESH_DECODE_STEPS greedy steps with and without the mesh
+              (the states and caches placed by `cache_pspecs`, each
+              recurrent block a `state_region`), every step's logits and
+              the final states and caches bit for bit the mesh-free ones,
+              a step from zero states more than 1e-2 off, and each
+              family's decode tokens/s on the mesh and off it (the median
+              step after a warm-up step)
  27. report   one JSON line of kernels, the card line, and the last line
               {"ok": true, "device": {...}}
 
@@ -619,8 +631,16 @@ MESH_SHARDS = 16
 MESH_FRAMES = 1500
 MESH_CELLS = (("kimi-k2-1t-a32b", "train_4k", "multi", "opt"),
               ("gemma2-2b", "train_4k", "single", "base"),
-              ("granite-moe-3b-a800m", "prefill_32k", "single", "base"))
+              ("granite-moe-3b-a800m", "prefill_32k", "single", "base"),
+              ("zamba2-7b", "long_500k", "multi", "base"),
+              ("whisper-medium", "decode_32k", "single", "base"))
 MESH_BUDGET_S = 120.0
+# phase mesh (e): decode on the host mesh against decode without it, at
+# full width: the prompt's rows and length and the greedy steps
+MESH_DECODE_ARCHS = ("xlstm-350m", "zamba2-7b", "whisper-medium")
+MESH_DECODE_BATCH = 2
+MESH_DECODE_PROMPT = 512
+MESH_DECODE_STEPS = 8
 
 FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
   constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
@@ -6379,7 +6399,8 @@ class Smoke:
     def mesh(self):
         """Phase mesh (the module docstring): the flash pair with a query
         offset, gemma2-2b's train step on the host mesh, elastic restore
-        onto it, and the mesh dry-run in a subprocess."""
+        onto it, the recurrent and audio families' decode on it, and the
+        mesh dry-run in a subprocess."""
         import logging
 
         import repro_torch
@@ -6396,6 +6417,7 @@ class Smoke:
             self.mesh_flash_offsets()
             self.mesh_train_step()
             self.mesh_restore()
+            self.mesh_decode()
             out, err = proc.communicate(timeout=600)
         finally:
             if proc.poll() is None:
@@ -6597,6 +6619,98 @@ class Smoke:
         self.check(at == 3 and out["loss_history"][0] == float(m_live["loss"]) and same,
                    "the state restored onto the host mesh (restore_resharded) takes the live "
                    "state's next step bit for bit: its loss and parameters")
+
+    def mesh_decode(self):
+        """(e) Decode on the host mesh at full width against decode without
+        it, bit for bit, for the xLSTM, Zamba2 and whisper."""
+        import gc
+        import statistics
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import shard_module, shardings_of
+        from repro_torch.models import api
+        from repro_torch.models.layers import active_mesh, distribute
+
+        torch = self.torch
+        mesh = make_host_mesh()
+        b, s, n = MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_STEPS
+
+        def whole(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in leaves(tree[k])]
+            if isinstance(tree, (tuple, list)):
+                return [x for v in tree for x in leaves(v)]
+            return [whole(tree)]
+
+        def bits(t):
+            return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+        for arch in MESH_DECODE_ARCHS:
+            cfg = get_config(arch)
+            model = api.build_model(cfg)
+            params = model.init(0)
+            g = torch.Generator(device=self.dev).manual_seed(MESH_DECODE_STEPS)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                             device=self.dev, dtype=torch.int32)}
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=g,
+                                              device=self.dev)
+
+            def run(placed):
+                """Prefill, then n greedy steps, the inputs through `placed`:
+                (logits, cache, the median seconds of a step after the
+                first, which warms the path up)."""
+                out = model.prefill_fn(params, placed(batch, "prefill"))
+                logits, cache = [whole(out["logits"])], out["cache"]
+                secs = []
+                for _ in range(n):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    nxt = logits[-1].argmax(-1, keepdim=True).to(torch.int32)
+                    cache, lg = model.decode_fn(params, cache, placed({"tokens": nxt}, "decode"))
+                    logits.append(whole(lg))
+                    self.sync()
+                    secs.append(time.perf_counter() - t0)
+                return logits, cache, statistics.median(secs[1:])
+
+            with torch.no_grad():
+                free, free_cache, free_s = run(lambda x, kind: x)
+                free_cache = [t.clone() for t in leaves(free_cache)]
+                shard_module(params, shardings_of(api.param_pspecs(cfg, params, mesh), mesh),
+                             mesh)
+                with active_mesh(mesh):
+                    def placed(x, kind):
+                        ips = api.input_pspecs(cfg, api.ShapeSpec("mesh", s, b, kind), mesh)
+                        return {k: distribute(v, ips[k]) for k, v in x.items()}
+
+                    got, cache, mesh_s = run(placed)
+                    zeros = model.init_cache(b, s + 64)
+                    first = placed({"tokens": free[0].argmax(-1, keepdim=True).to(torch.int32)},
+                                   "decode")
+                    zero = whole(model.decode_fn(params, zeros, first)[1])
+            same = all(torch.equal(x, y) for x, y in zip(got, free))
+            same_cache = len(leaves(cache)) == len(free_cache) and all(
+                torch.equal(bits(x), bits(y)) for x, y in zip(leaves(cache), free_cache))
+            off = float((zero.float() - free[1].float()).abs().max())
+            print(f"(e) {arch} decode on the host mesh, B = {b}, a {s}-token prefill "
+                  f"{'over ' + str(cfg.encoder_seq) + ' frames ' if cfg.family == 'audio' else ''}"
+                  f"and {n} greedy steps: {b / mesh_s:.2f} tokens/s on the mesh, "
+                  f"{b / free_s:.2f} off it (the median step after a warm-up one); a step "
+                  f"from zero states is {off:.3e} off")
+            self.check(same and same_cache,
+                       f"{arch}: the prefill's and the {n} steps' logits on the host mesh and "
+                       f"the final states and caches ({len(free_cache)} leaves) are the "
+                       f"mesh-free ones bit for bit")
+            self.check(off > 1e-2, f"{arch}: a step on the mesh from zero states differs "
+                       f"from the step after the prefill ({off:.3e} > 1e-2): the step reads "
+                       f"its states")
+            del params, free, free_cache, got, cache, zeros, zero
+            gc.collect()
+            torch.cuda.empty_cache()
 
     def dryrun(self):
         """Phase dryrun (the module docstring): the meta sweep of every

@@ -359,7 +359,10 @@ class CostCounter(TorchDispatchMode):
     """Flops, HBM bytes, exchange bytes and the peak of live bytes of what
     runs under it (module docstring). `arguments`: the tensors that are
     live when it starts (parameters, optimizer state, inputs, caches),
-    whose storages count once in `argument_bytes` and the peak."""
+    whose storages count once in `argument_bytes` and the peak;
+    `read_argument_bytes` counts those that an op read, as a JAX compile's
+    argument size counts only the arguments its program uses (whisper's
+    decode step reads none of its encoder's weights)."""
 
     def __init__(self, arguments: Iterable[torch.Tensor] = ()):
         super().__init__()
@@ -387,8 +390,13 @@ class CostCounter(TorchDispatchMode):
         for t in arguments:
             st = t.untyped_storage()
             args[st._cdata] = st.nbytes()
-        self._arguments = set(args)
+        self._arguments = args
+        self._read: set[int] = set()
         self.argument_bytes = sum(args.values())
+
+    @property
+    def read_argument_bytes(self) -> int:
+        return sum(self._arguments[k] for k in self._read)
 
     def _repeat(self, loop: Steps):
         """range(n) of a `steps` loop: iteration 0 fills the cache, 1 and 2
@@ -517,6 +525,7 @@ class CostCounter(TorchDispatchMode):
             "flops": flops, "tensor_flops": tflops, "fp32_flops": flops - tflops,
             "hbm_bytes": self.hbm_bytes, "exchange_bytes": self.exchange_bytes,
             "ops": self.n_ops, "argument_bytes": self.argument_bytes,
+            "read_argument_bytes": self.read_argument_bytes,
             "peak_bytes": self.peak_bytes, "peak_at": self.peak_at,
         }
 
@@ -603,6 +612,11 @@ class CostCounter(TorchDispatchMode):
             meta = torch.device(kwargs.get("device") or "cpu").type == "meta"
         if not meta and all(t.device.type == "cpu" for t in tensors):
             return func(*args, **kwargs)           # host work
+        if self._arguments:
+            for t in tensors:
+                st = t.untyped_storage()._cdata
+                if st in self._arguments:
+                    self._read.add(st)
         key = tuple(key) if keyed and meta and kind != "other" else None
         op = self._cache.get(key) if key is not None else None
         scale = 1

@@ -194,6 +194,7 @@ def cell_record(cfg, shape: ShapeSpec, counter: CostCounter, output_bytes: int,
         params_total=total,
         params_active=active,
         memory=dict(argument_bytes=sm["argument_bytes"],
+                    read_argument_bytes=sm["read_argument_bytes"],
                     output_bytes=output_bytes,
                     peak_bytes=sm["peak_bytes"],
                     peak_at=sm["peak_at"]),
@@ -247,8 +248,11 @@ def run_cell(arch: str, shape_name: str, variant: str = "base", *, save: bool = 
     rec["launches"] = {k: v - before[k] for k, v in ops.launches().items() if v != before[k]}
     rec["total_s"] = time.perf_counter() - t0
     if save:
+        # a mesh record is committed: it keeps no host time, so that a rerun
+        # rewrites it only where what it models changed
+        saved = rec if mesh is None else {k: v for k, v in rec.items() if k != "total_s"}
         ART_DIR.mkdir(parents=True, exist_ok=True)
-        artifact(arch, shape_name, variant, mesh).write_text(json.dumps(rec, indent=2))
+        artifact(arch, shape_name, variant, mesh).write_text(json.dumps(saved, indent=2))
     return rec
 
 
@@ -332,8 +336,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="processes to run the cells in")
     ap.add_argument("--mesh", default=None, choices=["single", "multi", "both"],
                     help="the production mesh(es) of H100s, in a fake world on the "
-                         "meta device (default: one card); the decode cells are not "
-                         "ported to a mesh and are left out")
+                         "meta device (default: one card)")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -344,8 +347,6 @@ def main(argv: list[str] | None = None) -> None:
              and args.shape in ("all", c[1])]
     meshes: list = [None] if args.mesh is None else \
         (["single", "multi"] if args.mesh == "both" else [args.mesh])
-    if args.mesh is not None:
-        cells = [c for c in cells if shape_by_name(c[1]).kind != "decode"]
     t0 = time.perf_counter()
     recs = []
     for mesh in meshes:

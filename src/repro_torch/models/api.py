@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -107,13 +108,17 @@ def _positions_like(tokens: torch.Tensor, device: torch.device, offset: Any = 0
     return ly.shard_like(pos.contiguous(), tokens) if ly.in_region(tokens) else pos
 
 
-def _cache_rows(t: int) -> int:
-    """Cache rows for t positions: under a mesh a multiple of the sequence
-    axis, so that the cache shards over it (`cache_pspecs`)."""
+def _cache_rows(t: int, batch: int) -> int:
+    """Cache rows for t positions of `batch` rows: under a mesh a multiple of
+    the axes that shard the cache's sequence (`cache_pspecs`: "model", or
+    ("data", "model") where no batch axis divides the batch), so that it
+    shards over them."""
     mesh = ly.get_active_mesh()
-    if mesh is None or ly.SEQ_AXIS not in mesh.mesh_dim_names:
+    if mesh is None:
         return t
-    m = mesh.size(mesh.mesh_dim_names.index(ly.SEQ_AXIS))
+    axes = mesh_axes(mesh)
+    seq = ("model",) if batch_axes_for(axes, batch) else ("data", "model")
+    m = math.prod(axes.get(a, 1) for a in seq)
     return -(-t // m) * m
 
 
@@ -233,7 +238,7 @@ class DecoderModel(_LM):
         b, s = positions.shape[0], positions.shape[-1]
         # headroom: decode steps append past the prompt; a cache sized
         # exactly S would clamp the first decode write onto slot S-1
-        caches = self.init_cache(b, _cache_rows(s + headroom))
+        caches = self.init_cache(b, _cache_rows(s + headroom, b))
         logits, caches, _ = tfm.decoder_forward(params, self.cfg, tokens, positions=positions,
                                                 embeds=embeds, caches=caches)
         # a copy: the view logits[:, -1] would keep the whole (B, S, V) fp32
@@ -311,14 +316,14 @@ class EncDecModel(_LM):
         b, s = tokens.shape
         enc = tfm.encoder_forward(params, self.cfg, self._ids(batch["frames"]))
         ck, cv = tfm.init_cross_cache(params, self.cfg, enc)
-        rows = _cache_rows(s + headroom)
+        rows = _cache_rows(s + headroom, b)
         def self_cache(batch_: int, rows_: int, device: Any) -> dict:
             return tfm.init_decode_cache(self.cfg, batch_, rows_, device=device)
 
         caches = dict(_placed(self.cfg, self_cache, b, rows, self.device), ck=ck, cv=cv)
         logits, caches = tfm.encdec_forward(params, self.cfg, tokens, enc, pos_offset=0,
                                             caches=caches)
-        return {"logits": _last_row(logits), "cache": caches}
+        return {"logits": _last_row(logits), "cache": _as_cache(self.cfg, caches, b)}
 
     @torch.no_grad()
     def decode_fn(self, params: tfm.EncDec, cache: dict, batch: dict
@@ -356,14 +361,17 @@ class XLSTMModel(_LM):
         """The prompt through the forward from zero states: the chunked
         mLSTM and the sLSTM scan, whose final states are the cache."""
         tokens = self._ids(batch["tokens"])
-        states = self.init_cache(tokens.shape[0])
+        b = tokens.shape[0]
+        states = self.init_cache(b)
         logits, states = xl.xlstm_forward(params, self.cfg, tokens, states, prefill=True)
-        return {"logits": _last_row(logits), "cache": states}
+        return {"logits": _last_row(logits), "cache": _as_cache(self.cfg, states, b)}
 
     @torch.no_grad()
     def decode_fn(self, params: xl.XLSTM, cache: dict, batch: dict
                   ) -> tuple[dict, torch.Tensor]:
-        """One token a row; the states are updated in place."""
+        """One token a row; the states are updated in place. Under a mesh
+        the tokens come placed by `input_pspecs` and the states by
+        `cache_pspecs` (`prefill_fn`'s are)."""
         logits, cache = xl.xlstm_forward(params, self.cfg, self._ids(batch["tokens"]), cache)
         return cache, logits[:, -1]
 
@@ -395,19 +403,21 @@ class ZambaModel(_LM):
     def prefill_fn(self, params: zb.Zamba, batch: dict, *, headroom: int = 64) -> dict:
         tokens = self._ids(batch["tokens"])
         b, s = tokens.shape
-        states = self.init_cache(b, _cache_rows(s + headroom))
+        states = self.init_cache(b, _cache_rows(s + headroom, b))
         logits, states = zb.zamba_forward(params, self.cfg, tokens,
                                           positions=_positions_like(tokens, self.device),
                                           states=states, prefill=True)
-        return {"logits": _last_row(logits), "cache": states}
+        return {"logits": _last_row(logits), "cache": _as_cache(self.cfg, states, b)}
 
     @torch.no_grad()
     def decode_fn(self, params: zb.Zamba, cache: dict, batch: dict
                   ) -> tuple[dict, torch.Tensor]:
         """One token a row at the first group's position; the caches and
-        states are updated in place."""
+        states are updated in place. Under a mesh the tokens come placed
+        by `input_pspecs` and the cache by `cache_pspecs` (`prefill_fn`'s
+        is), and the positions are placed as the tokens."""
         tokens = self._ids(batch["tokens"])
-        pos = _positions_for(tokens.shape[0], 1, self.device, offset=cache["attn_pos"][0])
+        pos = _positions_like(tokens, self.device, offset=cache["attn_pos"][0])
         logits, cache = zb.zamba_forward(params, self.cfg, tokens, positions=pos,
                                          states=cache)
         return cache, logits[:, -1]
@@ -450,6 +460,29 @@ def _placed(cfg: ModelConfig, empty: Any, batch: int, max_len: int,
         return leaf(tree, fill, spec)
 
     return walk(shapes, fills, specs)
+
+
+def _as_cache(cfg: ModelConfig, cache: Any, batch: int) -> Any:
+    """A prefill's cache of `batch` rows with the leaves that its regions
+    left placed as the tokens (the recurrent states: batch over the batch
+    axes) redistributed to `cache_pspecs`' placements, where a decode step
+    takes them; the cache itself without a mesh. The K/V caches, written
+    in place, are placed so already (a cache's length changes none of
+    their placements' axes: `_cache_rows` makes it divide them)."""
+    mesh = ly.get_active_mesh()
+    if mesh is None:
+        return cache
+    specs = cache_pspecs(cfg, ShapeSpec("cache", 0, batch, "decode"), mesh)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {key: walk(tree[key], spec[key]) for key in tree}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(*x) for x in zip(tree, spec))
+        want = ly.spec_placements(spec, mesh)
+        return tree if tuple(tree.placements) == want else tree.redistribute(mesh, want)
+
+    return walk(cache, specs)
 
 
 def _vlm_embeds_sharded(params: tfm.Decoder, cfg: ModelConfig, patches: torch.Tensor,

@@ -31,7 +31,7 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Iterable, NamedTuple
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -225,13 +225,37 @@ class _AllReduce(torch.autograd.Function):
         return funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
 
 
-def all_reduce_axes(x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
-    """The sum of x over the ranks of `axes`, on each of them."""
+def all_reduce_axes(x: torch.Tensor, axes: tuple[str, ...], op: str = "sum") -> torch.Tensor:
+    """The sum (or, with op "max", the max, which has no backward here) of x
+    over the ranks of `axes`, on each of them."""
     mesh = seq_shard().mesh
     for axis in axes:
         if _axis_size(axis) > 1:
-            x = _AllReduce.apply(x, _group(mesh, axis))
+            if op == "sum":
+                x = _AllReduce.apply(x, _group(mesh, axis))
+            else:
+                x = funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op,
+                                                         _group(mesh, axis)))
     return x
+
+
+def shard_index(axes: tuple[str, ...]) -> int:
+    """This rank's shard of a dim sharded over the mesh `axes`, major first
+    (JAX's order, and DTensor's over its mesh dims): 0 over no axis."""
+    mesh, idx = (seq_shard().mesh if axes else None), 0
+    for a in axes:
+        idx = idx * _axis_size(a) + mesh.get_local_rank(a)
+    return idx
+
+
+def sharded_axes(t: torch.Tensor, dim: int) -> tuple[str, ...]:
+    """The mesh axes of more than one rank that shard dim `dim` of a
+    DTensor, in the mesh's order (major first); none for a plain tensor."""
+    if not isinstance(t, DTensor):
+        return ()
+    mesh = t.device_mesh
+    return tuple(a for i, a in enumerate(mesh.mesh_dim_names)
+                 if t.placements[i] == Shard(dim) and mesh.size(i) > 1)
 
 
 def seq_chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -285,7 +309,7 @@ class _Bound(nn.Module):
 
 
 def region(fn: Callable, block: nn.Module | None, args: tuple, out_placements: tuple, *,
-           whole: tuple = ()):
+           whole: tuple = (), unread: tuple[str, ...] = ()):
     """fn(block, *args) on each rank's shards under `local_map`, as the JAX
     package's GSPMD partitions it: `args` are DTensors, which enter as
     placed (their gradients leave so); the block's parameters enter whole
@@ -307,9 +331,13 @@ def region(fn: Callable, block: nn.Module | None, args: tuple, out_placements: t
     (`SeqShard.world`) inside. `whole`:
     parameters that are not the block's, which enter whole as its do and
     follow the args into fn. args[0] holds the tokens: their placements
-    tell the code inside how they are sharded (`SeqShard`)."""
+    tell the code inside how they are sharded (`SeqShard`). `unread`: the
+    block's parameters that fn does not read (whisper's cross-attention K
+    and V weights at decode, whose K and V are cached), which do not enter
+    and so are not gathered."""
     mesh = get_active_mesh()
-    named = list(block.named_parameters()) if block is not None else []
+    named = [(n, w) for n, w in block.named_parameters() if n not in unread] \
+        if block is not None else []
     named += [(f"_whole.{i}", w) for i, w in enumerate(whole)]
     rep = tuple(Replicate() for _ in range(mesh.ndim))
     part = tuple(Partial() for _ in range(mesh.ndim))
@@ -392,6 +420,116 @@ def seq_region(fn: Callable, block: nn.Module, h: torch.Tensor, n_states: int = 
 
     st = tuple(Shard(0) if q == Shard(0) else Replicate() for q in h.placements)
     return region(body, block, (h,), (tuple(h.placements),) + (st,) * n_states)
+
+
+class Part(NamedTuple):
+    """One layer's recurrent decode state on this rank under a mesh: `local`
+    the rank's piece of it (a view of the cache leaf, written in place),
+    `sl` that piece's slices of the layer's whole state (one a dim, the
+    batch dim's within the block's rows, `state_region`), and `reduce`:
+    whether what is computed from the piece joins the other ranks' by a
+    sum over SEQ_AXIS (`join`): the piece is one of several over a dim
+    that is not the rows, or the layer's slot of a stacked axis that
+    SEQ_AXIS shards, which one rank holds and the others hold nothing of.
+    Without a mesh, or where the leaf is whole, the piece is the state
+    (`whole`): the recurrences' one step (`models/ssm.py::mlstm_step`,
+    `slstm_step`, `conv_step`, `models/mamba.py::ssd_step`) serves both."""
+
+    local: torch.Tensor
+    sl: tuple
+    reduce: bool
+
+
+def whole(t: torch.Tensor) -> Part:
+    """t as the `Part` that is all of the state."""
+    return Part(t, (slice(None),) * t.dim(), False)
+
+
+def write(parts: tuple[Part, ...], values: Iterable[torch.Tensor]) -> None:
+    """Each piece's new value (a step's) into its cache leaf, in place."""
+    for part, value in zip(parts, values):
+        part.local.copy_(value)
+
+
+def join(value: torch.Tensor, sl: tuple, shape: tuple, reduce: bool) -> torch.Tensor:
+    """A value computed on the slices `sl` of a tensor of `shape`, as that
+    whole tensor on every rank of SEQ_AXIS: zeros elsewhere, summed over
+    the ranks where `reduce` (x + 0 is x: a gather; the pieces of a sum over
+    a sharded dim add up: an all-reduce). The value itself where it is
+    already whole."""
+    if not reduce and all(q == slice(None) for q in sl):
+        return value
+    out = torch.zeros(shape, dtype=value.dtype, device=value.device)
+    out[sl] = value
+    return all_reduce_axes(out, (SEQ_AXIS,)) if reduce else out
+
+
+def state_dim(t: torch.Tensor) -> int | None:
+    """The dim of a recurrent state leaf (a DTensor) that SEQ_AXIS shards,
+    or None where it is whole on every axis of more than one rank. The
+    cache rules (`models/api.py::cache_pspecs`) shard such a leaf over
+    SEQ_AXIS alone; any other placement raises."""
+    mesh, dim = t.device_mesh, None
+    for i, (axis, pl) in enumerate(zip(mesh.mesh_dim_names, t.placements)):
+        if mesh.size(i) == 1 or pl == Replicate():
+            continue
+        if axis != SEQ_AXIS or not isinstance(pl, Shard):
+            raise NotImplementedError(f"a recurrent state placed {tuple(t.placements)}: the "
+                                      f"decode step on a mesh takes states sharded over "
+                                      f"{SEQ_AXIS!r} alone")
+        dim = pl.dim
+    return dim
+
+
+def state_part(local: torch.Tensor, idx: tuple[int, ...], dim: int | None) -> Part:
+    """The `Part` of the layer at stacked index `idx` (the leaf's leading
+    axes) of a state leaf, in a region: `local` the rank's shard of the
+    leaf, `dim` the leaf's dim that SEQ_AXIS shards (`state_dim`)."""
+    lead = len(idx)
+    full = (slice(None),) * (local.dim() - lead)
+    if dim is None or dim == lead:       # whole, or the batch: the block's rows are the rank's
+        return whole(local[idx])
+    rank = seq_shard().mesh.get_local_rank(SEQ_AXIS)
+    n = local.shape[dim]
+    if dim < lead:                       # a stacked axis: the layer's slot or nothing
+        j = idx[dim] - rank * n
+        if 0 <= j < n:
+            return Part(local[idx[:dim] + (j,) + idx[dim + 1:]], full, True)
+        view = local[idx[:dim] + (0,) + idx[dim + 1:]].narrow(0, 0, 0)
+        return Part(view, (slice(0, 0),) + full[1:], True)
+    sl = list(full)
+    sl[dim - lead] = slice(rank * n, (rank + 1) * n)
+    return Part(local[idx], tuple(sl), True)
+
+
+def state_region(fn: Callable, block: nn.Module, h: torch.Tensor, leaves: tuple,
+                 lead: int) -> torch.Tensor:
+    """A recurrent block's decode step under a mesh, as a region. The state
+    `leaves` (DTensors of stacked layers, `lead` stacked axes, each placed by
+    `models/api.py::cache_pspecs`) enter at their placements and are
+    written in place, each rank its own pieces. h (B, 1, D) is
+    redistributed to the rows the states need: the batch over SEQ_AXIS
+    where the leaves shard their batch there (the states' batch shard, not
+    the tokens'), else whole; fn(block, h_rows, dims, *local leaves) ->
+    h_rows' output, placed as h_rows, with `dims` the leaves' `state_dim`s.
+    The states are never gathered: what a rank's arithmetic needs of
+    the others' pieces is the step's own small outputs (`join`)."""
+    mesh = get_active_mesh()
+    dims = tuple(state_dim(t) for t in leaves)
+    on_rows = {d == lead for d in dims}
+    if len(on_rows) > 1:
+        raise NotImplementedError("a block's states shard their batch over "
+                                  f"{SEQ_AXIS!r} and others do not: {dims}")
+    rows = on_rows == {True}
+    want = tuple(Shard(0) if rows and a == SEQ_AXIS else Replicate()
+                 for a in mesh.mesh_dim_names)
+    if tuple(h.placements) != want:
+        h = h.redistribute(mesh, want)
+
+    def body(blk, x, *local):
+        return fn(blk, x, dims, *local)
+
+    return region(body, block, (h, *leaves), want)
 
 
 def replicated(x: torch.Tensor) -> torch.Tensor:
@@ -819,8 +957,12 @@ def attention_block(
     constrains them replicated there) and its queries attend from their
     offset in the sequence, which also sets the path by the whole
     sequence's length. A cross-attention's kv_src comes whole. A decode
-    cache sharded on its sequence (`models/api.py::cache_pspecs`) takes the
-    split softmax (`_decode_sharded`).
+    cache sharded on its sequence (`models/api.py::cache_pspecs`) names
+    the mesh axes that shard it under "axes" (`sharded_axes`, read by the
+    caller from the DTensor) and takes the split softmax
+    (`_decode_sharded`): over SEQ_AXIS, or over ("data", SEQ_AXIS) where
+    one long sequence's cache spans both; a static cross-attention cache
+    with "axes" takes it without causality (`split_softmax`).
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -828,9 +970,12 @@ def attention_block(
     if cfg.qkv_bias:
         q = q + params.bq.to(cfg.dtype).reshape(h, hd)
     if cache is not None and (kv_src is not None or "pos" not in cache):
-        out = multi_head_attention(
-            q, cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype), causal=False,
-            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+        if cache.get("axes"):
+            out = split_softmax(q, cache["k"], cache["v"], cfg, cache["axes"])
+        else:
+            out = multi_head_attention(
+                q, cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype), causal=False,
+                attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale)
         out = out.reshape(b, s, h * hd) @ params.wo.to(cfg.dtype)
         return out, cache
     src = x if kv_src is None else kv_src
@@ -849,11 +994,12 @@ def attention_block(
 
     new_cache = None
     sh = seq_shard()
-    if cache is not None and sh is not None and sh.size > 1:
-        if sh.seq:       # a prefill's shard of the prompt: every token's q, k, v
+    seq = sh is not None and sh.seq and sh.size > 1
+    if cache is not None and sh is not None and (seq or cache.get("axes")):
+        if seq:          # a prefill's shard of the prompt: every token's q, k, v
             q, k, v = (gather_axes(t, 1, (SEQ_AXIS,)) for t in (q, k, v))
-        out, new_cache = _decode_sharded(q, k, v, cache, cfg, window, sh)
-        if sh.seq:
+        out, new_cache = _decode_sharded(q, k, v, cache, cfg, window)
+        if seq:
             out = seq_chunk(out, 1)
     elif cache is not None:
         pos = cache["pos"]
@@ -884,44 +1030,62 @@ def attention_block(
     return out, new_cache
 
 
-def _decode_sharded(q, k, v, cache: dict, cfg: ModelConfig, window: int, sh: SeqShard
+def _decode_sharded(q, k, v, cache: dict, cfg: ModelConfig, window: int
                     ) -> tuple[torch.Tensor, dict]:
-    """Attention of queries held whole on every rank of SEQ_AXIS (a decode
-    step's, or a prefill's gathered) over a K/V cache sharded on its
-    sequence over SEQ_AXIS: the rank that holds a new token's slot writes
-    its K/V there, each rank takes its slots' scores (causal from pos, the
-    window), their max, the sum of their exponentials and its share of
-    P V, and an all-reduce of the max, then of the rescaled sums and
-    shares, gives the softmax over the whole cache. The cache is never
+    """Attention of queries held whole on every rank of the cache's
+    sequence axes (a decode step's, or a prefill's gathered) over a K/V
+    cache sharded on its sequence over `cache["axes"]` (SEQ_AXIS, or
+    ("data", SEQ_AXIS) for one long sequence: `models/api.py::cache_pspecs`;
+    none where the cache is whole): the rank that holds a new token's slot
+    writes its K/V there, and `split_softmax` takes the softmax over the
+    whole cache, causal from pos, with the window. The cache is never
     gathered."""
-    b, s, h, hd = q.shape
+    s = q.shape[1]
     ck, cv = cache["k"], cache["v"]                     # (B, T_loc, Hk, hd)
     pos = cache["pos"]
+    axes = tuple(cache.get("axes", ()))
     t_loc = ck.shape[1]
-    lo = sh.index * t_loc
-    start = pos.clamp(0, t_loc * sh.size - s).long()
+    lo, n = shard_index(axes) * t_loc, math.prod(_axis_size(a) for a in axes)
+    start = pos.clamp(0, t_loc * n - s).long()
     # each of the rank's slots takes token lo + j - start where one lands
     tok = lo + torch.arange(t_loc, device=q.device) - start
     lands = ((tok >= 0) & (tok < s))[None, :, None, None]
     tok = tok.clamp(0, s - 1)
     ck.copy_(torch.where(lands, k.to(ck.dtype).index_select(1, tok), ck))
     cv.copy_(torch.where(lands, v.to(cv.dtype).index_select(1, tok), cv))
+    out = split_softmax(q, ck, cv, cfg, axes, q_pos=pos, window=window)
+    new = {"k": ck, "v": cv, "pos": pos + s}
+    return out, (dict(new, axes=cache["axes"]) if "axes" in cache else new)
+
+
+def split_softmax(q, ck, cv, cfg: ModelConfig, axes: tuple[str, ...], *,
+                  q_pos: torch.Tensor | None = None, window: int = 0) -> torch.Tensor:
+    """q (B, s, H, hd) held whole on every rank of `axes` against the rank's
+    slots of a K/V cache (B, T_loc, Hk, hd) sharded on its sequence over
+    `axes` (major first): each rank takes its slots' scores (causal from
+    q_pos with the window, where q_pos is given; all of them where not, a
+    static cross-attention cache), their max, the sum of their
+    exponentials and its share of P V, and an all-reduce over every axis
+    of the max, then of the rescaled sums and shares, gives the softmax
+    over the whole cache."""
+    s, h, hd = q.shape[1], q.shape[2], q.shape[3]
+    t_loc = ck.shape[1]
+    lo = shard_index(axes) * t_loc
     scale = cfg.attn_scale or (1.0 / math.sqrt(hd))
     ke = _expand_kv(ck.to(cfg.dtype), h)
     ve = _expand_kv(cv.to(cfg.dtype), h)
     scores = matmul_f32(q.transpose(1, 2), ke.permute(0, 2, 3, 1)) * scale   # (B, H, s, T_loc)
     scores = softcap(scores, cfg.attn_softcap)
-    q_pos = pos + torch.arange(s, dtype=torch.int32, device=q.device)
-    k_pos = lo + torch.arange(t_loc, dtype=torch.int32, device=q.device)
-    mask = attention_scores_mask(q_pos, k_pos, causal=True, window=window)
-    scores = torch.where(mask, scores, -1e30)
-    m = funcol.wait_tensor(funcol.all_reduce(scores.amax(dim=-1, keepdim=True).contiguous(),
-                                             "max", _group(sh.mesh, SEQ_AXIS)))
+    if q_pos is not None:
+        qp = q_pos + torch.arange(s, dtype=torch.int32, device=q.device)
+        k_pos = lo + torch.arange(t_loc, dtype=torch.int32, device=q.device)
+        mask = attention_scores_mask(qp, k_pos, causal=True, window=window)
+        scores = torch.where(mask, scores, -1e30)
+    m = all_reduce_axes(scores.amax(dim=-1, keepdim=True), axes, op="max")
     e = torch.exp(scores - m)
-    l_all = all_reduce_axes(e.sum(dim=-1, keepdim=True), (SEQ_AXIS,))
-    o = all_reduce_axes(matmul_f32(e, ve.transpose(1, 2).float()), (SEQ_AXIS,))
-    out = (o / l_all).transpose(1, 2).to(q.dtype)
-    return out, {"k": ck, "v": cv, "pos": pos + s}
+    l_all = all_reduce_axes(e.sum(dim=-1, keepdim=True), axes)
+    o = all_reduce_axes(matmul_f32(e, ve.transpose(1, 2).float()), axes)
+    return (o / l_all).transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch.cost import steps
-from repro_torch.models.layers import ModelConfig, dense_init, rms_norm
-from repro_torch.models.ssm import causal_conv1d, work
+from repro_torch.models.layers import ModelConfig, Part, dense_init, join, rms_norm, whole, write
+from repro_torch.models.ssm import causal_conv1d, conv_step, work
 from repro_torch.models.transformer import RMSNorm
 
 
@@ -122,26 +122,37 @@ def ssd_chunked(x, dt, a, b_in, c_in, state, *, chunk: int = 128,
     return torch.cat(loop.full(ys), dim=1)[:, :s], hst
 
 
-def ssd_step(x, dt, a, b_in, c_in, state) -> tuple[torch.Tensor, torch.Tensor]:
+def ssd_step(x, dt, a, b_in, c_in, state: torch.Tensor | Part
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One recurrent step. x: (B, H, P), dt: (B, H), b_in / c_in: (B, G, N),
-    state (B, H, N, P) fp32. Returns (y (B, H, P), new state), in fp32
-    (float64 for float64 inputs)."""
+    state (B, H, N, P) fp32, or under a mesh the rank's piece of it (a
+    `Part`), whose new value comes from the slices of x, dt and B it
+    covers, and y's sum over N is joined over SEQ_AXIS (`join`: a gather
+    where the piece is some heads, an all-reduce where it is some of N).
+    Returns (y (B, H, P), the new state or piece), in fp32 (float64 for
+    float64 inputs); nothing is written."""
+    part = state if isinstance(state, Part) else whole(state)
     rep = x.shape[1] // b_in.shape[1]
     bh = work(b_in).repeat_interleave(rep, dim=1)                # (B, H, N)
     ch = work(c_in).repeat_interleave(rep, dim=1)
     decay = torch.exp(a[None, :] * dt)                           # (B, H)
-    upd = torch.einsum("bhn,bhp->bhnp", dt[..., None] * bh, work(x))
-    h_new = decay[..., None, None] * state + upd
-    y = torch.einsum("bhn,bhnp->bhp", ch, h_new)
-    return y, h_new
+    sb, sh, sn, sp = part.sl
+    upd = torch.einsum("bhn,bhp->bhnp", (dt[..., None] * bh)[sb, sh, sn], work(x)[sb, sh, sp])
+    h_new = decay[sb, sh][..., None, None] * part.local + upd
+    y = torch.einsum("bhn,bhnp->bhp", ch[sb, sh, sn], h_new)
+    return join(y, (sb, sh, sp), tuple(x.shape), part.reduce), h_new
 
 
 def mamba2_block(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
-                 state: Mamba2State | None, *, chunk: int | None = None
+                 state: Mamba2State | None, *, chunk: int | None = None,
+                 parts: tuple[Part, Part] | None = None
                  ) -> tuple[torch.Tensor, Mamba2State | None]:
     """x: (B, S, D). Returns (out, new state; None without a state). A
     single position with a state takes `ssd_step`, anything else
-    `ssd_chunked` (chunk `cfg.ssm_chunk` unless given)."""
+    `ssd_chunked` (chunk `cfg.ssm_chunk` unless given). With `parts` ((h,
+    conv) `Part`s: a decode step under a mesh) one position takes
+    `ssd_step` and `conv_step` on the rank's pieces, which are written in
+    place, and no state comes back."""
     chunk = chunk or cfg.ssm_chunk
     bsz, s, _ = x.shape
     d_inner, nh, hp, ng, ns = mamba2_dims(cfg)
@@ -149,8 +160,11 @@ def mamba2_block(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     z, xi, bi, ci, dti = _split_proj(xin @ p.in_proj.to(cfg.dtype), cfg)
 
     conv_in = torch.cat([xi, bi, ci], dim=-1)
-    conv_out, new_conv = causal_conv1d(conv_in, p.conv,
-                                       state.conv if state is not None else None)
+    if parts is not None:
+        conv_out, new_conv = conv_step(conv_in, p.conv, parts[1])
+    else:
+        conv_out, new_conv = causal_conv1d(conv_in, p.conv,
+                                           state.conv if state is not None else None)
     conv_out = F.silu(conv_out)
     xi, bi, ci = torch.split(conv_out, [d_inner, ng * ns, ng * ns], dim=-1)
 
@@ -161,18 +175,22 @@ def mamba2_block(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     bh = bi.reshape(bsz, s, ng, ns)
     chh = ci.reshape(bsz, s, ng, ns)
 
-    h0 = (state.h if state is not None
-          else torch.zeros((bsz, nh, ns, hp), dtype=torch.float32, device=x.device))
-    if s == 1 and state is not None:
-        y, h_new = ssd_step(xh[:, 0], dt[:, 0], a, bh[:, 0], chh[:, 0], h0)
+    if parts is not None or (s == 1 and state is not None):
+        y, h_new = ssd_step(xh[:, 0], dt[:, 0], a, bh[:, 0], chh[:, 0],
+                            parts[0] if parts is not None else state.h)
         y = y[:, None]
     else:
+        h0 = (state.h if state is not None
+              else torch.zeros((bsz, nh, ns, hp), dtype=torch.float32, device=x.device))
         y, h_new = ssd_chunked(xh, dt, a, bh, chh, h0, chunk=chunk,
                                fold_decay=cfg.ssd_fold_decay)
     y = y + p.d_skip[None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(cfg.dtype)
     y = rms_norm(y * F.silu(z), p.gn, cfg.norm_eps)
     out = y @ p.out_proj.to(cfg.dtype)
+    if parts is not None:
+        write(parts, (h_new, new_conv))
+        return out, None
     new_state = Mamba2State(h=h_new, conv=new_conv) if state is not None else None
     return out, new_state
 

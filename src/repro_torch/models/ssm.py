@@ -31,13 +31,19 @@ from torch import nn
 from repro_torch.launch.cost import steps
 from repro_torch.models.layers import (
     ModelConfig,
+    Part,
     activation_spec,
     constrain,
     dense_init,
     in_region,
+    join,
     matmul_f32,
     rms_norm,
     seq_region,
+    state_part,
+    state_region,
+    whole,
+    write,
 )
 from repro_torch.models.transformer import (
     RMSNorm,
@@ -79,30 +85,50 @@ def mlstm_init_state(batch: int, heads: int, dk: int, dv: int, *,
 
 def mlstm_sequential(q, k, v, i_raw, f_raw, state: MLSTMState
                      ) -> tuple[torch.Tensor, MLSTMState]:
-    """Oracle and decode path: the exact recurrence, one step a position.
+    """Oracle and decode path: the exact recurrence, one step a position
+    (`mlstm_step` on the whole state).
 
     q, k, v: (B, S, H, d); i_raw, f_raw: (B, S, H) fp32. Returns (h (B, S,
     H, d) fp32, state); float64 inputs and state run in float64."""
-    d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
     q, k, v = (work(t) for t in (q, k, v))
     c, n, m = state
     hs = []
     for t in range(q.shape[1]):
-        qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t]
-        logf = F.logsigmoid(ft)
-        m_new = torch.maximum(logf + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(logf + m - m_new)
-        c = f_p[..., None, None] * c + i_p[..., None, None] * (
-            kt[..., :, None] * scale * vt[..., None, :])
-        n = f_p[..., None] * n + i_p[..., None] * kt * scale
-        num = torch.einsum("bhkv,bhk->bhv", c, qt)
-        den = torch.einsum("bhk,bhk->bh", n, qt)
-        denom = torch.maximum(den.abs(), torch.exp(-m_new))
-        hs.append(num / denom[..., None])
-        m = m_new
+        ht, (c, n, m) = mlstm_step(q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t],
+                                   whole(c), whole(n), whole(m))
+        hs.append(ht)
     return torch.stack(hs, dim=1), MLSTMState(c, n, m)
+
+
+def mlstm_step(qt, kt, vt, it, ft, c: Part, n: Part, m: Part
+               ) -> tuple[torch.Tensor, MLSTMState]:
+    """The stabilized mLSTM of one position (qt, kt, vt (B, H, d), the gates
+    it, ft (B, H)) from a state given as `Part`s: the whole state, or under
+    a mesh the rank's pieces of it. Each piece's new value comes from the
+    slices of k, v and the gates it covers, and the output's sums over
+    the pieces (the numerator over C's, the denominator over n's, the
+    stabilizer m itself) are joined over SEQ_AXIS (`join`): a gather where
+    a piece is some heads, an all-reduce where it is some of dk. Returns
+    (h (B, H, d) in fp32, the pieces' new values); nothing is written."""
+    d = qt.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt = (work(t) for t in (qt, kt, vt))
+    logf = F.logsigmoid(ft)
+    m_old = join(m.local, m.sl, tuple(it.shape), m.reduce)
+    m_new = torch.maximum(logf + m_old, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(logf + m_old - m_new)
+    cb, ch, ck, cv = c.sl
+    c_new = f_p[cb, ch][..., None, None] * c.local + i_p[cb, ch][..., None, None] * (
+        kt[cb, ch, ck][..., :, None] * scale * vt[cb, ch, cv][..., None, :])
+    nb, nh, nk = n.sl
+    n_new = f_p[nb, nh][..., None] * n.local + i_p[nb, nh][..., None] * kt[nb, nh, nk] * scale
+    num = join(torch.einsum("bhkv,bhk->bhv", c_new, qt[cb, ch, ck]), (cb, ch, cv),
+               tuple(vt.shape), c.reduce)
+    den = join(torch.einsum("bhk,bhk->bh", n_new, qt[nb, nh, nk]), (nb, nh),
+               tuple(it.shape), n.reduce)
+    denom = torch.maximum(den.abs(), torch.exp(-m_new))
+    return num / denom[..., None], MLSTMState(c_new, n_new, m_new[m.sl])
 
 
 def mlstm_chunked(q, k, v, i_raw, f_raw, state: MLSTMState, *, chunk: int = MLSTM_CHUNK
@@ -204,19 +230,37 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, cache: torch.Tensor | None =
     return out.to(x.dtype), new_cache
 
 
+def conv_step(x: torch.Tensor, w: torch.Tensor, cache: Part
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`causal_conv1d` of one position x (B, 1, C) from the rank's piece of
+    its cache (B, W - 1, C) under a mesh: the depthwise taps on the piece's
+    channels (each channel is its own, so the piece's are the whole's
+    bits), the output joined over the channels (`join`). Returns (y, the
+    piece's new value); nothing is written."""
+    b, _, ch = cache.sl
+    y, new = causal_conv1d(x[b, :, ch], w[:, ch], cache.local)
+    return join(y, (b, slice(None), ch), tuple(x.shape), cache.reduce), new
+
+
 def mlstm_block(p: MLSTMBlock, x: torch.Tensor, cfg: ModelConfig,
                 state: MLSTMState | None, conv_cache: torch.Tensor | None = None, *,
-                chunk: int = MLSTM_CHUNK
+                chunk: int = MLSTM_CHUNK, parts: tuple[Part, ...] | None = None
                 ) -> tuple[torch.Tensor, MLSTMState, torch.Tensor | None]:
     """x: (B, S, D). Returns (out, new state, new conv cache): one position
-    takes the sequential form, a sequence the chunked one."""
+    takes the sequential form, a sequence the chunked one. With `parts`
+    ((c, n, m, conv) `Part`s: a decode step under a mesh) one position
+    takes `mlstm_step` and `conv_step` on the rank's pieces, which are
+    written in place, and no state comes back."""
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
     xin = rms_norm(x, p.ln.scale, cfg.norm_eps)
     up = xin @ p.w_up.to(cfg.dtype)
     xm, z = up.chunk(2, dim=-1)
-    xc, new_conv = causal_conv1d(xm, p.conv, conv_cache)
+    if parts is not None:
+        xc, new_conv = conv_step(xm, p.conv, parts[3])
+    else:
+        xc, new_conv = causal_conv1d(xm, p.conv, conv_cache)
     xc = F.silu(xc)
     q = (xc @ p.wq.to(cfg.dtype)).reshape(b, s, h, hd)
     k = (xc @ p.wk.to(cfg.dtype)).reshape(b, s, h, hd)
@@ -224,9 +268,14 @@ def mlstm_block(p: MLSTMBlock, x: torch.Tensor, cfg: ModelConfig,
     gates = xm.float() @ p.w_if + p.b_if
     i_raw, f_raw = gates.reshape(b, s, 2, h).unbind(dim=2)
 
-    if state is None:
+    if state is None and parts is None:
         state = mlstm_init_state(b, h, hd, hd, device=x.device)
-    if s == 1:
+    if parts is not None:
+        ht, new_state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0], f_raw[:, 0],
+                                   *parts[:3])
+        write(parts, (*new_state, new_conv))
+        ht, new_state, new_conv = ht[:, None], None, None
+    elif s == 1:
         ht, new_state = mlstm_sequential(q, k, v, i_raw, f_raw, state)
     else:
         ht, new_state = mlstm_chunked(q, k, v, i_raw, f_raw, state, chunk=chunk)
@@ -271,12 +320,16 @@ class SLSTMBlock(nn.Module):
 
 
 def slstm_block(p: SLSTMBlock, x: torch.Tensor, cfg: ModelConfig,
-                state: SLSTMState | None) -> tuple[torch.Tensor, SLSTMState]:
+                state: SLSTMState | None, *, parts: tuple[Part, ...] | None = None
+                ) -> tuple[torch.Tensor, SLSTMState | None]:
     """The sLSTM over the time axis, one step a position, then the gated
     FFN (GELU, tanh approximation, as `jax.nn.gelu`). x: (B, S, D). With
     `cfg.slstm_reshard` the gate pre-activations are held in bf16 (the
     recurrence itself stays fp32); the JAX package's resharding around
-    the scan has no counterpart on one card."""
+    the scan has no counterpart on one card. With `parts` ((c, n, m, h)
+    `Part`s: a decode step under a mesh) one position takes `slstm_step`
+    on the rank's pieces, which are written in place, and no state comes
+    back."""
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
@@ -285,31 +338,51 @@ def slstm_block(p: SLSTMBlock, x: torch.Tensor, cfg: ModelConfig,
     if cfg.slstm_reshard:
         wx = wx.to(torch.bfloat16)
     wx = wx.reshape(b, s, 4, h, hd)
-    if state is None:
-        state = slstm_init_state(b, h, hd, device=x.device)
-    c, n, m, hh = state
-    r = p.r_gates                                                # (H, hd, 4 hd)
+    if parts is not None:
+        ht, new = slstm_step(wx[:, 0], p.r_gates, *parts)
+        write(parts, new)
+        return _slstm_ffn(p, ht[:, None], cfg), None
+    state = state if state is not None else slstm_init_state(b, h, hd, device=x.device)
     hs = torch.empty((b, s, h, hd), dtype=torch.float32, device=x.device)
     for t in steps(s):
-        # the recurrent product per head, (H, B, hd) @ (H, hd, 4 hd), as
-        # (B, 4, H, hd) beside the step's input pre-activations
-        rec = torch.bmm(hh.transpose(0, 1), r).reshape(h, b, 4, hd).permute(1, 2, 0, 3)
-        zi, zf, zz, zo = (wx[:, t].float() + rec).unbind(dim=1)
-        logf = F.logsigmoid(zf)
-        lfm = logf + m
-        m_new = torch.maximum(lfm, zi)
-        i_p = torch.exp(zi - m_new)
-        f_p = torch.exp(lfm - m_new)
-        c = f_p * c + i_p * torch.tanh(zz)
-        n = f_p * n + i_p
-        hh = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs[:, t] = hh
-    ht = hs.reshape(b, s, d).to(cfg.dtype)
+        hs[:, t], state = slstm_step(wx[:, t], p.r_gates, *map(whole, state))
+    return _slstm_ffn(p, hs, cfg), state
+
+
+def _slstm_ffn(p: SLSTMBlock, hs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The recurrence's outputs hs (B, S, H, hd) fp32 through the group-norm
+    stand-in and the gated FFN."""
+    b, s = hs.shape[:2]
+    ht = hs.reshape(b, s, cfg.d_model).to(cfg.dtype)
     ht = rms_norm(ht, p.gn, cfg.norm_eps)
     g, u = (ht @ p.w_up.to(cfg.dtype)).chunk(2, dim=-1)
-    out = (F.gelu(g, approximate="tanh") * u) @ p.w_down.to(cfg.dtype)
-    return out, SLSTMState(c, n, m, hh)
+    return (F.gelu(g, approximate="tanh") * u) @ p.w_down.to(cfg.dtype)
+
+
+def slstm_step(wx: torch.Tensor, r: torch.Tensor, c: Part, n: Part, m: Part, hh: Part
+               ) -> tuple[torch.Tensor, SLSTMState]:
+    """The sLSTM recurrence of one position (wx (B, 4, H, hd), the gate
+    pre-activations; r (H, hd, 4 hd)) from a state given as `Part`s, placed
+    alike: the whole state, or under a mesh the rank's pieces of it. The
+    previous output h is joined whole (`join`: the recurrent product per
+    head reads all of its hd), the gates' pre-activations are sliced to
+    the pieces, and the new h is joined whole. Returns (h (B, H, hd) fp32,
+    the pieces' new values); nothing is written."""
+    b, _, heads, hd = wx.shape
+    h_old = join(hh.local, hh.sl, (b, heads, hd), hh.reduce)
+    # the recurrent product per head, (H, B, hd) @ (H, hd, 4 hd), as
+    # (B, 4, H, hd) beside the step's input pre-activations
+    rec = torch.bmm(h_old.transpose(0, 1), r).reshape(heads, b, 4, hd).permute(1, 2, 0, 3)
+    zi, zf, zz, zo = (t[c.sl] for t in (wx.float() + rec).unbind(dim=1))
+    logf = F.logsigmoid(zf)
+    lfm = logf + m.local
+    m_new = torch.maximum(lfm, zi)
+    i_p = torch.exp(zi - m_new)
+    f_p = torch.exp(lfm - m_new)
+    c_new = f_p * c.local + i_p * torch.tanh(zz)
+    n_new = f_p * n.local + i_p
+    h_new = torch.sigmoid(zo) * c_new / torch.clamp(n_new, min=1e-6)
+    return join(h_new, c.sl, (b, heads, hd), c.reduce), SLSTMState(c_new, n_new, m_new, h_new)
 
 
 # ---------------------------------------------------------------------------
@@ -364,11 +437,15 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
 
     Under a mesh (tokens a DTensor) each block is a `seq_region`: the scan
     runs over the whole sequence on every rank of the sequence axis, and
-    a prefill's states come from the regions, placed by the cache's rules.
-    There only a prefill takes states: `prefill` says they are
-    `xlstm_init_states`' zeros; a decode step on a mesh raises."""
+    a prefill's states come from the regions, placed by the cache's rules
+    (`prefill` says the states given are `xlstm_init_states`' zeros). A
+    decode step on a mesh takes the states at their placements, each block
+    a `state_region` that updates the rank's pieces in place
+    (`_xlstm_decode_sharded`)."""
     if in_region(tokens):
-        return _xlstm_sharded(params, cfg, tokens, states, chunk, prefill)
+        if states is not None and not prefill:
+            return _xlstm_decode_sharded(params, cfg, tokens, states)
+        return _xlstm_sharded(params, cfg, tokens, states, chunk)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -399,14 +476,10 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _xlstm_sharded(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
-                   states: dict | None, chunk: int, from_zero: bool
-                   ) -> tuple[torch.Tensor, dict | None]:
-    """`xlstm_forward` under a mesh, from zero states (a prefill: its
-    final states returned). A decode step, states that are not a prefill's
-    zeros, raises: it is not ported."""
-    if states is not None and not from_zero:
-        raise NotImplementedError("the xLSTM on a mesh runs from zero states: its loss and "
-                                  "its prefill (decode on a mesh: ROADMAP.md item 7)")
+                   states: dict | None, chunk: int) -> tuple[torch.Tensor, dict | None]:
+    """`xlstm_forward` under a mesh from zero states: the loss's forward, or
+    a prefill (`states`: `xlstm_init_states`' zeros, which it does not
+    read), whose final states are returned."""
     prefill = states is not None
     remat = not prefill and remat_on(cfg)
     heads, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
@@ -451,6 +524,39 @@ def _xlstm_sharded(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
                         for g in range(n_groups)])
     slstm = tuple(torch.stack([new_s[g][j] for g in range(n_groups)]) for j in range(4))
     return logits, {"mlstm": mlstm, "slstm": slstm, "conv": conv}
+
+
+def _xlstm_decode_sharded(params: XLSTM, cfg: ModelConfig, tokens: torch.Tensor,
+                          states: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step of `xlstm_forward` under a mesh: tokens (B, 1) placed
+    by `input_pspecs` (batch over the batch axes), the states by
+    `cache_pspecs` (batch over SEQ_AXIS where it divides B, else a head
+    dim, or a stacked axis). Each block is a `state_region`: its
+    activations move to the rows its states hold and back, and it updates
+    the rank's pieces of its states in place (`mlstm_step`, `slstm_step`,
+    `conv_step`), as the mesh-free decode updates the whole ones. Returns
+    (logits, states)."""
+    h = sharded_embed(params.embed, tokens, cfg)
+    m_leaves = (*states["mlstm"], states["conv"])
+
+    def m_fn(g, i):
+        def fn(blk, x, dims, *local):
+            parts = tuple(state_part(t, (g, i), d) for t, d in zip(local, dims))
+            return x + mlstm_block(blk, x, cfg, None, parts=parts)[0]
+        return fn
+
+    def s_fn(g):
+        def fn(blk, x, dims, *local):
+            parts = tuple(state_part(t, (g,), d) for t, d in zip(local, dims))
+            return x + slstm_block(blk, x, cfg, None, parts=parts)[0]
+        return fn
+
+    for g, (group, sblock) in enumerate(zip(params.mlstm, params.slstm)):
+        for i, block in enumerate(group):
+            h = state_region(m_fn(g, i), block, constrain(h, activation_spec()), m_leaves, 2)
+        h = state_region(s_fn(g), sblock, constrain(h, activation_spec()), states["slstm"], 1)
+    h = constrain(h, activation_spec())
+    return final_logits(h, params.ln_final.scale, params.embed, cfg), states
 
 
 def _mlstm_residual(block: MLSTMBlock, h: torch.Tensor, cfg: ModelConfig, chunk: int

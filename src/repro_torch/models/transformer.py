@@ -49,6 +49,7 @@ from repro_torch.models.layers import (
     rms_norm,
     seq_chunk,
     seq_shard,
+    sharded_axes,
 )
 
 
@@ -162,10 +163,13 @@ def _cached_layer_region(p: DecoderLayer, h: torch.Tensor, positions: torch.Tens
                          cfg: ModelConfig, window: int, cache: dict
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """A layer with a decode cache under a mesh: the cache's K/V shards are
-    written in place inside the region."""
+    written in place inside the region, and the split softmax reduces over
+    the axes that shard their sequence."""
+    axes = sharded_axes(cache["k"], 1)
+
     def fn(layer, hh, pp, ck, cv, pos):
         out, _, aux = decoder_layer(layer, hh, cfg, positions=pp, window=window,
-                                    cache={"k": ck, "v": cv, "pos": pos})
+                                    cache={"k": ck, "v": cv, "pos": pos, "axes": axes})
         return out, aux
 
     return region(fn, p, (h, positions, cache["k"], cache["v"], cache["pos"]),
@@ -709,19 +713,18 @@ def encdec_hidden(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     of `dec_pos` clamped into the table, as `jax.lax.dynamic_slice_in_dim`
     clamps them). With `caches` ({"k", "v", "pos", "ck", "cv"}) the
     self-attention K/V are written in place and the cross-attention reads
-    "ck"/"cv" (enc_out is not read); without, it attends over enc_out."""
+    "ck"/"cv" (enc_out is not read); without, it attends over enc_out.
+    Under a mesh the positions start at caches["pos"][0] (which is every
+    caller's pos_offset), or at 0 without caches."""
     b, s = tokens.shape
     dev = tokens.device
     if in_region(tokens):
-        if not isinstance(pos_offset, int) or pos_offset:
-            raise NotImplementedError("whisper's decoder on a mesh runs from position 0: "
-                                      "its loss and its prefill (decode on a mesh: ROADMAP.md)")
+        if caches is None and not (isinstance(pos_offset, int) and pos_offset == 0):
+            raise ValueError("whisper's decoder on a mesh without caches runs from position 0")
         return _encdec_hidden_sharded(params, cfg, tokens, enc_out, caches)
+    h = params.embed.to(cfg.dtype)[tokens] + _dec_pos_rows(params.dec_pos, pos_offset, s, cfg)
     steps = torch.arange(s, dtype=torch.int32, device=dev)
     positions = (pos_offset + steps).expand(b, s)
-    start = torch.as_tensor(pos_offset, device=dev).clamp(0, params.dec_pos.shape[0] - s)
-    pos_emb = params.dec_pos.to(cfg.dtype).index_select(0, (start + steps).long())
-    h = params.embed.to(cfg.dtype)[tokens] + pos_emb[None]
     remat = caches is None and remat_on(cfg)
     for i, layer in enumerate(params.dec_layers):
         if caches is not None:
@@ -739,37 +742,69 @@ def encdec_hidden(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     return h, new_caches
 
 
+def _dec_pos_rows(table: torch.Tensor, pos_offset: torch.Tensor | int, s: int,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Rows pos_offset .. pos_offset + s - 1 of the decoder's position table
+    as (1, s, D) in the activation dtype, the start clamped into the table
+    as `jax.lax.dynamic_slice_in_dim` clamps it."""
+    steps = torch.arange(s, dtype=torch.int32, device=table.device)
+    start = torch.as_tensor(pos_offset, device=table.device).clamp(0, table.shape[0] - s)
+    return table.to(cfg.dtype).index_select(0, (start + steps).long())[None]
+
+
 def _encdec_hidden_sharded(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                            enc_out: torch.Tensor | None, caches: dict | None
                            ) -> tuple[torch.Tensor, dict | None]:
-    """`encdec_hidden` under a mesh from position 0: each rank's tokens with
-    their rows of the position table, each layer a region; cache-free, the
-    encoder's output whole over the sequence axis (the cross-attention's K
-    and V); with caches (a prefill), the self-attention caches written in
-    place (`attention_block`) and the static cross caches whole over the
-    sequence axis."""
-    def embed(_, toks, emb, table):
-        sh = seq_shard()
-        lo = sh.index * toks.shape[1] if sh.seq else 0
-        rows = table.to(cfg.dtype)[lo:lo + toks.shape[1]]
-        return emb.to(cfg.dtype)[toks] + rows[None]
+    """`encdec_hidden` under a mesh: each rank's tokens with their rows of
+    the position table, from position 0 without caches (the loss) and
+    from caches["pos"][0] with them (a prefill's is 0; the callers' pos_offset
+    is it), clamped as the mesh-free path clamps them; each layer a region.
+    Cache-free, the cross-attention's K and V come from the encoder's
+    output, whole over the sequence axis. With caches (a prefill, or a
+    decode step: tokens and caches placed by `input_pspecs` and
+    `cache_pspecs`), the self-attention writes the tokens' K/V in their
+    slots (the rank that holds each) and takes the split softmax over the
+    cache's shards of the sequence (`attention_block`); the
+    cross-attention reads "ck"/"cv" at their placements, the batch over
+    the batch axes, the sequence sharded where "model" divides the frames
+    (joined by the split softmax without causality) or whole (1,500 at full
+    width). Where a prefill's activations shard their sequence, each rank
+    of it holds other queries, so there the cross caches are taken whole
+    over the sequence. No cache is gathered, nor the cross-attention's K
+    and V weights, which the cached step does not read."""
+    s = tokens.shape[1]
+    at = () if caches is None else (caches["pos"],)
 
-    h = region(embed, None, (tokens,), tuple(tokens.placements),
+    def embed(_, toks, *rest):
+        sh = seq_shard()
+        start = sh.index * toks.shape[1] if sh.seq else 0
+        if at:
+            start = rest[0][0] + start
+        emb, table = rest[-2:]
+        return emb.to(cfg.dtype)[toks] + _dec_pos_rows(table, start, toks.shape[1], cfg)
+
+    h = region(embed, None, (tokens, *at), tuple(tokens.placements),
                whole=(params.embed, params.dec_pos))
     if caches is not None:
-        whole = (None, BATCH_AXES, None, None, None)
-        ck, cv = constrain(caches["ck"], whole), constrain(caches["cv"], whole)
+        ck, cv = caches["ck"], caches["cv"]
+        if sharded_axes(constrain(h, activation_spec()), 1):
+            whole = (None, BATCH_AXES, None, None, None)
+            ck, cv = constrain(ck, whole), constrain(cv, whole)
+        axes, cross = sharded_axes(caches["k"], 2), sharded_axes(ck, 2)
 
         def cached(p, x, k, v, pos, xk, xv):
             pp = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
-            return crossdec_layer(p, x, cfg, pp, None, {"k": k, "v": v, "pos": pos},
-                                  {"k": xk, "v": xv})
+            return crossdec_layer(p, x, cfg, pp, None, {"k": k, "v": v, "pos": pos, "axes": axes},
+                                  {"k": xk, "v": xv, "axes": cross})
 
+        unread = tuple(f"cross_attn.{n}" for n, _ in
+                       params.dec_layers[0].cross_attn.named_parameters()
+                       if n in ("wk", "wv", "bk", "bv"))
         for i, layer in enumerate(params.dec_layers):
             h = constrain(h, activation_spec())
             h = region(cached, layer, (h, caches["k"][i], caches["v"][i], caches["pos"][i],
-                                       ck[i], cv[i]), tuple(h.placements))
-        return _ln(params.dec_ln_final, h, cfg), dict(caches, pos=caches["pos"] + tokens.shape[1])
+                                       ck[i], cv[i]), tuple(h.placements), unread=unread)
+        return _ln(params.dec_ln_final, h, cfg), dict(caches, pos=caches["pos"] + s)
     enc = constrain(enc_out, (BATCH_AXES, None, None))
     remat = remat_on(cfg)
 

@@ -30,6 +30,9 @@ from repro_torch.models.layers import (
     region,
     rms_norm,
     seq_region,
+    sharded_axes,
+    state_part,
+    state_region,
 )
 from repro_torch.models.mamba import (
     Mamba2Block,
@@ -122,11 +125,16 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
     Under a mesh (tokens a DTensor) each Mamba2 block is a `seq_region`
     (its scan over the whole sequence on every rank of the sequence axis)
     and each application of the shared block a region whose queries are
-    the rank's; a prefill's Mamba2 states come from the regions. There
-    only a prefill takes states: `prefill` says they are
-    `zamba_init_states`' zeros; a decode step on a mesh raises."""
+    the rank's; a prefill's Mamba2 states come from the regions (`prefill`
+    says the states given are `zamba_init_states`' zeros). A decode step
+    on a mesh takes the states at their placements: each Mamba2 block a
+    `state_region` that updates the rank's pieces in place, each
+    application of the shared block the split softmax over its K/V cache's
+    shards (`_zamba_decode_sharded`)."""
     if in_region(tokens):
-        return _zamba_sharded(params, cfg, tokens, positions, states, chunk, prefill)
+        if states is not None and not prefill:
+            return _zamba_decode_sharded(params, cfg, tokens, positions, states)
+        return _zamba_sharded(params, cfg, tokens, positions, states, chunk)
     h = params.embed.to(cfg.dtype)[tokens]
     decode = states is not None
     remat = not decode and remat_on(cfg)
@@ -157,15 +165,11 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def _zamba_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
-                   positions: torch.Tensor, states: dict | None, chunk: int | None,
-                   from_zero: bool) -> tuple[torch.Tensor, dict | None]:
-    """`zamba_forward` under a mesh, from zero states (a prefill writes the
-    shared block's K/V caches in place and returns the Mamba2 states). A
-    decode step, states that are not a prefill's zeros, raises: it is not
-    ported."""
-    if states is not None and not from_zero:
-        raise NotImplementedError("Zamba2 on a mesh runs from zero states: its loss and its "
-                                  "prefill (decode on a mesh: ROADMAP.md item 7)")
+                   positions: torch.Tensor, states: dict | None, chunk: int | None
+                   ) -> tuple[torch.Tensor, dict | None]:
+    """`zamba_forward` under a mesh from zero states: the loss's forward, or a
+    prefill (`states`: `zamba_init_states`' zeros), which writes the shared
+    block's K/V caches in place and returns the Mamba2 states."""
     prefill = states is not None
     remat = not prefill and remat_on(cfg)
     h = sharded_embed(params.embed, tokens, cfg)
@@ -181,8 +185,10 @@ def _zamba_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
     def m_step(blk, x):
         return seq_region(m_fn, blk, x)[0]
 
+    axes = sharded_axes(states["attn_k"], 2) if prefill else ()
+
     def shared(p, x, pp, *cache):
-        c = dict(zip(("k", "v", "pos"), cache)) if cache else None
+        c = dict(zip(("k", "v", "pos"), cache), axes=axes) if cache else None
         return shared_block(p, x, cfg, positions=pp, cache=c)[0]
 
     for g, group in enumerate(params.mamba):
@@ -205,6 +211,42 @@ def _zamba_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
                           for g in range(n_groups)]) for j in range(2)]
     return logits, dict(states, mamba_h=stack[0], mamba_conv=stack[1],
                         attn_pos=states["attn_pos"] + tokens.shape[1])
+
+
+def _zamba_decode_sharded(params: Zamba, cfg: ModelConfig, tokens: torch.Tensor,
+                          positions: torch.Tensor, states: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step of `zamba_forward` under a mesh: tokens (B, 1) and
+    positions placed by `input_pspecs`, the states by `cache_pspecs`. Each
+    Mamba2 block is a `state_region` (`ssd_step`, `conv_step` on the
+    rank's pieces of "mamba_h" and "mamba_conv", in place); each
+    application of the shared block attends over its group's K/V cache,
+    sharded on its sequence over SEQ_AXIS, or over ("data", SEQ_AXIS) for
+    one long sequence, by the split softmax, the new token's K/V written
+    in its slot by the rank that holds it. "attn_pos" advances by one, as
+    the mesh-free step's."""
+    h = sharded_embed(params.embed, tokens, cfg)
+    leaves = (states["mamba_h"], states["mamba_conv"])
+    axes = sharded_axes(states["attn_k"], 2)
+
+    def m_fn(g, i):
+        def fn(blk, x, dims, *local):
+            parts = tuple(state_part(t, (g, i), d) for t, d in zip(local, dims))
+            return x + mamba2_block(blk, x, cfg, None, parts=parts)[0]
+        return fn
+
+    def shared(p, x, pp, k, v, pos):
+        return shared_block(p, x, cfg, positions=pp,
+                            cache={"k": k, "v": v, "pos": pos, "axes": axes})[0]
+
+    for g, group in enumerate(params.mamba):
+        for i, block in enumerate(group):
+            h = state_region(m_fn(g, i), block, constrain(h, activation_spec()), leaves, 2)
+        h = constrain(h, activation_spec())
+        h = region(shared, params.shared, (h, positions, states["attn_k"][g],
+                                           states["attn_v"][g], states["attn_pos"][g]),
+                   tuple(h.placements))
+    logits = final_logits(h, params.ln_final.scale, params.embed, cfg)
+    return logits, dict(states, attn_pos=states["attn_pos"] + tokens.shape[1])
 
 
 def _mamba_residual(block: Mamba2Block, h: torch.Tensor, cfg: ModelConfig,

@@ -36,9 +36,23 @@ mesh-free paths, on the CPU.
         magnitude, aux at rtol 1e-6);
       - decode over a K/V cache sharded on its sequence (the split
         softmax) against the mesh-free decode: the logits of a prefill and
-        3 steps at rtol 1e-5, atol 1e-5.
+        3 steps at rtol 1e-5, atol 1e-5;
+      - decode of the reduced gemma2-2b, xlstm-350m, zamba2-7b and
+        whisper-medium in fp32 at B = 4 and B = 1 (the K/V sequence over
+        ("data", "model"), the recurrent states on a head dim or a stacked
+        axis), the cache at `cache_pspecs`' placements: a prefill and 3
+        steps against the mesh-free decode (rtol, atol 1e-5) and against
+        the JAX package's jitted decode_fn on a (2, 2) mesh of its forced
+        devices with the cache placed by its `cache_pspecs` (rtol, atol
+        1e-4); a step from zero states differs by more than 1e-2.
+  * The reduced xLSTM, Zamba2 and whisper decode cells (B = 8 and 1) on a
+    (2, 4) mesh: the arguments the port's step reads, per device, equal
+    the JAX compile's argument size.
+  * On the (1, 1) host mesh, the recurrent families' prefill and a decode
+    step bit for bit the mesh-free ones, and the zero-state plant.
   * The mesh dry-run (`launch/dryrun.py --mesh`): one full-size cell's
-    record on the 16 x 16 mesh, and the cost counter's collectives.
+    record on the 16 x 16 mesh, the cost counter's collectives, and the
+    decode cells with zamba2-7b's long_500k on 2 x 16 x 16.
 """
 import dataclasses
 import json
@@ -75,6 +89,16 @@ MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x4": ((2, 4), ("data", "model"))}
 #: the subprocesses' limit; both take some 20 s
 RUN_TIMEOUT_S = 240
+#: the configs whose decode on a (2, 2) mesh is held to the mesh-free
+#: decode and to the JAX package's (tests/torch_mesh_ranks.py,
+#: tests/torch_mesh_jax.py)
+DECODE_ARCHS = ("gemma2-2b", "xlstm-350m", "zamba2-7b", "whisper-medium")
+#: reduced variants, run at B = 1, whose states shard as the full-width
+#: long_500k cell's: one xLSTM head (C and n over dk, m whole, the sLSTM
+#: over hd, the conv over channels), one group of three Mamba2 layers
+#: (mamba_h over heads, its conv over channels)
+DECODE_VARIANTS = {"xlstm-350m.h1": ("xlstm-350m", {"n_heads": 1, "n_kv_heads": 1}),
+                   "zamba2-7b.g3": ("zamba2-7b", {"n_layers": 3, "attn_every": 3})}
 
 
 def _amesh(name: str) -> AbstractMesh:
@@ -220,6 +244,17 @@ def _inputs(d: Path) -> None:
     flat["moe/w_up"] = rng.normal(0, d_ ** -0.5, (ep, d_, f)).astype(np.float32)
     flat["moe/w_down"] = rng.normal(0, f ** -0.5, (ep, f, d_)).astype(np.float32)
     flat["moe_x"] = rng.normal(0, 1, (4, 64, d_)).astype(np.float32)
+    for arch in DECODE_ARCHS + tuple(DECODE_VARIANTS):
+        base, changes = DECODE_VARIANTS.get(arch, (arch, {}))
+        jc = dataclasses.replace(jreduced(JREGISTRY[base]), dtype=jnp.float32,
+                                 param_dtype=jnp.float32, **changes)
+        tree = japi.build_model(jc).init(jax.random.PRNGKey(1))
+        flat.update({f"{arch}/" + "/".join(str(getattr(q, "key", q)) for q in path): np.asarray(v)
+                     for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+        flat[f"dec/{arch}/tokens"] = rng.integers(0, jc.vocab_size, (4, 19), dtype=np.int32)
+        if jc.family == "audio":
+            flat[f"dec/{arch}/frames"] = rng.normal(
+                0, 1, (4, jc.encoder_seq, jc.d_model)).astype(np.float32)
     np.savez(d / "inputs.npz", **flat)
 
 
@@ -244,7 +279,9 @@ def runs(tmp_path_factory):
         assert p.returncode == 0, f"{name} failed:\n{logs[name][-4000:]}"
     return dict(cells=json.loads((d / "cells.json").read_text()),
                 step=dict(np.load(d / "step.npz")), ep=dict(np.load(d / "ep.npz")),
-                ranks=dict(np.load(d / "ranks.npz")))
+                ranks=dict(np.load(d / "ranks.npz")),
+                decode_cells=json.loads((d / "decode_cells.json").read_text()),
+                decode=dict(np.load(d / "decode.npz")))
 
 
 def _jtree(flat: dict, prefix: str) -> dict:
@@ -339,14 +376,94 @@ def test_sequence_sharded_decode_matches_the_unsharded_decode(runs):
 
 
 # ---------------------------------------------------------------------------
-# Decode on a mesh: ported for the decoders' K/V caches only
+# Decode on a mesh: the recurrent states, the split softmax over two axes
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
-def test_recurrent_decode_on_a_mesh_raises_and_prefill_matches(arch):
-    """The xLSTM's and Zamba2's decode on a mesh is not ported: a decode
-    step raises (it once ran a one-token prefill from zero states), while
-    a prefill of 16 tokens on the (1, 1) host mesh gives the mesh-free
-    logits. Reduced configs in fp32, on a gloo group of one rank."""
+@pytest.mark.parametrize("arch", DECODE_ARCHS[1:])
+def test_decode_cell_bytes_match_the_jax_compile(arch, runs):
+    """The reduced decode cells (S = 64) at B = 8 (the batch over "data",
+    the recurrent states' batch over "model") and B = 1 (the K/V sequence
+    over ("data", "model"), the states on a head dim or a stacked axis) on
+    a (2, 4) mesh: the arguments the port's step reads, per device, equal
+    the JAX compile's argument size, which counts only the arguments its
+    program uses (whisper's decode reads no encoder weight and no
+    cross-attention K or V weight)."""
+    for b in (8, 1):
+        with lmesh.fake_world(8):
+            from torch.distributed.device_mesh import init_device_mesh
+
+            m = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+            counter = dryrun.lower_cell(reduced(REGISTRY[arch]),
+                                        api.ShapeSpec("mesh_test", 64, b, "decode"), m)[0]
+        assert counter.read_argument_bytes == runs["decode_cells"][f"{arch}/{b}"], (arch, b)
+        if arch != "whisper-medium":
+            assert counter.read_argument_bytes == counter.argument_bytes
+
+
+@pytest.mark.parametrize("b", [4, 1])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_mesh_decode_matches_the_mesh_free_decode(arch, b, runs):
+    """A prefill of 16 tokens and 3 decode steps on the (2, 2) mesh, the
+    cache at `cache_pspecs`' placements, against the port's mesh-free
+    decode (rtol, atol 1e-5), the logits and the final cache gathered
+    whole (each shard its own slots: at B = 1 a split softmax that
+    reduced over "model" alone kept the "data" ranks' slots as copies of
+    the first ones'); a step from `init_cache`'s zeros differs
+    from the first step by more than 1e-2 (a step that ran a one-token
+    prefill from zero states would not)."""
+    r = runs["ranks"]
+    key = f"family/{arch}/{b}"
+    assert bool(r[f"{key}/as_specs"]), str(r[f"{key}/placements"])
+    placed = json.loads(str(r[f"{key}/placements"]))
+    kv = {"gemma2-2b": "k", "zamba2-7b": "attn_k", "whisper-medium": "k"}.get(arch)
+    if kv is not None:
+        want = "(Shard(dim=2), Shard(dim=2))" if b == 1 else "(Shard(dim=1), Shard(dim=2))"
+        assert placed[kv] == want, placed
+    np.testing.assert_allclose(r[f"{key}/mesh"], r[f"{key}/free"], rtol=1e-5, atol=1e-5)
+    assert float(r[f"{key}/cache_err"]) <= 1e-5
+    assert float(np.abs(r[f"{key}/zero"] - r[f"{key}/mesh"][1]).max()) > 1e-2
+
+
+@pytest.mark.parametrize("b", [4, 1])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_mesh_decode_matches_jax_on_a_mesh(arch, b, runs):
+    """The same prefill and 3 steps against the JAX package's jitted
+    decode_fn on a (2, 2) mesh of forced CPU devices, the cache placed by
+    its `cache_pspecs`, at tests/test_torch_ssm.py's fp32 tolerance."""
+    np.testing.assert_allclose(runs["ranks"][f"family/{arch}/{b}/mesh"],
+                               runs["decode"][f"{arch}/{b}"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,placed", [
+    ("xlstm-350m.h1", {"mlstm/0": 4, "mlstm/1": 4, "mlstm/2": None, "slstm/0": 3, "conv": 4}),
+    ("zamba2-7b.g3", {"mamba_h": 3, "mamba_conv": 4})])
+def test_mesh_decode_with_states_on_a_head_dim(name, placed, runs):
+    """The variants at B = 1, their states sharded over "model" as the
+    full-width long_500k cell's (C's dk, the sLSTM's hd, Mamba2's heads,
+    the convs' channels; the mLSTM's m whole): the pieces' partial sums
+    all-reduced. Against the mesh-free decode (1e-5) and the JAX package's
+    decode on a (2, 2) mesh (1e-4); the zero-state plant."""
+    r = runs["ranks"]
+    key = f"family/{name}/1"
+    got = json.loads(str(r[f"{key}/placements"]))
+    for leaf, dim in placed.items():
+        want = "(Replicate(), Replicate())" if dim is None else f"(Replicate(), Shard(dim={dim}))"
+        assert got[leaf] == want, (leaf, got[leaf])
+    assert bool(r[f"{key}/as_specs"])
+    np.testing.assert_allclose(r[f"{key}/mesh"], r[f"{key}/free"], rtol=1e-5, atol=1e-5)
+    assert float(r[f"{key}/cache_err"]) <= 1e-5
+    np.testing.assert_allclose(r[f"{key}/mesh"], runs["decode"][f"{name}/1"], rtol=1e-4,
+                               atol=1e-4)
+    assert float(np.abs(r[f"{key}/zero"] - r[f"{key}/mesh"][1]).max()) > 1e-2
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS[1:])
+def test_recurrent_decode_on_a_mesh_reads_its_states(arch):
+    """On the (1, 1) host mesh (a gloo group of one rank), reduced configs
+    in fp32: a prefill of 16 tokens gives the mesh-free logits, bit for
+    bit; a decode step after it gives the mesh-free step's logits and
+    states, bit for bit, and differs by more than 1e-2 from a step taken
+    from `init_cache`'s zeros: the plant that catches a step that does not
+    read its states (a one-token prefill from zeros)."""
     from repro_torch.launch.train import shard_module, shardings_of
     from repro_torch.models.layers import active_mesh, distribute
 
@@ -357,19 +474,33 @@ def test_recurrent_decode_on_a_mesh_raises_and_prefill_matches(arch):
     rng = np.random.default_rng(31)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int64))
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int64))
+    batch = {"tokens": prompt}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(0, 1, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
-        free = model.prefill_fn(params, {"tokens": prompt})["logits"]
+        out = model.prefill_fn(params, batch)
+        free_cache, free = model.decode_fn(params, out["cache"], {"tokens": nxt})
+        free_pre = out["logits"]
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
     mesh = lmesh.make_host_mesh(device="cpu")
     try:
         shard_module(params, shardings_of(api.param_pspecs(cfg, params, mesh), mesh), mesh)
+        shape = api.ShapeSpec("mesh_test", 16, 2, "prefill")
+        ips = api.input_pspecs(cfg, shape, mesh)
+        step = {"tokens": distribute(nxt, (("data",), None), mesh)}
         with torch.no_grad(), active_mesh(mesh):
-            out = model.prefill_fn(params, {"tokens": distribute(prompt, (("data",), "model"))})
-            got = out["logits"]
-            got = got.full_tensor() if hasattr(got, "full_tensor") else got
-            np.testing.assert_array_equal(got.numpy(), free.numpy())
-            with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
-                model.decode_fn(params, out["cache"],
-                                {"tokens": distribute(nxt, (("data",), None))})
+            out = model.prefill_fn(params, {k: distribute(v, ips[k]) for k, v in batch.items()})
+            np.testing.assert_array_equal(whole(out["logits"]).numpy(), free_pre.numpy())
+            cache, got = model.decode_fn(params, out["cache"], step)
+            _, zero = model.decode_fn(params, model.init_cache(2, 16 + 64), step)
+        np.testing.assert_array_equal(whole(got).numpy(), free.numpy())
+        for (k, a), (_, c) in zip(_flat(free_cache, free_cache), _flat(cache, free_cache)):
+            np.testing.assert_array_equal(whole(c).numpy(), a.numpy(), err_msg="/".join(k))
+        assert float((whole(zero) - free).abs().max()) > 1e-2
     finally:
         lmesh.close_host_group()
 
@@ -377,6 +508,32 @@ def test_recurrent_decode_on_a_mesh_raises_and_prefill_matches(arch):
 # ---------------------------------------------------------------------------
 # The mesh dry-run
 # ---------------------------------------------------------------------------
+def test_mesh_dryrun_runs_the_decode_cells_and_the_two_axis_shard():
+    """`--mesh` runs the 24 decode cells too (decode_32k for the ten
+    configs, long_500k for the xLSTM and Zamba2, on each mesh); zamba2-7b's
+    long_500k on 2 x 16 x 16 ends ok with the split softmax's all-reduces
+    counted, and its per-device attn_k is 1/256 of the one-card cache's:
+    the one sequence sharded over ("data", "model")."""
+    from repro_torch.models.layers import active_mesh
+
+    decode = [c for c in dryrun.all_cells() if api.shape_by_name(c[1]).kind == "decode"]
+    assert len(decode) == 12
+    rec = dryrun.run_cell("zamba2-7b", "long_500k", save=False, mesh="multi")
+    assert rec["ok"], rec.get("error")
+    assert rec["mesh"] == "2x16x16" and rec["collective_counts"]["all-reduce"] > 0
+    assert rec["collective_bytes"]["all-reduce"] > 0
+    cfg = REGISTRY["zamba2-7b"]
+    shape = api.shape_by_name("long_500k")
+    with lmesh.fake_world(512):
+        m = lmesh.make_production_mesh(multi_pod=True, device="meta")
+        with active_mesh(m):
+            cache = api.build_model(cfg, device="meta").init_cache(shape.global_batch,
+                                                                    shape.seq_len)
+    k = cache["attn_k"]
+    assert k.to_local().numel() * 256 == k.numel()
+    assert k.to_local().shape[2] * 256 == shape.seq_len
+
+
 def test_mesh_dryrun_record_on_the_pod_mesh():
     """gemma2-2b's train_4k on 16 x 16: the record's per-device fields, the
     collectives by kind, and the per-device flops a 256th of the one-card

@@ -12,7 +12,16 @@ reads DIR/inputs.npz (written by the test) and writes into DIR:
     (2, 2) mesh from the inputs' parameters and batch: loss, grad_norm,
     lr and the new parameters by the port's names;
   - ep.npz: `_moe_ep_shard_map` of the reduced granite-moe-3b-a800m (opt,
-    fp32) on a (2, 2) mesh on the inputs' tokens and MoE weights.
+    fp32) on a (2, 2) mesh on the inputs' tokens and MoE weights;
+  - decode_cells.json: the reduced xlstm-350m, zamba2-7b and whisper-medium
+    decode cells (S = 64, B = 8 and B = 1) compiled on a (2, 4) mesh:
+    per-device argument bytes;
+  - decode.npz: the reduced gemma2-2b, xlstm-350m, zamba2-7b and
+    whisper-medium in fp32 from the inputs' parameters, at B = 4 and B = 1
+    (and two variants at B = 1, `DECODE_VARIANTS`):
+    a prefill of 16 tokens, then 3 steps of the jitted `decode_fn` on a
+    (2, 2) mesh with the cache placed by `cache_pspecs` and the tokens by
+    `input_pspecs`: the prefill's and each step's logits.
 """
 import os
 import sys
@@ -123,12 +132,73 @@ def ep(inputs: dict, out: Path) -> None:
     np.savez(out / "ep.npz", out=np.asarray(y), aux=np.asarray(aux))
 
 
+#: the configs whose decode on a mesh the test holds to the JAX package's,
+#: and reduced variants (B = 1 only) whose states shard as the full-width
+#: long_500k cell's (tests/torch_mesh_ranks.py)
+DECODE_ARCHS = ("gemma2-2b", "xlstm-350m", "zamba2-7b", "whisper-medium")
+DECODE_VARIANTS = {"xlstm-350m.h1": ("xlstm-350m", {"n_heads": 1, "n_kv_heads": 1}),
+                   "zamba2-7b.g3": ("zamba2-7b", {"n_layers": 3, "attn_every": 3})}
+
+
+def decode_cases():
+    def fp32(arch, **changes):
+        return dataclasses.replace(reduced(REGISTRY[arch]), dtype=jnp.float32,
+                                   param_dtype=jnp.float32, **changes)
+
+    return [(a, fp32(a), (4, 1)) for a in DECODE_ARCHS] + [
+        (n, fp32(a, **ch), (1,)) for n, (a, ch) in DECODE_VARIANTS.items()]
+
+
+def decode_cells(out: Path) -> None:
+    mesh = jax.make_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8])
+    rec = {}
+    for arch in DECODE_ARCHS[1:]:
+        cfg = reduced(REGISTRY[arch])
+        for b in (8, 1):
+            shape = japi.ShapeSpec("mesh_test", 64, b, "decode")
+            compiled = jdry.lower_cell(cfg, shape, mesh).compile()
+            rec[f"{arch}/{b}"] = int(compiled.memory_analysis().argument_size_in_bytes)
+    (out / "decode_cells.json").write_text(json.dumps(rec, indent=1))
+
+
+def decode(inputs: dict, out: Path) -> None:
+    mesh = _mesh22()
+    res = {}
+    for arch, cfg, batches in decode_cases():
+        model = japi.build_model(cfg)
+        params = unflatten(inputs, f"{arch}/")
+        params_sh = jtrain.shardings_of(japi.param_pspecs(cfg, params, mesh), mesh)
+        for b in batches:
+            toks = inputs[f"dec/{arch}/tokens"][:b]
+            batch = {"tokens": jnp.asarray(toks[:, :16])}
+            if cfg.family == "audio":
+                batch["frames"] = jnp.asarray(inputs[f"dec/{arch}/frames"][:b])
+            pre = jax.jit(model.prefill_fn)(params, batch)
+            shape = japi.ShapeSpec("mesh_test", 16 + 64, b, "decode")
+            cache_sh = jtrain.shardings_of(japi.cache_pspecs(cfg, shape, mesh), mesh)
+            tok_sh = NamedSharding(mesh, japi.input_pspecs(cfg, shape, mesh)["tokens"])
+            fn = jax.jit(model.decode_fn, in_shardings=(params_sh, cache_sh, {"tokens": tok_sh}),
+                         out_shardings=(cache_sh, None))
+            logits = [np.asarray(pre["logits"])]
+            with mesh:
+                p = jax.device_put(params, params_sh)
+                cache = jax.device_put(pre["cache"], cache_sh)
+                for i in range(3):
+                    t = jax.device_put(jnp.asarray(toks[:, 16 + i:17 + i]), tok_sh)
+                    cache, lg = fn(p, cache, {"tokens": t})
+                    logits.append(np.asarray(lg))
+            res[f"{arch}/{b}"] = np.stack(logits)
+    np.savez(out / "decode.npz", **res)
+
+
 def main() -> None:
     out = Path(sys.argv[1])
     inputs = dict(np.load(out / "inputs.npz"))
     cells(out)
     step(inputs, out)
     ep(inputs, out)
+    decode_cells(out)
+    decode(inputs, out)
 
 
 if __name__ == "__main__":

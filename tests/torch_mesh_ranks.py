@@ -19,9 +19,19 @@ DIR/ranks.npz:
     tokens and weights: outputs and aux losses;
   - a reduced gemma2-2b prefill of 16 tokens and 3 decode steps with the
     K/V cache sharded on its sequence over "model" (the split softmax) and
-    without a mesh: every step's logits.
+    without a mesh: every step's logits;
+  - decode on the mesh for the reduced gemma2-2b, xlstm-350m, zamba2-7b
+    and whisper-medium in fp32 from the inputs' parameters, at B = 4 (the
+    batch over "data", recurrent states over "model") and B = 1 (the K/V
+    sequence over ("data", "model"), the states on a head dim or a
+    stacked axis): a prefill of 16 tokens and 3 steps on the mesh and
+    without it, every step's logits and the final caches (gathered whole
+    on the mesh); one step on the mesh from the zeros of `init_cache` (the
+    plant: a step that does not read its states); and the placements of
+    the states the steps took.
 """
 import dataclasses
+import json
 import os
 import sys
 from pathlib import Path
@@ -201,6 +211,88 @@ def _decode(inputs: dict, mesh, res: dict) -> None:
     res["decode/cache_sharded"] = np.asarray(bool(sharded))
 
 
+DECODE_ARCHS = ("gemma2-2b", "xlstm-350m", "zamba2-7b", "whisper-medium")
+#: reduced configs whose B = 1 states shard as the full-width long_500k
+#: cell's do: one xLSTM head (C and n on dk, m whole, the sLSTM on hd),
+#: one group of three Mamba2 layers (heads, and the conv's channels)
+DECODE_VARIANTS = {"xlstm-350m.h1": ("xlstm-350m", {"n_heads": 1, "n_kv_heads": 1}),
+                   "zamba2-7b.g3": ("zamba2-7b", {"n_layers": 3, "attn_every": 3})}
+
+
+def decode_cases():
+    """(name, config, batches) of the decode runs."""
+    from repro_torch.configs import REGISTRY, reduced
+
+    cases = [(a, _fp32(reduced(REGISTRY[a])), (4, 1)) for a in DECODE_ARCHS]
+    return cases + [(n, dataclasses.replace(_fp32(reduced(REGISTRY[a])), **ch), (1,))
+                    for n, (a, ch) in DECODE_VARIANTS.items()]
+
+
+def _decode_families(inputs: dict, mesh, res: dict) -> None:
+    from repro_torch.launch.train import shard_module, shardings_of
+    from repro_torch.models import api
+    from repro_torch.models.layers import active_mesh, distribute, spec_placements
+
+    for arch, cfg, batches in decode_cases():
+        model = api.build_model(cfg, device="cpu")
+        for b in batches:
+            toks = torch.from_numpy(inputs[f"dec/{arch}/tokens"][:b].astype(np.int64))
+            batch = {"tokens": toks[:, :16]}
+            if cfg.family == "audio":
+                batch["frames"] = torch.from_numpy(inputs[f"dec/{arch}/frames"][:b])
+            params = api.params_from_numpy(_tree(inputs, f"{arch}/"), cfg, device="cpu")
+            out = model.prefill_fn(params, batch)
+            logits, cache = [out["logits"]], out["cache"]
+            for i in range(3):
+                cache, lg = model.decode_fn(params, cache, {"tokens": toks[:, 16 + i:17 + i]})
+                logits.append(lg)
+            key = f"family/{arch}/{b}"
+            res[f"{key}/free"] = torch.stack(logits).numpy()
+            free_cache = dict(_named(cache))
+            shard_module(params, shardings_of(api.param_pspecs(cfg, params, mesh), mesh), mesh)
+            prefill = api.ShapeSpec("mesh_test", 16, b, "prefill")
+            step = api.ShapeSpec("mesh_test", 16, b, "decode")
+            with active_mesh(mesh):
+                ips = api.input_pspecs(cfg, prefill, mesh)
+                out = model.prefill_fn(params, {k: distribute(v, ips[k]) for k, v in batch.items()})
+                logits, cache = [_whole(out["logits"])], out["cache"]
+                placed = {k: str(tuple(v.placements)) for k, v in _named(cache)}
+                specs = dict(_named(api.cache_pspecs(cfg, api.ShapeSpec("c", 80, b, "decode"),
+                                                     mesh), cache))
+                res[f"{key}/as_specs"] = np.asarray(all(
+                    tuple(v.placements) == spec_placements(specs[k], mesh)
+                    for k, v in _named(cache)))
+                dspec = api.input_pspecs(cfg, step, mesh)["tokens"]
+                for i in range(3):
+                    cache, lg = model.decode_fn(params, cache,
+                                                {"tokens": distribute(toks[:, 16 + i:17 + i], dspec)})
+                    logits.append(_whole(lg))
+                res[f"{key}/mesh"] = torch.stack(logits).numpy()
+                # the final cache gathered whole against the mesh-free one:
+                # each shard holds its own slots and states
+                res[f"{key}/cache_err"] = np.asarray(max(
+                    float((_whole(v).float() - free_cache[k].float()).abs().max())
+                    for k, v in _named(cache)))
+                zeros = model.init_cache(b, 16 + 64)       # the prefill's rows, its headroom 64
+                _, lg = model.decode_fn(params, zeros, {"tokens": distribute(toks[:, 16:17], dspec)})
+                res[f"{key}/zero"] = _whole(lg).numpy()
+            res[f"{key}/placements"] = np.asarray(json.dumps(placed))
+
+
+def _named(tree, like=None, prefix=""):
+    """(path, leaf) of a cache, or of a tree shaped as the cache `like` (its
+    specs, each a tuple itself): the cache's dicts and tuples."""
+    like = tree if like is None else like
+    if isinstance(like, dict):
+        for k in like:
+            yield from _named(tree[k], like[k], f"{prefix}{k}/")
+    elif isinstance(like, (tuple, list)):
+        for i, sub in enumerate(like):
+            yield from _named(tree[i], sub, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
 def rank_main(rank: int, out: str) -> None:
     torch.set_num_threads(1)
     out = Path(out)
@@ -215,6 +307,8 @@ def rank_main(rank: int, out: str) -> None:
     _restore(out, mesh, res)
     _ep(inputs, mesh, res)
     _decode(inputs, mesh, res)
+    with torch.no_grad():
+        _decode_families(inputs, mesh, res)
     if rank == 0:
         np.savez(out / "ranks.npz", **res)
     dist.barrier()
