@@ -135,7 +135,12 @@ no kernels line and no result line. Phases:
               plain version and float64, the backward against float64 head
               by head (lm_train's gates), each timed beside its bound, its
               plain version and scaled_dot_product_attention's forward or
-              backward
+              backward; and the backward alone at the cut train steps'
+              shapes (zamba2-7b's (32, 8,192, 112) over 32 in bf16 and fp32,
+              qwen2-vl-7b's (28, 8,192, 128) over 4 in bf16): against
+              float64 head by head at lm_train's gates, the fp32 one also
+              against its plain version, each timed beside its bound, its
+              plain version and scaled_dot_product_attention's backward
  17. lm_eval  the full-width gemma2-2b forward (DecoderModel.loss_fn, seeded
               init) on one TokenStream batch, B = 1, S = 8,192: 26 flash
               launches and a finite loss; loss and last-position logits
@@ -192,7 +197,14 @@ no kernels line and no result line. Phases:
               1, S = 512: a warm-up and 1 timed step with remat (step
               seconds, tokens/s, peak memory) and one step without, whose
               peak the remat steps' must undercut by 10%, and a plant of
-              the forward that ignored remat, which must fail that check
+              the forward that ignored remat, which must fail that check;
+              then zamba2-7b's make_train_step at full width and 54 of 81
+              layers (two groups: the tied shared block applied twice), B =
+              1, S = 8,192, remat on: the backward alone on each
+              application's own flash inputs of the warm-up step against
+              float64, 1 timed step (seconds, tokens/s, peak memory beside
+              the modelled one, 2 forward and 2 backward launches) and the
+              idle share of a profiled step at S = 512
  21. lm_mm    whisper-medium and qwen2-vl-7b at published widths, bf16,
               seeded init, gemma2-2b's parameters freed first: loss_fn at
               B = 1, S = 8,192 (whisper: 1,500 frames and 8,192 tokens, a
@@ -236,7 +248,9 @@ no kernels line and no result line. Phases:
               make_train_step of stablelm-1.6b and granite-moe-3b-a800m at
               published widths (1 + 3 timed steps, remat on, B = 1, S =
               8,192), the MoE's first step reached again bit for bit from a
-              fresh state; lm_eval's parameters drawn again from their seed
+              fresh state; granite-20b's at 8 of 52 layers (1 + 3 steps,
+              the measured peak beside the modelled one, the idle share);
+              lm_eval's parameters drawn again from their seed
  23. lm_train_mm  whisper-medium's training at published widths (needs no
               other phase): the backward kernel at the cross-attention's
               (16, 8,192 x 1,500, 64), non-causal, on the first and last
@@ -253,19 +267,24 @@ no kernels line and no result line. Phases:
               share); two builds of the backward planted in its ragged KV
               tile: the mask's k < S_k dropped alone (zero keys in P: the
               same bits) and with the tile loaded whole (what lies past
-              S_k in P: the check must fail)
+              S_k in P: the check must fail); then qwen2-vl-7b's
+              make_train_step at 8 of 28 layers (1,024 patches, 7,168
+              tokens; 1 + 3 steps, the measured peak beside the modelled
+              one, the idle share)
  24. lm_faults   faults planted one at a time in the bf16 flash launches
               (window a tile short, K a row off, a dropped softcap, the
               last also under the wq x 16 forwards), in the decode step
               (it misses its own slot) and in the bf16 backward launches
               (lse read a row off, the softcap dropped, and a build of the
               kernel that takes P and dS in one bf16 term instead of
-              three), in the MoE (a token's contributions added in
-              descending expert order; a dropped replica written at its
-              expert's last place) and in the layer norm (its bias
-              dropped): each must fail one of the checks of phase 17, 18,
-              19 or 20 (the MoE and norm checks at 4 layers, as they hold
-              each layer on its own input)
+              three), in the fp32 backward (a build whose lanes cover 96
+              of D = 112's columns: zamba2-7b's lm_kernels check on inputs
+              of another seed must fail), in the MoE (a token's
+              contributions added in descending expert order; a dropped
+              replica written at its expert's last place) and in the layer
+              norm (its bias dropped): each must fail one of the checks of
+              phase 16, 17, 18, 19 or 20 (the MoE and norm checks at 4
+              layers, as they hold each layer on its own input)
  25. dryrun   the dry-run and cost model (repro_torch/launch/dryrun.py,
               bpmf_dryrun.py, cost.py): (a) every cell of all_cells()
               (each config x its LM shapes, kimi-k2-1t-a32b's included) on
@@ -332,18 +351,22 @@ no kernels line and no result line. Phases:
 The main path is phases 7, 10, 17, 18 and 22, the serving tier's paths are
 phases 11 and 12, the distributed sampler's phases 14 and 14b, the SGLD and ALS
 path phase 15, the other LMs phase 19 and the dense train steps of 22,
-the SSM and hybrid LMs phase 20, the audio and VLM LMs phase 21 and the
-train step on a mesh phase 26 (b): the
+the SSM and hybrid LMs phase 20, the audio and VLM LMs phase 21, the
+train steps at a cut depth in phases 20, 22 and 23 and the train step on a
+mesh phase 26 (b): the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
 `dist_launches`, `dist_ranks_launches` (the 4 ranks' sums), `sgld_launches`,
 `lm_dense_launches`, `lm_ssm_launches`,
 `lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches`,
-`lm_train_mm_launches` and `mesh_launches`, the
-SGLD ones all 0; lm_ssm's are the two timed forwards', 3 flash launches in
-all; lm_mm's the two timed forwards', 48 + 28 flash launches; lm_train's
-are its 3 timed steps, lm_train_dense's the 3 timed steps of each dense
-config; the xLSTM's train steps launch none and are checked to).
+`lm_train_mm_launches`, `mesh_launches` and the cut train steps'
+`train_zamba2-7b_launches`, `train_granite-20b_launches` and
+`train_qwen2-vl-7b_launches`, the SGLD ones all 0; lm_ssm's are the two
+timed forwards', 3 flash launches in all; lm_mm's the two timed forwards',
+48 + 28 flash launches; lm_train's are its 3 timed steps, lm_train_dense's
+the 3 timed steps of each dense config, each cut train step's its timed
+steps (zamba2-7b 1, the others 3); the xLSTM's train steps launch none and
+are checked to).
 foldin and cotrain need train, serve_faults needs foldin and cotrain, dist,
 dist_ranks and sgld need data, lm_mm needs none, lm_train needs lm_eval,
 lm_train_mm needs none, lm_faults needs lm_eval, lm_serve and lm_train.
@@ -359,7 +382,10 @@ the card against the CPU (lm_train, bit for bit). Any failed check exits
 non-zero before the last line. No BPMF phase was cut to make room for the
 LM ones, and no earlier LM phase either; granite-20b's two attention paths
 are compared at 8 of its 52 layers, and lm_faults holds the MoE and
-layer-norm checks at 4 layers.
+layer-norm checks at 4 layers. zamba2-7b (54 of 81 layers), qwen2-vl-7b (8
+of 28) and granite-20b (8 of 52) train at full width and those depths
+(CUT_TRAIN_LAYERS), whose modelled peaks fit 80 GB with room; at full
+depth none of the three fits one card.
 """
 from __future__ import annotations
 
@@ -551,9 +577,44 @@ MOE_TIGHT_CAPACITY = 0.5
 # the depth at which lm_faults re-runs lm_dense's layer checks under its
 # MoE and layer-norm plants (the checks hold each layer on its own inputs)
 DENSE_FAULT_DEPTH = 4
-# the dense configs trained in phase lm_train beside gemma2-2b; granite-20b
-# is served only (its bf16 weights and AdamW's fp32 moments need 203 GB)
+# the dense configs trained at full depth in phase lm_train beside
+# gemma2-2b; granite-20b trains there at a cut depth (its bf16 weights and
+# AdamW's fp32 moments need 203 GB at 52 layers)
 DENSE_TRAINED = ("stablelm-1.6b", "granite-moe-3b-a800m")
+# The configs trained at full width and a cut depth on one card, each cut
+# by dataclasses.replace(cfg, n_layers=...): B = 1, S = 8,192, remat on,
+# one warm-up and CUT_TRAIN_STEPS[name] timed steps, the modelled peak of
+# launch/dryrun.py::lower_cell beside the measured one
+# (tests/test_torch_dryrun.py holds the modelled peaks under 72 GB).
+# zamba2-7b's 54 layers are two groups of 27, so its tied shared block is
+# applied twice and its gradient is a sum of two (phase lm_ssm);
+# qwen2-vl-7b takes 1,024 patches and 7,168 tokens (phase lm_train_mm);
+# granite-20b runs at the depth its other paths run at (DENSE_DIRECT_DEPTH,
+# phase lm_train).
+ZAMBA_TRAIN_LAYERS = 54                # of 81
+QWEN_VL_TRAIN_LAYERS = 8               # of 28
+GRANITE_TRAIN_LAYERS = 8               # of 52
+CUT_TRAIN_LAYERS = {"zamba2-7b": ZAMBA_TRAIN_LAYERS, "qwen2-vl-7b": QWEN_VL_TRAIN_LAYERS,
+                    "granite-20b": GRANITE_TRAIN_LAYERS}
+# zamba2-7b's step is host-bound (the SSD scan's 64 chunks a layer, about
+# 400,000 launches a step) at 18.7-22.6 s on an NVIDIA H100 80GB HBM3 at
+# 700 W: three timed steps would take a minute of a script that runs near
+# its limit, so it times one
+CUT_TRAIN_STEPS = {"zamba2-7b": 1, "qwen2-vl-7b": LM_TRAIN_STEPS,
+                   "granite-20b": LM_TRAIN_STEPS}
+# The backward alone at the cut train steps' attention shapes (phase
+# lm_kernels): zamba2-7b's shared block, (32, 8,192, 112) over 32 KV heads,
+# in bf16 and fp32, and qwen2-vl-7b's (28, 8,192, 128) over 4 (a group of
+# 7); causal, softcap 0, window 0, inputs and dO of BWD_SHAPE_SEED
+BWD_SHAPES = (("zamba2-7b", 32, 32, 112, "bf16"), ("zamba2-7b", 32, 32, 112, "fp32"),
+              ("qwen2-vl-7b", 28, 4, 128, "bf16"))
+BWD_SHAPE_SEED = 33
+# The fp32 backward against its fp32 plain version on the same lse and
+# output: each gradient within this share of its value plus this share of
+# its head's largest magnitude. Both sum 8,192 fp32 products a row in other
+# orders, which moves a sum by about sqrt(8,192) fp32 ulps of its largest
+# terms, 1e-5 of the largest magnitude.
+BWD_FP32_PLAIN_TOL = 1e-4
 # The SSM and hybrid families (phase lm_ssm): xlstm-350m launches none of
 # the port's kernels (its mLSTM and sLSTM scans are plain PyTorch, as the JAX
 # package's are lax.scans), zamba2-7b one flash launch an application of its
@@ -652,6 +713,20 @@ FLASH_LAYOUT_NOW = """  constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
 FLASH_LAYOUT_96 = """  constexpr int VEC = D >= 128 ? 4 : 1;
   constexpr int CPT = D / 32;
   constexpr int GROUPS = CPT / VEC;
+"""
+# the same for the fp32 backward's kernels (csrc/flash_attention_bwd.cu,
+# `Cols`), and the D / 32 columns a lane it had before D = 112 (lm_faults'
+# plant)
+BWD_LAYOUT_NOW = """  static constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
+  static constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
+  static constexpr int N = GROUPS * VEC;   // columns a lane
+  static_assert(D % 4 == 0 && GROUPS * 32 * VEC >= D && (GROUPS - 1) * 32 * VEC < D,
+                "the lanes' columns cover D, and no group lies wholly past it");
+  static_assert(VEC == 4 || D % 32 == 0, "one column a lane a group needs D % 32 == 0");
+"""
+BWD_LAYOUT_96 = """  static constexpr int VEC = D >= 128 ? 4 : 1;
+  static constexpr int N = D / 32;
+  static constexpr int GROUPS = N / VEC;
 """
 
 
@@ -3057,7 +3132,9 @@ class Smoke:
     # ------------------------------------------------------------ the LM path
     def lm_kernels(self):
         """The flash kernel at the forward's shapes: q (8, S, 256) and k, v
-        (4, S, 256), the query heads of one KV head side by side."""
+        (4, S, 256), the query heads of one KV head side by side; the pair
+        at the other configs' shapes (`dense_flash_shape`) and the backward
+        at the cut train steps' (`bwd_shape_row`)."""
         torch, ops, ref = self.torch, self.ops, self.ref
         bh, bhk, d = 8, 4, 256
 
@@ -3233,6 +3310,8 @@ class Smoke:
         del q, k, v
         self.dense_flash = {tag: self.dense_flash_shape(tag, bh, bhk, d)
                             for tag, bh, bhk, d in DENSE_FLASH_SHAPES}
+        self.bwd_shapes = {f"{tag} {name}": self.bwd_shape_row(tag, bh, bhk, d, name)
+                           for tag, bh, bhk, d, name in BWD_SHAPES}
         # the row: one forward's attention, 13 local and 13 global launches
         n = 13
 
@@ -3371,6 +3450,50 @@ class Smoke:
                   f"{r['ms'] / r['bound_ms']:.2f}x; split3 {r['bound_ms_split3']:.3f} ms), "
                   f"scaled_dot_product_attention {r['library_ms']:.3f} ms")
         return dict(fwd=fwd, bwd=bwd)
+
+    def bwd_shape_verdicts(self, tag, bh, bhk, d, name, seed) -> tuple[list, tuple]:
+        """The backward at (bh, 8,192, d) over bhk KV heads in `name` (bf16
+        or fp32), causal, softcap 0, window 0, on inputs and dO of `seed`:
+        `recorded_bwd_verdicts`, and in fp32 each gradient within
+        BWD_FP32_PLAIN_TOL of the plain version on the kernel's own lse and
+        output (columns 96 on, those a lane's D / 32 columns would miss at
+        D = 112, also on their own). Returns the verdicts and (q, k, v, do,
+        the largest error against float64)."""
+        torch, ops = self.torch, self.ops
+        dtype = torch.bfloat16 if name == "bf16" else torch.float32
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        q, k, v, do = (torch.randn(n, LM_SEQ, d, generator=g, device=self.dev).to(dtype)
+                       for n in (bh, bhk, bhk, bh))
+        kw = dict(causal=True, window=0, softcap=0.0, scale=d ** -0.5)
+        tag = f"{tag} {name}, inputs of seed {seed}"
+        out, err = self.recorded_bwd_verdicts(tag, q, k, v, kw, do=do)
+        if name == "fp32":
+            fo, lse, _ = ops._flash_forward(q, k, v, True, 0, 0.0, kw["scale"], keep=True)
+            got = ops.flash_attention_bwd(q, k, v, do, lse, fo, **kw)
+            plain = self.plain_bwd_by_heads(q, k, v, do, lse, fo, kw)
+            cols = ((0, "every column"),) + (((96, "columns 96 on"),) if d % 32 else ())
+            for gr, p, gname in zip(got, plain, ("dq", "dk", "dv")):
+                top = p.abs().flatten(1).amax(dim=1)[:, None, None]
+                for c0, what in cols:
+                    ratio = float(((gr - p).abs()[..., c0:] / (
+                        BWD_FP32_PLAIN_TOL * (p.abs()[..., c0:] + top))).max())
+                    out.append((ratio <= 1.0,
+                                f"flash_attention_bwd {tag}: {gname} against the plain "
+                                f"version, {what}: |err| / ({BWD_FP32_PLAIN_TOL:g} (|plain| + "
+                                f"the head's largest)) at most {ratio:.3f}"))
+            del fo, lse, got, plain
+        return out, (q, k, v, do, err)
+
+    def bwd_shape_row(self, tag, bh, bhk, d, name) -> dict:
+        """`bwd_shape_verdicts` on inputs of BWD_SHAPE_SEED, checked, then
+        the backward launch alone on them (`bwd_row`): the kernels line's
+        record."""
+        verdicts, (q, k, v, do, err) = self.bwd_shape_verdicts(tag, bh, bhk, d, name,
+                                                               BWD_SHAPE_SEED)
+        for ok, what in verdicts:
+            self.check(ok, what)
+        return self.bwd_row(tag, q, k, v, dict(causal=True, window=0, softcap=0.0,
+                                               scale=d ** -0.5), err, do=do)
 
     def plain_bwd_by_heads(self, q, k, v, do, lse, o, kw):
         """The plain backward taken 8 query heads at a time (the whole
@@ -4260,7 +4383,9 @@ class Smoke:
         its sequential form and float64, and for zamba its flash launches
         and shared-block applications each on its own inputs and the two
         attention paths; then the flash forward alone at zamba's shape and
-        four planted faults."""
+        four planted faults; last the xLSTM's train steps and zamba2-7b's at
+        ZAMBA_TRAIN_LAYERS layers (`cut_train`), its full-depth weights
+        freed first."""
         import gc
 
         from repro_torch.models import zamba
@@ -4299,6 +4424,10 @@ class Smoke:
         torch.cuda.empty_cache()
         xt = self.xlstm_train()
         lap("xlstm-350m's train steps")
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.cut_train("zamba2-7b")
+        lap("zamba2-7b's train steps")
         gc.collect()
         torch.cuda.empty_cache()
         for name, r in self.ssm_numbers.items():
@@ -5291,9 +5420,10 @@ class Smoke:
     def lm_train(self):
         """gemma2-2b training on the card: the backward kernel alone, the
         two attention paths' gradients, the full-width train step and the
-        Trainer. lm_eval's parameters are freed first (the step needs the
-        room) and drawn again from the same seed at the end, for
-        lm_faults."""
+        Trainer; then DENSE_TRAINED's steps and granite-20b's at
+        GRANITE_TRAIN_LAYERS layers (`cut_train`). lm_eval's parameters are
+        freed first (the steps need the room) and drawn again from the same
+        seed at the end, for lm_faults."""
         import gc
 
         torch = self.torch
@@ -5320,6 +5450,9 @@ class Smoke:
             gc.collect()
             torch.cuda.empty_cache()
         self.path_launches["lm_train_dense"] = launches
+        self.cut_train("granite-20b")
+        gc.collect()
+        torch.cuda.empty_cache()
         self.lm = (model, model.init(seed=0))
         self.check(self.params_digest(self.lm[1]) == digest,
                    "lm_eval's parameters drawn again from seed 0 are the ones lm_eval "
@@ -5337,7 +5470,8 @@ class Smoke:
         direct path's and both against the fp32 direct path's;
         make_train_step, 1 + LM_TRAIN_STEPS timed steps (seconds, tokens/s,
         peak memory, launches a step, the idle share of a profiled step);
-        then two builds of the backward planted in its ragged KV tile."""
+        then two builds of the backward planted in its ragged KV tile; last
+        qwen2-vl-7b's steps at QWEN_VL_TRAIN_LAYERS layers (`cut_train`)."""
         import gc
 
         from repro_torch.configs import get_config
@@ -5378,17 +5512,17 @@ class Smoke:
             lap("init and the recorded cross-attention inputs")
             err = 0.0
             for tag, (q, k, v, kw) in cross.items():
-                verdicts, e = self.mm_bwd_verdicts(tag, q, k, v, kw)
+                verdicts, e = self.recorded_bwd_verdicts(f"whisper {tag}", q, k, v, kw)
                 for ok, what in verdicts:
                     self.check(ok, what)
                 err = max(err, e)
             lap("the backward on the first and last layers' inputs")
             q, k, v, kw = cross["layer 0"]
-            rows = {"whisper cross-attention": self.mm_bwd_row(
+            rows = {"whisper cross-attention": self.bwd_row(
                         "whisper cross-attention", q, k, v, kw, err)}
             qs = self.randn(16, LM_SEQ, 64).to(torch.bfloat16)
             ks, vs = (self.randn(16, LM_SEQ, 64).to(torch.bfloat16) for _ in range(2))
-            rows["whisper self-attention"] = self.mm_bwd_row(
+            rows["whisper self-attention"] = self.bwd_row(
                 "whisper self-attention", qs, ks, vs, dict(kw, causal=True), None)
             del qs, ks, vs
             if "flash_attention_bwd" in self.rows:
@@ -5409,6 +5543,10 @@ class Smoke:
             for load in plants.values():
                 load.stop()
         del cross
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.cut_train("qwen2-vl-7b")
+        lap("qwen2-vl-7b's train steps")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5443,18 +5581,24 @@ class Smoke:
             f"({sorted(recs)} of {count[0]} launches)")
         return recs
 
-    def mm_bwd_verdicts(self, tag, q, k, v, kw) -> tuple[list[tuple[bool, str]], float]:
-        """The backward through FlashAttention at S_q != S_k on one layer's
-        inputs, dO of MM_BWD_SEED: one forward and one backward launch; dq,
-        dk and dv of each head within one bf16 ulp of its largest magnitude
-        of float64 (`bwd_exact`) and at most BWD_MISROUNDED_SHARE of their
-        elements more than half their own bf16 ulp from it; a second
+    def recorded_bwd_verdicts(self, tag, q, k, v, kw, do=None
+                              ) -> tuple[list[tuple[bool, str]], float]:
+        """The backward through FlashAttention on one launch's inputs (`tag`
+        names them: whisper's cross-attention at S_q != S_k, an application
+        of zamba's shared block, seeded inputs at a train step's shape), dO
+        given or of MM_BWD_SEED: one forward and one backward launch; dq, dk
+        and dv of each head within one bf16 ulp of its largest magnitude of
+        float64 (`bwd_exact`) and, in bf16, at most BWD_MISROUNDED_SHARE of
+        their elements more than half their own bf16 ulp from it; a second
         backward gives the same bits. Returns the verdicts and the largest
         error."""
         torch, ops = self.torch, self.ops
-        g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED)
-        do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
-        dims = f"({q.shape[0]}, {q.shape[1]} x {k.shape[1]}, {q.shape[2]}) non-causal"
+        if do is None:
+            g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED)
+            do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
+        sk = "" if k.shape[1] == q.shape[1] else f" x {k.shape[1]}"
+        dims = (f"({q.shape[0]}, {q.shape[1]}{sk}, {q.shape[2]}) over {k.shape[0]} KV heads, "
+                f"{'causal' if kw['causal'] else 'non-causal'}")
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         ops.reset_launches()
         o = ops.flash_attention(*leaves, **kw)
@@ -5463,21 +5607,22 @@ class Smoke:
         n = ops.launches()
         again = torch.autograd.grad(o, leaves, do)
         out = [(n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1,
-                f"flash_attention_bwd whisper {tag} {dims}: one forward and one backward "
+                f"flash_attention_bwd {tag} {dims}: one forward and one backward "
                 f"launch ({n['flash_attention']}, {n['flash_attention_bwd']})"),
                (all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"flash_attention_bwd whisper {tag} {dims}: two backward launches give the "
+                f"flash_attention_bwd {tag} {dims}: two backward launches give the "
                 "same bits")]
         want = self.bwd_exact(q, k, v, do, kw)
         largest = 0.0
         for gr, w, gname in zip(got, want, ("dq", "dk", "dv")):
             worst, err, share = self.grad_errors(gr, w)
-            out.append((share <= BWD_MISROUNDED_SHARE,
-                        f"flash_attention_bwd whisper {tag} {dims}: {gname}'s elements more "
-                        f"than half their own bf16 ulp from float64: a share of {share:.2e} "
-                        f"(at most {BWD_MISROUNDED_SHARE:g})"))
+            if q.dtype == torch.bfloat16:
+                out.append((share <= BWD_MISROUNDED_SHARE,
+                            f"flash_attention_bwd {tag} {dims}: {gname}'s elements more "
+                            f"than half their own bf16 ulp from float64: a share of "
+                            f"{share:.2e} (at most {BWD_MISROUNDED_SHARE:g})"))
             out.append((worst <= 1.0,
-                        f"flash_attention_bwd whisper {tag} {dims}: {gname} of each head "
+                        f"flash_attention_bwd {tag} {dims}: {gname} of each head "
                         f"within one bf16 ulp of its largest magnitude (at least "
                         f"{GRAD_ULP_FLOOR:g}) of float64: worst err / ulp {worst:.3f}, max "
                         f"abs err {err:.3e}"))
@@ -5485,26 +5630,29 @@ class Smoke:
         del leaves, o, got, again, want
         return out, largest
 
-    def mm_bwd_row(self, tag, q, k, v, kw, err) -> dict:
-        """The backward launch alone at one of whisper's shapes (its
-        forward's lse and o32 from the kernel), dO seeded: timed beside its
-        bound (5 bf16 tensor passes a visible pair), its plain version and
-        the backward of scaled_dot_product_attention (is_causal as the
-        shape is); err, where given, is the float64 check's."""
-        torch, ops, ref = self.torch, self.ops, self.ref
+    def bwd_row(self, tag, q, k, v, kw, err, do=None) -> dict:
+        """The backward launch alone (its forward's lse and output from the
+        kernel), dO given or of MM_BWD_SEED + 1: timed beside its bound (5
+        passes a visible pair at the peak of q's dtype: the bf16 tensor
+        cores' or the fp32 pipes'), its plain version (8 query heads at a
+        time) and the backward of scaled_dot_product_attention (enable_gqa,
+        is_causal as the shape is); err, where given, is the float64
+        check's. Returns the kernels line's record."""
+        torch, ops = self.torch, self.ops
         bh, sq, d = q.shape
         bhk, sk, _ = k.shape
-        causal = kw["causal"]
-        g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED + 1)
-        do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
-        _, lse, o32 = ops._flash_forward(q, k, v, causal, kw["window"], kw["softcap"],
-                                          kw["scale"], keep=True)
+        causal, name = kw["causal"], "bf16" if q.dtype == torch.bfloat16 else "fp32"
+        if do is None:
+            g = torch.Generator(device=self.dev).manual_seed(MM_BWD_SEED + 1)
+            do = torch.randn(q.shape, generator=g, device=self.dev).to(q.dtype)
+        out, lse, o32 = ops._flash_forward(q, k, v, causal, kw["window"], kw["softcap"],
+                                           kw["scale"], keep=True)
+        o = o32 if o32.numel() else out
         bkw = dict(causal=causal, window=kw["window"], softcap=kw["softcap"],
                    scale=kw["scale"])
-        ms = self.cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, **bkw))
-        pms = self.cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, lse, o32, **bkw),
-                           reps=1)
-        grads = ops.flash_attention_bwd(q, k, v, do, lse, o32, **bkw)
+        ms = self.cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, do, lse, o, **bkw))
+        pms = self.cuda_ms(lambda: self.plain_bwd_by_heads(q, k, v, do, lse, o, bkw), reps=1)
+        grads = ops.flash_attention_bwd(q, k, v, do, lse, o, **bkw)
         leaves = [t.detach()[None].requires_grad_() for t in (q, k, v)]
         out = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=causal, scale=kw["scale"], enable_gqa=True)
@@ -5515,30 +5663,32 @@ class Smoke:
                                                        retain_graph=True))
         pairs = bh * (visible_pairs(sq, 0) if causal else sq * sk)
         n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, do)) * 2
-                   + o32.numel() * 4 + lse.numel() * 4)
+                   + o.numel() * 4 + lse.numel() * 4)
         tb = n_bytes / HBM_BYTES_PER_S * 1e3
-        to = FLASH_BWD_PASSES * 2.0 * d * pairs / BF16_TENSOR_FLOPS * 1e3
+        peak = BF16_TENSOR_FLOPS if name == "bf16" else FP32_FLOPS
+        to = FLASH_BWD_PASSES * 2.0 * d * pairs / peak * 1e3
         dims = f"({bh}, {sq}{'' if sq == sk else f' x {sk}'}, {d}) over {bhk} KV heads"
-        row = dict(shape=f"{tag} {dims}, bf16, {'causal' if causal else 'non-causal'}, "
+        row = dict(shape=f"{tag} {dims}, {name}, {'causal' if causal else 'non-causal'}, "
                          "softcap 0, window 0", dims=dims, max_abs_err=err, ms=ms,
                    plain_ms=pms, bound_ms=max(tb, to),
-                   bound_by="bytes" if tb >= to else "operations",
-                   bound_ms_split3=max(tb, FLASH_BWD_SPLIT3_PASSES * 2.0 * d * pairs
-                                       / BF16_TENSOR_FLOPS * 1e3),
-                   library_ms=lib,
+                   bound_by="bytes" if tb >= to else "operations", library_ms=lib,
                    library=f"the backward of scaled_dot_product_attention, is_causal={causal}",
                    library_rel_err=lib_err)
-        print(f"    flash_attention_bwd {tag} {dims}: {ms:.3f} ms kernel, {pms:.3f} ms "
-              f"plain, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: 5 bf16 tensor "
-              f"passes a visible pair; kernel at {ms / row['bound_ms']:.1f}x), the "
-              f"kernels' 11 passes {row['bound_ms_split3']:.3f} ms, "
+        split3 = ""
+        if name == "bf16":
+            row["bound_ms_split3"] = max(tb, FLASH_BWD_SPLIT3_PASSES * 2.0 * d * pairs
+                                         / BF16_TENSOR_FLOPS * 1e3)
+            split3 = f", the kernels' 11 passes {row['bound_ms_split3']:.3f} ms"
+        print(f"    flash_attention_bwd {tag} {dims} {name}: {ms:.3f} ms kernel, {pms:.3f} ms "
+              f"plain, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: 5 passes a visible "
+              f"pair at the {name} peak; kernel at {ms / row['bound_ms']:.1f}x){split3}, "
               f"scaled_dot_product_attention's backward {lib:.3f} ms (within {lib_err:.2e} "
               "of each gradient's largest magnitude of the kernel's)")
         self.check(lib_err <= FLASH_TOL["bf16"]["rtol"],
-                   f"flash_attention_bwd {tag} {dims}: scaled_dot_product_attention's "
+                   f"flash_attention_bwd {tag} {dims} {name}: scaled_dot_product_attention's "
                    f"backward within {FLASH_TOL['bf16']['rtol']:g} of each gradient's largest "
                    f"magnitude of the kernel's: {lib_err:.2e}")
-        del lse, o32, grads, leaves, out, lgrads, do
+        del lse, o32, o, grads, leaves, out, lgrads, do
         return row
 
     def mm_train_grads(self, cfg, params, batch):
@@ -5631,17 +5781,7 @@ class Smoke:
         self.check(first[1] == self.mm_grad_norm,
                    f"whisper-medium: the first step's grad_norm {first[1]:.6f} is the flash "
                    f"gradients' global norm {self.mm_grad_norm:.6f} bit for bit")
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()                      # the path starts here
-        times, losses = [], []
-        for batch in batches[1:]:
-            self.sync()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            times.append(time.perf_counter() - t0)
-        launches = ops.launches()                 # ... and is read here
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, m, times, losses, launches, peak = self.timed_steps(step, state, batches[1:])
         self.path_launches["lm_train_mm"] = launches
         dt = sum(times) / len(times)
         per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
@@ -5677,7 +5817,7 @@ class Smoke:
     def mm_bwd_plants(self, plants, inputs) -> list[tuple[bool, str]]:
         """Two builds of the backward planted in the ragged KV tile of S_k =
         1,500 (23 x 64 + 28 keys), each through the cross-attention check
-        (`mm_bwd_verdicts`) on layer 0's inputs, with K and V in buffers
+        (`recorded_bwd_verdicts`) on layer 0's inputs, with K and V in buffers
         that hold MM_PLANT_PAD_KEYS real rows past S_k. The mask's k < S_k
         dropped alone lets the tile's zero-filled keys into P: they add
         dS 0 = 0 to dQ, and their own dK and dV rows are never written, so
@@ -5717,7 +5857,8 @@ class Smoke:
                                 "ragged tile's zero keys in P change no bit of dq, dk, dv"))
                     del got
                 else:
-                    verdicts, _ = self.mm_bwd_verdicts("layer 0, planted", q, kp, vp, kw)
+                    verdicts, _ = self.recorded_bwd_verdicts("whisper layer 0, planted", q, kp,
+                                                             vp, kw)
                     caught = [what for ok, what in verdicts if not ok]
                     for ok, what in verdicts:
                         print(f"    ragged keys in P: {'passes' if ok else 'FAILS'} {what}")
@@ -5776,17 +5917,7 @@ class Smoke:
         state, m = step(state, batches[0])                # warm-up
         first = (float(m["loss"]), float(m["grad_norm"]))
         digest = self.state_digest(state) if cfg.is_moe else None
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()                      # the path starts here
-        times, losses = [], []
-        for batch in batches[1:]:
-            self.sync()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            times.append(time.perf_counter() - t0)
-        launches = ops.launches()                 # ... and is read here
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, m, times, losses, launches, peak = self.timed_steps(step, state, batches[1:])
         dt = sum(times) / len(times)
         per = {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v}
         print(f"{name} train step at B=1, S={LM_SEQ}, remat on: {dt:.3f} s a step "
@@ -5826,6 +5957,158 @@ class Smoke:
                        f"{float(m['loss']):.6f} against {first[0]:.6f})")
             del again
         return launches
+
+    def cut_train(self, name: str) -> dict:
+        """make_train_step of `name` at its published widths and
+        CUT_TRAIN_LAYERS[name] layers, bf16, seed 0, remat on, B = 1, S =
+        8,192 (qwen2-vl-7b: 1,024 patches and 7,168 tokens with
+        TokenStream's positions, as lm_mm's forward): a warm-up step and
+        CUT_TRAIN_STEPS[name] timed (the path: launches counted from just
+        before to just after), seconds, tokens/s, the measured peak beside
+        launch/dryrun.py::lower_cell's modelled one, and the device's idle
+        share from a profiled step. A decoder layer runs under the
+        checkpoint, so a step launches the flash forward twice a layer and
+        its backward once. zamba's shared block stays outside the remat, as
+        in the JAX package (only the Mamba2 blocks are recomputed), so a
+        step launches the flash forward once an application and its
+        backward once. For zamba the warm-up step's flash inputs of each
+        application are held through the backward alone
+        (`recorded_bwd_verdicts`), and the idle share is read at
+        SSM_PROFILE_SEQ, as its forward's: the 8,192-token step runs some
+        400,000 kernels, minutes of trace to read back. Returns the timed
+        steps' launches."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.models import zamba
+        from repro_torch.models.api import ShapeSpec
+        from repro_torch.optim import AdamWConfig
+
+        torch, ops = self.torch, self.ops
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=CUT_TRAIN_LAYERS[name])
+        cut = f"{cfg.n_layers} of {full.n_layers} layers"
+        hybrid = cfg.family == "hybrid"
+        lap = self.lap(f"{name} train")
+        modelled = dryrun.lower_cell(cfg, ShapeSpec("train", LM_SEQ, 1, "train"))[0]
+        modelled = modelled.peak_bytes / 1e9
+        opt = AdamWConfig()
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, 0, opt)
+        self.sync()
+        n_params = sum(p.numel() for p in state.params.parameters())
+        print(f"{name} at {cut}: train state on the card, {n_params:,} parameters in "
+              f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"allocated; modelled peak of the step {modelled:.2f} GB (lower_cell)")
+        n_text = LM_SEQ - cfg.n_patches if cfg.family == "vlm" else LM_SEQ
+        data = TokenStream(cfg, 1, n_text, seed=0)
+        n_steps = CUT_TRAIN_STEPS[name]
+        batches = [data(i) for i in range(n_steps + 1)]
+        step = make_train_step(cfg, opt)
+        if hybrid:
+            n_fwd = n_bwd = zamba.zamba_groups(cfg)[0]
+            what = ("the flash forward once an application of the shared block (not "
+                    "recomputed) and its backward once")
+        else:
+            n_fwd, n_bwd = 2 * cfg.n_layers, cfg.n_layers
+            what = ("the flash forward twice a layer (forward and recompute) and its "
+                    "backward once")
+        real, recs = ops.flash_attention, []
+
+        def record(q, k, v, **kw):
+            recs.append(tuple(x.detach().clone() for x in (q, k, v)) + (kw,))
+            return real(q, k, v, **kw)
+
+        if hybrid:
+            ops.flash_attention = record
+        try:
+            state, m = step(state, batches[0])            # warm-up
+        finally:
+            ops.flash_attention = real
+        first = (float(m["loss"]), float(m["grad_norm"]))
+        lap("lower_cell, init and the warm-up step")
+        if hybrid:
+            qs, ks = ((n, LM_SEQ, cfg.hd) for n in (cfg.n_heads, cfg.n_kv_heads))
+            self.check(len(recs) == n_fwd and all(tuple(r[0].shape) == qs
+                                                  and tuple(r[1].shape) == ks for r in recs),
+                       f"{name}: the warm-up step's {n_fwd} flash launches recorded, q {qs}, "
+                       f"k and v {ks} ({len(recs)})")
+            for i in range(len(recs)):
+                verdicts, _ = self.recorded_bwd_verdicts(
+                    f"{name} application {i + 1} of the shared block", *recs[i])
+                for ok, text in verdicts:
+                    self.check(ok, text)
+            recs.clear()
+            lap("the backward on each application's inputs")
+        state, m, times, losses, launches, peak = self.timed_steps(step, state, batches[1:])
+        self.path_launches[f"train_{name}"] = launches
+        dt = sum(times) / len(times)
+        per = {k: v / n_steps for k, v in launches.items() if v}
+        print(f"{name} train step at {cut}, B=1, S={LM_SEQ}, remat on: {dt:.3f} s a step "
+              f"({', '.join(f'{x:.3f}' for x in times)}), {LM_SEQ / dt:,.0f} tokens/s, peak "
+              f"device memory {peak:.2f} GB (modelled {modelled:.2f} GB, measured / modelled "
+              f"{peak / modelled:.3f}); launches a step {per}; losses {first[0]:.5f} then "
+              f"{', '.join(f'{x:.5f}' for x in losses)}")
+        self.check(launches["flash_attention"] == n_fwd * n_steps
+                   and launches["flash_attention_bwd"] == n_bwd * n_steps
+                   and sum(launches.values()) == (n_fwd + n_bwd) * n_steps,
+                   f"{name} at {cut}: each step launched {what} ({n_fwd} and {n_bwd}), and "
+                   f"no other kernel of the port: {per}")
+        self.check(all(self.np.isfinite(x) for x in losses + list(first)),
+                   f"{name} at {cut}: every step's loss and grad_norm are finite")
+        self.check(peak < 80.0, f"{name} at {cut}: peak device memory {peak:.2f} GB is under "
+                   f"80 GB (modelled {modelled:.2f} GB)")
+        lap("the timed steps")
+        pbatch, pseq, wall = batches[1], LM_SEQ, dt
+        if hybrid:
+            pseq = SSM_PROFILE_SEQ
+            pbatch = TokenStream(cfg, 1, pseq, seed=0)(0)
+            state, _ = step(state, pbatch)        # the shorter step's warm-up
+            self.sync()
+            t0 = time.perf_counter()
+            state, _ = step(state, pbatch)
+            self.sync()
+            wall = time.perf_counter() - t0
+        events = self._profile(lambda: step(state, pbatch), wall * 1e3,
+                               f"{name} train step at S={pseq}", activities=("cuda",))
+        self.check(bool(events), f"{name}: the profiled train step holds device time (its "
+                   "idle share is measured)")
+        busy = sum(e.device_time_total for e in events) / 1e3
+        idle = max(0.0, 1 - busy / (wall * 1e3))
+        self.print_split(events, f"{name} train step at S={pseq}")
+        lap("the profiled step")
+        print(f"summary {name} train step at {cut}, B=1, S={LM_SEQ}: {dt:.3f} s "
+              f"({LM_SEQ / dt:,.0f} tokens/s), peak {peak:.2f} GB (modelled {modelled:.2f} GB), "
+              f"idle share {idle:.3f} at S={pseq}; launches a step {per}")
+        self.cut_train_numbers = getattr(self, "cut_train_numbers", {})
+        self.cut_train_numbers[name] = dict(layers=cfg.n_layers, s=dt,
+                                            tokens_per_s=LM_SEQ / dt, peak_gb=peak,
+                                            modelled_gb=modelled, idle=idle,
+                                            profiled_seq=pseq, launches_a_step=per)
+        del state, step, m
+        return launches
+
+    def timed_steps(self, step, state, batches):
+        """A train step's path: `step` over `batches`, the state carried,
+        each step timed on the host clock to a synchronize; the launch
+        counts set to 0 just before and read just after, the peak device
+        memory reset before. Returns (state, the last metrics, seconds and
+        losses a step, launches, peak GB)."""
+        torch, ops = self.torch, self.ops
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                      # the path starts here
+        times, losses = [], []
+        for batch in batches:
+            self.sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = ops.launches()                 # ... and is read here
+        return state, m, times, losses, launches, torch.cuda.max_memory_allocated() / 1e9
 
     def dots_steps(self, cfg, opt, state, batches, dt, peak) -> dict:
         """Two steps of make_train_step under remat policy "dots" (each
@@ -6083,7 +6366,7 @@ class Smoke:
                      softcap0_library="scaled_dot_product_attention's backward, "
                                       "enable_gqa, the same causal and window mask",
                      dense_shapes=self.dense_rows("bwd") if hasattr(self, "dense_flash")
-                     else {})
+                     else {}, cut_train_shapes=getattr(self, "bwd_shapes", {}))
 
     def compress_check(self):
         """optim.compressed_psum over 4 shards' gradient trees on the card,
@@ -6227,17 +6510,7 @@ class Smoke:
         self.check(first[1] == self.lm_grad_norm,
                    f"the first step's grad_norm {first[1]:.6f} is the flash gradients' "
                    f"global norm {self.lm_grad_norm:.6f} bit for bit")
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()                      # the main path starts here
-        times, losses = [], []
-        for batch in batches[1:]:
-            self.sync()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            times.append(time.perf_counter() - t0)
-        launches = ops.launches()                 # ... and is read here
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, m, times, losses, launches, peak = self.timed_steps(step, state, batches[1:])
         self.path_launches["lm_train"] = launches
         self.main_launches["flash_attention_bwd"] = launches["flash_attention_bwd"]
         dt = sum(times) / len(times)
@@ -6892,7 +7165,8 @@ class Smoke:
         plants patch the module attributes the model calls and are undone
         before the next; the flash plants act in the bf16 instantiation
         only, the one the forward launches, so that the fp32 checks cannot
-        be what catches them."""
+        be what catches them, but for the fp32 backward's column layout at
+        D = 112, which zamba2-7b's fp32 backward check must catch."""
         from repro_torch.models import layers
 
         torch, ops = self.torch, self.ops
@@ -6938,14 +7212,23 @@ class Smoke:
 
         build = self.build_mod
         real_library = build.library
+        # the fp32 backward with the column layout it had before D = 112
+        # (D / 32 columns a lane: columns 96-111 never summed or written),
+        # compiled while the plants below run
+        cols96 = self.planted_library("flash_attention_bwd", [(BWD_LAYOUT_NOW, BWD_LAYOUT_96)],
+                                      "bwd_96_columns", wait=False)
         # P and dS taken in one bf16 term: the MMAs of x2 and x3 dropped
         # from add_product
-        one_term = self.planted_library(
-            "flash_attention_bwd",
-            [(f"      mma_bf16({half.format(x)});\n", "") for x in ("x2", "x3")
-             for half in ("acc[2 * dp], {}[kk], b[0], b[1]",
-                          "acc[2 * dp + 1], {}[kk], b[2], b[3]")],
-            "one_term")
+        try:
+            one_term = self.planted_library(
+                "flash_attention_bwd",
+                [(f"      mma_bf16({half.format(x)});\n", "") for x in ("x2", "x3")
+                 for half in ("acc[2 * dp], {}[kk], b[0], b[1]",
+                              "acc[2 * dp + 1], {}[kk], b[2], b[3]")],
+                "one_term")
+            lib96 = cols96()
+        finally:
+            cols96.stop()
 
         def library_plant(lib):
             def planted(name):
@@ -6976,7 +7259,14 @@ class Smoke:
                   ("backward, bf16: softcap dropped", ops, "flash_attention_bwd",
                    bwd_plant(bwd_softcap_dropped), "backward"),
                   ("backward, bf16: P and dS in one bf16 term (x2, x3 dropped)", build,
-                   "library", library_plant(one_term), "backward")]
+                   "library", library_plant(one_term), "backward"),
+                  ("backward, fp32 at D = 112: lanes over 96 of 112 columns (D / 32 a lane)",
+                   build, "library", library_plant(lib96), "backward d112")]
+        # zamba2-7b's fp32 backward check on inputs of another seed than
+        # lm_kernels' (whose right outputs may still lie in the memory the
+        # plant's outputs take)
+        d112 = BWD_SHAPES[1]
+        assert d112[3:] == (112, "fp32")
         cfg = self.lm[0].cfg
         for name, mod, attr, fn, checks in plants:
             saved = getattr(mod, attr)
@@ -6995,6 +7285,8 @@ class Smoke:
                         dict(self.lm_wq_layers, **{"flash bf16": recs}))
                 elif checks == "backward":
                     verdicts = self.bwd_verdicts()[0]
+                elif checks == "backward d112":
+                    verdicts = self.bwd_shape_verdicts(*d112, BWD_SHAPE_SEED + 1)[0]
                 elif checks in ("moe", "norm"):
                     verdicts = self.dense_fault_verdicts(checks)
                 else:
@@ -7008,6 +7300,10 @@ class Smoke:
                 print(f"    {name}: {'passes' if ok else 'FAILS'} {what}")
             self.check(bool(caught), f"planted fault '{name}' fails {len(caught)} of "
                        f"{len(verdicts)} {checks} checks")
+        verdicts = self.bwd_shape_verdicts(*d112, BWD_SHAPE_SEED + 1)[0]
+        self.check(all(ok for ok, _ in verdicts),
+                   f"the D = 112 column plant's checks pass with no plant "
+                   f"({sum(ok for ok, _ in verdicts)} of {len(verdicts)})")
         self.check(ops.flash_attention is real_flash and ops.flash_attention_bwd is real_bwd
                    and layers.multi_head_attention is real_mha
                    and build.library is real_library and layers.moe_combine is real_combine

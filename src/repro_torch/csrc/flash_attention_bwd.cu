@@ -33,9 +33,11 @@
 //          tile recomputes S and dP and adds P^T dO and dS^T Q.
 // fp32 runs dq and dkdv on the fp32 pipes (SIMT, flash_bwd_dq_kernel and
 // flash_bwd_dkdv_kernel): 32-row tiles staged as fp32 in shared memory, a
-// warp scoring its 4 rows against one key a lane, a lane owning D / 32
-// accumulator columns. bf16 runs them on the tensor cores (namespace mma,
-// flash_bwd_dq_mma_kernel and flash_bwd_dkdv_mma_kernel), below.
+// warp scoring its 4 rows against one key a lane, a lane owning
+// accumulator columns as `Cols` lays them out (the forward's layout: at
+// D = 112, zamba2-7b's head width, lanes 28-31 own none). bf16 runs them
+// on the tensor cores (namespace mma, flash_bwd_dq_mma_kernel and
+// flash_bwd_dkdv_mma_kernel), below.
 //
 // Bound on an H100 at the gemma2-2b training step's shapes, q (8, 8,192,
 // 256) and k, v (4, 8,192, 256) bf16: operations. The bytes are 235 MB
@@ -80,6 +82,11 @@
 // Q, dO (128 rows each) and two stages of K and V (32 rows each), each row
 // D + 8 bf16 (the 16 bytes keep ldmatrix off repeated banks): 384 x 528
 // bytes = 198 KB at D = 256.
+// At D = 112 the same kernels take 7 k-steps and 7 n-tile pairs a
+// product (an odd count: no loop steps by two), rows of 120 bf16 (15
+// pieces of 16 bytes, odd, so ldmatrix stays conflict-free), 90 KB of
+// shared memory in dq and 124.5 KB (127,488 bytes) in dkdv, its head sums
+// included.
 // dkdv: dK and dV of the same 16 keys in one warp would take 256
 // registers, over the limit of 255. So a block of 64 keys has 4 warp
 // pairs of 16 keys each: warp p computes S^T = K Q^T, P^T and dV += P^T dO;
@@ -91,8 +98,9 @@
 // memory. Both warps of a pair make one score product and three split
 // products a tile. Shared memory: K and V (64 rows), two stages of Q and
 // dO (32 rows each), 4 x 2 KB of P (1 - t^2) scale and two stages of lse
-// and D: 256 x 528 + 8,192 + 512 bytes = 140.5 KB at D = 256. ptxas: 246
-// (dkdv) and 247 (dq) registers at D = 256, no spill.
+// and D: 256 x 528 + 8,192 + 512 bytes = 140.5 KB at D = 256. ptxas (CUDA
+// 12.8): 246 (dkdv) and 249 (dq) registers at D = 256, 142 and 175 at D =
+// 112, no spill.
 // The products of a tile feed the running gradient as the MMA's C operand
 // in dq, and in dkdv at D = 256. The forward sums each tile in fresh
 // accumulators instead, because over 8,192 keys the tensor cores' additions
@@ -255,15 +263,32 @@ struct Mask {
   }
 };
 
+// The accumulator columns a lane owns in the fp32 kernels: four adjacent
+// ones in each 128-wide group (float4 reads of a row) when D >= 128 or D
+// is no multiple of 32, else one in each 32-wide group. At D = 112 the one
+// group's lanes 0-27 own its columns and lanes 28-31 none: D / 32 columns
+// a lane would leave columns 96-111 of dQ, dK and dV unsummed and
+// unwritten. The layout at D = 32, 64, 128 and 256 is the one these widths
+// always had, and the forward's (csrc/flash_attention.cu, flash_kernel).
+template <int D>
+struct Cols {
+  static constexpr int VEC = D >= 128 || D % 32 != 0 ? 4 : 1;
+  static constexpr int GROUPS = (D + 32 * VEC - 1) / (32 * VEC);
+  static constexpr int N = GROUPS * VEC;   // columns a lane
+  static_assert(D % 4 == 0 && GROUPS * 32 * VEC >= D && (GROUPS - 1) * 32 * VEC < D,
+                "the lanes' columns cover D, and no group lies wholly past it");
+  static_assert(VEC == 4 || D % 32 == 0, "one column a lane a group needs D % 32 == 0");
+};
+
 // acc[r][.] += a[r] * row[lane's columns] for the warp's 4 rows
 template <int D>
-__device__ __forceinline__ void add_row(float (&acc)[RPW][D / 32], const float (&a)[RPW],
+__device__ __forceinline__ void add_row(float (&acc)[RPW][Cols<D>::N], const float (&a)[RPW],
                                         const float* row, int lane) {
-  constexpr int VEC = D >= 128 ? 4 : 1;
-  constexpr int GROUPS = D / 32 / VEC;
+  constexpr int VEC = Cols<D>::VEC;
 #pragma unroll
-  for (int g = 0; g < GROUPS; ++g) {
+  for (int g = 0; g < Cols<D>::GROUPS; ++g) {
     if constexpr (VEC == 4) {
+      if (D % 128 != 0 && g * 128 + lane * 4 >= D) continue;   // an idle lane
       const float4 x = *reinterpret_cast<const float4*>(row + g * 128 + lane * 4);
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
@@ -283,19 +308,20 @@ __device__ __forceinline__ void add_row(float (&acc)[RPW][D / 32], const float (
 // the warp's 4 rows of acc into out (row-major, D apart), rows row0 + r
 // below S
 template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[RPW][D / 32],
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[RPW][Cols<D>::N],
                                            int row0, int S, int lane) {
-  constexpr int VEC = D >= 128 ? 4 : 1;
-  constexpr int GROUPS = D / 32 / VEC;
+  constexpr int VEC = Cols<D>::VEC;
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     if (row0 + r >= S) continue;
     float* orow = out + (size_t)(row0 + r) * D;
 #pragma unroll
-    for (int g = 0; g < GROUPS; ++g) {
+    for (int g = 0; g < Cols<D>::GROUPS; ++g) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        orow[g * 32 * VEC + lane * VEC + e] = acc[r][g * VEC + e];
+      for (int e = 0; e < VEC; ++e) {
+        const int col = g * 32 * VEC + lane * VEC + e;
+        if (D % (32 * VEC) == 0 || col < D) orow[col] = acc[r][g * VEC + e];
+      }
     }
   }
 }
@@ -374,11 +400,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
   int kt_begin = 0;
   if (mask.window > 0 && g0 - mask.window + 1 > 0) kt_begin = (g0 - mask.window + 1) / BKV;
 
-  float acc[RPW][D / 32];
+  float acc[RPW][Cols<D>::N];
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < Cols<D>::N; ++c) acc[r][c] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BKV;
@@ -443,11 +469,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
   const int q_end = mask.window > 0 ? max(0, min(Sq, k_last + mask.window - mask.qoff)) : Sq;
   const int qt_begin = q_begin / BQ, qt_end = (q_end + BQ - 1) / BQ;
 
-  float acc_k[RPW][D / 32], acc_v[RPW][D / 32];
+  float acc_k[RPW][Cols<D>::N], acc_v[RPW][Cols<D>::N];
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+    for (int c = 0; c < Cols<D>::N; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
 
   for (int h = hk * rep; h < (hk + 1) * rep; ++h) {   // the group's heads, in order
     for (int qt = qt_begin; qt < qt_end; ++qt) {
@@ -537,6 +563,14 @@ constexpr int NT = 4;               // n-tiles (8 wide) of a warp's 16 x 32 scor
 constexpr int KG = 2;               // 16-deep k steps of the same tile as an A operand
 static_assert(DQ_BQ == WARPS * 16 && KV_BK == PAIRS * 16, "16 rows a warp (pair)");
 static_assert(DQ_BK == 8 * NT && KV_BQ == 8 * NT && NT == 2 * KG, "32-wide score tiles");
+
+// D / 16 k-steps and D / 16 pairs of n-tiles a product; an odd count (7 at
+// D = 112) is fine, as no loop steps by two. Rows of D + PAD bf16 are a
+// whole number of 16-byte pieces (cp.async, ldmatrix), and an odd number
+// of them (15 at D = 112, 17 at 128), so the 8 rows an ldmatrix reads fall
+// in 8 different bank quads.
+template <int D>
+constexpr bool ROWS_OK = D % 16 == 0 && ((D + PAD) * 2) % 16 == 0 && ((D + PAD) * 2 / 16) % 2 == 1;
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -669,6 +703,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
     const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int rep,
     Mask mask) {
   constexpr int LD = D + PAD;
+  static_assert(ROWS_OK<D>, "whole k-steps and n-tile pairs, conflict-free ldmatrix rows");
   extern __shared__ __align__(16) bf16 smem_bf16[];
   bf16* qs = smem_bf16;             // DQ_BQ x LD
   bf16* dos = qs + DQ_BQ * LD;      // DQ_BQ x LD
@@ -763,6 +798,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_mma_kernel(
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
     int Sk, int rep, Mask mask) {
   constexpr int LD = D + PAD;
+  static_assert(ROWS_OK<D>, "whole k-steps and n-tile pairs, conflict-free ldmatrix rows");
   extern __shared__ __align__(16) bf16 smem_bf16[];
   bf16* ks = smem_bf16;             // KV_BK x LD
   bf16* vs = ks + KV_BK * LD;       // KV_BK x LD
@@ -959,11 +995,12 @@ int launch_d(const void* q, const void* k, const void* v, const void* o, const v
 // one dtype: bf16 when `bf16` is 1, else fp32; o (BH, Sq, D) fp32, the
 // forward's output before rounding; lse (BH, Sq) fp32, the forward's
 // per-row log-sum-exp; delta (BH, Sq) fp32 scratch. BH must be a multiple
-// of BHk and D one of 32, 64, 128, 256. Query row q sits at position
-// q_offset + q for the causal mask and the window (a shard of a
-// sequence's queries against all its keys; 0 for a whole sequence). Three kernels on `stream`, in
-// order: delta, dq, dk and dv. Returns the CUDA error code of the first
-// launch that fails, else of the last.
+// of BHk and D one of 32, 64, 112, 128, 256 (112: zamba2-7b's shared
+// attention block). Query row q sits at position q_offset + q for the
+// causal mask and the window (a shard of a sequence's queries against all
+// its keys; 0 for a whole sequence). Three kernels on `stream`, in order:
+// delta, dq, dk and dv. Returns the CUDA error code of the first launch
+// that fails, else of the last.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout,
                                           const void* lse, void* delta, void* dq,
@@ -979,6 +1016,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   switch (D) {
     case 32: return launch_d<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     case 64: return launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
+    case 112: return launch_d<112>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     case 128: return launch_d<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     case 256: return launch_d<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, rep, Sq, Sk, bf16, mask, st);
     default: return (int)cudaErrorInvalidValue;

@@ -535,10 +535,9 @@ def _flops_topn_scores(u, v, topk, slab=None, *, out_shape=None, **kwargs) -> in
 #: the head widths the forward kernels are built for (112: zamba2-7b's
 #: shared attention block)
 FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)
-#: the head widths the backward kernels are built for: no model the port
-#: trains on the card has D = 112 (zamba2-7b's training, 79.7 GB before
-#: any activation, waits for a mesh of cards; ROADMAP.md, queue 1 item 7)
-FLASH_BWD_HEAD_DIMS = (32, 64, 128, 256)
+#: the head widths the backward kernels are built for: the forward's (112:
+#: zamba2-7b's shared attention block, trained at a cut depth on one card)
+FLASH_BWD_HEAD_DIMS = (32, 64, 112, 128, 256)
 #: the CUDA kernel each dtype launches (csrc/flash_attention.cu), as a
 #: profiler names it: bf16 on the tensor cores, fp32 on the fp32 pipes
 FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_mma_kernel",
@@ -770,8 +769,7 @@ def _check_flash_bwd(q, k, v, do, lse, o, q_offset: int = 0) -> None:
     if d not in FLASH_BWD_HEAD_DIMS:
         raise ValueError(
             f"flash attention backward takes D in {FLASH_BWD_HEAD_DIMS}, got {d}: the "
-            "backward kernels are not built for it (ROADMAP.md, queue 1 item 7: "
-            "zamba2-7b's training waits for a mesh of cards)")
+            "backward kernels are not built for it")
     if k.shape != v.shape or k.shape[2] != d or bhk == 0 or bh % bhk or sk == 0:
         raise ValueError(f"k and v must be (BHk, S_k, {d}) with BHk dividing {bh} and "
                          f"S_k > 0; got {tuple(k.shape)} and {tuple(v.shape)}")

@@ -108,9 +108,13 @@ def ssd_chunked(x, dt, a, b_in, c_in, state, *, chunk: int = 128,
             h_new = torch.exp(acum[:, -1])[:, :, None, None] * (hst + upd)
             y_inter = torch.einsum("bthn,bhnp->bthp", cf, hst)
         else:
-            # scores[t, s] = (C_t . B_s) exp(acum_t - acum_s) dt_s
+            # scores[t, s] = (C_t . B_s) exp(acum_t - acum_s) dt_s. The
+            # masked exponents (t < s) are set to -inf before exp: at full
+            # width they pass fp32's range, and exp(seg) = inf there would
+            # send 0 x inf = NaN back through a masking where (the JAX
+            # package's jnp.where(tri, exp(seg), 0) does; ROADMAP.md queue 3)
             seg = acum[:, :, None, :] - acum[:, None, :, :]      # (B, T, S, H)
-            decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+            decay = torch.exp(seg.masked_fill(~tri[None, :, :, None], float("-inf")))
             w = torch.einsum("bthn,bshn->btsh", cb, bb) * decay * dtb[:, None, :, :]
             y_intra = torch.einsum("btsh,bshp->bthp", w, xb)
             y_inter = torch.exp(acum)[..., None] * torch.einsum("bthn,bhnp->bthp", cb, hst)

@@ -4,8 +4,9 @@ backbone and one *shared* attention + MLP block applied after every
 
 The shared block is the decoder's `attention_block` and `mlp_block`: a
 cache-free sequence of at least `chunked_attn_min_len` tokens takes the
-flash kernel (zamba2-7b: 32 heads of 112, one launch an application), a
-prefill or decode step the direct path. Each application keeps its own
+flash kernel (zamba2-7b: 32 heads of 112, one launch an application; with
+grad one backward launch too, as remat recomputes only the Mamba2 blocks),
+a prefill or decode step the direct path. Each application keeps its own
 K/V cache ("attn_k", "attn_v": (G, B, T, Hk, hd)), written in place, as
 are the stacked Mamba2 states: the states passed in are consumed.
 """

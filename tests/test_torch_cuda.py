@@ -853,7 +853,7 @@ def _grads_hold(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
 def test_flash_bwd_kernel_matches_plain(cuda, d, dtype):
     """Every head width in both dtypes, GQA 2, window 48, softcap 50, a
     ragged S: the kernel's gradients against the float64 plain version."""
@@ -911,6 +911,8 @@ def test_flash_bwd_kernel_is_the_same_from_run_to_run(cuda):
     (4, 4, 257, 128, 33, 50.0, 6.0),   # one key outside it
     (8, 2, 300, 256, 63, 30.0, 1.0),   # one key inside a 64-key block
     (4, 2, 300, 64, 65, 50.0, 16.0),   # one key outside it, scores past the cap
+    (4, 4, 129, 112, 0, 0.0, 1.0),     # D = 112 (7 k-steps): one above a dq block
+    (8, 2, 65, 112, 31, 50.0, 6.0),    # one above a dkdv block, a window, peaked
 ])
 def test_flash_bwd_mma_tile_edges(cuda, bh, bhk, s, d, window, cap, q_scale):
     """The tensor-core backward at the edges of its tiles, every head width
@@ -1214,18 +1216,39 @@ def test_flash_kernels_at_d112_match_plain(cuda, bh, bhk, s):
     _flash_bf16_holds(*(t.to(torch.bfloat16) for t in (q, k, v)), **kw)
 
 
-def test_flash_bwd_at_d112_raises_before_any_launch(cuda):
-    q = torch.randn(2, 64, 112, device=cuda, dtype=torch.bfloat16)  # repro-lint: disable=rng-global (values unused: it raises)
+def test_flash_bwd_at_an_unbuilt_width_raises_before_any_launch(cuda):
+    q = torch.randn(2, 64, 96, device=cuda, dtype=torch.bfloat16)  # repro-lint: disable=rng-global (values unused: it raises)
     lse = torch.zeros(2, 64, device=cuda)
     ops.reset_launches()
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="not built for it"):
         ops.flash_attention_bwd(q, q, q, q, lse, q.float(), causal=True, window=0,
-                                softcap=0.0, scale=112 ** -0.5)
-    leaf = q.clone().requires_grad_()
-    out = ops.flash_attention(leaf, q, q)        # the forward is built at 112
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        out.float().sum().backward()
+                                softcap=0.0, scale=96 ** -0.5)
     assert ops.launches()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("bh,bhk,s", [(4, 4, 1), (4, 4, 31), (4, 4, 33), (4, 2, 127),
+                                      (4, 4, 129), (2, 2, 1000)])
+def test_flash_bwd_fp32_at_d112_matches_plain(cuda, bh, bhk, s):
+    """The fp32 backward at D = 112 (zamba2-7b), whose lanes 28-31 own no
+    column, at the SIMT kernels' 32-row and 32-key tile edges and a ragged
+    S: within 3e-4 of each gradient's largest magnitude of float64
+    (`_grads_hold`), and columns 96-111, which D / 32 columns a lane
+    missed, within 1e-4 of the fp32 plain version (on the plain forward's
+    lse and the kernel's output)."""
+    g = torch.Generator(device=cuda).manual_seed(1120 + s)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    q, k, v = _flash_inputs(g, bh, bhk, s, 112, 1.0, torch.float32, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda)
+    ops.reset_launches()
+    out, *got = _flash_grads(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention_bwd"] == 1
+    _grads_hold(got, _exact_grads(q, k, v, do, **kw), torch.float32)
+    _, lse, _ = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    plain = ref.flash_attention_bwd_ref(q, k, v, do, lse, out.detach(), scale=112 ** -0.5,
+                                        **kw)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a[..., 96:], b[..., 96:], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["xlstm-350m", "zamba2-7b"])

@@ -16,7 +16,9 @@ has started by then).
 """
 import dataclasses
 import importlib
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -232,6 +234,42 @@ def test_full_size_cells_on_meta_and_kimi_does_not_fit():
         REGISTRY["gemma2-2b"], api.shape_by_name("prefill_32k"))
     assert sum(ops.launches().values()) == 0
     assert "ok  params" in dryrun.summary_line(kimi)
+
+
+def _chip_smoke():
+    """chip_smoke.py loaded as a module, for its constants (its main()
+    runs only as a script)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen2-vl-7b", "granite-20b"])
+def test_cut_train_cells_fit_one_card(arch):
+    """The train steps chip_smoke.py runs on the card at full width and a
+    cut depth (CUT_TRAIN_LAYERS: zamba2-7b 54 of 81, qwen2-vl-7b 8 of 28,
+    granite-20b 8 of 52), at B = 1, S = 8,192, lower on the meta device
+    with a modelled peak under 72 GB (80 GB less a tenth for what the
+    allocator adds), and count the flash pair's calls the step's structure
+    gives: zamba's shared block once an application (outside the remat),
+    a decoder layer's forward twice (forward and recompute) and its
+    backward once. zamba2-7b's reaches the backward's fake at D = 112."""
+    layers = _chip_smoke().CUT_TRAIN_LAYERS[arch]
+    cfg = dataclasses.replace(REGISTRY[arch], n_layers=layers)
+    assert layers < REGISTRY[arch].n_layers
+    ops.reset_launches()
+    counter, _ = dryrun.lower_cell(cfg, api.ShapeSpec("train", 8192, 1, "train"))
+    assert counter.peak_bytes < 72e9, counter.peak_bytes
+    calls = {name.split(".")[-1]: rec[0] for name, rec in counter.by_op.items()
+             if "flash" in name}
+    groups = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    want = ({"flash_forward": groups, "flash_attention_bwd": groups} if groups else
+            {"flash_forward": 2 * layers, "flash_attention_bwd": layers})
+    assert calls == want
+    assert (cfg.hd == 112) == (arch == "zamba2-7b")
+    assert sum(ops.launches().values()) == 0
 
 
 def _flash_args(dtype, d=32):

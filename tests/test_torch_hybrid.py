@@ -18,7 +18,9 @@ from its fp32 forward (`_noise_close`, chip_smoke.py's noise-floor rule);
 the flash plain version against the interpret-mode kernel at the
 reference's own flash tolerance, 3e-4 in fp32 (tests/test_kernels.py:88).
 Remat on and off: gradients equal bit for bit (the same operations,
-recomputed).
+recomputed). The reduced model's fp32 gradients against `jax.grad` of the
+JAX loss: rtol 1e-4 and an atol of 1e-5 of each parameter's largest
+gradient magnitude, tests/test_torch_dense.py's (`_close_to_max`).
 """
 import dataclasses
 
@@ -42,7 +44,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import ZambaModel, build_model, params_from_numpy  # noqa: E402
-from repro_torch.models import mamba as tmamba, zamba as tzamba  # noqa: E402
+from repro_torch.models import mamba as tmamba, transformer as tt, zamba as tzamba  # noqa: E402
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=3e-2, atol=3e-2)
@@ -126,6 +128,47 @@ def test_ssd_chunked_matches_jax_and_the_steps(s, chunk, fold_decay):
         ys.append(yt)
     _close(y, torch.stack(ys, dim=1))
     _close(h, st)
+
+
+def test_ssd_chunked_gradient_is_finite_where_the_masked_decay_overflows():
+    """Steep decays (a dt down to -16 x 5 a step): inside a chunk the masked
+    exponents acum_t - acum_s (t < s) pass fp32's range, as they do at
+    zamba2-7b's full width. The port takes exp of the masked ones at -inf,
+    so its gradient is finite and the recurrence's (one ssd_step a
+    position). The JAX package's jnp.where(tri, exp(seg), 0) sends
+    0 x inf = NaN back there: a fault of the reference, recorded here."""
+    rng = np.random.default_rng(3)
+    arrays = list(_ssd_inputs(rng, 1, 32, 4, 8, 2, 5))
+    arrays[1] = arrays[1] + np.float32(3.0)                  # dt of 3 to 5
+    wy = rng.normal(size=(1, 32, 4, 8)).astype(np.float32)
+    wh = rng.normal(size=(1, 4, 5, 8)).astype(np.float32)
+
+    def grads(run):
+        leaves = [torch.tensor(a).requires_grad_() for a in arrays]
+        y, h = run(*leaves)
+        loss = (y * torch.tensor(wy)).sum() + (h * torch.tensor(wh)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    def steps(x, dt, a, b_in, c_in, st):
+        ys = []
+        for t in range(x.shape[1]):
+            yt, st = tmamba.ssd_step(x[:, t], dt[:, t], a, b_in[:, t], c_in[:, t], st)
+            ys.append(yt)
+        return torch.stack(ys, dim=1), st
+
+    got = grads(lambda *a: tmamba.ssd_chunked(*a, chunk=16))
+    want = grads(steps)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()))
+
+    def jloss(*a):
+        y, h = jmamba.ssd_chunked(*a, chunk=16)
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(*(jnp.asarray(a) for a in arrays))
+    assert not all(bool(jnp.isfinite(g).all()) for g in jgrads)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -295,6 +338,46 @@ def test_zamba_shared_block_is_applied_with_one_set_of_weights():
     assert len(seen) == tzamba.zamba_groups(tcfg)[0] and all(p is tparams.shared for p in seen)
 
 
+def _close_to_max(got, want, *, rtol=1e-4, frac=1e-5):
+    got, want = _np(got), _np(want)
+    atol = frac * max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("path", ["flash", "direct"])
+def test_reduced_zamba_gradients_match_jax(path, monkeypatch):
+    """jax.grad(model.loss_fn) against the port's loss.backward() in fp32,
+    for every parameter. The reduced zamba has two groups, so the tied
+    shared block's gradient is the sum over its two applications. The
+    flash path (S = 64) runs at zamba2-7b's head width of 112: the flash
+    forward and its backward's plain version once an application; the
+    direct path (S = 32) launches neither."""
+    upd = dict(head_dim=112) if path == "flash" else {}
+    jcfg, tcfg, jmodel, jparams, tmodel, tparams = _models(seed=1, **upd)
+    n_groups, n_per = tzamba.zamba_groups(tcfg)
+    assert n_groups == 2
+    batch = TokenStream(tcfg, 2, 64 if path == "flash" else 32, seed=4)(0)
+    calls = {"flash_attention": [], "flash_attention_bwd": []}
+    for name, seen in calls.items():
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _r=real, _s=seen, **k:
+                            _s.append(a[0].shape) or _r(*a, **k))
+    loss, _ = tmodel.loss_fn(tparams, batch)
+    loss.backward()
+    want = [(2 * tcfg.n_heads, 64, 112)] * n_groups if path == "flash" else []   # B = 2
+    assert calls == {"flash_attention": want, "flash_attention_bwd": want}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jmodel.loss_fn, has_aux=True))(
+        jparams, batch)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    # one port parameter a JAX leaf, a Mamba2 leaf's (group, layer) slices each one
+    leaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(list(tparams.parameters())) == sum(
+        n_groups * n_per if kp[0].key == "mamba" else 1 for kp, _ in leaves)
+    for n, p in tparams.named_parameters():
+        _close_to_max(p.grad, tt.param_leaf(jgrads, n)[1])
+    assert float(tparams.shared.attn.wq.grad.abs().max()) > 0
+
+
 def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -356,7 +439,7 @@ def test_flash_plain_version_at_d112_matches_pallas_interpret(bh, bhk, s):
     _close(got, want, FLASH_F32)
     # and through the wrapper, which on the CPU is the plain version
     _close(ops.flash_attention(*(torch.tensor(a) for a in (q, k, v))), got, dict(rtol=0, atol=0))
-    assert 112 in ops.FLASH_HEAD_DIMS and 112 not in ops.FLASH_BWD_HEAD_DIMS
+    assert 112 in ops.FLASH_HEAD_DIMS and 112 in ops.FLASH_BWD_HEAD_DIMS
 
 
 # ---------------------------------------------------------------------------

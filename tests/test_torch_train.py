@@ -118,6 +118,8 @@ FLASH_CASES = [
     (4, 2, 72, 32, 16, 0.0, "fp32"),
     (8, 4, 64, 64, 16, 50.0, "bf16"),
     (2, 1, 72, 32, 0, 50.0, "bf16"),
+    (4, 2, 72, 112, 0, 0.0, "fp32"),      # zamba2-7b's head width, ragged S
+    (4, 2, 72, 112, 16, 50.0, "bf16"),
 ]
 
 
