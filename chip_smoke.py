@@ -76,6 +76,21 @@ no kernels line and no result line. Phases:
               the fused kernel given one draw's factors, noise in the
               posterior mean) and in the barrier (a commit after one
               shard): each must fail a check of phase 11 or 12
+ 13b. serve_devices the serving tier placed over devices, on the
+              retained ensemble of phase 7, 4,096 users, top 10, seen
+              items excluded: a 4-host, 2-replica tier over
+              serving_host_devices(n_hosts=4) (all on cuda:0) bit for bit
+              TopNRecommender, a top-N launch a shard a batch; a card + host
+              tier, devices cuda:0, cpu, cuda:0, cpu (the cpu shards on the
+              plain version), bit for bit the coordinator-side merge of
+              each shard's candidates scored alone on its device, and bit
+              for bit the all-card tier (tolerance 0: the plain version
+              sums in the kernel's order); a mixed tier
+              over (cuda:0, cpu) x 2, replicas 2, attached to a channel:
+              two publishes commit, both owners of the cpu shard are killed
+              and the shard is rebuilt on cuda:0 (stats() names it), then
+              served bit for bit one host on the committed ensemble;
+              RecommendFrontend(mesh=make_host_mesh()) bit for bit one host
  14. dist     the paper's distributed sampler at the ChEMBL shape: P = 4
               item shards on the one card (width "auto", K = 64, alpha
               1.5), modes ring, allgather and async through the fused
@@ -349,13 +364,14 @@ no kernels line and no result line. Phases:
               {"ok": true, "device": {...}}
 
 The main path is phases 7, 10, 17, 18 and 22, the serving tier's paths are
-phases 11 and 12, the distributed sampler's phases 14 and 14b, the SGLD and ALS
+phases 11, 12 and 13b, the distributed sampler's phases 14 and 14b, the SGLD and ALS
 path phase 15, the other LMs phase 19 and the dense train steps of 22,
 the SSM and hybrid LMs phase 20, the audio and VLM LMs phase 21, the
 train steps at a cut depth in phases 20, 22 and 23 and the train step on a
 mesh phase 26 (b): the
 launch counters are set to 0 just before each and read just after (the
 kernels line's `launches`, `foldin_launches`, `cotrain_launches`,
+`serve_devices_launches`,
 `dist_launches`, `dist_ranks_launches` (the 4 ranks' sums), `sgld_launches`,
 `lm_dense_launches`, `lm_ssm_launches`,
 `lm_mm_launches`, `lm_train_launches`, `lm_train_dense_launches`,
@@ -367,7 +383,8 @@ timed forwards', 3 flash launches in all; lm_mm's the two timed forwards',
 the 3 timed steps of each dense config, each cut train step's its timed
 steps (zamba2-7b 1, the others 3); the xLSTM's train steps launch none and
 are checked to).
-foldin and cotrain need train, serve_faults needs foldin and cotrain, dist,
+foldin, cotrain and serve_devices need train, serve_faults needs foldin and
+cotrain, dist,
 dist_ranks and sgld need data, lm_mm needs none, lm_train needs lm_eval,
 lm_train_mm needs none, lm_faults needs lm_eval, lm_serve and lm_train.
 The `opt` variant (configs/variants.py) runs inside earlier phases:
@@ -441,6 +458,9 @@ COTRAIN_SWEEPS = 12                    # burn-in 4 (the sampler's): 8 publishes
 COTRAIN_VICTIM = 1                     # the host killed at its first stage
 COTRAIN_BATCH = 256                    # warm requests a flush (the frontend's max batch)
 COTRAIN_COLD = 32                      # cold-start requests a flush
+# the card + host tier of phase serve_devices: one shard a host, the cpu
+# ones scored by the plain version
+MIXED_DEVICES = ["cuda:0", "cpu", "cuda:0", "cpu"]
 SAMPLE_FIELDS = ("u", "v", "hyper_u_mu", "hyper_u_lam", "hyper_v_mu", "hyper_v_lam",
                  "global_mean", "alpha")
 # the distributed sampler (phase dist): P item shards, all on cuda:0
@@ -774,8 +794,8 @@ def card_line() -> str:
 
 
 PHASES = ("build", "lint", "data", "kernels", "ranks", "topn", "train", "parity",
-          "learning", "serve", "foldin", "cotrain", "serve_faults", "dist", "dist_ranks",
-          "sgld",
+          "learning", "serve", "foldin", "cotrain", "serve_faults", "serve_devices", "dist",
+          "dist_ranks", "sgld",
           "lm_kernels", "lm_eval", "lm_serve", "lm_dense", "lm_ssm", "lm_mm", "lm_train",
           "lm_train_mm", "lm_faults", "dryrun", "mesh")
 
@@ -877,10 +897,13 @@ class Smoke:
     def sync(self):
         self.torch.cuda.synchronize()
 
-    def cuda_ms(self, fn, reps: int = 5) -> float:
+    def cuda_ms(self, fn, reps: int = 5, warmup: bool = True) -> float:
         """Mean device time of fn over reps calls after one warm-up call
-        (`repro_torch/launch/profile.py::cuda_ms`)."""
-        return self.profile_mod.cuda_ms(fn, reps)
+        (`repro_torch/launch/profile.py::cuda_ms`; a `--src` whose cuda_ms lacks
+        warmup= still runs every warm call)."""
+        if warmup:
+            return self.profile_mod.cuda_ms(fn, reps)
+        return self.profile_mod.cuda_ms(fn, reps, warmup=False)
 
     @staticmethod
     def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -2485,6 +2508,170 @@ class Smoke:
                    and ClusterCoordinator._commit_locked is real_commit
                    and foldin_mod._noise is real_noise, "every plant undone")
 
+    # ------------------------------------------------------------ tier over devices
+    def serve_devices(self):
+        """Phase 13b (the module docstring): the serving tier's hosts placed
+        over devices, the cross-device candidate gather on the card + host
+        tier, failover onto a surviving host's device, and the frontend on
+        the host mesh. The path's launches are every tier and frontend call
+        below; the references come after they are read."""
+        np, torch, ops = self.np, self.torch, self.ops
+        from repro_torch.launch.mesh import (
+            close_host_group,
+            make_host_mesh,
+            serving_host_devices,
+        )
+        from repro_torch.serve import (
+            ClusterCoordinator,
+            PosteriorEnsemble,
+            PublicationChannel,
+            RecommendFrontend,
+            TopNRecommender,
+        )
+
+        t_phase = time.perf_counter()
+        users = np.sort(np.random.default_rng(0).choice(self.sampler.m, N_USERS_SERVED,
+                                                        replace=False))
+        ens = PosteriorEnsemble.load(self.store_dir)
+
+        def drive(call):
+            """call() and the kernels it launched, the card drained after."""
+            before = ops.launches()
+            out = call()
+            self.sync()
+            after = ops.launches()
+            return out, {k: after[k] - before[k] for k in after}
+
+        def serve(rec):
+            return drive(lambda: rec.recommend(users, TOPK, seen=self.seen))
+
+        ops.reset_launches()                    # the path starts here
+        card = ClusterCoordinator(ens, devices=serving_host_devices(n_hosts=4), replicas=2)
+        (cv, ci), n_card = serve(card)
+        mixed = ClusterCoordinator(ens, devices=MIXED_DEVICES)
+        (mv, mi), n_mixed = serve(mixed)
+        ch = PublicationChannel(window=ens.n_samples)
+        for d in ens.samples:   # the retained window: the tier starts at its epoch
+            ch.publish(d.step, {k: getattr(d, k) for k in SAMPLE_FIELDS})
+        fo = ClusterCoordinator(ens, devices=["cuda:0", "cpu"] * 2, replicas=2, channel=ch)
+        base = ens.samples[-1]
+        try:
+            rng = np.random.default_rng(7)
+            committed = []
+            for i in (1, 2):            # two fresh draws near the last one
+                d = {k: getattr(base, k) for k in SAMPLE_FIELDS}
+                for key in ("u", "v"):
+                    d[key] = d[key] + np.float32(0.01) * rng.standard_normal(
+                        np.shape(d[key]), dtype=np.float32)
+                ch.publish(base.step + i, d)
+                committed.append(fo.wait_epoch(base.step + i, timeout=120))
+            (bv, bi), n_before = serve(fo)
+            for h in (1, 3):                    # both owners of shard 1, on the cpu
+                fo.health.kill(h)
+            (av, ai), n_after = serve(fo)
+            stats = fo.stats()
+        finally:
+            fo.close()
+            ch.close()
+        try:
+            fe = RecommendFrontend(self.store_dir, seen=self.train, mesh=make_host_mesh(),
+                                   max_batch=N_USERS_SERVED)
+            for u in users:
+                fe.submit(int(u), topk=TOPK)
+            res, n_fe = drive(fe.flush)
+        finally:
+            close_host_group()
+        self.sync()
+        launches = ops.launches()               # ... and is read here
+        self.path_launches["serve_devices"] = launches
+        print(f"the tier over devices: launches {launches}; per batch: all-card "
+              f"{n_card['topn_scores']}, card + host {n_mixed['topn_scores']}, mixed "
+              f"replicated {n_before['topn_scores']} then {n_after['topn_scores']} after "
+              f"the failover, frontend {n_fe['topn_scores']}")
+
+        sv, si = TopNRecommender(ens).recommend(users, TOPK, seen=self.seen)
+        self.check(card.n_shards == 2 and [str(h.device) for h in card.hosts] == ["cuda:0"] * 4
+                   and np.array_equal(ci, si) and np.array_equal(cv, sv),
+                   f"all-card tier, 4 hosts on {[str(d) for d in card.devices]}, replicas 2: "
+                   f"top-N of {len(users):,} users bit for bit TopNRecommender's")
+        self.check(n_card["topn_scores"] == card.n_shards and sum(n_card.values()) == card.n_shards,
+                   f"all-card tier: {n_card['topn_scores']} top-N launches a batch, one a shard")
+        self.check([str(h.device) for h in mixed.hosts] == MIXED_DEVICES
+                   and [str(h.live.v_shard.device) for h in mixed.hosts] == MIXED_DEVICES
+                   and n_mixed["topn_scores"] == 2 and sum(n_mixed.values()) == 2,
+                   f"card + host tier: hosts and their V' shards on {MIXED_DEVICES}, "
+                   f"{n_mixed['topn_scores']} top-N launches a batch (the cuda:0 shards; the "
+                   "cpu shards run the plain version)")
+        gv, gi = self.merged_alone(ens, users, MIXED_DEVICES)
+        self.check(np.array_equal(mi, gi) and np.array_equal(mv, gv),
+                   "card + host tier: bit for bit the merge on cuda:0 of each shard's "
+                   "candidates scored alone on its own device")
+        self.check(np.array_equal(mi, ci) and np.array_equal(mv, cv),
+                   "card + host tier: bit for bit the all-card tier (tolerance 0: the plain "
+                   "version sums in the kernel's order)")
+        epoch = base.step + 2
+        rebuilt = stats["hosts"].get(4, {})
+        fv_ref, fi_ref = TopNRecommender(fo.ensemble).recommend(users, TOPK, seen=self.seen)
+        self.check(all(committed) and fo.epoch == epoch and fo.commits == 2,
+                   f"mixed tier over (cuda:0, cpu) x 2, replicas 2: both publishes committed "
+                   f"(epoch {fo.epoch}, {fo.commits} commits)")
+        self.check(stats["reassignments"] == 1 and rebuilt.get("shard") == 1
+                   and rebuilt.get("device") == "cuda:0" and n_after["topn_scores"] == 2
+                   and n_before["topn_scores"] == 1,
+                   f"both owners of shard 1 (cpu) killed: the shard is rebuilt as host "
+                   f"{4 if rebuilt else None} on {rebuilt.get('device')} (a surviving "
+                   f"host's device; stats names it), {n_after['topn_scores']} top-N "
+                   "launches a batch after, 1 before")
+        self.check(fo.ensemble.epoch == epoch and np.array_equal(ai, fi_ref)
+                   and np.array_equal(av, fv_ref),
+                   "after the failover the mixed tier serves bit for bit TopNRecommender on "
+                   "the committed ensemble")
+        self.check(np.array_equal(bi, fi_ref) and np.array_equal(bv, fv_ref),
+                   "before the failover (shard 1 on the cpu), bit for bit the same")
+        res = sorted(res, key=lambda r: r.ticket)
+        rec = fe._recommender
+        self.check(type(rec) is TopNRecommender and [str(h.device) for h in rec.hosts]
+                   == ["cuda:0"] and n_fe["topn_scores"] == 1
+                   and np.array_equal(np.stack([r.items for r in res]), si)
+                   and np.array_equal(np.stack([r.scores for r in res]), sv),
+                   "RecommendFrontend(mesh=make_host_mesh()): one shard on cuda:0, one top-N "
+                   f"launch for a batch of {len(users):,}, bit for bit TopNRecommender's")
+        took = time.perf_counter() - t_phase
+        print(f"serve_devices: {took:.1f} s on {card_line()}")
+
+    def merged_alone(self, ens, users, devices):
+        """The tier's result built apart from it: each shard of
+        len(devices) scored alone by ops.topn_scores on its device from the
+        ensemble's scoring matrices, the candidates merged on cuda:0, the
+        global mean added and each user's seen items dropped as
+        ClusterCoordinator._serve does."""
+        np, torch, ops = self.np, self.torch, self.ops
+        from repro_torch.serve.cluster import _merge_topk, shard_bounds
+
+        fetch = 1 << (TOPK + self.seen.max_degree - 1).bit_length()
+        fetch = min(fetch, ens.n_items)
+        u_flat, v_flat = ens.scoring_matrices()
+        rows = u_flat[torch.as_tensor(users, dtype=torch.int64, device=u_flat.device)]
+        bounds = shard_bounds(ens.n_items, len(devices))
+        vals, idx = [], []
+        for s, dev in enumerate(devices):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            v, i = ops.topn_scores(rows.to(dev), v_flat[lo:hi].to(dev).contiguous(),
+                                   min(fetch, hi - lo))
+            vals.append(v.to(self.dev))
+            idx.append((i + lo).to(self.dev))
+        mv, mi = _merge_topk(torch.cat(vals, 1), torch.cat(idx, 1), fetch)
+        mv = mv.cpu().numpy() + np.float32(ens.global_mean)
+        mi = mi.cpu().numpy().astype(np.int32)
+        out_v = np.full((len(users), TOPK), -np.inf, np.float32)
+        out_i = np.full((len(users), TOPK), -1, np.int32)
+        for r, u in enumerate(users):
+            keep = ~np.isin(mi[r], self.seen[int(u)])
+            kv, ki = mv[r][keep][:TOPK], mi[r][keep][:TOPK]
+            out_v[r, : len(kv)] = kv
+            out_i[r, : len(ki)] = ki
+        return out_v, out_i
+
     # ------------------------------------------------------------ distributed
     def dist(self):
         """The paper's distributed sampler at the ChEMBL shape: P = 4 item
@@ -2705,8 +2892,8 @@ class Smoke:
     def dist_rows(self, ring, gather, state, err: float):
         """gather_syrk_seg's kernels-line numbers at the grid plans' shapes:
         the 32 launches of a ring sweep and the 8 of an allgather sweep, on
-        the initial state's blocks, each timed beside its plain version and
-        its bound (outside the counted run)."""
+        the initial state's blocks, each timed beside its plain version (one
+        call, no warm-up) and its bound (outside the counted run)."""
         torch, ops, ref = self.torch, self.ops, self.ref
         us, vs = state.u, state.v
         calls = {
@@ -2723,7 +2910,9 @@ class Smoke:
             for b, cp in todo:
                 args = (b.indices, b.values, b.mask, b.seg_dense, b.n_segments, cp)
                 ms = self.cuda_ms(lambda: ops.gather_syrk_seg(*args, seg_ptr=b.seg_ptr))
-                pms = self.cuda_ms(lambda: ref.gather_syrk_seg_ref(*args), reps=1)
+                # one cold call: the 40 plain launches take 24 s a pass
+                pms = self.cuda_ms(lambda: ref.gather_syrk_seg_ref(*args), reps=1,
+                                   warmup=False)
                 m = b.mask > 0
                 r, w = b.indices.shape
                 distinct = int(torch.unique(b.indices[m]).numel())

@@ -26,9 +26,11 @@ share is stated beside the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit`). `launch/cost.py::roofline_terms`
 and `chip_smoke.py`'s bounds read them.
 
-`serving_host_devices` (the serving tier's lead devices) waits for the
-serving tier's mesh (ROADMAP.md, queue 1 item 7). NVLINK_BYTES_PER_S is
-the dry-run's link term.
+`serving_host_devices` gives the serving tier (serve/cluster.py) its
+hosts' devices, one a shard host: on a mesh the lead rank of each index
+along "pod" (else along the first axis), `serving_host_ranks`, each of
+which must be this process's; without one the visible devices of a type,
+cycled. NVLINK_BYTES_PER_S is the dry-run's link term.
 """
 from __future__ import annotations
 
@@ -97,6 +99,59 @@ def make_host_mesh(model: int = 1, *, device: str | torch.device = "cuda") -> De
     n = dist.get_world_size()
     model = max(d for d in range(1, max(1, min(model, n)) + 1) if n % d == 0)
     return init_device_mesh(dtype, (n // model, model), mesh_dim_names=("data", "model"))
+
+
+def serving_host_ranks(mesh: DeviceMesh) -> list[int]:
+    """The serving tier's lead ranks, one a shard host: the first rank of
+    each index along "pod" when the mesh has that axis (the slowest
+    fabric, where a resident shard and a routed U replica beat shipping
+    scores), else along its first axis."""
+    names = list(mesh.mesh_dim_names or ())
+    k = names.index("pod") if "pod" in names else 0
+    ranks = mesh.mesh
+    return [int(ranks.select(k, i).flatten()[0]) for i in range(ranks.shape[k])]
+
+
+def _rank_device(mesh: DeviceMesh) -> torch.device:
+    """This process's device on `mesh`: its current card on a "cuda" mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def mesh_local_devices(mesh: DeviceMesh) -> list[torch.device]:
+    """The devices of `mesh` this process holds: its own rank's, once (a
+    process is one rank), or none when the mesh leaves it out."""
+    return [_rank_device(mesh)] if mesh.get_rank() in mesh.mesh.flatten().tolist() else []
+
+
+def serving_host_devices(*, mesh: DeviceMesh | None = None, n_hosts: int | None = None,
+                         device: str | torch.device = "cuda") -> list[torch.device]:
+    """The devices of the serving tier's shard hosts, one a host.
+
+    With a mesh, each lead rank of `serving_host_ranks` maps to this
+    process's device; a lead rank of another process raises, as one process
+    places every host's tables (a tier whose hosts are processes is not
+    built). Without one, the first `n_hosts` visible devices of `device`'s
+    type, cycled when fewer exist (every card by default; "cpu" is one
+    device): raises where a card is asked for and none is present."""
+    if mesh is not None:
+        me = mesh.get_rank()
+        ranks = serving_host_ranks(mesh)
+        for r in ranks:
+            if r != me:
+                raise RuntimeError(
+                    f"serving host lead rank {r} belongs to another process (this one is "
+                    f"rank {me}): one process places every shard host")
+        return [_rank_device(mesh)] * len(ranks)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        visible = [torch.device(dev.type)]
+    if n_hosts is None:
+        n_hosts = len(visible)
+    return [visible[i % len(visible)] for i in range(n_hosts)]
 
 
 _opened: list[bool] = []

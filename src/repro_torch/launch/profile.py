@@ -18,10 +18,12 @@ import torch
 PROFILE_MARGIN_S = 0.2
 
 
-def cuda_ms(fn: Callable, reps: int = 5) -> float:
+def cuda_ms(fn: Callable, reps: int = 5, *, warmup: bool = True) -> float:
     """Mean device time of fn over reps calls after one warm-up call, by
-    CUDA events on the current stream."""
-    fn()
+    CUDA events on the current stream. warmup=False times a plain version
+    that runs for seconds once, cold: its first call's set-up is noise."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

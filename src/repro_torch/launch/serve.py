@@ -42,10 +42,13 @@ publishes still commit:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --bpmf --hosts 4 --replicas 2
 
-Every BPMF mode runs on the card ("--device cpu" for the plain path). All
-hosts share the one card, so unlike the reference nothing re-executes the
-process to simulate devices; hosts on several cards wait for the multi-card
-slice of the port (ROADMAP.md, queue 1 item 7). The demo trainers sweep
+Every BPMF mode runs on the card ("--device cpu" for the plain path). Tier
+mode places its hosts with `launch.mesh.serving_host_devices(n_hosts=)`:
+over every visible card, cycled, so on one card all hosts share cuda:0
+(the reference instead re-executes itself under forced host devices).
+BPMF mode takes the frontend's default devices, every visible card (the
+reference's `make_host_mesh()` there names only this process's card under
+torch, one process a rank). The demo trainers sweep
 with the fused engine and cold-start requests fold in through it, so on
 the card both run the gather_syrk_seg kernel (`launch.train --engine`
 picks another).
@@ -273,6 +276,7 @@ def run_cluster(*, hosts: int = 2, replicas: int = 1, samples: str | None = None
     publish must still commit. Returns the metrics it prints.
     """
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import serving_host_devices
     from repro_torch.serve import (
         ClusterCoordinator,
         PosteriorEnsemble,
@@ -288,8 +292,10 @@ def run_cluster(*, hosts: int = 2, replicas: int = 1, samples: str | None = None
             print(f"no --samples given; training a demo model into {root}")
         train_demo_samples(root, seed=seed, device=device)
     ensemble = PosteriorEnsemble.load(root, device=device)
+    devices = serving_host_devices(n_hosts=hosts, device=device)
     if verbose:
-        print(f"cluster: {hosts} hosts, replicas={replicas}, on {device}; "
+        print(f"cluster: {hosts} hosts, replicas={replicas}, on "
+              f"{[str(d) for d in devices]}; "
               f"ensemble S={ensemble.n_samples} {ensemble.n_users}x"
               f"{ensemble.n_items} k={ensemble.k} epoch={ensemble.epoch}")
 
@@ -297,7 +303,7 @@ def run_cluster(*, hosts: int = 2, replicas: int = 1, samples: str | None = None
     channel = PublicationChannel(window=ensemble.n_samples)
     for s in ensemble.samples:
         channel.publish(s.step, _sample_dict(s))
-    cluster = ClusterCoordinator(ensemble, n_hosts=hosts, replicas=replicas,
+    cluster = ClusterCoordinator(ensemble, devices=devices, replicas=replicas,
                                  device=device, channel=channel)
     try:
         # the tier must match the single host bit for bit
@@ -412,7 +418,8 @@ def bpmf_main(args) -> None:
                            engine="fused", device=args.device)
     ens = fe.ensemble
     print(f"ensemble: {ens.n_samples} samples, {ens.n_users} users x "
-          f"{ens.n_items} items, k={ens.k}, epoch={fe.epoch} (device {fe.device})")
+          f"{ens.n_items} items, k={ens.k}, epoch={fe.epoch} (device {fe.device}, "
+          f"{len(fe.devices)} shard device(s))")
 
     users = np.random.default_rng(0).integers(0, ens.n_users, args.requests)
     # warm up at the serving batch size before timing
@@ -475,8 +482,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="train and serve in one process; retained draws are "
                          "pushed to the live frontend (no disk poll)")
     ap.add_argument("--hosts", type=int, default=0,
-                    help="serve through the tier with N shard hosts on the "
-                         "one device")
+                    help="serve through the tier with N shard hosts over the "
+                         "visible devices, cycled")
     ap.add_argument("--publishes", type=int, default=4,
                     help="--hosts mode: fresh epochs pushed mid-stream")
     ap.add_argument("--replicas", type=int, default=1,

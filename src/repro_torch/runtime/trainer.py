@@ -20,7 +20,8 @@ lives on the mesh as DTensors: a checkpoint gathers each tensor whole
 (rank 0 writes), and resume and recovery restore onto the mesh
 (`checkpoint/elastic.py::restore_resharded`), whatever mesh or card the
 checkpoint was written from. The reference's `Trainer.rescale` has no
-code there either (ROADMAP.md, item 12.4).
+code there either, so the port has none (ROADMAP.md, queue 3, "In the
+reference").
 """
 from __future__ import annotations
 

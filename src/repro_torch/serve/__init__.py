@@ -5,7 +5,7 @@
   cluster.py   the serving tier: ShardHost (resident V' item shard and the
                U table) and ClusterCoordinator (candidate gather and merge,
                channel fan-out, quorum epoch barrier, per-shard replicas and
-               failover), every host on one device
+               failover), hosts placed over devices (`devices=`, `mesh=`)
   faults.py    deterministic chaos: FaultPlan (seeded kill/hang/delay/drop
                schedules at named seams), injectable clocks, HostHealth
   topn.py      SeenIndex and TopNRecommender, the colocated special case

@@ -34,17 +34,27 @@ ported).
 
 `TopNRecommender` (serve/topn.py) is the colocated special case.
 
-On the card every host lives on the one device: the hosts are threads
-sharing its default stream, so a V' shard staged by one thread is complete
-before another thread's top-N launch reads it. Spreading hosts over
-several cards (the reference's `devices=` and `mesh=`) waits for the
-multi-card slice of the port (ROADMAP.md, queue 1 item 7). Staging and
-every device copy run off the coordinator lock; the flips under it are
-pointer swaps, except the stop-the-world `_reshard`.
+Placement, as the reference's single controller: this process places
+each host's V' shard (and a routed host's U replica) on a device of its
+own, `devices=` (host i on devices[i % len]) or `mesh=`
+(launch/mesh.py::serving_host_devices); without either every host is on
+the coordinator's `device`. The coordinator builds ensembles, gathers the
+colocated layout's scoring rows and merges on its own device (devices[0]
+by default). Every host's (B, k_eff) candidates go to it with a blocking
+`.to()` before the merge, which copies nothing for a host already there.
+A host on a card scores with the top-N kernel, one on
+the CPU (placed there by the caller, never by the tier) with its plain
+version. Host threads and request threads launch on each host's device
+under its guard (`torch.cuda.device`), on that device's current (default)
+stream, so a V' shard staged by one thread is complete before another
+thread's top-N launch reads it; every cross-device copy is a blocking
+`.to()`. Staging and every device copy run off the coordinator lock; the
+flips under it are pointer swaps, except the stop-the-world `_reshard`.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import threading
 import time
@@ -74,6 +84,22 @@ def shard_bounds(n_items: int, n_shards: int) -> np.ndarray:
     return np.linspace(0, n_items, n_shards + 1).astype(int)
 
 
+def _on_device(device: torch.device):
+    """The guard a host's work runs under: its card current (the kernel
+    wrappers' `_on_card` does the same for each launch), nothing on the
+    CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _placed(device) -> torch.device:
+    """A host's device, resolved ("cuda" without a card raises) and indexed,
+    so that "cuda" and "cuda:0" are one device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _merge_topk(vals: torch.Tensor, idx: torch.Tensor, topk: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Merge per-shard candidates (B, C), keeping the first of equal scores
@@ -100,9 +126,10 @@ class ShardHost:
     `stage()` builds the successor off the serving path; the coordinator
     flips it under its lock once a quorum has staged the same epoch.
     `shard` is the item shard the host owns; with replicas several hosts
-    own one shard. routed=False is the colocated layout of TopNRecommender:
-    the hosts share the coordinator's U table and the coordinator gathers
-    the scoring rows once.
+    own one shard. The bindings live on `device`. routed=False is the
+    colocated layout of TopNRecommender: the hosts share the ensemble's U
+    table where it is, the coordinator gathers the scoring rows once and
+    each host receives them on its device.
     """
 
     def __init__(self, host_id: int, ensemble: PosteriorEnsemble, lo: int,
@@ -110,19 +137,23 @@ class ShardHost:
                  shard: int | None = None):
         self.host_id = host_id
         self.shard = host_id if shard is None else shard
-        self.device = device
+        self.device = torch.device(device)
         self.routed = routed
         self.live = self.build(ensemble, lo, hi, flats=flats)
         self.staged: _Binding | None = None
 
     def build(self, ensemble: PosteriorEnsemble, lo: int, hi: int, *,
               flats=None) -> _Binding:
-        """Resident V' rows [lo, hi) and the U table on this host's device.
+        """Resident V' rows [lo, hi) on this host's device, and the U table:
+        a routed host's copy there, the shared one for a colocated host.
         `flats` shares one scoring_matrices() result across hosts
         (construction, reshard); staging computes its own."""
         u_flat, v_flat = flats if flats is not None else ensemble.scoring_matrices()
-        chunk = v_flat[lo:hi].to(self.device).contiguous()
-        return _Binding(ensemble, u_flat.to(self.device), chunk, int(lo), int(hi))
+        with _on_device(self.device):
+            chunk = v_flat[lo:hi].to(self.device).contiguous()
+            if self.routed:
+                u_flat = u_flat.to(self.device)
+        return _Binding(ensemble, u_flat, chunk, int(lo), int(hi))
 
     def stage(self, ensemble: PosteriorEnsemble) -> _Binding:
         """Build (but do not serve) the successor for a same-shape publish,
@@ -140,26 +171,35 @@ class ShardHost:
                    user_ids: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """This host's (B, min(fetch, shard rows)) candidates against
-        `binding`'s shard, indices in the global item numbering. Warm
-        requests send user ids (gathered from the host's U table), cold
-        ones scoring rows."""
-        if rows is None:
-            rows = binding.u_replica[user_ids]
-        k_eff = min(fetch, binding.hi - binding.lo)
-        vals, idx = ops.topn_scores(rows, binding.v_shard, k_eff)
-        return vals, idx + binding.lo
+        `binding`'s shard, on this host's device, indices in the global item
+        numbering. Warm requests send user ids (gathered from the host's U
+        table), cold ones scoring rows; either moves to the host's device."""
+        with _on_device(self.device):
+            if rows is None:
+                rows = binding.u_replica[user_ids.to(binding.u_replica.device)]
+            rows = rows.to(self.device)
+            k_eff = min(fetch, binding.hi - binding.lo)
+            vals, idx = ops.topn_scores(rows, binding.v_shard, k_eff)
+            return vals, idx + binding.lo
 
 
 class ClusterCoordinator:
-    """Scatter/gather top-N over ShardHosts on one device, with a quorum
-    epoch barrier, per-shard replication and health-routed failover.
+    """Scatter/gather top-N over ShardHosts, with a quorum epoch barrier,
+    per-shard replication and health-routed failover.
 
     `replicas=R` gives every item shard R owners (n_shards =
-    ceil(n_hosts / R); host i owns shard i mod n_shards). `channel`
-    attaches a PublicationChannel (see attach()). `faults` injects a chaos
-    schedule; `clock` is the time source shared with the health tracker.
-    `device` defaults to "cuda" and raises without a card unless the CPU is
-    asked for.
+    ceil(n_hosts / R); host i owns shard i mod n_shards). `devices` places
+    host i on devices[i % len(devices)] and sets n_hosts = len(devices);
+    `mesh` gives them as `launch.mesh.serving_host_devices(mesh=)`: one
+    entry a lead rank, each this process's device (one process is one
+    rank; another process's lead rank raises). Each
+    entry is resolved: a "cuda" one without a card raises, and none changes
+    type. `device` is the coordinator's own (ensembles, the colocated row
+    gather, the merge): devices[0] when devices are given, else "cuda",
+    raising without a card unless the CPU is asked for; without devices
+    every host is on it. `channel` attaches a PublicationChannel (see
+    attach()). `faults` injects a chaos schedule; `clock` is the time
+    source shared with the health tracker.
     """
 
     # hosts route user ids and gather from their own U table; the colocated
@@ -172,7 +212,9 @@ class ClusterCoordinator:
         *,
         n_hosts: int = 1,
         replicas: int = 1,
-        device="cuda",
+        devices=None,
+        mesh=None,
+        device=None,
         channel: PublicationChannel | None = None,
         max_samples: int | None = None,
         faults: FaultPlan | None = None,
@@ -180,7 +222,18 @@ class ClusterCoordinator:
         heartbeat_timeout: float = 5.0,
         max_host_errors: int = 3,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and devices is None:
+            from repro_torch.launch.mesh import serving_host_devices
+
+            devices = serving_host_devices(mesh=mesh)
+        if devices is not None:
+            if not devices:
+                raise ValueError("devices= names no device")
+            devices = [_placed(d) for d in devices]
+            n_hosts = len(devices)
+        self.devices = devices
+        self.device = resolve_device(device if device is not None
+                                     else devices[0] if devices else "cuda")
         self.max_samples = max_samples
         self.replicas = max(1, int(replicas))
         n_hosts = max(1, int(n_hosts))
@@ -200,8 +253,9 @@ class ClusterCoordinator:
         for i in range(n_hosts):
             s = i % self._n_shards
             host = ShardHost(i, ensemble, bounds[s], bounds[s + 1],
-                             device=self.device, routed=self.routed,
-                             flats=flats, shard=s)
+                             device=(devices[i % len(devices)] if devices
+                                     else self.device),
+                             routed=self.routed, flats=flats, shard=s)
             self.hosts.append(host)
             self._owners[s].append(host)
             self.health.register(i)
@@ -257,11 +311,12 @@ class ClusterCoordinator:
 
     def _layout_kwargs(self) -> dict:
         return dict(n_hosts=self._layout_hosts, replicas=self.replicas,
-                    device=self.device, max_samples=self.max_samples)
+                    devices=self.devices, device=self.device,
+                    max_samples=self.max_samples)
 
     def rebind(self, ensemble: PosteriorEnsemble):
         """A new coordinator serving `ensemble` on this one's layout (same
-        shard bounds, replicas and device). Self stays servable; the caller
+        shard bounds, replicas and devices). Self stays servable; the caller
         swaps the new one in. Raises ValueError when the ensemble's (S, M,
         N, K) changed: the caller rebuilds."""
         with self._lock:
@@ -328,15 +383,18 @@ class ClusterCoordinator:
 
     def _reassign_locked(self, s: int) -> tuple[ShardHost, _Binding]:
         """Failover: every owner of shard `s` is dead or stale. Rebuild the
-        shard from the committed ensemble on a new host (a pure function of
-        the same ensemble, so serving stays bit-identical). With a channel
-        attached the new host gets its own subscriber loop. Caller holds
-        self._lock."""
+        shard from the committed ensemble on a new host, on the device of
+        the first serveable host (the coordinator's when none is left): a
+        pure function of the same ensemble, so serving stays bit-identical
+        wherever the same arithmetic runs. With a channel attached the new
+        host gets its own subscriber loop. Caller holds self._lock."""
         assert_holds(self._lock)
         bounds = shard_bounds(self.ensemble.n_items, self._n_shards)
+        donor = next((h for h in self.hosts if self.health.serveable(h.host_id)), None)
         host = ShardHost(self._next_host_id, self.ensemble, bounds[s],
-                         bounds[s + 1], device=self.device, routed=self.routed,
-                         shard=s)
+                         bounds[s + 1],
+                         device=donor.device if donor is not None else self.device,
+                         routed=self.routed, shard=s)
         self._next_host_id += 1
         self.hosts.append(host)
         self._owners[s].append(host)
@@ -376,7 +434,12 @@ class ClusterCoordinator:
             idx.append(i)
         if len(vals) == 1:
             return vals[0], idx[0]
-        # every shard is on the one card: merge there, no host round trip
+        # the cross-device gather: each host sends only its (B, k_eff)
+        # candidates to the coordinator's device, a blocking copy ordered
+        # after the launch that wrote them (a no-op for a host already
+        # there); the merge runs there
+        vals = [v.to(self.device) for v in vals]
+        idx = [i.to(self.device) for i in idx]
         return _merge_topk(torch.cat(vals, 1), torch.cat(idx, 1), fetch)
 
     def _serve(self, topk: int, *, rows=None, user_ids=None,
@@ -389,7 +452,8 @@ class ClusterCoordinator:
                 user_ids = ids
             else:
                 # colocated: one gather from the shared U table
-                rows, user_ids = picks[0][1].u_replica[ids], None
+                u_table = picks[0][1].u_replica
+                rows, user_ids = u_table[ids.to(u_table.device)], None
         if rows is not None:
             rows = rows.to(self.device)
         b = rows.shape[0] if rows is not None else user_ids.shape[0]
@@ -661,6 +725,7 @@ class ClusterCoordinator:
                     {"state": HEALTHY, "errors": 0, "last_beat_age_s": None},
                 ))
                 rec["shard"] = h.shard
+                rec["device"] = str(h.device)
                 rec["live_epoch"] = h.live.ensemble.epoch
                 rec["staged_epoch"] = (None if h.staged is None
                                        else h.staged.ensemble.epoch)

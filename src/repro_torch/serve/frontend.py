@@ -23,8 +23,14 @@ Both swap double-buffered: the old recommender serves until its successor
 is built, and `flush()` captures (recommender, epoch) under the lock, so a
 request scores one ensemble whichever thread published. `n_hosts` routes
 requests through the serving tier (serve/cluster.py) instead of the
-colocated recommender. Everything runs on one device, "cuda" unless the
-CPU is asked for; every thread launches on that device's default stream.
+colocated recommender. The item shards go over `devices` (by default every
+visible device of `device`'s type, so one shard on one card; `mesh=` is
+the reference's spelling, and as one process is one rank it gives only
+this process's device): the colocated recommender takes one shard
+a device, the tier devices[:n_hosts] when there are that many, else it
+stays on `device`. Ensembles, fold-in and the merge run on `device`,
+"cuda" unless the CPU is asked for; every thread launches on its device's
+default stream.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import numpy as np
 from repro_torch.checkpoint.samples import SampleStore
 from repro_torch.data.sparse import SparseRatings
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_local_devices, serving_host_devices
 from repro_torch.serve.cluster import ClusterCoordinator
 from repro_torch.serve.ensemble import PosteriorEnsemble
 from repro_torch.serve.foldin import FoldInPlanCache, fold_in
@@ -76,15 +83,22 @@ class RecommendFrontend:
         seen: SparseRatings | None = None,
         max_batch: int = 32,
         max_samples: int | None = None,
+        devices=None,
+        mesh=None,
         n_hosts: int | None = None,
         replicas: int = 1,
         engine: str | None = None,
         device="cuda",
     ):
         """seen: training ratings whose items are excluded per user.
+        devices / mesh: where the item shards go; the default is every
+        visible device of `device`'s type. A mesh contributes the devices
+        of it this process holds (launch/mesh.py): as one process is one
+        rank, only its own.
         n_hosts: serve through the tier (serve/cluster.py) with this many
-        shard hosts instead of the colocated recommender; replicas: owners
-        per item shard there. engine: the fold-in engine of cold-start
+        shard hosts, one a device when enough exist, instead of the
+        colocated recommender; replicas: owners per item shard there.
+        engine: the fold-in engine of cold-start
         requests (core.gibbs.ENGINES; "fused" and "kernel" take the
         kernels). device: "cuda" by default, raising without a card unless
         the CPU is asked for.
@@ -103,6 +117,10 @@ class RecommendFrontend:
         self.seen = SeenIndex(seen) if seen is not None else None
         self.max_batch = max_batch
         self.max_samples = max_samples
+        if mesh is not None and devices is None:
+            devices = mesh_local_devices(mesh)
+        self.devices = (list(devices) if devices is not None
+                        else serving_host_devices(device=self.device))
         self.n_hosts = n_hosts
         self.replicas = replicas
         self.engine = engine
@@ -260,9 +278,13 @@ class RecommendFrontend:
             if self.seen.shape != want:
                 self.seen = self.seen.resized(want)  # ValueError on shrink
         if self.n_hosts is not None:
+            devices = None
+            if len(self.devices) >= self.n_hosts:
+                devices = self.devices[: self.n_hosts]
             return ClusterCoordinator(ensemble, n_hosts=self.n_hosts,
-                                      replicas=self.replicas, device=self.device)
-        return TopNRecommender(ensemble, device=self.device)
+                                      replicas=self.replicas, devices=devices,
+                                      device=self.device)
+        return TopNRecommender(ensemble, devices=self.devices, device=self.device)
 
     def _subscriber_loop(self) -> None:
         """Daemon: wait on the channel and adopt each newer snapshot. A

@@ -1,6 +1,6 @@
 """Batched top-N recommendation over the full item catalogue: the
-colocated special case of the serving tier (serve/cluster.py), with
-seen-item exclusion. Shard bounds, kernel scoring, the stable merge, the
+colocated special case of the serving tier (serve/cluster.py), one shard a
+device when a device list is given, with seen-item exclusion. Shard bounds, kernel scoring, the stable merge, the
 power-of-two fetch and the exclusion live in the tier, once.
 
 Users should not be recommended items they already rated. Rated sets are
@@ -53,20 +53,22 @@ class SeenIndex:
 
 class TopNRecommender(ClusterCoordinator):
     """Single-host top-N: every item shard in this process, on `device`
-    ("cuda" by default). The serving API is the coordinator's; this class
-    maps the `n_shards=` spelling onto its host axis and keeps the
-    flat-array accessors."""
+    ("cuda" by default), or one shard a device of `devices` (n_shards =
+    len(devices); `device` then defaults to devices[0]). The serving API is
+    the coordinator's; this class maps the `n_shards=` spelling onto its
+    host axis and keeps the flat-array accessors."""
 
     # colocated shards share one U table and the coordinator gathers the
     # scoring rows once
     routed = False
 
     def __init__(self, ensemble: PosteriorEnsemble, *, n_shards: int = 1,
-                 device="cuda"):
-        super().__init__(ensemble, n_hosts=n_shards, device=device)
+                 devices=None, device=None):
+        super().__init__(ensemble, n_hosts=n_shards, devices=devices, device=device)
 
     def _layout_kwargs(self) -> dict:
-        return dict(n_shards=self.n_hosts, device=self.device)
+        return dict(n_shards=self._layout_hosts, devices=self.devices,
+                    device=self.device)
 
     @property
     def u_flat(self) -> torch.Tensor:

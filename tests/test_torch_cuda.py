@@ -1578,3 +1578,68 @@ def test_flash_pair_with_query_offsets(cuda, dtype, causal, window, cap, n_shard
         torch.testing.assert_close(joined.float(), out.float(), rtol=tol, atol=tol)
     _grads_hold((jdq, dk.to(dtype), dv.to(dtype)),
                 tuple(w.double() for w in whole), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier placed over devices
+# ---------------------------------------------------------------------------
+def _tier_ensemble(device):
+    from repro_torch.serve import PosteriorEnsemble
+
+    rng = np.random.default_rng(5)
+    s, m, n, k = 3, 300, 1000, 16
+    return PosteriorEnsemble.from_arrays(
+        rng.normal(size=(s, m, k)).astype(np.float32),
+        rng.normal(size=(s, n, k)).astype(np.float32),
+        hyper_u_mu=np.zeros((s, k), np.float32), hyper_u_lam=np.tile(np.eye(k), (s, 1, 1)),
+        hyper_v_mu=np.zeros((s, k), np.float32), hyper_v_lam=np.tile(np.eye(k), (s, 1, 1)),
+        global_mean=3.25, alpha=2.0, steps=[1, 2, 3], device=device)
+
+
+def _tier_calls(single):
+    users = np.arange(64, dtype=np.int32)
+    exclude = [np.arange(r, r + 5, dtype=np.int32) for r in range(16)]
+    rows = single.u_flat[:16]
+    return [lambda r: r.recommend(users, 10),
+            lambda r: r.recommend_rows(rows, 7, exclude=exclude, fetch_hint=32)]
+
+
+def test_card_and_host_tier_gathers_its_candidates_onto_the_card(cuda):
+    """Hosts on cuda:0 and on the CPU: the CPU shards score with the plain
+    version, every shard's candidates go to cuda:0 and merge there. Kernel
+    and plain version agree to the bit, so the tier is bit for bit the
+    single host on the card, with one top-N launch a card shard."""
+    from repro_torch.serve import ClusterCoordinator, TopNRecommender
+
+    ens = _tier_ensemble(cuda)
+    tier = ClusterCoordinator(ens, devices=["cuda:0", "cpu", "cuda:0", "cpu"])
+    single = TopNRecommender(ens)
+    assert tier.device == torch.device("cuda", 0)
+    assert [h.live.v_shard.device.type for h in tier.hosts] == ["cuda", "cpu"] * 2
+    for call in _tier_calls(single):
+        ops.reset_launches()
+        got = call(tier)
+        assert ops.launches()["topn_scores"] == 2
+        for a, b in zip(got, call(single)):
+            assert np.array_equal(a, b)
+
+
+def test_tier_on_two_cards_is_the_single_host(cuda):
+    """devices=["cuda:0", "cuda:1"]: each host's tables and launches on its
+    own card, the candidates gathered onto cuda:0; bit for bit the single
+    host. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.serve import ClusterCoordinator, TopNRecommender
+
+    ens = _tier_ensemble(cuda)
+    tier = ClusterCoordinator(ens, devices=["cuda:0", "cuda:1"], replicas=1)
+    single = TopNRecommender(ens)
+    assert [h.live.v_shard.device for h in tier.hosts] == [torch.device("cuda", i)
+                                                           for i in (0, 1)]
+    for call in _tier_calls(single):
+        ops.reset_launches()
+        got = call(tier)
+        assert ops.launches()["topn_scores"] == 2
+        for a, b in zip(got, call(single)):
+            assert np.array_equal(a, b)
