@@ -1639,7 +1639,7 @@ class Smoke:
             print(f"profiled {what}: the trace holds {sum(e.count for e in events)} "
                   "kernels, cut by the profiler; profiling again")
 
-        events = self.profile_mod.profile_call(fn, wall, complete=complete,
+        events = self.profile_mod.profile_call(fn, complete=complete,
                                                activities=activities, trace=trace,
                                                on_retry=retry).events
         busy = sum(e.device_time_total for e in events) / 1e3
@@ -7339,7 +7339,7 @@ class Smoke:
               f"{rec['sweep_s']:.4f} s, launches {rec['launches']}, the meta pass "
               f"{rec['meta_s']:.1f} s; model FLOPs {rec['model_flops'] / 1e12:.3f} TFLOP, "
               f"{rec['useful_flops_ratio']:.3f} of the counted; exchange "
-              f"{rec['exchange_bytes'] / 1e9:.3f} GB; idle share {rec['idle_share']:.3f}")
+              f"{rec['exchange_bytes'] / 1e9:.3f} GB")
         self.check(rec["launches"].get("gather_syrk_seg", 0) == 2 * DIST_SHARDS ** 2
                    and set(rec["launches"]) == {"gather_syrk_seg"},
                    f"the ml20m ring sweep launched gather_syrk_seg {2 * DIST_SHARDS ** 2} "

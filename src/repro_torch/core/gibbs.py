@@ -33,6 +33,7 @@ from repro_torch.core.hyper import (
 from repro_torch.data.sparse import SparseRatings, csr_from_coo
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.spans import span
 
 # Sweep engines, as in the reference:
 #   reference  seed data flow: einsum row stats, per-bucket segment sums and
@@ -324,12 +325,14 @@ def update_factors(
     matrix, with the solve noise z (n_items, K) given. Also returns the
     sufficient statistics of the new factor matrix."""
     engine = resolve_engine(engine)
-    prec_all, rhs_all = posterior_systems(
-        counterpart, buckets, n_items, hyper, alpha, engine=engine,
-        bf16_gather=bf16_gather,
-    )
+    with span("gibbs.assemble", counterpart.device):
+        prec_all, rhs_all = posterior_systems(
+            counterpart, buckets, n_items, hyper, alpha, engine=engine,
+            bf16_gather=bf16_gather,
+        )
     solver = {"reference": "lapack", "kernel": "kernel"}.get(engine, "subst")
-    new = sample_mvn_precision(prec_all, rhs_all, z=z, solver=solver)
+    with span("gibbs.solve", counterpart.device):
+        new = sample_mvn_precision(prec_all, rhs_all, z=z, solver=solver)
     return new, factor_stats(new)
 
 
@@ -456,31 +459,32 @@ class GibbsSampler:
 
     def sweep(self, state: BPMFState, noise: SweepNoise | None = None) -> BPMFState:
         """One full Gibbs sweep (Algorithm 1 body)."""
-        if noise is None:
-            noise = self.draw_noise()
-        kw = dict(engine=self.engine, bf16_gather=self.bf16_gather)
+        with span("gibbs.sweep", self.device):
+            if noise is None:
+                noise = self.draw_noise()
+            kw = dict(engine=self.engine, bf16_gather=self.bf16_gather)
 
-        # movies: hyper from V stats, then update V given U
-        sv = factor_stats(state.v)
-        hyper_v = sample_normal_wishart(sv.sum_x, sv.sum_xxt, sv.n, self.prior,
-                                        noise.hyper_v)
-        v_new, _ = update_factors(state.u, self.item_buckets, self.n, hyper_v,
-                                  self.alpha, z=noise.z_v, **kw)
+            # movies: hyper from V stats, then update V given U
+            sv = factor_stats(state.v)
+            hyper_v = sample_normal_wishart(sv.sum_x, sv.sum_xxt, sv.n, self.prior,
+                                            noise.hyper_v)
+            v_new, _ = update_factors(state.u, self.item_buckets, self.n, hyper_v,
+                                      self.alpha, z=noise.z_v, **kw)
 
-        # users: hyper from U stats, then update U given the new V
-        su = factor_stats(state.u)
-        hyper_u = sample_normal_wishart(su.sum_x, su.sum_xxt, su.n, self.prior,
-                                        noise.hyper_u)
-        u_new, _ = update_factors(v_new, self.user_buckets, self.m, hyper_u,
-                                  self.alpha, z=noise.z_u, **kw)
+            # users: hyper from U stats, then update U given the new V
+            su = factor_stats(state.u)
+            hyper_u = sample_normal_wishart(su.sum_x, su.sum_xxt, su.n, self.prior,
+                                            noise.hyper_u)
+            u_new, _ = update_factors(v_new, self.user_buckets, self.m, hyper_u,
+                                      self.alpha, z=noise.z_u, **kw)
 
-        pred_sum, pred_count = state.pred_sum, state.pred_count
-        if state.step >= self.burn_in:
-            pred_sum = pred_sum + self._predict(u_new, v_new)
-            pred_count += 1
-        return BPMFState(u=u_new, v=v_new, hyper_u=hyper_u, hyper_v=hyper_v,
-                         step=state.step + 1, pred_sum=pred_sum,
-                         pred_count=pred_count)
+            pred_sum, pred_count = state.pred_sum, state.pred_count
+            if state.step >= self.burn_in:
+                pred_sum = pred_sum + self._predict(u_new, v_new)
+                pred_count += 1
+            return BPMFState(u=u_new, v=v_new, hyper_u=hyper_u, hyper_v=hyper_v,
+                             step=state.step + 1, pred_sum=pred_sum,
+                             pred_count=pred_count)
 
     def _predict(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return (u[self.test_rows] * v[self.test_cols]).sum(-1) + self.global_mean

@@ -298,8 +298,8 @@ def measure(dataset: str = "ml20m", mode: str = "ring", shards: int = 4, k: int 
     rec["measured_peak_bytes"] = (rec["max_memory_allocated"] - base
                                   + storage_bytes(args))
     del nxt
-    prof = profile_call(lambda: sampler.sweep(state), rec["sweep_s"] * 1e3)
-    rec.update(busy_ms=prof.busy_ms, kernels=prof.kernels, idle_share=prof.idle_share)
+    prof = profile_call(lambda: sampler.sweep(state))
+    rec.update(busy_ms=prof.busy_ms, kernels=prof.kernels)
     return rec
 
 

@@ -1,5 +1,5 @@
 """Measurement helpers of the port on the card: CUDA-event timing and the
-profiler's device-busy time and idle share of one call.
+profiler's device-busy time of one call.
 
 `chip_smoke.py` times its kernels and profiles its paths with these, and a
 benchmark imports them rather than copying them. Both need a CUDA card:
@@ -38,11 +38,9 @@ def cuda_ms(fn: Callable, reps: int = 5, *, warmup: bool = True) -> float:
 @dataclasses.dataclass
 class Profile:
     """The device events of one profiled call, one per kernel name (each
-    with its launch count, `count`, and `device_time_total` in us), and
-    their sum against the call's unprofiled wall time."""
+    with its launch count, `count`, and `device_time_total` in us)."""
 
     events: list
-    wall_ms: float
     attempts: int
 
     @property
@@ -53,17 +51,11 @@ class Profile:
     def kernels(self) -> int:
         return sum(e.count for e in self.events)
 
-    @property
-    def idle_share(self) -> float:
-        return max(0.0, 1 - self.busy_ms / self.wall_ms) if self.wall_ms > 0 else 0.0
 
-
-def profile_call(fn: Callable, wall_ms: float, *, complete: Callable = bool,
+def profile_call(fn: Callable, *, complete: Callable = bool,
                  activities=("cpu", "cuda"), trace: Path | None = None,
                  on_retry: Callable[[list], None] | None = None) -> Profile:
-    """Device time by kernel of one call of fn under torch.profiler; the
-    idle share is taken against `wall_ms`, the call's unprofiled time (the
-    profiler's own start-up would swamp a wall clock around it).
+    """Device time by kernel of one call of fn under torch.profiler.
 
     fn runs twice: once as the profiler's warm-up step, unrecorded, then
     recorded. Recorded from the start, a profiler session after the first
@@ -111,7 +103,7 @@ def profile_call(fn: Callable, wall_ms: float, *, complete: Callable = bool,
                   and e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.key.startswith("ProfilerStep")]
         if complete(events) or attempt == 2:
-            return Profile(events=events, wall_ms=wall_ms, attempts=attempt + 1)
+            return Profile(events=events, attempts=attempt + 1)
         if on_retry is not None:
             on_retry(events)
-    return Profile(events=events, wall_ms=wall_ms, attempts=3)
+    return Profile(events=events, attempts=3)

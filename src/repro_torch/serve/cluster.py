@@ -77,6 +77,7 @@ from repro_torch.serve.faults import (
     assert_holds,
 )
 from repro_torch.serve.publish import ChannelSnapshot, PublicationChannel
+from repro_torch.spans import span
 
 
 def shard_bounds(n_items: int, n_shards: int) -> np.ndarray:
@@ -445,44 +446,52 @@ class ClusterCoordinator:
     def _serve(self, topk: int, *, rows=None, user_ids=None,
                exclude: list[np.ndarray] | None = None,
                fetch_hint: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-        _, ens, picks = self._snapshot()
-        if user_ids is not None:
-            ids = torch.as_tensor(np.asarray(user_ids, np.int64)).to(self.device)
-            if self.routed:
-                user_ids = ids
-            else:
-                # colocated: one gather from the shared U table
-                u_table = picks[0][1].u_replica
-                rows, user_ids = u_table[ids.to(u_table.device)], None
-        if rows is not None:
-            rows = rows.to(self.device)
-        b = rows.shape[0] if rows is not None else user_ids.shape[0]
-        fetch = topk
-        if exclude is not None:
-            if len(exclude) != b:
-                raise ValueError(f"{len(exclude)} exclusion lists for {b} rows")
-            fetch = topk + max((len(e) for e in exclude), default=0)
-        if fetch_hint is not None:
-            # a hint pins the candidate count even without exclusions
-            fetch = max(fetch, fetch_hint)
-        # a power of two: every caller folds onto O(log n_items) kernel
-        # shapes, and candidate sets (so ties and exclusions) are the
-        # reference's
-        fetch = 1 << (fetch - 1).bit_length()
-        fetch = min(fetch, ens.n_items)
-        vals, idx = self._gather_merge(picks, fetch, rows=rows, user_ids=user_ids)
-        vals = vals.cpu().numpy() + np.float32(ens.global_mean)
-        idx = idx.cpu().numpy().astype(np.int32)
-        if exclude is None:
-            return vals[:, :topk], idx[:, :topk]
-        out_v = np.full((b, topk), -np.inf, np.float32)
-        out_i = np.full((b, topk), -1, np.int32)
-        for r in range(b):
-            keep = ~np.isin(idx[r], exclude[r])
-            kept_v, kept_i = vals[r][keep][:topk], idx[r][keep][:topk]
-            out_v[r, : len(kept_v)] = kept_v
-            out_i[r, : len(kept_i)] = kept_i
-        return out_v, out_i
+        # spans: the ids' upload and the rows' gather, the scoring, the
+        # host's wait for the lists, and the host's work on them
+        with span("topn.serve", self.device):
+            _, ens, picks = self._snapshot()
+            with span("topn.upload", self.device):
+                if user_ids is not None:
+                    ids = torch.as_tensor(np.asarray(user_ids, np.int64)).to(self.device)
+                    if self.routed:
+                        user_ids = ids
+                    else:
+                        # colocated: one gather from the shared U table
+                        u_table = picks[0][1].u_replica
+                        rows, user_ids = u_table[ids.to(u_table.device)], None
+                if rows is not None:
+                    rows = rows.to(self.device)
+            b = rows.shape[0] if rows is not None else user_ids.shape[0]
+            fetch = topk
+            if exclude is not None:
+                if len(exclude) != b:
+                    raise ValueError(f"{len(exclude)} exclusion lists for {b} rows")
+                fetch = topk + max((len(e) for e in exclude), default=0)
+            if fetch_hint is not None:
+                # a hint pins the candidate count even without exclusions
+                fetch = max(fetch, fetch_hint)
+            # a power of two: every caller folds onto O(log n_items) kernel
+            # shapes, and candidate sets (so ties and exclusions) are the
+            # reference's
+            fetch = 1 << (fetch - 1).bit_length()
+            fetch = min(fetch, ens.n_items)
+            with span("topn.score", self.device):
+                vals, idx = self._gather_merge(picks, fetch, rows=rows, user_ids=user_ids)
+            with span("topn.fetch", self.device):
+                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            with span("topn.finish", self.device):
+                vals = vals + np.float32(ens.global_mean)
+                idx = idx.astype(np.int32)
+                if exclude is None:
+                    return vals[:, :topk], idx[:, :topk]
+                out_v = np.full((b, topk), -np.inf, np.float32)
+                out_i = np.full((b, topk), -1, np.int32)
+                for r in range(b):
+                    keep = ~np.isin(idx[r], exclude[r])
+                    kept_v, kept_i = vals[r][keep][:topk], idx[r][keep][:topk]
+                    out_v[r, : len(kept_v)] = kept_v
+                    out_i[r, : len(kept_i)] = kept_i
+                return out_v, out_i
 
     def recommend_rows(self, rows: torch.Tensor, topk: int, *,
                        exclude: list[np.ndarray] | None = None,
