@@ -1593,8 +1593,9 @@ class Smoke:
         self.check(launches["masked_syrk"] == self.n_buckets * 2,
                    f"masked_syrk launched once per bucket per kernel-engine sweep "
                    f"({self.n_buckets} x 2)")
-        self.check(launches["chol_solve_sample"] == 2 * 2,
-                   "chol_solve_sample launched once per kernel-engine half-sweep (2 x 2)")
+        self.check(launches["chol_solve_sample"] == 2 * n_sweeps + 2 * 2,
+                   f"chol_solve_sample launched once per fused and kernel-engine "
+                   f"half-sweep (2 x {n_sweeps} + 2 x 2)")
         self.check(launches["topn_scores"] == 0, "training launched no top-N kernel")
         self.main_launches.update(launches)
         self.check(store.steps() == list(range(s.burn_in + 1, n_sweeps + 1)),

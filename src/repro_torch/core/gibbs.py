@@ -43,7 +43,9 @@ from repro_torch.spans import span
 #   kernel     restructured flow through the masked_syrk and
 #              chol_solve_sample kernels.
 #   fused      restructured flow through the fused gather_syrk_seg kernel
-#              (V gathered in the kernel, optional bf16 gather).
+#              (V gathered in the kernel, optional bf16 gather), solved by
+#              the chol_solve_sample kernel with NaN for a system that is
+#              not positive definite, as the reference's substitution gives.
 ENGINES = ("reference", "einsum", "kernel", "fused")
 
 __all__ = [
@@ -238,13 +240,16 @@ def sample_mvn_precision(
     noise z given (z = 0 gives the posterior mean).
 
     solver: "subst" (Cholesky + one forward and one merged back solve),
-    "lapack" (the seed's three triangular solves, for the reference engine)
-    or "kernel" (the chol_solve_sample kernel). A system that is not
-    positive definite gives NaN under "subst" and "lapack", as
-    jnp.linalg.cholesky does; nothing raises.
+    "lapack" (the seed's three triangular solves, for the reference engine),
+    "kernel" (the chol_solve_sample kernel, its diagonal clamped as the
+    Pallas kernel's) or "kernel_nan" (the same kernel, for the fused
+    engine). A system that is not positive definite gives NaN under
+    "subst", "lapack" and "kernel_nan", as jnp.linalg.cholesky does, and the
+    clamp's values under "kernel"; nothing raises.
     """
-    if solver == "kernel":
-        return kops.chol_solve_sample(prec, rhs, z)
+    if solver in ("kernel", "kernel_nan"):
+        return kops.chol_solve_sample(
+            prec, rhs, z, indefinite="nan" if solver == "kernel_nan" else "clamp")
     chol = cholesky_or_nan(prec)
     if solver == "subst":
         return chol_subst_solve(chol, rhs, z)
@@ -323,14 +328,20 @@ def update_factors(
 ) -> tuple[torch.Tensor, FactorStats]:
     """One half-sweep: resample every item factor given the counterpart
     matrix, with the solve noise z (n_items, K) given. Also returns the
-    sufficient statistics of the new factor matrix."""
+    sufficient statistics of the new factor matrix.
+
+    The engine picks the solver: the seed's three triangular solves for
+    "reference", Cholesky and substitution for "einsum", the
+    chol_solve_sample kernel for "kernel" (clamped) and "fused" (NaN for a
+    system that is not positive definite, as "einsum" gives)."""
     engine = resolve_engine(engine)
     with span("gibbs.assemble", counterpart.device):
         prec_all, rhs_all = posterior_systems(
             counterpart, buckets, n_items, hyper, alpha, engine=engine,
             bf16_gather=bf16_gather,
         )
-    solver = {"reference": "lapack", "kernel": "kernel"}.get(engine, "subst")
+    solver = {"reference": "lapack", "kernel": "kernel",
+              "fused": "kernel_nan"}.get(engine, "subst")
     with span("gibbs.solve", counterpart.device):
         new = sample_mvn_precision(prec_all, rhs_all, z=z, solver=solver)
     return new, factor_stats(new)
@@ -385,8 +396,9 @@ class GibbsSampler:
     """Single-device BPMF sampler over bucketed plans.
 
     `engine` selects the sweep implementation (see ENGINES): "einsum" by
-    default, "fused" for the gather_syrk_seg kernel, "kernel" for the
-    masked_syrk + chol_solve_sample kernels, "reference" for the seed flow. `bf16_gather` (fused engine) gathers the
+    default, "fused" for the gather_syrk_seg and chol_solve_sample kernels,
+    "kernel" for the masked_syrk + chol_solve_sample kernels, "reference"
+    for the seed flow. `bf16_gather` (fused engine) gathers the
     counterpart factors at bf16 with fp32 accumulation. `widths` picks the
     bucket planner ("balanced" or an explicit ladder).
 

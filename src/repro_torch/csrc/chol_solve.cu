@@ -1,4 +1,5 @@
-// Batched Cholesky factor + solve + sample, for engine="kernel".
+// Batched Cholesky factor + solve + sample: the posterior solve of the
+// engines "kernel" and "fused".
 //
 // Replaces the Pallas TPU kernel repro/kernels/chol_solve.py
 // (chol_solve_sample_pallas). Per K x K system (K in 16, 32, 64):
@@ -7,10 +8,18 @@
 //   L y = b,  then  L^T x = y + z      so  x = Lambda^-1 b + L^-T z
 //
 // which draws one factor from N(Lambda^-1 b, Lambda^-1) with no inverse
-// formed. A system that is not positive definite is not an error: the
-// clamp keeps the arithmetic going, as in the reference kernel (column j
-// is scaled by 1 / sqrt(max(a_jj, 1e-20)), and the solves divide by the
-// scaled diagonal, whatever its sign).
+// formed. A system that is not positive definite is not an error, and the
+// caller picks what it gives (`nan_indefinite`):
+//   0 ("clamp", engine "kernel"): the clamp keeps the arithmetic going, as
+//     in the reference kernel (column j is scaled by 1 / sqrt(max(a_jj,
+//     1e-20)), and the solves divide by the scaled diagonal, whatever its
+//     sign);
+//   1 ("nan", engine "fused"): a system with a pivot that is not > 0 (NaN
+//     included) writes a row of NaN, as a Cholesky that fails gives in the
+//     substitution solve the fused engine had (jnp.linalg.cholesky's NaN).
+//     The owner of each diagonal tile flags its system in shared memory as
+//     it factors the tile; the back solve's store reads the flag. The
+//     arithmetic is the clamp's either way, and no pass is added.
 //
 // Bound on an H100: bytes. A Cholesky needs only the lower triangle of a
 // system's precision (at K = 64, 9 KiB in whole 32-byte sectors), with
@@ -95,7 +104,8 @@ struct __align__(16) Shared {
   float c[K];               // z, then y + z
   float rs[K];              // 1 / sqrt(max(a_jj, 1e-20)): column j's scale
   float inv[K];             // 1 / L_jj: the solves' scale
-  float pad[4];             // neighbouring systems' words 4 banks apart
+  int bad;                  // a pivot that was not > 0
+  float pad[3];             // neighbouring systems' words 4 banks apart
 };
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
@@ -104,12 +114,15 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
 
 // The owner of diagonal tile (J, J), once its updates are in: the tile's
 // column Cholesky in place (d[p][q] = L[4J + p][4J + q] for p >= q, 0
-// above), published with its columns' two scales.
+// above), published with its columns' two scales; a pivot that is not > 0
+// sets the system's flag.
 template <int K>
 __device__ __forceinline__ void factor_diag(float (&d)[4][4], Shared<K>& sm, int J) {
   float rs[4], inv[4];
+  bool bad = false;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
+    bad |= !(d[q][q] > 0.f);
     rs[q] = rsqrtf(fmaxf(d[q][q], 1e-20f));
 #pragma unroll
     for (int p = q; p < 4; ++p) d[p][q] *= rs[q];
@@ -127,12 +140,14 @@ __device__ __forceinline__ void factor_diag(float (&d)[4][4], Shared<K>& sm, int
   }
   store4(sm.rs + 4 * J, rs[0], rs[1], rs[2], rs[3]);
   store4(sm.inv + 4 * J, inv[0], inv[1], inv[2], inv[3]);
+  if (bad) sm.bad = 1;
 }
 
 template <int K>
 __global__ void __launch_bounds__(Layout<K>::THREADS, Layout<K>::MIN_BLOCKS)
 chol_solve_kernel(const float* __restrict__ prec, const float* __restrict__ rhs,
-                  const float* __restrict__ z, float* __restrict__ out, int B) {
+                  const float* __restrict__ z, float* __restrict__ out, int B,
+                  int nan_indefinite) {
   using L = Layout<K>;
   constexpr int T = L::T;
   __shared__ Shared<K> smem[L::G];
@@ -181,7 +196,10 @@ chol_solve_kernel(const float* __restrict__ prec, const float* __restrict__ rhs,
   } else if (is_rhs) {
     store4(sm.c + 4 * tj, 0.f, 0.f, 0.f, 0.f);
   }
-  if (ti == 0 && tj == 0) factor_diag<K>(a, sm, 0);
+  if (ti == 0 && tj == 0) {
+    sm.bad = 0;
+    factor_diag<K>(a, sm, 0);
+  }
   if (is_rhs && tj == 0) {  // the panel's rows K+1 .. K+3 stay 0
 #pragma unroll
     for (int q = 0; q < 4; ++q) store4(sm.panel[q] + K, 0.f, 0.f, 0.f, 0.f);
@@ -269,17 +287,20 @@ chol_solve_kernel(const float* __restrict__ prec, const float* __restrict__ rhs,
       if (GW * i < j) cv[i] = fmaf(-sb.l[j][lane + GW * i], xj, cv[i]);
   }
   if (grp < L::G && gsys < B) {
+    const bool nan_row = nan_indefinite && sb.bad;
 #pragma unroll
-    for (int i = 0; i < RL; ++i) out[gsys * K + lane + GW * i] = x[i];
+    for (int i = 0; i < RL; ++i)
+      out[gsys * K + lane + GW * i] = nan_row ? __int_as_float(0x7fc00000) : x[i];
   }
 }
 
 template <int K>
 int launch(const float* prec, const float* rhs, const float* z, float* out,
-           int B, cudaStream_t st) {
+           int B, int nan_indefinite, cudaStream_t st) {
   using L = Layout<K>;
   const int blocks = (B + L::G - 1) / L::G;
-  chol_solve_kernel<K><<<blocks, L::THREADS, 0, st>>>(prec, rhs, z, out, B);
+  chol_solve_kernel<K><<<blocks, L::THREADS, 0, st>>>(prec, rhs, z, out, B,
+                                                      nan_indefinite);
   return (int)cudaGetLastError();
 }
 
@@ -287,16 +308,18 @@ int launch(const float* prec, const float* rhs, const float* z, float* out,
 
 // prec (B, K, K), rhs and z (B, K) -> out (B, K), K in 16, 32, 64, all
 // contiguous and 16-byte aligned (cudaErrorInvalidValue for another K or
-// an empty batch). Returns the CUDA error code of the launch.
+// an empty batch); nan_indefinite 1 writes NaN rows for the systems that
+// are not positive definite, 0 keeps the clamp's values. Returns the CUDA
+// error code of the launch.
 extern "C" int chol_solve_sample_launch(const float* prec, const float* rhs,
                                         const float* z, float* out, int B,
-                                        int K, void* stream) {
+                                        int K, int nan_indefinite, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return launch<16>(prec, rhs, z, out, B, st);
-    case 32: return launch<32>(prec, rhs, z, out, B, st);
-    case 64: return launch<64>(prec, rhs, z, out, B, st);
+    case 16: return launch<16>(prec, rhs, z, out, B, nan_indefinite, st);
+    case 32: return launch<32>(prec, rhs, z, out, B, nan_indefinite, st);
+    case 64: return launch<64>(prec, rhs, z, out, B, nan_indefinite, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,7 @@
 
   csrc/gather_syrk_seg.cu  fused gather -> syrk -> segment reduce (engine "fused")
   csrc/masked_syrk.cu      syrk over a pre-gathered block (engine "kernel")
-  csrc/chol_solve.cu       batched Cholesky solve and sample (engine "kernel")
+  csrc/chol_solve.cu       batched Cholesky solve and sample (engines "kernel", "fused")
   csrc/topn.cu             streaming top-k of U V^T (serving)
   csrc/flash_attention.cu  causal, windowed, soft-capped attention with an
                            online softmax (the LM's long-context forward)

@@ -39,7 +39,7 @@ KERNELS = {
         ("masked_syrk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ]),
     "chol_solve_sample": ("chol_solve.cu", [
-        ("chol_solve_sample_launch", [_P, _P, _P, _P, _I, _I, _P]),
+        ("chol_solve_sample_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     ]),
     "topn_scores": ("topn.cu", [
         ("topn_scores_launch",

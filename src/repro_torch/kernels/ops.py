@@ -361,9 +361,16 @@ def _flops_masked_syrk(vm, rv, *, out_shape=None, **kwargs) -> int:
     return vm[0] * vm[1] * syrk_flops(vm[2])
 
 
-def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
-                      ) -> torch.Tensor:
+def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor,
+                      indefinite: str = "clamp") -> torch.Tensor:
     """Batched x = Lambda^-1 rhs + L^-T z over any leading axes.
+
+    `indefinite` is what a system that is not positive definite gives:
+    "clamp" the values of the diagonal clamped at 1e-20, as the Pallas
+    kernel gives them (engine "kernel"); "nan" a row of NaN, as a Cholesky
+    that fails gives (engine "fused", which solved by substitution). A
+    system is not positive definite where a pivot is not > 0 (NaN
+    included). Nothing raises.
 
     The kernel takes the batch as it is. A rank the kernel is not
     instantiated for is padded with an identity block (`pad_rank_systems`):
@@ -373,40 +380,42 @@ def chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
         lead = prec.shape[:-2]
         out = chol_solve_sample(prec.reshape((-1,) + prec.shape[-2:]),
                                 rhs.reshape((-1, rhs.shape[-1])),
-                                z.reshape((-1, z.shape[-1])))
+                                z.reshape((-1, z.shape[-1])), indefinite)
         return out.reshape(lead + out.shape[1:])
-    return _chol_solve_sample(prec, rhs, z)
+    return _chol_solve_sample(prec, rhs, z, indefinite)
 
 
-def _check_chol_solve_sample(prec, rhs, z) -> None:
+def _check_chol_solve_sample(prec, rhs, z, indefinite) -> None:
     bsz, k, _ = prec.shape
     kernel_rank(k)
     if rhs.shape != (bsz, k) or z.shape != (bsz, k):
         raise ValueError("rhs and z must be (B, K)")
     if bsz == 0:
         raise ValueError("chol_solve_sample needs at least one system")
+    if indefinite not in ref.INDEFINITE:
+        raise ValueError(f"indefinite must be one of {ref.INDEFINITE}, got {indefinite!r}")
 
 
 @torch.library.custom_op("repro_torch::chol_solve_sample", mutates_args=())
-def _chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
-                       ) -> torch.Tensor:
+def _chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor,
+                       indefinite: str = "clamp") -> torch.Tensor:
     """`chol_solve_sample` of (B, K, K) systems as one op."""
     if not _on_cuda(prec):
-        return ref.chol_solve_sample_ref(prec, rhs, z)
+        return ref.chol_solve_sample_ref(prec, rhs, z, indefinite)
     dev = prec.device
     bsz, k, _ = prec.shape
     kp = kernel_rank(k)
     prec = _require("prec", prec, dev, torch.float32)
     rhs = _require("rhs", rhs, dev, torch.float32)
     z = _require("z", z, dev, torch.float32)
-    _check_chol_solve_sample(prec, rhs, z)
+    _check_chol_solve_sample(prec, rhs, z, indefinite)
     prec, rhs, z = (_aligned(x) for x in pad_rank_systems(prec, rhs, z, kp))
     out = torch.empty((bsz, kp), device=dev, dtype=torch.float32)
     lib = build.library("chol_solve_sample")
     with _on_card(prec):
         err = lib.chol_solve_sample_launch(
             prec.data_ptr(), rhs.data_ptr(), z.data_ptr(), out.data_ptr(),
-            bsz, kp, _stream(prec),
+            bsz, kp, int(indefinite == "nan"), _stream(prec),
         )
     build.check("chol_solve_sample", err)
     _count("chol_solve_sample")
@@ -414,13 +423,14 @@ def _chol_solve_sample(prec: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
 
 
 @_chol_solve_sample.register_fake
-def _(prec, rhs, z):
-    _check_chol_solve_sample(prec, rhs, z)
+def _(prec, rhs, z, indefinite="clamp"):
+    _check_chol_solve_sample(prec, rhs, z, indefinite)
     return rhs.new_empty(rhs.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.chol_solve_sample)
-def _flops_chol_solve_sample(prec, rhs, z, *, out_shape=None, **kwargs) -> float:
+def _flops_chol_solve_sample(prec, rhs, z, indefinite="clamp", *, out_shape=None,
+                             **kwargs) -> float:
     """n (K^3 / 3 + 2 K^2): the factorisation and the two triangular solves."""
     n, k = prec[0], prec[-1]
     return n * (k ** 3 / 3 + 2 * k * k)

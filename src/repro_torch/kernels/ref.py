@@ -111,23 +111,33 @@ def gather_syrk_seg_ref(
     return prec.to(out), rhs.to(out)
 
 
+#: what chol_solve_sample gives for a system that is not positive definite
+INDEFINITE = ("clamp", "nan")
+
+
 def chol_solve_sample_ref(prec: torch.Tensor, rhs: torch.Tensor,
-                          z: torch.Tensor) -> torch.Tensor:
+                          z: torch.Tensor, indefinite: str = "clamp") -> torch.Tensor:
     """Batched x = Lambda^-1 rhs + L^-T z with Lambda = L L^T.
 
     Column-by-column Cholesky with the diagonal clamped at 1e-20, then
     L y = rhs and one L^T x = y + z: the arithmetic of the reference kernel
-    (`repro/kernels/chol_solve.py`), so a system that is not positive
-    definite gives what that kernel gives and never raises.
+    (`repro/kernels/chol_solve.py`), so under "clamp" a system that is not
+    positive definite gives what that kernel gives and never raises. Under
+    "nan" a system with a pivot that is not > 0 (NaN included) gives a row
+    of NaN, as a Cholesky that fails gives; the others are the same bits.
     """
+    if indefinite not in INDEFINITE:
+        raise ValueError(f"indefinite must be one of {INDEFINITE}, got {indefinite!r}")
     a = prec.float()
     b = rhs.float()
     bsz, k, _ = a.shape
     pos = torch.arange(k, device=a.device)
     chol = torch.zeros_like(a)
+    bad = torch.zeros(bsz, dtype=torch.bool, device=a.device)
     for j in range(k):
         s = torch.einsum("bik,bk->bi", chol, chol[:, j, :])
         col = a[:, :, j] - s
+        bad |= ~(col[:, j] > 0)
         dj = torch.sqrt(torch.clamp(col[:, j], min=1e-20))
         chol[:, :, j] = torch.where(pos[None, :] >= j, col / dj[:, None], 0.0)
     y = torch.zeros_like(b)
@@ -139,6 +149,8 @@ def chol_solve_sample_ref(prec: torch.Tensor, rhs: torch.Tensor,
     for j in range(k - 1, -1, -1):
         lcol = torch.where(pos[None, :] > j, chol[:, :, j], 0.0)
         x[:, j] = (y[:, j] - (lcol * x).sum(-1)) / chol[:, j, j]
+    if indefinite == "nan":
+        x = x.masked_fill(bad[:, None], float("nan"))
     return x
 
 

@@ -267,15 +267,24 @@ def test_chol_kernel_takes_the_batch_as_it_is(cuda, b, k, cond):
 
 
 @pytest.mark.parametrize("k", RANKS)
-def test_chol_kernel_not_positive_definite_matches_plain(cuda, k):
+@pytest.mark.parametrize("indefinite", ["clamp", "nan"])
+def test_chol_kernel_not_positive_definite_matches_plain(cuda, k, indefinite):
+    """Negative pivots, a NaN one and a positive definite system: under
+    "clamp" the clamp's values, under "nan" NaN rows, where the plain
+    version has them."""
     eye = torch.eye(k, device=cuda)
-    bad = torch.stack([-eye, eye * torch.linspace(-1, 1, k, device=cuda), 2 * eye])
-    ones = torch.ones(3, k, device=cuda)
-    xk = ops.chol_solve_sample(bad, ones, ones)
-    xp = ref.chol_solve_sample_ref(bad, ones, ones)
+    nan_pivot = eye.clone()
+    nan_pivot[k // 2, k // 2] = float("nan")
+    bad = torch.stack([-eye, eye * torch.linspace(-1, 1, k, device=cuda), nan_pivot,
+                       2 * eye])
+    ones = torch.ones(4, k, device=cuda)
+    xk = ops.chol_solve_sample(bad, ones, ones, indefinite=indefinite)
+    xp = ref.chol_solve_sample_ref(bad, ones, ones, indefinite=indefinite)
     fin = torch.isfinite(xp)
     assert torch.equal(torch.isfinite(xk), fin)
     torch.testing.assert_close(xk[fin], xp[fin], rtol=2e-3, atol=2e-3)
+    if indefinite == "nan":
+        assert torch.isnan(xk[:3]).all() and fin[3].all()
 
 
 @pytest.mark.parametrize("b,n,d,topk,slab", [
@@ -779,7 +788,7 @@ def test_async_first_sweep_v_bit_equal_to_ring_through_einsum_on_the_card(cuda):
     assert np.array_equal(v_ring, v_async)
 
 
-@pytest.mark.parametrize("engine", ["kernel", "einsum"])
+@pytest.mark.parametrize("engine", ["kernel", "einsum", "fused"])
 def test_sweep_equal_to_itself_from_run_to_run(cuda, engine):
     from repro_torch.core import GibbsSampler
     from repro_torch.data import movielens_like, train_test_split
@@ -792,6 +801,50 @@ def test_sweep_equal_to_itself_from_run_to_run(cuda, engine):
     a, b = s.sweep(s0, noise), s.sweep(s0, noise)
     assert torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
     assert torch.equal(a.pred_sum, b.pred_sum)
+
+
+def test_fused_sweep_solves_with_the_kernel(cuda, monkeypatch):
+    """A fused sweep launches chol_solve_sample once a half-sweep and calls
+    the library's Cholesky only inside the two hyperparameter draws; its
+    factors are within the solve's tolerance of the plain versions' sweep
+    on the CPU from the same state and noise."""
+    from repro_torch.core import GibbsSampler
+    from repro_torch.core import gibbs
+    from repro_torch.data import movielens_like, train_test_split
+
+    depth, draws, calls = [0], [0], []
+    real_draw, real_chol = gibbs.sample_normal_wishart, torch.linalg.cholesky_ex
+
+    def draw(*a, **kw):
+        depth[0] += 1
+        draws[0] += 1
+        try:
+            return real_draw(*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    def chol(*a, **kw):
+        calls.append(depth[0] > 0)
+        return real_chol(*a, **kw)
+
+    monkeypatch.setattr(gibbs, "sample_normal_wishart", draw)
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", chol)
+    ratings, _, _ = movielens_like(scale=0.005, seed=0)
+    train, test = train_test_split(ratings, 0.1, seed=1)
+    s = GibbsSampler(train, test, k=64, alpha=4.0, burn_in=0, engine="fused")
+    s0 = s.init(0)
+    noise = s.draw_noise()
+    ops.reset_launches()
+    got = s.sweep(s0, noise)
+    torch.cuda.synchronize()
+    assert ops.launches()["chol_solve_sample"] == 2
+    assert draws[0] == 2 and calls and all(calls)
+    plain = GibbsSampler(train, test, k=64, alpha=4.0, burn_in=0, engine="fused",
+                         device="cpu")
+    want = plain.sweep(_on_cpu(s0), _on_cpu(noise))
+    for name in ("u", "v"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                                   rtol=2e-3, atol=2e-3, msg=name)
 
 
 def test_sgld_chains_deterministic_on_the_card(cuda):

@@ -156,6 +156,56 @@ def test_three_sweep_chain_matches_reference_chain(data, engine):
     assert ts.rmse(st) == pytest.approx(js.rmse(sj), rel=1e-5)
 
 
+def _planted_systems(k):
+    """Well-conditioned systems with five planted not positive definite:
+    a negative first pivot, a pivot that comes out exactly 0 (two equal
+    rows), a NaN pivot, a NaN entry below the diagonal (and its mirror)
+    and a negative last pivot."""
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(8, k, k))
+    prec = a @ np.transpose(a, (0, 2, 1)) + k * np.eye(k)
+    prec[1, 0, 0] = -1.0
+    prec[2] = np.eye(k)
+    prec[2, :2, :2] = 1.0
+    prec[3, 5, 5] = np.nan
+    prec[4, 7, 3] = prec[4, 3, 7] = np.nan
+    prec[5] = np.diag(np.r_[np.ones(k - 1), -2.0])
+    rhs = rng.normal(size=(8, k))
+    z = rng.normal(size=(8, k))
+    return [x.astype(np.float32) for x in (prec, rhs, z)]
+
+
+@pytest.mark.parametrize("engine", ["fused", "kernel"])
+def test_engine_solve_on_systems_not_positive_definite(engine, monkeypatch):
+    """The half-sweep's solve on planted systems, through the engine's own
+    choice of solver: the fused engine gives NaN rows in exactly the systems
+    where the JAX fused engine's substitution does and its values elsewhere;
+    the kernel engine keeps the clamp of the JAX kernel engine (its finite
+    pattern and values)."""
+    k = 16
+    prec, rhs, z = _planted_systems(k)
+    monkeypatch.setattr(tg, "posterior_systems",
+                        lambda *a, **kw: (_t(prec), _t(rhs)))
+    hyper = th.HyperParams(mu=torch.zeros(k), lam=torch.eye(k))
+    xt, _ = tg.update_factors(torch.zeros(3, k), [], len(prec), hyper, 1.0,
+                              z=_t(z), engine=engine)
+    xt = xt.numpy()
+    # the JAX package's update_factors: "kernel" for its kernel engine,
+    # "subst" for the others but "reference"
+    solver = "kernel" if engine == "kernel" else "subst"
+    xj = np.asarray(jg.sample_mvn_precision(None, jnp.asarray(prec), jnp.asarray(rhs),
+                                            z=jnp.asarray(z), solver=solver))
+    fin = np.isfinite(xj)
+    np.testing.assert_array_equal(np.isfinite(xt), fin)
+    if engine == "fused":
+        want = [True, False, False, False, False, False, True, True]
+        np.testing.assert_array_equal(fin.all(1), want)
+        np.testing.assert_array_equal(np.isnan(xt).all(1), ~np.array(want))
+        np.testing.assert_allclose(xt[fin], xj[fin], rtol=1e-4, atol=1e-3)
+    else:
+        np.testing.assert_allclose(xt[fin], xj[fin], rtol=2e-3)
+
+
 def test_quickstart_end_to_end_same_top_n(data, tmp_path):
     """The README quickstart in both packages: ratings -> plans -> sweeps
     under the same noise -> retained draws -> PosteriorEnsemble.load ->

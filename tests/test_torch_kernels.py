@@ -186,6 +186,28 @@ def test_chol_solve_sample_not_positive_definite_does_not_raise():
     np.testing.assert_allclose(xt[2], 0.5 * np.ones(k), rtol=1e-6)
 
 
+@pytest.mark.parametrize("k", [8, 16, 64])
+def test_chol_solve_sample_nan_mode_only_adds_nan_rows(k):
+    """"nan" gives the clamp's bits on every system whose pivots are all
+    > 0 and a row of NaN on each of the others (a negative pivot, a zero
+    one, a NaN one); an unknown mode raises."""
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(6, k, k))
+    prec = (a @ np.transpose(a, (0, 2, 1)) + k * np.eye(k)).astype(np.float32)
+    prec[1, k // 2, k // 2] = -3.0
+    prec[2] = np.eye(k)
+    prec[2, k - 2:, k - 2:] = 1.0
+    prec[3, 0, 0] = np.nan
+    rhs, z = _t(rng.normal(size=(6, k)).astype(np.float32)), torch.ones(6, k)
+    clamp = ops.chol_solve_sample(_t(prec), rhs, z)
+    nan = ops.chol_solve_sample(_t(prec), rhs, z, indefinite="nan")
+    good = torch.tensor([True, False, False, False, True, True])
+    assert torch.equal(nan[good], clamp[good])
+    assert torch.isnan(nan[~good]).all()
+    with pytest.raises(ValueError, match="indefinite"):
+        ops.chol_solve_sample(_t(prec), rhs, z, indefinite="raise")
+
+
 def _dyadic(rng, shape):
     """Multiples of 1/8 in [-2, 2]: products and their sums are exact."""
     return (rng.integers(-16, 17, shape) / 8.0).astype(np.float32)
