@@ -48,6 +48,18 @@ or the fused gather_syrk_seg kernel (DIST_ENGINES). The kernel's segments
 are scattered into each shard's accumulator with unique indices, one block
 after the other, no atomics. The solve is the library Cholesky and
 `chol_subst_solve`, as in the JAX package.
+
+With the shards on several cards, what crosses between cards inside a
+sweep goes on the exchange's copy streams (`core/exchange.py`): the ring's
+blocks, and each side's hyperparameters and the shard's rows of the noise,
+sent from shard 0's card as soon as the side's draws are issued and waited
+on only by that shard's solve. The psum of the factor statistics, which
+every shard's draws need, is the one place the cards meet. Nothing in a
+sweep waits on the host. Spans (`repro_torch/spans.py`, recorded only
+while a profiler records): `dist.sweep` on shard 0's card; `dist.stats`,
+each side's statistics and Normal-Wishart draw, there too; on each shard's
+card `dist.accumulate` (a block's statistics), `dist.solve` (a shard's
+half-sweep solve) and, from the exchange, `dist.wait` and `dist.exchange`.
 """
 from __future__ import annotations
 
@@ -74,6 +86,7 @@ from repro_torch.core.partition import GridPlan, build_grid_plan, partition_enti
 from repro_torch.data.sparse import SparseRatings
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.spans import span
 
 # stats engines the distributed sweep supports: the einsum reference and the
 # fused gather-syrk kernel (core.gibbs.ENGINES documents the family)
@@ -218,22 +231,23 @@ def _accumulate_block(prec: torch.Tensor, rhs: torch.Tensor, counter_blk: torch.
     segments are then added into their items' slots, block by block (an
     item's slots are unique within a block), in place of the reference's
     scatter-add into zeros: the same additions in the same order."""
-    if engine == "fused":
-        prec_seg, rhs_seg = kops.gather_syrk_seg(
-            plan.indices, plan.values, plan.mask, plan.seg_dense, plan.n_segments,
-            counter_blk, seg_ptr=plan.seg_ptr)
-        for first, slots in plan.targets:
-            d = slots.shape[0]
-            prec[slots] += prec_seg[first:first + d]
-            rhs[slots] += rhs_seg[first:first + d]
-        return
-    idx, val, msk, _ = _rows_by_slot(plan)
-    vm = counter_blk[idx.long()] * msk[..., None]    # (R, W, K)
-    prec_rows = torch.einsum("rwk,rwl->rkl", vm, vm)
-    rhs_rows = torch.einsum("rwk,rw->rk", vm, val * msk)
-    n = plan.slots.shape[0]
-    prec[plan.slots] += segment_reduce_rows(prec_rows, plan.slot_off)[:n]
-    rhs[plan.slots] += segment_reduce_rows(rhs_rows, plan.slot_off)[:n]
+    with span("dist.accumulate", prec.device):
+        if engine == "fused":
+            prec_seg, rhs_seg = kops.gather_syrk_seg(
+                plan.indices, plan.values, plan.mask, plan.seg_dense, plan.n_segments,
+                counter_blk, seg_ptr=plan.seg_ptr)
+            for first, slots in plan.targets:
+                d = slots.shape[0]
+                prec[slots] += prec_seg[first:first + d]
+                rhs[slots] += rhs_seg[first:first + d]
+            return
+        idx, val, msk, _ = _rows_by_slot(plan)
+        vm = counter_blk[idx.long()] * msk[..., None]    # (R, W, K)
+        prec_rows = torch.einsum("rwk,rwl->rkl", vm, vm)
+        rhs_rows = torch.einsum("rwk,rw->rk", vm, val * msk)
+        n = plan.slots.shape[0]
+        prec[plan.slots] += segment_reduce_rows(prec_rows, plan.slot_off)[:n]
+        rhs[plan.slots] += segment_reduce_rows(rhs_rows, plan.slot_off)[:n]
 
 
 def _rows_by_slot(plan: BlockPlan) -> tuple[torch.Tensor, ...]:
@@ -248,8 +262,9 @@ def _rows_by_slot(plan: BlockPlan) -> tuple[torch.Tensor, ...]:
 
 class _Side(NamedTuple):
     """One half-sweep's items: per shard held, the slots' global ids
-    (clamped at 0: the noise rows a padding slot reads), which slots are
-    real, and the plans (ring: [i][q]; allgather: [i])."""
+    (clamped at 0: the noise rows a padding slot reads), on the device the
+    noise is drawn on, which slots are real, on the shard's device, and the
+    plans (ring: [i][q]; allgather: [i])."""
 
     n_loc: int
     ids: tuple[torch.Tensor, ...]
@@ -325,22 +340,36 @@ def _chol_sample(prec, rhs, z):
     return chol_subst_solve(cholesky_or_nan(prec), rhs, z)
 
 
-def _finish_phase(acc: list, side: _Side, hyper: HyperParams, alpha: float,
-                  z_global: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Raw accumulated statistics -> each shard's posterior draw; padding
-    slots are 0. The accumulators are consumed (scaled in place)."""
+def _deliver(side: _Side, hyper: HyperParams, z_global: torch.Tensor, ex) -> list:
+    """What each shard's solve reads from the device of the draws: (lam,
+    mu, its slots' rows of z) on the shard's device, and the event its
+    stream waits on before reading them (`ex.deliver`)."""
+    out = []
+    for p, valid in enumerate(side.valid):
+        z = z_global[side.ids[p].to(z_global.device)]
+        out.append(ex.deliver([hyper.lam, hyper.mu, z], valid.device))
+    return out
+
+
+def _finish_phase(acc: list, side: _Side, placed: list, alpha: float
+                  ) -> tuple[torch.Tensor, ...]:
+    """Raw accumulated statistics -> each shard's posterior draw, given
+    what `_deliver` placed on its device; padding slots are 0. The
+    accumulators are consumed (scaled in place)."""
     out = []
     for p in range(len(acc)):
         prec, rhs = acc[p]
         acc[p] = None                       # a shard's systems are gigabytes
         dev = prec.device
-        lam, mu = hyper.lam.to(dev), hyper.mu.to(dev)
-        prec.mul_(alpha).add_(lam)          # lam + alpha * prec
-        rhs.mul_(alpha).add_(lam @ mu)
-        z = z_global[side.ids[p].to(z_global.device)].to(dev)
-        new = _chol_sample(prec, rhs, z)
-        del prec, rhs
-        out.append(torch.where(side.valid[p][:, None], new, 0.0))
+        (lam, mu, z), arrived = placed[p]
+        if arrived is not None:
+            torch.cuda.current_stream(dev).wait_event(arrived)
+        with span("dist.solve", dev):
+            prec.mul_(alpha).add_(lam)      # lam + alpha * prec
+            rhs.mul_(alpha).add_(lam @ mu)
+            new = _chol_sample(prec, rhs, z)
+            del prec, rhs
+            out.append(torch.where(side.valid[p][:, None], new, 0.0))
     return tuple(out)
 
 
@@ -425,9 +454,12 @@ class DistributedBPMF:
                 devices = shard_devices()
             # a card with its index: the copy streams are keyed by the tensors' devices
             devices = [torch.empty(0, device=resolve_device(d)).device for d in devices]
-            # one copy stream a card: the ring's forwards
-            self.exchange = LocalExchange(len(devices), {
-                d: torch.cuda.Stream(d) for d in set(devices) if d.type == "cuda"})
+            # two streams a card: the copies out of it, and the landing
+            # that fences the copies into it (core/exchange.py)
+            cards = {d for d in devices if d.type == "cuda"}
+            self.exchange = LocalExchange(len(devices),
+                                          {d: torch.cuda.Stream(d) for d in cards},
+                                          {d: torch.cuda.Stream(d) for d in cards})
         self.devices = devices
         self.shards = self.exchange.shards
         self.n_shards = self.exchange.n
@@ -455,8 +487,8 @@ class DistributedBPMF:
     def _side(self, part, plan: GridPlan) -> _Side:
         plans = (_flat_plans(plan, self.devices, self.shards) if self.mode == "allgather"
                  else _ring_plans(plan, self.devices, self.shards))
-        ids = tuple(torch.as_tensor(np.maximum(part.ids[p], 0).astype(np.int64)).to(d)
-                    for p, d in zip(self.shards, self.devices))
+        ids = tuple(torch.as_tensor(np.maximum(part.ids[p], 0).astype(np.int64)
+                                    ).to(self.devices[0]) for p in self.shards)
         valid = tuple(torch.as_tensor(part.ids[p] >= 0).to(d)
                       for p, d in zip(self.shards, self.devices))
         return _Side(n_loc=part.n_loc, ids=ids, valid=valid, plans=plans)
@@ -470,7 +502,7 @@ class DistributedBPMF:
         (`launch/bpmf_dryrun.py`). Its noise is drawn without a generator
         (the meta device has none); it has no test split."""
         self = cls.__new__(cls)
-        self.devices = [ids.device for ids in u_side.ids]
+        self.devices = [valid.device for valid in u_side.valid]
         self.exchange = LocalExchange(len(self.devices), {})
         self.shards = self.exchange.shards
         self.n_shards = self.exchange.n
@@ -508,29 +540,37 @@ class DistributedBPMF:
     def sweep(self, state: DistState, noise: SweepNoise | None = None) -> DistState:
         """One full Gibbs sweep, both phases and both hyper draws, under
         `noise` (drawn from the generator when None)."""
-        if noise is None:
-            noise = self.draw_noise()
-        k, alpha, engine, ex = self.k, self.alpha, self.engine, self.exchange
-        # both hyper draws read the PREVIOUS sweep's factors in every mode
-        sv = _stats(state.v, self._v.valid, self.n, ex)
-        hyper_v = sample_normal_wishart(*sv, self.prior, noise.hyper_v)
-        if self.mode == "async":
-            su = _stats(state.u, self._u.valid, self.m, ex)
-            hyper_u = sample_normal_wishart(*su, self.prior, noise.hyper_u)
-            acc_v, acc_u = _phase_ring_async(state.u, state.v, self._v, self._u, engine, ex, k)
-            v_new = _finish_phase(acc_v, self._v, hyper_v, alpha, noise.z_v)
-            u_new = _finish_phase(acc_u, self._u, hyper_u, alpha, noise.z_u)
-            return DistState(u=u_new, v=v_new, hyper_u=hyper_u, hyper_v=hyper_v,
-                             step=state.step + 1, v_eval=state.v)
-
-        v_new = _finish_phase(self._phase(state.u, self._v), self._v, hyper_v, alpha,
-                              noise.z_v)
-        su = _stats(state.u, self._u.valid, self.m, ex)
-        hyper_u = sample_normal_wishart(*su, self.prior, noise.hyper_u)
-        u_new = _finish_phase(self._phase(v_new, self._u), self._u, hyper_u, alpha,
-                              noise.z_u)
+        with span("dist.sweep", self.devices[0]):
+            if noise is None:
+                noise = self.draw_noise()
+            k, alpha, engine, ex = self.k, self.alpha, self.engine, self.exchange
+            # both hyper draws read the PREVIOUS sweep's factors in every mode
+            hyper_v, to_v = self._hyper(state.v, self._v, self.n, noise.hyper_v, noise.z_v)
+            if self.mode == "async":
+                hyper_u, to_u = self._hyper(state.u, self._u, self.m, noise.hyper_u,
+                                            noise.z_u)
+                acc_v, acc_u = _phase_ring_async(state.u, state.v, self._v, self._u, engine,
+                                                 ex, k)
+                v_new = _finish_phase(acc_v, self._v, to_v, alpha)
+                u_new = _finish_phase(acc_u, self._u, to_u, alpha)
+            else:
+                v_new = _finish_phase(self._phase(state.u, self._v), self._v, to_v, alpha)
+                hyper_u, to_u = self._hyper(state.u, self._u, self.m, noise.hyper_u,
+                                            noise.z_u)
+                u_new = _finish_phase(self._phase(v_new, self._u), self._u, to_u, alpha)
+            # done everywhere once done on shard 0's device
+            ex.join(self.devices[0])
         return DistState(u=u_new, v=v_new, hyper_u=hyper_u, hyper_v=hyper_v,
-                         step=state.step + 1)
+                         step=state.step + 1, v_eval=state.v if self.mode == "async" else None)
+
+    def _hyper(self, x, side: _Side, n: int, wishart, z_global) -> tuple[HyperParams, list]:
+        """One side's (mu, Lambda) from the previous factors `x`, drawn on
+        shard 0's device (the span `dist.stats`), and each shard's copy of
+        what its solve reads (`_deliver`)."""
+        with span("dist.stats", self.devices[0]):
+            hyper = sample_normal_wishart(*_stats(x, side.valid, n, self.exchange),
+                                          self.prior, wishart)
+        return hyper, _deliver(side, hyper, z_global, self.exchange)
 
     def _phase(self, counter, side: _Side) -> list:
         if self.mode == "ring":

@@ -13,16 +13,33 @@ devices[p] (several shards may share a card), and each collective is a
 copy or a fixed-order sum between the shards' tensors:
 
   RingExchange  ppermute p -> p + 1 mod P. Each step's blocks are copied
-                on a copy stream of the receiving card into one of two
+                on the copy stream of the sending card into one of two
                 receive buffers a shard, after the event where the block
                 was produced and after the last reads of that buffer; the
                 accumulate that consumes a block waits on the copy's event.
                 The copies of step s + 1 thus run beside the accumulates
                 of step s (the "both" region of the paper's Fig 6). On one
                 card the copy stands in for the link: it moves the bytes.
+  deliver       tensors of one card copied to another the same way, for
+                what a shard's solve reads from shard 0's card (the
+                hyperparameters, the shard's rows of the noise).
+  join          one card's stream waits for every other card's, so that
+                a synchronize of that card waits for all of them.
   all_gather    the P blocks concatenated on one shard's device.
   psum          a sum over shards 0..P-1 in that order on shard 0's
                 device, then a copy to each shard's device.
+
+A copy between two cards runs where PyTorch runs it, on the current
+stream of the source card, and fences it with the current stream of the
+destination card: that stream waits for the copy, and the copy for
+everything queued there before it. The ring makes the sending card's copy
+stream current on the source and the receiving card's landing stream, on
+which nothing else is queued, current on the destination, so that no
+compute stream is fenced to another card's: the four cards' accumulates
+run side by side, each waiting only on the copy it reads. Each card's
+forwards are the span `dist.exchange`, timed on its copy stream; each wait
+of a compute stream on a copy is the span `dist.wait`, timed on that
+stream (`repro_torch/spans.py`).
 
 `RankExchange`: one process a shard, rank r of a 1-D DeviceMesh over the
 dim "items", and each collective a message:
@@ -58,6 +75,7 @@ analog of the JAX package's collective bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Sequence
 
@@ -66,6 +84,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.cost import exchanging
+from repro_torch.spans import span
 
 
 def _event_now(device: torch.device) -> torch.cuda.Event:
@@ -84,7 +103,9 @@ class RingExchange:
     p + shift; `held(p)` is shard p's block at the current step (the
     current stream waits for its copy), `done(p)` marks the current
     stream's reads of it issued, and `advance()` moves to the next step.
-    `copy_streams` maps a card to the stream its copies run on.
+    `copy_streams` maps a card to the stream its copies out run on,
+    `landing` a card to the stream that fences the copies into it from
+    another card (not needed where every shard shares one card).
     """
 
     #: where shard p's block goes at each step: lax.ppermute's
@@ -92,10 +113,12 @@ class RingExchange:
     shift = 1
 
     def __init__(self, blocks: Sequence[torch.Tensor],
-                 copy_streams: dict[torch.device, torch.cuda.Stream]):
+                 copy_streams: dict[torch.device, torch.cuda.Stream],
+                 landing: dict[torch.device, torch.cuda.Stream] | None = None):
         self.blocks = list(blocks)
         self.devices = [b.device for b in self.blocks]
         self.copy_streams = copy_streams
+        self.landing = {} if landing is None else landing
         # two receive buffers a shard: a step's copy writes the one its
         # block did not arrive in
         self._recv = [[torch.empty_like(b) for _ in range(2)] for b in self.blocks]
@@ -108,9 +131,10 @@ class RingExchange:
         self._next: list | None = None
 
     def held(self, p: int) -> torch.Tensor:
-        ev = self._ready[p]
-        if ev is not None:
-            torch.cuda.current_stream(self.devices[p]).wait_event(ev)
+        ev, dev = self._ready[p], self.devices[p]
+        with span("dist.wait", dev):
+            if ev is not None:
+                torch.cuda.current_stream(dev).wait_event(ev)
         return self.blocks[p]
 
     def done(self, p: int) -> None:
@@ -135,21 +159,12 @@ class RingExchange:
             buf = self._recv[dst][slot]
             block = self.blocks[src]
             if buf.device.type != "cuda":
-                nxt[dst] = buf.copy_(block)
+                with span("dist.exchange", block.device):
+                    nxt[dst] = buf.copy_(block)
                 continue
-            stream = self.copy_streams[buf.device]
-            if made[src] is not None:
-                stream.wait_event(made[src])
-            for ev in self._reads[dst][slot]:
-                stream.wait_event(ev)
-            with torch.cuda.stream(stream):
-                buf.copy_(block, non_blocking=True)
-                ready[dst] = torch.cuda.Event()
-                ready[dst].record(stream)
-            # the caching allocator must not hand either tensor out again
-            # before the copy has run
-            buf.record_stream(stream)
-            block.record_stream(stream)
+            waits = [made[src]] + self._reads[dst][slot]
+            ready[dst] = _copy(buf, block, self.copy_streams, self.landing,
+                               [ev for ev in waits if ev is not None], "dist.exchange")
             self._reading[src].append(ready[dst])
             nxt[dst] = buf
         self._next = (nxt, ready)
@@ -162,6 +177,29 @@ class RingExchange:
         self.blocks, self._ready = self._next
         self._next = None
         self._held_slot, self._slot = self._slot, 1 - self._slot
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor, copy_streams: dict, landing: dict,
+          waits: Sequence[torch.cuda.Event], name: str | None = None) -> torch.cuda.Event:
+    """dst <- src on the copy stream of src's card once `waits` have
+    passed, fenced on dst's card by its landing stream (the module
+    docstring); the event after which dst holds the copy. With a `name`
+    the copy is that span, timed on the copy stream from the end of the
+    waits."""
+    stream = copy_streams[src.device]
+    land = stream if dst.device == src.device else landing[dst.device]
+    for ev in waits:
+        stream.wait_event(ev)
+    with span(name, src.device, stream=stream) if name else contextlib.nullcontext():
+        with torch.cuda.stream(land), torch.cuda.stream(stream):
+            dst.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(stream)
+    # the caching allocator must not hand either tensor out again before
+    # the copy has run
+    dst.record_stream(land)
+    src.record_stream(stream)
+    return done
 
 
 def all_gather(blocks: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -181,16 +219,49 @@ def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class LocalExchange:
-    """The P shards of one process: `RingExchange`, `all_gather`, `psum`.
-    `copy_streams` maps a card to the stream its ring copies run on."""
+    """The P shards of one process: `RingExchange`, `deliver`,
+    `all_gather`, `psum`. `copy_streams` maps a card to the stream its
+    copies out run on, `landing` a card to the stream that fences the
+    copies into it (`RingExchange`)."""
 
-    def __init__(self, n: int, copy_streams: dict[torch.device, torch.cuda.Stream]):
+    def __init__(self, n: int, copy_streams: dict[torch.device, torch.cuda.Stream],
+                 landing: dict[torch.device, torch.cuda.Stream] | None = None):
         self.n = n
         self.shards = tuple(range(n))
         self.copy_streams = copy_streams
+        self.landing = {} if landing is None else landing
 
     def ring(self, blocks: Sequence[torch.Tensor]) -> RingExchange:
-        return RingExchange(blocks, self.copy_streams)
+        return RingExchange(blocks, self.copy_streams, self.landing)
+
+    def deliver(self, tensors: Sequence[torch.Tensor], device: torch.device
+                ) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
+        """`tensors`, all on one card and complete on its current stream
+        as of now, copied to `device` on the copy streams; and the event
+        that `device`'s stream must wait on before it reads them (None
+        where nothing was copied between cards)."""
+        src = tensors[0].device
+        if device == src or device.type != "cuda" or src.type != "cuda":
+            return [t.to(device) for t in tensors], None
+        made, done = _event_now(src), None
+        out = []
+        with exchanging():
+            for t in tensors:
+                o = torch.empty_like(t, device=device)
+                done = _copy(o, t, self.copy_streams, self.landing, [made])
+                out.append(o)
+        return out, done
+
+    def join(self, device: torch.device) -> None:
+        """`device`'s current stream waits for what every other card's
+        current stream holds, so that a synchronize of `device` waits for
+        all of them. The host does not wait."""
+        if device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(device)
+        for card in self.copy_streams:
+            if card != device:
+                stream.wait_event(_event_now(card))
 
     def all_gather(self, blocks: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
         return all_gather(blocks, device)
@@ -250,6 +321,15 @@ class RankExchange:
     def ring(self, blocks: Sequence[torch.Tensor]) -> "RankRing":
         (block,) = blocks
         return RankRing(block, self)
+
+    def deliver(self, tensors: Sequence[torch.Tensor], device: torch.device
+                ) -> tuple[list[torch.Tensor], None]:
+        """`LocalExchange.deliver` on a rank, whose tensors are on its own
+        device already."""
+        return [t.to(device) for t in tensors], None
+
+    def join(self, device: torch.device) -> None:
+        """`LocalExchange.join`: a rank holds one card."""
 
     def all_gather(self, blocks: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
         """lax.all_gather + reshape: every rank's block, in rank order,

@@ -690,14 +690,61 @@ def test_async_first_sweep_v_bit_equal_to_ring_on_the_card(cuda):
     assert np.array_equal(v_ring, v_async)
 
 
+@pytest.mark.parametrize("mode", ["async", "ring"])
+def test_sweeps_over_four_cards_bit_equal_to_one_card(cuda, mode):
+    """One shard a card against the four shards on cuda:0, three sweeps
+    from the same state on the same noise: bit for bit the same factors and
+    hyperparameters, the ring's copies between cards moving what the copies
+    on one card move. Under the profiler each card's accumulates, solves,
+    waits and forwards are spans on that card. Skips with fewer than four
+    cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.core.distributed import DistState, shard_devices
+
+    four = _dist(shard_devices(4), mode, "fused", 64)
+    one = _dist([torch.device("cuda", 0)] * 4, mode, "fused", 64)
+    assert [d.index for d in four.devices] == [0, 1, 2, 3]
+    s1 = one.init(0)
+    s4 = DistState(u=tuple(x.to(d) for x, d in zip(s1.u, four.devices)),
+                   v=tuple(x.to(d) for x, d in zip(s1.v, four.devices)),
+                   hyper_u=s1.hyper_u, hyper_v=s1.hyper_v, step=0,
+                   v_eval=None if s1.v_eval is None else
+                   tuple(x.to(d) for x, d in zip(s1.v_eval, four.devices)))
+    spans.reset()
+    for i in range(3):
+        noise = one.draw_noise()
+        s1 = one.sweep(s1, noise)
+        if i < 2:
+            s4 = four.sweep(s4, noise)
+            continue
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            s4 = four.sweep(s4, noise)
+    for a, b in zip(one.gather_factors(s1, coupled=False),
+                    four.gather_factors(s4, coupled=False)):
+        assert np.array_equal(a, b)
+    for a, b in zip(s1.hyper_u + s1.hyper_v, s4.hyper_u + s4.hyper_v):
+        assert torch.equal(a, b)
+    by = spans.totals_by_card()
+    spans.reset()
+    for name in ("dist.accumulate", "dist.solve", "dist.wait", "dist.exchange"):
+        assert set(by[name]) == {0, 1, 2, 3}, name
+        assert all(t["device_s"] >= 0 for t in by[name].values())
+    assert set(by["dist.sweep"]) == set(by["dist.stats"]) == {0}
+
+
 # ---------------------------------------------------------------------------
 # each launch on its tensor's card
 # ---------------------------------------------------------------------------
 def test_kernels_launch_on_their_tensors_card_while_another_is_current(cuda):
     """Tensors on cuda:1 while cuda:0 is current: every wrapper launches on
     cuda:1 (its persistent grid sized and its shared memory set for that
-    card) and holds against its plain version there. Skips with fewer
-    than two cards."""
+    card), the flash backward through the forward's autograd Function, and
+    holds against its plain version there. Skips with fewer than two
+    cards."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     dev = torch.device("cuda", 1)
@@ -725,9 +772,13 @@ def test_kernels_launch_on_their_tensors_card_while_another_is_current(cuda):
             assert torch.equal(a, b)
         q, k, vv = (torch.randn(4, 300, 64, generator=g, device=dev).to(torch.bfloat16)
                     for _ in range(3))
-        torch.testing.assert_close(ops.flash_attention(q, k, vv, softcap=50.0).float(),
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        out, *grads = _flash_grads(q, k, vv, do, softcap=50.0)
+        torch.testing.assert_close(out.float(),
                                    ref.flash_attention_ref(q, k, vv, softcap=50.0).float(),
                                    rtol=3e-2, atol=3e-2)
+        assert all(t.device == dev for t in grads)
+        _grads_hold(grads, _exact_grads(q, k, vv, do, softcap=50.0), torch.bfloat16)
         assert torch.cuda.current_device() == 0
         assert all(n == 1 for n in ops.launches().values())
 

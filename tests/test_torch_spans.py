@@ -271,3 +271,95 @@ def test_totals_sum_the_stream_time_between_each_spans_events(monkeypatch):
     assert tot["host_only"]["device_s"] is None
     spans.reset()
     assert spans.totals() == {}
+
+
+# ---------------------------------------------------------------------------
+# the distributed sweep's spans, and the card a span timed
+# ---------------------------------------------------------------------------
+P = 4
+#: an async sweep's spans over P shards: P ring steps of 2 blocks a shard,
+#: P - 1 forwards of 2 rings a shard, 2 solves a shard, 2 hyper draws
+DIST = {"dist.sweep": 1, "dist.stats": 2, "dist.accumulate": 2 * P * P,
+        "dist.wait": 2 * P * P, "dist.exchange": 2 * (P - 1) * P, "dist.solve": 2 * P}
+
+
+def _dist(ratings, mode="async"):
+    from repro_torch.core.distributed import DistributedBPMF
+
+    return DistributedBPMF(ratings, devices=[CPU] * P, k=8, alpha=2.0, width="auto",
+                           mode=mode, engine="fused")
+
+
+def test_off_dist_sweep_enters_no_record_function_and_records_no_event(ratings,
+                                                                       monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("span entered profiler or device work while off")
+
+    d = _dist(ratings)
+    st = d.init(0)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    d.sweep(st)
+    assert spans.totals() == {} and spans.totals_by_card() == {}
+
+
+@pytest.mark.parametrize("mode", ["async", "ring"])
+def test_dist_sweep_spans(ratings, mode):
+    """Each dist.* span once a call, every one inside the sweep's; in ring
+    mode the two half-sweeps' rings come one after the other, with the
+    same calls."""
+    d = _dist(ratings, mode)
+    st = d.init(0)
+    noise = d.draw_noise()
+    plain = d.sweep(st, noise)
+    traced = _active(lambda step: d.sweep(st, noise))
+    for a, b in zip(plain.u + plain.v, traced.u + traced.v):
+        assert torch.equal(a, b)
+    tot = spans.totals()
+    assert {n: t["calls"] for n, t in tot.items()} == DIST
+    recs = spans.records()
+    sweep = next(r for r in recs if r.name == "dist.sweep")
+    assert sweep.parent is None
+    for r in recs:
+        assert r.root == sweep.root and r.card is None
+        if r is not sweep:
+            assert r.parent == "dist.sweep"
+            assert sweep.host_start <= r.host_start <= r.host_end <= sweep.host_end
+    # off the card each span has only host time, under the card None
+    assert all(set(by) == {None} for by in spans.totals_by_card().values())
+
+
+def test_span_times_the_stream_given_on_the_card_given(monkeypatch):
+    """`span(name, cuda:c, stream=s)` records its events on s and keeps the
+    card c; `totals_by_card` splits what `totals` sums."""
+    streams = []
+
+    class Event(_FakeEvent):
+        def record(self, stream=None):
+            streams.append(stream)
+            super().record(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("current", device))
+    cards = [torch.device("cuda", c) for c in (0, 1, 3)]
+
+    def body(step):
+        for c in cards:
+            with spans.span("dist.exchange", c, stream=("copy", c.index)):
+                pass
+            with spans.span("dist.wait", c):
+                pass
+        with spans.span("dist.exchange", cards[1], stream=("copy", 1)):
+            pass
+
+    _active(body)
+    assert streams == [s for c in cards for s in [("copy", c.index)] * 2
+                       + [("current", c)] * 2] + [("copy", 1)] * 2
+    assert [r.card for r in spans.records()] == [0, 0, 1, 1, 3, 3, 1]
+    by = spans.totals_by_card()
+    assert {c: t["calls"] for c, t in by["dist.exchange"].items()} == {0: 1, 1: 2, 3: 1}
+    assert {c: t["calls"] for c, t in by["dist.wait"].items()} == {0: 1, 1: 1, 3: 1}
+    for name, t in spans.totals().items():
+        assert t["calls"] == sum(c["calls"] for c in by[name].values())
+        assert t["device_s"] == pytest.approx(sum(c["device_s"] for c in by[name].values()))
+        assert t["device_s"] == pytest.approx(t["calls"] * 2.5e-3)
