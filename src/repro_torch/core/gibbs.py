@@ -42,18 +42,20 @@ from repro_torch.spans import span
 #              added once into their item slots, one Cholesky + substitution.
 #   kernel     restructured flow through the masked_syrk and
 #              chol_solve_sample kernels.
-#   fused      restructured flow through the fused gather_syrk_seg kernel
-#              (V gathered in the kernel, optional bf16 gather), solved by
+#   fused      each system written once by the fused gather_syrk_seg
+#              kernel's store (V gathered in the kernel, optional bf16
+#              gather; the prior alone where no bucket covers), solved by
 #              the chol_solve_sample kernel with NaN for a system that is
 #              not positive definite, as the reference's substitution gives.
 ENGINES = ("reference", "einsum", "kernel", "fused")
 
 __all__ = [
     "ENGINES", "BPMFState", "DeviceBucket", "FactorStats", "GibbsSampler",
-    "SweepNoise", "bucket_stats", "chol_subst_solve", "device_plan", "draw_sweep_noise",
-    "factor_stats", "posterior_systems", "resolve_engine", "sample_mvn_precision",
+    "SweepNoise", "SystemBuffers", "bucket_stats", "chol_subst_solve", "device_plan",
+    "draw_sweep_noise", "factor_stats", "posterior_systems", "resolve_engine",
+    "sample_mvn_precision",
     "segment_reduce_rows", "state_from_numpy", "state_from_sample",
-    "sum_rows_by_id", "update_factors",
+    "sum_rows_by_id", "uncovered_items", "update_factors",
 ]
 
 
@@ -187,16 +189,42 @@ def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tenso
     return segment_reduce_rows(rows[order], torch.searchsorted(ids, bounds))
 
 
+class SystemBuffers(NamedTuple):
+    """A half-sweep's system buffers and the prior that the fused kernel's
+    store writes with (`bucket_stats(into=...)`)."""
+
+    prec_all: torch.Tensor   # (n_items, K, K)
+    rhs_all: torch.Tensor    # (n_items, K)
+    lam: torch.Tensor        # (K, K)
+    prior_rhs: torch.Tensor  # (K,)
+    alpha: float
+
+
 def bucket_stats(
     counterpart: torch.Tensor, bucket: DeviceBucket, *,
     engine: str = "einsum", bf16_gather: bool = False,
+    into: SystemBuffers | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-segment (sum v v^T, sum r v) for one bucket.
 
     counterpart is one factor matrix (N, K) or a stack of S draws (S, N, K);
-    the outputs carry the leading draw axis iff it does.
+    the outputs carry the leading draw axis iff it does. With `into` (the
+    fused engine, one draw) the statistics are not returned: they are
+    stored as the bucket's items' posterior systems, lam + alpha S and
+    prior_rhs + alpha s, in into's buffers (`kops.gather_syrk_seg_into`),
+    and the buffers are returned.
     """
     engine = resolve_engine(engine)
+    if into is not None:
+        if engine != "fused":
+            raise ValueError(f"only the fused engine stores into the systems, not {engine!r}")
+        kops.gather_syrk_seg_into(
+            bucket.indices, bucket.values, bucket.mask, bucket.seg_ids, bucket.n_segments,
+            counterpart, into.prec_all, into.rhs_all, bucket.seg_item_ids, into.lam,
+            into.prior_rhs, into.alpha, bf16_gather=bf16_gather,
+            identity_segments=bucket.identity_segments, seg_ptr=bucket.seg_ptr,
+        )
+        return into.prec_all, into.rhs_all
     if engine == "fused":
         return kops.gather_syrk_seg(
             bucket.indices, bucket.values, bucket.mask, bucket.seg_ids,
@@ -266,6 +294,31 @@ def factor_stats(x: torch.Tensor) -> FactorStats:
     return FactorStats(sum_x=x.sum(0), sum_xxt=x.T @ x, n=x.shape[0])
 
 
+def uncovered_items(plan: BucketPlan | Sequence[Bucket], n_items: int) -> np.ndarray:
+    """(ascending int64) ids of the items no bucket of a host plan covers:
+    the systems that are the prior alone. One pass over the plan's
+    `seg_item_ids`; raises where an item has two segments, since the fused
+    sweep writes each covered item's system once."""
+    if isinstance(plan, BucketPlan):
+        plan = plan.buckets
+    ids = np.concatenate([np.asarray(b.seg_item_ids, np.int64) for b in plan] +
+                         [np.zeros(0, np.int64)])
+    hits = np.bincount(ids, minlength=n_items)
+    if hits.shape[0] != n_items or (hits > 1).any():
+        raise ValueError("the plan must cover each of its n_items items at most once")
+    return np.flatnonzero(hits == 0)
+
+
+def _uncovered_on_device(buckets: Sequence[DeviceBucket], n_items: int,
+                         device) -> torch.Tensor:
+    """`uncovered_items` from a device plan: one sync, for callers that do
+    not keep the set."""
+    covered = torch.zeros(n_items, dtype=torch.bool, device=device)
+    for b in buckets:
+        covered[b.seg_item_ids] = True
+    return torch.nonzero(~covered)[:, 0]
+
+
 def posterior_systems(
     counterpart: torch.Tensor,
     buckets: Sequence[DeviceBucket],
@@ -275,21 +328,46 @@ def posterior_systems(
     *,
     engine: str = "einsum",
     bf16_gather: bool = False,
+    uncovered: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every item's posterior precision (n_items, K, K) and rhs (n_items, K)
     given the counterpart matrix: the systems one half-sweep solves.
 
     The plan partitions the items, so each item slot receives one addition
     and the sums take no atomics and no order; items without ratings keep
-    the prior. The restructured flow (every engine but "reference") starts
-    the buffers at the hyper-prior and adds alpha times each bucket's
-    per-segment statistics; the reference flow sums the statistics first
-    and scales them after, as the seed did.
+    the prior. The fused engine writes each system once: its kernel stores
+    lam + alpha * S (and prior_rhs + alpha * s) straight into the slot of
+    every item a bucket covers (`bucket_stats(into=...)`, one launch a
+    bucket; its plain version on the CPU), and the prior alone goes into
+    `uncovered`, the items no bucket covers (`uncovered_items`; found from
+    the buckets, with a sync, when not given). The other restructured
+    engines ("einsum", "kernel") start the buffers at the hyper-prior and
+    add alpha times each bucket's per-segment statistics, which is the
+    same bits; the reference flow sums the statistics first and scales
+    them after, as the seed did.
     """
     engine = resolve_engine(engine)
     k = counterpart.shape[-1]
     dtype, device = counterpart.dtype, counterpart.device
     prior_rhs = hyper.lam @ hyper.mu
+    if engine == "fused":
+        lam, prior_rhs = hyper.lam.to(dtype), prior_rhs.to(dtype)
+        into = SystemBuffers(torch.empty((n_items, k, k), dtype=dtype, device=device),
+                             torch.empty((n_items, k), dtype=dtype, device=device),
+                             lam, prior_rhs, alpha)
+        prec_all, rhs_all = into.prec_all, into.rhs_all
+        if counterpart.is_cuda:
+            # the kernel's rank: zero columns once a half-sweep, not a bucket
+            counterpart = kops.pad_rank(counterpart, kops.kernel_rank(k))
+        for b in buckets:
+            bucket_stats(counterpart, b, engine="fused", bf16_gather=bf16_gather, into=into)
+        if uncovered is None:
+            uncovered = _uncovered_on_device(buckets, n_items, device)
+        if uncovered.numel():
+            n = uncovered.numel()
+            prec_all.index_copy_(0, uncovered, lam.expand(n, k, k))
+            rhs_all.index_copy_(0, uncovered, prior_rhs.expand(n, k))
+        return prec_all, rhs_all
     if engine == "reference":
         prec_all = torch.zeros((n_items, k, k), dtype=dtype, device=device)
         rhs_all = torch.zeros((n_items, k), dtype=dtype, device=device)
@@ -300,8 +378,7 @@ def posterior_systems(
         return hyper.lam[None] + alpha * prec_all, prior_rhs[None] + alpha * rhs_all
     prec_all = hyper.lam.to(dtype).expand(n_items, k, k).clone()
     rhs_all = prior_rhs.to(dtype).expand(n_items, k).clone()
-    if (engine in ("kernel", "fused") and counterpart.is_cuda
-            and k <= kops.KERNEL_RANKS[-1]):
+    if engine == "kernel" and counterpart.is_cuda and k <= kops.KERNEL_RANKS[-1]:
         # the kernels' rank: zero columns once a half-sweep, not a bucket;
         # each bucket's statistics keep the true K x K block (the plain
         # versions that CPU tensors take need no padding)
@@ -325,10 +402,12 @@ def update_factors(
     z: torch.Tensor,
     engine: str = "einsum",
     bf16_gather: bool = False,
+    uncovered: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, FactorStats]:
     """One half-sweep: resample every item factor given the counterpart
     matrix, with the solve noise z (n_items, K) given. Also returns the
-    sufficient statistics of the new factor matrix.
+    sufficient statistics of the new factor matrix. `uncovered`: the
+    items no bucket covers, as `posterior_systems` takes them.
 
     The engine picks the solver: the seed's three triangular solves for
     "reference", Cholesky and substitution for "einsum", the
@@ -338,7 +417,7 @@ def update_factors(
     with span("gibbs.assemble", counterpart.device):
         prec_all, rhs_all = posterior_systems(
             counterpart, buckets, n_items, hyper, alpha, engine=engine,
-            bf16_gather=bf16_gather,
+            bf16_gather=bf16_gather, uncovered=uncovered,
         )
     solver = {"reference": "lapack", "kernel": "kernel",
               "fused": "kernel_nan"}.get(engine, "subst")
@@ -404,6 +483,12 @@ class GibbsSampler:
 
     `device` defaults to "cuda" and raises when there is no card; the CPU
     runs only when asked for.
+
+    `systems_written` counts, for each side ("users", "items"), the systems
+    a half-sweep writes by each route, from the plans and with no sync:
+    "epilogue", through the fused kernel's store; "prior", by a pass of the
+    prior of its own (under the fused engine the items no bucket covers,
+    under the others every item, whose buffers start as copies of it).
     """
 
     def __init__(
@@ -441,6 +526,19 @@ class GibbsSampler:
 
         def put(a, dt):
             return torch.as_tensor(np.asarray(a, dt)).to(self.device)
+
+        # the systems the prior alone makes: under the fused engine the only
+        # ones the sweep writes outside the kernel
+        user_unc = uncovered_items(self.user_plan_host, self.m)
+        item_unc = uncovered_items(self.item_plan_host, self.n)
+        self.user_uncovered = put(user_unc, np.int64)
+        self.item_uncovered = put(item_unc, np.int64)
+        fused = self.engine == "fused"
+        self.systems_written = {
+            side: {"epilogue": n - len(unc) if fused else 0,
+                   "prior": len(unc) if fused else n}
+            for side, n, unc in (("users", self.m, user_unc), ("items", self.n, item_unc))
+        }
 
         if test is None:
             test = SparseRatings(np.zeros(0, np.int32), np.zeros(0, np.int32),
@@ -481,14 +579,16 @@ class GibbsSampler:
             hyper_v = sample_normal_wishart(sv.sum_x, sv.sum_xxt, sv.n, self.prior,
                                             noise.hyper_v)
             v_new, _ = update_factors(state.u, self.item_buckets, self.n, hyper_v,
-                                      self.alpha, z=noise.z_v, **kw)
+                                      self.alpha, z=noise.z_v,
+                                      uncovered=self.item_uncovered, **kw)
 
             # users: hyper from U stats, then update U given the new V
             su = factor_stats(state.u)
             hyper_u = sample_normal_wishart(su.sum_x, su.sum_xxt, su.n, self.prior,
                                             noise.hyper_u)
             u_new, _ = update_factors(v_new, self.user_buckets, self.m, hyper_u,
-                                      self.alpha, z=noise.z_u, **kw)
+                                      self.alpha, z=noise.z_u,
+                                      uncovered=self.user_uncovered, **kw)
 
             pred_sum, pred_count = state.pred_sum, state.pred_count
             if state.step >= self.burn_in:

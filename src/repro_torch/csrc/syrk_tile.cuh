@@ -27,6 +27,11 @@
 // vectors staged CHUNK at a time: accumulate_chunk, store_row). The
 // kernels differ only in how they stage: masked_syrk copies a contiguous
 // block, gather_syrk_seg gathers rows of V by their ids.
+//
+// Both stores take an epilogue type, Into: NoInto (the default) writes
+// each sum, rounded, to its own slot of the output, as every caller but
+// one wants; gather_syrk_seg.cu's IntoSystems writes the posterior system
+// the sum belongs to instead. NoInto's code is the store's own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +41,11 @@ namespace repro {
 
 constexpr int THREADS = 256;
 constexpr int CHUNK = 32;
+
+// the plain store: no epilogue
+struct NoInto {
+  static constexpr bool enabled = false;
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -163,31 +173,39 @@ __device__ __forceinline__ void accumulate_chunk(
 }
 
 // Writes the row's statistics, rounded to OutT (float for a result,
-// double for a row partial that a segment sum still has to add up).
-template <int K, typename OutT>
+// double for a row partial that a segment sum still has to add up); with
+// an Into epilogue (float only), segment seg's system instead.
+template <int K, typename OutT, typename Into = NoInto>
 __device__ __forceinline__ void store_row(OutT* __restrict__ prec,
                                           OutT* __restrict__ rhs,
                                           const double (&acc)[K / 16][K / 16],
-                                          double racc) {
+                                          double racc, const Into& into = Into{},
+                                          int seg = 0) {
   constexpr int N = K / 16;
   const int t = threadIdx.x, ti = t >> 4, tj = t & 15;
+  if constexpr (Into::enabled) {
+    static_assert(sizeof(OutT) == 4, "the into store writes fp32 systems");
+    into.template tile<K>(seg, ti * N, tj * N, acc);
+    if (t < K) into.rhs_entry(seg, t, racc);
+  } else {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    OutT* p = prec + (ti * N + i) * K + tj * N;
-    if constexpr (sizeof(OutT) == 4 && N == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else if constexpr (sizeof(OutT) == 4 && N == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(acc[i][0], acc[i][1]);
-    } else if constexpr (sizeof(OutT) == 8 && N >= 2) {
+    for (int i = 0; i < N; ++i) {
+      OutT* p = prec + (ti * N + i) * K + tj * N;
+      if constexpr (sizeof(OutT) == 4 && N == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else if constexpr (sizeof(OutT) == 4 && N == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[i][0], acc[i][1]);
+      } else if constexpr (sizeof(OutT) == 8 && N >= 2) {
 #pragma unroll
-      for (int j = 0; j < N; j += 2)
-        reinterpret_cast<double2*>(p)[j / 2] = make_double2(acc[i][j], acc[i][j + 1]);
-    } else {
+        for (int j = 0; j < N; j += 2)
+          reinterpret_cast<double2*>(p)[j / 2] = make_double2(acc[i][j], acc[i][j + 1]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < N; ++j) p[j] = (OutT)acc[i][j];
+        for (int j = 0; j < N; ++j) p[j] = (OutT)acc[i][j];
+      }
     }
+    if (t < K) rhs[t] = (OutT)racc;
   }
-  if (t < K) rhs[t] = (OutT)racc;
 }
 
 // ------------------------------------------------------------ streamed rows
@@ -200,11 +218,13 @@ __device__ __forceinline__ void store_row(OutT* __restrict__ prec,
 // 16-byte row stores is, across a warp, two 256-byte runs), then C float4s
 // of its rhs, C = K / 4. Each tile is summed over the row's W vectors in
 // fp64, in w order, just before its store: 16 fused multiply-adds for two
-// 16-byte shared-memory reads. No row's K x K sum sits in registers.
-template <int K, bool kMask, typename T>
+// 16-byte shared-memory reads. No row's K x K sum sits in registers. With
+// an Into epilogue, row r's sums go to the system of segment first + r.
+template <int K, bool kMask, typename T, typename Into = NoInto>
 __device__ __forceinline__ void stream_group(const T* x, const float* m,
                                              const float* c, int rows, int W,
-                                             float* prec, float* rhs) {
+                                             float* prec, float* rhs,
+                                             const Into& into = Into{}, int first = 0) {
   constexpr int C = K / 4;
   constexpr int UNITS = C * C + C;
   for (int e = threadIdx.x; e < rows * UNITS; e += THREADS) {
@@ -229,6 +249,10 @@ __device__ __forceinline__ void stream_group(const T* x, const float* m,
 #pragma unroll
           for (int v = 0; v < 4; ++v) acc[u][v] = fma(ad[u], bd[v], acc[u][v]);
       }
+      if constexpr (Into::enabled) {
+        into.template tile<K>(first + row, i * 4, j * 4, acc);
+        continue;
+      }
       float* p = prec + ((size_t)row * K + i * 4) * K + j * 4;
 #pragma unroll
       for (int u = 0; u < 4; ++u)
@@ -251,6 +275,10 @@ __device__ __forceinline__ void stream_group(const T* x, const float* m,
         acc[1] = fma((double)b.y, cd, acc[1]);
         acc[2] = fma((double)b.z, cd, acc[2]);
         acc[3] = fma((double)b.w, cd, acc[3]);
+      }
+      if constexpr (Into::enabled) {
+        into.template rhs<K>(first + row, j * 4, acc);
+        continue;
       }
       *reinterpret_cast<float4*>(rhs + (size_t)row * K + j * 4) =
           make_float4(acc[0], acc[1], acc[2], acc[3]);

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the BPMF and LM hot spots and their wrappers.
 
-  csrc/gather_syrk_seg.cu  fused gather -> syrk -> segment reduce (engine "fused")
+  csrc/gather_syrk_seg.cu  fused gather -> syrk -> segment reduce (engine "fused"),
+                           and its store into the sweep's posterior systems
   csrc/masked_syrk.cu      syrk over a pre-gathered block (engine "kernel")
   csrc/chol_solve.cu       batched Cholesky solve and sample (engines "kernel", "fused")
   csrc/topn.cu             streaming top-k of U V^T (serving)

@@ -34,6 +34,9 @@ KERNELS = {
     "gather_syrk_seg": ("gather_syrk_seg.cu", [
         ("gather_syrk_seg_launch",
          [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P]),
+        ("gather_syrk_seg_into_launch",
+         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _L, _I, _I,
+          _I, _P]),
     ]),
     "masked_syrk": ("masked_syrk.cu", [
         ("masked_syrk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),

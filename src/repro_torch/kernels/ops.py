@@ -22,7 +22,8 @@ Function (`FlashAttention`) whose backward is `flash_attention_bwd`, the
 backward kernel on the card and its plain version on the CPU.
 
 Each kernel is a dispatcher op (`torch.library.custom_op`, namespace
-`repro_torch`): gather_syrk_seg, masked_syrk, chol_solve_sample,
+`repro_torch`): gather_syrk_seg (and gather_syrk_seg_into, its store into
+the sweep's system buffers), masked_syrk, chol_solve_sample,
 topn_scores, flash_forward and flash_attention_bwd. On a CUDA tensor the op
 launches the kernel, on a CPU tensor it runs the plain version, and on the
 meta device its fake (`register_fake`) returns empty outputs of the
@@ -268,6 +269,139 @@ def _(indices, values, mask, seg_ids, n_segments, v, bf16_gather, identity_segme
     return (v.new_empty(lead + (n_segments, k, k)), v.new_empty(lead + (n_segments, k)))
 
 
+def gather_syrk_seg_into(
+    indices: torch.Tensor,    # (R, W) int32
+    values: torch.Tensor,     # (R, W) f32
+    mask: torch.Tensor,       # (R, W) f32
+    seg_ids: torch.Tensor,    # (R,) int32, nondecreasing dense 0..n_segments-1
+    n_segments: int,
+    v: torch.Tensor,          # (N, Kv) counterpart factors, one draw, Kv >= K
+    prec_all: torch.Tensor,   # (n_items, K, K) f32, written in place
+    rhs_all: torch.Tensor,    # (n_items, K) f32, written in place
+    item_ids: torch.Tensor,   # (n_segments,) int64: segment -> item
+    lam: torch.Tensor,        # (K, K) prior precision
+    prior_rhs: torch.Tensor,  # (K,) prior precision times prior mean
+    alpha: float,
+    *,
+    bf16_gather: bool = False,
+    identity_segments: bool = False,
+    seg_ptr: torch.Tensor | None = None,
+) -> None:
+    """`gather_syrk_seg` of one draw of V, stored as posterior systems:
+    segment p's sums (S, s) land at item item_ids[p] as
+
+        prec_all[item] = lam + alpha * S     rhs_all[item] = prior_rhs + alpha * s
+
+    each product and sum rounded to fp32 on its own: the bits of
+    `prec_all[ids] += alpha * prec` on buffers that hold the prior, with
+    no output of the statistics, no prior copy and no pass over them. Only
+    the items' K x K blocks and K-vectors are written (V may be padded to
+    the kernel's rank), and nothing else of the buffers: the caller writes
+    the prior into the items no bucket covers. No item may appear twice.
+    On the card one `gather_syrk_seg` launch, on the CPU the plain version.
+    """
+    _gather_syrk_seg_into(indices, values, mask, seg_ids, n_segments, v, prec_all,
+                          rhs_all, item_ids, lam, prior_rhs, alpha, bf16_gather,
+                          identity_segments, seg_ptr)
+
+
+def _check_gather_syrk_seg_into(indices, values, mask, seg_ids, n_segments, v, prec_all,
+                                rhs_all, item_ids, lam, prior_rhs,
+                                identity_segments, seg_ptr) -> None:
+    """The "into" launch's checks of shapes and types, which need no data."""
+    _check_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v,
+                           identity_segments, seg_ptr)
+    if v.dim() != 2:
+        raise ValueError(f"gather_syrk_seg_into takes one draw of V (N, K), got {tuple(v.shape)}")
+    k = prec_all.shape[-1]
+    n_items = prec_all.shape[0]
+    if prec_all.shape != (n_items, k, k) or rhs_all.shape != (n_items, k):
+        raise ValueError(f"prec_all and rhs_all must be (n_items, K, K) and (n_items, K), "
+                         f"got {tuple(prec_all.shape)} and {tuple(rhs_all.shape)}")
+    if not 1 <= k <= v.shape[-1]:
+        raise ValueError(f"the systems' rank {k} must be at most V's {v.shape[-1]}")
+    if lam.shape != (k, k) or prior_rhs.shape != (k,):
+        raise ValueError(f"lam and prior_rhs must be {(k, k)} and ({k},)")
+    if item_ids.shape != (n_segments,):
+        raise ValueError(f"item_ids must have one item a segment, {n_segments}, "
+                         f"got {tuple(item_ids.shape)}")
+    if item_ids.dtype != torch.int64:
+        raise ValueError(f"item_ids must be int64, got {item_ids.dtype}")
+    for name, x in (("prec_all", prec_all), ("rhs_all", rhs_all), ("lam", lam),
+                    ("prior_rhs", prior_rhs)):
+        if x.dtype != v.dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, expected {v.dtype}")
+        if x.device != v.device or item_ids.device != v.device:
+            raise ValueError(f"{name} and item_ids must be on {v.device}")
+    if not (prec_all.is_contiguous() and rhs_all.is_contiguous()):
+        raise ValueError("prec_all and rhs_all must be contiguous: they are written in place")
+
+
+@torch.library.custom_op("repro_torch::gather_syrk_seg_into",
+                         mutates_args=("prec_all", "rhs_all"))
+def _gather_syrk_seg_into(indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                          seg_ids: torch.Tensor, n_segments: int, v: torch.Tensor,
+                          prec_all: torch.Tensor, rhs_all: torch.Tensor,
+                          item_ids: torch.Tensor, lam: torch.Tensor, prior_rhs: torch.Tensor,
+                          alpha: float, bf16_gather: bool, identity_segments: bool,
+                          seg_ptr: Optional[torch.Tensor]) -> None:
+    """`gather_syrk_seg_into` as one op: the kernel's launch or the plain version."""
+    _check_gather_syrk_seg_into(indices, values, mask, seg_ids, n_segments, v, prec_all,
+                                rhs_all, item_ids, lam, prior_rhs, identity_segments,
+                                seg_ptr)
+    if not _on_cuda(v):
+        ref.gather_syrk_seg_into_ref(
+            indices, values, mask, seg_ids, n_segments, v, prec_all, rhs_all, item_ids,
+            lam, prior_rhs, alpha, bf16_gather=bf16_gather,
+            identity_segments=identity_segments,
+        )
+        return
+    dev = v.device
+    k = prec_all.shape[-1]
+    kp = kernel_rank(v.shape[-1])
+    vs = pad_rank(v, kp)
+    n = vs.shape[0]
+    indices = _require("indices", indices, dev, torch.int32)
+    values = _require("values", values, dev, torch.float32)
+    mask = _require("mask", mask, dev, torch.float32)
+    item_ids = _require("item_ids", item_ids, dev, torch.int64)
+    lam = _aligned(_require("lam", lam, dev, torch.float32))
+    prior_rhs = _aligned(_require("prior_rhs", prior_rhs, dev, torch.float32))
+    if prec_all.data_ptr() % 16 or rhs_all.data_ptr() % 16:
+        raise ValueError("prec_all and rhs_all must start on 16 bytes (the kernel's "
+                         "vector stores)")
+    r, w = indices.shape
+    vk = _aligned((vs.to(torch.bfloat16) if bf16_gather else vs).contiguous())
+    rows_prec = rows_rhs = ptr = None
+    if not identity_segments:
+        seg_ptr = _require("seg_ptr", seg_ptr, dev, torch.int32)
+        # fp64 row partials for the second pass, whose store is the epilogue
+        rows_prec = torch.empty((1, r, kp, kp), device=dev, dtype=torch.float64)
+        rows_rhs = torch.empty((1, r, kp), device=dev, dtype=torch.float64)
+        ptr = seg_ptr.data_ptr()
+    lib = build.library("gather_syrk_seg")
+    with _on_card(v):
+        rc = lib.gather_syrk_seg_into_launch(
+            indices.data_ptr(), values.data_ptr(), mask.data_ptr(), vk.data_ptr(),
+            int(bf16_gather),
+            None if rows_prec is None else rows_prec.data_ptr(),
+            None if rows_rhs is None else rows_rhs.data_ptr(), ptr,
+            prec_all.data_ptr(), rhs_all.data_ptr(), item_ids.data_ptr(),
+            lam.data_ptr(), prior_rhs.data_ptr(), alpha, k, r, w, n, n_segments, kp,
+            SYRK_NARROW_MAX_W, _stream(v),
+        )
+    build.check("gather_syrk_seg", rc)
+    _count("gather_syrk_seg")
+
+
+@_gather_syrk_seg_into.register_fake
+def _(indices, values, mask, seg_ids, n_segments, v, prec_all, rhs_all, item_ids, lam,
+      prior_rhs, alpha, bf16_gather, identity_segments, seg_ptr):
+    _check_gather_syrk_seg_into(indices, values, mask, seg_ids, n_segments, v, prec_all,
+                                rhs_all, item_ids, lam, prior_rhs, identity_segments,
+                                seg_ptr)
+
+
 def syrk_flops(k: int) -> int:
     """Operations of one rating's statistics at rank k: the symmetric
     v v^T needs k(k + 1) / 2 multiply-adds, r v needs k."""
@@ -281,6 +415,14 @@ def _flops_gather_syrk_seg(indices, values, mask, seg_ids, n_segments, v, *args,
     the shapes do not say which slots are padding."""
     draws = v[0] if len(v) == 3 else 1
     return draws * indices[0] * indices[1] * syrk_flops(v[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.gather_syrk_seg_into)
+def _flops_gather_syrk_seg_into(indices, values, mask, seg_ids, n_segments, v, *args,
+                                out_shape=None, **kwargs) -> int:
+    """`_flops_gather_syrk_seg`'s count for one draw: the syrk's work; the
+    epilogue's two operations an entry are not counted."""
+    return indices[0] * indices[1] * syrk_flops(v[-1])
 
 
 def gather_syrk(indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,

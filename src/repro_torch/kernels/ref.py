@@ -111,6 +111,27 @@ def gather_syrk_seg_ref(
     return prec.to(out), rhs.to(out)
 
 
+def gather_syrk_seg_into_ref(
+    indices: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+    seg_ids: torch.Tensor, n_segments: int, v: torch.Tensor,
+    prec_all: torch.Tensor, rhs_all: torch.Tensor, item_ids: torch.Tensor,
+    lam: torch.Tensor, prior_rhs: torch.Tensor, alpha: float, *,
+    bf16_gather: bool = False, identity_segments: bool = False,
+) -> None:
+    """`gather_syrk_seg_ref` of one draw of v, stored as posterior systems:
+    segment p's sums (S, s) go to item item_ids[p] of prec_all (n_items, K,
+    K) and rhs_all (n_items, K) as lam + alpha * S and prior_rhs + alpha *
+    s, the kept K x K block where v is padded to a larger rank. alpha * S
+    and the sum are each rounded, as the sweep's `prec_all[ids] += alpha *
+    prec` rounds them on buffers that hold the prior. Writes nothing else."""
+    k = prec_all.shape[-1]
+    prec, rhs = gather_syrk_seg_ref(indices, values, mask, seg_ids, n_segments, v,
+                                    bf16_gather=bf16_gather,
+                                    identity_segments=identity_segments)
+    prec_all[item_ids] = lam + alpha * prec[..., :k, :k]
+    rhs_all[item_ids] = prior_rhs + alpha * rhs[..., :k]
+
+
 #: what chol_solve_sample gives for a system that is not positive definite
 INDEFINITE = ("clamp", "nan")
 

@@ -12,6 +12,9 @@ Tolerances, and why:
     each row over W in order in fp64, then each segment's rows in row
     order in fp64, and round once; against a float64 evaluation the
     kernel's error is at most the plain version's.
+  * gather_syrk_seg_into: equal bit for bit to the plain kernel's sums
+    scaled and added into buffers that hold the prior: the same two fp32
+    roundings an entry, no fused multiply-add.
   * masked_syrk: equal bit for bit. Every entry is the fp32 rounding of
     an in-order fp64 sum of exact products, in the kernel (either path)
     and in its plain version.
@@ -141,6 +144,79 @@ def test_gather_syrk_seg_kernel_fractional_mask_bit_equal(cuda, w, k):
         pk, bk = ops.gather_syrk_seg(idx, val, msk, seg, n_seg, v, seg_ptr=seg_ptr, **kw)
         pp, bp = ref.gather_syrk_seg_ref(idx, val, msk, seg, n_seg, v, **kw)
         assert torch.equal(pk, pp) and torch.equal(bk, bp)
+
+
+# the "into" store, with which the fused sweep writes its systems: the
+# narrow path, wide identity rows, multi-row segments at a narrow and a
+# wide width
+INTO_BUCKETS = [(13, 5, 13), (13, 33, 13), (21, 33, 6), (21, 3, 6)]
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+@pytest.mark.parametrize("r,w,n_seg", INTO_BUCKETS)
+@pytest.mark.parametrize("padded,bf16", [(False, False), (True, False), (False, True)])
+def test_gather_syrk_seg_into_kernel_is_the_kernel_plus_the_adds(cuda, k, r, w, n_seg,
+                                                                 padded, bf16):
+    """One launch writes, at each segment's item, the bits of today's
+    kernel's statistics scaled and added into buffers that hold the prior
+    (`prec_all[ids] += alpha * prec`), at permuted items, at the kernel's
+    rank and at a rank 6 below it that the wrapper pads (the scalar
+    stores); the 9 items no segment covers keep what they held, and the
+    plain version on the card writes the same bits."""
+    rng = np.random.default_rng(r * 100 + w + k)
+    args = _bucket(rng, r, w, 300, n_seg, cuda)
+    kt = k - 6 if padded else k
+    v = torch.tensor(rng.normal(size=(300, kt)).astype(np.float32), device=cuda)
+    n_items = n_seg + 9
+    ids = torch.tensor(rng.permutation(n_items)[:n_seg], device=cuda)
+    a = rng.normal(size=(kt, kt)).astype(np.float32)
+    lam = torch.tensor(a @ a.T + kt * np.eye(kt, dtype=np.float32), device=cuda)
+    prior_rhs = lam @ torch.tensor(rng.normal(size=kt).astype(np.float32), device=cuda)
+    seg_ptr = torch.tensor(ops.segment_offsets(args[3].cpu().numpy(), n_seg), device=cuda)
+    kw = dict(bf16_gather=bf16, identity_segments=n_seg == r)
+    prec, rhs = ops.gather_syrk_seg(*args, n_seg, v, seg_ptr=seg_ptr, **kw)
+    want_p = lam.expand(n_items, kt, kt).clone()
+    want_r = prior_rhs.expand(n_items, kt).clone()
+    want_p[ids] += 1.5 * prec
+    want_r[ids] += 1.5 * rhs
+    outs = []
+    for fn in (ops.gather_syrk_seg_into, ref.gather_syrk_seg_into_ref):
+        got_p = torch.full((n_items, kt, kt), float("nan"), device=cuda)
+        got_r = torch.full((n_items, kt), float("nan"), device=cuda)
+        ops.reset_launches()
+        extra = dict(seg_ptr=seg_ptr) if fn is ops.gather_syrk_seg_into else {}
+        fn(*args, n_seg, v, got_p, got_r, ids, lam, prior_rhs, 1.5, **kw, **extra)
+        assert ops.launches()["gather_syrk_seg"] == (fn is ops.gather_syrk_seg_into)
+        outs.append((got_p, got_r))
+    (got_p, got_r), (plain_p, plain_r) = outs
+    assert torch.equal(got_p[ids], want_p[ids]) and torch.equal(got_r[ids], want_r[ids])
+    assert torch.equal(plain_p[ids], got_p[ids]) and torch.equal(plain_r[ids], got_r[ids])
+    rest = torch.ones(n_items, dtype=torch.bool, device=cuda)
+    rest[ids] = False
+    assert got_p[rest].isnan().all() and got_r[rest].isnan().all()
+
+
+def test_gather_syrk_seg_into_raises_on_the_card(cuda):
+    """Stacked draws, buffers or ids on another device or of another
+    type, ids of another length: raised before any launch."""
+    idx, val, msk, seg = _bucket(np.random.default_rng(0), 8, 8, 10, 4, cuda)
+    ptr = torch.tensor(ops.segment_offsets(seg.cpu().numpy(), 4), device=cuda)
+    v = torch.zeros(10, 64, device=cuda)
+    bufs = dict(prec_all=torch.zeros(6, 64, 64, device=cuda),
+                rhs_all=torch.zeros(6, 64, device=cuda),
+                item_ids=torch.arange(4, device=cuda), lam=torch.eye(64, device=cuda),
+                prior_rhs=torch.zeros(64, device=cuda))
+    bad = [dict(v=torch.zeros(2, 10, 64, device=cuda)), dict(item_ids=torch.arange(4)),
+           dict(item_ids=torch.arange(3, device=cuda)),
+           dict(item_ids=torch.arange(4, device=cuda, dtype=torch.int32)),
+           dict(prec_all=torch.zeros(6, 64, 64)), dict(lam=torch.eye(64, device=cuda).double())]
+    ops.reset_launches()
+    for change in bad:
+        a = {**bufs, "v": v, **change}
+        with pytest.raises(ValueError):
+            ops.gather_syrk_seg_into(idx, val, msk, seg, 4, a["v"], a["prec_all"], a["rhs_all"],
+                                     a["item_ids"], a["lam"], a["prior_rhs"], 1.5, seg_ptr=ptr)
+    assert sum(ops.launches().values()) == 0
 
 
 def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
@@ -852,6 +928,95 @@ def test_sweep_equal_to_itself_from_run_to_run(cuda, engine):
     a, b = s.sweep(s0, noise), s.sweep(s0, noise)
     assert torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
     assert torch.equal(a.pred_sum, b.pred_sum)
+
+
+def _add_into_prior(counterpart, buckets, n_items, hyper, alpha):
+    """The fused engine's systems as they were built before the kernel
+    stored them: V padded to the kernel's rank, the prior copied into
+    every slot, then alpha times each bucket's statistics (the plain
+    store's kernel) added into its items' slots."""
+    from repro_torch.core import gibbs
+
+    k = counterpart.shape[-1]
+    prec_all = hyper.lam.expand(n_items, k, k).clone()
+    rhs_all = (hyper.lam @ hyper.mu).expand(n_items, k).clone()
+    padded = ops.pad_rank(counterpart, ops.kernel_rank(k))
+    for b in buckets:
+        prec, rhs = gibbs.bucket_stats(padded, b, engine="fused")
+        prec_all[b.seg_item_ids] += alpha * prec[..., :k, :k]
+        rhs_all[b.seg_item_ids] += alpha * rhs[..., :k]
+    return prec_all, rhs_all
+
+
+def _ragged_sampler(k, **kw):
+    """A fused sampler over ml-20m-shaped ratings with 5 users and 7 items
+    that have none, on a ladder whose widest bucket splits items over
+    rows."""
+    from repro_torch.core import GibbsSampler
+    from repro_torch.data import SparseRatings, movielens_like, train_test_split
+
+    ratings, _, _ = movielens_like(scale=0.02, seed=0)
+    train, test = train_test_split(ratings, 0.1, seed=1)
+    m, n = train.shape
+    train = SparseRatings(train.rows, train.cols, train.vals, (m + 5, n + 7))
+    test = SparseRatings(test.rows, test.cols, test.vals, (m + 5, n + 7))
+    return GibbsSampler(train, test, k=k, alpha=4.0, burn_in=0, widths=(4, 16, 64),
+                        engine="fused", **kw)
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_fused_systems_and_sweep_are_the_add_flow_bit_for_bit(cuda, monkeypatch, k):
+    """posterior_systems(engine="fused") on the card gives both sides'
+    systems of the flow it replaced bit for bit (items no bucket covers,
+    multi-row segments, a rank the kernel pads), and a sweep through
+    either gives the same U and V."""
+    from repro_torch.core import gibbs
+
+    s = _ragged_sampler(k)
+    assert s.systems_written["users"]["prior"] >= 5 and s.systems_written["items"]["prior"] >= 7
+    assert any(not b.identity_segments for b in s.item_buckets + s.user_buckets)
+    st = s.init(0)
+    noise = s.draw_noise()
+    for cp, buckets, n, hyper, unc in ((st.u, s.item_buckets, s.n, st.hyper_v, s.item_uncovered),
+                                       (st.v, s.user_buckets, s.m, st.hyper_u, s.user_uncovered)):
+        got = gibbs.posterior_systems(cp, buckets, n, hyper, s.alpha, engine="fused",
+                                      uncovered=unc)
+        want = _add_into_prior(cp, buckets, n, hyper, s.alpha)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a = s.sweep(st, noise)
+    monkeypatch.setattr(gibbs, "posterior_systems",
+                        lambda cp, b, n, h, alpha, **kw: _add_into_prior(cp, b, n, h, alpha))
+    b = s.sweep(st, noise)
+    assert torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+
+
+def test_fused_sweep_assembles_with_one_launch_a_bucket(cuda):
+    """A fused sweep launches gather_syrk_seg once a bucket, and inside the
+    two `gibbs.assemble` spans the profiler sees the "into" op and no
+    aten::index or aten::index_put_: no pass gathers or scatters the
+    systems."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = _ragged_sampler(64)
+    st = s.init(0)
+    noise = s.draw_noise()
+    s.sweep(st, noise)                       # builds and warms the kernels
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s.sweep(st, noise)
+        torch.cuda.synchronize()
+    assert ops.launches()["gather_syrk_seg"] == len(s.item_buckets) + len(s.user_buckets)
+    # host events: a span is also drawn on the card's timeline
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [e for e in events if e.name == "gibbs.assemble"]
+    assert len(spans) == 2
+    inside = {e.name for e in events for a in spans
+              if e.thread == a.thread and e is not a
+              and a.time_range.start <= e.time_range.start
+              and e.time_range.end <= a.time_range.end}
+    assert "repro_torch::gather_syrk_seg_into" in inside, sorted(inside)
+    assert not inside & {"aten::index", "aten::index_put_"}, sorted(inside)
 
 
 def test_fused_sweep_solves_with_the_kernel(cuda, monkeypatch):

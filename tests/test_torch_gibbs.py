@@ -278,3 +278,79 @@ def test_sum_rows_by_id_is_the_scatter_add_in_draw_order():
     rows = torch.tensor(rng.normal(size=(500, 8)).astype(np.float32))
     want = torch.zeros(45, 8).index_add_(0, ids, rows)  # repro-lint: disable=ordered-sum (CPU reference)
     assert torch.equal(tg.sum_rows_by_id(rows, ids, 45), want)
+
+
+# ---------------------------------------------------------------------------
+# the fused engine's systems, each written once
+# ---------------------------------------------------------------------------
+def _add_into_prior(counterpart, buckets, n_items, hyper, alpha):
+    """The fused engine's systems as they were built before the kernel
+    stored them: the prior copied into every slot, then alpha times each
+    bucket's statistics added into its items' slots."""
+    k = counterpart.shape[-1]
+    prec_all = hyper.lam.expand(n_items, k, k).clone()
+    rhs_all = (hyper.lam @ hyper.mu).expand(n_items, k).clone()
+    for b in buckets:
+        prec, rhs = tg.bucket_stats(counterpart, b, engine="fused")
+        prec_all[b.seg_item_ids] += alpha * prec[..., :k, :k]
+        rhs_all[b.seg_item_ids] += alpha * rhs[..., :k]
+    return prec_all, rhs_all
+
+
+def _ragged_ratings(seed, m=40, n=30):
+    """Ratings whose last 6 items and last 4 users have none, with one
+    item of 30 ratings, which the ladder (1, 3, 8) splits over 4 rows."""
+    from repro_torch.data.sparse import SparseRatings
+
+    rng = np.random.default_rng(seed)
+    pairs = {(u, 0) for u in range(30)} | {(u, 1 + u % (n - 7)) for u in range(m - 4)}
+    while len(pairs) < 150:
+        pairs.add((int(rng.integers(0, m - 4)), int(rng.integers(1, n - 6))))
+    rows, cols = (np.array(a, np.int32) for a in zip(*sorted(pairs)))
+    vals = rng.normal(3.0, 1.0, len(rows)).astype(np.float32)
+    return SparseRatings(rows, cols, vals, (m, n))
+
+
+@pytest.mark.parametrize("k,permuted,given", [
+    (10, False, True), (10, True, False), (64, True, True), (64, False, False)])
+def test_fused_systems_are_the_add_into_prior_bit_for_bit(k, permuted, given):
+    """posterior_systems(engine="fused") against the flow it replaced, bit
+    for bit, on a plan with uncovered items and a multi-row segment, its
+    items relabelled by a permutation (seg_item_ids out of order), the
+    uncovered set given or found from the buckets."""
+    ts = tg.GibbsSampler(_ragged_ratings(k), k=k, widths=(1, 3, 8), engine="fused",
+                         device=CPU)
+    rng = np.random.default_rng(k)
+    buckets, n = ts.item_buckets, ts.n
+    assert any(not b.identity_segments for b in buckets)
+    uncovered = ts.item_uncovered
+    assert uncovered.numel() == 6
+    if permuted:
+        perm = torch.as_tensor(rng.permutation(n))
+        buckets = [b._replace(seg_item_ids=perm[b.seg_item_ids]) for b in buckets]
+        uncovered = perm[uncovered]
+    u = torch.as_tensor(rng.normal(size=(ts.m, k)).astype(np.float32))
+    a = rng.normal(size=(k, k)).astype(np.float32)
+    hyper = th.HyperParams(mu=_t(rng.normal(size=k).astype(np.float32)),
+                           lam=_t(a @ a.T + k * np.eye(k, dtype=np.float32)))
+    got = tg.posterior_systems(u, buckets, n, hyper, 1.5, engine="fused",
+                               uncovered=uncovered if given else None)
+    want = _add_into_prior(u, buckets, n, hyper, 1.5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("engine", ["fused", "einsum"])
+def test_systems_written_counts_match_a_count_by_hand(engine):
+    """The sampler's count of the systems its kernel stores and of those
+    given the prior alone, each side, against the ratings' rated users and
+    items counted by hand."""
+    ratings = _ragged_ratings(3)
+    ts = tg.GibbsSampler(ratings, k=8, widths=(1, 3, 8), engine=engine, device=CPU)
+    rated = {"users": len(set(ratings.rows.tolist())), "items": len(set(ratings.cols.tolist()))}
+    assert rated == {"users": 36, "items": 24}
+    for side, n in (("users", 40), ("items", 30)):
+        want = ({"epilogue": rated[side], "prior": n - rated[side]} if engine == "fused"
+                else {"epilogue": 0, "prior": n})
+        assert ts.systems_written[side] == want, side
+    assert ts.user_uncovered.tolist() == [36, 37, 38, 39]
+    assert ts.item_uncovered.tolist() == [24, 25, 26, 27, 28, 29]

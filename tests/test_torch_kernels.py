@@ -101,6 +101,81 @@ def test_gather_syrk_rows_match_jax(r, w, n, k, s):
     assert torch.equal(pt, ps) and torch.equal(bt, bs)
 
 
+def _prior(rng, k):
+    """A positive definite prior precision and its rhs lam @ mu."""
+    a = rng.normal(size=(k, k)).astype(np.float32)
+    lam = _t(a @ a.T + k * np.eye(k, dtype=np.float32))
+    return lam, lam @ _t(rng.normal(size=k).astype(np.float32))
+
+
+# the store into the sweep's system buffers: "into" against the flow it
+# replaces, the prior copied into every slot and each bucket's statistics
+# scaled and added into its items' slots
+@pytest.mark.parametrize("r,w,k,kv,n_seg,bf16", [
+    (13, 5, 16, 16, 13, False),    # identity segments, narrow rows
+    (13, 12, 64, 64, 13, False),   # identity segments, wide rows
+    (21, 12, 64, 64, 8, False),    # multi-row segments
+    (21, 12, 10, 16, 8, False),    # V padded to the kernel's rank
+    (13, 5, 24, 32, 13, True),     # padded, bf16 gather
+])
+def test_gather_syrk_seg_into_is_the_add_into_the_prior(r, w, k, kv, n_seg, bf16):
+    """Bit for bit what `prec_all[ids] += alpha * prec` writes into
+    buffers that hold the prior, at permuted items, the kept K x K block
+    where V is padded; the items it does not cover are left as they were,
+    and on the CPU nothing is launched."""
+    rng = np.random.default_rng(r * 10 + w + k)
+    idx, val, msk, seg = (_t(a) for a in _bucket(rng, r, w, 60, n_seg))
+    v = _t(rng.normal(size=(60, k)).astype(np.float32))
+    n_items = n_seg + 7
+    ids = torch.as_tensor(rng.permutation(n_items)[:n_seg])
+    lam, prior_rhs = _prior(rng, k)
+    kw = dict(bf16_gather=bf16, identity_segments=n_seg == r,
+              seg_ptr=torch.tensor(ops.segment_offsets(seg.numpy(), n_seg)))
+    prec, rhs = ops.gather_syrk_seg(idx, val, msk, seg, n_seg, v, **kw)
+    want_p = lam.expand(n_items, k, k).clone()
+    want_r = prior_rhs.expand(n_items, k).clone()
+    want_p[ids] += 1.5 * prec
+    want_r[ids] += 1.5 * rhs
+    got_p = torch.full((n_items, k, k), float("nan"))
+    got_r = torch.full((n_items, k), float("nan"))
+    ops.reset_launches()
+    ops.gather_syrk_seg_into(idx, val, msk, seg, n_seg, ops.pad_rank(v, kv), got_p, got_r,
+                             ids, lam, prior_rhs, 1.5, **kw)
+    assert sum(ops.launches().values()) == 0
+    assert torch.equal(got_p[ids], want_p[ids]) and torch.equal(got_r[ids], want_r[ids])
+    rest = torch.ones(n_items, dtype=torch.bool)
+    rest[ids] = False
+    assert got_p[rest].isnan().all() and got_r[rest].isnan().all()
+
+
+@pytest.mark.parametrize("case", ["stacked", "ids_short", "ids_int32", "rank_above_v",
+                                  "dtype", "systems_shape"])
+def test_gather_syrk_seg_into_raises_on_what_it_cannot_take(case):
+    rng = np.random.default_rng(1)
+    idx, val, msk, seg = (_t(a) for a in _bucket(rng, 8, 4, 20, 5))
+    k = 16
+    v = torch.zeros(20, k)
+    prec_all, rhs_all = torch.zeros(9, k, k), torch.zeros(9, k)
+    ids = torch.arange(5)
+    lam, prior_rhs = _prior(rng, k)
+    if case == "stacked":
+        v = torch.zeros(2, 20, k)
+    elif case == "ids_short":
+        ids = ids[:4]
+    elif case == "ids_int32":
+        ids = ids.int()
+    elif case == "rank_above_v":
+        v = torch.zeros(20, 8)
+    elif case == "dtype":
+        prec_all = prec_all.double()
+    else:
+        rhs_all = torch.zeros(9, k + 1)
+    with pytest.raises(ValueError):
+        ops.gather_syrk_seg_into(idx, val, msk, seg, 5, v, prec_all, rhs_all, ids, lam,
+                                 prior_rhs, 1.5, seg_ptr=torch.tensor(
+                                     ops.segment_offsets(seg.numpy(), 5)))
+
+
 def test_wrappers_do_not_count_cpu_calls():
     rng = np.random.default_rng(0)
     idx, val, msk, seg = _bucket(rng, 8, 8, 10, 4)
